@@ -1,0 +1,31 @@
+"""124M GPT-2-small shape, single host (same values as
+midgpt_tpu/configs/openwebtext.py)."""
+
+from midgpt_tpu_torch.config import ExperimentConfig, MeshConfig
+from midgpt_tpu_torch.models.gpt import GPTConfig
+
+config = ExperimentConfig(
+    rundir="",
+    data_dir="data/openwebtext",
+    learning_rate=1e-3,
+    batch_size=128,
+    warmup_steps=5_000,
+    min_lr=1e-5,
+    lr_decay_steps=60_000,
+    max_steps=60_000,
+    beta2=0.95,
+    weight_decay=1e-4,
+    eval_interval=1000,
+    compute_dtype="bfloat16",
+    param_dtype="float32",
+    g_accum_iters=16,  # effective batch 2048
+    shard_model=False,
+    mesh=MeshConfig(data=-1, fsdp=1, sp=1),
+    model_config=GPTConfig(
+        block_size=1024, vocab_size=50304, n_layer=12, n_head=12, n_embd=768,
+        dropout=0.0,
+        # the same function as the reference rotation via the q/k row
+        # permutation (models/gpt.py _qkv_weights)
+        rope_style="split",
+    ),
+)

@@ -1,0 +1,444 @@
+"""Decoder-only GPT as a parameter dict + plain functions (counterpart of
+midgpt_tpu/models/gpt.py).
+
+Architecture, as in the JAX package:
+  * pre-norm residual blocks with weightless RMSNorm (eps 1e-6 in blocks,
+    1e-5 for the final norm)
+  * fused QKV projection, QK-LayerNorm per head (learned scale, no bias)
+  * GPT-J rotary embeddings, in the 'interleaved' form or the identical
+    'split' form (q/k projection rows permuted per head, rotate-half)
+  * bias-free Linears, truncated-normal(±2σ)/sqrt(fan_in) init, embedding
+    init N(0, 1/sqrt(D)), init-only weight tying (lm_head starts as an
+    independent copy of wte)
+  * GELU (tanh approximation, like `jax.nn.gelu`) MLP with 4x expansion
+  * f32 softmax inside attention
+
+Parameters are a flat dict keyed by the JAX pytree paths, with the stacked
+leading layer axis kept, so converting weights is a rename
+(midgpt_tpu_torch/convert.py):
+
+    wte (V, D), lm_head (V, D),
+    blocks.attn.wqkv (L, 3, D, D), blocks.attn.wo (L, D, D),
+    blocks.attn.q_scale (L, C), blocks.attn.k_scale (L, C),
+    blocks.mlp.w_up (L, 4D, D), blocks.mlp.w_down (L, D, 4D)
+
+The serving path is `decode_step_paged` + `prefill_paged_chunk` over a
+`PagedKVCache`, updated IN PLACE (the JAX code donates the pool to its
+jitted step and gets a new one back; here the pool tensors are written
+directly and the same cache object is returned).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+import typing as tp
+
+import torch
+import torch.nn.functional as F
+
+from midgpt_tpu_torch.device import DeviceLike, resolve_device
+from midgpt_tpu_torch.kernels.decode_attention import paged_attention
+from midgpt_tpu_torch.ops.attention import naive_causal_attention
+from midgpt_tpu_torch.ops.norms import head_layer_norm, rms_norm
+from midgpt_tpu_torch.ops.rope import (
+    apply_rope_bthc,
+    apply_rope_positions,
+    rope_table,
+    split_permutation,
+)
+
+Tensor = torch.Tensor
+Params = tp.Dict[str, Tensor]
+
+PARAM_NAMES = (
+    "wte",
+    "blocks.attn.wqkv",
+    "blocks.attn.wo",
+    "blocks.attn.q_scale",
+    "blocks.attn.k_scale",
+    "blocks.mlp.w_up",
+    "blocks.mlp.w_down",
+    "lm_head",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    """Model shape. Field names and validation follow the JAX GPTConfig so
+    a config.json written by either package loads in both. The JAX lowering
+    knobs (attn_block_size, remat, remat_policy, scan_unroll, qkv_proj,
+    attn_layout, decode_layer_scan) are kept for that reason and change
+    nothing here: every choice computes the same function."""
+
+    block_size: int  # max sequence length
+    vocab_size: int
+    n_layer: int
+    n_head: int
+    n_embd: int
+    dropout: float = 0.0
+    attn_impl: str = "naive"
+    attn_block_size: int = 1024
+    remat: bool = True
+    remat_policy: str = "dots"
+    scan_unroll: int = 1
+    qkv_proj: str = "fused"
+    rope_style: str = "interleaved"
+    attn_layout: str = "seq"
+    n_experts: int = 0
+    moe_top_k: int = 2
+    decode_layer_scan: bool = False
+    n_kv_heads: tp.Optional[int] = None
+    sliding_window: int = 0
+    attn_sinks: int = 0
+
+    def __post_init__(self):
+        if self.n_kv_heads is not None:
+            if self.n_kv_heads < 1 or self.n_head % self.n_kv_heads:
+                raise ValueError(
+                    f"n_kv_heads={self.n_kv_heads} must be a positive divisor "
+                    f"of n_head={self.n_head}"
+                )
+        if self.sliding_window != 0 and not (0 < self.sliding_window < self.block_size):
+            raise ValueError(
+                f"sliding_window={self.sliding_window} must be 0 (full "
+                f"attention) or in [1, block_size={self.block_size})"
+            )
+        if self.attn_sinks < 0:
+            raise ValueError(f"attn_sinks={self.attn_sinks} must be >= 0")
+        if self.attn_sinks > 0 and self.sliding_window == 0:
+            raise ValueError("attn_sinks > 0 requires sliding_window > 0")
+        if self.sliding_window > 0 and self.attn_sinks + self.sliding_window > self.block_size:
+            raise ValueError(
+                f"attn_sinks + sliding_window = {self.attn_sinks + self.sliding_window} "
+                f"exceeds block_size={self.block_size}"
+            )
+        if self.rope_style not in ("interleaved", "split"):
+            raise ValueError(f"unknown rope_style {self.rope_style!r} ('interleaved' or 'split')")
+        if self.n_embd % self.n_head:
+            raise ValueError(f"n_embd={self.n_embd} not divisible by n_head={self.n_head}")
+        # Variants the port does not compute yet: refuse instead of
+        # computing something else.
+        if self.n_kv_heads is not None and self.n_kv_heads != self.n_head:
+            raise NotImplementedError(
+                "GQA/MQA (n_kv_heads) is not ported yet (ROADMAP.md port "
+                "queue: template specs GQA/window, with the model's wkv leaf)"
+            )
+        if self.sliding_window:
+            raise NotImplementedError(
+                "sliding_window / attn_sinks are not ported yet (ROADMAP.md "
+                "port queue: template specs GQA/window)"
+            )
+        if self.n_experts > 0:
+            raise NotImplementedError(
+                "the routed MoE MLP (n_experts > 0) is not ported yet "
+                "(ROADMAP.md port queue: other modules, MoE)"
+            )
+
+    @property
+    def head_dim(self) -> int:
+        return self.n_embd // self.n_head
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Paged decode cache for the continuous-batching serving engine.
+
+    K/V live in a shared pool of fixed-size pages, (n_layer, n_head,
+    num_pages, page_size, head_dim) per tensor; a request occupies the
+    pages the host-side allocator (sampling/serve.py PageAllocator) hands
+    it. Page 0 is the SINK: never allocated, it is what unallocated
+    page-table entries (zeros) point at, so inactive and short slots READ
+    it — always masked. Writes from inactive slots and pad positions are
+    masked out explicitly (`decode_step_paged`, `prefill_paged_chunk`): an
+    out-of-range page index, which XLA's scatter drops silently, would
+    raise here. bf16 and f32 pools; int8 pages are not ported yet."""
+
+    k: Tensor  # (n_layer, n_head, num_pages, page_size, head_dim)
+    v: Tensor
+
+    @staticmethod
+    def init(
+        config: GPTConfig,
+        num_pages: int,
+        page_size: int = 8,
+        dtype: torch.dtype = torch.bfloat16,
+        *,
+        device: DeviceLike = None,
+    ) -> "PagedKVCache":
+        if dtype not in (torch.bfloat16, torch.float32):
+            raise NotImplementedError(
+                f"paged cache dtype {dtype} is not ported (bf16 and f32 are; "
+                "int8 pages: ROADMAP.md port queue: template specs)"
+            )
+        shape = (config.n_layer, config.n_head, num_pages, page_size, config.head_dim)
+        dev = resolve_device(device)
+        return PagedKVCache(
+            k=torch.zeros(shape, dtype=dtype, device=dev),
+            v=torch.zeros(shape, dtype=dtype, device=dev),
+        )
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[3]
+
+    @property
+    def num_pages(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def nbytes(self) -> int:
+        return self.k.numel() * self.k.element_size() * 2
+
+
+def _paged_write(
+    pool: Tensor,  # (L, H, P, ps, C) — K or V pages
+    i: int,  # layer index
+    write_pages: Tensor,  # (N,) physical page per written position
+    offs: Tensor,  # (N,) in-page offset per written position
+    val: Tensor,  # (N, H, C) — the K/V vectors to store
+) -> None:
+    """ONE column scatter into the paged pool, in place. Callers pass only
+    the positions that really write (active slots, real prompt tokens)."""
+    pool[i][:, write_pages, offs] = val.transpose(0, 1).to(pool.dtype)
+
+
+def _layer_pages(pool: Tensor, i: int) -> Tensor:
+    """Layer i's pages (H, P, ps, C) — a view, no copy."""
+    return pool[i]
+
+
+def _gather_layer_kv(pool_layer: Tensor, page_rows: Tensor) -> Tensor:
+    """Gather one slot's pages contiguous -> (H, MP*ps, C)."""
+    H, _, ps, C = pool_layer.shape
+    return pool_layer[:, page_rows.long()].reshape(H, page_rows.shape[0] * ps, C)
+
+
+def _linear_init(gen: torch.Generator, out_features: int, in_features: int) -> Tensor:
+    """Truncated-normal(±2σ) scaled 1/sqrt(fan_in)."""
+    w = torch.empty(out_features, in_features)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return w / math.sqrt(in_features)
+
+
+@functools.lru_cache(maxsize=8)
+def _split_perm(head_dim: int, device: torch.device) -> Tensor:
+    """`split_permutation(head_dim)` as an index tensor on `device`, made
+    once: a fresh host-to-device copy in every layer of every decode step
+    would stall the host on the device each time."""
+    return torch.as_tensor(split_permutation(head_dim), device=device)
+
+
+def _block(params: Params, i: int) -> Params:
+    """Layer i's slice of the stacked block leaves, keyed by leaf name."""
+    return {name.split(".", 1)[1]: params[name][i] for name in PARAM_NAMES if name.startswith("blocks.")}
+
+
+class GPT:
+    """Namespace of plain functions over (GPTConfig, parameter dict)."""
+
+    @staticmethod
+    def init(
+        config: GPTConfig,
+        seed: tp.Union[int, torch.Generator],
+        *,
+        device: DeviceLike = None,
+        dtype: torch.dtype = torch.float32,
+    ) -> Params:
+        """Random parameters from a seed (or a CPU torch.Generator). Drawn
+        on the CPU, so a seed gives the same weights on every device; torch's
+        generator is not JAX's, so init matches the JAX package in
+        distribution, not bit for bit."""
+        dev = resolve_device(device)
+        gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(seed)
+        L, D, C, V = config.n_layer, config.n_embd, config.head_dim, config.vocab_size
+        wqkv, wo, w_up, w_down = [], [], [], []
+        for _ in range(L):
+            # iid rows: the (3, D, D) reshape of a (3D, D) init
+            wqkv.append(_linear_init(gen, 3 * D, D).reshape(3, D, D))
+            wo.append(_linear_init(gen, D, D))
+            w_up.append(_linear_init(gen, 4 * D, D))
+            w_down.append(_linear_init(gen, D, 4 * D))
+        embed = torch.randn(V, D, generator=gen) / math.sqrt(D)
+        params = {
+            "wte": embed,
+            "blocks.attn.wqkv": torch.stack(wqkv),
+            "blocks.attn.wo": torch.stack(wo),
+            "blocks.attn.q_scale": torch.ones(L, C),
+            "blocks.attn.k_scale": torch.ones(L, C),
+            "blocks.mlp.w_up": torch.stack(w_up),
+            "blocks.mlp.w_down": torch.stack(w_down),
+            # init-only tying: same values, an independent tensor
+            "lm_head": embed.clone(),
+        }
+        return {k: v.to(device=dev, dtype=dtype) for k, v in params.items()}
+
+    @staticmethod
+    def _qkv_weights(config: GPTConfig, blk: Params) -> tp.Tuple[Tensor, Tensor, Tensor]:
+        """(wqkv, q_scale, k_scale), rope_style-adjusted: for 'split' the q
+        and k rows are permuted per head by `split_permutation` (and the
+        QK-norm scales with them), so q/k come out with interleaved pair
+        (2i, 2i+1) at (i, i + C/2) and RoPE can use rotate-half. Stored
+        weights stay in the reference convention."""
+        wqkv, q_scale, k_scale = blk["attn.wqkv"], blk["attn.q_scale"], blk["attn.k_scale"]
+        if config.rope_style == "split":
+            D, H, C = config.n_embd, config.n_head, config.head_dim
+            perm = _split_perm(C, wqkv.device)
+            wqk = wqkv[:2].reshape(2, H, C, D)[:, :, perm, :].reshape(2, D, D)
+            wqkv = torch.cat((wqk, wqkv[2:]), dim=0)
+            q_scale, k_scale = q_scale[perm], k_scale[perm]
+        return wqkv, q_scale, k_scale
+
+    @staticmethod
+    def _project_qkv(
+        config: GPTConfig, blk: Params, h: Tensor
+    ) -> tp.Tuple[Tensor, Tensor, Tensor]:
+        """h (B, T, D) -> q, k, v (B, T, H, C) after QK-LayerNorm (no RoPE):
+        ONE (BT, D) x (D, 3D) product with a contiguous split."""
+        B, T, D = h.shape
+        H, C = config.n_head, config.head_dim
+        wqkv, q_scale, k_scale = GPT._qkv_weights(config, blk)
+        qkv = h @ wqkv.reshape(3 * D, D).T
+        q, k, v = torch.split(qkv, D, dim=-1)
+        q = head_layer_norm(q.reshape(B, T, H, C), q_scale)
+        k = head_layer_norm(k.reshape(B, T, H, C), k_scale)
+        return q, k, v.reshape(B, T, H, C)
+
+    @staticmethod
+    def _attn_out_and_mlp(config: GPTConfig, blk: Params, x: Tensor, att: Tensor) -> Tensor:
+        """Shared tail of a block: merge heads, output projection, MLP,
+        residuals. att (B, T, H, C)."""
+        B, T = att.shape[:2]
+        x = x + att.reshape(B, T, config.n_embd) @ blk["attn.wo"].T
+        h = rms_norm(x)
+        h = F.gelu(h @ blk["mlp.w_up"].T, approximate="tanh")  # jax.nn.gelu's default
+        return x + h @ blk["mlp.w_down"].T
+
+    @staticmethod
+    def hidden(config: GPTConfig, params: Params, tokens: Tensor) -> Tensor:
+        """Backbone forward (inference, no dropout) -> final-normed hidden
+        states (B, T, D). Dense causal attention only: the flash/blockwise
+        training paths come with the training slice."""
+        if config.attn_impl != "naive":
+            raise NotImplementedError(
+                f"attn_impl={config.attn_impl!r} is not ported yet (ROADMAP.md "
+                "port queue: training slice, flash attention); use 'naive'"
+            )
+        T = tokens.shape[1]
+        x = params["wte"][tokens]
+        sin, cos = rope_table(config.head_dim, T, device=x.device)
+        for i in range(config.n_layer):
+            blk = _block(params, i)
+            q, k, v = GPT._project_qkv(config, blk, rms_norm(x))
+            q = apply_rope_bthc(q, sin, cos, style=config.rope_style)
+            k = apply_rope_bthc(k, sin, cos, style=config.rope_style)
+            att = naive_causal_attention(q, k, v)
+            x = GPT._attn_out_and_mlp(config, blk, x, att)
+        return rms_norm(x, eps=1e-5)
+
+    @staticmethod
+    def apply(config: GPTConfig, params: Params, tokens: Tensor) -> Tensor:
+        """Forward pass -> logits (B, T, V) in the params' floating dtype."""
+        return GPT.hidden(config, params, tokens) @ params["lm_head"].T
+
+    # ------------------------------------------------------------------
+    # Paged decoding (continuous-batching serving engine, sampling/serve.py)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def decode_step_paged(
+        config: GPTConfig,
+        params: Params,
+        token: Tensor,  # (B,) int — each slot's newest token
+        cache: PagedKVCache,
+        page_table: Tensor,  # (B, max_pages) int32 — logical -> physical page
+        lengths: Tensor,  # (B,) int32 — tokens already in slot b's cache
+        active: Tensor,  # (B,) bool — False: slot is empty / mid-prefill
+        attn_impl: str = "auto",
+        split_k: int = 1,  # key-sequence partitions per slot
+    ) -> tp.Tuple[Tensor, PagedKVCache]:
+        """One decode step for B independent requests at B positions.
+
+        Slot b writes its token's K/V at logical position lengths[b] and
+        attends to its lengths[b] + 1 valid tokens through the page table.
+        Inactive slots write NOTHING (their page rows may hold real
+        prefilled K/V; the writes are masked out here) and attend to exactly
+        one key, count = 1 on the sink page, producing finite logits the
+        scheduler ignores. The pool is updated in place.
+
+        Returns (logits (B, V), cache)."""
+        C, ps = config.head_dim, cache.page_size
+        pos = lengths.long()
+        attn_counts = torch.clamp_min(active.to(torch.int32) * (lengths.to(torch.int32) + 1), 1)
+        # Only active slots write (one host sync per step to find them).
+        sel = torch.nonzero(active).squeeze(1)
+        pos_sel = pos[sel]
+        write_pages = page_table[sel, pos_sel // ps].long()
+        offs = pos_sel % ps
+        x = params["wte"][token[:, None].long()]  # (B, 1, D)
+        sin, cos = rope_table(C, config.block_size, device=x.device)
+        positions = pos[:, None]  # (B, 1) per-slot absolute positions
+        for i in range(config.n_layer):
+            blk = _block(params, i)
+            q, k, v = GPT._project_qkv(config, blk, rms_norm(x))
+            q = apply_rope_positions(q, sin, cos, positions, style=config.rope_style)
+            k = apply_rope_positions(k, sin, cos, positions, style=config.rope_style)
+            q1, k1, v1 = q[:, 0], k[:, 0], v[:, 0]  # (B, H, C)
+            _paged_write(cache.k, i, write_pages, offs, k1[sel])
+            _paged_write(cache.v, i, write_pages, offs, v1[sel])
+            att = paged_attention(
+                q1, _layer_pages(cache.k, i), _layer_pages(cache.v, i),
+                page_table, attn_counts, impl=attn_impl, split_k=split_k,
+            )  # (B, H, C)
+            x = GPT._attn_out_and_mlp(config, blk, x, att[:, None].to(x.dtype))
+        x = rms_norm(x, eps=1e-5)
+        return (x @ params["lm_head"].T)[:, 0], cache
+
+    @staticmethod
+    def prefill_paged_chunk(
+        config: GPTConfig,
+        params: Params,
+        tokens: Tensor,  # (1, T_c) int — one request's prompt chunk, padded
+        start: int,  # absolute position of tokens[0, 0]
+        n_valid: int,  # real tokens in this chunk (the rest is pad)
+        cache: PagedKVCache,
+        page_table: Tensor,  # (1, max_pages) int32
+    ) -> tp.Tuple[Tensor, PagedKVCache]:
+        """Prefill ONE request's prompt chunk [start, start + n_valid) into
+        its pages, attending causally to the chunk itself plus everything
+        the slot already holds. Pad positions write nothing (masked out
+        here); their logits are garbage the caller ignores. Attention is
+        the gather lowering: the slot's pages gathered contiguous once per
+        layer, every chunk row masked to its own count.
+
+        Returns (logits (1, T_c, V), cache)."""
+        T_c = tokens.shape[1]
+        C, ps = config.head_dim, cache.page_size
+        dev = tokens.device
+        positions = start + torch.arange(T_c, device=dev)  # (T_c,)
+        write_pages = page_table[0, positions[:n_valid] // ps].long()
+        offs = positions[:n_valid] % ps
+        x = params["wte"][tokens.long()]  # (1, T_c, D)
+        sin, cos = rope_table(C, config.block_size, device=dev)
+        # Row t attends to start + t + 1 keys; pad rows clamp to the last
+        # valid count (their output is discarded).
+        attn_counts = torch.clamp_max(positions, start + n_valid - 1) + 1
+        for i in range(config.n_layer):
+            blk = _block(params, i)
+            q, k, v = GPT._project_qkv(config, blk, rms_norm(x))
+            qr = apply_rope_bthc(q, sin, cos, positions, style=config.rope_style)
+            kr = apply_rope_bthc(k, sin, cos, positions, style=config.rope_style)
+            _paged_write(cache.k, i, write_pages, offs, kr[0, :n_valid])
+            _paged_write(cache.v, i, write_pages, offs, v[0, :n_valid])
+            kg = _gather_layer_kv(_layer_pages(cache.k, i), page_table[0])
+            vg = _gather_layer_kv(_layer_pages(cache.v, i), page_table[0])
+            S = kg.shape[1]
+            scores = torch.einsum("thc,hsc->hts", qr[0].to(kg.dtype), kg)
+            ok = torch.arange(S, device=dev)[None, None, :] < attn_counts[None, :, None]
+            scores = scores.masked_fill(~ok, float("-inf"))
+            probs = torch.softmax(scores.float() / math.sqrt(C), dim=-1).to(kg.dtype)
+            att = torch.einsum("hts,hsc->thc", probs, vg)  # (T_c, H, C)
+            x = GPT._attn_out_and_mlp(config, blk, x, att[None].to(x.dtype))
+        x = rms_norm(x, eps=1e-5)
+        return x @ params["lm_head"].T, cache
