@@ -3,9 +3,11 @@
 The same plain frozen dataclasses and field names, so a `config.json`
 written by the JAX package's run directory loads here (`from_json`), and
 named presets live in `midgpt_tpu_torch/configs/*.py` as modules exposing a
-module-level `config` (`load_config`). Validation covers the fields the
-port reads; the parallelism and robustness knobs are carried for the
-round trip and are inert until those parts are ported (ROADMAP.md).
+module-level `config` (`load_config`); `to_json` writes the run
+directory's `config.json`, which either package reads back. Validation
+covers the fields the port reads; the parallelism and robustness knobs are
+carried for the round trip and are inert until those parts are ported
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -105,6 +107,13 @@ class ExperimentConfig:
             raise ValueError(
                 f"unknown kv_cache_dtype {self.kv_cache_dtype!r} ('bf16' or 'int8')"
             )
+
+    def replace(self, **kw) -> "ExperimentConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def to_json(config: ExperimentConfig) -> str:
+    return json.dumps(dataclasses.asdict(config), indent=2)
 
 
 _NESTED: tp.Dict[str, type] = {"model_config": GPTConfig, "mesh": MeshConfig}

@@ -5,6 +5,8 @@
 // through `paged_attention_template`, its pl.pallas_call), decode spec as
 // called by midgpt_tpu/kernels/decode_attention.py `paged_attention_kernel`:
 // R = 1 query row per slot, bf16 or f32 pool, MHA, split_k in {1, 2, 4, 8}.
+// The query (and output) dtype may differ from the pool's, as in JAX, whose
+// dots promote: an f32 query over a bf16 pool is served in f32.
 //
 // What it computes, per (slot b, head h): attention of q[b, h] over the
 // first counts[b] keys of the slot's logical sequence, whose page j lives at
@@ -15,7 +17,7 @@
 //     at M_INIT (-0.5e30), so exp(MASK - m) is exactly 0;
 //   * the running (m, l) and the C-wide accumulator are f32, updated ONE
 //     PAGE AT A TIME (online softmax per page, like the TPU grid step);
-//   * p is rounded to V's dtype before the PV product;
+//   * p is rounded to V's (the pool's) dtype before the PV product;
 //   * split_k == 1 finalizes here (acc / max(l, 1e-30), cast to q's dtype);
 //     split_k > 1 writes raw f32 (m, l, acc) partials that the wrapper
 //     merges with ops/online_softmax.merge_partials + finalize.
@@ -71,14 +73,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
-template <typename T>
+template <typename TQ, typename T>  // query/output dtype, pool dtype
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
-    const T* __restrict__ q,            // (B, H, C)
+    const TQ* __restrict__ q,           // (B, H, C)
     const T* __restrict__ k_pages,      // (H, num_pages, ps, C)
     const T* __restrict__ v_pages,      // (H, num_pages, ps, C)
     const int* __restrict__ page_table, // (B, max_pages)
     const int* __restrict__ counts,     // (B,) visible keys per slot
-    T* __restrict__ out,                // (B, H, C)           split_k == 1
+    TQ* __restrict__ out,               // (B, H, C)           split_k == 1
     float* __restrict__ part_acc,       // (B, split_k, H, C)  split_k > 1
     float* __restrict__ part_m,         // (B, split_k, H)
     float* __restrict__ part_l,         // (B, split_k, H)
@@ -108,7 +110,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   n_live = n_live < 0 ? 0 : (n_live > pps ? pps : n_live);
   const int n_tiles = (n_live + tile_pages - 1) / tile_pages;
 
-  const T* q_bh = q + (static_cast<size_t>(b) * H + h) * C;
+  const TQ* q_bh = q + (static_cast<size_t>(b) * H + h) * C;
   for (int c = tid; c < C; c += kThreads) q_s[c] = to_f32(q_bh[c]);
 
   const int* pt_row = page_table + static_cast<size_t>(b) * max_pages + first;
@@ -227,12 +229,12 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 
   if (split_k == 1) {
-    T* o = out + (static_cast<size_t>(b) * H + h) * C;
+    TQ* o = out + (static_cast<size_t>(b) * H + h) * C;
     const float safe_l = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int jj = 0; jj < kMaxChan; ++jj) {
       const int c = tid + jj * kThreads;
-      if (c < C) o[c] = from_f32<T>(acc[jj] / safe_l);
+      if (c < C) o[c] = from_f32<TQ>(acc[jj] / safe_l);
     }
   } else {
     const size_t part = (static_cast<size_t>(b) * split_k + si) * H + h;
@@ -248,7 +250,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 }
 
-template <typename T>
+template <typename TQ, typename T>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const int* page_table, const int* counts, void* out,
            float* part_acc, float* part_m, float* part_l, int B, int H,
@@ -271,16 +273,16 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   static size_t smem_allowed = 48 * 1024;
   if (smem > smem_allowed) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_decode_kernel<TQ, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_allowed = smem;
   }
   const dim3 grid(H, split_k, B);
-  paged_decode_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
+  paged_decode_kernel<TQ, T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), page_table, counts,
-      static_cast<T*>(out), part_acc, part_m, part_l, H, num_pages, ps, C,
+      static_cast<TQ*>(out), part_acc, part_m, part_l, H, num_pages, ps, C,
       max_pages, split_k, pps, tile_pages, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -289,27 +291,30 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch
-// (0 on success). The caller guarantees: contiguous tensors, page-table
-// entries in [0, num_pages), ps * C * sizeof(T) a multiple of 16 bytes,
+// q_dtype (query and output) and kv_dtype (pools): 0 = float32,
+// 1 = bfloat16. Returns the cudaError_t of the launch (0 on success). The
+// caller guarantees: contiguous tensors, page-table entries in
+// [0, num_pages), ps * C * sizeof(pool dtype) a multiple of 16 bytes,
 // max_pages % split_k == 0, C <= 512, B <= 65535.
 int paged_attention_decode(const void* q, const void* k_pages,
                            const void* v_pages, const int* page_table,
                            const int* counts, void* out, float* part_acc,
                            float* part_m, float* part_l, int B, int H,
                            int num_pages, int ps, int C, int max_pages,
-                           int split_k, float scale, int dtype, void* stream) {
+                           int split_k, float scale, int q_dtype, int kv_dtype,
+                           void* stream) {
   if (C > kThreads * kMaxChan || split_k < 1 || max_pages % split_k != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k_pages, v_pages, page_table, counts, out,
-                         part_acc, part_m, part_l, B, H, num_pages, ps, C,
-                         max_pages, split_k, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, page_table, counts, out,
-                                 part_acc, part_m, part_l, B, H, num_pages, ps,
-                                 C, max_pages, split_k, scale, s);
+#define PAGED_LAUNCH(TQ, T)                                                     \
+  return launch<TQ, T>(q, k_pages, v_pages, page_table, counts, out, part_acc, \
+                       part_m, part_l, B, H, num_pages, ps, C, max_pages,      \
+                       split_k, scale, s)
+  if (q_dtype == 0 && kv_dtype == 0) PAGED_LAUNCH(float, float);
+  if (q_dtype == 1 && kv_dtype == 1) PAGED_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  if (q_dtype == 0 && kv_dtype == 1) PAGED_LAUNCH(float, __nv_bfloat16);
+  if (q_dtype == 1 && kv_dtype == 0) PAGED_LAUNCH(__nv_bfloat16, float);
+#undef PAGED_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,0 +1,114 @@
+"""Token-stream dataset: uint16 bins + seeded random-window sampling
+(counterpart of midgpt_tpu/data/dataset.py).
+
+`train.bin` / `val.bin` are flat uint16 token streams (nanoGPT's format),
+with an optional `meta.pkl`. Every batch is drawn from
+`np.random.default_rng([seed, split, step])` — stateless, deterministic and
+exactly replayable — so the port draws the same windows as the JAX package
+for the same (seed, split, step). Windows are gathered with numpy (the JAX
+package's C batcher is bit-identical to this gather and is not carried).
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import typing as tp
+
+import numpy as np
+
+_SPLIT_IDS = {"train": 0, "val": 1}
+
+
+def sample_batch(
+    data: np.ndarray,
+    block_size: int,
+    batch_size: int,
+    g_accum_iters: tp.Optional[int] = None,
+    *,
+    rng: tp.Optional[np.random.Generator] = None,
+    accum_slice: tp.Optional[tp.Tuple[int, int]] = None,
+) -> tp.Tuple[np.ndarray, np.ndarray]:
+    """Random (x, y = x shifted by one) windows, int32, of shape (B, T), or
+    (G, B, T) when g_accum_iters is given.
+
+    accum_slice=(lo, m) materializes only accumulation steps [lo, lo + m) of
+    the full (g_accum_iters, B, T) draw: all window starts are drawn, then
+    sliced, so chunked consumers see the windows a monolithic caller sees."""
+    rng = rng or np.random.default_rng()
+    bs = batch_size * (g_accum_iters or 1)
+    starts = rng.integers(0, len(data) - block_size, size=(bs,))
+    if accum_slice is not None:
+        if g_accum_iters is None:
+            raise ValueError("accum_slice needs g_accum_iters")
+        lo, m = accum_slice
+        starts = starts[lo * batch_size : (lo + m) * batch_size]
+        g_accum_iters = m
+    offsets = np.arange(block_size)
+    x = data[starts[:, None] + offsets].astype(np.int32)
+    y = data[starts[:, None] + offsets + 1].astype(np.int32)
+    if g_accum_iters is not None:
+        x = x.reshape(g_accum_iters, batch_size, block_size)
+        y = y.reshape(g_accum_iters, batch_size, block_size)
+    return x, y
+
+
+class TokenDataset:
+    """train/val uint16 streams from `data_dir`, read into host RAM."""
+
+    def __init__(
+        self,
+        data_dir: str,
+        *,
+        seed: int = 1337,
+        shard_by_process: bool = False,
+    ):
+        if shard_by_process:
+            raise NotImplementedError(
+                "per-process data sharding belongs to multi-host training, "
+                "not ported yet (ROADMAP.md port queue: parallelism)"
+            )
+        self.data_dir = data_dir
+        self.seed = seed
+        self.splits: tp.Dict[str, np.ndarray] = {}
+        # Prep pipelines that retrain their tokenizer (data/local_text)
+        # fingerprint the bins in meta.pkl; bins from an older prepare run
+        # would otherwise train silently on re-interpreted ids.
+        expected = (self.meta() or {}).get("split_tokens", {})
+        for split in ("train", "val"):
+            path = os.path.join(data_dir, f"{split}.bin")
+            arr = np.fromfile(path, dtype=np.uint16)
+            if expected.get(split, len(arr)) != len(arr):
+                raise ValueError(
+                    f"{path} has {len(arr):,} tokens but meta.pkl records "
+                    f"{expected[split]:,} — the bins predate the committed "
+                    "tokenizer/meta. Re-run the dataset's prepare.py."
+                )
+            self.splits[split] = arr
+
+    def __getitem__(self, split: str) -> np.ndarray:
+        return self.splits[split]
+
+    def batch(
+        self,
+        split: str,
+        step: int,
+        block_size: int,
+        batch_size: int,
+        g_accum_iters: tp.Optional[int] = None,
+        accum_slice: tp.Optional[tp.Tuple[int, int]] = None,
+    ) -> tp.Tuple[np.ndarray, np.ndarray]:
+        """Deterministic batch for (split, step): resumable by construction."""
+        rng = np.random.default_rng([self.seed, _SPLIT_IDS[split], step])
+        return sample_batch(
+            self.splits[split], block_size, batch_size, g_accum_iters, rng=rng,
+            accum_slice=accum_slice,
+        )
+
+    def meta(self) -> tp.Optional[dict]:
+        """The dataset's metadata (char codec, split sizes) if present."""
+        path = os.path.join(self.data_dir, "meta.pkl")
+        if not os.path.exists(path):
+            return None
+        with open(path, "rb") as f:
+            return pickle.load(f)  # the dataset's own prepare output

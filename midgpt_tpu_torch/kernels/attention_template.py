@@ -5,7 +5,8 @@ The JAX template is one Pallas kernel body (`_tpl_kernel`) instantiated for
 several specs: query rows per slot (decode R = 1, speculative verify
 R = k+1), int8 pages, split-K partitions, the GQA fold and the sliding
 window. This port carries the DECODE spec — R = 1, bf16/f32 pool, MHA,
-split_k in {1, 2, 4, 8} — as:
+split_k in {1, 2, 4, 8}, the query in its own dtype over the pool's (an f32
+query over a bf16 pool is served in f32, as JAX's promoting dots do) — as:
 
   * `paged_attention_template_plain`: the plain PyTorch version, a
     per-page online-softmax loop with the template's rounding points (f32
@@ -109,7 +110,7 @@ def _kernel_lib() -> ctypes.CDLL:
     fn = lib.paged_attention_decode
     if fn.argtypes is None:  # declare once per loaded library
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 9 + [ci] * 7 + [ctypes.c_float, ci, vp]
+        fn.argtypes = [vp] * 9 + [ci] * 7 + [ctypes.c_float, ci, ci, vp]
         fn.restype = ci
         lib.paged_attention_error_string.argtypes = [ci]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
@@ -129,16 +130,16 @@ def _check_decode_args(q, k_pages, v_pages, page_table, counts) -> None:
             "GQA/MQA (fewer pool heads than query heads) is a template spec "
             "not ported yet (ROADMAP.md port queue: template specs)"
         )
-    if q.dtype not in _DTYPE_CODE or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+    if q.dtype not in _DTYPE_CODE or k_pages.dtype not in _DTYPE_CODE or v_pages.dtype != k_pages.dtype:
         raise NotImplementedError(
-            f"paged decode kernel takes float32 or bfloat16 q/pools of one "
-            f"dtype, got q {q.dtype}, pools {k_pages.dtype}/{v_pages.dtype} "
-            "(int8 pages: ROADMAP.md port queue)"
+            f"paged decode kernel takes a float32 or bfloat16 q over float32 "
+            f"or bfloat16 pools of one dtype, got q {q.dtype}, pools "
+            f"{k_pages.dtype}/{v_pages.dtype} (int8 pages: ROADMAP.md port queue)"
         )
     if k_pages.shape != v_pages.shape or k_pages.shape[3] != C:
         raise ValueError(f"pool shapes {tuple(k_pages.shape)}/{tuple(v_pages.shape)} do not fit q {tuple(q.shape)}")
     ps = k_pages.shape[2]
-    if (ps * C * q.element_size()) % 16 or C > _MAX_C:
+    if (ps * C * k_pages.element_size()) % 16 or C > _MAX_C:
         raise ValueError(
             f"page_size * head_dim * itemsize must be a multiple of 16 bytes and "
             f"head_dim <= {_MAX_C} (got page_size {ps}, head_dim {C})"
@@ -183,7 +184,7 @@ def _launch_decode(q, k_pages, v_pages, page_table, counts, split_k) -> Tensor:
         rc = lib.paged_attention_decode(
             ptr(q), ptr(k_pages), ptr(v_pages), ptr(pt), ptr(cnt), ptr(out),
             ptr(acc), ptr(m), ptr(l), B, H, P, ps, C, max_pages, split_k,
-            1.0 / math.sqrt(C), _DTYPE_CODE[q.dtype], stream,
+            1.0 / math.sqrt(C), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], stream,
         )
     if rc != 0:
         msg = lib.paged_attention_error_string(rc).decode()

@@ -13,6 +13,12 @@ Architecture, as in the JAX package:
   * GELU (tanh approximation, like `jax.nn.gelu`) MLP with 4x expansion
   * f32 softmax inside attention
 
+The training forward (`hidden` / `apply` with inference=False) adds the
+reference's dropout (embedding, attention probabilities on the naive path,
+both residual branches) from a torch.Generator, and dispatches attention by
+`attn_impl`: 'naive', 'blockwise' or 'flash' (the CUDA flash kernels for
+CUDA tensors, their plain version for CPU tensors; ops/attention.py).
+
 Parameters are a flat dict keyed by the JAX pytree paths, with the stacked
 leading layer axis kept, so converting weights is a rename
 (midgpt_tpu_torch/convert.py):
@@ -40,7 +46,8 @@ import torch.nn.functional as F
 
 from midgpt_tpu_torch.device import DeviceLike, resolve_device
 from midgpt_tpu_torch.kernels.decode_attention import paged_attention
-from midgpt_tpu_torch.ops.attention import naive_causal_attention
+from midgpt_tpu_torch.ops.attention import multihead_attention
+from midgpt_tpu_torch.ops.dropout import dropout
 from midgpt_tpu_torch.ops.norms import head_layer_norm, rms_norm
 from midgpt_tpu_torch.ops.rope import (
     apply_rope_bthc,
@@ -67,10 +74,11 @@ PARAM_NAMES = (
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     """Model shape. Field names and validation follow the JAX GPTConfig so
-    a config.json written by either package loads in both. The JAX lowering
-    knobs (attn_block_size, remat, remat_policy, scan_unroll, qkv_proj,
-    attn_layout, decode_layer_scan) are kept for that reason and change
-    nothing here: every choice computes the same function."""
+    a config.json written by either package loads in both. attn_impl and
+    attn_block_size pick the training attention path and its tiles, as in
+    JAX. The other JAX lowering knobs (remat, remat_policy, scan_unroll,
+    qkv_proj, attn_layout, decode_layer_scan) are kept for that reason and
+    change nothing here: every choice computes the same function."""
 
     block_size: int  # max sequence length
     vocab_size: int
@@ -118,6 +126,8 @@ class GPTConfig:
             raise ValueError(f"unknown rope_style {self.rope_style!r} ('interleaved' or 'split')")
         if self.n_embd % self.n_head:
             raise ValueError(f"n_embd={self.n_embd} not divisible by n_head={self.n_head}")
+        if self.attn_impl not in ("naive", "blockwise", "flash", "ring", "ulysses"):
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
         # Variants the port does not compute yet: refuse instead of
         # computing something else.
         if self.n_kv_heads is not None and self.n_kv_heads != self.n_head:
@@ -306,41 +316,74 @@ class GPT:
         return q, k, v.reshape(B, T, H, C)
 
     @staticmethod
-    def _attn_out_and_mlp(config: GPTConfig, blk: Params, x: Tensor, att: Tensor) -> Tensor:
+    def _attn_out_and_mlp(
+        config: GPTConfig,
+        blk: Params,
+        x: Tensor,
+        att: Tensor,
+        *,
+        generator: tp.Optional[torch.Generator] = None,
+        inference: bool = True,
+    ) -> Tensor:
         """Shared tail of a block: merge heads, output projection, MLP,
-        residuals. att (B, T, H, C)."""
+        residuals (each branch dropped out in training). att (B, T, H, C)."""
         B, T = att.shape[:2]
-        x = x + att.reshape(B, T, config.n_embd) @ blk["attn.wo"].T
+        att = att.reshape(B, T, config.n_embd) @ blk["attn.wo"].T
+        x = x + dropout(att, config.dropout, generator, inference)
         h = rms_norm(x)
         h = F.gelu(h @ blk["mlp.w_up"].T, approximate="tanh")  # jax.nn.gelu's default
-        return x + h @ blk["mlp.w_down"].T
+        h = h @ blk["mlp.w_down"].T
+        return x + dropout(h, config.dropout, generator, inference)
 
     @staticmethod
-    def hidden(config: GPTConfig, params: Params, tokens: Tensor) -> Tensor:
-        """Backbone forward (inference, no dropout) -> final-normed hidden
-        states (B, T, D). Dense causal attention only: the flash/blockwise
-        training paths come with the training slice."""
-        if config.attn_impl != "naive":
-            raise NotImplementedError(
-                f"attn_impl={config.attn_impl!r} is not ported yet (ROADMAP.md "
-                "port queue: training slice, flash attention); use 'naive'"
-            )
+    def hidden(
+        config: GPTConfig,
+        params: Params,
+        tokens: Tensor,
+        *,
+        generator: tp.Optional[torch.Generator] = None,
+        inference: bool = False,
+    ) -> Tensor:
+        """Backbone forward -> final-normed hidden states (B, T, D).
+
+        Training mode (inference=False) applies dropout at config.dropout
+        from `generator` (required when dropout > 0). The lm_head projection
+        is applied by `apply` (full logits) or fused into the chunked loss
+        (training — ops/loss.py fused_linear_cross_entropy)."""
         T = tokens.shape[1]
-        x = params["wte"][tokens]
+        x = dropout(params["wte"][tokens], config.dropout, generator, inference)
         sin, cos = rope_table(config.head_dim, T, device=x.device)
         for i in range(config.n_layer):
             blk = _block(params, i)
             q, k, v = GPT._project_qkv(config, blk, rms_norm(x))
             q = apply_rope_bthc(q, sin, cos, style=config.rope_style)
             k = apply_rope_bthc(k, sin, cos, style=config.rope_style)
-            att = naive_causal_attention(q, k, v)
-            x = GPT._attn_out_and_mlp(config, blk, x, att)
+            att = multihead_attention(
+                q, k, v, impl=config.attn_impl, dropout_rate=config.dropout,
+                generator=generator, inference=inference,
+                block_size=config.attn_block_size, layout="bthc",
+            )
+            x = GPT._attn_out_and_mlp(config, blk, x, att, generator=generator, inference=inference)
         return rms_norm(x, eps=1e-5)
 
     @staticmethod
-    def apply(config: GPTConfig, params: Params, tokens: Tensor) -> Tensor:
+    def apply(
+        config: GPTConfig,
+        params: Params,
+        tokens: Tensor,
+        *,
+        generator: tp.Optional[torch.Generator] = None,
+        inference: bool = False,
+    ) -> Tensor:
         """Forward pass -> logits (B, T, V) in the params' floating dtype."""
-        return GPT.hidden(config, params, tokens) @ params["lm_head"].T
+        x = GPT.hidden(config, params, tokens, generator=generator, inference=inference)
+        return x @ params["lm_head"].T
+
+    @staticmethod
+    def count_params(params: Params) -> int:
+        """Parameter count excluding the duplicated tied embedding
+        (reference model.py:161-164)."""
+        return sum(p.numel() for p in params.values()) - params["lm_head"].numel()
 
     # ------------------------------------------------------------------
     # Paged decoding (continuous-batching serving engine, sampling/serve.py)

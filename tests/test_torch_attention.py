@@ -76,6 +76,21 @@ def test_plain_template_matches_jax_interpret_kernel(dtype, split_k):
     _close(got, want, dtype)
 
 
+@pytest.mark.parametrize("split_k", [1, 2])
+def test_plain_template_f32_query_over_bf16_pools_matches_jax(split_k):
+    """Mixed dtypes, as `sample --ckpt_dir` of an f32-compute run serves:
+    an f32 query over bf16 pools; JAX's dots promote, p is rounded to the
+    pool's bf16 before PV and the output is f32. Tolerance: float32's."""
+    q, k, v = _problem("bfloat16", seed=4)
+    q = np.random.default_rng(5).standard_normal(q.shape).astype(np.float32)  # f32, not bf16-exact
+    want = j_kernel(jnp.asarray(q), jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16),
+                    jnp.asarray(TABLE), jnp.asarray(COUNTS), split_k=split_k)
+    got = t_kernel(torch.from_numpy(q), torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16(),
+                   torch.from_numpy(TABLE), torch.from_numpy(COUNTS), split_k=split_k)
+    assert got.dtype == torch.float32 and np.asarray(want).dtype == np.float32
+    _close(got, want, "float32")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("split_k", [1, 2])
 def test_gather_matches_jax_gather(dtype, split_k):

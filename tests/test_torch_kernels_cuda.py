@@ -7,12 +7,15 @@ one. The file imports no JAX, so it also runs where JAX is absent:
 Tolerances (kernel vs plain on the same inputs): float32 1e-5 absolute
 and relative (summation order only); bfloat16 1e-2 — an f32 sum taken in
 another order can move a bf16 rounding of p or of the output by one ulp.
+Flash gradients are held relative to their largest magnitude: float32
+1e-5 and bfloat16 1e-2 of max |want| absolute, plus the same relative.
 TF32 is off so the plain version's f32 products are full f32."""
 
 import pytest
 import torch
 
 from midgpt_tpu_torch.kernels import attention_template as tpl
+from midgpt_tpu_torch.kernels import flash_attention as fa
 from midgpt_tpu_torch.kernels.decode_attention import paged_attention_kernel
 from midgpt_tpu_torch.models.gpt import GPT, GPTConfig, PagedKVCache
 
@@ -95,10 +98,91 @@ def test_decode_step_through_kernel_matches_gather(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("split_k", [1, 2])
+def test_kernel_takes_an_f32_query_over_bf16_pools(cuda, split_k):
+    """JAX's template promotes an f32 query over a bf16 pool: f32 scores
+    and statistics, p rounded to the pool's bf16 before PV, f32 output."""
+    q, k, v, table, cnt = _problem(cuda, torch.float32, 4, 12, 64, 8, 128, [1024, 700, 300, 1])
+    k, v = k.bfloat16(), v.bfloat16()
+    got = paged_attention_kernel(q, k, v, table, cnt, split_k=split_k)
+    torch.cuda.synchronize()
+    want = tpl.paged_attention_template_plain(q[:, :, None], k, v, table, cnt[:, None], split_k)[:, :, 0]
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v, table, cnt = _problem(cuda, torch.float32, 2, 2, 64, 8, 4, [5, 9])
     with pytest.raises(NotImplementedError):
-        paged_attention_kernel(q, k.bfloat16(), v.bfloat16(), table, cnt)  # mixed dtypes
+        paged_attention_kernel(q, k.bfloat16(), v, table, cnt)  # pools of two dtypes
     q, k, v, table, cnt = _problem(cuda, torch.float32, 2, 2, 2, 3, 4, [5, 9])
     with pytest.raises(ValueError):
         paged_attention_kernel(q, k, v, table, cnt)  # a 3 x 2 f32 page is 24 bytes
+
+
+def _flash_inputs(dev, dtype, N, T, C, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(N, T, C, generator=g).to(dev, dtype) for _ in range(4)]
+
+
+def _close_scaled(got, want, tol):
+    """|got - want| <= tol * max|want| + tol * |want|."""
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, atol=tol * scale, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "N,T,C,bq,bk",
+    [
+        (3, 256, 64, 512, 1024),  # single visit (bodies 1, 3)
+        (2, 256, 128, 64, 128),  # tiled (bodies 2, 5, 6)
+        (2, 200, 64, 64, 64),  # ragged T: the KV block widens to T, tiles mask their edge
+        (2, 96, 128, 32, 32),  # tiled with chunks narrower than the kernel's tile
+    ],
+)
+def test_flash_kernels_match_plain(cuda, dtype, N, T, C, bq, bk):
+    q, k, v, do = _flash_inputs(cuda, dtype, N, T, C)
+    counters = (fa.FWD_LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)
+    before = [c.count for c in counters]
+    out, lse = fa.flash_forward(q, k, v, bq, bk)
+    dq, dk, dv = fa.flash_backward(q, k, v, out, lse, do, bq, bk)
+    torch.cuda.synchronize()
+    assert [c.count for c in counters] == [b + 1 for b in before]
+    want_out, want_lse = fa.flash_forward_plain(q, k, v, bq, bk)
+    tol = TOL[dtype]
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), want_out.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    # the backward from the kernel's own residuals, on both sides
+    grads = fa.flash_backward_plain(q, k, v, out, lse, do, bq, bk)
+    for got, want in zip((dq, dk, dv), grads):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        _close_scaled(got, want, tol)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_through_kernels(cuda):
+    q, k, v, _ = _flash_inputs(cuda, torch.float32, 4, 128, 64, seed=1)
+    q, k, v = (t.reshape(2, 2, 128, 64) for t in (q, k, v))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):  # the kernels, then the plain version
+        qs, ks, vs = (t.detach().to(dev).requires_grad_() for t in (q, k, v))
+        torch.sin(fa.flash_attention(qs, ks, vs, 64, 128)).sum().backward()
+        grads.append([t.grad.cpu() for t in (qs, ks, vs)])
+    for got, want in zip(*grads):
+        _close_scaled(got, want, 1e-5)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_other_head_dims(cuda):
+    q, k, v, _ = _flash_inputs(cuda, torch.float32, 2, 64, 96)
+    before = fa.FWD_LAUNCHES.count
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        fa.flash_forward(q, k, v, 64, 64)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        fa.flash_attention(q[None], k[None], v[None], 64, 64)
+    assert fa.FWD_LAUNCHES.count == before

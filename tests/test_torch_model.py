@@ -191,7 +191,7 @@ def test_init_statistics():
     assert not torch.equal(GPT.init(GPTConfig(**shape), 1, device=CPU)["wte"], tp_["wte"])
 
 
-@pytest.mark.parametrize("name", ["openwebtext", "shakespeare_char"])
+@pytest.mark.parametrize("name", ["openwebtext", "shakespeare_char", "local_text_124m"])
 def test_configs_load_from_jax_config_json(name):
     """A config.json written by the JAX package loads in the port, and the
     port's presets equal the JAX presets field for field."""
@@ -200,9 +200,12 @@ def test_configs_load_from_jax_config_json(name):
     from midgpt_tpu.config import load_config as j_load, to_json
     from midgpt_tpu_torch.config import from_json, load_config
 
+    from midgpt_tpu_torch.config import to_json as t_to_json
+
     jcfg = j_load(name)
     for got in (from_json(to_json(jcfg)), load_config(name)):
         assert dataclasses.asdict(got) == dataclasses.asdict(jcfg)
+    assert t_to_json(load_config(name)) == to_json(jcfg)
 
 
 @pytest.mark.parametrize(
