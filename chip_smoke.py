@@ -20,6 +20,11 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
         llama7b_long's head shape (B 1, H 32, T 4096, C 128, blocks
         (512, 1024): the tiled dispatch) and at T 2048 with one KV block
         (blocks (512, 2048): the single-visit dQ with the tiled dK/dV);
+     c. the paged template's verify spec (R = 2, 5 and 9 rows per slot, the
+        last row's count the phase-3a count, the count-1 slot inactive) and
+        its int8 spec (int8 pools with f32 scales; decode and verify R = 5)
+        at the phase-3a shape, bf16 and f32 queries, split 1 and 2, and one
+        verify launch row by row against decode launches (bit for bit);
   4. serving main path: the port's ServeEngine at openwebtext width (GPT-2
      small, random weights from a seed, bf16) serves a mixed trace with
      max_slots=4 — short requests (split-1 rounds) and one longer than 512
@@ -30,6 +35,25 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
   5. the same trace in f32 through the kernel and through the gather
      lowering: the greedy streams must be identical; then the device busy
      share of steady bf16 decode rounds under torch.profiler;
+  5b. speculative serving at local_text_124m width (its default 4-layer
+     self-draft on the target's pool, spec_k_max 4, adaptive k), the same
+     trace and engine shape as phase 4, in bf16 and then on an int8 pool,
+     plus the same engine without a draft for the throughput beside it.
+     Counters zeroed just before each run and read just after: verify
+     launches must equal n_layer x verify rounds, decode-spec launches
+     4 x draft steps (+ n_layer x plain decode steps), the int8 run must
+     launch only int8 specs; every request must finish with its budget.
+     Then `python -m midgpt_tpu_torch.sample --config=local_text_124m`
+     (its `main`, config defaults: the self-draft) must launch the verify
+     spec. Greedy f32 streams: speculative through the kernel identical to
+     speculative through the gather; speculative identical to plain decode
+     through the kernel, and int8 speculative to int8 plain; then the
+     target's own weights as a separate draft (its own pool), which must
+     have nearly every proposal accepted and stream as plain decode. Where
+     a stream departs from plain decode, the run prints the position and
+     the top-2 logit gap there (dense f32 forward) and fails unless the gap
+     is under 1e-5 relative (a last-bit difference of cuBLAS between the
+     verify forward's k+1 rows per slot and decode's one);
   6. training main path: `python -m midgpt_tpu_torch.launch
      --config=local_text_124m` (its `main`, in this process) at full width
      — 12 x 768, 12 heads, T 1024, microbatch 16, vocab 50304, bf16
@@ -55,7 +79,10 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      of the bytes it must move over 3.35 TB/s and its causal FLOPs over
      the dense peak of the inputs' type) and, as a yardstick the port
      never calls, torch's scaled_dot_product_attention forward and
-     backward. The "kernels" line carries the main path's numbers.
+     backward; the verify (R 5) and int8 (decode, verify R 5) kernels as
+     the decode kernel, beside their plain versions, their bounds and SDPA
+     over pre-gathered K/V with an R-row mask. The "kernels" line carries
+     the main paths' numbers.
 
 The last lines are the card's name and power limit as nvidia-smi prints
 them, one JSON object with a "kernels" list, and the contract line
@@ -79,6 +106,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 / f32 non-tensor
 SLOTS, HEADS, HEAD_DIM, PAGE, BUCKET = 4, 12, 64, 8, 128
 COUNTS = [1024, 700, 300, 1]
+VERIFY_ROWS = (2, 5, 9)  # phase 3c: k+1 rows per slot (spec_k_max 4 here, 8 in llama7b_32k)
+TIMED_ROWS = 5  # phase 10: the verify spec at spec_k_max 4
+SPEC_DRAFT_LAYERS = 4  # local_text_124m's spec_layers
+GAP_TOL = 1e-5  # relative top-2 logit gap below which a spec/plain departure is a near-tie
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 KERNEL_SOURCES = ("paged_attention", "flash_attention")
 # flash checks: (label, B, H, T, C, block_q, block_k, dtype)
@@ -176,9 +207,9 @@ def check_kernel(dtype, split_k, kv_dtype=None):
     q, k, v, table, counts = decode_problem(dtype)
     if kv_dtype is not None:
         k, v = k.to(kv_dtype), v.to(kv_dtype)
-    got = tpl.paged_attention_template(q[:, :, None], k, v, table, counts[:, None], split_k)
+    got = tpl.paged_attention_template(q[:, :, None], k, v, table, counts[:, None], split_k=split_k)
     torch.cuda.synchronize()
-    want = tpl.paged_attention_template_plain(q[:, :, None], k, v, table, counts[:, None], split_k)
+    want = tpl.paged_attention_template_plain(q[:, :, None], k, v, table, counts[:, None], split_k=split_k)
     err = (got.float() - want.float()).abs().max().item()
     tol = TOL[dtype]
     ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol) and got.dtype == dtype
@@ -221,11 +252,11 @@ def time_kernel(dtype, split_k, copies: int = 12):
 
     def call(p):
         q, k, v, table, counts = p
-        return lambda: tpl.paged_attention_template(q[:, :, None], k, v, table, counts[:, None], split_k)
+        return lambda: tpl.paged_attention_template(q[:, :, None], k, v, table, counts[:, None], split_k=split_k)
 
     def sdpa(p):
         q, k, v, table, counts = p
-        kg, vg = _gather_pages(k, table).contiguous(), _gather_pages(v, table).contiguous()
+        kg, vg = _gather_pages(k, None, table).contiguous(), _gather_pages(v, None, table).contiguous()
         mask = (torch.arange(kg.shape[2], device=q.device)[None, :] < counts[:, None])[:, None, None, :]
         return lambda: F.scaled_dot_product_attention(q[:, :, None], kg, vg, attn_mask=mask)
 
@@ -234,7 +265,7 @@ def time_kernel(dtype, split_k, copies: int = 12):
     eager_ms = event_ms(call(probs[0]), 200, 10)
     q, k, v, table, counts = probs[0]
     plain_ms = event_ms(
-        lambda: tpl.paged_attention_template_plain(q[:, :, None], k, v, table, counts[:, None], split_k), 3, 1
+        lambda: tpl.paged_attention_template_plain(q[:, :, None], k, v, table, counts[:, None], split_k=split_k), 3, 1
     )
     lib_ms = graph_ms([sdpa(p) for p in probs[: copies // 2]])
     if tpl.LAUNCHES.count == before:
@@ -299,13 +330,13 @@ def trace(vocab: int):
     return [(rng.integers(0, vocab, n).astype(np.int32), m) for n, m in shape]
 
 
-def serve(model_cfg, params, dtype, attn_impl="auto"):
+def serve(model_cfg, params, dtype, attn_impl="auto", **engine_kw):
     from midgpt_tpu_torch.sampling.serve import ServeEngine
 
     eng = ServeEngine(
         model_cfg, params, max_slots=4, page_size=PAGE, prefill_chunk=256,
         decode_chunk=8, temperature=0.0, cache_dtype=dtype, attn_impl=attn_impl,
-        device="cuda",
+        device="cuda", **engine_kw,
     )
     reqs = trace(model_cfg.vocab_size)
     uids = [eng.submit(p, m) for p, m in reqs]
@@ -324,6 +355,246 @@ def serve(model_cfg, params, dtype, attn_impl="auto"):
     if eng.allocator.free_count != eng.allocator.num_pages - 1:
         raise SystemExit("pages leaked: the pool did not drain back to its free list")
     return eng.stats(), streams, wall
+
+
+# ---------------------------------------------------------------- verify and int8 specs
+
+
+def verify_problem(qdtype, R, int8, seed=0):
+    """Phase-3c inputs: the phase-3a problem with R query rows per slot —
+    row t sees COUNTS - (R - 1) + t keys, so the last row's count is the
+    phase-3a count, and the count-1 slot stays inactive (1 key on every
+    row) — over pools of the query's dtype, or int8 codes with their
+    (num_pages, H, page_size) f32 scales, quantized from the same values."""
+    from midgpt_tpu_torch.ops.quant import quantize_q8
+
+    _, k, v, table, counts = decode_problem(torch.float32, seed)
+    q = torch.randn(SLOTS, HEADS, R, HEAD_DIM, generator=torch.Generator().manual_seed(seed + 100)).to("cuda", qdtype)
+    t = torch.arange(R, device="cuda")
+    rows = torch.where(counts[:, None] > 1, counts[:, None] - (R - 1) + t, 1).to(torch.int32)
+    if int8:
+        (k, ks), (v, vs) = (quantize_q8(x.transpose(0, 1)) for x in (k, v))  # per (page, head, position)
+        return q, k.transpose(0, 1).contiguous(), v.transpose(0, 1).contiguous(), ks, vs, table, rows
+    return q, k.to(qdtype), v.to(qdtype), None, None, table, rows
+
+
+def spec_label(qdtype, R, int8):
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+
+    pools = "int8" if int8 else str(qdtype)[6:]
+    return f"{tpl.spec_name(R, int8)} R={R} {str(qdtype)[6:]} query over {pools} pools"
+
+
+def check_spec_kernel(qdtype, R, int8, split_k):
+    """Phase 3c: the verify / int8 spec of the kernel vs the plain version on
+    the same inputs; returns max |err|."""
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+
+    q, k, v, ks, vs, table, counts = verify_problem(qdtype, R, int8)
+    got = tpl.paged_attention_template(q, k, v, table, counts, ks, vs, split_k=split_k)
+    torch.cuda.synchronize()
+    want = tpl.paged_attention_template_plain(q, k, v, table, counts, ks, vs, split_k=split_k)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL[qdtype]
+    ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol) and got.dtype == qdtype
+    label = spec_label(qdtype, R, int8)
+    print(f"kernel check paged {label} split_k={split_k}: max_abs_err={err:.3e} (tol {tol:g} abs+rel) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok or not torch.isfinite(got).all():
+        raise SystemExit(f"paged {label} kernel disagrees with its plain version (split {split_k})")
+    return err
+
+
+def check_rows_bitwise(int8, split_k, R=9):
+    """Phase 3c: one verify launch equals, row by row and bit for bit, the
+    decode launches at each row's count — a row's arithmetic does not
+    depend on R."""
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+
+    q, k, v, ks, vs, table, counts = verify_problem(torch.bfloat16, R, int8, seed=7)
+    rows = tpl.paged_attention_template(q, k, v, table, counts, ks, vs, split_k=split_k)
+    for t in range(R):
+        one = tpl.paged_attention_template(q[:, :, t : t + 1].contiguous(), k, v, table,
+                                           counts[:, t : t + 1].contiguous(), ks, vs, split_k=split_k)
+        if not torch.equal(rows[:, :, t], one[:, :, 0]):
+            raise SystemExit(f"verify row {t} differs from the decode launch at its count "
+                             f"({'int8' if int8 else 'bf16'} pools, split {split_k})")
+    print(f"kernel check verify R={R} rows == decode launches bit for bit "
+          f"({'int8' if int8 else 'bf16'} pools, split_k={split_k}): ok")
+
+
+def spec_bound_ms(qdtype, R, int8, counts):
+    """(least ms the card could take for one launch at the phase-3c shape,
+    what bounds it): K and V over the last row's count keys (each read once;
+    int8 codes plus one f32 scale per key, head and tensor), q in and out
+    over R rows, the table and counts; against 4 flops per (row, visible
+    key, channel), plus the dequantizing multiply of each K/V value."""
+    item_q = torch.empty((), dtype=qdtype).element_size()
+    keys = int(counts[:, -1].sum())
+    kv = 2 * keys * HEADS * (HEAD_DIM * (1 if int8 else item_q) + (4 if int8 else 0))
+    moved = kv + 2 * SLOTS * HEADS * R * HEAD_DIM * item_q + SLOTS * BUCKET * 4 + SLOTS * R * 4
+    flops = 4 * int(counts.sum()) * HEADS * HEAD_DIM + (2 * keys * HEADS * HEAD_DIM if int8 else 0)
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[qdtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_spec_kernel(qdtype, R, int8, split_k):
+    """Phase 10 at the phase-3c shape: device ms of the kernel's wrapper and
+    of the SDPA yardstick (graph replay over copies that together exceed
+    the L2, so every call finds its data cold), the plain version (eager),
+    and the bound."""
+    import torch.nn.functional as F
+
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+    from midgpt_tpu_torch.kernels.decode_attention import _gather_pages
+
+    copies = 24 if int8 else 12
+    probs = [verify_problem(qdtype, R, int8, seed=1 + i) for i in range(copies)]
+
+    def call(p):
+        q, k, v, ks, vs, table, counts = p
+        return lambda: tpl.paged_attention_template(q, k, v, table, counts, ks, vs, split_k=split_k)
+
+    def sdpa(p):
+        q, k, v, ks, vs, table, counts = p
+        kg = _gather_pages(k, ks, table, qdtype).contiguous()  # dequantized to q's dtype for int8
+        vg = _gather_pages(v, vs, table, qdtype).contiguous()
+        mask = (torch.arange(kg.shape[2], device=q.device)[None, None, :] < counts[:, :, None])[:, None]
+        return lambda: F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
+
+    before = tpl.LAUNCHES.count
+    ms = graph_ms([call(p) for p in probs])
+    q, k, v, ks, vs, table, counts = probs[0]
+    plain_ms = event_ms(lambda: tpl.paged_attention_template_plain(q, k, v, table, counts, ks, vs,
+                                                                   split_k=split_k), 3, 1)
+    lib_ms = graph_ms([sdpa(p) for p in probs[: copies // 2]])
+    if tpl.LAUNCHES.count == before:
+        raise SystemExit("timing loop never launched the kernel")
+    return ms, plain_ms, lib_ms, spec_bound_ms(qdtype, R, int8, counts)
+
+
+# ---------------------------------------------------------------- speculative serving
+
+
+def spec_engine_kw(model_cfg, params):
+    """The speculative engine arguments `sample.main` gives local_text_124m:
+    its spec_layers-layer self-draft on the target's pool and its k range."""
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.sampling.spec import self_draft
+
+    base = load_config("local_text_124m")
+    dcfg, dparams = self_draft(model_cfg, params, base.spec_layers)
+    return dict(draft_params=dparams, draft_config=dcfg, draft_shares_cache=True,
+                spec_k_max=base.spec_k_max, spec_k_min=base.spec_k_min, spec_adapt=base.spec_adapt)
+
+
+def spec_launches(label, stats, launches, n_layer, int8):
+    """Phase 5b: every verify round launched the verify spec once per layer,
+    every draft step the decode spec once per draft layer (and a plain
+    decode step, if the engine fell back to one, once per layer); an int8
+    pool launched only int8 specs."""
+    sp = stats["spec"]
+    verify = sum(n for (spec, _), n in launches.items() if spec.endswith("verify"))
+    decode = sum(n for (spec, _), n in launches.items() if spec.endswith("decode"))
+    print(f"speculative {label}: launches {launches}; {sp['rounds']} verify rounds x {n_layer} layers, "
+          f"{sp['draft_steps']} draft steps x {SPEC_DRAFT_LAYERS} layers, {stats['decode_steps']} plain decode steps")
+    if verify != n_layer * sp["rounds"] or sp["rounds"] < 1:
+        raise SystemExit(f"{label}: verify launches != n_layer x verify rounds: a verify forward bypassed the kernel")
+    if decode != SPEC_DRAFT_LAYERS * sp["draft_steps"] + n_layer * stats["decode_steps"]:
+        raise SystemExit(f"{label}: decode-spec launches != {SPEC_DRAFT_LAYERS} x draft steps (+ plain decode)")
+    want = {"int8-decode", "int8-verify"} if int8 else {"decode", "verify"}
+    if {spec for spec, _ in launches} != want:
+        raise SystemExit(f"{label}: launched specs {sorted({s for s, _ in launches})}, want {sorted(want)}")
+
+
+def compare_streams(label, got, want, model_cfg=None, params=None):
+    """Greedy streams must be identical. With `params` (speculative vs plain
+    decode), a departure is allowed only at a near-tie: the run prints the
+    first departing position and the top-2 logit gap there (a dense f32
+    forward of the plain stream's prefix) and fails unless the gap is under
+    GAP_TOL relative."""
+    from midgpt_tpu_torch.models.gpt import GPT
+
+    departed = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if np.array_equal(g, w):
+            continue
+        pos = int(np.argmax(g != w)) if len(g) == len(w) else min(len(g), len(w))
+        if params is None:
+            raise SystemExit(f"{label}: request {i} differs from token {pos}")
+        with torch.no_grad():
+            prefix = torch.as_tensor(w[:pos][None], device="cuda").long()
+            logits = GPT.apply(model_cfg, params, prefix, inference=True)[0, -1].float()
+        top = torch.topk(logits, 2).values
+        gap = ((top[0] - top[1]) / top[0].abs()).item()
+        print(f"{label}: request {i} departs at token {pos} of {len(w)}: top-2 logit gap {gap:.3e} relative "
+              f"(tol {GAP_TOL:g})")
+        if gap >= GAP_TOL:
+            raise SystemExit(f"{label}: request {i} departs at token {pos} with no near-tie there")
+        departed += 1
+    print(f"{label}: {len(got) - departed} of {len(got)} greedy streams identical"
+          + (f", {departed} departing at a near-tie" if departed else ""))
+
+
+def spec_serving(card, params32, params16, plain32_streams):
+    """Phase 5b. Returns the launches of the bf16 and int8 runs."""
+    from midgpt_tpu_torch import sample
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+
+    scfg = load_config("local_text_124m").model_config
+    out, rates = {}, {}
+    for label, dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        kw = spec_engine_kw(scfg, params16)
+        tpl.LAUNCHES.reset()
+        st, _, _ = serve(scfg, params16, dtype, **kw)
+        launches = dict(tpl.LAUNCHES.by_variant)
+        spec_launches(label, st, launches, scfg.n_layer, dtype == torch.int8)
+        out[label] = launches
+        rates[label] = st["decode_tokens"] / st["decode_seconds"]
+        sp = st["spec"]
+        print(f"speculative {label} (bf16 compute, {label} pool): accept_rate {sp['accept_rate']:.4f}, "
+              f"tokens/verify {sp['tokens_per_verify']:.4f}, decode {rates[label]:.1f} tokens/s over "
+              f"{st['decode_tokens']} tokens ({st['decode_seconds']:.3f} s in rounds) on {card}")
+    st, _, _ = serve(scfg, params16, torch.bfloat16)
+    rates["plain"] = st["decode_tokens"] / st["decode_seconds"]
+    print(f"decode without speculation (bf16, same trace and engine): {rates['plain']:.1f} tokens/s over "
+          f"{st['decode_tokens']} tokens; with the self-draft {rates['bf16'] / rates['plain']:.3f}x (bf16 pool), "
+          f"{rates['int8'] / rates['plain']:.3f}x (int8 pool) on {card}")
+
+    # sample.main with the config's defaults: the 4-layer self-draft, bf16
+    tpl.LAUNCHES.reset()
+    sample.main(["--config=local_text_124m", "--start_ids=50,11,3", "--num_samples=2",
+                 "--max_new_tokens=24", "--temperature=0"])
+    torch.cuda.synchronize()
+    specs = {spec for spec, _ in tpl.LAUNCHES.by_variant}
+    print(f"sample.main --config=local_text_124m launches: {dict(tpl.LAUNCHES.by_variant)}")
+    if specs != {"decode", "verify"}:
+        raise SystemExit("sample.main --config=local_text_124m must serve with its self-draft (verify spec)")
+
+    # greedy f32 streams: kernel vs gather (identical), spec vs plain (near-ties only)
+    kw32 = spec_engine_kw(scfg, params32)
+    _, spec_k, _ = serve(scfg, params32, torch.float32, **kw32)
+    _, spec_g, _ = serve(scfg, params32, torch.float32, attn_impl="gather", **kw32)
+    compare_streams("f32 speculative, kernel vs gather", spec_k, spec_g)
+    compare_streams("f32 speculative vs plain decode (kernel)", spec_k, plain32_streams, scfg, params32)
+    _, int8_spec, _ = serve(scfg, params32, torch.int8, **kw32)
+    _, int8_plain, _ = serve(scfg, params32, torch.int8)
+    compare_streams("int8 pool (f32 compute) speculative vs plain decode", int8_spec, int8_plain, scfg, params32)
+    # Random weights leave the self-draft's proposals rejected; a draft that
+    # agrees — the target's own weights as a separate draft model with its
+    # own pool — runs the multi-token commit, the bonus token and the
+    # separate draft's prefill through the kernels.
+    same = dict(kw32, draft_params=params32, draft_config=scfg, draft_shares_cache=False)
+    st, same_streams, _ = serve(scfg, params32, torch.float32, **same)
+    sp = st["spec"]
+    print(f"f32 speculative with the target as its own separate draft: accept_rate {sp['accept_rate']:.4f}, "
+          f"tokens/verify {sp['tokens_per_verify']:.4f} over {sp['rounds']} verify rounds")
+    if sp["accept_rate"] < 0.9:
+        raise SystemExit("a draft with the target's weights must have nearly all its proposals accepted")
+    compare_streams("f32 speculative (target as draft) vs plain decode (kernel)", same_streams, plain32_streams,
+                    scfg, params32)
+    return out
 
 
 # ---------------------------------------------------------------- flash attention
@@ -655,6 +926,14 @@ def main() -> int:
     errs = {(dt, s): check_kernel(dt, s) for dt in (torch.bfloat16, torch.float32) for s in (1, 2)}
     for s in (1, 2):
         check_kernel(torch.float32, s, kv_dtype=torch.bfloat16)
+    spec_errs = {}  # (qdtype, R, int8, split) -> max |err|
+    for qdt in (torch.bfloat16, torch.float32):
+        for s in (1, 2):
+            for R, int8 in [(R, False) for R in VERIFY_ROWS] + [(1, True), (TIMED_ROWS, True)]:
+                spec_errs[(qdt, R, int8, s)] = check_spec_kernel(qdt, R, int8, s)
+    for int8 in (False, True):
+        for s in (1, 2):
+            check_rows_bitwise(int8, s)
     flash_errs = {}
     for label, B, H, T, C, bq, bk, dt in FLASH_CHECKS:
         flash_errs[(label, dt)] = check_flash(label, B, H, T, C, bq, bk, dt)
@@ -666,11 +945,12 @@ def main() -> int:
     params16 = cast_floating(params32, torch.bfloat16)
     tpl.LAUNCHES.reset()
     stats16, _, wall16 = serve(cfg, params16, torch.bfloat16)
-    launches = dict(tpl.LAUNCHES.by_variant)
+    by_variant = dict(tpl.LAUNCHES.by_variant)
     print(f"main path bf16: {json.dumps(stats16)} wall {wall16:.3f} s")
-    print(f"kernel launches by split: {launches}; decode steps {stats16['decode_steps']} x {cfg.n_layer} layers")
-    if set(launches) != {1, 2} or min(launches.values()) < 1:
-        raise SystemExit(f"the main path must launch the kernel at split 1 and 2, got {launches}")
+    print(f"kernel launches by (spec, split): {by_variant}; decode steps {stats16['decode_steps']} x {cfg.n_layer} layers")
+    launches = {split: n for (spec, split), n in by_variant.items()}
+    if {spec for spec, _ in by_variant} != {"decode"} or set(launches) != {1, 2} or min(launches.values()) < 1:
+        raise SystemExit(f"the main path must launch the decode spec at split 1 and 2, got {by_variant}")
     if sum(launches.values()) != cfg.n_layer * stats16["decode_steps"]:
         raise SystemExit("kernel launches != n_layer x decode steps: a decode step bypassed the kernel")
     tok_s = stats16["decode_tokens"] / stats16["decode_seconds"]
@@ -687,6 +967,8 @@ def main() -> int:
     print(f"f32 greedy streams identical, kernel vs gather: {len(kernel_streams)} requests")
     wall_us, by_name = profile_decode(cfg, params16)
     print_busy("decode rounds", wall_us, by_name, card)
+    # 5b. speculative serving, bf16 and int8: counters zeroed just before each run, read just after
+    spec_launches_by_run = spec_serving(card, params32, params16, kernel_streams)
     del params32, params16
     free_memory()
 
@@ -727,6 +1009,29 @@ def main() -> int:
                     "library_ms": lib_ms,
                 })
     free_memory()
+    timed = [("paged_attention_verify", TIMED_ROWS, False, "bf16", "verify"),
+             ("paged_attention_int8_decode", 1, True, "int8", "int8-decode"),
+             ("paged_attention_int8_verify", TIMED_ROWS, True, "int8", "int8-verify")]
+    for kname, R, int8, run, spec in timed:
+        for s in (1, 2):
+            ms, plain_ms, lib_ms, (b_ms, b_by) = time_spec_kernel(torch.bfloat16, R, int8, s)
+            print(f"{kname} ({spec_label(torch.bfloat16, R, int8)}) split_k={s}: {ms:.4f} ms device (graph replay, "
+                  f"cold L2) bound {b_ms:.4f} ms by {b_by} ({ms / b_ms:.1f}x), plain {plain_ms:.3f} ms, "
+                  f"sdpa {lib_ms:.4f} ms on {card}")
+            kernels.append({
+                "name": f"{kname}[bf16,R={R},split_k={s}]",
+                "route": "cuda",
+                "source": "midgpt_tpu_torch/csrc/paged_attention.cu",
+                "replaces": "midgpt_tpu/kernels/attention_template.py:95",
+                "launches": spec_launches_by_run[run].get((spec, s), 0),
+                "max_abs_err": spec_errs[(torch.bfloat16, R, int8, s)],
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": lib_ms,
+            })
+        free_memory()
     from midgpt_tpu_torch.kernels import flash_attention as fa
 
     for label, B, H, T, C, bq, bk in FLASH_TIMED:  # the main path's shape first

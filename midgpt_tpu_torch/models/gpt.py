@@ -28,7 +28,8 @@ leading layer axis kept, so converting weights is a rename
     blocks.attn.q_scale (L, C), blocks.attn.k_scale (L, C),
     blocks.mlp.w_up (L, 4D, D), blocks.mlp.w_down (L, D, 4D)
 
-The serving path is `decode_step_paged` + `prefill_paged_chunk` over a
+The serving path is `decode_step_paged` + `prefill_paged_chunk`, plus
+`verify_step_paged` for speculative decoding, over a bf16, f32 or int8
 `PagedKVCache`, updated IN PLACE (the JAX code donates the pool to its
 jitted step and gets a new one back; here the pool tensors are written
 directly and the same cache object is returned).
@@ -45,10 +46,11 @@ import torch
 import torch.nn.functional as F
 
 from midgpt_tpu_torch.device import DeviceLike, resolve_device
-from midgpt_tpu_torch.kernels.decode_attention import paged_attention
+from midgpt_tpu_torch.kernels.decode_attention import paged_attention, paged_verify_attention
 from midgpt_tpu_torch.ops.attention import multihead_attention
 from midgpt_tpu_torch.ops.dropout import dropout
 from midgpt_tpu_torch.ops.norms import head_layer_norm, rms_norm
+from midgpt_tpu_torch.ops.quant import dequantize_q8, quantize_q8
 from midgpt_tpu_torch.ops.rope import (
     apply_rope_bthc,
     apply_rope_positions,
@@ -161,12 +163,21 @@ class PagedKVCache:
     it. Page 0 is the SINK: never allocated, it is what unallocated
     page-table entries (zeros) point at, so inactive and short slots READ
     it — always masked. Writes from inactive slots and pad positions are
-    masked out explicitly (`decode_step_paged`, `prefill_paged_chunk`): an
-    out-of-range page index, which XLA's scatter drops silently, would
-    raise here. bf16 and f32 pools; int8 pages are not ported yet."""
+    masked out explicitly (`decode_step_paged`, `prefill_paged_chunk`,
+    `verify_step_paged`): an out-of-range page index, which XLA's scatter
+    drops silently, would raise here.
+
+    bf16 and f32 pools, and the **int8 storage mode** (dtype=torch.int8):
+    pages hold int8 codes with f32 absmax scales in the side buffers
+    `k_scale`/`v_scale` of shape (n_layer, num_pages, n_head, page_size) —
+    one scale per written K/V vector per head (ops/quant.py), quantized on
+    every write and dequantized by every read. In bf16/f32 mode both scale
+    fields are None."""
 
     k: Tensor  # (n_layer, n_head, num_pages, page_size, head_dim)
     v: Tensor
+    k_scale: tp.Optional[Tensor] = None  # (n_layer, num_pages, n_head, page_size) f32, int8 mode
+    v_scale: tp.Optional[Tensor] = None
 
     @staticmethod
     def init(
@@ -177,17 +188,30 @@ class PagedKVCache:
         *,
         device: DeviceLike = None,
     ) -> "PagedKVCache":
-        if dtype not in (torch.bfloat16, torch.float32):
-            raise NotImplementedError(
-                f"paged cache dtype {dtype} is not ported (bf16 and f32 are; "
-                "int8 pages: ROADMAP.md port queue: template specs)"
-            )
+        if dtype not in (torch.bfloat16, torch.float32, torch.int8):
+            raise NotImplementedError(f"paged cache dtype {dtype}: bf16, f32 and int8 are ported")
         shape = (config.n_layer, config.n_head, num_pages, page_size, config.head_dim)
         dev = resolve_device(device)
+        scales = {}
+        if dtype == torch.int8:
+            sshape = (config.n_layer, num_pages, config.n_head, page_size)
+            scales = {n: torch.zeros(sshape, dtype=torch.float32, device=dev) for n in ("k_scale", "v_scale")}
         return PagedKVCache(
             k=torch.zeros(shape, dtype=dtype, device=dev),
             v=torch.zeros(shape, dtype=dtype, device=dev),
+            **scales,
         )
+
+    @staticmethod
+    def page_bytes(config: GPTConfig, page_size: int, dtype: torch.dtype) -> int:
+        """K+V bytes of ONE page across all layers and heads, without the
+        int8 scale side buffers (`nbytes` counts those)."""
+        per_tok = config.n_layer * config.n_head * config.head_dim
+        return 2 * per_tok * page_size * torch.empty((), dtype=dtype).element_size()
+
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype == torch.int8
 
     @property
     def page_size(self) -> int:
@@ -199,30 +223,57 @@ class PagedKVCache:
 
     @property
     def nbytes(self) -> int:
-        return self.k.numel() * self.k.element_size() * 2
+        """Device bytes of the pools and, in int8 mode, their scales."""
+        tensors = [self.k, self.v] + ([self.k_scale, self.v_scale] if self.quantized else [])
+        return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _paged_write(
     pool: Tensor,  # (L, H, P, ps, C) — K or V pages
+    scales: tp.Optional[Tensor],  # (L, P, H, ps) f32, or None (bf16/f32 mode)
     i: int,  # layer index
     write_pages: Tensor,  # (N,) physical page per written position
     offs: Tensor,  # (N,) in-page offset per written position
     val: Tensor,  # (N, H, C) — the K/V vectors to store
 ) -> None:
-    """ONE column scatter into the paged pool, in place. Callers pass only
-    the positions that really write (active slots, real prompt tokens)."""
-    pool[i][:, write_pages, offs] = val.transpose(0, 1).to(pool.dtype)
+    """ONE column scatter into the paged pool, in place, quantizing iff
+    `scales` is present. Callers pass only the positions that really write
+    (active slots, real prompt tokens).
+
+    torch keeps ADJACENT advanced indices in place and puts SEPARATED ones
+    first: the pool index [:, write_pages, offs] is (H, N, C) — hence the
+    transpose of the (N, H, C) value — while the scale index
+    [write_pages, :, offs] is (N, H), the quantizer's scale shape as it
+    comes."""
+    if scales is None:
+        pool[i][:, write_pages, offs] = val.transpose(0, 1).to(pool.dtype)
+        return
+    q, s = quantize_q8(val)  # (N, H, C) int8, (N, H) f32
+    pool[i][:, write_pages, offs] = q.transpose(0, 1)
+    scales[i][write_pages, :, offs] = s
 
 
-def _layer_pages(pool: Tensor, i: int) -> Tensor:
-    """Layer i's pages (H, P, ps, C) — a view, no copy."""
-    return pool[i]
+def _layer_pages(pool: Tensor, scales: tp.Optional[Tensor], i: int) -> tp.Tuple[Tensor, tp.Optional[Tensor]]:
+    """Layer i's pages (H, P, ps, C) and scales (P, H, ps) | None — views."""
+    return pool[i], None if scales is None else scales[i]
 
 
-def _gather_layer_kv(pool_layer: Tensor, page_rows: Tensor) -> Tensor:
-    """Gather one slot's pages contiguous -> (H, MP*ps, C)."""
+def _gather_layer_kv(
+    pool_layer: Tensor,  # (H, P, ps, C)
+    scales_layer: tp.Optional[Tensor],  # (P, H, ps) f32 | None
+    page_rows: Tensor,  # (MP,) one slot's logical -> physical pages
+    out_dtype: torch.dtype,
+) -> Tensor:
+    """Gather one slot's pages contiguous -> (H, MP*ps, C), dequantizing
+    after the gather (cast to `out_dtype`) in int8 mode."""
     H, _, ps, C = pool_layer.shape
-    return pool_layer[:, page_rows.long()].reshape(H, page_rows.shape[0] * ps, C)
+    rows = page_rows.long()
+    S = page_rows.shape[0] * ps
+    g = pool_layer[:, rows].reshape(H, S, C)
+    if scales_layer is None:
+        return g
+    sg = scales_layer[rows].transpose(0, 1).reshape(H, S)  # (MP, H, ps) -> (H, S)
+    return dequantize_q8(g, sg).to(out_dtype)
 
 
 def _linear_init(gen: torch.Generator, out_features: int, in_features: int) -> Tensor:
@@ -403,12 +454,15 @@ class GPT:
     ) -> tp.Tuple[Tensor, PagedKVCache]:
         """One decode step for B independent requests at B positions.
 
-        Slot b writes its token's K/V at logical position lengths[b] and
-        attends to its lengths[b] + 1 valid tokens through the page table.
-        Inactive slots write NOTHING (their page rows may hold real
-        prefilled K/V; the writes are masked out here) and attend to exactly
-        one key, count = 1 on the sink page, producing finite logits the
-        scheduler ignores. The pool is updated in place.
+        Slot b writes its token's K/V at logical position lengths[b]
+        (quantized in int8 mode) and attends to its lengths[b] + 1 valid
+        tokens through the page table. Inactive slots write NOTHING (their
+        page rows may hold real prefilled K/V; the writes are masked out
+        here) and attend to exactly one key, count = 1 on the sink page,
+        producing finite logits the scheduler ignores. The pool is updated
+        in place. A layer-prefix self-draft (sampling/spec.py) runs this
+        with its n_layer-layer config against the target's whole pool: layer
+        i of the draft is layer i of the pool.
 
         Returns (logits (B, V), cache)."""
         C, ps = config.head_dim, cache.page_size
@@ -428,15 +482,77 @@ class GPT:
             q = apply_rope_positions(q, sin, cos, positions, style=config.rope_style)
             k = apply_rope_positions(k, sin, cos, positions, style=config.rope_style)
             q1, k1, v1 = q[:, 0], k[:, 0], v[:, 0]  # (B, H, C)
-            _paged_write(cache.k, i, write_pages, offs, k1[sel])
-            _paged_write(cache.v, i, write_pages, offs, v1[sel])
+            _paged_write(cache.k, cache.k_scale, i, write_pages, offs, k1[sel])
+            _paged_write(cache.v, cache.v_scale, i, write_pages, offs, v1[sel])
+            kp, ksp = _layer_pages(cache.k, cache.k_scale, i)
+            vp, vsp = _layer_pages(cache.v, cache.v_scale, i)
             att = paged_attention(
-                q1, _layer_pages(cache.k, i), _layer_pages(cache.v, i),
-                page_table, attn_counts, impl=attn_impl, split_k=split_k,
+                q1, kp, vp, page_table, attn_counts, impl=attn_impl,
+                k_scale=ksp, v_scale=vsp, split_k=split_k,
             )  # (B, H, C)
             x = GPT._attn_out_and_mlp(config, blk, x, att[:, None].to(x.dtype))
         x = rms_norm(x, eps=1e-5)
         return (x @ params["lm_head"].T)[:, 0], cache
+
+    @staticmethod
+    def verify_step_paged(
+        config: GPTConfig,
+        params: Params,
+        tokens: Tensor,  # (B, K1) int — [t_last, d_1, .., d_k] per slot
+        cache: PagedKVCache,
+        page_table: Tensor,  # (B, max_pages) int32
+        lengths: Tensor,  # (B,) int32 — tokens already in slot b's cache
+        active: Tensor,  # (B,) bool
+        attn_impl: str = "auto",
+        split_k: int = 1,  # key-sequence partitions per slot
+    ) -> tp.Tuple[Tensor, PagedKVCache]:
+        """Score K1 = k+1 candidate tokens per slot in ONE batched paged
+        forward — the target side of speculative decoding (sampling/spec.py).
+
+        Slot b's token t sits at absolute position lengths[b] + t: its K/V
+        is written there (quantized in int8 mode), all K1 columns of a layer
+        before that layer's attention reads them, and its query attends to
+        lengths[b] + t + 1 keys through the page table, so the per-row count
+        IS the causal mask (kernels/decode_attention.py
+        paged_verify_attention). Row t's logits score the token at position
+        lengths[b] + t + 1: row 0 judges d_1 and row K1-1 supplies the bonus
+        distribution. Inactive slots write nothing and attend to the single
+        sink key. Same per-layer op order as decode_step_paged.
+
+        Precondition (the scheduler's): lengths[b] + K1 <= block_size and
+        the page table covers position lengths[b] + K1 - 1 for active slots.
+
+        Returns (logits (B, K1, V), cache with the active slots' columns
+        written)."""
+        B, K1 = tokens.shape
+        C, ps = config.head_dim, cache.page_size
+        t_idx = torch.arange(K1, device=tokens.device)
+        positions = lengths.long()[:, None] + t_idx[None, :]  # (B, K1)
+        attn_counts = torch.clamp_min(active.to(torch.int32)[:, None] * (positions.to(torch.int32) + 1), 1)
+        # Only active slots write (one host sync per forward to find them).
+        sel = torch.nonzero(active).squeeze(1)
+        pos_sel = positions[sel]  # (N, K1)
+        write_pages = page_table[sel[:, None], pos_sel // ps].long().reshape(-1)
+        offs = (pos_sel % ps).reshape(-1)
+        x = params["wte"][tokens.long()]  # (B, K1, D)
+        sin, cos = rope_table(C, config.block_size, device=x.device)
+        for i in range(config.n_layer):
+            blk = _block(params, i)
+            q, k, v = GPT._project_qkv(config, blk, rms_norm(x))
+            q = apply_rope_positions(q, sin, cos, positions, style=config.rope_style)
+            k = apply_rope_positions(k, sin, cos, positions, style=config.rope_style)
+            H = k.shape[2]
+            _paged_write(cache.k, cache.k_scale, i, write_pages, offs, k[sel].reshape(-1, H, C))
+            _paged_write(cache.v, cache.v_scale, i, write_pages, offs, v[sel].reshape(-1, H, C))
+            kp, ksp = _layer_pages(cache.k, cache.k_scale, i)
+            vp, vsp = _layer_pages(cache.v, cache.v_scale, i)
+            att = paged_verify_attention(
+                q, kp, vp, page_table, attn_counts, impl=attn_impl,
+                k_scale=ksp, v_scale=vsp, split_k=split_k,
+            )  # (B, K1, H, C)
+            x = GPT._attn_out_and_mlp(config, blk, x, att.to(x.dtype))
+        x = rms_norm(x, eps=1e-5)
+        return x @ params["lm_head"].T, cache
 
     @staticmethod
     def prefill_paged_chunk(
@@ -453,7 +569,8 @@ class GPT:
         the slot already holds. Pad positions write nothing (masked out
         here); their logits are garbage the caller ignores. Attention is
         the gather lowering: the slot's pages gathered contiguous once per
-        layer, every chunk row masked to its own count.
+        layer (dequantized to the activations' dtype in int8 mode), every
+        chunk row masked to its own count.
 
         Returns (logits (1, T_c, V), cache)."""
         T_c = tokens.shape[1]
@@ -472,10 +589,10 @@ class GPT:
             q, k, v = GPT._project_qkv(config, blk, rms_norm(x))
             qr = apply_rope_bthc(q, sin, cos, positions, style=config.rope_style)
             kr = apply_rope_bthc(k, sin, cos, positions, style=config.rope_style)
-            _paged_write(cache.k, i, write_pages, offs, kr[0, :n_valid])
-            _paged_write(cache.v, i, write_pages, offs, v[0, :n_valid])
-            kg = _gather_layer_kv(_layer_pages(cache.k, i), page_table[0])
-            vg = _gather_layer_kv(_layer_pages(cache.v, i), page_table[0])
+            _paged_write(cache.k, cache.k_scale, i, write_pages, offs, kr[0, :n_valid])
+            _paged_write(cache.v, cache.v_scale, i, write_pages, offs, v[0, :n_valid])
+            kg = _gather_layer_kv(*_layer_pages(cache.k, cache.k_scale, i), page_table[0], x.dtype)
+            vg = _gather_layer_kv(*_layer_pages(cache.v, cache.v_scale, i), page_table[0], x.dtype)
             S = kg.shape[1]
             scores = torch.einsum("thc,hsc->hts", qr[0].to(kg.dtype), kg)
             ok = torch.arange(S, device=dev)[None, None, :] < attn_counts[None, :, None]

@@ -3,7 +3,8 @@
 
     python -m midgpt_tpu_torch.sample --config=openwebtext --start_ids=50256 \\
         [--seed=0] [--num_samples=4] [--max_new_tokens=64] [--max_slots=4] \\
-        [--temperature=0.8] [--top_k=K] [--top_p=P] [--device=cuda]
+        [--temperature=0.8] [--top_k=K] [--top_p=P] [--device=cuda] \\
+        [--spec_layers=N] [--kv_dtype={bf16,int8}] [--draft_ckpt=<run>]
     python -m midgpt_tpu_torch.sample --ckpt_dir=<run> ...
 
 `--config` serves random weights made from `--seed` (the way
@@ -13,6 +14,13 @@ layout (midgpt_tpu_torch/convert.py). Each sample is an independent
 request. Prompts use the dataset's char codec when the config's
 `data_dir/meta.pkl` is a char table, else `--start_ids` (comma-separated
 token ids). Runs on CUDA unless `--device cpu` is given.
+
+Speculative decoding and the paged cache's dtype follow the config
+(`spec_layers`, `spec_k_max`, `spec_k_min`, `spec_adapt`,
+`kv_cache_dtype`), as JAX's `sample.py --engine=continuous` does:
+`local_text_124m` ships spec_layers=4, so it is served with a 4-layer
+self-draft unless `--spec_layers 0` turns it off. `--draft_ckpt` takes a
+separate draft model's run directory instead.
 """
 
 from __future__ import annotations
@@ -38,7 +46,24 @@ def main(argv=None) -> None:
     parser.add_argument("--top_p", type=float, default=None, help="nucleus sampling mass")
     parser.add_argument("--max_slots", type=int, default=4, help="concurrent decode slots")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument(
+        "--spec_layers", type=int, default=None,
+        help="speculative decoding with a SELF-DRAFT of this many leading layers "
+        "(shared embeddings/lm_head, sampling/spec.py). Default: the config's "
+        "spec_layers; 0 turns it off",
+    )
+    parser.add_argument(
+        "--kv_dtype", choices=("bf16", "int8"), default=None,
+        help="paged KV cache storage dtype. Default: the config's kv_cache_dtype",
+    )
+    parser.add_argument(
+        "--draft_ckpt", type=str, default=None,
+        help="speculative decoding with a SEPARATE draft run dir (config.json + "
+        "params.npz; same vocab and block_size); excludes --spec_layers",
+    )
     args = parser.parse_args(argv)
+    if args.draft_ckpt is not None and args.spec_layers:
+        parser.error("--draft_ckpt and --spec_layers are mutually exclusive")
 
     import numpy as np
     import torch
@@ -48,18 +73,37 @@ def main(argv=None) -> None:
     from midgpt_tpu_torch.device import resolve_device
     from midgpt_tpu_torch.models.gpt import GPT
     from midgpt_tpu_torch.sampling.serve import ServeEngine
+    from midgpt_tpu_torch.sampling.spec import self_draft
     from midgpt_tpu_torch.utils.precision import cast_floating
+
+    def read_run(run_dir):
+        with open(os.path.join(run_dir, "config.json")) as f:
+            cfg = from_json(f.read())
+        return cfg, load_npz(os.path.join(run_dir, "params.npz"), device=device)
 
     device = resolve_device(args.device)
     if args.config is not None:
         config = load_config(args.config)
         params = GPT.init(config.model_config, args.seed, device=device)
     else:
-        with open(os.path.join(args.ckpt_dir, "config.json")) as f:
-            config = from_json(f.read())
-        params = load_npz(os.path.join(args.ckpt_dir, "params.npz"), device=device)
-    params = cast_floating(params, getattr(torch, config.compute_dtype))
+        config, params = read_run(args.ckpt_dir)
+    compute_dtype = getattr(torch, config.compute_dtype)
+    params = cast_floating(params, compute_dtype)
     model_cfg = config.model_config
+
+    draft_config = draft_params = None
+    draft_shares_cache = False
+    spec_layers = config.spec_layers if args.spec_layers is None else args.spec_layers
+    if args.draft_ckpt is not None:
+        draft_exp, draft_params = read_run(args.draft_ckpt)
+        draft_config = draft_exp.model_config
+        draft_params = cast_floating(draft_params, compute_dtype)
+        print(f"draft model: {args.draft_ckpt}")
+    elif spec_layers:
+        draft_config, draft_params = self_draft(model_cfg, params, spec_layers)
+        draft_shares_cache = True  # the prefix layers ride the target pool
+        print(f"self-draft: first {spec_layers}/{model_cfg.n_layer} layers")
+    kv_dtype = config.kv_cache_dtype if args.kv_dtype is None else args.kv_dtype
 
     meta_path = os.path.join(config.data_dir, "meta.pkl")
     meta = None
@@ -83,12 +127,18 @@ def main(argv=None) -> None:
         model_cfg,
         params,
         max_slots=args.max_slots,
-        cache_dtype=config.kv_cache_dtype,
+        cache_dtype=kv_dtype,
         temperature=args.temperature,
         top_k=args.top_k,
         top_p=args.top_p,
         seed=args.seed,
         device=device,
+        draft_params=draft_params,
+        draft_config=draft_config,
+        draft_shares_cache=draft_shares_cache,
+        spec_k_max=config.spec_k_max,
+        spec_k_min=config.spec_k_min,
+        spec_adapt=config.spec_adapt,
     )
     prompt = np.asarray(start_ids, np.int32)
     uids = [eng.submit(prompt, args.max_new_tokens) for _ in range(args.num_samples)]
@@ -102,8 +152,14 @@ def main(argv=None) -> None:
     print(
         f"{len(uids)} requests on {device}: {st['decode_tokens']} decode tokens "
         f"in {st['decode_seconds']:.3f} s of decode rounds, {wall:.3f} s wall; "
-        f"preemptions {st['preemptions']}"
+        f"preemptions {st['preemptions']}; kv cache {kv_dtype}"
     )
+    if draft_params is not None:
+        s = eng.spec_stats()
+        print(
+            f"speculative: {s['rounds']} verify rounds, accept_rate {s['accept_rate']:.2f}, "
+            f"tokens/verify {s['tokens_per_verify']:.2f}"
+        )
 
 
 if __name__ == "__main__":

@@ -124,10 +124,21 @@ def test_normalize_split_k():
 
 
 def test_unported_specs_raise():
-    q = torch.zeros(1, 2, 2, C, device="meta")  # R = 2 rows: the verify spec
-    pages = torch.zeros(2, 4, PS, C, device="meta")
-    table = torch.zeros(1, 2, dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError, match="verify"):
-        tpl._check_decode_args(q, pages, pages, table, torch.zeros(1, 2, dtype=torch.int32, device="meta"))
+    """The GQA fold and the sliding window are the template's specs still
+    to be ported: the kernel's argument check, the plain version and the
+    gather refuse fewer pool heads than query heads, and GPTConfig refuses
+    a window. The verify and int8 specs are ported (tests/test_torch_spec.py)."""
+    from midgpt_tpu_torch.models.gpt import GPTConfig
+
+    q = torch.zeros(1, 2, 2, C)  # 2 query heads, 2 rows
+    pages = torch.zeros(1, 4, PS, C)  # 1 pool head: GQA
+    table = torch.zeros(1, 2, dtype=torch.int32)
+    counts = torch.ones(1, 2, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="GQA"):
-        tpl._check_decode_args(q[:, :, :1], pages[:1], pages[:1], table, torch.zeros(1, 1, dtype=torch.int32, device="meta"))
+        tpl._check_args(q, pages, pages, table, counts, None, None)
+    with pytest.raises(NotImplementedError, match="GQA"):
+        tpl.paged_attention_template(q, pages, pages, table, counts)
+    with pytest.raises(NotImplementedError, match="GQA"):
+        t_gather(q[:, :, 0], pages, pages, table, counts[:, 0])
+    with pytest.raises(NotImplementedError, match="sliding_window"):
+        GPTConfig(block_size=64, vocab_size=96, n_layer=2, n_head=2, n_embd=32, sliding_window=16)

@@ -107,8 +107,10 @@ def test_engine_validation():
     params = {}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(cfg, params, device=CPU, prefix_cache=True)
-    with pytest.raises(NotImplementedError, match="int8"):
-        ServeEngine(cfg, params, device=CPU, cache_dtype="int8")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServeEngine(cfg, params, device=CPU, overlap="double")
+    with pytest.raises(ValueError, match="unknown cache dtype"):
+        ServeEngine(cfg, params, device=CPU, cache_dtype="int4")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ServeEngine(cfg, params)  # no device given: CUDA or nothing
