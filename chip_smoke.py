@@ -25,6 +25,16 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
         its int8 spec (int8 pools with f32 scales; decode and verify R = 5)
         at the phase-3a shape, bf16 and f32 queries, split 1 and 2, and one
         verify launch row by row against decode launches (bit for bit);
+     d. the template's GQA fold and sliding window at the serving main
+        path's GQA geometry (the phase-3a slots and counts, 12 query heads
+        over 3 K/V heads of 64) and at llama7b_long's (32 query heads over 8
+        K/V heads of 128, counts up to 4096 in a 512-page bucket): decode and
+        verify (R 5 and 9, i.e. 20 and 36 folded rows per K/V head), with no
+        window and with a 256-token window + 4 sinks, bf16 queries over bf16
+        and int8 pools and f32 queries over f32, bf16 and int8 pools, split
+        1 and 2, each launch counted under its spec; then, bit for bit, a window at least every count against
+        no window, and every row of a GQA verify launch against the GQA
+        decode launch at that row's count;
   4. serving main path: the port's ServeEngine at openwebtext width (GPT-2
      small, random weights from a seed, bf16) serves a mixed trace with
      max_slots=4 — short requests (split-1 rounds) and one longer than 512
@@ -54,6 +64,22 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      the top-2 logit gap there (dense f32 forward) and fails unless the gap
      is under 1e-5 relative (a last-bit difference of cuBLAS between the
      verify forward's k+1 rows per slot and decode's one);
+  5c. the GQA and sliding-window slice: the launcher trains local_text_124m
+     at full width as `gqa` (`--set model_config.n_kv_heads=3`, phase 6's
+     cuts; flash launches counted as there) and as `gqa_window` (plus a
+     256-token window, 4 sinks and blockwise attention; 2 steps), every
+     loss finite, each run's params.npz carrying wkv. `sample.main
+     --ckpt_dir` serves each run (gqa: its config's self-draft, which must
+     launch only the GQA verify and decode specs; gqa_window with
+     --spec_layers 0: only the windowed GQA decode spec). The gqa run's
+     weights serve phase 4's trace with the self-draft (verify launches =
+     n_layer x rounds); the gqa_window run's weights serve it in bf16
+     without a draft: launches = n_layer x decode steps, all of the
+     windowed GQA decode spec at splits 1 and 2, pages reclaimed behind
+     the window (> 0) and no slot ever holding more than sink pages +
+     window pages + 2; then in f32 (kernel streams == gather streams), with
+     the self-draft and on an int8 pool, each launching only its windowed
+     GQA specs;
   6. training main path: `python -m midgpt_tpu_torch.launch
      --config=local_text_124m` (its `main`, in this process) at full width
      — 12 x 768, 12 heads, T 1024, microbatch 16, vocab 50304, bf16
@@ -81,8 +107,12 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      never calls, torch's scaled_dot_product_attention forward and
      backward; the verify (R 5) and int8 (decode, verify R 5) kernels as
      the decode kernel, beside their plain versions, their bounds and SDPA
-     over pre-gathered K/V with an R-row mask. The "kernels" line carries
-     the main paths' numbers.
+     over pre-gathered K/V with an R-row mask; the GQA decode, GQA verify
+     (R 5) and windowed GQA decode specs at the main path's GQA geometry
+     the same way (bound: the K/V of the keys some row sees, at the K/V
+     head count; SDPA over K/V gathered and repeated to the query heads,
+     the window in its mask). The "kernels" line carries the main paths'
+     numbers.
 
 The last lines are the card's name and power limit as nvidia-smi prints
 them, one JSON object with a "kernels" list, and the contract line
@@ -131,6 +161,20 @@ TRAIN_CUTS = {"g_accum_iters": 2, "max_steps": 4, "eval_steps": 1, "eval_interva
 # parity tolerances (printed): f32 losses relative, f32 update relative
 # norm, bf16 loss relative (dense attention rounds its scores to bf16)
 PARITY_TOL = {"f32_loss": 1e-5, "f32_update": 1e-3, "bf16_loss": 1e-2}
+# phase 3d: (slots, query heads, K/V heads, head_dim, bucket, counts) of the
+# serving main path's GQA variant and of llama7b_long's attention
+GQA_GEOMETRIES = {
+    "main": (SLOTS, HEADS, 3, HEAD_DIM, BUCKET, COUNTS),
+    "llama7b_long": (SLOTS, 32, 8, 128, 512, [4096, 2900, 1200, 1]),
+}
+GQA_ROWS = (1, 5, 9)  # decode, then verify at spec_k_max 4 and 8 (20 and 36 folded rows)
+WINDOW, SINKS = 256, 4  # the gqa_window variant's sliding_window and attn_sinks
+# phase 5c: the slice's two variants of local_text_124m, as launcher --set overrides
+GQA_VARIANTS = {
+    "gqa": {"model_config.n_kv_heads": 3},
+    "gqa_window": {"model_config.n_kv_heads": 3, "model_config.sliding_window": WINDOW,
+                   "model_config.attn_sinks": SINKS, "model_config.attn_impl": "blockwise"},
+}
 
 
 def card_line() -> str:
@@ -330,7 +374,8 @@ def trace(vocab: int):
     return [(rng.integers(0, vocab, n).astype(np.int32), m) for n, m in shape]
 
 
-def serve(model_cfg, params, dtype, attn_impl="auto", **engine_kw):
+def serve(model_cfg, params, dtype, attn_impl="auto", watch=None, **engine_kw):
+    """Serve the trace; `watch(eng)`, if given, runs after every step."""
     from midgpt_tpu_torch.sampling.serve import ServeEngine
 
     eng = ServeEngine(
@@ -341,7 +386,11 @@ def serve(model_cfg, params, dtype, attn_impl="auto", **engine_kw):
     reqs = trace(model_cfg.vocab_size)
     uids = [eng.submit(p, m) for p, m in reqs]
     t0 = time.perf_counter()
-    done = eng.run()
+    while not eng.idle:
+        eng.step()
+        if watch is not None:
+            watch(eng)
+    done = eng.finished
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     streams = []
@@ -488,11 +537,11 @@ def spec_engine_kw(model_cfg, params):
                 spec_k_max=base.spec_k_max, spec_k_min=base.spec_k_min, spec_adapt=base.spec_adapt)
 
 
-def spec_launches(label, stats, launches, n_layer, int8):
+def spec_launches(label, stats, launches, n_layer, int8, want=None):
     """Phase 5b: every verify round launched the verify spec once per layer,
     every draft step the decode spec once per draft layer (and a plain
     decode step, if the engine fell back to one, once per layer); an int8
-    pool launched only int8 specs."""
+    pool launched only int8 specs (`want`, if given: exactly these specs)."""
     sp = stats["spec"]
     verify = sum(n for (spec, _), n in launches.items() if spec.endswith("verify"))
     decode = sum(n for (spec, _), n in launches.items() if spec.endswith("decode"))
@@ -502,7 +551,8 @@ def spec_launches(label, stats, launches, n_layer, int8):
         raise SystemExit(f"{label}: verify launches != n_layer x verify rounds: a verify forward bypassed the kernel")
     if decode != SPEC_DRAFT_LAYERS * sp["draft_steps"] + n_layer * stats["decode_steps"]:
         raise SystemExit(f"{label}: decode-spec launches != {SPEC_DRAFT_LAYERS} x draft steps (+ plain decode)")
-    want = {"int8-decode", "int8-verify"} if int8 else {"decode", "verify"}
+    if want is None:
+        want = {"int8-decode", "int8-verify"} if int8 else {"decode", "verify"}
     if {spec for spec, _ in launches} != want:
         raise SystemExit(f"{label}: launched specs {sorted({s for s, _ in launches})}, want {sorted(want)}")
 
@@ -595,6 +645,319 @@ def spec_serving(card, params32, params16, plain32_streams):
     compare_streams("f32 speculative (target as draft) vs plain decode (kernel)", same_streams, plain32_streams,
                     scfg, params32)
     return out
+
+
+# ---------------------------------------------------------------- GQA fold and sliding window
+
+
+def gqa_problem(geometry, qdtype, R, pool, seed=0):
+    """Phase-3d inputs at one GQA_GEOMETRIES entry: q (B, H_q, R, C) over
+    pools of dtype `pool` at H_kv heads (int8: codes with their (num_pages,
+    H_kv, page_size) f32 scales, quantized from the same values), a shuffled
+    page table whose unused entries point at the sink page 0, and R rows per
+    slot ending at the geometry's counts (the count-1 slot inactive: 1 key
+    on every row)."""
+    from midgpt_tpu_torch.ops.quant import quantize_q8
+
+    B, HQ, HKV, C, bucket, counts = GQA_GEOMETRIES[geometry]
+    g = torch.Generator().manual_seed(seed)
+    need = [-(-c // PAGE) for c in counts]
+    num_pages = 1 + sum(need)
+    perm = (torch.randperm(num_pages - 1, generator=g) + 1).tolist()
+    table = torch.zeros(B, bucket, dtype=torch.int32)
+    for b, n in enumerate(need):
+        if counts[b] > 1:
+            table[b, :n] = torch.tensor(perm[:n], dtype=torch.int32)
+            perm = perm[n:]
+    q = torch.randn(B, HQ, R, C, generator=g).to("cuda", qdtype)
+    k = torch.randn(HKV, num_pages, PAGE, C, generator=g).cuda()
+    v = torch.randn(HKV, num_pages, PAGE, C, generator=g).cuda()
+    cnt = torch.tensor(counts, dtype=torch.int32, device="cuda")
+    rows = torch.where(cnt[:, None] > 1, cnt[:, None] - (R - 1) + torch.arange(R, device="cuda"), 1)
+    rows = rows.to(torch.int32)
+    if pool == torch.int8:
+        (k, ks), (v, vs) = (quantize_q8(x.transpose(0, 1)) for x in (k, v))  # per (page, head, position)
+        return q, k.transpose(0, 1).contiguous(), v.transpose(0, 1).contiguous(), ks, vs, table.cuda(), rows
+    return q, k.to(pool), v.to(pool), None, None, table.cuda(), rows
+
+
+def window_kw(window):
+    return dict(sliding_window=window, attn_sinks=SINKS if window else 0)
+
+
+def check_gqa_kernels():
+    """Phase 3d: the GQA and window specs of the kernel vs the plain version
+    on the same inputs, each launch counted under its spec: bf16 queries
+    over bf16 and int8 pools, f32 queries over f32, bf16 and int8 pools.
+    The tolerance follows the rounding points: the bf16 one wherever the
+    query or the pool is bf16 (p is rounded to the pool's dtype, so an f32
+    query over bf16 pools has a bf16 rounding of p that an f32 sum taken
+    in another order can move by one ulp), the f32 one otherwise (int8
+    pools keep p in f32). Returns {(geometry, qdtype, R, pool, window,
+    split): max |err|}."""
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+
+    errs = {}
+    pools = {torch.bfloat16: (torch.bfloat16, torch.int8), torch.float32: (torch.float32, torch.bfloat16, torch.int8)}
+    for geometry, (B, HQ, HKV, C, bucket, counts) in GQA_GEOMETRIES.items():
+        for qdt, qpools in pools.items():
+            for R in GQA_ROWS:
+                for pool in qpools:
+                    int8 = pool == torch.int8
+                    q, k, v, ks, vs, table, rows = gqa_problem(geometry, qdt, R, pool)
+                    tol, cell = TOL[torch.bfloat16 if torch.bfloat16 in (qdt, pool) else torch.float32], []
+                    for window in (0, WINDOW):
+                        for s in (1, 2):
+                            key = (tpl.spec_name(R, int8, HQ // HKV, window), s)
+                            before = tpl.LAUNCHES.by_variant[key]
+                            got = tpl.paged_attention_template(q, k, v, table, rows, ks, vs, split_k=s,
+                                                               **window_kw(window))
+                            torch.cuda.synchronize()
+                            want = tpl.paged_attention_template_plain(q, k, v, table, rows, ks, vs, split_k=s,
+                                                                      **window_kw(window))
+                            err = (got.float() - want.float()).abs().max().item()
+                            ok = (torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+                                  and got.dtype == qdt and got.shape == q.shape and bool(torch.isfinite(got).all())
+                                  and tpl.LAUNCHES.by_variant[key] == before + 1)
+                            errs[(geometry, qdt, R, pool, window, s)] = err
+                            cell.append(f"{key[0]} split {s} {err:.3e}{'' if ok else ' FAIL'}")
+                            if not ok:
+                                print(f"kernel check paged GQA {geometry}: " + "; ".join(cell))
+                                raise SystemExit(f"paged {key[0]} kernel disagrees with its plain version or was "
+                                                 f"not counted ({geometry}, R {R}, {qdt}, split {s})")
+                    print(f"kernel check paged GQA {geometry} ({HQ} query heads over {HKV} K/V heads of {C}, "
+                          f"R={R}, {HQ // HKV * R} folded rows) {str(qdt)[6:]} query over {str(pool)[6:]} "
+                          f"pools, window {WINDOW} + {SINKS} sinks or none: " + "; ".join(cell) + f" (tol {tol:g} "
+                          "abs+rel) ok")
+                    del q, k, v, ks, vs
+            free_memory()
+    return errs
+
+
+def check_gqa_bitwise(geometry, split_k, R=9):
+    """Phase 3d, bit for bit: a window at least every count gives exactly
+    the windowless output; every row of a GQA verify launch (without and
+    with the window) equals the GQA decode launch at that row's count."""
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+
+    bucket = GQA_GEOMETRIES[geometry][4]
+    q, k, v, _, _, table, rows = gqa_problem(geometry, torch.bfloat16, R, torch.bfloat16, seed=7)
+    base = tpl.paged_attention_template(q, k, v, table, rows, split_k=split_k)
+    wide = tpl.paged_attention_template(q, k, v, table, rows, split_k=split_k, sliding_window=bucket * PAGE,
+                                        attn_sinks=SINKS)
+    if not torch.equal(wide, base):
+        raise SystemExit(f"{geometry}: a window past every count changed the output (split {split_k})")
+    for window in (0, WINDOW):
+        out = tpl.paged_attention_template(q, k, v, table, rows, split_k=split_k, **window_kw(window))
+        for t in range(R):
+            one = tpl.paged_attention_template(q[:, :, t : t + 1].contiguous(), k, v, table,
+                                               rows[:, t : t + 1].contiguous(), split_k=split_k, **window_kw(window))
+            if not torch.equal(out[:, :, t], one[:, :, 0]):
+                raise SystemExit(f"{geometry}: GQA verify row {t} differs from the GQA decode launch at its count "
+                                 f"(window {window}, split {split_k})")
+    print(f"kernel check GQA {geometry} split_k={split_k}: window {bucket * PAGE} (past every count) == no window, "
+          f"and GQA verify R={R} rows == GQA decode launches (no window, window {WINDOW} + {SINKS} sinks), "
+          "bit for bit: ok")
+
+
+def train_variant(data_dir: Path, rundir: Path, variant: str, card: str):
+    """Phase 5c: the launcher trains local_text_124m's `variant`
+    (GQA_VARIANTS) into `rundir` at full width, flash counters zeroed just
+    before and read just after. gqa: phase 6's cuts and launch counts;
+    gqa_window (blockwise attention: no flash launch) 2 steps. Every loss
+    must be finite, and params.npz must hold the GQA layout. Returns the
+    flash launches."""
+    from midgpt_tpu_torch import launch
+
+    cuts = dict(TRAIN_CUTS, max_steps=2) if variant == "gqa_window" else TRAIN_CUTS
+    counters = flash_counters()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    launch.main(["--config=local_text_124m", f"--rundir={rundir}",
+                 *sets({"data_dir": data_dir, "log_interval": 1, **cuts, **GQA_VARIANTS[variant]})])
+    torch.cuda.synchronize()
+    totals = {n: c.count for n, c in counters.items()}
+    mc = read_run(rundir, params=False)
+    micro = cuts["g_accum_iters"] * cuts["max_steps"]
+    evals = 3 * cuts["eval_steps"]  # train + val at step 0, val at the end
+    flash = variant == "gqa"
+    want = {"flash_fwd": mc.n_layer * (micro + evals) if flash else 0,
+            "flash_bwd_dq": mc.n_layer * micro if flash else 0, "flash_bwd_dkv": mc.n_layer * micro if flash else 0}
+    print(f"{variant} training ({' '.join(f'{k}={v}' for k, v in GQA_VARIANTS[variant].items())}; reduced: "
+          f"{', '.join(f'{k} -> {v}' for k, v in cuts.items())}): flash launches {totals}, want {want}")
+    if totals != want:
+        raise SystemExit(f"{variant}: flash launches != n_layer x (microsteps + eval batches) / n_layer x microsteps")
+    records = [json.loads(line) for line in Path(rundir, "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss/optimized"] for r in records if "loss/optimized" in r]
+    evals_rec = [v for r in records for k, v in r.items() if k.startswith("loss/") and k != "loss/optimized"]
+    if len(losses) != cuts["max_steps"] or not all(np.isfinite(losses + evals_rec)):
+        raise SystemExit(f"{variant}: training losses not all finite: {losses}, eval {evals_rec}")
+    steady = [r["throughput/tokens_per_sec"] for r in records if "loss/optimized" in r][1:]  # step 0: set-up
+    with np.load(Path(rundir, "params.npz")) as f:
+        wkv = f["blocks.attn.wkv"].shape
+    if wkv != (mc.n_layer, 2, mc.kv_heads * mc.head_dim, mc.n_embd) or mc.kv_groups != 4:
+        raise SystemExit(f"{variant}: params.npz wkv has shape {wkv}, config {mc}")
+    print(f"{variant} training losses by step: {[round(x, 4) for x in losses]}, params.npz wkv {wkv}, "
+          f"{np.mean(steady):.1f} tokens/s (steps 1-{len(losses) - 1}), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on {card}")
+    return totals
+
+
+def read_run(rundir: Path, params: bool = True):
+    """The model config of a launcher run directory (from its config.json)
+    and, with `params`, its f32 parameters."""
+    from midgpt_tpu_torch.config import from_json
+    from midgpt_tpu_torch.convert import load_npz
+
+    cfg = from_json(Path(rundir, "config.json").read_text()).model_config
+    if not params:
+        return cfg
+    return cfg, load_npz(str(Path(rundir, "params.npz")), config=cfg, device="cuda")
+
+
+def sample_specs(rundir: Path, *extra):
+    """`sample.main --ckpt_dir` on a run, counters zeroed just before:
+    returns the specs it launched."""
+    from midgpt_tpu_torch import sample
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+
+    tpl.LAUNCHES.reset()
+    sample.main([f"--ckpt_dir={rundir}", "--start_ids=50,11,3", "--num_samples=2", "--max_new_tokens=24",
+                 "--temperature=0", *extra])
+    torch.cuda.synchronize()
+    print(f"sample.main --ckpt_dir ({rundir.name}{' ' if extra else ''}{' '.join(extra)}) launches: "
+          f"{dict(tpl.LAUNCHES.by_variant)}")
+    return {spec for spec, _ in tpl.LAUNCHES.by_variant}
+
+
+def gqa_serving(card, rundirs):
+    """Phase 5c, serving the trained runs. Returns the launches of the gqa
+    runs (speculative, then plain) and of the gqa_window plain run."""
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+    from midgpt_tpu_torch.utils.precision import cast_floating
+
+    if sample_specs(rundirs["gqa"]) != {"gqa-decode", "gqa-verify"}:
+        raise SystemExit("sample --ckpt_dir on the gqa run must serve with its self-draft: GQA verify + decode specs")
+    cfg, p32 = read_run(rundirs["gqa"])
+    if (cfg.n_kv_heads, cfg.kv_groups) != (3, 4):
+        raise SystemExit(f"the gqa run's config.json did not round-trip n_kv_heads: {cfg}")
+    p16 = cast_floating(p32, torch.bfloat16)
+    tpl.LAUNCHES.reset()
+    st, _, _ = serve(cfg, p16, torch.bfloat16, **spec_engine_kw(cfg, p16))
+    gqa_launches = dict(tpl.LAUNCHES.by_variant)
+    spec_launches("gqa bf16", st, gqa_launches, cfg.n_layer, False, want={"gqa-decode", "gqa-verify"})
+    tpl.LAUNCHES.reset()
+    st, _, _ = serve(cfg, p16, torch.bfloat16)
+    launches = dict(tpl.LAUNCHES.by_variant)
+    print(f"gqa bf16 without a draft: launches {launches}; decode steps {st['decode_steps']} x {cfg.n_layer} layers; "
+          f"decode {st['decode_tokens'] / st['decode_seconds']:.1f} tokens/s, rounds {st['split_rounds']} on {card}")
+    if {s for s, _ in launches} != {"gqa-decode"} or sum(launches.values()) != cfg.n_layer * st["decode_steps"]:
+        raise SystemExit(f"gqa bf16 without a draft must launch the GQA decode spec n_layer x decode steps: {launches}")
+    gqa_launches.update(launches)  # the plain run's gqa-decode counts
+    del p32, p16
+
+    if sample_specs(rundirs["gqa_window"], "--spec_layers=0") != {"window-gqa-decode"}:
+        raise SystemExit("sample --ckpt_dir --spec_layers 0 on the gqa_window run must launch the windowed GQA "
+                         "decode spec only")
+    cfg, p32 = read_run(rundirs["gqa_window"])
+    if (cfg.n_kv_heads, cfg.sliding_window, cfg.attn_sinks) != (3, WINDOW, SINKS):
+        raise SystemExit(f"the gqa_window run's config.json did not round-trip the variant: {cfg}")
+    p16 = cast_floating(p32, torch.bfloat16)
+    bound = -(-SINKS // PAGE) + -(-WINDOW // PAGE) + 2  # tests/test_attention_variants.py:271
+    peak = [0]
+
+    def watch(eng):
+        live = [sum(p >= 0 for p in s.pages) for s in eng.slots if s is not None]
+        peak[0] = max(peak[0], *live, 0)
+        if eng.allocator.free_count + sum(live) != eng.allocator.num_pages - 1:
+            raise SystemExit("window reclamation broke page conservation (free + live != num_pages - 1)")
+
+    def plain_window_run(label, dtype, spec):
+        tpl.LAUNCHES.reset()
+        peak[0] = 0
+        st, _, _ = serve(cfg, p16, dtype, watch=watch)
+        launches = dict(tpl.LAUNCHES.by_variant)
+        rate = st["decode_tokens"] / st["decode_seconds"]
+        print(f"gqa_window {label}: launches {launches}; decode steps {st['decode_steps']} x {cfg.n_layer} layers; "
+              f"window_reclaimed_pages {st['window_reclaimed_pages']}; most pages resident in a slot {peak[0]} "
+              f"(bound {bound}); decode {rate:.1f} tokens/s, rounds {st['split_rounds']} on {card}")
+        if {s for s, _ in launches} != {spec} or {k for _, k in launches} != {1, 2}:
+            raise SystemExit(f"gqa_window {label} must launch only {spec}, at splits 1 and 2: {launches}")
+        if sum(launches.values()) != cfg.n_layer * st["decode_steps"]:
+            raise SystemExit(f"gqa_window {label}: launches != n_layer x decode steps")
+        if st["window_reclaimed_pages"] < 1 or peak[0] > bound:
+            raise SystemExit(f"gqa_window {label}: no page reclaimed, or a slot held more than {bound} pages")
+        return launches
+
+    window_launches = plain_window_run("bf16", torch.bfloat16, "window-gqa-decode")
+    plain_window_run("int8 pool (bf16 compute)", torch.int8, "int8-window-gqa-decode")
+    tpl.LAUNCHES.reset()
+    st, _, _ = serve(cfg, p16, torch.bfloat16, **spec_engine_kw(cfg, p16))
+    spec_launches("gqa_window bf16", st, dict(tpl.LAUNCHES.by_variant), cfg.n_layer, False,
+                  want={"window-gqa-decode", "window-gqa-verify"})
+    _, kernel_streams, _ = serve(cfg, p32, torch.float32)
+    _, gather_streams, _ = serve(cfg, p32, torch.float32, attn_impl="gather")
+    compare_streams("gqa_window f32, kernel vs gather", kernel_streams, gather_streams)
+    wall_us, by_name = profile_decode(cfg, p16)
+    print_busy("gqa_window decode rounds", wall_us, by_name, card)
+    return gqa_launches, window_launches
+
+
+def gqa_bound_ms(R, window, rows):
+    """(least ms the card could take for one bf16 launch at the main GQA
+    geometry, what bounds it): K and V of the keys some row sees (under the
+    window only its keys and the sinks) at the K/V head count, each read
+    once, q in and out at the query heads, the table and counts; against 4
+    flops per (row, visible key, channel) of every query head."""
+    from midgpt_tpu_torch.ops.attention import visible_mask
+
+    B, HQ, HKV, C, bucket, _ = GQA_GEOMETRIES["main"]
+    cols = torch.arange(bucket * PAGE, device=rows.device)
+    vis = visible_mask(cols[None, None, :], rows[:, :, None], **window_kw(window))  # (B, R, S)
+    keys, pairs = int(vis.any(dim=1).sum()), int(vis.sum())
+    moved = 2 * keys * HKV * C * 2 + 2 * B * HQ * R * C * 2 + B * bucket * 4 + B * R * 4
+    flops = 4 * pairs * HQ * C
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.bfloat16]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), moved
+
+
+def time_gqa_kernel(R, window, split_k):
+    """Phase 10 at the main GQA geometry, bf16: device ms of the kernel's
+    wrapper and of the SDPA yardstick (graph replay over copies that
+    together exceed the L2 twice over), the plain version (eager), and the
+    bound."""
+    import torch.nn.functional as F
+
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+    from midgpt_tpu_torch.kernels.decode_attention import _gather_pages
+    from midgpt_tpu_torch.ops.attention import visible_mask
+
+    groups = GQA_GEOMETRIES["main"][1] // GQA_GEOMETRIES["main"][2]
+    b_ms, b_by, moved = gqa_bound_ms(R, window, gqa_problem("main", torch.bfloat16, R, torch.bfloat16)[-1])
+    copies = max(12, -(-int(100e6) // moved))
+    probs = [gqa_problem("main", torch.bfloat16, R, torch.bfloat16, seed=1 + i) for i in range(copies)]
+
+    def call(p):
+        q, k, v, _, _, table, rows = p
+        return lambda: tpl.paged_attention_template(q, k, v, table, rows, split_k=split_k, **window_kw(window))
+
+    def sdpa(p):
+        q, k, v, _, _, table, rows = p
+        kg, vg = (_gather_pages(x, None, table).repeat_interleave(groups, dim=1).contiguous() for x in (k, v))
+        cols = torch.arange(kg.shape[2], device=q.device)
+        mask = visible_mask(cols[None, None, :], rows[:, :, None], **window_kw(window))[:, None]
+        return lambda: F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
+
+    before = tpl.LAUNCHES.count
+    ms = graph_ms([call(p) for p in probs], per_graph=max(24, copies))
+    q, k, v, _, _, table, rows = probs[0]
+    plain_ms = event_ms(lambda: tpl.paged_attention_template_plain(q, k, v, table, rows, split_k=split_k,
+                                                                   **window_kw(window)), 3, 1)
+    lib_ms = graph_ms([sdpa(p) for p in probs[:16]])
+    if tpl.LAUNCHES.count == before:
+        raise SystemExit("timing loop never launched the kernel")
+    return ms, plain_ms, lib_ms, (b_ms, b_by), copies
 
 
 # ---------------------------------------------------------------- flash attention
@@ -934,6 +1297,11 @@ def main() -> int:
     for int8 in (False, True):
         for s in (1, 2):
             check_rows_bitwise(int8, s)
+    gqa_errs = check_gqa_kernels()
+    for geometry in GQA_GEOMETRIES:
+        for s in (1, 2):
+            check_gqa_bitwise(geometry, s)
+    free_memory()
     flash_errs = {}
     for label, B, H, T, C, bq, bk, dt in FLASH_CHECKS:
         flash_errs[(label, dt)] = check_flash(label, B, H, T, C, bq, bk, dt)
@@ -975,6 +1343,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         data_dir = Path(tmp)
         synthetic_stream(data_dir, load_config("local_text_124m").model_config.vocab_size)
+        # 5c. the GQA and window slice: train both variants, serve what they wrote
+        rundirs = {variant: data_dir / variant for variant in GQA_VARIANTS}
+        for variant, rundir in rundirs.items():
+            train_variant(data_dir, rundir, variant, card)
+            free_memory()
+        gqa_launches, window_launches = gqa_serving(card, rundirs)
+        free_memory()
         # 6. the training main path: counters zeroed just before, read just after
         flash_launches, train_tok_s, train_mfu, _ = train_main_path(data_dir, card)
         free_memory()
@@ -1032,6 +1407,33 @@ def main() -> int:
                 "library_ms": lib_ms,
             })
         free_memory()
+    g_heads = GQA_GEOMETRIES["main"][1:3]
+    timed_gqa = [("paged_attention_gqa_decode", 1, 0, gqa_launches, "gqa-decode", "attention_template.py:226"),
+                 ("paged_attention_gqa_verify", TIMED_ROWS, 0, gqa_launches, "gqa-verify",
+                  "attention_template.py:226"),
+                 ("paged_attention_window_gqa_decode", 1, WINDOW, window_launches, "window-gqa-decode",
+                  "attention_template.py:141")]
+    for kname, R, window, run, spec, replaces in timed_gqa:
+        for s in (1, 2):
+            ms, plain_ms, lib_ms, (b_ms, b_by), copies = time_gqa_kernel(R, window, s)
+            print(f"{kname} ({spec} R={R}, {g_heads[0]} query heads over {g_heads[1]} K/V heads"
+                  f"{f', window {WINDOW} + {SINKS} sinks' if window else ''}, bf16) split_k={s}: {ms:.4f} ms device "
+                  f"(graph replay over {copies} copies, cold L2) bound {b_ms:.4f} ms by {b_by} ({ms / b_ms:.1f}x), "
+                  f"plain {plain_ms:.3f} ms, sdpa over K/V repeated to the query heads {lib_ms:.4f} ms on {card}")
+            kernels.append({
+                "name": f"{kname}[bf16,R={R},split_k={s}]",
+                "route": "cuda",
+                "source": "midgpt_tpu_torch/csrc/paged_attention.cu",
+                "replaces": f"midgpt_tpu/kernels/{replaces}",
+                "launches": run.get((spec, s), 0),
+                "max_abs_err": gqa_errs[("main", torch.bfloat16, R, torch.bfloat16, window, s)],
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": lib_ms,
+            })
+            free_memory()
     from midgpt_tpu_torch.kernels import flash_attention as fa
 
     for label, B, H, T, C, bq, bk in FLASH_TIMED:  # the main path's shape first

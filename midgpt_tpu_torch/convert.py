@@ -4,8 +4,9 @@ The JAX `GPTParams` pytree, flattened to `{path: numpy array}` (paths as
 `jax.tree_util.keystr` prints them, with or without the leading dot:
 "wte", "blocks.attn.wqkv", ...), maps onto the port's parameter dict by
 NAME ONLY: the port keeps JAX's leaf names, layouts and stacked leading
-layer axis (models/gpt.py PARAM_NAMES), so nothing is transposed or
-permuted. This module needs no JAX — the JAX side does the flattening.
+layer axis (models/gpt.py `param_names`: the GQA layout adds
+"blocks.attn.wkv"), so nothing is transposed or permuted. This module needs
+no JAX — the JAX side does the flattening.
 
 `params.npz` in a run directory holds the same mapping (written with
 `np.savez(path, **flat)`); `load_npz` reads it for
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from midgpt_tpu_torch.device import DeviceLike, resolve_device
-from midgpt_tpu_torch.models.gpt import PARAM_NAMES, Params
+from midgpt_tpu_torch.models.gpt import GQA_PARAM_NAMES, PARAM_NAMES, WKV, GPTConfig, Params, param_names
 
 
 def _key(path: str) -> str:
@@ -38,23 +39,32 @@ def _to_tensor(a: np.ndarray) -> torch.Tensor:
 def params_from_numpy(
     flat: tp.Mapping[str, np.ndarray],
     *,
+    config: tp.Optional[GPTConfig] = None,
     device: DeviceLike = None,
     dtype: tp.Optional[torch.dtype] = None,
 ) -> Params:
-    """{JAX path: array} -> the port's parameter dict (optionally cast)."""
+    """{JAX path: array} -> the port's parameter dict (optionally cast).
+    The leaf set is `config`'s (`param_names`); without a config, the GQA
+    layout is read off the presence of wkv. Leaves of variants the port
+    does not compute (the MoE experts) are refused."""
     named = {_key(k): v for k, v in flat.items()}
-    extra = sorted(set(named) - set(PARAM_NAMES))
-    missing = sorted(set(PARAM_NAMES) - set(named))
-    if extra:
+    if config is not None:
+        names = param_names(config)
+    else:
+        names = GQA_PARAM_NAMES if WKV in named else PARAM_NAMES
+    extra = sorted(set(named) - set(names))
+    missing = sorted(set(names) - set(named))
+    moe = [n for n in extra if n.startswith("blocks.mlp.")]
+    if moe:
         raise NotImplementedError(
-            f"parameters {extra} belong to variants not ported yet (GQA's "
-            "wkv, MoE experts: ROADMAP.md port queue)"
+            f"parameters {moe} belong to the routed MoE MLP, a variant not ported "
+            "yet (ROADMAP.md port queue)"
         )
-    if missing:
-        raise ValueError(f"missing parameters {missing}")
+    if extra or missing:
+        raise ValueError(f"parameters do not fit the config's layout: extra {extra}, missing {missing}")
     dev = resolve_device(device)
     out = {}
-    for name in PARAM_NAMES:
+    for name in names:
         t = _to_tensor(np.asarray(named[name]))
         out[name] = t.to(device=dev, dtype=dtype or t.dtype)
     return out
@@ -65,7 +75,7 @@ def params_to_numpy(params: Params) -> tp.Dict[str, np.ndarray]:
     bf16 tensors come back as float32 (an exact widening: numpy has no
     bfloat16 of its own)."""
     out = {}
-    for name in PARAM_NAMES:
+    for name in params:
         t = params[name].detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()
@@ -74,7 +84,11 @@ def params_to_numpy(params: Params) -> tp.Dict[str, np.ndarray]:
 
 
 def load_npz(
-    path: str, *, device: DeviceLike = None, dtype: tp.Optional[torch.dtype] = None
+    path: str,
+    *,
+    config: tp.Optional[GPTConfig] = None,
+    device: DeviceLike = None,
+    dtype: tp.Optional[torch.dtype] = None,
 ) -> Params:
     with np.load(path) as f:
-        return params_from_numpy({k: f[k] for k in f.files}, device=device, dtype=dtype)
+        return params_from_numpy({k: f[k] for k in f.files}, config=config, device=device, dtype=dtype)

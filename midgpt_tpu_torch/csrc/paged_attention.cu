@@ -1,25 +1,32 @@
-// Paged attention for Hopper (sm_90a): the decode, verify and int8 specs of
-// the paged-attention template.
+// Paged attention for Hopper (sm_90a): every spec of the paged-attention
+// template — decode, verify, int8, the GQA fold and the sliding window.
 //
 // Replaces: midgpt_tpu/kernels/attention_template.py `_tpl_kernel` (reached
 // through `paged_attention_template`, its pl.pallas_call) as called by
 // midgpt_tpu/kernels/decode_attention.py `paged_attention_kernel` (decode:
 // R = 1 query row per slot) and `paged_verify_attention_kernel` (verify:
 // R = k+1 rows per slot, each with its own count), with bf16, f32 or int8
-// pools, MHA, split_k in {1, 2, 4, 8}. The query (and output) dtype may
-// differ from the pool's, as in JAX, whose dots promote: an f32 query over a
-// bf16 pool is served in f32. Int8 pools carry one f32 scale per (page,
-// head, position) (midgpt_tpu_torch/ops/quant.py) and are dequantized here.
+// pools, split_k in {1, 2, 4, 8}, GQA (`:226-234`: the wrapper folds the G
+// query heads of a K/V head into the row axis, so this kernel sees H_kv
+// heads of G*R rows with tiled counts) and a sliding window with sinks
+// (`:141-146` the page-sweep predicate, `:166-171` the column mask). The
+// query (and output) dtype may differ from the pool's, as in JAX, whose
+// dots promote: an f32 query over a bf16 pool is served in f32. Int8 pools
+// carry one f32 scale per (page, head, position)
+// (midgpt_tpu_torch/ops/quant.py) and are dequantized here.
 //
-// What it computes, per (slot b, head h, row r): attention of q[b, h, r]
-// over the first counts[b, r] keys of the slot's logical sequence, whose
-// page j lives at physical page page_table[b, j] of the pool (H, num_pages,
-// page_size, C). Counts are nondecreasing in r. The rounding points are the
-// template's:
+// What it computes, per (slot b, K/V head h, row r): attention of q[b, h, r]
+// over the keys visible to row r — the first counts[b, r] keys of the
+// slot's logical sequence and, under a window W, only those in
+// [count - W, count) or in the sink prefix [0, sinks) — whose page j lives
+// at physical page page_table[b, j] of the pool (H, num_pages, page_size,
+// C). Row 0 of a slot has its smallest count and row R-1 its largest (a
+// verify's rows are nondecreasing; the GQA fold tiles them G times). The
+// rounding points are the template's:
 //   * scores are f32 dot products, scaled by 1/sqrt(C) after the dot;
-//   * columns >= the row's count get the finite MASK (-1e30), the running
-//     max starts at M_INIT (-0.5e30), so exp(MASK - m) is exactly 0 and a
-//     page wholly past a row's count leaves that row's (m, l, acc) unchanged;
+//   * invisible columns get the finite MASK (-1e30), the running max starts
+//     at M_INIT (-0.5e30), so exp(MASK - m) is exactly 0 and a page wholly
+//     invisible to a row leaves that row's (m, l, acc) unchanged;
 //   * the running (m, l) and the C-wide accumulator are f32, updated ONE
 //     PAGE AT A TIME (online softmax per page, like the TPU grid step);
 //   * bf16/f32 pools: p is rounded to the pool's dtype before the PV product;
@@ -30,20 +37,27 @@
 //     merges with ops/online_softmax.merge_partials + finalize.
 // A row's arithmetic does not depend on R: every (row, key) dot, every
 // per-page step and the finalize run the same instructions for R = 1 and
-// R = 9, so a verify row equals the decode result for that row bit for bit.
+// R = 9, so a verify row equals the decode result for that row bit for bit
+// (and a folded GQA row the MHA result of its query head).
 //
-// What bounds it on the card: the bytes of K and V it must read — the last
-// row's count of keys x C x 2 tensors per (slot, head), at 1 byte per value
-// plus 4 bytes of scale per key and tensor for int8 pools — against
-// 3.35 TB/s; the arithmetic is 4 R flops per key per channel, far below the
-// card's compute rate at R <= 16.
+// What bounds it on the card: the bytes of K and V it must read — the live
+// pages' keys (under a window only the window's and the sinks') x C x 2
+// tensors per (slot, K/V head), at 1 byte per value plus 4 bytes of scale
+// per key and tensor for int8 pools — against 3.35 TB/s; the arithmetic is
+// 4 R flops per key per channel per folded row, far below the card's
+// compute rate.
 //
 // Design (the TPU ran the grid in order with every head in one block; here
 // blocks run in parallel with no carried state):
-//   * grid (H, split_k, B): one block per (head, partition, slot), so heads
-//     and partitions spread over the SMs; each block reads its own page-table
-//     row and counts, and loops over the pages_per_split pages of its
-//     partition, skipping every page at or past the LAST row's count;
+//   * grid (H_kv, split_k, B): one block per (K/V head, partition, slot), so
+//     heads and partitions spread over the SMs and each K/V page is read
+//     once for all G query heads of its group (the point of GQA); each block
+//     reads its own page-table row and counts, and sweeps the LIVE pages of
+//     its partition in ascending logical order: at most two ranges, the
+//     sink pages [0, ceil(sinks/ps)) and [floor((counts[b,0] - W)/ps),
+//     ceil(last/ps)) (just [0, ceil(last/ps)) without a window), so the
+//     page-ordered online recurrence — and its bits — match the plain
+//     version, and a skipped page costs nothing (pl.when in the template);
 //   * pages are staged through shared memory a TILE at a time (up to 64 keys,
 //     i.e. 8 pages of 8 tokens) with cp.async into a ring of kStages tiles, so
 //     the next tile's loads are in flight while this one is reduced; int8
@@ -56,9 +70,13 @@
 //     page-ordered online-softmax recurrence runs serially, each thread on
 //     its (row, channel) accumulators with that row's (m, l) in registers:
 //     acc = acc * alpha_u + pv_u, l = l * alpha_u + sum_u, one FMA per page;
-//   * the row ceiling is a template parameter: 1 for the decode spec (2
-//     accumulators per thread, as a one-row kernel needs) and 16 for the
-//     verify spec (32), so decode pays nothing for the rows it does not have.
+//   * the accumulators per thread are a template parameter, from rows x
+//     channels: the MHA decode spec (one row, 2 accumulators, no row
+//     divisions) keeps its own instantiation and time; folded decode and
+//     small verify (R*C <= 512: 2) and every other shape (R*C <= 8192: 32,
+//     e.g. 36 folded rows x 128 channels = 18 used) get theirs, so decode
+//     pays nothing for rows it does not have. The shared buffers grow with
+//     R; the launcher shrinks the tile (pages per tile) until they fit.
 // Simple and right first: TMA, wgmma and a persistent schedule are later work
 // (PERF.md has its time beside its bound).
 
@@ -80,7 +98,8 @@ constexpr int kPairsPerPass = kWarps * (32 / kLanesPerKey);
 constexpr int kStages = 2;         // tiles in flight
 constexpr int kTileKeys = 64;      // keys staged per tile (whole pages)
 constexpr int kMaxTilePages = 8;
-constexpr int kMaxRows = 16;       // query rows per slot (verify k+1, a later GQA fold)
+constexpr int kMaxRowChan = 8192;  // (folded) rows x head_dim per block: 32 accumulators a thread
+constexpr int kSmallRowChan = 512; // ... of the small instantiation: 2 a thread
 constexpr int kMaxChan = 512;      // head_dim
 constexpr size_t kSmemBudget = 160 * 1024;  // tiles shrink to fit this ...
 constexpr size_t kSmemMax = 227 * 1024;     // ... and a block may not exceed this
@@ -96,24 +115,24 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
-// query/output dtype, pool dtype, ceiling on the rows per slot
-template <typename TQ, typename T, int kRowCeil>
+// query/output dtype, pool dtype, (row, channel) accumulators per thread,
+// one row per block (the MHA decode spec: no row divisions)
+template <typename TQ, typename T, int kAccSlots, bool kOneRow>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const TQ* __restrict__ q,           // (B, H, R, C)
+    const TQ* __restrict__ q,           // (B, H, R, C)  H = K/V heads, R = folded rows
     const T* __restrict__ k_pages,      // (H, num_pages, ps, C)
     const T* __restrict__ v_pages,      // (H, num_pages, ps, C)
     const float* __restrict__ k_scale,  // (num_pages, H, ps)   int8 pools only
     const float* __restrict__ v_scale,  // (num_pages, H, ps)
     const int* __restrict__ page_table, // (B, max_pages)
-    const int* __restrict__ counts,     // (B, R) visible keys per row, nondecreasing
+    const int* __restrict__ counts,     // (B, R) visible keys per row, least in row 0, most in row R-1
     TQ* __restrict__ out,               // (B, H, R, C)           split_k == 1
     float* __restrict__ part_acc,       // (B, split_k, H, R, C)  split_k > 1
     float* __restrict__ part_m,         // (B, split_k, H, R)
     float* __restrict__ part_l,         // (B, split_k, H, R)
     int H, int R, int num_pages, int ps, int C, int max_pages, int split_k,
-    int pps, int tile_pages, float scale) {
+    int pps, int tile_pages, int window, int sinks, float scale) {
   constexpr bool kQuant = std::is_same<T, int8_t>::value;
-  constexpr int kAccSlots = kRowCeil * kMaxChan / kThreads;  // (row, channel) accumulators per thread
   const int h = blockIdx.x, si = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int page_elems = ps * C;
@@ -135,22 +154,38 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   float* psum_s = pmax_s + R * tile_pages;    // [R][tile_pages] sum of p of each page
   float* m_s = psum_s + R * tile_pages;       // [R] running max at the tile's start
 
-  // Row of a row-major (row, n) index; the decode instantiation (one row)
-  // divides nothing.
-  auto row_of = [](int x, int n) { return kRowCeil == 1 ? 0 : x / n; };
+  // Row of a row-major (row, n) index; the one-row instantiation divides
+  // nothing.
+  auto row_of = [](int x, int n) { return kOneRow ? 0 : x / n; };
   const int* cnt_row = counts + static_cast<size_t>(b) * R;
   const int last = cnt_row[R - 1];
   const int first = si * pps;  // first logical page of this partition
-  // live pages of this partition: logical page j is live iff j * ps < last
-  int n_live = (last + ps - 1) / ps - first;
-  n_live = n_live < 0 ? 0 : (n_live > pps ? pps : n_live);
+  // Live logical pages: j * ps < last and, under a window, j not wholly
+  // behind row 0's window (row 0's starts first) or j holding a sink token.
+  // As ranges: A = the sink pages before the window's first page, B = the
+  // window's pages [lo, hi); both cut to this partition [first, first+pps).
+  const int hi = (last + ps - 1) / ps;
+  int lo = 0, sink_end = 0;
+  if (window > 0) {
+    const int start0 = cnt_row[0] - window;
+    lo = start0 > 0 ? start0 / ps : 0;
+    sink_end = (sinks + ps - 1) / ps;
+  }
+  const int end = first + pps;
+  const int a0 = first;
+  const int nA = max(0, min(min(sink_end, lo), min(hi, end)) - a0);
+  const int b0 = max(lo, first);
+  const int nB = max(0, min(hi, end) - b0);
+  const int n_live = nA + nB;
+  // live index i -> logical page (ascending)
+  auto logical = [&](int i) { return i < nA ? a0 + i : b0 + (i - nA); };
   const int n_tiles = (n_live + tile_pages - 1) / tile_pages;
 
   const TQ* q_bh = q + (static_cast<size_t>(b) * H + h) * RC;
   for (int i = tid; i < RC; i += kThreads) q_s[i] = to_f32(q_bh[i]);
   for (int r = tid; r < R; r += kThreads) m_s[r] = kMInit;
 
-  const int* pt_row = page_table + static_cast<size_t>(b) * max_pages + first;
+  const int* pt_row = page_table + static_cast<size_t>(b) * max_pages;
   const size_t head_base = static_cast<size_t>(h) * num_pages;
   const int vecs_per_page = page_elems * static_cast<int>(sizeof(T)) / 16;
   const int4* k_vec = reinterpret_cast<const int4*>(k_pages);
@@ -167,7 +202,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       const int u = e / vecs_per_page;
       const int r = e - u * vecs_per_page;
       const size_t src =
-          (head_base + pt_row[t * tile_pages + u]) * vecs_per_page + r;
+          (head_base + pt_row[logical(t * tile_pages + u)]) * vecs_per_page + r;
       __pipeline_memcpy_async(kdst + e, k_vec + src, 16);
       __pipeline_memcpy_async(vdst + e, v_vec + src, 16);
     }
@@ -177,7 +212,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       for (int e = tid; e < pages * ps; e += kThreads) {
         const int u = e / ps;
         const size_t src =
-            (static_cast<size_t>(pt_row[t * tile_pages + u]) * H + h) * ps + (e - u * ps);
+            (static_cast<size_t>(pt_row[logical(t * tile_pages + u)]) * H + h) * ps + (e - u * ps);
         __pipeline_memcpy_async(ksd + e, k_scale + src, 4);
         __pipeline_memcpy_async(vsd + e, v_scale + src, 4);
       }
@@ -216,11 +251,16 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const float* vst = vs_s + (t % kStages) * tile_keys;
     const int pages = min(tile_pages, n_live - t * tile_pages);
     const int keys = pages * ps;
-    const int key0 = (first + t * tile_pages) * ps;  // column of the tile's first key
+    // Column of tile key kk: the tile's keys run in range A up to key
+    // split_a, then in range B (one jump at most).
+    const int i0 = t * tile_pages;
+    const int split_a = (nA - i0) * ps;
+    const int col_a = (a0 + i0) * ps, col_b = (b0 - nA + i0) * ps;
     const int pairs = R * keys;
 
     // 1. Scores: f32 dot over C by 8 lanes per (row, key), then * scale,
-    //    then MASK past the row's count. The pass loop bound is
+    //    then MASK where the row does not see the column (past its count,
+    //    or outside its window and the sinks). The pass loop bound is
     //    warp-uniform (shuffles).
     for (int p0 = warp * (32 / kLanesPerKey); p0 < pairs; p0 += kPairsPerPass) {
       const int pair = p0 + group;
@@ -239,8 +279,12 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 #pragma unroll
       for (int off = kLanesPerKey / 2; off > 0; off >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (pair < pairs && sub == 0)
-        s_s[r * tile_keys + kk] = (key0 + kk < (kRowCeil == 1 ? last : cnt_row[r])) ? dot * scale : kMask;
+      if (pair < pairs && sub == 0) {
+        const int col = kk + (kk < split_a ? col_a : col_b);
+        const int n = kOneRow ? last : cnt_row[r];
+        const bool keep = col < n && (window == 0 || col >= n - window || col < sinks);
+        s_s[r * tile_keys + kk] = keep ? dot * scale : kMask;
+      }
     }
     __syncthreads();
 
@@ -342,12 +386,13 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   }
 }
 
-template <typename TQ, typename T, int kRowCeil>
+template <typename TQ, typename T, int kAccSlots, bool kOneRow>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const float* k_scale, const float* v_scale, const int* page_table,
            const int* counts, void* out, float* part_acc, float* part_m,
            float* part_l, int B, int H, int R, int num_pages, int ps, int C,
-           int max_pages, int split_k, float scale, cudaStream_t stream) {
+           int max_pages, int split_k, int window, int sinks, float scale,
+           cudaStream_t stream) {
   constexpr bool kQuant = std::is_same<T, int8_t>::value;
   const int pps = max_pages / split_k;
   int tile_pages = ps >= kTileKeys ? 1 : kTileKeys / ps;
@@ -369,17 +414,17 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   static size_t smem_allowed = 48 * 1024;
   if (smem > smem_allowed) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<TQ, T, kRowCeil>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_attention_kernel<TQ, T, kAccSlots, kOneRow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_allowed = smem;
   }
   const dim3 grid(H, split_k, B);
-  paged_attention_kernel<TQ, T, kRowCeil><<<grid, kThreads, smem, stream>>>(
+  paged_attention_kernel<TQ, T, kAccSlots, kOneRow><<<grid, kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const T*>(k_pages),
       static_cast<const T*>(v_pages), k_scale, v_scale, page_table, counts,
       static_cast<TQ*>(out), part_acc, part_m, part_l, H, R, num_pages, ps, C,
-      max_pages, split_k, pps, tile_pages, scale);
+      max_pages, split_k, pps, tile_pages, window, sinks, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -387,34 +432,39 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 
 extern "C" {
 
-// q_dtype (query and output): 0 = float32, 1 = bfloat16; kv_dtype (pools):
-// 0 = float32, 1 = bfloat16, 2 = int8 (k_scale and v_scale then point at
-// the layer's (num_pages, H, ps) f32 scales; otherwise they are ignored).
-// Returns the cudaError_t of the launch (0 on success). The caller
-// guarantees: contiguous tensors, page-table entries in [0, num_pages),
-// counts nondecreasing per slot, ps * C * sizeof(pool dtype) a multiple of
-// 16 bytes, max_pages % split_k == 0, 1 <= R <= 16, C <= 512, B <= 65535.
+// q (B, H, R, C) is the query FOLDED to the pool's H (K/V) heads, R rows
+// per slot and head, with counts (B, R) tiled to match. window: 0 = full
+// causal attention; sinks counts only under a window. q_dtype (query and
+// output): 0 = float32, 1 = bfloat16; kv_dtype (pools): 0 = float32,
+// 1 = bfloat16, 2 = int8 (k_scale and v_scale then point at the layer's
+// (num_pages, H, ps) f32 scales; otherwise they are ignored). Returns the
+// cudaError_t of the launch (0 on success). The caller guarantees:
+// contiguous tensors, page-table entries in [0, num_pages), each slot's
+// smallest count in row 0 and largest in row R-1, ps * C * sizeof(pool
+// dtype) a multiple of 16 bytes, max_pages % split_k == 0, R >= 1, R * C <= 8192, C <= 512,
+// B <= 65535.
 int paged_attention(const void* q, const void* k_pages, const void* v_pages,
                     const float* k_scale, const float* v_scale,
                     const int* page_table, const int* counts, void* out,
                     float* part_acc, float* part_m, float* part_l, int B,
                     int H, int R, int num_pages, int ps, int C, int max_pages,
-                    int split_k, float scale, int q_dtype, int kv_dtype,
-                    void* stream) {
-  if (C > kMaxChan || R < 1 || R > kMaxRows || split_k < 1 || max_pages % split_k != 0)
+                    int split_k, int window, int sinks, float scale,
+                    int q_dtype, int kv_dtype, void* stream) {
+  if (C > kMaxChan || R < 1 || R * C > kMaxRowChan || split_k < 1 ||
+      max_pages % split_k != 0 || window < 0 || sinks < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (kv_dtype == 2 && (k_scale == nullptr || v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PAGED_LAUNCH(TQ, T)                                                      \
-  return R == 1                                                                  \
-      ? launch<TQ, T, 1>(q, k_pages, v_pages, k_scale, v_scale, page_table,     \
-                         counts, out, part_acc, part_m, part_l, B, H, R,        \
-                         num_pages, ps, C, max_pages, split_k, scale, s)        \
-      : launch<TQ, T, kMaxRows>(q, k_pages, v_pages, k_scale, v_scale,          \
-                                page_table, counts, out, part_acc, part_m,      \
-                                part_l, B, H, R, num_pages, ps, C, max_pages,   \
-                                split_k, scale, s)
+#define PAGED_ARGS                                                            \
+  q, k_pages, v_pages, k_scale, v_scale, page_table, counts, out, part_acc,    \
+      part_m, part_l, B, H, R, num_pages, ps, C, max_pages, split_k, window,   \
+      sinks, scale, s
+#define PAGED_LAUNCH(TQ, T)                                                   \
+  return R == 1 ? launch<TQ, T, kMaxChan / kThreads, true>(PAGED_ARGS)        \
+       : R * C <= kSmallRowChan                                               \
+           ? launch<TQ, T, kSmallRowChan / kThreads, false>(PAGED_ARGS)       \
+           : launch<TQ, T, kMaxRowChan / kThreads, false>(PAGED_ARGS)
   if (q_dtype == 0 && kv_dtype == 0) PAGED_LAUNCH(float, float);
   if (q_dtype == 1 && kv_dtype == 1) PAGED_LAUNCH(__nv_bfloat16, __nv_bfloat16);
   if (q_dtype == 0 && kv_dtype == 1) PAGED_LAUNCH(float, __nv_bfloat16);
@@ -422,6 +472,7 @@ int paged_attention(const void* q, const void* k_pages, const void* v_pages,
   if (q_dtype == 0 && kv_dtype == 2) PAGED_LAUNCH(float, int8_t);
   if (q_dtype == 1 && kv_dtype == 2) PAGED_LAUNCH(__nv_bfloat16, int8_t);
 #undef PAGED_LAUNCH
+#undef PAGED_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,14 +1,25 @@
-"""Paged-attention template, decode, verify and int8 specs (counterpart of
+"""Paged-attention template (counterpart of
 midgpt_tpu/kernels/attention_template.py).
 
 The JAX template is one Pallas kernel body (`_tpl_kernel`) instantiated for
 several specs: query rows per slot (decode R = 1, speculative verify
 R = k+1), int8 pages, split-K partitions, the GQA fold and the sliding
-window. This port carries the DECODE and VERIFY specs — any R up to 16 rows
-per slot, each row masked to its own count (counts nondecreasing per slot),
-bf16/f32/int8 pool, MHA, split_k in {1, 2, 4, 8}, the query in its own dtype
-over the pool's (an f32 query over a bf16 pool is served in f32, as JAX's
-promoting dots do) — as:
+window. This port carries all of them — R rows per slot, each masked to
+its own count (counts nondecreasing per slot), bf16/f32/int8 pools,
+split_k in {1, 2, 4, 8}, the query in its own dtype over the pool's (an f32
+query over a bf16 pool is served in f32, as JAX's promoting dots do):
+
+  * GQA/MQA: q arrives with H_q = G * H_kv heads (query head h reads K/V
+    head h // G) and FOLDS into the row axis, (B, H_q, R, C) ->
+    (B, H_kv, G*R, C), a free reshape, with the counts tiled G times
+    (folded row g*R + r keeps row r's count); the output unfolds. One pass
+    over a K/V page serves all G query heads.
+  * sliding window + sinks: a row with n visible keys keeps the columns
+    [n - W, n) and [0, sinks), and the page sweep skips pages wholly
+    behind row 0's window (counts are nondecreasing, so row 0's window
+    starts first) that hold no sink token.
+
+Two versions carry it:
 
   * `paged_attention_template_plain`: the plain PyTorch version, a
     per-page online-softmax loop with the template's rounding points (f32
@@ -21,9 +32,7 @@ promoting dots do) — as:
     `paged_attention_template` for CUDA tensors.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises — there is no fallback between the two. The GQA fold and the sliding
-window are still to be ported (ROADMAP.md, port queue) and raise
-NotImplementedError (the window at GPTConfig).
+raises — there is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -39,14 +48,19 @@ from midgpt_tpu_torch.ops.online_softmax import M_INIT, MASK, finalize, merge_pa
 
 Tensor = torch.Tensor
 
-# Launches of the CUDA kernel, keyed by (spec, normalized split factor):
-# spec "decode" (R = 1) or "verify" (R > 1), prefixed "int8-" over int8 pools.
+# Launches of the CUDA kernel, keyed by (spec, normalized split factor);
+# `spec_name` gives the spec.
 LAUNCHES = LaunchCounter("paged_attention")
 
 _Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-MAX_ROWS = 16  # csrc/paged_attention.cu: kMaxRows
-_MAX_C = 512  # csrc/paged_attention.cu: kMaxChan
+# csrc/paged_attention.cu limits: (folded rows) x head_dim per slot and head
+# (kMaxRowChan: the per-thread accumulators), head_dim (kMaxChan), and the
+# shared memory of a block with a one-page tile (kSmemMax, kStages)
+MAX_ROW_CHANNELS = 8192
+_MAX_C = 512
+_SMEM_MAX = 227 * 1024
+_STAGES = 2
 
 
 def normalize_split_k(split_k: int, max_pages: int) -> int:
@@ -59,24 +73,46 @@ def normalize_split_k(split_k: int, max_pages: int) -> int:
     return s
 
 
-def spec_name(n_rows: int, quantized: bool) -> str:
-    """The LaunchCounter key's spec: decode / verify, int8- over int8 pools."""
-    return ("int8-" if quantized else "") + ("decode" if n_rows == 1 else "verify")
+def spec_name(n_rows: int, quantized: bool, groups: int = 1, sliding_window: int = 0) -> str:
+    """The LaunchCounter key's spec: decode (R = 1) or verify (R > 1 rows
+    before the fold), prefixed "gqa-" for a folded launch (G > 1), then
+    "window-" under a sliding window, then "int8-" over int8 pools — e.g.
+    "window-gqa-verify", "int8-gqa-decode"."""
+    name = ("gqa-" if groups > 1 else "") + ("decode" if n_rows == 1 else "verify")
+    return ("int8-" if quantized else "") + ("window-" if sliding_window else "") + name
+
+
+def _fold(q: Tensor, counts: Tensor, kv_heads: int) -> tp.Tuple[Tensor, Tensor, int]:
+    """GQA fold: q (B, H_q, R, C) -> (B, H_kv, G*R, C) (a free reshape:
+    head h = kv*G + g is contiguous), counts (B, R) tiled to (B, G*R)
+    (`repeat`, i.e. jnp.tile: folded row g*R + r keeps row r's count).
+    Returns (q, counts, G)."""
+    B, HQ, R, C = q.shape
+    if HQ % kv_heads:
+        raise ValueError(f"{HQ} query heads do not group over {kv_heads} pool heads")
+    groups = HQ // kv_heads
+    if groups == 1:
+        return q, counts, 1
+    return q.reshape(B, kv_heads, groups * R, C), counts.repeat(1, groups), groups
 
 
 def paged_attention_template_plain(
-    q: Tensor,  # (B, H, R, C) head-major query rows
-    k_pages: Tensor,  # (H, num_pages, page_size, C) — ONE layer's pool
+    q: Tensor,  # (B, H_q, R, C) head-major query rows
+    k_pages: Tensor,  # (H_kv, num_pages, page_size, C) — ONE layer's pool
     v_pages: Tensor,
     page_table: Tensor,  # (B, max_pages) int
     counts: Tensor,  # (B, R) int — keys visible to row r of slot b, nondecreasing
-    k_scale: tp.Optional[Tensor] = None,  # (num_pages, H, page_size) f32, int8 pools
+    k_scale: tp.Optional[Tensor] = None,  # (num_pages, H_kv, page_size) f32, int8 pools
     v_scale: tp.Optional[Tensor] = None,
     split_k: int = 1,
+    sliding_window: int = 0,
+    attn_sinks: int = 0,
 ) -> Tensor:
-    """Plain PyTorch version of the template (any R, MHA): all slots and
-    partitions advance together, one logical page per step. Returns
-    (B, H, R, C) in q.dtype."""
+    """Plain PyTorch version of the template (any R, GQA fold, window):
+    all slots and partitions advance together, one logical page per step.
+    Returns (B, H_q, R, C) in q.dtype."""
+    out_shape = q.shape
+    q, counts, _ = _fold(q, counts, k_pages.shape[0])
     B, H, R, C = q.shape
     ps = k_pages.shape[2]
     max_pages = page_table.shape[1]
@@ -104,23 +140,32 @@ def paged_attention_template_plain(
         # f32 dots (bf16 products are exact in f32), scaled after the dot
         s = torch.einsum("bhrc,hbspc->bshrp", qf, k) * scale
         col = page0[None, :, None, None, None] + cols  # (1, s, 1, 1, ps)
-        s = torch.where(col < counts[:, None, None, :, None], s, MASK)
+        n = counts[:, None, None, :, None]
+        keep = col < n
+        if sliding_window:  # the window [n - W, n), widened by the sinks [0, S)
+            keep = keep & ((col >= n - sliding_window) | (col < attn_sinks))
+        s = torch.where(keep, s, MASK)
         m_new, alpha, prob, l_new = online_block(m, l, s)
         if not quantized:  # p rounded to the pool's dtype; int8 pools keep f32 p
             prob = prob.to(v_pages.dtype).float()
         pv = torch.einsum("bshrp,hbspc->bshrc", prob, v)
         acc_new = acc * alpha[..., None] + pv
-        # pages past the last row's count are skipped (pl.when in the kernel)
-        live = (page0[None, :] < counts[:, None, R - 1])[:, :, None, None]
+        # pages past the last row's count are skipped (pl.when in the kernel),
+        # and under a window those wholly behind row 0's window with no sink
+        live = page0[None, :] < counts[:, None, R - 1]
+        if sliding_window:
+            ahead = (page0[None, :] + ps > counts[:, None, 0] - sliding_window) | (page0[None, :] < attn_sinks)
+            live = live & ahead
+        live = live[:, :, None, None]
         m = torch.where(live, m_new, m)
         l = torch.where(live, l_new, l)
         acc = torch.where(live[..., None], acc_new, acc)
     if split_k == 1:
         out, _ = finalize(m[:, 0], l[:, 0], acc[:, 0])
-        return out.to(q.dtype)
-    m, l, acc = merge_partials(m, l, acc, axis=1)
-    out, _ = finalize(m, l, acc)
-    return out.to(q.dtype)
+    else:
+        m, l, acc = merge_partials(m, l, acc, axis=1)
+        out, _ = finalize(m, l, acc)
+    return out.to(q.dtype).reshape(out_shape)
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -128,22 +173,36 @@ def _kernel_lib() -> ctypes.CDLL:
     fn = lib.paged_attention
     if fn.argtypes is None:  # declare once per loaded library
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 11 + [ci] * 8 + [ctypes.c_float, ci, ci, vp]
+        fn.argtypes = [vp] * 11 + [ci] * 10 + [ctypes.c_float, ci, ci, vp]
         fn.restype = ci
         lib.paged_attention_error_string.argtypes = [ci]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_args(q, k_pages, v_pages, page_table, counts, k_scale, v_scale) -> None:
+def smem_bytes(rows: int, head_dim: int, page_size: int, tile_pages: int, pool_dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block (csrc/paged_attention.cu
+    `smem_for`): the K/V tile ring (and int8 scale rows), the query rows,
+    three (row, key) score buffers, the (row, page, channel) PV partials and
+    the per-(row, page) statistics."""
+    keys = tile_pages * page_size
+    item = torch.empty((), dtype=pool_dtype).element_size()
+    ring = 2 * _STAGES * keys * head_dim * item + (2 * _STAGES * keys * 4 if pool_dtype == torch.int8 else 0)
+    R = rows
+    return ring + 4 * (R * head_dim + 3 * R * keys + R * tile_pages * head_dim + 2 * R * tile_pages + R)
+
+
+def _check_args(q, k_pages, v_pages, page_table, counts, k_scale, v_scale, sliding_window, attn_sinks) -> None:
+    """Refuse what the kernel does not take. q is the FOLDED query
+    (B, H_kv, G*R, C) with its tiled counts."""
     B, H, R, C = q.shape
-    if k_pages.shape[0] != H:
-        raise NotImplementedError(
-            "GQA/MQA (fewer pool heads than query heads) is a template spec "
-            "not ported yet (ROADMAP.md port queue: template specs GQA/window)"
+    if sliding_window < 0 or attn_sinks < 0:
+        raise ValueError(f"sliding_window={sliding_window} and attn_sinks={attn_sinks} must be >= 0")
+    if R < 1 or R * C > MAX_ROW_CHANNELS:
+        raise ValueError(
+            f"{R} query rows per slot and K/V head (after the GQA fold) x head_dim {C} = "
+            f"{R * C}: the kernel takes 1 row up to {MAX_ROW_CHANNELS} rows x channels"
         )
-    if not 1 <= R <= MAX_ROWS:
-        raise ValueError(f"{R} query rows per slot: the kernel takes 1 to {MAX_ROWS}")
     if q.dtype not in _Q_CODE or k_pages.dtype not in _KV_CODE or v_pages.dtype != k_pages.dtype:
         raise NotImplementedError(
             f"paged attention kernel takes a float32 or bfloat16 q over float32, "
@@ -168,6 +227,12 @@ def _check_args(q, k_pages, v_pages, page_table, counts, k_scale, v_scale) -> No
             f"page_size * head_dim * itemsize must be a multiple of 16 bytes and "
             f"head_dim <= {_MAX_C} (got page_size {ps}, head_dim {C}, {k_pages.dtype})"
         )
+    if smem_bytes(R, C, ps, 1, k_pages.dtype) > _SMEM_MAX:
+        raise ValueError(
+            f"{R} rows x head_dim {C} over pages of {ps} {k_pages.dtype} keys need "
+            f"{smem_bytes(R, C, ps, 1, k_pages.dtype)} bytes of shared memory with a "
+            f"one-page tile; a block has {_SMEM_MAX}"
+        )
     if page_table.shape[0] != B or counts.shape != (B, R):
         raise ValueError("page_table / counts do not match the slot and row counts")
     if B > 65535:
@@ -181,15 +246,18 @@ def _check_args(q, k_pages, v_pages, page_table, counts, k_scale, v_scale) -> No
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
-def _launch(q, k_pages, v_pages, page_table, counts, k_scale, v_scale, split_k) -> Tensor:
-    """Launch csrc/paged_attention.cu on q (B, H, R, C); returns (B, H, R, C)."""
-    _check_args(q, k_pages, v_pages, page_table, counts, k_scale, v_scale)
+def _launch(q, k_pages, v_pages, page_table, counts, k_scale, v_scale, split_k,
+            sliding_window, attn_sinks) -> Tensor:
+    """Launch csrc/paged_attention.cu on q (B, H_q, R, C), folded to the
+    pool's heads; returns (B, H_q, R, C)."""
+    out_shape, n_rows = q.shape, q.shape[2]
+    q, counts, groups = _fold(q.contiguous(), counts, k_pages.shape[0])
+    _check_args(q, k_pages, v_pages, page_table, counts, k_scale, v_scale, sliding_window, attn_sinks)
     B, H, R, C = q.shape
     _, P, ps, _ = k_pages.shape
     max_pages = page_table.shape[1]
     split_k = normalize_split_k(split_k, max_pages)
     quantized = k_scale is not None
-    q = q.contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
     if quantized:
         k_scale, v_scale = k_scale.contiguous(), v_scale.contiguous()
@@ -214,37 +282,40 @@ def _launch(q, k_pages, v_pages, page_table, counts, k_scale, v_scale, split_k) 
         rc = lib.paged_attention(
             ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scale), ptr(v_scale), ptr(pt),
             ptr(cnt), ptr(out), ptr(acc), ptr(m), ptr(l), B, H, R, P, ps, C, max_pages,
-            split_k, 1.0 / math.sqrt(C), _Q_CODE[q.dtype], _KV_CODE[k_pages.dtype], stream,
+            split_k, sliding_window, attn_sinks if sliding_window else 0, 1.0 / math.sqrt(C),
+            _Q_CODE[q.dtype], _KV_CODE[k_pages.dtype], stream,
         )
     if rc != 0:
         msg = lib.paged_attention_error_string(rc).decode()
         raise RuntimeError(f"paged_attention launch failed: {msg} ({rc})")
-    LAUNCHES.add((spec_name(R, quantized), split_k))
-    if split_k == 1:
-        return out
-    m, l, acc = merge_partials(m, l, acc, axis=1)
-    merged, _ = finalize(m, l, acc)
-    return merged.to(q.dtype)
+    LAUNCHES.add((spec_name(n_rows, quantized, groups, sliding_window), split_k))
+    if split_k > 1:
+        m, l, acc = merge_partials(m, l, acc, axis=1)
+        out, _ = finalize(m, l, acc)
+    return out.to(q.dtype).reshape(out_shape)
 
 
 def paged_attention_template(
-    q: Tensor,  # (B, H, R, C)
-    k_pages: Tensor,  # (H, num_pages, page_size, C)
+    q: Tensor,  # (B, H_q, R, C)
+    k_pages: Tensor,  # (H_kv, num_pages, page_size, C)
     v_pages: Tensor,
     page_table: Tensor,  # (B, max_pages) int
     counts: Tensor,  # (B, R) int
-    k_scale: tp.Optional[Tensor] = None,  # (num_pages, H, page_size) f32, int8 pools
+    k_scale: tp.Optional[Tensor] = None,  # (num_pages, H_kv, page_size) f32, int8 pools
     v_scale: tp.Optional[Tensor] = None,
     split_k: int = 1,
+    sliding_window: int = 0,
+    attn_sinks: int = 0,
 ) -> Tensor:
     """Instantiate the template: the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors. Returns (B, H, R, C) in q.dtype."""
+    CUDA kernel for CUDA tensors. GQA is inferred from the shapes (H_q a
+    multiple of H_kv); sliding_window 0 is full causal attention, and the
+    sinks count only under a window. Returns (B, H_q, R, C) in q.dtype."""
     if q.is_cuda:
-        return _launch(q, k_pages, v_pages, page_table, counts, k_scale, v_scale, split_k)
+        return _launch(q, k_pages, v_pages, page_table, counts, k_scale, v_scale, split_k,
+                       sliding_window, attn_sinks)
     if q.device.type != "cpu":
         raise NotImplementedError(f"no paged-attention kernel for device {q.device}")
-    if k_pages.shape[0] != q.shape[1]:
-        _check_args(q, k_pages, v_pages, page_table, counts, k_scale, v_scale)  # raises: GQA
     return paged_attention_template_plain(
-        q, k_pages, v_pages, page_table, counts, k_scale, v_scale, split_k
+        q, k_pages, v_pages, page_table, counts, k_scale, v_scale, split_k, sliding_window, attn_sinks
     )

@@ -3,11 +3,14 @@
 int8 cache modes.
 
 K/V are read through a per-slot PAGE TABLE: physical pages of `page_size`
-tokens live in a shared (H, num_pages, page_size, C) pool
+tokens live in a shared (H_kv, num_pages, page_size, C) pool
 (models/gpt.py PagedKVCache), and slot b's logical page j is pool page
 `page_table[b, j]`. Each slot (each query row, for verify) masks to its own
 count, so one call serves any mix of request lengths. Int8 pools carry f32
-scales (num_pages, H, page_size) beside them (ops/quant.py).
+scales (num_pages, H_kv, page_size) beside them (ops/quant.py). Under GQA
+the query has H_q = G * H_kv heads (query head h reads K/V head h // G);
+under a sliding window each row keeps its last `sliding_window` visible
+keys and the `attn_sinks` prefix (ops/attention.visible_mask).
 
 Two lowerings of each, as in the JAX package:
 
@@ -17,7 +20,8 @@ Two lowerings of each, as in the JAX package:
     plain per-page version for CPU tensors;
   * `paged_attention_gather` / `paged_verify_attention_gather` — gather each
     slot's pages contiguous (dequantized to q's dtype right after the
-    gather for int8 pools) and run the op-for-op attention of the
+    gather for int8 pools, K/V heads repeated to the query heads) and run
+    the op-for-op attention of the
     contiguous decode step (the lowering JAX runs off-TPU): -inf mask
     BEFORE the 1/sqrt(C)-scaled f32 softmax for split 1; for split > 1 the
     same fat score product, partitioned statistics, merged with
@@ -50,22 +54,30 @@ OptTensor = tp.Optional[Tensor]
 
 
 def paged_attention_kernel(
-    q: Tensor,  # (B, H, C) — one query token per slot
-    k_pages: Tensor,  # (H, num_pages, page_size, C) — ONE layer's pool
+    q: Tensor,  # (B, H_q, C) — one query token per slot
+    k_pages: Tensor,  # (H_kv, num_pages, page_size, C) — ONE layer's pool
     v_pages: Tensor,
     page_table: Tensor,  # (B, max_pages) int
     lengths: Tensor,  # (B,) int — visible keys per slot
-    k_scale: OptTensor = None,  # (num_pages, H, page_size) f32, int8 pools
+    k_scale: OptTensor = None,  # (num_pages, H_kv, page_size) f32, int8 pools
     v_scale: OptTensor = None,
     split_k: int = 1,
+    sliding_window: int = 0,
+    attn_sinks: int = 0,
 ) -> Tensor:
     """Paged decode attention via the template (n_rows == 1: the per-row
-    count IS the slot length). Returns (B, H, C)."""
+    count IS the slot length). Returns (B, H_q, C)."""
     out = paged_attention_template(
         q[:, :, None, :], k_pages, v_pages, page_table, lengths[:, None],
-        k_scale, v_scale, split_k=split_k,
+        k_scale, v_scale, split_k=split_k, sliding_window=sliding_window, attn_sinks=attn_sinks,
     )
     return out[:, :, 0, :]
+
+
+def _repeat_kv_heads(a: Tensor, groups: int) -> Tensor:
+    """(B, H_kv, S, C) -> (B, H_q, S, C): query head h reads K/V head
+    h // groups (`repeat_interleave`, as jnp.repeat and the template's fold)."""
+    return a if groups == 1 else a.repeat_interleave(groups, dim=1)
 
 
 def _gather_pages(pages: Tensor, scales: OptTensor, page_table: Tensor, out_dtype=None) -> Tensor:
@@ -83,34 +95,33 @@ def _gather_pages(pages: Tensor, scales: OptTensor, page_table: Tensor, out_dtyp
 
 
 def paged_attention_gather(
-    q: Tensor,  # (B, H, C)
-    k_pages: Tensor,  # (H, num_pages, page_size, C)
+    q: Tensor,  # (B, H_q, C)
+    k_pages: Tensor,  # (H_kv, num_pages, page_size, C)
     v_pages: Tensor,
     page_table: Tensor,  # (B, max_pages) int
     lengths: Tensor,  # (B,) int
     k_scale: OptTensor = None,
     v_scale: OptTensor = None,
     split_k: int = 1,
+    sliding_window: int = 0,
+    attn_sinks: int = 0,
 ) -> Tensor:
     """Gather lowering: pages gathered contiguous, then the exact attention
-    ops of the contiguous decode step. Returns (B, H, C) in q.dtype."""
+    ops of the contiguous decode step. Returns (B, H_q, C) in q.dtype."""
     B, H, C = q.shape
-    if k_pages.shape[0] != H:
-        raise NotImplementedError(
-            "GQA/MQA paged attention is not ported yet (ROADMAP.md port queue)"
-        )
+    groups = H // k_pages.shape[0]
     page_size = k_pages.shape[2]
     max_pages = page_table.shape[1]
     S = max_pages * page_size
     split_k = normalize_split_k(split_k, max_pages)
-    kg = _gather_pages(k_pages, k_scale, page_table, q.dtype)
-    vg = _gather_pages(v_pages, v_scale, page_table, q.dtype)
+    kg = _repeat_kv_heads(_gather_pages(k_pages, k_scale, page_table, q.dtype), groups)
+    vg = _repeat_kv_heads(_gather_pages(v_pages, v_scale, page_table, q.dtype), groups)
     # jnp.einsum promotes mixed operand dtypes (e.g. f32 q over a bf16 pool)
     dt = torch.promote_types(q.dtype, kg.dtype)
     col = torch.arange(S, device=q.device)
     if split_k == 1:
         scores = torch.einsum("bhqc,bhkc->bhqk", q[:, :, None].to(dt), kg.to(dt))  # (B, H, 1, S)
-        valid = visible_mask(col[None, None, None, :], lengths[:, None, None, None])
+        valid = visible_mask(col[None, None, None, :], lengths[:, None, None, None], sliding_window, attn_sinks)
         scores = scores.masked_fill(~valid, float("-inf"))
         probs = torch.softmax(scores.float() / math.sqrt(C), dim=-1).to(q.dtype)
         return torch.einsum("bhqk,bhkc->bhqc", probs.to(dt), vg.to(dt))[:, :, 0]
@@ -121,7 +132,7 @@ def paged_attention_gather(
     part_len = (max_pages // split_k) * page_size
     scale = 1.0 / math.sqrt(C)
     s = torch.einsum("bhc,bhkc->bhk", q.to(dt), kg.to(dt)).float() * scale
-    s = torch.where(visible_mask(col[None, None], lengths[:, None, None]), s, MASK)
+    s = torch.where(visible_mask(col[None, None], lengths[:, None, None], sliding_window, attn_sinks), s, MASK)
     s = s.reshape(B, H, split_k, part_len)
     m = torch.full((B, H, split_k), M_INIT, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, H, split_k), dtype=torch.float32, device=q.device)
@@ -154,12 +165,15 @@ def paged_attention(
     k_scale: OptTensor = None,
     v_scale: OptTensor = None,
     split_k: int = 1,
+    sliding_window: int = 0,
+    attn_sinks: int = 0,
 ) -> Tensor:
     """Dispatch: 'auto' is the kernel for CUDA tensors and the gather for
     CPU tensors; 'kernel' and 'gather' force one lowering."""
     return _dispatch(
         impl, q, paged_attention_kernel, paged_attention_gather, k_pages, v_pages,
         page_table, lengths, k_scale, v_scale, split_k=split_k,
+        sliding_window=sliding_window, attn_sinks=attn_sinks,
     )
 
 
@@ -169,14 +183,16 @@ def paged_attention(
 
 
 def paged_verify_attention_kernel(
-    q: Tensor,  # (B, T, H, C)
-    k_pages: Tensor,  # (H, num_pages, page_size, C)
+    q: Tensor,  # (B, T, H_q, C)
+    k_pages: Tensor,  # (H_kv, num_pages, page_size, C)
     v_pages: Tensor,
     page_table: Tensor,  # (B, max_pages) int
     counts: Tensor,  # (B, T) int — keys visible to row t of slot b
     k_scale: OptTensor = None,
     v_scale: OptTensor = None,
     split_k: int = 1,
+    sliding_window: int = 0,
+    attn_sinks: int = 0,
 ) -> Tensor:
     """Multi-row paged attention via the template (n_rows == T). Returns
     (B, T, H, C). q is transposed head-major once outside the kernel, so
@@ -185,13 +201,13 @@ def paged_verify_attention_kernel(
     speculative chunk causal through the page table)."""
     out = paged_attention_template(
         q.transpose(1, 2), k_pages, v_pages, page_table, counts,
-        k_scale, v_scale, split_k=split_k,
+        k_scale, v_scale, split_k=split_k, sliding_window=sliding_window, attn_sinks=attn_sinks,
     )
     return out.transpose(1, 2)
 
 
 def paged_verify_attention_gather(
-    q: Tensor,  # (B, T, H, C)
+    q: Tensor,  # (B, T, H_q, C)
     k_pages: Tensor,
     v_pages: Tensor,
     page_table: Tensor,
@@ -199,6 +215,8 @@ def paged_verify_attention_gather(
     k_scale: OptTensor = None,
     v_scale: OptTensor = None,
     split_k: int = 1,
+    sliding_window: int = 0,
+    attn_sinks: int = 0,
 ) -> Tensor:
     """Gather lowering of the multi-row verify attention: pages gathered
     contiguous once (dequantized in int8 mode), then per-row count masks
@@ -207,18 +225,15 @@ def paged_verify_attention_gather(
     stats-only split as the decode gather, applied per row. Returns
     (B, T, H, C)."""
     B, T, H, C = q.shape
-    if k_pages.shape[0] != H:
-        raise NotImplementedError(
-            "GQA/MQA paged attention is not ported yet (ROADMAP.md port queue)"
-        )
+    groups = H // k_pages.shape[0]
     page_size = k_pages.shape[2]
     max_pages = page_table.shape[1]
     S = max_pages * page_size
     split_k = normalize_split_k(split_k, max_pages)
-    kg = _gather_pages(k_pages, k_scale, page_table, q.dtype)
-    vg = _gather_pages(v_pages, v_scale, page_table, q.dtype)
+    kg = _repeat_kv_heads(_gather_pages(k_pages, k_scale, page_table, q.dtype), groups)
+    vg = _repeat_kv_heads(_gather_pages(v_pages, v_scale, page_table, q.dtype), groups)
     col = torch.arange(S, device=q.device)
-    valid = visible_mask(col[None, None, None, :], counts[:, None, :, None])  # (B, 1, T, S)
+    valid = visible_mask(col[None, None, None, :], counts[:, None, :, None], sliding_window, attn_sinks)  # (B, 1, T, S)
     # q takes the gathered buffer's dtype (jnp: q.astype(kg.dtype))
     scores = torch.einsum("bthc,bhkc->bhtk", q.to(kg.dtype), kg)
     if split_k == 1:
@@ -251,11 +266,15 @@ def paged_verify_attention(
     k_scale: OptTensor = None,
     v_scale: OptTensor = None,
     split_k: int = 1,
+    sliding_window: int = 0,
+    attn_sinks: int = 0,
 ) -> Tensor:
     """Batched multi-row paged attention for speculative verification
     (GPT.verify_step_paged): every slot scores its k+1 candidate positions
-    against its own pages in ONE call. Dispatch mirrors `paged_attention`."""
+    against its own pages in ONE call; under a window it slides per row.
+    Dispatch mirrors `paged_attention`."""
     return _dispatch(
         impl, q, paged_verify_attention_kernel, paged_verify_attention_gather, k_pages,
         v_pages, page_table, counts, k_scale, v_scale, split_k=split_k,
+        sliding_window=sliding_window, attn_sinks=attn_sinks,
     )

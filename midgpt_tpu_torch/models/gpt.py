@@ -4,7 +4,11 @@ midgpt_tpu/models/gpt.py).
 Architecture, as in the JAX package:
   * pre-norm residual blocks with weightless RMSNorm (eps 1e-6 in blocks,
     1e-5 for the final norm)
-  * fused QKV projection, QK-LayerNorm per head (learned scale, no bias)
+  * fused QKV projection, QK-LayerNorm per head (learned scale, no bias);
+    with `n_kv_heads` set (GQA/MQA) the K/V projection is its own leaf at
+    n_kv_heads heads, each K/V head serving a group of query heads
+  * an optional sliding window with attention sinks (`sliding_window`,
+    `attn_sinks`) in every attention path
   * GPT-J rotary embeddings, in the 'interleaved' form or the identical
     'split' form (q/k projection rows permuted per head, rotate-half)
   * bias-free Linears, truncated-normal(±2σ)/sqrt(fan_in) init, embedding
@@ -28,6 +32,10 @@ leading layer axis kept, so converting weights is a rename
     blocks.attn.q_scale (L, C), blocks.attn.k_scale (L, C),
     blocks.mlp.w_up (L, 4D, D), blocks.mlp.w_down (L, D, 4D)
 
+and, when `n_kv_heads` is set (even to n_head, as in JAX), wqkv is the
+query projection (L, 1, D, D) and blocks.attn.wkv (L, 2, H_kv*C, D) holds
+k then v (`param_names`).
+
 The serving path is `decode_step_paged` + `prefill_paged_chunk`, plus
 `verify_step_paged` for speculative decoding, over a bf16, f32 or int8
 `PagedKVCache`, updated IN PLACE (the JAX code donates the pool to its
@@ -47,7 +55,7 @@ import torch.nn.functional as F
 
 from midgpt_tpu_torch.device import DeviceLike, resolve_device
 from midgpt_tpu_torch.kernels.decode_attention import paged_attention, paged_verify_attention
-from midgpt_tpu_torch.ops.attention import multihead_attention
+from midgpt_tpu_torch.ops.attention import multihead_attention, visible_mask
 from midgpt_tpu_torch.ops.dropout import dropout
 from midgpt_tpu_torch.ops.norms import head_layer_norm, rms_norm
 from midgpt_tpu_torch.ops.quant import dequantize_q8, quantize_q8
@@ -71,6 +79,15 @@ PARAM_NAMES = (
     "blocks.mlp.w_down",
     "lm_head",
 )
+WKV = "blocks.attn.wkv"  # the GQA layout's K/V projection (JAX AttentionParams.wkv)
+GQA_PARAM_NAMES = PARAM_NAMES[:5] + (WKV,) + PARAM_NAMES[5:]
+
+
+def param_names(config: "GPTConfig") -> tp.Tuple[str, ...]:
+    """The leaves of `config`'s parameter dict: JAX's pytree leaves, wkv
+    present iff n_kv_heads is set (JAX keys the GQA layout on that, not on
+    n_kv_heads < n_head)."""
+    return PARAM_NAMES if config.n_kv_heads is None else GQA_PARAM_NAMES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,29 +136,25 @@ class GPTConfig:
             raise ValueError(f"attn_sinks={self.attn_sinks} must be >= 0")
         if self.attn_sinks > 0 and self.sliding_window == 0:
             raise ValueError("attn_sinks > 0 requires sliding_window > 0")
-        if self.sliding_window > 0 and self.attn_sinks + self.sliding_window > self.block_size:
-            raise ValueError(
-                f"attn_sinks + sliding_window = {self.attn_sinks + self.sliding_window} "
-                f"exceeds block_size={self.block_size}"
-            )
+        if self.sliding_window > 0:
+            if self.attn_sinks + self.sliding_window > self.block_size:
+                raise ValueError(
+                    f"attn_sinks + sliding_window = {self.attn_sinks + self.sliding_window} "
+                    f"exceeds block_size={self.block_size}"
+                )
+            if self.attn_impl not in ("naive", "blockwise"):
+                raise ValueError(
+                    f"sliding_window requires attn_impl 'naive' or 'blockwise' (got "
+                    f"{self.attn_impl!r}: the flash/ring/ulysses training kernels carry no window mask)"
+                )
         if self.rope_style not in ("interleaved", "split"):
             raise ValueError(f"unknown rope_style {self.rope_style!r} ('interleaved' or 'split')")
         if self.n_embd % self.n_head:
             raise ValueError(f"n_embd={self.n_embd} not divisible by n_head={self.n_head}")
         if self.attn_impl not in ("naive", "blockwise", "flash", "ring", "ulysses"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
-        # Variants the port does not compute yet: refuse instead of
+        # A variant the port does not compute yet: refuse instead of
         # computing something else.
-        if self.n_kv_heads is not None and self.n_kv_heads != self.n_head:
-            raise NotImplementedError(
-                "GQA/MQA (n_kv_heads) is not ported yet (ROADMAP.md port "
-                "queue: template specs GQA/window, with the model's wkv leaf)"
-            )
-        if self.sliding_window:
-            raise NotImplementedError(
-                "sliding_window / attn_sinks are not ported yet (ROADMAP.md "
-                "port queue: template specs GQA/window)"
-            )
         if self.n_experts > 0:
             raise NotImplementedError(
                 "the routed MoE MLP (n_experts > 0) is not ported yet "
@@ -152,13 +165,24 @@ class GPTConfig:
     def head_dim(self) -> int:
         return self.n_embd // self.n_head
 
+    @property
+    def kv_heads(self) -> int:
+        """K/V heads (n_head unless GQA/MQA is on)."""
+        return self.n_head if self.n_kv_heads is None else self.n_kv_heads
+
+    @property
+    def kv_groups(self) -> int:
+        """Query heads per K/V head (1 = MHA)."""
+        return self.n_head // self.kv_heads
+
 
 @dataclasses.dataclass
 class PagedKVCache:
     """Paged decode cache for the continuous-batching serving engine.
 
-    K/V live in a shared pool of fixed-size pages, (n_layer, n_head,
-    num_pages, page_size, head_dim) per tensor; a request occupies the
+    K/V live in a shared pool of fixed-size pages, (n_layer, kv_heads,
+    num_pages, page_size, head_dim) per tensor (kv_heads = n_kv_heads under
+    GQA: the pool shrinks with the K/V head count); a request occupies the
     pages the host-side allocator (sampling/serve.py PageAllocator) hands
     it. Page 0 is the SINK: never allocated, it is what unallocated
     page-table entries (zeros) point at, so inactive and short slots READ
@@ -169,14 +193,14 @@ class PagedKVCache:
 
     bf16 and f32 pools, and the **int8 storage mode** (dtype=torch.int8):
     pages hold int8 codes with f32 absmax scales in the side buffers
-    `k_scale`/`v_scale` of shape (n_layer, num_pages, n_head, page_size) —
+    `k_scale`/`v_scale` of shape (n_layer, num_pages, kv_heads, page_size) —
     one scale per written K/V vector per head (ops/quant.py), quantized on
     every write and dequantized by every read. In bf16/f32 mode both scale
     fields are None."""
 
-    k: Tensor  # (n_layer, n_head, num_pages, page_size, head_dim)
+    k: Tensor  # (n_layer, kv_heads, num_pages, page_size, head_dim)
     v: Tensor
-    k_scale: tp.Optional[Tensor] = None  # (n_layer, num_pages, n_head, page_size) f32, int8 mode
+    k_scale: tp.Optional[Tensor] = None  # (n_layer, num_pages, kv_heads, page_size) f32, int8 mode
     v_scale: tp.Optional[Tensor] = None
 
     @staticmethod
@@ -190,11 +214,11 @@ class PagedKVCache:
     ) -> "PagedKVCache":
         if dtype not in (torch.bfloat16, torch.float32, torch.int8):
             raise NotImplementedError(f"paged cache dtype {dtype}: bf16, f32 and int8 are ported")
-        shape = (config.n_layer, config.n_head, num_pages, page_size, config.head_dim)
+        shape = (config.n_layer, config.kv_heads, num_pages, page_size, config.head_dim)
         dev = resolve_device(device)
         scales = {}
         if dtype == torch.int8:
-            sshape = (config.n_layer, num_pages, config.n_head, page_size)
+            sshape = (config.n_layer, num_pages, config.kv_heads, page_size)
             scales = {n: torch.zeros(sshape, dtype=torch.float32, device=dev) for n in ("k_scale", "v_scale")}
         return PagedKVCache(
             k=torch.zeros(shape, dtype=dtype, device=dev),
@@ -204,9 +228,9 @@ class PagedKVCache:
 
     @staticmethod
     def page_bytes(config: GPTConfig, page_size: int, dtype: torch.dtype) -> int:
-        """K+V bytes of ONE page across all layers and heads, without the
+        """K+V bytes of ONE page across all layers and K/V heads, without the
         int8 scale side buffers (`nbytes` counts those)."""
-        per_tok = config.n_layer * config.n_head * config.head_dim
+        per_tok = config.n_layer * config.kv_heads * config.head_dim
         return 2 * per_tok * page_size * torch.empty((), dtype=dtype).element_size()
 
     @property
@@ -293,7 +317,17 @@ def _split_perm(head_dim: int, device: torch.device) -> Tensor:
 
 def _block(params: Params, i: int) -> Params:
     """Layer i's slice of the stacked block leaves, keyed by leaf name."""
-    return {name.split(".", 1)[1]: params[name][i] for name in PARAM_NAMES if name.startswith("blocks.")}
+    return {name.split(".", 1)[1]: t[i] for name, t in params.items() if name.startswith("blocks.")}
+
+
+def _repeat_kv(config: GPTConfig, a: Tensor, dim: int) -> Tensor:
+    """Broadcast K/V heads to the query head count (no-op for MHA). Query
+    head h reads K/V head h // kv_groups, so each K/V head's copies sit at
+    its group's query heads: `repeat_interleave` (jnp.repeat), not
+    `Tensor.repeat` (jnp.tile) — the same grouping as the paged template's
+    free (B, H_q, R, C) -> (B, H_kv, G*R, C) fold."""
+    g = config.kv_groups
+    return a if g == 1 else a.repeat_interleave(g, dim=dim)
 
 
 class GPT:
@@ -314,10 +348,17 @@ class GPT:
         dev = resolve_device(device)
         gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(seed)
         L, D, C, V = config.n_layer, config.n_embd, config.head_dim, config.vocab_size
-        wqkv, wo, w_up, w_down = [], [], [], []
+        KVD = config.kv_heads * C
+        gqa = config.n_kv_heads is not None
+        wqkv, wkv, wo, w_up, w_down = [], [], [], [], []
         for _ in range(L):
-            # iid rows: the (3, D, D) reshape of a (3D, D) init
-            wqkv.append(_linear_init(gen, 3 * D, D).reshape(3, D, D))
+            if gqa:
+                # GQA layout: q at full width, k/v at n_kv_heads * C each
+                wqkv.append(_linear_init(gen, D, D).reshape(1, D, D))
+                wkv.append(_linear_init(gen, 2 * KVD, D).reshape(2, KVD, D))
+            else:
+                # iid rows: the (3, D, D) reshape of a (3D, D) init
+                wqkv.append(_linear_init(gen, 3 * D, D).reshape(3, D, D))
             wo.append(_linear_init(gen, D, D))
             w_up.append(_linear_init(gen, 4 * D, D))
             w_down.append(_linear_init(gen, D, 4 * D))
@@ -333,38 +374,60 @@ class GPT:
             # init-only tying: same values, an independent tensor
             "lm_head": embed.clone(),
         }
-        return {k: v.to(device=dev, dtype=dtype) for k, v in params.items()}
+        if gqa:
+            params[WKV] = torch.stack(wkv)
+        return {k: params[k].to(device=dev, dtype=dtype) for k in param_names(config)}
 
     @staticmethod
-    def _qkv_weights(config: GPTConfig, blk: Params) -> tp.Tuple[Tensor, Tensor, Tensor]:
-        """(wqkv, q_scale, k_scale), rope_style-adjusted: for 'split' the q
-        and k rows are permuted per head by `split_permutation` (and the
-        QK-norm scales with them), so q/k come out with interleaved pair
-        (2i, 2i+1) at (i, i + C/2) and RoPE can use rotate-half. Stored
+    def _qkv_weights(
+        config: GPTConfig, blk: Params
+    ) -> tp.Tuple[Tensor, tp.Optional[Tensor], Tensor, Tensor]:
+        """(wqkv, wkv | None, q_scale, k_scale), rope_style-adjusted: for
+        'split' the q and k rows are permuted per head by
+        `split_permutation` (and the QK-norm scales with them), so q/k come
+        out with interleaved pair (2i, 2i+1) at (i, i + C/2) and RoPE can use
+        rotate-half. Under GQA the q rows of wqkv permute per query head and
+        the k rows of wkv[0] per K/V head; wkv[1] (v) is untouched. Stored
         weights stay in the reference convention."""
-        wqkv, q_scale, k_scale = blk["attn.wqkv"], blk["attn.q_scale"], blk["attn.k_scale"]
+        wqkv, wkv = blk["attn.wqkv"], blk.get("attn.wkv")
+        q_scale, k_scale = blk["attn.q_scale"], blk["attn.k_scale"]
         if config.rope_style == "split":
             D, H, C = config.n_embd, config.n_head, config.head_dim
             perm = _split_perm(C, wqkv.device)
-            wqk = wqkv[:2].reshape(2, H, C, D)[:, :, perm, :].reshape(2, D, D)
-            wqkv = torch.cat((wqk, wqkv[2:]), dim=0)
+            if wkv is None:
+                wqk = wqkv[:2].reshape(2, H, C, D)[:, :, perm, :].reshape(2, D, D)
+                wqkv = torch.cat((wqk, wqkv[2:]), dim=0)
+            else:
+                HK, KVD = config.kv_heads, config.kv_heads * C
+                wqkv = wqkv.reshape(H, C, D)[:, perm, :].reshape(1, D, D)
+                wk = wkv[:1].reshape(HK, C, D)[:, perm, :].reshape(1, KVD, D)
+                wkv = torch.cat((wk, wkv[1:]), dim=0)
             q_scale, k_scale = q_scale[perm], k_scale[perm]
-        return wqkv, q_scale, k_scale
+        return wqkv, wkv, q_scale, k_scale
 
     @staticmethod
     def _project_qkv(
         config: GPTConfig, blk: Params, h: Tensor
     ) -> tp.Tuple[Tensor, Tensor, Tensor]:
-        """h (B, T, D) -> q, k, v (B, T, H, C) after QK-LayerNorm (no RoPE):
-        ONE (BT, D) x (D, 3D) product with a contiguous split."""
+        """h (B, T, D) -> q (B, T, H, C), k, v (B, T, H_kv, C) after
+        QK-LayerNorm (no RoPE): ONE product with a contiguous split — with
+        (3D, D) for MHA, with the q rows of wqkv and the k/v rows of wkv
+        concatenated, (D + 2 H_kv C, D), for GQA. K/V come out at the K/V
+        head count: paged writes store them as they are, the training
+        attention repeats them (_repeat_kv)."""
         B, T, D = h.shape
-        H, C = config.n_head, config.head_dim
-        wqkv, q_scale, k_scale = GPT._qkv_weights(config, blk)
-        qkv = h @ wqkv.reshape(3 * D, D).T
-        q, k, v = torch.split(qkv, D, dim=-1)
+        H, HK, C = config.n_head, config.kv_heads, config.head_dim
+        wqkv, wkv, q_scale, k_scale = GPT._qkv_weights(config, blk)
+        if wkv is None:
+            qkv = h @ wqkv.reshape(3 * D, D).T
+            q, k, v = torch.split(qkv, D, dim=-1)
+        else:
+            KVD = HK * C
+            qkv = h @ torch.cat((wqkv.reshape(D, D), wkv.reshape(2 * KVD, D)), dim=0).T
+            q, k, v = torch.split(qkv, [D, KVD, KVD], dim=-1)
         q = head_layer_norm(q.reshape(B, T, H, C), q_scale)
-        k = head_layer_norm(k.reshape(B, T, H, C), k_scale)
-        return q, k, v.reshape(B, T, H, C)
+        k = head_layer_norm(k.reshape(B, T, HK, C), k_scale)
+        return q, k, v.reshape(B, T, HK, C)
 
     @staticmethod
     def _attn_out_and_mlp(
@@ -409,10 +472,14 @@ class GPT:
             q, k, v = GPT._project_qkv(config, blk, rms_norm(x))
             q = apply_rope_bthc(q, sin, cos, style=config.rope_style)
             k = apply_rope_bthc(k, sin, cos, style=config.rope_style)
+            # GQA: the training attention takes equal head counts — K/V
+            # repeat to the query heads after RoPE (which ran at H_kv)
+            k, v = _repeat_kv(config, k, 2), _repeat_kv(config, v, 2)
             att = multihead_attention(
                 q, k, v, impl=config.attn_impl, dropout_rate=config.dropout,
                 generator=generator, inference=inference,
                 block_size=config.attn_block_size, layout="bthc",
+                sliding_window=config.sliding_window, attn_sinks=config.attn_sinks,
             )
             x = GPT._attn_out_and_mlp(config, blk, x, att, generator=generator, inference=inference)
         return rms_norm(x, eps=1e-5)
@@ -481,7 +548,7 @@ class GPT:
             q, k, v = GPT._project_qkv(config, blk, rms_norm(x))
             q = apply_rope_positions(q, sin, cos, positions, style=config.rope_style)
             k = apply_rope_positions(k, sin, cos, positions, style=config.rope_style)
-            q1, k1, v1 = q[:, 0], k[:, 0], v[:, 0]  # (B, H, C)
+            q1, k1, v1 = q[:, 0], k[:, 0], v[:, 0]  # q (B, H, C), k/v (B, H_kv, C)
             _paged_write(cache.k, cache.k_scale, i, write_pages, offs, k1[sel])
             _paged_write(cache.v, cache.v_scale, i, write_pages, offs, v1[sel])
             kp, ksp = _layer_pages(cache.k, cache.k_scale, i)
@@ -489,6 +556,7 @@ class GPT:
             att = paged_attention(
                 q1, kp, vp, page_table, attn_counts, impl=attn_impl,
                 k_scale=ksp, v_scale=vsp, split_k=split_k,
+                sliding_window=config.sliding_window, attn_sinks=config.attn_sinks,
             )  # (B, H, C)
             x = GPT._attn_out_and_mlp(config, blk, x, att[:, None].to(x.dtype))
         x = rms_norm(x, eps=1e-5)
@@ -549,6 +617,7 @@ class GPT:
             att = paged_verify_attention(
                 q, kp, vp, page_table, attn_counts, impl=attn_impl,
                 k_scale=ksp, v_scale=vsp, split_k=split_k,
+                sliding_window=config.sliding_window, attn_sinks=config.attn_sinks,
             )  # (B, K1, H, C)
             x = GPT._attn_out_and_mlp(config, blk, x, att.to(x.dtype))
         x = rms_norm(x, eps=1e-5)
@@ -593,9 +662,14 @@ class GPT:
             _paged_write(cache.v, cache.v_scale, i, write_pages, offs, v[0, :n_valid])
             kg = _gather_layer_kv(*_layer_pages(cache.k, cache.k_scale, i), page_table[0], x.dtype)
             vg = _gather_layer_kv(*_layer_pages(cache.v, cache.v_scale, i), page_table[0], x.dtype)
+            # GQA: the gathered (H_kv, S, C) buffers repeat to the query heads
+            kg, vg = _repeat_kv(config, kg, 0), _repeat_kv(config, vg, 0)
             S = kg.shape[1]
             scores = torch.einsum("thc,hsc->hts", qr[0].to(kg.dtype), kg)
-            ok = torch.arange(S, device=dev)[None, None, :] < attn_counts[None, :, None]
+            ok = visible_mask(
+                torch.arange(S, device=dev)[None, None, :], attn_counts[None, :, None],
+                config.sliding_window, config.attn_sinks,
+            )
             scores = scores.masked_fill(~ok, float("-inf"))
             probs = torch.softmax(scores.float() / math.sqrt(C), dim=-1).to(kg.dtype)
             att = torch.einsum("hts,hsc->thc", probs, vg)  # (T_c, H, C)

@@ -10,7 +10,9 @@ JAX path's rounding; `impl='flash'` goes to kernels/flash_attention.py —
 the CUDA kernels for CUDA tensors, their plain version for CPU tensors.
 
 All impls take q, k, v of shape (B, H, T, C) ('bhtc') or (B, T, H, C)
-('bthc') and return the same layout.
+('bthc') and return the same layout. `sliding_window` / `attn_sinks`
+restrict row t to the keys `visible_mask` keeps (naive and blockwise; the
+flash kernels carry no window and refuse one, as in JAX).
 """
 
 from __future__ import annotations
@@ -53,14 +55,16 @@ def naive_causal_attention(
     dropout_rate: float = 0.0,
     generator: tp.Optional[torch.Generator] = None,
     inference: bool = True,
+    sliding_window: int = 0,
+    attn_sinks: int = 0,
 ) -> Tensor:
-    """Materialized-scores causal attention, f32 softmax, optional
-    attention-probability dropout. (B, T, H, C) -> (B, T, H, C) — the
-    sequence-major layout the fused projection produces."""
+    """Materialized-scores causal attention (optionally windowed), f32
+    softmax, optional attention-probability dropout. (B, T, H, C) ->
+    (B, T, H, C) — the sequence-major layout the fused projection produces."""
     T, C = q.shape[1], q.shape[-1]
     rows = torch.arange(T, device=q.device)[:, None]
     cols = torch.arange(T, device=q.device)[None, :]
-    mask = visible_mask(cols, rows + 1)
+    mask = visible_mask(cols, rows + 1, sliding_window, attn_sinks)
     scores = torch.einsum("bqhc,bkhc->bhqk", q, k)
     scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores.float() / math.sqrt(C), dim=-1).to(q.dtype)
@@ -68,13 +72,16 @@ def naive_causal_attention(
     return torch.einsum("bhqk,bkhc->bqhc", probs, v)
 
 
-def blockwise_causal_attention(q: Tensor, k: Tensor, v: Tensor, block_size: int = 512) -> Tensor:
+def blockwise_causal_attention(
+    q: Tensor, k: Tensor, v: Tensor, block_size: int = 512, sliding_window: int = 0, attn_sinks: int = 0
+) -> Tensor:
     """Online-softmax causal attention with O(T * block) memory over
     (B, H, T, C), the JAX blockwise path's arithmetic: block scores in the
-    compute dtype cast to f32 and scaled, -inf masks, running (max, sum,
-    acc) in f32, p cast to the compute dtype for each PV product. Key blocks
-    above a query block's diagonal are skipped (in JAX they are masked to
-    -inf, which leaves the running statistics exactly as they were)."""
+    compute dtype cast to f32 and scaled, -inf masks (windowed by
+    `visible_mask`), running (max, sum, acc) in f32, p cast to the compute
+    dtype for each PV product. Key blocks above a query block's diagonal
+    are skipped (in JAX they are masked to -inf, which leaves the running
+    statistics exactly as they were)."""
     B, H, T, C = q.shape
     blk = min(block_size, T)
     T_orig = T
@@ -96,7 +103,7 @@ def blockwise_causal_attention(q: Tensor, k: Tensor, v: Tensor, block_size: int 
         for j in range(qi + 1):
             k_j, v_j = k[:, :, j * blk : (j + 1) * blk], v[:, :, j * blk : (j + 1) * blk]
             s = torch.einsum("bhqc,bhkc->bhqk", q_i, k_j).float() * scale
-            keep = visible_mask(j * blk + idx[None, :], qi * blk + idx[:, None] + 1)
+            keep = visible_mask(j * blk + idx[None, :], qi * blk + idx[:, None] + 1, sliding_window, attn_sinks)
             s = s.masked_fill(~keep, float("-inf"))
             m_new = torch.maximum(m, s.amax(dim=-1))
             alpha = torch.where(torch.isfinite(m), torch.exp(m - m_new), torch.zeros_like(m))
@@ -141,6 +148,8 @@ def multihead_attention(
     inference: bool = False,
     block_size: int = 512,
     layout: str = "bhtc",
+    sliding_window: int = 0,
+    attn_sinks: int = 0,
 ) -> Tensor:
     """Dispatch causal attention; the output layout matches the input's.
 
@@ -156,6 +165,10 @@ def multihead_attention(
         impl = "blockwise"
     if impl != "naive" and dropout_rate != 0.0 and not inference:
         raise NotImplementedError(f"attention dropout requires impl='naive', got {impl!r}")
+    if sliding_window and impl == "flash":
+        # the flash kernels carry no window mask (GPTConfig refuses the
+        # pair at construction; this guards direct callers)
+        raise NotImplementedError("sliding_window requires impl 'naive' or 'blockwise'")
 
     T = q.shape[2] if layout == "bhtc" else q.shape[1]
     if impl == "flash":
@@ -171,10 +184,13 @@ def multihead_attention(
         if layout == "bhtc":
             q, k, v = (a.transpose(1, 2) for a in (q, k, v))
         out = naive_causal_attention(
-            q, k, v, dropout_rate=dropout_rate, generator=generator, inference=inference
+            q, k, v, dropout_rate=dropout_rate, generator=generator, inference=inference,
+            sliding_window=sliding_window, attn_sinks=attn_sinks,
         )
         return out.transpose(1, 2) if layout == "bhtc" else out
     if layout == "bthc":
         q, k, v = (a.transpose(1, 2) for a in (q, k, v))
-    out = blockwise_causal_attention(q, k, v, block_size=min(block_size, T))
+    out = blockwise_causal_attention(
+        q, k, v, block_size=min(block_size, T), sliding_window=sliding_window, attn_sinks=attn_sinks
+    )
     return out.transpose(1, 2) if layout == "bthc" else out

@@ -79,7 +79,7 @@ def main(argv=None) -> None:
     def read_run(run_dir):
         with open(os.path.join(run_dir, "config.json")) as f:
             cfg = from_json(f.read())
-        return cfg, load_npz(os.path.join(run_dir, "params.npz"), device=device)
+        return cfg, load_npz(os.path.join(run_dir, "params.npz"), config=cfg.model_config, device=device)
 
     device = resolve_device(args.device)
     if args.config is not None:
@@ -153,6 +153,7 @@ def main(argv=None) -> None:
         f"{len(uids)} requests on {device}: {st['decode_tokens']} decode tokens "
         f"in {st['decode_seconds']:.3f} s of decode rounds, {wall:.3f} s wall; "
         f"preemptions {st['preemptions']}; kv cache {kv_dtype}"
+        + (f"; window_reclaimed_pages {st['window_reclaimed_pages']}" if model_cfg.sliding_window else "")
     )
     if draft_params is not None:
         s = eng.spec_stats()

@@ -38,10 +38,13 @@ requests always make progress. Greedy serving is token-for-token identical
 to the JAX engine on the same weights (tests/test_torch_serve.py).
 
 Pools are bf16, f32 or int8 (`cache_dtype`; ops/quant.py scales ride
-beside int8 pages). Not ported yet (ROADMAP.md): the overlap modes, the
-prefix cache and spill tier, hot-swap/resize, fault hooks, observability,
-the watchdog, mesh-sharded serving and sliding-window page reclamation.
-Their constructor arguments raise NotImplementedError when set.
+beside int8 pages), at the model's K/V head count (GQA shrinks them). Under
+a sliding window (`config.sliding_window`) a plain-decoding engine frees,
+mid-request, every page no future row can see (`_reclaim_window`), so a
+long windowed request holds O(window) pages. Not ported yet (ROADMAP.md):
+the overlap modes, the prefix cache and spill tier, hot-swap/resize, fault
+hooks, observability, the watchdog and mesh-sharded serving. Their
+constructor arguments raise NotImplementedError when set.
 """
 
 from __future__ import annotations
@@ -442,6 +445,9 @@ class ServeEngine:
         self._spec_draft_steps = 0
         self._spec_drafted = 0
         self._spec_accepted = 0
+        # Sliding-window page reclamation (config.sliding_window > 0, no
+        # draft): pages freed mid-request behind every future row's window.
+        self.window_reclaimed_pages = 0
 
     # -- public surface ------------------------------------------------
 
@@ -546,6 +552,7 @@ class ServeEngine:
             "decode_steps": self.decode_steps,
             "decode_tokens": self.decode_tokens,
             "decode_seconds": self.decode_seconds,
+            "window_reclaimed_pages": self.window_reclaimed_pages,
             "spec": self.spec_stats() if self.draft_config is not None else None,
         }
 
@@ -664,18 +671,48 @@ class ServeEngine:
 
     def _release_slot(self, slot: _Slot) -> None:
         """The ONE funnel a departing slot's pages go through (finish,
-        cancel, timeout, preemption)."""
-        self.allocator.free(slot.pages)
+        cancel, timeout, preemption). -1 entries are window-reclaimed
+        placeholders, already freed."""
+        self.allocator.free(p for p in slot.pages if p >= 0)
 
     def _page_table(self, n_pages: tp.Optional[int] = None) -> np.ndarray:
         """(max_slots, n_pages) int32 host table; unallocated entries point
-        at the sink page 0."""
+        at the sink page 0, and so do window-reclaimed ones (-1 in
+        slot.pages): the kernel's sweep skips them and the mask hides their
+        columns, but every entry must name a real page — a -1 reaching the
+        kernel would be an out-of-bounds read."""
         table = np.zeros((self.max_slots, n_pages or self.max_pages_per_slot), np.int32)
         for i, s in enumerate(self.slots):
             if s is not None:
                 pages = s.pages[: table.shape[1]]
                 table[i, : len(pages)] = pages
+        np.maximum(table, 0, out=table)
         return table
+
+    def _reclaim_window(self, slot: _Slot) -> None:
+        """Free this slot's pages that no FUTURE attention row can see.
+
+        Page j (positions [j*ps, (j+1)*ps)) is dead once the oldest visible
+        position has moved past it — counts only grow, so (j+1)*ps <=
+        length - sliding_window is permanent — unless it holds sink tokens.
+        Freed entries become -1 placeholders, so the page list keeps its
+        logical length (position -> table column stays the identity) and
+        `_page_table` parks them on the sink page. Off with a draft model
+        (a verify rollback re-reads recent history). Conservation becomes
+        free + live non-placeholder pages == num_pages - 1."""
+        W = self.config.sliding_window
+        if not W or self.draft_config is not None:
+            return
+        ps = self.page_size
+        first_live = max(0, slot.length - W) // ps  # pages below are dead
+        sink_pages = -(-self.config.attn_sinks // ps)  # keep the sink prefix
+        dead = [j for j in range(sink_pages, first_live) if slot.pages[j] >= 0]
+        if not dead:
+            return
+        self.allocator.free(slot.pages[j] for j in dead)
+        for j in dead:
+            slot.pages[j] = -1
+        self.window_reclaimed_pages += len(dead)
 
     def _page_bucket(self, max_tokens: int) -> int:
         """Smallest power-of-two page count covering `max_tokens` positions
@@ -733,6 +770,7 @@ class ServeEngine:
             )
         slot.prompt_pos += n_valid
         slot.length = slot.prompt_pos
+        self._reclaim_window(slot)  # long prompts free behind-window pages
         if not slot.prefilling:
             # Prompt complete: the first generated token comes from the last
             # valid prompt position's logits (greedy: first-index argmax).
@@ -938,6 +976,7 @@ class ServeEngine:
     def _append_token(self, slot_i: int, slot: _Slot, tok: int, t: float) -> bool:
         """Record one generated token; returns True if the request finished
         (and the slot was freed)."""
+        self._reclaim_window(slot)  # no-op unless config.sliding_window
         slot.generated.append(tok)
         slot.token_times.append(t)
         req = slot.request

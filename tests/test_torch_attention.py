@@ -121,24 +121,3 @@ def test_zero_count_slot_is_finite_zero():
 def test_normalize_split_k():
     assert [tpl.normalize_split_k(s, 8) for s in (1, 2, 3, 4, 8, 16)] == [1, 2, 2, 4, 8, 8]
     assert tpl.normalize_split_k(4, 6) == 2  # pow2 divisor of an odd-width table
-
-
-def test_unported_specs_raise():
-    """The GQA fold and the sliding window are the template's specs still
-    to be ported: the kernel's argument check, the plain version and the
-    gather refuse fewer pool heads than query heads, and GPTConfig refuses
-    a window. The verify and int8 specs are ported (tests/test_torch_spec.py)."""
-    from midgpt_tpu_torch.models.gpt import GPTConfig
-
-    q = torch.zeros(1, 2, 2, C)  # 2 query heads, 2 rows
-    pages = torch.zeros(1, 4, PS, C)  # 1 pool head: GQA
-    table = torch.zeros(1, 2, dtype=torch.int32)
-    counts = torch.ones(1, 2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="GQA"):
-        tpl._check_args(q, pages, pages, table, counts, None, None)
-    with pytest.raises(NotImplementedError, match="GQA"):
-        tpl.paged_attention_template(q, pages, pages, table, counts)
-    with pytest.raises(NotImplementedError, match="GQA"):
-        t_gather(q[:, :, 0], pages, pages, table, counts[:, 0])
-    with pytest.raises(NotImplementedError, match="sliding_window"):
-        GPTConfig(block_size=64, vocab_size=96, n_layer=2, n_head=2, n_embd=32, sliding_window=16)

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card (paged attention: the decode, verify and int8 specs). Every test here needs an NVIDIA GPU and skips with a reason without
+card (paged attention: the decode, verify, int8, GQA-fold and window specs). Every test here needs an NVIDIA GPU and skips with a reason without
 one. The file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -190,10 +190,10 @@ def test_kernel_refuses_bad_verify_and_int8_args(cuda):
         tpl.paged_attention_template(q, k, v, table, counts)  # int8 pools without scales
     with pytest.raises(ValueError, match="k_scale"):
         tpl.paged_attention_template(q, k, v, table, counts, ks.transpose(0, 1).contiguous(), vs)
-    wide = torch.zeros(2, 2, tpl.MAX_ROWS + 1, 64, device=cuda)
+    rows = tpl.MAX_ROW_CHANNELS // 64 + 1  # one row past the kernel's rows x channels
+    wide = torch.zeros(2, 2, rows, 64, device=cuda)
     with pytest.raises(ValueError, match="rows"):
-        tpl.paged_attention_template(wide, k, v, table, torch.ones(2, tpl.MAX_ROWS + 1, dtype=torch.int32,
-                                                                   device=cuda), ks, vs)
+        tpl.paged_attention_template(wide, k, v, table, torch.ones(2, rows, dtype=torch.int32, device=cuda), ks, vs)
 
 
 @pytest.mark.cuda
@@ -235,6 +235,95 @@ def test_verify_step_through_kernel_matches_gather(cuda, dtype):
     if dtype == torch.int8:
         for a, b in ((ck.k_scale, cg.k_scale), (ck.v_scale, cg.v_scale)):
             torch.testing.assert_close(a, b, atol=0, rtol=1e-5)
+
+
+# GQA fold and sliding window (template rows 7'c, 7'd) at the serving main
+# path's geometry (12 query heads over 3 K/V heads of 64: local_text_124m
+# with n_kv_heads=3) and llama7b_long's (32 over 8 of 128): (B, H_q, H_kv,
+# C, page size, table width, slot lengths before the R rows)
+GQA_GEOMETRIES = {
+    "main": (4, 12, 3, 64, 8, 128, [1015, 691, 291, 0]),
+    "llama": (2, 32, 8, 128, 8, 512, [3990, 1400]),
+}
+
+
+def _gqa_problem(dev, qdtype, pool, geometry, R, seed=0):
+    """q (B, H_q, R, C) over pools at H_kv heads, counts lengths + t + 1."""
+    B, HQ, HKV, C, ps, max_pages, lengths = GQA_GEOMETRIES[geometry]
+    _, k, v, ks, vs, table, counts = _verify_problem(dev, qdtype, pool, B, HKV, C, ps, max_pages, lengths, R, seed)
+    q = torch.randn(B, HQ, R, C, generator=torch.Generator().manual_seed(seed + 2)).to(dev, qdtype)
+    return q, k, v, ks, vs, table, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "qdtype,pool", [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8)],
+    ids=["f32", "bf16", "int8-bf16q"],
+)
+@pytest.mark.parametrize("window,sinks", [(0, 0), (256, 4)], ids=["full", "window"])
+@pytest.mark.parametrize("R", [1, 5, 9])
+@pytest.mark.parametrize("geometry", list(GQA_GEOMETRIES))
+@pytest.mark.parametrize("split_k", [1, 2])
+def test_gqa_window_kernel_matches_plain(cuda, qdtype, pool, window, sinks, R, geometry, split_k):
+    """The folded rows (G*R: 4 to 36 of 64 or 128 channels) and the
+    windowed page sweep against the plain version, one launch of the
+    spec's counter key each."""
+    q, k, v, ks, vs, table, counts = _gqa_problem(cuda, qdtype, pool, geometry, R)
+    groups = q.shape[1] // k.shape[0]
+    before = dict(tpl.LAUNCHES.by_variant)
+    got = tpl.paged_attention_template(q, k, v, table, counts, ks, vs, split_k=split_k,
+                                       sliding_window=window, attn_sinks=sinks)
+    torch.cuda.synchronize()
+    key = (tpl.spec_name(R, pool == torch.int8, groups, window), split_k)
+    assert tpl.LAUNCHES.by_variant[key] == before.get(key, 0) + 1
+    want = tpl.paged_attention_template_plain(q, k, v, table, counts, ks, vs, split_k=split_k,
+                                              sliding_window=window, attn_sinks=sinks)
+    assert got.dtype == qdtype and got.shape == q.shape and torch.isfinite(got).all()
+    tol = TOL[qdtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", list(GQA_GEOMETRIES))
+@pytest.mark.parametrize("split_k", [1, 2])
+def test_full_window_and_gqa_rows_bit_for_bit(cuda, geometry, split_k):
+    """A window at least every count gives exactly the windowless output;
+    every row of a windowed GQA verify launch equals the windowed GQA decode
+    launch at that row's count (a row's arithmetic depends on neither R nor
+    the fold)."""
+    q, k, v, ks, vs, table, counts = _gqa_problem(cuda, torch.bfloat16, torch.bfloat16, geometry, 5, seed=3)
+    base = tpl.paged_attention_template(q, k, v, table, counts, split_k=split_k)
+    wide = tpl.paged_attention_template(q, k, v, table, counts, split_k=split_k, sliding_window=table.shape[1] * 8,
+                                        attn_sinks=4)
+    assert torch.equal(wide, base)
+    win = dict(split_k=split_k, sliding_window=256, attn_sinks=4)
+    rows = tpl.paged_attention_template(q, k, v, table, counts, **win)
+    for t in range(5):
+        one = tpl.paged_attention_template(q[:, :, t : t + 1].contiguous(), k, v, table,
+                                           counts[:, t : t + 1].contiguous(), **win)
+        assert torch.equal(rows[:, :, t], one[:, :, 0]), f"row {t}"
+
+
+@pytest.mark.cuda
+def test_gqa_window_decode_step_through_kernel_matches_gather(cuda):
+    """A GQA + window decode step (f32) through the kernel and the gather."""
+    cfg = GPTConfig(block_size=64, vocab_size=96, n_layer=2, n_head=4, n_embd=128, rope_style="split",
+                    n_kv_heads=2, sliding_window=12, attn_sinks=3)
+    params = GPT.init(cfg, 0, device=cuda)
+    table = torch.tensor([[3, 7, 1, 8], [5, 2, 0, 0], [0, 0, 0, 0]], dtype=torch.int32, device=cuda)
+    out = []
+    for impl in ("gather", "kernel"):
+        cache = PagedKVCache.init(cfg, num_pages=10, page_size=8, dtype=torch.float32, device=cuda)
+        torch.manual_seed(0)
+        cache.k.normal_()
+        cache.v.normal_()
+        logits, cache = GPT.decode_step_paged(
+            cfg, params, torch.tensor([4, 9, 0], device=cuda), cache, table,
+            torch.tensor([27, 11, 0], dtype=torch.int32, device=cuda),
+            torch.tensor([True, True, False], device=cuda), attn_impl=impl, split_k=2,
+        )
+        out.append(logits)
+    torch.testing.assert_close(out[1], out[0], atol=2e-5, rtol=0)
 
 
 def _flash_inputs(dev, dtype, N, T, C, seed=0):

@@ -54,10 +54,15 @@ def test_converter_round_trip():
 
 
 def test_converter_refuses_unported_leaves():
+    """The routed MoE MLP's leaves (JAX MoEParams) are refused; GQA's wkv
+    converts (tests/test_torch_variants.py)."""
     _, jp, _, _ = _pair()
     flat = _flatten(jp)
-    flat[".blocks.attn.wkv"] = np.zeros((2, 2, 32, 32), np.float32)
-    with pytest.raises(NotImplementedError, match="wkv"):
+    del flat[".blocks.mlp.w_up"], flat[".blocks.mlp.w_down"]
+    flat[".blocks.mlp.router"] = np.zeros((2, 4, 32), np.float32)
+    flat[".blocks.mlp.experts_up"] = np.zeros((2, 4, 128, 32), np.float32)
+    flat[".blocks.mlp.experts_down"] = np.zeros((2, 4, 32, 128), np.float32)
+    with pytest.raises(NotImplementedError, match="MoE"):
         params_from_numpy(flat, device=CPU)
 
 
@@ -208,9 +213,7 @@ def test_configs_load_from_jax_config_json(name):
     assert t_to_json(load_config(name)) == to_json(jcfg)
 
 
-@pytest.mark.parametrize(
-    "extra", [dict(n_kv_heads=1), dict(n_experts=2), dict(sliding_window=16)]
-)
+@pytest.mark.parametrize("extra", [dict(n_experts=2)])
 def test_unported_variants_raise(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GPTConfig(**SHAPE, **extra)
