@@ -18,8 +18,13 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
         one seeded upstream gradient) at the training main path's shape
         (B 16, H 12, T 1024, C 64, blocks (512, 1024)) in bf16 and f32, at
         llama7b_long's head shape (B 1, H 32, T 4096, C 128, blocks
-        (512, 1024): the tiled dispatch) and at T 2048 with one KV block
-        (blocks (512, 2048): the single-visit dQ with the tiled dK/dV);
+        (512, 1024): the tiled dispatch), at T 2048 with one KV block
+        (blocks (512, 2048): the single-visit dQ with the tiled dK/dV), at
+        a ragged T (T 200, blocks (64, 64): the KV block widens to T, rows
+        past T zero-filled) and with chunks narrower than the kernel's
+        64-column tile (T 96, C 128, blocks (32, 32)), those two in bf16
+        and f32; then two launches of each kernel on the main path's bf16
+        inputs, bit for bit (no atomics);
      c. the paged template's verify spec (R = 2, 5 and 9 rows per slot, the
         last row's count the phase-3a count, the count-1 slot inactive) and
         its int8 spec (int8 pools with f32 scales; decode and verify R = 5)
@@ -95,17 +100,20 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
   8. the tiled dispatch through the trainer (attn_block_size 512, 2
      layers): all three kernels must launch as "tiled";
   9. torch.profiler over one training microstep at the main path's shape:
-     the device's busy and idle share and the kernels with the most
-     device time;
+     the device's busy and idle share, the kernels with the most device
+     time, and the flash kernels' share beside the SIMT kernels' share;
  10. timings: the paged decode kernel as before (CUDA-graph replay, cold
      L2), and each flash kernel in bf16 (CUDA events over repeated
      launches) at the main path's shape and at one shape per other
      dispatch (the main path at attn_block_size 512, and the two other
-     shapes of phase 3b), beside its plain version, its bound (the larger
-     of the bytes it must move over 3.35 TB/s and its causal FLOPs over
-     the dense peak of the inputs' type) and, as a yardstick the port
-     never calls, torch's scaled_dot_product_attention forward and
-     backward; the verify (R 5) and int8 (decode, verify R 5) kernels as
+     shapes of phase 3b with 2 KV blocks or more), beside its plain
+     version, its bound (the larger of the bytes it must move over 3.35
+     TB/s and its causal FLOPs over the dense peak of the inputs' type),
+     the time of its earlier SIMT version, its achieved TFLOP/s (those
+     causal FLOPs over its time) and, as a yardstick the port never
+     calls, torch's scaled_dot_product_attention forward and backward
+     (the factor: the forward over SDPA's forward, the backward pair over
+     SDPA's backward); the verify (R 5) and int8 (decode, verify R 5) kernels as
      the decode kernel, beside their plain versions, their bounds and SDPA
      over pre-gathered K/V with an R-row mask; the GQA decode, GQA verify
      (R 5) and windowed GQA decode specs at the main path's GQA geometry
@@ -149,13 +157,25 @@ FLASH_CHECKS = [
     (*FLASH_MAIN, torch.float32),
     ("llama7b_long head", 1, 32, 4096, 128, 512, 1024, torch.bfloat16),
     ("T 2048, one KV block", 2, 12, 2048, 64, 512, 2048, torch.bfloat16),
+    *((label, 2, 12, T, C, bq, bk, dt)
+      for label, T, C, bq, bk in (("ragged T", 200, 64, 64, 64), ("chunks narrower than a tile", 96, 128, 32, 32))
+      for dt in (torch.bfloat16, torch.float32)),
 ]
 # flash timings (bf16): the main path, then one shape per other dispatch
 FLASH_TIMED = [
     FLASH_MAIN,
     ("main path at attn_block_size 512", 16, 12, 1024, 64, 512, 512),
-    *(check[:7] for check in FLASH_CHECKS[2:]),
+    *(check[:7] for check in FLASH_CHECKS[2:4]),
 ]
+# each FLASH_TIMED shape's bf16 times of the earlier SIMT kernels (f32 FMAs;
+# PERF.md, table of TPU kernels), ms: forward, dQ, dK/dV
+FLASH_SIMT_MS = dict(zip((shape[0] for shape in FLASH_TIMED), (
+    (1.713, 1.799, 2.397), (1.711, 1.804, 2.375), (8.627, 10.959, 15.144), (0.842, 0.868, 1.144))))
+# targets at the main path's shape: 4x faster than the SIMT kernels, ms
+FLASH_TARGET_MS = {"flash_fwd": 0.43, "flash_bwd_dq": 0.45, "flash_bwd_dkv": 0.60}
+# phase 9's microstep with the SIMT flash kernels (PERF.md §5): wall ms,
+# flash share of the device time in %
+SIMT_MICROSTEP = (168.7, 43.6)
 # training main path: the cuts of local_text_124m, printed as "reduced"
 TRAIN_CUTS = {"g_accum_iters": 2, "max_steps": 4, "eval_steps": 1, "eval_interval": 1000}
 # parity tolerances (printed): f32 losses relative, f32 update relative
@@ -1000,6 +1020,24 @@ def check_flash(label, B, H, T, C, bq, bk, dtype):
     return errs
 
 
+def check_flash_repeat(label, B, H, T, C, bq, bk):
+    """Phase 3b: two launches of each flash kernel on the same bf16 inputs
+    give the same bits of out, lse, dq, dk and dv (no atomics)."""
+    from midgpt_tpu_torch.kernels import flash_attention as fa
+
+    q, k, v, do = flash_problem(B, H, T, C, torch.bfloat16, seed=5)
+    runs = []
+    for _ in range(2):
+        out, lse = fa.flash_forward(q, k, v, bq, bk)
+        runs.append((out, lse, *fa.flash_backward(q, k, v, out, lse, do, bq, bk)))
+    torch.cuda.synchronize()
+    differ = [name for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs) if not torch.equal(a, b)]
+    print(f"kernel check flash {label} bf16, two launches on the same inputs: "
+          + ("bit for bit: ok" if not differ else f"{differ} differ: FAIL"))
+    if differ:
+        raise SystemExit(f"flash kernels are not the same from run to run ({label}: {differ})")
+
+
 def flash_counters():
     from midgpt_tpu_torch.kernels import flash_attention as fa
 
@@ -1169,8 +1207,10 @@ def profile_train(data_dir: Path, card: str):
     print_busy("one training microstep (B 16 x T 1024, 12 layers, bf16)", wall_us, by_name, card, top=10)
     flash_us = {n: sum(us for k, us in by_name.items() if n in k)
                 for n in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")}
-    print("  flash kernels in that step: " + ", ".join(f"{n} {us / 1e3:.3f} ms" for n, us in flash_us.items()))
     busy = sum(by_name.values())
+    print("  flash kernels in that step: " + ", ".join(f"{n} {us / 1e3:.3f} ms" for n, us in flash_us.items())
+          + f"; together {sum(flash_us.values()) / 1e3:.3f} ms, {100 * sum(flash_us.values()) / busy:.1f}% of the "
+          f"device time (SIMT kernels: wall {SIMT_MICROSTEP[0]} ms, flash {SIMT_MICROSTEP[1]}%)")
     print("  device time by kind: " + ", ".join(
         f"{kind} {us / 1e3:.3f} ms ({100 * us / busy:.1f}%)" for kind, us in time_by_kind(by_name).items()))
 
@@ -1193,23 +1233,29 @@ def time_by_kind(by_name):
     return out
 
 
+def flash_flops(B, H, T, C):
+    """{kernel: flops of its causal products} at one shape: T (T + 1) / 2
+    score pairs per head, 2 C flops per pair and product. The forward has 2
+    products (QK^T, PV), dQ 3 (QK^T, dO V^T, dS K), dK/dV 4 (QK^T, dO V^T,
+    P^T dO, dS^T Q); the recomputations the kernels add are not counted."""
+    product = B * H * T * (T + 1) // 2 * 2 * C
+    return {"flash_fwd": 2 * product, "flash_bwd_dq": 3 * product, "flash_bwd_dkv": 4 * product}
+
+
 def flash_bounds(B, H, T, C, dtype):
     """{kernel: (least ms, what bounds it)} at one shape: each input read
     once and each output written once over 3.35 TB/s, against the causal
-    products (T (T + 1) / 2 score pairs per head, 2 C flops per pair and
-    product) over the dense peak of the inputs' type."""
+    products (flash_flops) over the dense peak of the inputs' type."""
     item = torch.empty((), dtype=dtype).element_size()
-    N = B * H
-    tensor, lse = N * T * C * item, N * T * 4
-    product = N * T * (T + 1) // 2 * 2 * C
-    work = {  # (bytes moved, flops)
-        "flash_fwd": (4 * tensor + lse, 2 * product),  # q k v in, out + lse out; QK^T, PV
-        "flash_bwd_dq": (6 * tensor + lse, 3 * product),  # q k v o dO lse in, dq out; QK^T, dO V^T, dS K
-        "flash_bwd_dkv": (7 * tensor + lse, 4 * product),  # ... dk dv out; + P^T dO, dS^T Q
+    tensor, lse = B * H * T * C * item, B * H * T * 4
+    moved = {
+        "flash_fwd": 4 * tensor + lse,  # q k v in, out + lse out
+        "flash_bwd_dq": 6 * tensor + lse,  # q k v o dO lse in, dq out
+        "flash_bwd_dkv": 7 * tensor + lse,  # ... dk dv out
     }
     out = {}
-    for name, (moved, flops) in work.items():
-        t_b, t_o = moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    for name, flops in flash_flops(B, H, T, C).items():
+        t_b, t_o = moved[name] / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
         out[name] = (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
     return out
 
@@ -1282,7 +1328,9 @@ def main() -> int:
     print(f"built {len(paths)} kernel source(s) in {time.perf_counter() - t0:.1f} s: {[p.name for p in paths.values()]}")
     for src, log in build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "Compiling entry function" in line:  # the (mangled) kernel the next lines describe
+                print(f"  ptxas {src}: {line.split(chr(39))[1][:120]}")
+            elif "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {src}: {line.strip()}")
 
     # 3. kernels vs plain
@@ -1306,6 +1354,9 @@ def main() -> int:
     for label, B, H, T, C, bq, bk, dt in FLASH_CHECKS:
         flash_errs[(label, dt)] = check_flash(label, B, H, T, C, bq, bk, dt)
         free_memory()
+    for label, B, H, T, C, bq, bk in FLASH_TIMED[::2]:  # single-visit C 64, tiled C 128
+        check_flash_repeat(label, B, H, T, C, bq, bk)
+    free_memory()
 
     # 4. the serving main path, bf16: counters zeroed just before, read just after
     cfg = load_config("openwebtext").model_config
@@ -1441,13 +1492,23 @@ def main() -> int:
         free_memory()
         bounds = flash_bounds(B, H, T, C, torch.bfloat16)
         variants = fa._variants(T, fa._block_sizes(T, bq, bk)[1])
-        for kname, variant in zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), variants):
+        flops = flash_flops(B, H, T, C)
+        for kname, variant, simt_ms in zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), variants,
+                                           FLASH_SIMT_MS[label]):
             b_ms, b_by = bounds[kname]
             lib_what = "sdpa forward" if kname == "flash_fwd" else "sdpa backward (dq, dk and dv in one call)"
             print(f"{kname} [{variant}] {label} bf16 B={B} H={H} T={T} C={C} blocks=({bq},{bk}): "
-                  f"{f_ms[kname]:.4f} ms device, bound {b_ms:.4f} ms by {b_by} ({f_ms[kname] / b_ms:.1f}x), "
-                  f"plain {f_plain[kname]:.3f} ms, {lib_what} {f_lib[kname]:.4f} ms on {card}")
+                  f"{f_ms[kname]:.4f} ms device ({flops[kname] / f_ms[kname] / 1e9:.1f} TFLOP/s), SIMT "
+                  f"{simt_ms:.3f} ms ({simt_ms / f_ms[kname]:.1f}x faster), bound {b_ms:.4f} ms by {b_by} "
+                  f"({f_ms[kname] / b_ms:.1f}x), plain {f_plain[kname]:.3f} ms, {lib_what} "
+                  f"{f_lib[kname]:.4f} ms on {card}")
+        bwd_ms = f_ms["flash_bwd_dq"] + f_ms["flash_bwd_dkv"]
+        print(f"flash {label}: forward {f_ms['flash_fwd'] / f_lib['flash_fwd']:.2f}x sdpa's forward, backward "
+              f"pair {bwd_ms:.4f} ms = {bwd_ms / f_lib['flash_bwd_dq']:.2f}x sdpa's backward on {card}")
         if label == FLASH_MAIN[0]:
+            print("flash targets at the main path's shape (4x faster than the SIMT kernels): " + ", ".join(
+                f"{kname} {f_ms[kname]:.4f} ms vs {target} ms {'met' if f_ms[kname] <= target else 'MISSED'}"
+                for kname, target in FLASH_TARGET_MS.items()))
             main_ms, main_plain, main_lib, main_bounds = f_ms, f_plain, f_lib, bounds
     _, B, H, T, C, bq, bk = FLASH_MAIN
     print(f"main path: {cfg.n_layer} launches of each flash kernel per microstep, {cfg.n_layer * 16} per "

@@ -15,10 +15,23 @@ policy as its contract, and carries:
     online recurrence over block_k chunks on the tiled path; p rounded to
     dO's dtype before dV, delta = rowsum(O * dO) in f32, ds rounded to q's
     dtype before dQ and dK);
-  * the CUDA kernels of `csrc/flash_attention.cu` (`flash_fwd`,
-    `flash_bwd_dq`, `flash_bwd_dkv`; source note there: what each replaces,
-    what bounds it, and its design), launched by `flash_forward` /
-    `flash_backward` for CUDA tensors;
+  * the CUDA kernels of `csrc/flash_attention.cu` (`flash_fwd` for bodies
+    1-2, `flash_bwd_dq` for body 3's dQ and bodies 4-5, `flash_bwd_dkv` for
+    body 3's dK/dV and body 6), launched by `flash_forward` /
+    `flash_backward` for CUDA tensors. bfloat16 inputs take the tensor-core
+    kernels: mma.sync bf16 products with f32 accumulators, bf16 tiles in
+    padded shared memory read by ldmatrix, and K/V (forward, dQ) or Q/dO/O
+    (dK/dV) tiles copied by cp.async in a two-stage ring, each warp owning
+    16 rows. The rounding points above are the operand conversions the
+    tensor cores need anyway: p and ds are rounded to bf16 where the score
+    fragment is repacked, in registers, as the next product's operand. At
+    the main path's shape the work (25.8-51.6 GFLOP per kernel) and the bytes
+    (each tensor read or written once) bound the kernels about equally
+    (chip_smoke.flash_bounds); the kernels add the forward's second Q.K^T
+    and the backward's recomputed Q.K^T. float32 inputs keep the SIMT
+    kernels with f32 FMAs: the tensor cores take f32 only as TF32, three
+    decimal digits, and the f32 path is held to 1e-5. The source note says
+    more;
   * `flash_attention(q, k, v, block_q, block_k)`, the `autograd.Function`
     over (B, H, T, C) that saves q, k, v, out and lse for the backward, as
     the JAX forward rule does.
@@ -165,7 +178,8 @@ def _kernel_lib() -> ctypes.CDLL:
 
 def _check_args(*named: tp.Tuple[str, Tensor]) -> None:
     """The kernels take contiguous (N, T, C) tensors of one dtype (f32 or
-    bf16) on one CUDA device, with C in {64, 128}."""
+    bf16) on one CUDA device, with C in {64, 128}, each starting on a
+    16-byte boundary (the bf16 kernels copy and read 16-byte row pieces)."""
     (_, q), *rest = named
     if q.dim() != 3:
         raise ValueError(f"flash kernels take (N, T, C) tensors, got q {tuple(q.shape)}")
@@ -182,6 +196,9 @@ def _check_args(*named: tp.Tuple[str, Tensor]) -> None:
                 f"{name} {tuple(t.shape)} {t.dtype} on {t.device} does not match "
                 f"q {tuple(q.shape)} {q.dtype} on {q.device}"
             )
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} does not start on a 16-byte boundary (data_ptr {t.data_ptr():#x})")
 
 
 def _raise_on(lib, rc: int, name: str) -> None:

@@ -96,6 +96,26 @@ def test_dispatch_variants():
     assert fa._variants(2048, 2048) == ("single", "single", "tiled")  # bodies 1, 4, 6
 
 
+@pytest.mark.parametrize("offset,bad", [(0, None), (8, None), (1, "q"), (4, "k"), (2, "dout")])
+def test_kernel_arguments_start_on_16_bytes(offset, bad):
+    """The kernels' argument check (run before any launch) refuses a tensor
+    whose data does not start on a 16-byte boundary: the bf16 kernels copy
+    16-byte row pieces with cp.async. Checked here on CPU tensors, which it
+    reads the same way."""
+    N, T, C = 2, 8, 64
+    names = ("q", "k", "v", "out", "dout")
+    named = []
+    for name in names:
+        shift = offset if name == (bad or "q") else 0
+        t = torch.zeros(N * T * C + 16, dtype=torch.bfloat16)[shift : shift + N * T * C].view(N, T, C)
+        named.append((name, t))
+    if bad is None:
+        fa._check_args(*named)
+    else:
+        with pytest.raises(ValueError, match=f"{bad} does not start on a 16-byte boundary"):
+            fa._check_args(*named)
+
+
 def test_cpu_never_launches_a_kernel():
     _, (tq, tk, tv) = _qkv((1, 1, 64, 64), seed=5)
     counters = (fa.FWD_LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES)

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card (paged attention: the decode, verify, int8, GQA-fold and window specs). Every test here needs an NVIDIA GPU and skips with a reason without
+card (paged attention: the decode, verify, int8, GQA-fold and window specs;
+flash attention: forward and both backward kernels). Every test here needs an NVIDIA GPU and skips with a reason without
 one. The file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -347,6 +348,10 @@ def _close_scaled(got, want, tol):
         (2, 256, 128, 64, 128),  # tiled (bodies 2, 5, 6)
         (2, 200, 64, 64, 64),  # ragged T: the KV block widens to T, tiles mask their edge
         (2, 96, 128, 32, 32),  # tiled with chunks narrower than the kernel's tile
+        (2, 256, 128, 512, 1024),  # single visit at C 128
+        (2, 77, 64, 512, 1024),  # T not a multiple of 16: zero-filled rows past T
+        (2, 77, 128, 512, 1024),
+        (2, 128, 64, 32, 32),  # tiled, chunks of 32 inside the kernel's 64-column tiles at C 64
     ],
 )
 def test_flash_kernels_match_plain(cuda, dtype, N, T, C, bq, bk):
@@ -367,6 +372,57 @@ def test_flash_kernels_match_plain(cuda, dtype, N, T, C, bq, bk):
     for got, want in zip((dq, dk, dv), grads):
         assert got.dtype == dtype and torch.isfinite(got).all()
         _close_scaled(got, want, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [64, 128])
+def test_flash_kernels_at_one_token(cuda, dtype, C):
+    """T = 1: one row sees one key, so p = 1, out = v, lse = q.k / sqrt(C)
+    and dv = dout exactly. dq and dk are exactly 0 in exact arithmetic (dp
+    and delta are the same dot product, dout . v); computed, they are the
+    difference of two f32 sums of C terms taken in different orders, each
+    within C * 2^-24 of the sum of the terms' magnitudes, so they are held
+    to twice that difference's bound, 4 C 2^-24 of that sum, not to the
+    plain version's equally noisy values."""
+    N = 3
+    q, k, v, do = _flash_inputs(cuda, dtype, N, 1, C, seed=4)
+    out, lse = fa.flash_forward(q, k, v)
+    dq, dk, dv = fa.flash_backward(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    scale = C ** -0.5
+    assert torch.equal(out, v) and torch.equal(dv, do)
+    want_lse = (q.float() * k.float()).sum(-1) * scale
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    terms = (do.float() * v.float()).abs().sum(-1, keepdim=True) * scale  # (N, 1, 1): sum |dout * v| / sqrt(C)
+    for name, got, other in (("dq", dq, k), ("dk", dk, q)):
+        bound = 4 * C * 2.0**-24 * terms * other.float().abs().amax(-1, keepdim=True)
+        assert (got.float().abs() <= bound).all(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,T,C,bq,bk", [(4, 256, 64, 512, 1024), (2, 200, 128, 64, 64)])
+def test_flash_kernels_repeat_bit_for_bit(cuda, N, T, C, bq, bk):
+    """No atomics: two launches on the same bf16 inputs give the same bits
+    of out, lse, dq, dk and dv."""
+    q, k, v, do = _flash_inputs(cuda, torch.bfloat16, N, T, C, seed=2)
+    runs = []
+    for _ in range(2):
+        out, lse = fa.flash_forward(q, k, v, bq, bk)
+        runs.append((out, lse, *fa.flash_backward(q, k, v, out, lse, do, bq, bk)))
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_misaligned_tensors(cuda):
+    q, k, v, _ = _flash_inputs(cuda, torch.bfloat16, 2, 64, 64)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)  # 2 bytes in
+    shifted.copy_(q)
+    before = fa.FWD_LAUNCHES.count
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_forward(shifted, k, v, 64, 64)
+    assert fa.FWD_LAUNCHES.count == before
 
 
 @pytest.mark.cuda
