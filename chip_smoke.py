@@ -9,11 +9,15 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
   1. require CUDA and the port's sources beside this script; print the
      card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the port from midgpt_tpu_torch/csrc (one
-     nvcc per source, all started together; ptxas report printed);
+     nvcc per source, all started together; ptxas report printed: each
+     instantiation's registers and spills, the paged template's
+     tensor-core, SIMT and merge kernels among them);
   3. hold each kernel against its plain PyTorch version:
      a. paged decode at the serving shapes — 4 slots, 12 heads of 64, pages
         of 8, a 128-page bucket, counts [1024, 700, 300, 1] — in bf16 and
-        f32, split 1 and 2, and an f32 query over bf16 pools;
+        f32, split 1 and 2, and an f32 query over bf16 pools; the merge
+        kernel against merge_partials + finalize on partials of that shape
+        (every third partition neutral), bf16 and f32 outputs;
      b. flash attention forward (out, lse) and backward (dq, dk, dv from
         one seeded upstream gradient) at the training main path's shape
         (B 16, H 12, T 1024, C 64, blocks (512, 1024)) in bf16 and f32, at
@@ -45,8 +49,9 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      max_slots=4 — short requests (split-1 rounds) and one longer than 512
      tokens (split-2 rounds). Launch counters are zeroed just before and
      read just after; every request must finish with its token budget,
-     both splits must have launched, and launches must equal n_layer x
-     decode steps;
+     both splits must have launched, launches must equal n_layer x
+     decode steps, and the merge kernel must have launched once per
+     template call;
   5. the same trace in f32 through the kernel and through the gather
      lowering: the greedy streams must be identical; then the device busy
      share of steady bf16 decode rounds under torch.profiler;
@@ -119,8 +124,13 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      (R 5) and windowed GQA decode specs at the main path's GQA geometry
      the same way (bound: the K/V of the keys some row sees, at the K/V
      head count; SDPA over K/V gathered and repeated to the query heads,
-     the window in its mask). The "kernels" line carries the main paths'
-     numbers.
+     the window in its mask). Each paged spec's time is printed beside the
+     earlier single-kernel version's (one block per K/V head and caller's
+     partition) and, at split 1, against its limit (bf16: the larger of a
+     third of the earlier time and SDPA's; f32 decode: the earlier time).
+     Then the merge kernel alone at the decode shape (graph replay, cold
+     L2), beside its plain version and its bound (the partials' bytes over
+     3.35 TB/s). The "kernels" line carries the main paths' numbers.
 
 The last lines are the card's name and power limit as nvidia-smi prints
 them, one JSON object with a "kernels" list, and the contract line
@@ -141,12 +151,21 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
+L2_BYTES = 50 * 2**20  # H100 SXM L2
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 / f32 non-tensor
 SLOTS, HEADS, HEAD_DIM, PAGE, BUCKET = 4, 12, 64, 8, 128
 COUNTS = [1024, 700, 300, 1]
 VERIFY_ROWS = (2, 5, 9)  # phase 3c: k+1 rows per slot (spec_k_max 4 here, 8 in llama7b_32k)
 TIMED_ROWS = 5  # phase 10: the verify spec at spec_k_max 4
 SPEC_DRAFT_LAYERS = 4  # local_text_124m's spec_layers
+# phase 10: each paged spec's bf16 times of the earlier single-kernel
+# version (one block per K/V head and caller's partition; PERF.md, table of
+# TPU kernels), ms at split 1 and 2; f32 decode
+PAGED_EARLIER_MS = {
+    "decode": (0.0512, 0.0498), "f32 decode": (0.0496, 0.0528), "verify": (0.1753, 0.1195),
+    "int8-decode": (0.0561, 0.0574), "int8-verify": (0.1831, 0.1234), "gqa-decode": (0.1393, 0.1000),
+    "gqa-verify": (0.6092, 0.3415), "window-gqa-decode": (0.0421, 0.0703),
+}
 GAP_TOL = 1e-5  # relative top-2 logit gap below which a spec/plain departure is a near-tie
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 KERNEL_SOURCES = ("paged_attention", "flash_attention")
@@ -285,6 +304,81 @@ def check_kernel(dtype, split_k, kv_dtype=None):
     return err
 
 
+def merge_problem(dtype, seed=0):
+    """Phase-3a merge inputs: raw partials as the partition kernel writes
+    them at the serving main path's decode shape (4 slots, 12 heads, 1 row,
+    C 64, a 128-page bucket cut into partitions), every third partition
+    neutral (M_INIT, 0, 0), as a partition past a slot's count is."""
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+    from midgpt_tpu_torch.ops.online_softmax import M_INIT
+
+    n_parts = BUCKET // tpl.partition_pages(BUCKET, 1, PAGE, HEAD_DIM, dtype, dtype)
+    g = torch.Generator().manual_seed(seed)
+    m = torch.randn(SLOTS, n_parts, HEADS, 1, generator=g) * 4
+    l = torch.rand(SLOTS, n_parts, HEADS, 1, generator=g) * 8 + 0.5
+    acc = torch.randn(SLOTS, n_parts, HEADS, 1, HEAD_DIM, generator=g)
+    m[:, 2::3], l[:, 2::3], acc[:, 2::3] = M_INIT, 0.0, 0.0
+    return [t.cuda() for t in (m, l, acc)]
+
+
+def check_merge(dtype):
+    """Phase 3a: the merge kernel vs merge_partials + finalize on the same
+    partials; returns max |err|."""
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+    from midgpt_tpu_torch.ops.online_softmax import finalize, merge_partials
+
+    m, l, acc = merge_problem(dtype)
+    got = tpl.merge_partitions(m, l, acc, dtype)
+    torch.cuda.synchronize()
+    want, _ = finalize(*merge_partials(m, l, acc, axis=1))
+    want = want.to(dtype)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL[dtype]
+    ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol) and got.dtype == dtype
+    print(f"kernel check paged merge {str(dtype)[6:]} ({m.shape[1]} partitions, every third neutral): "
+          f"max_abs_err={err:.3e} (tol {tol:g} abs+rel) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"paged merge kernel disagrees with its plain version ({dtype})")
+    return err
+
+
+def time_merge(dtype=torch.bfloat16):
+    """Phase 10: device ms of the merge kernel alone at the decode shape
+    (graph replay, cold L2: one call per copy of the partials, the copies
+    together 1.5x the L2, so each call reads its partials from memory, as
+    the bound's memory rate assumes; on the main path they come from the
+    partition kernel's writes and may still sit in the L2), its plain
+    version (eager), and its bound: the partials read once and the output
+    written once over 3.35 TB/s."""
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+    from midgpt_tpu_torch.ops.online_softmax import finalize, merge_partials
+
+    base = merge_problem(dtype, seed=1)
+    copies = -(-3 * L2_BYTES // (2 * sum(4 * t.numel() for t in base)))
+    probs = [base] + [[t.clone() for t in base] for _ in range(copies - 1)]
+    before = tpl.MERGE_LAUNCHES.count
+    ms = graph_ms([lambda p=p: tpl.merge_partitions(*p, dtype) for p in probs], per_graph=copies)
+    m, l, acc = probs[0]
+    plain_ms = event_ms(lambda: finalize(*merge_partials(m, l, acc, axis=1))[0].to(dtype), 20, 3)
+    if tpl.MERGE_LAUNCHES.count == before:
+        raise SystemExit("timing loop never launched the merge kernel")
+    item = torch.empty((), dtype=dtype).element_size()
+    moved = 4 * (acc.numel() + m.numel() + l.numel()) + SLOTS * HEADS * HEAD_DIM * item
+    return ms, plain_ms, moved / HBM_BYTES_PER_S * 1e3, m.shape[1]
+
+
+def paged_vs_earlier(spec, split_k, ms, sdpa_ms):
+    """The spec's time beside the earlier version's and, at split 1,
+    against its limit: the larger of a third of the earlier time and SDPA's
+    time in this call (f32 decode: the earlier time)."""
+    earlier = PAGED_EARLIER_MS[spec][split_k - 1]
+    text = f"earlier version {earlier:.4f} ms ({earlier / ms:.1f}x faster)"
+    if split_k == 1:
+        limit = earlier if spec.startswith("f32") else max(earlier / 3, sdpa_ms)
+        text += f", limit {limit:.4f} ms {'met' if ms <= limit else 'MISSED'}"
+    return text
+
+
 def graph_ms(fns, per_graph: int = 24, replays: int = 20) -> float:
     """Device time per call: `per_graph` calls, cycling through `fns` (each
     on its own copy of the inputs, together larger than the 50 MB L2, so
@@ -383,6 +477,12 @@ def print_busy(what, wall_us, by_name, card, top=6):
           f"{100 - 100 * busy_us / wall_us:.1f}%) on {card}")
     for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {us / 1e3:8.3f} ms  {kname[:110]}")
+    paged = {kind: sum(us for kname, us in by_name.items() if marker in kname)
+             for kind, marker in (("partition", "paged_attention_tc"), ("SIMT partition", "paged_attention_simt"),
+                                  ("merge", "paged_attention_merge"))}
+    if any(paged.values()):
+        print(f"  paged-attention kernels: {sum(paged.values()) / 1e3:.3f} ms of {busy_us / 1e3:.2f} ms device ("
+              + ", ".join(f"{kind} {us / 1e3:.3f} ms" for kind, us in paged.items()) + ")")
 
 
 def trace(vocab: int):
@@ -1332,11 +1432,15 @@ def main() -> int:
                 print(f"  ptxas {src}: {line.split(chr(39))[1][:120]}")
             elif "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {src}: {line.strip()}")
+    spilled = [line.strip() for log in build.build_logs.values() for line in log.splitlines()
+               if "spill stores" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill")]
+    print(f"ptxas: {len(spilled)} kernel instantiation(s) spill" + "".join(f"\n  {line}" for line in spilled))
 
     # 3. kernels vs plain
     errs = {(dt, s): check_kernel(dt, s) for dt in (torch.bfloat16, torch.float32) for s in (1, 2)}
     for s in (1, 2):
         check_kernel(torch.float32, s, kv_dtype=torch.bfloat16)
+    merge_errs = {dt: check_merge(dt) for dt in (torch.bfloat16, torch.float32)}
     spec_errs = {}  # (qdtype, R, int8, split) -> max |err|
     for qdt in (torch.bfloat16, torch.float32):
         for s in (1, 2):
@@ -1363,8 +1467,10 @@ def main() -> int:
     params32 = GPT.init(cfg, 0, device="cuda")
     params16 = cast_floating(params32, torch.bfloat16)
     tpl.LAUNCHES.reset()
+    tpl.MERGE_LAUNCHES.reset()
     stats16, _, wall16 = serve(cfg, params16, torch.bfloat16)
     by_variant = dict(tpl.LAUNCHES.by_variant)
+    merge_launches = tpl.MERGE_LAUNCHES.count
     print(f"main path bf16: {json.dumps(stats16)} wall {wall16:.3f} s")
     print(f"kernel launches by (spec, split): {by_variant}; decode steps {stats16['decode_steps']} x {cfg.n_layer} layers")
     launches = {split: n for (spec, split), n in by_variant.items()}
@@ -1372,6 +1478,9 @@ def main() -> int:
         raise SystemExit(f"the main path must launch the decode spec at split 1 and 2, got {by_variant}")
     if sum(launches.values()) != cfg.n_layer * stats16["decode_steps"]:
         raise SystemExit("kernel launches != n_layer x decode steps: a decode step bypassed the kernel")
+    print(f"merge kernel launches: {merge_launches} (one per template call)")
+    if merge_launches != sum(launches.values()):
+        raise SystemExit("merge launches != template launches: a call bypassed the merge kernel")
     tok_s = stats16["decode_tokens"] / stats16["decode_seconds"]
     print(f"decode throughput bf16: {tok_s:.1f} tokens/s over {stats16['decode_tokens']} tokens "
           f"({stats16['decode_seconds']:.3f} s in decode rounds) on {card}")
@@ -1417,9 +1526,10 @@ def main() -> int:
         for s in (1, 2):
             ms, eager_ms, plain_ms, lib_ms = time_kernel(dt, s)
             b_ms, b_by = bound_ms(dt)
+            spec = "decode" if dt == torch.bfloat16 else "f32 decode"
             print(f"paged_attention_decode {str(dt)[6:]} split_k={s}: {ms:.4f} ms device (graph replay, cold L2; "
                   f"{eager_ms:.4f} ms per eager call with host) bound {b_ms:.4f} ms by {b_by}, "
-                  f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms on {card}")
+                  f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.4f} ms; {paged_vs_earlier(spec, s, ms, lib_ms)} on {card}")
             if dt == torch.bfloat16:  # the serving path's dtype: one entry per launch variant
                 kernels.append({
                     "name": f"paged_attention_decode[bf16,split_k={s}]",
@@ -1443,7 +1553,7 @@ def main() -> int:
             ms, plain_ms, lib_ms, (b_ms, b_by) = time_spec_kernel(torch.bfloat16, R, int8, s)
             print(f"{kname} ({spec_label(torch.bfloat16, R, int8)}) split_k={s}: {ms:.4f} ms device (graph replay, "
                   f"cold L2) bound {b_ms:.4f} ms by {b_by} ({ms / b_ms:.1f}x), plain {plain_ms:.3f} ms, "
-                  f"sdpa {lib_ms:.4f} ms on {card}")
+                  f"sdpa {lib_ms:.4f} ms; {paged_vs_earlier(spec, s, ms, lib_ms)} on {card}")
             kernels.append({
                 "name": f"{kname}[bf16,R={R},split_k={s}]",
                 "route": "cuda",
@@ -1470,7 +1580,8 @@ def main() -> int:
             print(f"{kname} ({spec} R={R}, {g_heads[0]} query heads over {g_heads[1]} K/V heads"
                   f"{f', window {WINDOW} + {SINKS} sinks' if window else ''}, bf16) split_k={s}: {ms:.4f} ms device "
                   f"(graph replay over {copies} copies, cold L2) bound {b_ms:.4f} ms by {b_by} ({ms / b_ms:.1f}x), "
-                  f"plain {plain_ms:.3f} ms, sdpa over K/V repeated to the query heads {lib_ms:.4f} ms on {card}")
+                  f"plain {plain_ms:.3f} ms, sdpa over K/V repeated to the query heads {lib_ms:.4f} ms; "
+                  f"{paged_vs_earlier(spec, s, ms, lib_ms)} on {card}")
             kernels.append({
                 "name": f"{kname}[bf16,R={R},split_k={s}]",
                 "route": "cuda",
@@ -1485,6 +1596,24 @@ def main() -> int:
                 "library_ms": lib_ms,
             })
             free_memory()
+    ms, plain_ms, b_ms, n_parts = time_merge()
+    print(f"paged_attention_merge bf16 ({SLOTS} slots, {n_parts} partitions, {HEADS} heads, 1 row, C {HEAD_DIM}): "
+          f"{ms:.4f} ms device (graph replay, cold L2) bound {b_ms:.5f} ms by bytes ({ms / b_ms:.1f}x), "
+          f"plain {plain_ms:.4f} ms on {card}")
+    kernels.append({
+        "name": f"paged_attention_merge[bf16,parts={n_parts}]",
+        "route": "cuda",
+        "source": "midgpt_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "midgpt_tpu/kernels/attention_template.py:314",
+        "launches": merge_launches,
+        "max_abs_err": merge_errs[torch.bfloat16],
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+    })
+    free_memory()
     from midgpt_tpu_torch.kernels import flash_attention as fa
 
     for label, B, H, T, C, bq, bk in FLASH_TIMED:  # the main path's shape first

@@ -27,9 +27,13 @@ Two versions carry it:
     running stats, p rounded to V's dtype before the PV product — for int8
     pools K and V are dequantized to f32 and p stays f32 — in-place
     finalize for split 1 or f32 partials merged outside for split > 1);
-  * the CUDA kernel `csrc/paged_attention.cu` (source note there: what it
-    replaces, what bounds it, and its design), launched by
-    `paged_attention_template` for CUDA tensors.
+  * the CUDA kernels of `csrc/paged_attention.cu` (source note there: what
+    they replace, what bounds them, and their design), launched by
+    `paged_attention_template` for CUDA tensors: a partition kernel that
+    writes raw partials of fixed runs of `partition_pages(...)` pages
+    (tensor-core products for a bf16 query over bf16 or int8 pools, f32
+    FMAs otherwise), then the merge kernel (`merge_partitions`, whose plain
+    version is merge_partials + finalize).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises — there is no fallback between the two.
@@ -54,13 +58,17 @@ LAUNCHES = LaunchCounter("paged_attention")
 
 _Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# csrc/paged_attention.cu limits: (folded rows) x head_dim per slot and head
-# (kMaxRowChan: the per-thread accumulators), head_dim (kMaxChan), and the
-# shared memory of a block with a one-page tile (kSmemMax, kStages)
+# Launches of the CUDA merge kernel (one per template call on CUDA).
+MERGE_LAUNCHES = LaunchCounter("paged_attention_merge")
+
+# csrc/paged_attention.cu limits: (folded) rows x head_dim per slot and head
+# (kMaxRowChan) and head_dim (kMaxChan); and the keys x head_dim of a
+# partition (_PARTITION_ELEMS: its K and V fit shared memory). The kernel's
+# choice of products and its shared memory live in the .cu alone: a block
+# that does not fit is refused by the launcher.
 MAX_ROW_CHANNELS = 8192
 _MAX_C = 512
-_SMEM_MAX = 227 * 1024
-_STAGES = 2
+_PARTITION_ELEMS = 16384
 
 
 def normalize_split_k(split_k: int, max_pages: int) -> int:
@@ -71,6 +79,29 @@ def normalize_split_k(split_k: int, max_pages: int) -> int:
     while max_pages % s:
         s //= 2
     return s
+
+
+def partition_pages(max_pages: int, split_k: int, page_size: int, head_dim: int,
+                    q_dtype: torch.dtype = torch.bfloat16, pool_dtype: torch.dtype = torch.bfloat16) -> int:
+    """Pages per partition of the CUDA kernel (csrc/paged_attention.cu,
+    "Partitions"): the largest divisor of max_pages / split_k (normalized)
+    that is at most max(ceil(32 / page_size), ceil(max_pages / 32)) pages —
+    at least 32 keys, at most ~32 partitions — and at most
+    16384 / (page_size * head_dim) pages, so a partition's K and V fit
+    shared memory. A pure function of the shapes and dtypes: never of the
+    counts (a device sync, no CUDA-graph capture), nor of the rows or the
+    GQA groups (a row's bits would depend on them). It divides every
+    split's page run, so the partitions refine the caller's split.
+
+    An f32 query over bf16 pools keeps the caller's split (P = max_pages /
+    split_k): its p is rounded to bf16 relative to the running max of its
+    partition, so only the caller's partitions give the plain version's
+    roundings, which that pairing is held to at float32's tolerance."""
+    per_split = max_pages // normalize_split_k(split_k, max_pages)
+    if q_dtype == torch.float32 and pool_dtype == torch.bfloat16:
+        return per_split
+    cap = min(max(-(-32 // page_size), -(-max_pages // 32)), max(1, _PARTITION_ELEMS // (page_size * head_dim)))
+    return max(d for d in range(1, min(cap, per_split) + 1) if per_split % d == 0)
 
 
 def spec_name(n_rows: int, quantized: bool, groups: int = 1, sliding_window: int = 0) -> str:
@@ -173,23 +204,23 @@ def _kernel_lib() -> ctypes.CDLL:
     fn = lib.paged_attention
     if fn.argtypes is None:  # declare once per loaded library
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 11 + [ci] * 10 + [ctypes.c_float, ci, ci, vp]
+        fn.argtypes = [vp] * 10 + [ci] * 10 + [ctypes.c_float, ci, ci, vp]
         fn.restype = ci
+        lib.paged_attention_merge.argtypes = [vp] * 4 + [ci] * 6 + [vp]
+        lib.paged_attention_merge.restype = ci
+        lib.paged_attention_tensor_cores.argtypes = [ci] * 4
+        lib.paged_attention_tensor_cores.restype = ci
         lib.paged_attention_error_string.argtypes = [ci]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def smem_bytes(rows: int, head_dim: int, page_size: int, tile_pages: int, pool_dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one block (csrc/paged_attention.cu
-    `smem_for`): the K/V tile ring (and int8 scale rows), the query rows,
-    three (row, key) score buffers, the (row, page, channel) PV partials and
-    the per-(row, page) statistics."""
-    keys = tile_pages * page_size
-    item = torch.empty((), dtype=pool_dtype).element_size()
-    ring = 2 * _STAGES * keys * head_dim * item + (2 * _STAGES * keys * 4 if pool_dtype == torch.int8 else 0)
-    R = rows
-    return ring + 4 * (R * head_dim + 3 * R * keys + R * tile_pages * head_dim + 2 * R * tile_pages + R)
+def _raise_on(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.paged_attention_error_string(rc).decode()
+        if rc == 1:  # cudaErrorInvalidValue: the entry point's limits, or a block past shared memory
+            msg += ": the kernel does not take these shapes (csrc/paged_attention.cu)"
+        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
 
 
 def _check_args(q, k_pages, v_pages, page_table, counts, k_scale, v_scale, sliding_window, attn_sinks) -> None:
@@ -227,12 +258,6 @@ def _check_args(q, k_pages, v_pages, page_table, counts, k_scale, v_scale, slidi
             f"page_size * head_dim * itemsize must be a multiple of 16 bytes and "
             f"head_dim <= {_MAX_C} (got page_size {ps}, head_dim {C}, {k_pages.dtype})"
         )
-    if smem_bytes(R, C, ps, 1, k_pages.dtype) > _SMEM_MAX:
-        raise ValueError(
-            f"{R} rows x head_dim {C} over pages of {ps} {k_pages.dtype} keys need "
-            f"{smem_bytes(R, C, ps, 1, k_pages.dtype)} bytes of shared memory with a "
-            f"one-page tile; a block has {_SMEM_MAX}"
-        )
     if page_table.shape[0] != B or counts.shape != (B, R):
         raise ValueError("page_table / counts do not match the slot and row counts")
     if B > 65535:
@@ -244,12 +269,46 @@ def _check_args(q, k_pages, v_pages, page_table, counts, k_scale, v_scale, slidi
     for name, t in named:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    for name, t in named[1:3] + named[5:]:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the kernel copies 16 bytes at a time)")
+
+
+def merge_partitions(m: Tensor, l: Tensor, acc: Tensor, dtype: torch.dtype) -> Tensor:
+    """Merge raw per-partition partials m, l (B, n_parts, H, R) and acc
+    (B, n_parts, H, R, C) along the partition axis and finalize to
+    (B, H, R, C) in `dtype`: ops/online_softmax merge_partials + finalize
+    for CPU tensors, the CUDA merge kernel (csrc `paged_attention_merge`:
+    ascending partition order) for CUDA tensors."""
+    if not acc.is_cuda:
+        if acc.device.type != "cpu":
+            raise NotImplementedError(f"no paged-attention merge kernel for device {acc.device}")
+        out, _ = finalize(*merge_partials(m, l, acc, axis=1))
+        return out.to(dtype)
+    B, n_parts, H, R, C = acc.shape
+    if m.shape != (B, n_parts, H, R) or l.shape != m.shape or dtype not in _Q_CODE:
+        raise ValueError(f"partials m {tuple(m.shape)}, l {tuple(l.shape)}, acc {tuple(acc.shape)} to {dtype}")
+    if {t.dtype for t in (m, l, acc)} != {torch.float32} or H > 65535 or B > 65535 or C > _MAX_C:
+        raise ValueError(f"the merge takes float32 partials of at most 65535 heads and slots and "
+                         f"head_dim <= {_MAX_C}")
+    m, l, acc = m.contiguous(), l.contiguous(), acc.contiguous()
+    out = torch.empty((B, H, R, C), dtype=dtype, device=acc.device)
+    lib = _kernel_lib()
+    with torch.cuda.device(acc.device):
+        stream = torch.cuda.current_stream(acc.device).cuda_stream
+        rc = lib.paged_attention_merge(acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(),
+                                       B, n_parts, H, R, C, _Q_CODE[dtype], stream)
+    _raise_on(lib, rc, "paged_attention_merge")
+    MERGE_LAUNCHES.add()
+    return out
 
 
 def _launch(q, k_pages, v_pages, page_table, counts, k_scale, v_scale, split_k,
             sliding_window, attn_sinks) -> Tensor:
     """Launch csrc/paged_attention.cu on q (B, H_q, R, C), folded to the
-    pool's heads; returns (B, H_q, R, C)."""
+    pool's heads: the partition kernel writes raw partials of
+    max_pages / partition_pages(...) partitions, the merge kernel finalizes
+    them. Returns (B, H_q, R, C)."""
     out_shape, n_rows = q.shape, q.shape[2]
     q, counts, groups = _fold(q.contiguous(), counts, k_pages.shape[0])
     _check_args(q, k_pages, v_pages, page_table, counts, k_scale, v_scale, sliding_window, attn_sinks)
@@ -257,6 +316,8 @@ def _launch(q, k_pages, v_pages, page_table, counts, k_scale, v_scale, split_k,
     _, P, ps, _ = k_pages.shape
     max_pages = page_table.shape[1]
     split_k = normalize_split_k(split_k, max_pages)
+    pages = partition_pages(max_pages, split_k, ps, C, q.dtype, k_pages.dtype)
+    n_parts = max_pages // pages
     quantized = k_scale is not None
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
     if quantized:
@@ -264,14 +325,9 @@ def _launch(q, k_pages, v_pages, page_table, counts, k_scale, v_scale, split_k,
     pt = page_table.to(torch.int32).contiguous()
     cnt = counts.to(torch.int32).contiguous()
     f32 = dict(dtype=torch.float32, device=q.device)
-    if split_k == 1:
-        out = torch.empty_like(q)
-        acc = m = l = None
-    else:
-        out = None
-        acc = torch.empty((B, split_k, H, R, C), **f32)
-        m = torch.empty((B, split_k, H, R), **f32)
-        l = torch.empty((B, split_k, H, R), **f32)
+    acc = torch.empty((B, n_parts, H, R, C), **f32)
+    m = torch.empty((B, n_parts, H, R), **f32)
+    l = torch.empty((B, n_parts, H, R), **f32)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -281,18 +337,13 @@ def _launch(q, k_pages, v_pages, page_table, counts, k_scale, v_scale, split_k,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.paged_attention(
             ptr(q), ptr(k_pages), ptr(v_pages), ptr(k_scale), ptr(v_scale), ptr(pt),
-            ptr(cnt), ptr(out), ptr(acc), ptr(m), ptr(l), B, H, R, P, ps, C, max_pages,
-            split_k, sliding_window, attn_sinks if sliding_window else 0, 1.0 / math.sqrt(C),
+            ptr(cnt), ptr(acc), ptr(m), ptr(l), B, H, R, P, ps, C, max_pages, pages,
+            sliding_window, attn_sinks if sliding_window else 0, 1.0 / math.sqrt(C),
             _Q_CODE[q.dtype], _KV_CODE[k_pages.dtype], stream,
         )
-    if rc != 0:
-        msg = lib.paged_attention_error_string(rc).decode()
-        raise RuntimeError(f"paged_attention launch failed: {msg} ({rc})")
+    _raise_on(lib, rc, "paged_attention")
     LAUNCHES.add((spec_name(n_rows, quantized, groups, sliding_window), split_k))
-    if split_k > 1:
-        m, l, acc = merge_partials(m, l, acc, axis=1)
-        out, _ = finalize(m, l, acc)
-    return out.to(q.dtype).reshape(out_shape)
+    return merge_partitions(m, l, acc, q.dtype).reshape(out_shape)
 
 
 def paged_attention_template(

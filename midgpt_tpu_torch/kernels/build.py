@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: tp.Dict[str, ctypes.CDLL] = {}
-# nvcc's stderr (the ptxas report) of builds made by this process
+# nvcc's output (the ptxas report) of each build, kept beside its library
 build_logs: tp.Dict[str, str] = {}
 
 
@@ -87,6 +87,9 @@ def build(names: tp.Sequence[str]) -> tp.Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: _lib_path(n) for n in names}
     todo = [n for n in names if not paths[n].exists()]
+    for n in names:  # a build made earlier left its ptxas report beside it
+        if n not in todo and paths[n].with_suffix(".log").exists():
+            build_logs[n] = paths[n].with_suffix(".log").read_text()
     if todo:
         nvcc = _nvcc()
         procs = {}
@@ -103,6 +106,7 @@ def build(names: tp.Sequence[str]) -> tp.Dict[str, Path]:
             if proc.returncode != 0:
                 failed.append(f"--- {n}.cu (nvcc exit {proc.returncode}) ---\n{out}")
             else:
+                paths[n].with_suffix(".log").write_text(out)
                 os.replace(tmp, paths[n])  # atomic: no half-written library
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

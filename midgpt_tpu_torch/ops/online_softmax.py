@@ -4,8 +4,9 @@ midgpt_tpu/ops/online_softmax.py).
 The paged-attention template's plain version (kernels/attention_template.py)
 folds one page of scores at a time with `online_block`; the split-K path
 merges per-partition RAW (m, l, acc) partials with `merge_partials` and
-turns them into outputs with `finalize` — on the CPU and after the CUDA
-kernel alike.
+turns them into outputs with `finalize`. On the card the CUDA merge kernel
+(csrc/paged_attention.cu `paged_attention_merge`) does both, and these two
+are its plain version.
 
 Masking uses a large-negative FINITE score (`MASK`) with the running max
 seeded at `M_INIT > MASK`: `exp(MASK - m)` underflows to exactly 0, so a

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card (paged attention: the decode, verify, int8, GQA-fold and window specs;
-flash attention: forward and both backward kernels). Every test here needs an NVIDIA GPU and skips with a reason without
-one. The file imports no JAX, so it also runs where JAX is absent:
+card (paged attention: the decode, verify, int8, GQA-fold and window specs,
+the merge of its partitions and its capture in a CUDA graph; flash
+attention: forward and both backward kernels). Every test here needs an
+NVIDIA GPU and skips with a reason without one. The file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py
 
@@ -19,6 +20,7 @@ from midgpt_tpu_torch.kernels import attention_template as tpl
 from midgpt_tpu_torch.kernels import flash_attention as fa
 from midgpt_tpu_torch.kernels.decode_attention import paged_attention_kernel, paged_verify_attention_kernel
 from midgpt_tpu_torch.models.gpt import GPT, GPTConfig, PagedKVCache
+from midgpt_tpu_torch.ops.online_softmax import M_INIT, finalize, merge_partials
 from midgpt_tpu_torch.ops.quant import quantize_q8
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
@@ -325,6 +327,126 @@ def test_gqa_window_decode_step_through_kernel_matches_gather(cuda):
         )
         out.append(logits)
     torch.testing.assert_close(out[1], out[0], atol=2e-5, rtol=0)
+
+
+def _partials(dev, B, n_parts, H, R, C, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    m = torch.randn(B, n_parts, H, R, generator=g) * 4
+    l = torch.rand(B, n_parts, H, R, generator=g) * 3 + 0.5
+    acc = torch.randn(B, n_parts, H, R, C, generator=g)
+    return m.to(dev), l.to(dev), acc.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,n_parts,H,R,C", [(4, 32, 12, 1, 64), (4, 32, 3, 20, 64), (2, 5, 2, 3, 512)])
+def test_merge_kernel_matches_plain(cuda, dtype, B, n_parts, H, R, C):
+    """The merge kernel against merge_partials + finalize (f32 sums in
+    another order: the dtype's tolerance), with neutral partitions (M_INIT,
+    0, 0) in every row and one all-neutral row, which gives exactly 0."""
+    m, l, acc = _partials(cuda, B, n_parts, H, R, C)
+    m[:, 1::3], l[:, 1::3], acc[:, 1::3] = M_INIT, 0.0, 0.0
+    m[0, :, 0, 0], l[0, :, 0, 0], acc[0, :, 0, 0] = M_INIT, 0.0, 0.0
+    before = tpl.MERGE_LAUNCHES.count
+    got = tpl.merge_partitions(m, l, acc, dtype)
+    torch.cuda.synchronize()
+    assert tpl.MERGE_LAUNCHES.count == before + 1
+    out, _ = finalize(*merge_partials(m, l, acc, axis=1))
+    assert got.dtype == dtype and got.shape == (B, H, R, C) and torch.isfinite(got).all()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), out.to(dtype).float(), atol=tol, rtol=tol)
+    assert (got[0, 0, 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_merge_kernel_neutral_and_single_partitions_bit_for_bit(cuda, dtype):
+    """Neutral partitions add exact zeros (the merge adds in ascending
+    order), and a merge of one partition is exactly its acc / max(l, 1e-30)."""
+    m, l, acc = _partials(cuda, 3, 6, 4, 5, 64, seed=1)
+    m[:, 3:], l[:, 3:], acc[:, 3:] = M_INIT, 0.0, 0.0
+    assert torch.equal(tpl.merge_partitions(m, l, acc, dtype),
+                       tpl.merge_partitions(m[:, :3].contiguous(), l[:, :3].contiguous(), acc[:, :3].contiguous(),
+                                            dtype))
+    one = tpl.merge_partitions(m[:, :1].contiguous(), l[:, :1].contiguous(), acc[:, :1].contiguous(), dtype)
+    assert torch.equal(one, (acc[:, 0] / l[:, 0, ..., None].clamp_min(1e-30)).to(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "qdtype,pool", [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8)],
+    ids=["f32", "bf16", "int8-bf16q"],
+)
+@pytest.mark.parametrize("geometry,R", [("main", 1), ("main", 9), ("llama", 5)])
+def test_template_over_many_partitions(cuda, qdtype, pool, geometry, R):
+    """A page bucket cut into more than 8 partitions (128 pages: 32; 512
+    pages at C 128: 32), with slots whose pages end in different
+    partitions: one launch of each kernel, the plain version's result."""
+    q, k, v, ks, vs, table, counts = _gqa_problem(cuda, qdtype, pool, geometry, R, seed=5)
+    max_pages, ps, C = table.shape[1], k.shape[2], k.shape[3]
+    assert max_pages // tpl.partition_pages(max_pages, 1, ps, C) > 8
+    before = (tpl.LAUNCHES.count, tpl.MERGE_LAUNCHES.count)
+    got = tpl.paged_attention_template(q, k, v, table, counts, ks, vs)
+    torch.cuda.synchronize()
+    assert (tpl.LAUNCHES.count, tpl.MERGE_LAUNCHES.count) == (before[0] + 1, before[1] + 1)
+    want = tpl.paged_attention_template_plain(q, k, v, table, counts, ks, vs)
+    tol = TOL[qdtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize(
+    "C,ps,R,max_pages",
+    [
+        (96, 8, 1, 128),  # C % 64 == 32: a 32-channel item after the 64-channel one
+        (96, 16, 5, 64),
+        (160, 8, 3, 64),
+        (224, 32, 36, 16),  # 8064 rows x channels
+        (32, 8, 256, 1024),  # the most rows, at a 32-page partition
+        (512, 32, 16, 32),  # the widest head at 8192 rows x channels
+    ],
+)
+def test_tensor_core_kernel_at_every_width(cuda, pool, C, ps, R, max_pages):
+    """bf16 queries over bf16 or int8 pools take the tensor-core kernel at
+    every head_dim that is a multiple of 32, with the most rows a block
+    takes, against the plain version."""
+    assert tpl._kernel_lib().paged_attention_tensor_cores(1, tpl._KV_CODE[pool], ps, C) == 1
+    keys = max_pages * ps
+    q, k, v, ks, vs, table, counts = _verify_problem(
+        cuda, torch.bfloat16, pool, 3, 2, C, ps, max_pages, [keys - R - 5, keys // 3, 0], R)
+    got = tpl.paged_attention_template(q, k, v, table, counts, ks, vs)
+    torch.cuda.synchronize()
+    want = tpl.paged_attention_template_plain(q, k, v, table, counts, ks, vs)
+    assert got.shape == (3, 2, R, C) and torch.isfinite(got).all()
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["decode", "gqa-verify", "int8-decode", "int8-gqa-verify"])
+@pytest.mark.parametrize("split_k", [1, 2])
+def test_template_captured_in_a_cuda_graph(cuda, spec, split_k):
+    """Both launches of a template call replay from a CUDA graph and give
+    the eager call's bits (no host sync, no attribute call in capture)."""
+    pool = torch.int8 if spec.startswith("int8") else torch.bfloat16
+    R = 5 if spec.endswith("verify") else 1
+    q, k, v, ks, vs, table, counts = _gqa_problem(cuda, torch.bfloat16, pool, "main", R, seed=6)
+    if "gqa" not in spec:  # MHA: every query head its own K/V head
+        q = q[:, : k.shape[0]].contiguous()
+    eager = tpl.paged_attention_template(q, k, v, table, counts, ks, vs, split_k=split_k)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tpl.paged_attention_template(q, k, v, table, counts, ks, vs, split_k=split_k)
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    counts[0] = torch.clamp(counts[0] - 300, min=1)  # read at replay: no new capture for new counts
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, tpl.paged_attention_template(q, k, v, table, counts, ks, vs, split_k=split_k))
 
 
 def _flash_inputs(dev, dtype, N, T, C, seed=0):
