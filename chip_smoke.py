@@ -55,6 +55,22 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
   5. the same trace in f32 through the kernel and through the gather
      lowering: the greedy streams must be identical; then the device busy
      share of steady bf16 decode rounds under torch.profiler;
+  4b. (run after phase 5, whose f32 streams it is held to) the decode
+     loop's overlap modes: phase 4's trace and engine in bf16 with
+     overlap off (eager rounds), group:1, group:4 and double (CUDA-graph
+     replays of the fused decode group, one graph per static key), each
+     served twice on one engine — the first pass captures, the second
+     only replays. Counters zeroed just before and read just after: every
+     request finishes with its budget, every page comes home, template and
+     merge launches equal n_layer x device steps (masked group steps and
+     one masked warm-up step per captured graph included), no key is
+     captured twice and the second pass captures nothing. Greedy bf16
+     streams identical across the modes (a departure only at a top-2 gap
+     under 1e-5 relative, as in 5b), f32 streams of every mode identical
+     to phase 5's kernel and gather streams. Tokens/s per mode (in rounds
+     and end to end, second pass; first pass end to end beside it) and
+     the device busy share of steady group:4 rounds beside phase 5's
+     eager rounds;
   5b. speculative serving at local_text_124m width (its default 4-layer
      self-draft on the target's pool, spec_k_max 4, adaptive k), the same
      trace and engine shape as phase 4, in bf16 and then on an int8 pool,
@@ -87,9 +103,11 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      without a draft: launches = n_layer x decode steps, all of the
      windowed GQA decode spec at splits 1 and 2, pages reclaimed behind
      the window (> 0) and no slot ever holding more than sink pages +
-     window pages + 2; then in f32 (kernel streams == gather streams), with
-     the self-draft and on an int8 pool, each launching only its windowed
-     GQA specs;
+     window pages + 2; the same in overlap="double" (CUDA-graph replays,
+     reclamation a round late inside the settle) on the bf16 and the int8
+     pool; then in f32 (kernel streams == gather streams), with the
+     self-draft and on an int8 pool, each launching only its windowed GQA
+     specs;
   6. training main path: `python -m midgpt_tpu_torch.launch
      --config=local_text_124m` (its `main`, in this process) at full width
      — 12 x 768, 12 heads, T 1024, microbatch 16, vocab 50304, bf16
@@ -133,7 +151,8 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      3.35 TB/s). The "kernels" line carries the main paths' numbers.
 
 The last lines are the card's name and power limit as nvidia-smi prints
-them, one JSON object with a "kernels" list, and the contract line
+them, one JSON object with a "kernels" list and phase 4b's "decode_modes"
+(tokens/s and busy share per overlap mode), and the contract line
 {"ok": true, "device": {...}}.
 """
 
@@ -442,36 +461,44 @@ def device_time_by_kernel(prof):
     return by_name
 
 
-def profile_decode(model_cfg, params, rounds: int = 3):
+def profile_decode(model_cfg, params, rounds: int = 3, warm: int = 2, **engine_kw):
     """Device busy share of steady decode rounds (4 slots decoding) under
     torch.profiler: the sum of kernel times over the wall time of the
-    window, and the kernels that took the most device time."""
+    window, and the kernels that took the most device time. `warm` steps
+    run first (prefill and the first decode rounds, with every CUDA-graph
+    capture of an overlap mode: none may fall inside the window)."""
     from torch.profiler import ProfilerActivity, profile
 
     from midgpt_tpu_torch.sampling.serve import ServeEngine
 
     eng = ServeEngine(model_cfg, params, max_slots=4, page_size=PAGE, prefill_chunk=256,
-                      decode_chunk=8, cache_dtype=params["wte"].dtype, device="cuda")
+                      decode_chunk=8, cache_dtype=params["wte"].dtype, device="cuda", **engine_kw)
     rng = np.random.default_rng(1)
     for _ in range(4):
-        eng.submit(rng.integers(0, model_cfg.vocab_size, 64).astype(np.int32), 8 * (rounds + 3))
-    for _ in range(2):  # prefill + first decode round: everyone decoding after
+        eng.submit(rng.integers(0, model_cfg.vocab_size, 64).astype(np.int32),
+                   8 * eng.round_group * (rounds + 3))
+    for _ in range(warm):
         eng.step()
     torch.cuda.synchronize()
+    captured = eng.stats()["decode_graphs"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(rounds):
             eng.step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    if captured is not None and eng.stats()["decode_graphs"]["captured"] != captured["captured"]:
+        raise SystemExit("a CUDA graph was captured inside the profiled window")
     return wall_us, device_time_by_kernel(prof)
 
 
 def print_busy(what, wall_us, by_name, card, top=6):
+    """Print the busy share and the top kernels; returns the busy share
+    (None: not measured)."""
     busy_us = sum(by_name.values())
     if not busy_us:
         print(f"{what} device busy share: not measured (the profiler saw no device activity)")
-        return
+        return None
     print(f"{what} under torch.profiler: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f}%, idle "
           f"{100 - 100 * busy_us / wall_us:.1f}%) on {card}")
@@ -483,6 +510,7 @@ def print_busy(what, wall_us, by_name, card, top=6):
     if any(paged.values()):
         print(f"  paged-attention kernels: {sum(paged.values()) / 1e3:.3f} ms of {busy_us / 1e3:.2f} ms device ("
               + ", ".join(f"{kind} {us / 1e3:.3f} ms" for kind, us in paged.items()) + ")")
+    return busy_us / wall_us
 
 
 def trace(vocab: int):
@@ -495,14 +523,27 @@ def trace(vocab: int):
 
 
 def serve(model_cfg, params, dtype, attn_impl="auto", watch=None, **engine_kw):
-    """Serve the trace; `watch(eng)`, if given, runs after every step."""
+    """Serve the trace on a new engine; `watch(eng)`, if given, runs after
+    every step. Returns the engine's stats, the streams and the wall time."""
+    eng = new_engine(model_cfg, params, dtype, attn_impl, **engine_kw)
+    streams, wall = serve_trace(eng, watch)
+    return eng.stats(), streams, wall
+
+
+def new_engine(model_cfg, params, dtype, attn_impl="auto", **engine_kw):
     from midgpt_tpu_torch.sampling.serve import ServeEngine
 
-    eng = ServeEngine(
+    return ServeEngine(
         model_cfg, params, max_slots=4, page_size=PAGE, prefill_chunk=256,
         decode_chunk=8, temperature=0.0, cache_dtype=dtype, attn_impl=attn_impl,
         device="cuda", **engine_kw,
     )
+
+
+def serve_trace(eng, watch=None):
+    """Serve the trace once more on `eng`: every request must finish with
+    its budget and every page come home. Returns (streams, wall s)."""
+    model_cfg = eng.config
     reqs = trace(model_cfg.vocab_size)
     uids = [eng.submit(p, m) for p, m in reqs]
     t0 = time.perf_counter()
@@ -523,7 +564,65 @@ def serve(model_cfg, params, dtype, attn_impl="auto", watch=None, **engine_kw):
         streams.append(fr.tokens)
     if eng.allocator.free_count != eng.allocator.num_pages - 1:
         raise SystemExit("pages leaked: the pool did not drain back to its free list")
-    return eng.stats(), streams, wall
+    return streams, wall
+
+
+# ---------------------------------------------------------------- overlap modes (CUDA-graph replays)
+
+OVERLAP_MODES = ("off", "group:1", "group:4", "double")
+
+
+def device_steps(stats):
+    """Decode steps the device ran: the dispatched ones (a fused group's
+    masked steps included) plus one masked warm-up step per captured
+    CUDA graph."""
+    graphs = stats["decode_graphs"]
+    return stats["decode_steps"] + (0 if graphs is None else graphs["warmup_steps"])
+
+
+def overlap_serving(card, cfg, params32, params16, kernel_streams, gather_streams):
+    """Phase 4b. Returns {mode: (decode tokens/s, end-to-end tokens/s)} of
+    the bf16 runs' second pass (every graph already captured)."""
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+    from midgpt_tpu_torch.sampling.serve import parse_overlap
+
+    total = sum(m for _, m in trace(cfg.vocab_size))
+    rates, streams16 = {}, {}
+    for spec in OVERLAP_MODES:
+        overlap, round_group = parse_overlap(spec)
+        eng = new_engine(cfg, params16, torch.bfloat16, overlap=overlap, round_group=round_group)
+        tpl.LAUNCHES.reset()
+        tpl.MERGE_LAUNCHES.reset()
+        streams16[spec], wall1 = serve_trace(eng)  # captures each key's graph at its first dispatch
+        st1 = eng.stats()
+        again, wall = serve_trace(eng)  # the same trace again: replays only
+        st = eng.stats()
+        launches, merges = tpl.LAUNCHES.count, tpl.MERGE_LAUNCHES.count
+        steps, graphs = device_steps(st), st["decode_graphs"]
+        tokens, seconds = (st[k] - st1[k] for k in ("decode_tokens", "decode_seconds"))
+        rates[spec] = (tokens / seconds, total / wall)
+        print(f"overlap {spec} bf16, second pass: decode {rates[spec][0]:.1f} tokens/s ({tokens} tokens, "
+              f"{seconds:.3f} s from dispatch to settle), end to end {rates[spec][1]:.1f} tokens/s ({total} tokens "
+              f"in {wall:.3f} s; first pass, captures included: {total / wall1:.1f} tokens/s in {wall1:.3f} s); "
+              f"{st['rounds'] - st1['rounds']} rounds; both passes: device steps {steps} ({st['decode_steps']} "
+              f"dispatched) x {cfg.n_layer} layers = {cfg.n_layer * steps}, template launches {launches}, merge "
+              f"launches {merges}, splits {st['split_rounds']}; graphs {graphs} on {card}")
+        if launches != cfg.n_layer * steps or merges != launches:
+            raise SystemExit(f"overlap {spec}: launches != n_layer x device steps: a step bypassed the kernels")
+        if (graphs is None) != (overlap == "off") or (graphs is not None and graphs["replays"] < 1):
+            raise SystemExit(f"overlap {spec}: an overlap mode must replay CUDA graphs, 'off' must run eagerly")
+        if graphs is not None and (set(graphs["captures_per_key"]) != {1}
+                                   or graphs["captured"] != st1["decode_graphs"]["captured"]):
+            raise SystemExit(f"overlap {spec}: a key was captured twice, or the second pass captured: {graphs}")
+        compare_streams(f"bf16 overlap {spec}, second pass vs first", again, streams16[spec])
+    for spec in OVERLAP_MODES[1:]:
+        compare_streams(f"bf16 overlap {spec} vs off", streams16[spec], streams16["off"], cfg, params16)
+    for spec in OVERLAP_MODES[1:]:
+        overlap, round_group = parse_overlap(spec)
+        _, streams, _ = serve(cfg, params32, torch.float32, overlap=overlap, round_group=round_group)
+        compare_streams(f"f32 overlap {spec} vs off (kernel)", streams, kernel_streams)
+        compare_streams(f"f32 overlap {spec} vs off (gather)", streams, gather_streams)
+    return rates
 
 
 # ---------------------------------------------------------------- verify and int8 specs
@@ -993,25 +1092,29 @@ def gqa_serving(card, rundirs):
         if eng.allocator.free_count + sum(live) != eng.allocator.num_pages - 1:
             raise SystemExit("window reclamation broke page conservation (free + live != num_pages - 1)")
 
-    def plain_window_run(label, dtype, spec):
+    def plain_window_run(label, dtype, spec, overlap="off"):
         tpl.LAUNCHES.reset()
         peak[0] = 0
-        st, _, _ = serve(cfg, p16, dtype, watch=watch)
+        st, _, _ = serve(cfg, p16, dtype, watch=watch, overlap=overlap)
         launches = dict(tpl.LAUNCHES.by_variant)
         rate = st["decode_tokens"] / st["decode_seconds"]
-        print(f"gqa_window {label}: launches {launches}; decode steps {st['decode_steps']} x {cfg.n_layer} layers; "
-              f"window_reclaimed_pages {st['window_reclaimed_pages']}; most pages resident in a slot {peak[0]} "
-              f"(bound {bound}); decode {rate:.1f} tokens/s, rounds {st['split_rounds']} on {card}")
+        print(f"gqa_window {label}, overlap {overlap}: launches {launches}; device steps {device_steps(st)} x "
+              f"{cfg.n_layer} layers; window_reclaimed_pages {st['window_reclaimed_pages']}; most pages resident "
+              f"in a slot {peak[0]} (bound {bound}); decode {rate:.1f} tokens/s, rounds {st['split_rounds']}; "
+              f"graphs {st['decode_graphs']} on {card}")
         if {s for s, _ in launches} != {spec} or {k for _, k in launches} != {1, 2}:
             raise SystemExit(f"gqa_window {label} must launch only {spec}, at splits 1 and 2: {launches}")
-        if sum(launches.values()) != cfg.n_layer * st["decode_steps"]:
-            raise SystemExit(f"gqa_window {label}: launches != n_layer x decode steps")
+        if sum(launches.values()) != cfg.n_layer * device_steps(st):
+            raise SystemExit(f"gqa_window {label}: launches != n_layer x device steps")
         if st["window_reclaimed_pages"] < 1 or peak[0] > bound:
             raise SystemExit(f"gqa_window {label}: no page reclaimed, or a slot held more than {bound} pages")
         return launches
 
     window_launches = plain_window_run("bf16", torch.bfloat16, "window-gqa-decode")
     plain_window_run("int8 pool (bf16 compute)", torch.int8, "int8-window-gqa-decode")
+    # the overlap mode that chains groups: reclamation runs in the settle, a round late
+    plain_window_run("bf16", torch.bfloat16, "window-gqa-decode", overlap="double")
+    plain_window_run("int8 pool (bf16 compute)", torch.int8, "int8-window-gqa-decode", overlap="double")
     tpl.LAUNCHES.reset()
     st, _, _ = serve(cfg, p16, torch.bfloat16, **spec_engine_kw(cfg, p16))
     spec_launches("gqa_window bf16", st, dict(tpl.LAUNCHES.by_variant), cfg.n_layer, False,
@@ -1494,7 +1597,15 @@ def main() -> int:
             raise SystemExit(f"f32 request {i}: kernel and gather streams differ from token {first}")
     print(f"f32 greedy streams identical, kernel vs gather: {len(kernel_streams)} requests")
     wall_us, by_name = profile_decode(cfg, params16)
-    print_busy("decode rounds", wall_us, by_name, card)
+    busy = {"off": print_busy("decode rounds", wall_us, by_name, card)}
+    # 4b. the overlap modes as CUDA-graph replays (after phase 5: its f32 streams are the reference)
+    overlap_rates = overlap_serving(card, cfg, params32, params16, kernel_streams, gather_streams)
+    wall_us, by_name = profile_decode(cfg, params16, warm=3, overlap="group", round_group=4)
+    busy["group:4"] = print_busy("group:4 decode rounds (CUDA-graph replays)", wall_us, by_name, card)
+    print("decode by overlap mode, bf16 (" + card + "): " + "; ".join(
+        f"{spec} {dec:.1f} tokens/s in rounds, {e2e:.1f} tokens/s end to end" for spec, (dec, e2e)
+        in overlap_rates.items()) + "; device busy " + ", ".join(
+        f"{spec} {'not measured' if b is None else f'{100 * b:.1f}%'}" for spec, b in busy.items()))
     # 5b. speculative serving, bf16 and int8: counters zeroed just before each run, read just after
     spec_launches_by_run = spec_serving(card, params32, params16, kernel_streams)
     del params32, params16
@@ -1662,7 +1773,9 @@ def main() -> int:
         })
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(card)  # exactly as nvidia-smi gives it: name, power limit
-    print(json.dumps({"kernels": kernels}))
+    decode_modes = {spec: {"decode_tokens_per_s": dec, "end_to_end_tokens_per_s": e2e,
+                           "busy_share": busy.get(spec)} for spec, (dec, e2e) in overlap_rates.items()}
+    print(json.dumps({"kernels": kernels, "decode_modes": decode_modes}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -22,6 +22,8 @@ import threading
 import typing as tp
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -41,7 +43,11 @@ class LaunchCounter:
     """Launches of one kernel, keyed by a launch variant (the split factor
     for the paged-attention kernel). The wrapper adds one exactly where it
     launches; a run that must show the kernel carried its path zeroes the
-    counter, drives the path, and reads it."""
+    counter, drives the path, and reads it.
+
+    A wrapper called while a CUDA graph is captured launches nothing: its
+    launch is recorded in the capturing graph's CaptureTally (if the
+    capture opened one) and counted each time the graph is replayed."""
 
     def __init__(self, name: str):
         self.name = name
@@ -52,10 +58,40 @@ class LaunchCounter:
         return sum(self.by_variant.values())
 
     def add(self, variant: tp.Any = None) -> None:
+        # Only the CUDA wrappers call add, so the capture query is valid here.
+        if torch.cuda.is_current_stream_capturing():
+            tally = getattr(_capture, "tally", None)
+            if tally is not None:
+                tally.counts[(self, variant)] += 1
+            return
         self.by_variant[variant] += 1
 
     def reset(self) -> None:
         self.by_variant.clear()
+
+
+_capture = threading.local()  # .tally: the CaptureTally of the graph being captured
+
+
+class CaptureTally:
+    """The kernel launches a CUDA graph holds, recorded while it is captured
+    (`with tally:` around the capture) and added to their LaunchCounters by
+    `replayed()`, once per replay of the graph."""
+
+    def __init__(self):
+        self.counts: tp.Counter[tp.Tuple[LaunchCounter, tp.Any]] = collections.Counter()
+
+    def __enter__(self) -> "CaptureTally":
+        self._outer = getattr(_capture, "tally", None)
+        _capture.tally = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _capture.tally = self._outer
+
+    def replayed(self) -> None:
+        for (counter, variant), n in self.counts.items():
+            counter.by_variant[variant] += n
 
 
 def _nvcc() -> str:

@@ -186,10 +186,13 @@ class PagedKVCache:
     pages the host-side allocator (sampling/serve.py PageAllocator) hands
     it. Page 0 is the SINK: never allocated, it is what unallocated
     page-table entries (zeros) point at, so inactive and short slots READ
-    it — always masked. Writes from inactive slots and pad positions are
-    masked out explicitly (`decode_step_paged`, `prefill_paged_chunk`,
-    `verify_step_paged`): an out-of-range page index, which XLA's scatter
-    drops silently, would raise here.
+    it — always masked. Page `num_pages` is the SPARE, one page past the
+    allocator's range that no page table names: the decode and verify steps
+    send the writes of slots that must not write there (JAX sends them past
+    the pool, where XLA's scatter drops them; an out-of-range index would
+    raise here), so every step writes all B slots with fixed shapes and no
+    host sync. Nothing reads the spare page. Prefill pad positions are
+    sliced off on the host (`prefill_paged_chunk`).
 
     bf16 and f32 pools, and the **int8 storage mode** (dtype=torch.int8):
     pages hold int8 codes with f32 absmax scales in the side buffers
@@ -198,9 +201,9 @@ class PagedKVCache:
     every write and dequantized by every read. In bf16/f32 mode both scale
     fields are None."""
 
-    k: Tensor  # (n_layer, kv_heads, num_pages, page_size, head_dim)
+    k: Tensor  # (n_layer, kv_heads, num_pages + 1, page_size, head_dim): the spare page last
     v: Tensor
-    k_scale: tp.Optional[Tensor] = None  # (n_layer, num_pages, kv_heads, page_size) f32, int8 mode
+    k_scale: tp.Optional[Tensor] = None  # (n_layer, num_pages + 1, kv_heads, page_size) f32, int8 mode
     v_scale: tp.Optional[Tensor] = None
 
     @staticmethod
@@ -214,11 +217,12 @@ class PagedKVCache:
     ) -> "PagedKVCache":
         if dtype not in (torch.bfloat16, torch.float32, torch.int8):
             raise NotImplementedError(f"paged cache dtype {dtype}: bf16, f32 and int8 are ported")
-        shape = (config.n_layer, config.kv_heads, num_pages, page_size, config.head_dim)
+        # num_pages + 1: the allocator's pages 0..num_pages-1 and the spare
+        shape = (config.n_layer, config.kv_heads, num_pages + 1, page_size, config.head_dim)
         dev = resolve_device(device)
         scales = {}
         if dtype == torch.int8:
-            sshape = (config.n_layer, num_pages, config.kv_heads, page_size)
+            sshape = (config.n_layer, num_pages + 1, config.kv_heads, page_size)
             scales = {n: torch.zeros(sshape, dtype=torch.float32, device=dev) for n in ("k_scale", "v_scale")}
         return PagedKVCache(
             k=torch.zeros(shape, dtype=dtype, device=dev),
@@ -243,11 +247,13 @@ class PagedKVCache:
 
     @property
     def num_pages(self) -> int:
-        return self.k.shape[2]
+        """The allocator's pages; the spare page `num_pages` comes after them."""
+        return self.k.shape[2] - 1
 
     @property
     def nbytes(self) -> int:
-        """Device bytes of the pools and, in int8 mode, their scales."""
+        """Device bytes of the pools (the spare page included) and, in int8
+        mode, their scales."""
         tensors = [self.k, self.v] + ([self.k_scale, self.v_scale] if self.quantized else [])
         return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -261,8 +267,8 @@ def _paged_write(
     val: Tensor,  # (N, H, C) — the K/V vectors to store
 ) -> None:
     """ONE column scatter into the paged pool, in place, quantizing iff
-    `scales` is present. Callers pass only the positions that really write
-    (active slots, real prompt tokens).
+    `scales` is present. Positions that must not write name the spare page
+    (PagedKVCache); duplicates among them are harmless, as nothing reads it.
 
     torch keeps ADJACENT advanced indices in place and puts SEPARATED ones
     first: the pool index [:, write_pages, offs] is (H, N, C) — hence the
@@ -275,6 +281,18 @@ def _paged_write(
     q, s = quantize_q8(val)  # (N, H, C) int8, (N, H) f32
     pool[i][:, write_pages, offs] = q.transpose(0, 1)
     scales[i][write_pages, :, offs] = s
+
+
+def _write_pages(page_table: Tensor, pos: Tensor, writes: Tensor, spare: int, page_size: int) -> Tensor:
+    """Physical page of each position pos (B,) or (B, K1) of slot b, or the
+    spare page where `writes` is False — fixed shapes, no host sync. The
+    table column is clamped: a slot that does not write may carry a stale
+    position past the table's width (a finished slot inside a fused group),
+    and a CUDA gather out of range is a device-side assert (JAX's
+    take_along_axis clamps)."""
+    col = torch.clamp_max(pos // page_size, page_table.shape[1] - 1)
+    pages = torch.gather(page_table, 1, col.reshape(pos.shape[0], -1)).reshape(pos.shape)
+    return torch.where(writes, pages.long(), spare)
 
 
 def _layer_pages(pool: Tensor, scales: tp.Optional[Tensor], i: int) -> tp.Tuple[Tensor, tp.Optional[Tensor]]:
@@ -523,10 +541,11 @@ class GPT:
 
         Slot b writes its token's K/V at logical position lengths[b]
         (quantized in int8 mode) and attends to its lengths[b] + 1 valid
-        tokens through the page table. Inactive slots write NOTHING (their
-        page rows may hold real prefilled K/V; the writes are masked out
-        here) and attend to exactly one key, count = 1 on the sink page,
-        producing finite logits the scheduler ignores. The pool is updated
+        tokens through the page table. Inactive slots write nothing to their
+        pages (their page rows may hold real prefilled K/V; their writes go
+        to the spare page, PagedKVCache) and attend to exactly one key,
+        count = 1 on the sink page, producing finite logits the scheduler
+        ignores. No host sync: a step can be captured in a CUDA graph. The pool is updated
         in place. A layer-prefix self-draft (sampling/spec.py) runs this
         with its n_layer-layer config against the target's whole pool: layer
         i of the draft is layer i of the pool.
@@ -535,11 +554,8 @@ class GPT:
         C, ps = config.head_dim, cache.page_size
         pos = lengths.long()
         attn_counts = torch.clamp_min(active.to(torch.int32) * (lengths.to(torch.int32) + 1), 1)
-        # Only active slots write (one host sync per step to find them).
-        sel = torch.nonzero(active).squeeze(1)
-        pos_sel = pos[sel]
-        write_pages = page_table[sel, pos_sel // ps].long()
-        offs = pos_sel % ps
+        write_pages = _write_pages(page_table, pos, active, cache.num_pages, ps)
+        offs = pos % ps
         x = params["wte"][token[:, None].long()]  # (B, 1, D)
         sin, cos = rope_table(C, config.block_size, device=x.device)
         positions = pos[:, None]  # (B, 1) per-slot absolute positions
@@ -549,8 +565,8 @@ class GPT:
             q = apply_rope_positions(q, sin, cos, positions, style=config.rope_style)
             k = apply_rope_positions(k, sin, cos, positions, style=config.rope_style)
             q1, k1, v1 = q[:, 0], k[:, 0], v[:, 0]  # q (B, H, C), k/v (B, H_kv, C)
-            _paged_write(cache.k, cache.k_scale, i, write_pages, offs, k1[sel])
-            _paged_write(cache.v, cache.v_scale, i, write_pages, offs, v1[sel])
+            _paged_write(cache.k, cache.k_scale, i, write_pages, offs, k1)
+            _paged_write(cache.v, cache.v_scale, i, write_pages, offs, v1)
             kp, ksp = _layer_pages(cache.k, cache.k_scale, i)
             vp, vsp = _layer_pages(cache.v, cache.v_scale, i)
             att = paged_attention(
@@ -584,8 +600,9 @@ class GPT:
         IS the causal mask (kernels/decode_attention.py
         paged_verify_attention). Row t's logits score the token at position
         lengths[b] + t + 1: row 0 judges d_1 and row K1-1 supplies the bonus
-        distribution. Inactive slots write nothing and attend to the single
-        sink key. Same per-layer op order as decode_step_paged.
+        distribution. Inactive slots write to the spare page only and attend
+        to the single sink key. Same per-layer op order as decode_step_paged,
+        and no host sync either.
 
         Precondition (the scheduler's): lengths[b] + K1 <= block_size and
         the page table covers position lengths[b] + K1 - 1 for active slots.
@@ -597,11 +614,8 @@ class GPT:
         t_idx = torch.arange(K1, device=tokens.device)
         positions = lengths.long()[:, None] + t_idx[None, :]  # (B, K1)
         attn_counts = torch.clamp_min(active.to(torch.int32)[:, None] * (positions.to(torch.int32) + 1), 1)
-        # Only active slots write (one host sync per forward to find them).
-        sel = torch.nonzero(active).squeeze(1)
-        pos_sel = positions[sel]  # (N, K1)
-        write_pages = page_table[sel[:, None], pos_sel // ps].long().reshape(-1)
-        offs = (pos_sel % ps).reshape(-1)
+        write_pages = _write_pages(page_table, positions, active[:, None], cache.num_pages, ps).reshape(-1)
+        offs = (positions % ps).reshape(-1)
         x = params["wte"][tokens.long()]  # (B, K1, D)
         sin, cos = rope_table(C, config.block_size, device=x.device)
         for i in range(config.n_layer):
@@ -610,8 +624,8 @@ class GPT:
             q = apply_rope_positions(q, sin, cos, positions, style=config.rope_style)
             k = apply_rope_positions(k, sin, cos, positions, style=config.rope_style)
             H = k.shape[2]
-            _paged_write(cache.k, cache.k_scale, i, write_pages, offs, k[sel].reshape(-1, H, C))
-            _paged_write(cache.v, cache.v_scale, i, write_pages, offs, v[sel].reshape(-1, H, C))
+            _paged_write(cache.k, cache.k_scale, i, write_pages, offs, k.reshape(-1, H, C))
+            _paged_write(cache.v, cache.v_scale, i, write_pages, offs, v.reshape(-1, H, C))
             kp, ksp = _layer_pages(cache.k, cache.k_scale, i)
             vp, vsp = _layer_pages(cache.v, cache.v_scale, i)
             att = paged_verify_attention(

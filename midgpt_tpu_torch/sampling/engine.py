@@ -49,9 +49,15 @@ def sample_logits(
     generator: tp.Optional[torch.Generator] = None,
 ) -> Tensor:
     """Temperature + optional top-k / nucleus sampling; 0 = greedy (the
-    first index of the maximum). Returns (B,) int64."""
+    first index of the maximum). Returns (B,) int64.
+
+    The draw is torch.multinomial's one-sample draw spelled out — the first
+    index of the maximum of p / E, E ~ Exp(1) from `generator` (the same
+    tokens from the same generator state) — so it has no data-dependent
+    check and can be captured in a CUDA graph (sampling/graphs.py)."""
     logits = logits.float()
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1)
     probs = torch.softmax(warp_logits(logits, temperature, top_k, top_p), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    race = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / race, dim=-1)

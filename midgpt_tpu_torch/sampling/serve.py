@@ -18,6 +18,18 @@ round (`ServeEngine.step`):
      (`_split_bucket`). On CUDA each layer's attention is the hand-written
      paged-attention kernel (kernels/attention_template.py).
 
+Round overlap (`overlap`, `round_group`, as in the JAX engine): "off" is
+the loop above, one eager `_serve_decode_chunk` per round. "group" fuses
+`round_group` decode rounds into one program (`_serve_decode_group`,
+settled at the group's edge within the step; finished slots are masked on
+the device); "double" also keeps one group in flight while the previous
+round's host work runs (`_step_overlapped`: dispatch first, then settle
+the previous group, then expire/admit/prefill), so scheduler decisions
+reach the device one round late. On CUDA each group is the replay of a
+captured CUDA graph, one per static program key (sampling/graphs.py); on
+the CPU the same body runs eagerly. `dispatch_log` records which requests
+each decode dispatch carried.
+
 With a draft model configured, step 4 is a SPECULATIVE round instead
 (`_spec_round`): the draft proposes k tokens per slot with k paged decode
 steps (`_spec_draft_chunk`), the target scores all k+1 positions in one
@@ -42,9 +54,10 @@ beside int8 pages), at the model's K/V head count (GQA shrinks them). Under
 a sliding window (`config.sliding_window`) a plain-decoding engine frees,
 mid-request, every page no future row can see (`_reclaim_window`), so a
 long windowed request holds O(window) pages. Not ported yet (ROADMAP.md):
-the overlap modes, the prefix cache and spill tier, hot-swap/resize, fault
-hooks, observability, the watchdog and mesh-sharded serving. Their
-constructor arguments raise NotImplementedError when set.
+the prefix cache and spill tier, the byte-budgeted pool, the token and
+finish hooks, hot-swap/resize and weight versions, fault hooks (among them
+the overlap faults), observability, the watchdog and mesh-sharded serving.
+Their constructor arguments raise NotImplementedError when set.
 """
 
 from __future__ import annotations
@@ -60,6 +73,7 @@ import torch
 from midgpt_tpu_torch.device import DeviceLike, resolve_device
 from midgpt_tpu_torch.models.gpt import GPT, GPTConfig, PagedKVCache, Params
 from midgpt_tpu_torch.sampling.engine import sample_logits, warp_logits
+from midgpt_tpu_torch.sampling.graphs import DecodeGraphs, GroupResult
 from midgpt_tpu_torch.sampling.scheduler import FCFSScheduler, Scheduler
 from midgpt_tpu_torch.sampling.spec import speculative_accept
 
@@ -116,6 +130,117 @@ def _serve_decode_chunk(
         lengths = lengths + active.to(lengths.dtype)
         toks.append(token)
     return cache, torch.stack(toks)
+
+
+# Cap on the fused multi-round group size: k rounds per dispatch trade
+# scheduling granularity (admissions and evictions land only at group edges)
+# for dispatch amortization, and past ~8 the granularity cost dominates.
+_ROUND_GROUP_CAP = 8
+
+
+def _round_group_bucket(group: int) -> int:
+    """Clamp a requested multi-round group size to [1, _ROUND_GROUP_CAP]
+    and floor it to a power of two — the ladder every other static program
+    knob rides (decode chunk, page bucket, split_k), so the set of captured
+    programs stays logarithmic."""
+    group = max(1, min(int(group), _ROUND_GROUP_CAP))
+    return 1 << (group.bit_length() - 1)
+
+
+def parse_overlap(spec: str) -> tp.Tuple[str, int]:
+    """Parse the `--overlap {off,double,group:k}` form into the engine's
+    (overlap, round_group) arguments. Strict: anything else raises, so a
+    mistyped A/B flag fails instead of silently measuring 'off'."""
+    if spec in ("off", "double"):
+        return spec, 1
+    if spec.startswith("group:"):
+        try:
+            k = int(spec.split(":", 1)[1])
+        except ValueError:
+            k = 0
+        if k >= 1:
+            return "group", k
+    raise ValueError(f"bad overlap spec {spec!r} (want 'off', 'double', or 'group:k' with k >= 1)")
+
+
+def _serve_decode_group(
+    config: GPTConfig,
+    params: Params,
+    token: Tensor,  # (B,) int64 — host view of each slot's pending token
+    cache: PagedKVCache,  # updated in place
+    page_table: Tensor,  # (B, bucket) int32
+    lengths: Tensor,  # (B,) int32 — host view of committed lengths
+    active: Tensor,  # (B,) bool — batch membership at dispatch
+    eos: Tensor,  # (B,) int64 — per-slot EOS id, -1 when the request has none
+    max_len: Tensor,  # (B,) int32 — absolute settle bound per slot
+    chain_mask: Tensor,  # (B,) bool — slots continuing from an unsettled group
+    chain_token: Tensor,  # (B,) int64 — device-side pending token for chained slots
+    chain_len: Tensor,  # (B,) int32 — device-side lengths for chained slots
+    n_steps: int,
+    round_group: int,
+    temperature: float,
+    top_k: tp.Optional[int],
+    top_p: tp.Optional[float],
+    attn_impl: str,
+    generator: tp.Optional[torch.Generator] = None,
+    split_k: int = 1,
+) -> tp.Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """`n_steps * round_group` decode+sample steps as ONE program — the
+    fused multi-round group of the overlap modes (the body of a captured
+    CUDA graph on CUDA, sampling/graphs.py). Differences from
+    `_serve_decode_chunk`, all serving the settle-at-the-boundary rule:
+
+      * Device-side finish masking: a slot stops stepping once its length
+        reaches `max_len` (its generation budget or provisioned pages,
+        whichever binds first) or it emits its EOS token. `step_active`
+        masks the K/V write, the emit and the length advance, so a finished
+        slot never writes past the pages it was provisioned at dispatch.
+        The emitted mask tells the host exactly which tokens a sequence of
+        classic rounds would have committed.
+      * Chained carry-in: under overlap="double" the previous group is
+        still in flight at dispatch, so the host's token/length view of its
+        slots is one round stale; the true values ride in on `chain_token`
+        / `chain_len` (the previous group's device outputs) and are merged
+        under `chain_mask` inside the program.
+
+    Every step runs all B slots with fixed shapes and no host sync.
+    Returns (toks (T, B), emitted (T, B) bool, tok_fin (B,), len_fin (B,))
+    with T = n_steps * round_group; tok_fin / len_fin seed the next group's
+    chain without settling this one."""
+    token = torch.where(chain_mask, chain_token, token)
+    lengths = torch.where(chain_mask, chain_len, lengths)
+    toks, emitted = [], []
+    for _ in range(n_steps * round_group):
+        # Pre-step mask: this step writes at `lengths`, so it is gated before
+        # the step runs.
+        step_active = active & (lengths < max_len)
+        logits, cache = GPT.decode_step_paged(
+            config, params, token, cache, page_table, lengths, step_active,
+            attn_impl=attn_impl, split_k=split_k,
+        )
+        nxt = sample_logits(logits, temperature, top_k, top_p, generator)
+        token = torch.where(step_active, nxt.to(token.dtype), token)
+        lengths = lengths + step_active.to(lengths.dtype)
+        active = active & ~(step_active & (eos >= 0) & (token == eos))
+        toks.append(token)
+        emitted.append(step_active)
+    return torch.stack(toks), torch.stack(emitted), token, lengths
+
+
+def _pack_group_inputs(token, lengths, active, eos, max_len, chain_mask, table) -> np.ndarray:
+    """The group program's host inputs as ONE int64 array (one upload per
+    dispatch): six (B,) rows, then the (B, bucket) page table."""
+    rows = np.stack([token, lengths, active, eos, max_len, chain_mask]).astype(np.int64)
+    return np.concatenate([rows.reshape(-1), table.astype(np.int64).reshape(-1)])
+
+
+def _unpack_group_inputs(packed: Tensor, slots: int) -> tp.Tuple[Tensor, ...]:
+    """(token, lengths, active, eos, max_len, chain_mask, page_table) of
+    `_serve_decode_group`, in its dtypes, from `_pack_group_inputs`' array."""
+    token, lengths, active, eos, max_len, chain_mask = packed[: 6 * slots].view(6, slots)
+    table = packed[6 * slots :].view(slots, -1).to(torch.int32)
+    return (token, lengths.to(torch.int32), active.bool(), eos, max_len.to(torch.int32),
+            chain_mask.bool(), table)
 
 
 def _spec_draft_chunk(
@@ -286,6 +411,28 @@ class FinishedRequest:
     status: str = "ok"  # "ok" | "timeout" | "cancelled"
 
 
+@dataclasses.dataclass
+class _InflightRound:
+    """A dispatched-but-unsettled decode group (overlap modes).
+
+    Holds the group's outputs on their way to the host (`result`) plus the
+    host-side identity snapshot needed to settle it later: `slots` pins the
+    exact _Slot objects that were in the batch, so a settle after an
+    eviction, cancel or timeout skips any index whose slot object changed —
+    the in-flight tokens of a departed slot are discarded (recompute
+    preemption regenerates them; greedy streams do not depend on the
+    batch's composition). `worst_len` is the worst-case post-settle length
+    per slot — what the NEXT dispatch must assume for a chained slot whose
+    true device-side length (`result.len_fin`) it merges in the program."""
+
+    result: GroupResult
+    n_steps: int  # T = n * round_group
+    active_idx: tp.List[int]
+    slots: tp.List[_Slot]
+    worst_len: np.ndarray  # (max_slots,) int32
+    t0: float  # host clock at dispatch
+
+
 class ServeEngine:
     """Host-side continuous-batching scheduler (module docstring)."""
 
@@ -316,20 +463,26 @@ class ServeEngine:
         spec_k_max: int = 4,
         spec_k_min: int = 1,
         spec_adapt: bool = True,
+        overlap: str = "off",  # "off" | "double" | "group" (module docstring)
+        round_group: int = 1,  # fused rounds per dispatch (pow2-bucketed)
         # Not ported yet (ROADMAP.md): setting any of these raises.
-        overlap: str = "off",
-        round_group: int = 1,
+        pool_hbm_bytes: tp.Optional[int] = None,
         prefix_cache: bool = False,
+        on_token: tp.Optional[tp.Callable[[int, int, float], None]] = None,
+        on_finish: tp.Optional[tp.Callable[["FinishedRequest"], None]] = None,
         mesh=None,
         obs=None,
+        weights_version: str = "inline",
         watchdog=None,
     ):
         unported = {
-            "overlap": overlap != "off",
-            "round_group": round_group != 1,
+            "pool_hbm_bytes": pool_hbm_bytes is not None,
             "prefix_cache": bool(prefix_cache),
+            "on_token": on_token is not None,
+            "on_finish": on_finish is not None,
             "mesh": mesh is not None,
             "obs": obs is not None,
+            "weights_version": weights_version != "inline",
             "watchdog": watchdog is not None,
         }
         for name, is_set in unported.items():
@@ -344,6 +497,8 @@ class ServeEngine:
             raise ValueError(f"split_k must be 'auto' or a positive int, got {split_k!r}")
         if attn_impl not in ("auto", "kernel", "gather"):
             raise ValueError(f"unknown attn_impl {attn_impl!r} ('auto', 'kernel' or 'gather')")
+        if overlap not in ("off", "double", "group"):
+            raise ValueError(f"overlap must be 'off', 'double' or 'group', got {overlap!r}")
         # A draft model turns every decode round into draft-k-then-verify
         # (module docstring). Both pools share the page table and allocator:
         # one logical page maps to the same physical index in each.
@@ -421,13 +576,32 @@ class ServeEngine:
         self.queue: tp.List[Request] = []
         self.finished: tp.Dict[int, FinishedRequest] = {}
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # Round overlap (module docstring). Speculative engines keep their
+        # draft-then-verify rounds in every mode, as in JAX: overlapping them
+        # would re-order the rollback against the next draft.
+        self.overlap = overlap
+        self.round_group = _round_group_bucket(round_group)
+        self._inflight: tp.Optional[_InflightRound] = None
+        # Killed in-flight groups: stays 0 until the fault hooks are ported.
+        self.overlap_kills = 0
+        # (round, (uid, ...)) per decode dispatch: a request admitted or
+        # evicted during round N's host work first appears in (disappears
+        # from) dispatch N+1, or N+2 under "double".
+        self.dispatch_log: tp.Deque[tp.Tuple[int, tp.Tuple[int, ...]]] = collections.deque(maxlen=256)
+        # On CUDA every group is a CUDA-graph replay; never eager there.
+        self._graphs = (
+            DecodeGraphs(self.device, max_slots, self._gen)
+            if self.device.type == "cuda" and overlap != "off" and draft_config is None
+            else None
+        )
         self._uid = 0
         self._admitted = 0
         # Counters (stats()): recompute-style preemptions, scheduling
         # rounds, deadline timeouts, admission sheds, cancellations, decode
-        # rounds per split-K factor, decode steps (each one forward of the
-        # slot batch), and decode tokens / seconds (host clock around each
-        # decode round, which ends in its one sync).
+        # dispatches per split-K factor, decode steps dispatched (each one
+        # forward of the slot batch; a group's masked steps included), and
+        # decode tokens / seconds (host clock from a dispatch to the end of
+        # its settle, which waits for that dispatch alone).
         self.preemptions = 0
         self.rounds = 0
         self.timeouts = 0
@@ -504,7 +678,9 @@ class ServeEngine:
 
     @property
     def idle(self) -> bool:
-        return not self.queue and all(s is None for s in self.slots)
+        # An unsettled in-flight group is pending work: its tokens are not
+        # committed until the next step settles it.
+        return not self.queue and all(s is None for s in self.slots) and self._inflight is None
 
     def run(self) -> tp.Dict[int, FinishedRequest]:
         """Drive step() until everything submitted so far has finished."""
@@ -553,6 +729,10 @@ class ServeEngine:
             "decode_tokens": self.decode_tokens,
             "decode_seconds": self.decode_seconds,
             "window_reclaimed_pages": self.window_reclaimed_pages,
+            "overlap_mode": self.overlap,
+            "round_group": self.round_group,
+            "overlap_kills": self.overlap_kills,
+            "decode_graphs": None if self._graphs is None else self._graphs.stats(),
             "spec": self.spec_stats() if self.draft_config is not None else None,
         }
 
@@ -572,15 +752,38 @@ class ServeEngine:
 
     def step(self) -> None:
         """One round: expire -> admit -> prefill chunks -> one decode chunk
-        (or one draft-then-verify speculative round)."""
+        (or one draft-then-verify speculative round). overlap="group" keeps
+        this order and fuses round_group decode rounds into the one dispatch;
+        overlap="double" (no draft) runs `_step_overlapped`'s order."""
+        if self.overlap == "double" and self.draft_config is None:
+            self._step_overlapped()
+            return
         self.rounds += 1
         self._expire_round()
         self._admit()
         self._prefill_round()
         if self.draft_config is not None:
             self._spec_round()
+        elif self.overlap == "group":
+            self._decode_round_grouped()
         else:
             self._decode_round()
+
+    def _step_overlapped(self) -> None:
+        """One double-buffered round: dispatch round k's group FIRST —
+        chaining the device-side token/length state of the unsettled round
+        k-1 — then settle round k-1 (which waits for round k-1 alone) and run
+        the host phases (expire, admit, prefill) while round k computes. A
+        request admitted or evicted during them first appears in (disappears
+        from) dispatch k+2, never mid-flight."""
+        self.rounds += 1
+        handle = self._dispatch_decode(self._inflight)
+        prev, self._inflight = self._inflight, handle
+        if prev is not None:
+            self._settle_round(prev)
+        self._expire_round()
+        self._admit()
+        self._prefill_round()
 
     def _expire_round(self) -> None:
         """Finish every deadline-expired request with a `timeout` status:
@@ -857,6 +1060,7 @@ class ServeEngine:
             self._gen,
             split,
         )
+        self.dispatch_log.append((self.rounds, tuple(self.slots[i].request.uid for i in active_idx)))
         toks = toks.cpu().numpy()  # the round's one device sync
         t_done = self._clock()
         self.split_rounds[split] += 1
@@ -871,6 +1075,150 @@ class ServeEngine:
                 self.decode_tokens += 1
                 if self._append_token(i, slot, int(toks[j, i]), t_done):
                     break  # finished (max_new or EOS); rest of chunk discarded
+
+    def _decode_round_grouped(self) -> None:
+        """overlap="group": one fused multi-round dispatch, settled at the
+        group's edge within the same step (no in-flight carry-over)."""
+        h = self._dispatch_decode(None)
+        if h is not None:
+            self._settle_round(h)
+
+    def _dispatch_decode(self, prev: tp.Optional[_InflightRound]) -> tp.Optional[_InflightRound]:
+        """Assemble and ENQUEUE one multi-round decode group without waiting
+        for it; returns the in-flight handle (None when nothing can decode).
+        `prev` is the still-unsettled previous group under "double": its
+        slots are CHAINED — their true token/length state rides in on its
+        device outputs and is merged in the program under `chain_mask`, so
+        the host's one-round-stale view never reaches the device. A chained
+        slot's pages are provisioned from its WORST-CASE post-settle length
+        (prev.worst_len); if the pool cannot cover a full group the slot
+        falls back to one sub-round, and failing that it rides along masked
+        (chained: the device takes zero steps for it) or defers to a later
+        round (fresh)."""
+        chained: tp.Set[int] = set()
+        if prev is not None:
+            chained = {idx for idx, s in zip(prev.active_idx, prev.slots) if self.slots[idx] is s}
+        S = self.config.block_size
+        ps = self.page_size
+
+        def _want(s: _Slot) -> int:
+            # The settle bound: at length P + max_new - 1 the request has
+            # committed its whole generation budget (_append_token's count).
+            req = s.request
+            return min(len(req.prompt) + req.max_new_tokens - 1, S)
+
+        def _base(i: int, s: _Slot) -> int:
+            return int(prev.worst_len[i]) if i in chained else s.length
+
+        cand = []
+        for i, s in enumerate(self.slots):
+            if s is None or s.prefilling:
+                continue
+            if i not in chained and s.remaining <= 0:
+                continue
+            if _base(i, s) < _want(s):
+                cand.append((i, s))
+        if not cand:
+            return None
+        need = min(self.decode_chunk, max(_want(s) - _base(i, s) for i, s in cand))
+        n = 1 << (need.bit_length() - 1)  # largest power of two <= need
+        T = n * self.round_group
+        for i, slot in list(cand):
+            if self.slots[i] is not slot:
+                continue  # evicted by an older slot's growth in this loop
+            upto = min(_want(slot), _base(i, slot) + T)
+            if not self._ensure_pages(slot, upto):
+                fallback = min(_want(slot), _base(i, slot) + n)
+                if not self._ensure_pages(slot, fallback) and i not in chained:
+                    # Pool held by slots at least as old: defer (as
+                    # _decode_round does). A chained slot keeps riding: its
+                    # pages already cover worst_len, so max_len clamps it to
+                    # zero steps, never to an overrun.
+                    cand = [(j, t) for j, t in cand if j != i]
+        cand = [(i, s) for i, s in cand if self.slots[i] is s]
+        if not cand:
+            return None
+
+        t0 = self._clock()
+        B = self.max_slots
+        token = np.zeros((B,), np.int64)
+        lengths = np.zeros((B,), np.int32)
+        active = np.zeros((B,), bool)
+        eos = np.full((B,), -1, np.int64)
+        max_len = np.zeros((B,), np.int32)
+        chain_mask = np.zeros((B,), bool)
+        worst = np.zeros((B,), np.int32)
+        for i, s in cand:
+            token[i] = s.generated[-1] if s.generated else s.request.prompt[-1]
+            lengths[i] = s.length
+            active[i] = True
+            if s.request.eos_id is not None:
+                eos[i] = s.request.eos_id
+            max_len[i] = min(_want(s), len(s.pages) * ps)
+            chain_mask[i] = i in chained
+            worst[i] = min(_base(i, s) + T, max_len[i])
+        round_span = int(worst.max())
+        bucket = self._page_bucket(round_span)
+        split = self._split_bucket(round_span)
+        packed = _pack_group_inputs(token, lengths, active, eos, max_len, chain_mask, self._page_table(bucket))
+        chain = None if prev is None else (prev.result.tok_fin, prev.result.len_fin)
+        body = self._group_body(n, split)
+        if self._graphs is not None:
+            key = (n, self.round_group, bucket, split, self.temperature, self.top_k, self.top_p,
+                   self.attn_impl, self.cache_dtype, self.config)
+            result = self._graphs.dispatch(key, body, packed, chain)
+        else:
+            dev = self.device
+            if chain is None:  # no slot chains: zero fillers of the chain's shapes
+                chain = (torch.zeros(B, dtype=torch.int64, device=dev), torch.zeros(B, dtype=torch.int32, device=dev))
+            result = GroupResult(*body(torch.as_tensor(packed, device=dev), *chain, False))
+        self.split_rounds[split] += 1
+        self.decode_steps += T
+        self.dispatch_log.append((self.rounds, tuple(s.request.uid for _, s in cand)))
+        return _InflightRound(
+            result=result,
+            n_steps=T,
+            active_idx=[i for i, _ in cand],
+            slots=[s for _, s in cand],
+            worst_len=worst,
+            t0=t0,
+        )
+
+    def _group_body(self, n: int, split: int):
+        """The group program over the packed inputs (graphs.Body): n decode
+        steps per round, self.round_group rounds, or one step for a warm-up."""
+        B = self.max_slots
+
+        def body(packed: Tensor, chain_token: Tensor, chain_len: Tensor, warmup: bool):
+            token, lengths, active, eos, max_len, chain_mask, table = _unpack_group_inputs(packed, B)
+            steps, group = (1, 1) if warmup else (n, self.round_group)
+            toks, emitted, tok_fin, len_fin = _serve_decode_group(
+                self.config, self.params, token, self.cache, table, lengths, active, eos, max_len,
+                chain_mask, chain_token, chain_len, steps, group, self.temperature, self.top_k,
+                self.top_p, self.attn_impl, self._gen, split,
+            )
+            return torch.cat([toks, emitted.to(toks.dtype)]), tok_fin, len_fin
+
+        return body
+
+    def _settle_round(self, h: _InflightRound) -> None:
+        """Wait for a dispatched group and commit its tokens. Indices whose
+        slot object changed since dispatch (finished, evicted, cancelled,
+        timed out) are SKIPPED — their in-flight tokens are discarded, and
+        recompute preemption regenerates them."""
+        toks, emitted = h.result.host()  # waits for this group alone
+        t_done = self._clock()
+        self.decode_seconds += t_done - h.t0
+        for idx, s in zip(h.active_idx, h.slots):
+            if self.slots[idx] is not s:
+                continue
+            for j in range(h.n_steps):
+                if not emitted[j, idx]:
+                    continue
+                s.length += 1
+                self.decode_tokens += 1
+                if self._append_token(idx, s, int(toks[j, idx]), t_done):
+                    break  # finished (max_new or EOS); rest discarded
 
     def _spec_round(self) -> None:
         """One speculative round: k draft proposals per active slot, one

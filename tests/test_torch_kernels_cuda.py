@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card (paged attention: the decode, verify, int8, GQA-fold and window specs,
 the merge of its partitions and its capture in a CUDA graph; flash
-attention: forward and both backward kernels). Every test here needs an
+attention: forward and both backward kernels), and the decode step and the
+overlap modes' fused decode group as CUDA-graph replays (bit for bit
+against eager runs, launch tallies per replay, two groups in flight).
+Every test here needs an
 NVIDIA GPU and skips with a reason without one. The file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels_cuda.py
@@ -569,3 +572,175 @@ def test_flash_kernel_refuses_other_head_dims(cuda):
     with pytest.raises(NotImplementedError, match="head_dim"):
         fa.flash_attention(q[None], k[None], v[None], 64, 64)
     assert fa.FWD_LAUNCHES.count == before
+
+
+# ---------------------------------------------------------------- CUDA-graph replays of the decode loop
+
+GRAPH_CFG = dict(block_size=64, vocab_size=96, n_layer=2, n_head=2, n_embd=128, rope_style="split")
+
+
+def _graph_params(dev, dtype):
+    from midgpt_tpu_torch.utils.precision import cast_floating
+
+    return cast_floating(GPT.init(GPTConfig(**GRAPH_CFG), 0, device=dev), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_step_captured_in_a_cuda_graph(cuda, dtype):
+    """A captured decode step replays the eager step bit for bit (logits and
+    pool pages) for two sets of new inputs copied into its static buffers,
+    and one replay counts n_layer template and merge launches."""
+    from midgpt_tpu_torch.kernels.build import CaptureTally
+
+    cfg = GPTConfig(**GRAPH_CFG)
+    params = _graph_params(cuda, dtype)
+    graph_cache = PagedKVCache.init(cfg, num_pages=10, page_size=8, dtype=dtype, device=cuda)
+    torch.manual_seed(0)
+    graph_cache.k.normal_()
+    graph_cache.v.normal_()
+    eager_cache = PagedKVCache(k=graph_cache.k.clone(), v=graph_cache.v.clone())
+    # static inputs, first all inactive: the warm-up writes the spare page only
+    token = torch.zeros(3, dtype=torch.int64, device=cuda)
+    table = torch.zeros(3, 4, dtype=torch.int32, device=cuda)
+    lengths = torch.zeros(3, dtype=torch.int32, device=cuda)
+    active = torch.zeros(3, dtype=torch.bool, device=cuda)
+
+    def step(cache):
+        return GPT.decode_step_paged(cfg, params, token, cache, table, lengths, active, attn_impl="kernel")[0]
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(graph_cache)
+    torch.cuda.current_stream().wait_stream(side)
+    n = graph_cache.num_pages
+    assert torch.equal(graph_cache.k[:, :, :n], eager_cache.k[:, :, :n])
+    graph, tally = torch.cuda.CUDAGraph(), CaptureTally()
+    before = (tpl.LAUNCHES.count, tpl.MERGE_LAUNCHES.count)
+    with tally, torch.cuda.graph(graph):
+        logits = step(graph_cache)
+    assert (tpl.LAUNCHES.count, tpl.MERGE_LAUNCHES.count) == before  # a capture launches nothing
+    inputs = [([4, 9, 0], [[3, 7, 1, 0], [5, 2, 0, 0], [0, 0, 0, 0]], [19, 11, 0], [True, True, False]),
+              ([8, 1, 30], [[3, 7, 1, 0], [5, 2, 0, 0], [6, 8, 0, 0]], [20, 12, 9], [True, False, True])]
+    for tok, tab, lens, act in inputs:
+        for static, value in ((token, tok), (table, tab), (lengths, lens), (active, act)):
+            static.copy_(torch.tensor(value, dtype=static.dtype))
+        graph.replay()
+        tally.replayed()
+        want = step(eager_cache)
+        torch.cuda.synchronize()
+        assert torch.equal(logits, want)
+        assert torch.equal(graph_cache.k[:, :, :n], eager_cache.k[:, :, :n])
+        assert torch.equal(graph_cache.v[:, :, :n], eager_cache.v[:, :, :n])
+    # two replays and two eager steps: n_layer launches of each kernel apiece
+    assert tpl.LAUNCHES.count - before[0] == tpl.MERGE_LAUNCHES.count - before[1] == 4 * cfg.n_layer
+
+
+def _group_engines(dev, dtype):
+    """Two engines on the same weights and the same random pool: one
+    replays captured groups, the other runs the same body eagerly."""
+    from midgpt_tpu_torch.sampling.serve import ServeEngine
+
+    cfg = GPTConfig(**GRAPH_CFG)
+    params = _graph_params(dev, dtype)
+    engines = []
+    for _ in range(2):
+        eng = ServeEngine(cfg, params, max_slots=3, page_size=8, num_pages=12, decode_chunk=4,
+                          cache_dtype=dtype, device=dev, overlap="group", round_group=2, attn_impl="kernel")
+        torch.manual_seed(1)
+        eng.cache.k.normal_()
+        eng.cache.v.normal_()
+        engines.append(eng)
+    return engines
+
+
+# (token, lengths, active, eos, max_len, chain_mask, table) of two groups
+# over one key (4 steps x 2 rounds, a 4-page bucket, split 1); the second
+# chains slot 0 from the first's device outputs
+_GROUP_A = ([5, 9, 0], [10, 3, 0], [1, 1, 0], [-1, -1, -1], [24, 16, 0], [0, 0, 0],
+            [[1, 2, 3, 0], [4, 5, 0, 0], [6, 7, 0, 0]])
+_GROUP_B = ([5, 30, 2], [10, 11, 5], [1, 1, 1], [-1, -1, -1], [32, 16, 16], [1, 0, 0],
+            [[1, 2, 3, 8], [4, 5, 0, 0], [6, 7, 0, 0]])
+
+
+def _packed(spec):
+    import numpy as np
+
+    from midgpt_tpu_torch.sampling.serve import _pack_group_inputs
+
+    *rows, table = (np.asarray(x) for x in spec)
+    return _pack_group_inputs(*rows, table)
+
+
+def _eager_group(eng, spec, chain):
+    out = eng._group_body(4, 1)(torch.as_tensor(_packed(spec), device=eng.device), *chain, False)
+    torch.cuda.synchronize()
+    return out
+
+
+def _zero_chain(dev):
+    return torch.zeros(3, dtype=torch.int64, device=dev), torch.zeros(3, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_replay_matches_eager_and_tallies_launches(cuda, dtype):
+    """The fused group replays the eager body bit for bit for two sets of
+    new inputs over one captured key; the capture's warm-up launches each
+    kernel n_layer times (one masked step), and each replay n_layer x T."""
+    graph_eng, eager_eng = _group_engines(cuda, dtype)
+    key = ("test", dtype)
+    T, L = 8, graph_eng.config.n_layer
+    for i, spec in enumerate((_GROUP_A, _GROUP_B)):
+        before = (tpl.LAUNCHES.count, tpl.MERGE_LAUNCHES.count)
+        res = graph_eng._graphs.dispatch(key, graph_eng._group_body(4, 1), _packed(spec), None)
+        toks, emitted = res.host()
+        launched = (tpl.LAUNCHES.count - before[0], tpl.MERGE_LAUNCHES.count - before[1])
+        assert launched == ((L * T + (L if i == 0 else 0),) * 2)
+        want, tok_fin, len_fin = _eager_group(eager_eng, spec, _zero_chain(cuda))
+        assert torch.equal(torch.from_numpy(toks), want[:T].cpu())
+        assert torch.equal(torch.from_numpy(emitted), want[T:].cpu().bool())
+        assert torch.equal(res.tok_fin, tok_fin) and torch.equal(res.len_fin, len_fin)
+        n = graph_eng.cache.num_pages
+        assert torch.equal(graph_eng.cache.k[:, :, :n], eager_eng.cache.k[:, :, :n])
+        assert torch.equal(graph_eng.cache.v[:, :, :n], eager_eng.cache.v[:, :, :n])
+    assert graph_eng._graphs.stats() == {"captured": 1, "captures_per_key": [1], "replays": 2, "warmup_steps": 1}
+
+
+@pytest.mark.cuda
+def test_two_groups_in_flight_keep_the_first_outputs(cuda):
+    """overlap="double"'s pattern: group B (chained to A's device outputs)
+    is enqueued before A is read. The same graph's second replay overwrites
+    its outputs, yet A's copies read afterwards equal A's eager run."""
+    graph_eng, eager_eng = _group_engines(cuda, torch.bfloat16)
+    key = ("test", "double")
+    body = graph_eng._group_body(4, 1)
+    res_a = graph_eng._graphs.dispatch(key, body, _packed(_GROUP_A), None)
+    res_b = graph_eng._graphs.dispatch(key, body, _packed(_GROUP_B), (res_a.tok_fin, res_a.len_fin))
+    got_b, got_a = res_b.host(), res_a.host()
+    want_a = _eager_group(eager_eng, _GROUP_A, _zero_chain(cuda))
+    want_b = _eager_group(eager_eng, _GROUP_B, want_a[1:])
+    for (toks, emitted), (want, _, _) in ((got_a, want_a), (got_b, want_b)):
+        assert torch.equal(torch.from_numpy(toks), want[:8].cpu())
+        assert torch.equal(torch.from_numpy(emitted), want[8:].cpu().bool())
+    assert torch.equal(res_a.len_fin, want_a[2]) and not torch.equal(res_a.len_fin, res_b.len_fin)
+
+
+@pytest.mark.cuda
+def test_group_replays_draw_fresh_samples(cuda):
+    """temperature > 0 inside a captured group: the engine's generator is
+    registered with the graph, so two replays of the same inputs draw
+    different tokens (8 steps x 2 slots over ~96 tokens each)."""
+    from midgpt_tpu_torch.sampling.serve import ServeEngine
+
+    cfg = GPTConfig(**GRAPH_CFG)
+    eng = ServeEngine(cfg, _graph_params(cuda, torch.float32), max_slots=3, page_size=8, num_pages=12,
+                      decode_chunk=4, cache_dtype=torch.float32, device=cuda, overlap="group", round_group=2,
+                      temperature=1.0, seed=5)
+    draws = [eng._graphs.dispatch("sampled", eng._group_body(4, 1), _packed(_GROUP_A), None).host()
+             for _ in range(2)]
+    (toks_1, emitted_1), (toks_2, emitted_2) = draws
+    assert (emitted_1 == emitted_2).all() and emitted_1[:, :2].all()
+    assert (toks_1[:, :2] != toks_2[:, :2]).any()
+    assert ((0 <= toks_1) & (toks_1 < cfg.vocab_size)).all()

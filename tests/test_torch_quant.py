@@ -73,10 +73,12 @@ def test_int8_cache_layout_matches_jax():
     tc = PagedKVCache.init(cfg, num_pages=9, page_size=8, dtype=torch.int8, device=CPU)
     jc = JCache.init(jcfg, num_pages=9, page_size=8, dtype=jnp.int8)
     assert tc.quantized and jc.quantized
-    for t, j in ((tc.k, jc.k), (tc.v, jc.v), (tc.k_scale, jc.k_scale), (tc.v_scale, jc.v_scale)):
-        assert tuple(t.shape) == j.shape and str(t.dtype)[6:] == str(j.dtype)
+    assert tc.num_pages == 9  # the allocator's pages; the spare page (index 9) comes after them
+    for t, j, axis in ((tc.k, jc.k, 2), (tc.v, jc.v, 2), (tc.k_scale, jc.k_scale, 1), (tc.v_scale, jc.v_scale, 1)):
+        assert tuple(t.narrow(axis, 0, 9).shape) == j.shape and t.shape[axis] == 10
+        assert str(t.dtype)[6:] == str(j.dtype)
     want = sum(a.size * a.dtype.itemsize for a in (jc.k, jc.v, jc.k_scale, jc.v_scale))
-    assert tc.nbytes == want
+    assert tc.nbytes == want * 10 // 9
     for dt, jdt in ((torch.int8, jnp.int8), (torch.bfloat16, jnp.bfloat16)):
         assert PagedKVCache.page_bytes(cfg, 8, dt) == JCache.page_bytes(jcfg, 8, jdt)
     bf = PagedKVCache.init(cfg, num_pages=9, page_size=8, dtype=torch.bfloat16, device=CPU)
@@ -188,6 +190,7 @@ def assert_int8_pools_match(tc, jc):
     """Identical codes; scales within f32 1e-5 relative (the written K/V
     vectors differ from JAX's by matmul summation-order ulps, which move a
     scale by an ulp and, on this problem, no code)."""
+    n = jc.num_pages  # pages 0..n-1: the port's spare page n has no JAX counterpart
     for tp_, ts, jp, js in ((tc.k, tc.k_scale, jc.k, jc.k_scale), (tc.v, tc.v_scale, jc.v, jc.v_scale)):
-        np.testing.assert_array_equal(tp_.numpy(), np.asarray(jp))
-        np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=0, rtol=1e-5)
+        np.testing.assert_array_equal(tp_[:, :, :n].numpy(), np.asarray(jp))
+        np.testing.assert_allclose(ts[:, :n].numpy(), np.asarray(js), atol=0, rtol=1e-5)

@@ -108,7 +108,7 @@ def test_engine_validation():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(cfg, params, device=CPU, prefix_cache=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(cfg, params, device=CPU, overlap="double")
+        ServeEngine(cfg, params, device=CPU, pool_hbm_bytes=1 << 20)
     with pytest.raises(ValueError, match="unknown cache dtype"):
         ServeEngine(cfg, params, device=CPU, cache_dtype="int4")
     if not torch.cuda.is_available():

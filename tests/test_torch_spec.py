@@ -175,7 +175,8 @@ def _flatten(params) -> dict:
 
 def _filled_caches(jcfg, jp, dtype):
     """A JAX pool prefilled for two slots, and the same pool carried into
-    the port as numpy arrays (codes and scales in int8 mode)."""
+    the port as numpy arrays (codes and scales in int8 mode), with the
+    port's spare page appended (models/gpt.py PagedKVCache)."""
     jdt, tdt = {"float32": (jnp.float32, torch.float32), "int8": (jnp.int8, torch.int8)}[dtype]
     jc = JCache.init(jcfg, num_pages=12, page_size=8, dtype=jdt)
     table = np.array([[3, 7, 1, 0], [5, 2, 0, 0], [9, 0, 0, 0]], np.int32)
@@ -183,10 +184,15 @@ def _filled_caches(jcfg, jp, dtype):
         prompt = np.random.default_rng(slot).integers(0, 96, 16).astype(np.int32)
         _, jc = _j_prefill(jcfg, jp, jnp.asarray(prompt[None]), jnp.asarray(0, jnp.int32),
                            jnp.asarray(n, jnp.int32), jc, jnp.asarray(table[slot : slot + 1]))
-    fields = {n: torch.from_numpy(np.array(getattr(jc, n))) for n in ("k", "v")}
+    def with_spare(name, axis):
+        a = torch.from_numpy(np.array(getattr(jc, name)))
+        return torch.cat([a, torch.zeros_like(a.narrow(axis, 0, 1))], axis)
+
+    fields = {n: with_spare(n, 2) for n in ("k", "v")}
     if dtype == "int8":
-        fields.update({n: torch.from_numpy(np.array(getattr(jc, n))) for n in ("k_scale", "v_scale")})
+        fields.update({n: with_spare(n, 1) for n in ("k_scale", "v_scale")})
     tc = PagedKVCache(**fields)
+    assert tc.num_pages == jc.num_pages
     assert tc.k.dtype == tdt
     return jc, tc, table, np.array([13, 7, 0], np.int32)
 
@@ -209,14 +215,15 @@ def test_verify_step_paged_matches_jax(dtype, split_k):
                                    split_k=split_k)
     assert tl.shape == (3, 4, 96)
     np.testing.assert_allclose(tl.numpy()[:2], np.asarray(jl)[:2], atol=2e-5, rtol=0)
+    n = jc.num_pages  # pages 0..n-1: the port's spare page n has no JAX counterpart
     if dtype == "int8":
         for t, j in ((tc.k, jc.k), (tc.v, jc.v)):
-            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+            np.testing.assert_array_equal(t[:, :, :n].numpy(), np.asarray(j))
         for t, j in ((tc.k_scale, jc.k_scale), (tc.v_scale, jc.v_scale)):
-            np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=0, rtol=1e-5)
+            np.testing.assert_allclose(t[:, :n].numpy(), np.asarray(j), atol=0, rtol=1e-5)
     else:
         for t, j in ((tc.k, jc.k), (tc.v, jc.v)):
-            np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5, rtol=0)
+            np.testing.assert_allclose(t[:, :, :n].numpy(), np.asarray(j), atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("attn_impl", ["gather", "kernel"])
@@ -239,8 +246,9 @@ def test_verify_step_matches_sequential_decode(attn_impl):
     vl, tc = GPT.verify_step_paged(tcfg, tp_, tokens, tc, torch.from_numpy(table), torch.from_numpy(lengths),
                                    active, attn_impl=attn_impl)
     np.testing.assert_allclose(vl[:2].numpy(), torch.stack(ref, 1)[:2].numpy(), atol=2e-5, rtol=2e-5)
-    np.testing.assert_allclose(tc.k.numpy(), seq.k.numpy(), atol=2e-5, rtol=2e-5)
-    np.testing.assert_allclose(tc.v.numpy(), seq.v.numpy(), atol=2e-5, rtol=2e-5)
+    n = tc.num_pages  # the inactive slot's writes land on the spare page n in either order
+    np.testing.assert_allclose(tc.k[:, :, :n].numpy(), seq.k[:, :, :n].numpy(), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(tc.v[:, :, :n].numpy(), seq.v[:, :, :n].numpy(), atol=2e-5, rtol=2e-5)
 
 
 def test_self_draft_shares_embeddings():

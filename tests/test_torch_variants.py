@@ -307,14 +307,15 @@ _j_verify = jax.jit(JGPT.verify_step_paged, static_argnums=(0, 7, 8, 9))
 
 
 def _close_pools(tc, jc, quantized):
+    n = jc.num_pages  # pages 0..n-1: the port's spare page n has no JAX counterpart
     if quantized:
-        assert np.abs(tc.k.numpy().astype(np.int32) - np.asarray(jc.k).astype(np.int32)).max() <= 1
-        assert np.abs(tc.v.numpy().astype(np.int32) - np.asarray(jc.v).astype(np.int32)).max() <= 1
+        assert np.abs(tc.k[:, :, :n].numpy().astype(np.int32) - np.asarray(jc.k).astype(np.int32)).max() <= 1
+        assert np.abs(tc.v[:, :, :n].numpy().astype(np.int32) - np.asarray(jc.v).astype(np.int32)).max() <= 1
         for a, b in ((tc.k_scale, jc.k_scale), (tc.v_scale, jc.v_scale)):
-            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=0, rtol=1e-5)
+            np.testing.assert_allclose(a[:, :n].numpy(), np.asarray(b), atol=0, rtol=1e-5)
     else:
-        np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k), atol=1e-5, rtol=0)
-        np.testing.assert_allclose(tc.v.numpy(), np.asarray(jc.v), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(tc.k[:, :, :n].numpy(), np.asarray(jc.k), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(tc.v[:, :, :n].numpy(), np.asarray(jc.v), atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize(
@@ -331,7 +332,7 @@ def test_paged_prefill_decode_verify_match_jax(variant, dtype):
     jdt, tdt = ("int8", torch.int8) if dtype == "int8" else (jnp.float32, torch.float32)
     jc = JCache.init(jcfg, num_pages=n_pages, page_size=ps, dtype=jdt)
     tc = PagedKVCache.init(tcfg, num_pages=n_pages, page_size=ps, dtype=tdt, device=CPU)
-    assert tc.k.shape == (2, 2, n_pages, ps, 8) and tuple(tc.k.shape) == tuple(jc.k.shape)
+    assert tc.k.shape == (2, 2, n_pages + 1, ps, 8) and tuple(tc.k[:, :, :n_pages].shape) == tuple(jc.k.shape)
     assert PagedKVCache.page_bytes(tcfg, ps, tdt) == JCache.page_bytes(jcfg, ps, jdt)
     table = np.array([[3, 7, 1, 12, 14, 0, 0, 0], [5, 2, 0, 0, 0, 0, 0, 0], [9, 0, 0, 0, 0, 0, 0, 0]], np.int32)
     prompts = [np.random.default_rng(3).integers(0, 96, 37), np.random.default_rng(4).integers(0, 96, 9)]
