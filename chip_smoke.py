@@ -94,7 +94,8 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      at full width as `gqa` (`--set model_config.n_kv_heads=3`, phase 6's
      cuts; flash launches counted as there) and as `gqa_window` (plus a
      256-token window, 4 sinks and blockwise attention; 2 steps), every
-     loss finite, each run's params.npz carrying wkv. `sample.main
+     loss finite, each run's final checkpoint step verified and its
+     params.npz carrying wkv. `sample.main
      --ckpt_dir` serves each run (gqa: its config's self-draft, which must
      launch only the GQA verify and decode specs; gqa_window with
      --spec_layers 0: only the windowed GQA decode spec). The gqa run's
@@ -115,7 +116,24 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      written to a temporary directory, with the cuts printed as "reduced".
      Flash counters are zeroed just before and read just after: forward
      launches must equal n_layer x (microsteps + eval batches), each
-     backward kernel's n_layer x microsteps; every loss must be finite;
+     backward kernel's n_layer x microsteps; every loss must be finite and
+     the final step's checkpoint verified;
+  6b. checkpoints and resume on that path (cuts: G 2, 6 steps, an eval and
+     a save every 2 steps, one eval batch): a round trip (one step, a copy
+     of the state on the card, a save, two more in-place steps, a restore
+     that must equal the copy bit for bit: params, mu, nu, both counts);
+     a straight launcher run (saves at 0, 2, 4 and the final 5); a second
+     launcher as a subprocess into a fresh run directory, SIGKILLed as soon
+     as step 4's save has begun (step 2 verified); a relaunch into that
+     directory must resume from step 2, launch the flash kernels n_layer x
+     (microsteps + eval batches) / n_layer x microsteps times for steps
+     3-5, and equal the straight run bit for bit: logged losses, eval
+     losses and the final checkpoint (else two straight runs set the
+     spread it is held to); `sample.main --ckpt_dir` must restore its
+     final step and launch the decode spec. Printed: bytes per
+     checkpoint, the loop's stall per save, the background write and hash
+     time, restore time, tokens/s of log intervals with and without a
+     save. The run directories (~12 GB) are deleted;
   7. parity on the card: training steps through the flash kernels against
      the same steps through the dense (naive) attention, same params and
      batches — f32 at full width and 2 layers (losses and the parameter
@@ -159,6 +177,7 @@ them, one JSON object with a "kernels" list and phase 4b's "decode_modes"
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -216,6 +235,8 @@ FLASH_TARGET_MS = {"flash_fwd": 0.43, "flash_bwd_dq": 0.45, "flash_bwd_dkv": 0.6
 SIMT_MICROSTEP = (168.7, 43.6)
 # training main path: the cuts of local_text_124m, printed as "reduced"
 TRAIN_CUTS = {"g_accum_iters": 2, "max_steps": 4, "eval_steps": 1, "eval_interval": 1000}
+# phase 6b: the checkpoint and resume runs' cuts (saves at 0, 2, 4 and the final step 5)
+RESUME_CUTS = {"g_accum_iters": 2, "max_steps": 6, "eval_steps": 1, "eval_interval": 2}
 # parity tolerances (printed): f32 losses relative, f32 update relative
 # norm, bf16 loss relative (dense attention rounds its scores to bf16)
 PARITY_TOL = {"f32_loss": 1e-5, "f32_update": 1e-3, "bf16_loss": 1e-2}
@@ -984,8 +1005,8 @@ def train_variant(data_dir: Path, rundir: Path, variant: str, card: str):
     (GQA_VARIANTS) into `rundir` at full width, flash counters zeroed just
     before and read just after. gqa: phase 6's cuts and launch counts;
     gqa_window (blockwise attention: no flash launch) 2 steps. Every loss
-    must be finite, and params.npz must hold the GQA layout. Returns the
-    flash launches."""
+    must be finite, and the final checkpoint step's params.npz must hold
+    the GQA layout. Returns the flash launches."""
     from midgpt_tpu_torch import launch
 
     cuts = dict(TRAIN_CUTS, max_steps=2) if variant == "gqa_window" else TRAIN_CUTS
@@ -1013,7 +1034,7 @@ def train_variant(data_dir: Path, rundir: Path, variant: str, card: str):
     if len(losses) != cuts["max_steps"] or not all(np.isfinite(losses + evals_rec)):
         raise SystemExit(f"{variant}: training losses not all finite: {losses}, eval {evals_rec}")
     steady = [r["throughput/tokens_per_sec"] for r in records if "loss/optimized" in r][1:]  # step 0: set-up
-    with np.load(Path(rundir, "params.npz")) as f:
+    with np.load(final_step_dir(rundir, cuts["max_steps"]) / "params.npz") as f:
         wkv = f["blocks.attn.wkv"].shape
     if wkv != (mc.n_layer, 2, mc.kv_heads * mc.head_dim, mc.n_embd) or mc.kv_groups != 4:
         raise SystemExit(f"{variant}: params.npz wkv has shape {wkv}, config {mc}")
@@ -1023,16 +1044,28 @@ def train_variant(data_dir: Path, rundir: Path, variant: str, card: str):
     return totals
 
 
+def final_step_dir(rundir: Path, max_steps: int) -> Path:
+    """The step directory of a launcher run's forced final save, which must
+    be its newest verified checkpoint."""
+    from midgpt_tpu_torch.training.checkpoint import CheckpointManager
+
+    newest = CheckpointManager(str(rundir)).latest_verified_step()
+    if newest != max_steps - 1:
+        raise SystemExit(f"{rundir}: newest verified checkpoint step {newest}, want the final step {max_steps - 1}")
+    return Path(rundir, str(newest))
+
+
 def read_run(rundir: Path, params: bool = True):
     """The model config of a launcher run directory (from its config.json)
-    and, with `params`, its f32 parameters."""
+    and, with `params`, the f32 parameters of its newest verified
+    checkpoint step."""
     from midgpt_tpu_torch.config import from_json
-    from midgpt_tpu_torch.convert import load_npz
+    from midgpt_tpu_torch.sampling.engine import restore_for_sampling
 
-    cfg = from_json(Path(rundir, "config.json").read_text()).model_config
+    exp = from_json(Path(rundir, "config.json").read_text())
     if not params:
-        return cfg
-    return cfg, load_npz(str(Path(rundir, "params.npz")), config=cfg, device="cuda")
+        return exp.model_config
+    return exp.model_config, restore_for_sampling(str(rundir), exp, "cuda")[0]
 
 
 def sample_specs(rundir: Path, *extra):
@@ -1280,8 +1313,7 @@ def train_main_path(data_dir: Path, card: str):
         torch.cuda.synchronize()
         launches = {n: dict(c.by_variant) for n, c in counters.items()}
         records = [json.loads(line) for line in Path(rundir, "metrics.jsonl").read_text().splitlines()]
-        if not Path(rundir, "params.npz").exists():
-            raise SystemExit("the launcher wrote no params.npz")
+        final_step_dir(Path(rundir), TRAIN_CUTS["max_steps"])
     G, steps = TRAIN_CUTS["g_accum_iters"], TRAIN_CUTS["max_steps"]
     micro = G * steps
     evals = 3 * TRAIN_CUTS["eval_steps"]  # train + val at step 0, val at the end
@@ -1302,13 +1334,268 @@ def train_main_path(data_dir: Path, card: str):
     evals_rec = [v for r in records for k, v in r.items() if k.startswith("loss/") and k != "loss/optimized"]
     if not all(np.isfinite(evals_rec)):
         raise SystemExit(f"eval losses not all finite: {evals_rec}")
-    steady = steps_rec[1:]  # step 0 pays first-call set-up
+    # step 0 pays first-call set-up; step 1's log interval holds the step-0 checkpoint save
+    steady = steps_rec[2:]
     tok_s = float(np.mean([r["throughput/tokens_per_sec"] for r in steady]))
     mfu = float(np.mean([r["throughput/mfu"] for r in steady])) if "throughput/mfu" in steady[0] else None
     print(f"training losses by step: {[round(x, 4) for x in losses]} on {card}")
-    print(f"training throughput (steps 1-{steps - 1}, G={G} x {base.batch_size} x {mc.block_size} tokens per step): "
+    print(f"training throughput (steps 2-{steps - 1}, G={G} x {base.batch_size} x {mc.block_size} tokens per step): "
           f"{tok_s:.1f} tokens/s, MFU {'not known for this card' if mfu is None else f'{100 * mfu:.2f}%'} on {card}")
     return launches, tok_s, mfu, losses
+
+
+def logged(rundir: Path):
+    """({step: loss/optimized}, {(step, key): eval loss}) of a run's
+    metrics.jsonl, a resumed run's lines winning."""
+    losses, evals = {}, {}
+    for line in Path(rundir, "metrics.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        if "loss/optimized" in rec:
+            losses[rec["step"]] = rec["loss/optimized"]
+        for k in ("loss/train", "loss/val", "loss/val_final"):
+            if k in rec:
+                evals[(rec["step"], k)] = rec[k]
+    return losses, evals
+
+
+def state_diff(a: dict, b: dict) -> float:
+    """Largest |a - b| over the leaves of two restored checkpoint states
+    (0.0 is bit for bit; counts compared exactly)."""
+    pa, oa = a["params"], a["opt_state"]
+    pb, ob = b["params"], b["opt_state"]
+    if (oa.adam_count, oa.schedule_count) != (ob.adam_count, ob.schedule_count):
+        return float("inf")
+    pairs = [(pa[k], pb[k]) for k in pa] + [(oa.mu[k], ob.mu[k]) for k in pa] + [(oa.nu[k], ob.nu[k]) for k in pa]
+    return max(0.0 if torch.equal(x, y) else (x - y).abs().max().item() for x, y in pairs)
+
+
+def final_diff(a: Path, b: Path, step: int) -> float:
+    """Largest |a - b| between two runs' checkpoints of `step`: 0.0 at once
+    when their manifests hash the same bytes (a checkpoint's files are a
+    function of its state), else from the restored states."""
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.training.checkpoint import MANIFEST_NAME, CheckpointManager
+    from midgpt_tpu_torch.training.train import state_template
+
+    files = [json.loads(Path(d, str(step), MANIFEST_NAME).read_text())["files"] for d in (a, b)]
+    if files[0] == files[1]:
+        return 0.0
+    like = state_template(load_config("local_text_124m"))
+    return state_diff(*(CheckpointManager(str(d)).restore(step, like, device="cuda") for d in (a, b)))
+
+
+def savez_write(path: str, arrays) -> None:
+    """The checkpoint writer's earlier file write, `np.savez`, which copies
+    each 16 MiB chunk with the GIL held: timed beside the zero-copy one."""
+    with open(path, "wb") as fh:
+        np.savez(fh, **arrays)
+
+
+def checkpoint_round_trip(data_dir: Path, root: Path, card: str) -> dict:
+    """Phase 6b, round trip: one full-width step, a copy of the state on
+    the card, a save, two more steps (in place) while the writer thread
+    runs, two without it, then the restore must equal the copy bit for
+    bit. Then two steps beside a save written by `np.savez` (the earlier
+    writer). Returns the save's record, the restore time and the step
+    times."""
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.data.dataset import TokenDataset
+    from midgpt_tpu_torch.training import checkpoint as ckpt
+    from midgpt_tpu_torch.training.checkpoint import CheckpointManager
+    from midgpt_tpu_torch.training.optim import OptState
+    from midgpt_tpu_torch.training.train import init_state, make_train_step, state_template
+
+    cfg = load_config("local_text_124m").replace(data_dir=str(data_dir), **RESUME_CUTS)
+    params, opt_state, opt = init_state(cfg, "cuda")
+    step = make_train_step(cfg, opt)[0]
+    ds = TokenDataset(str(data_dir), seed=cfg.data_seed)
+    T, B, G = cfg.model_config.block_size, cfg.batch_size, cfg.g_accum_iters
+
+    def train_step(i):
+        nonlocal params, opt_state
+        x, y = (torch.from_numpy(a).cuda().long() for a in ds.batch("train", i, T, B, G))
+        params, opt_state, _ = step(params, opt_state, x, y)
+
+    def step_ms(first, n=2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(first, first + n):
+            train_step(i)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    train_step(0)
+    copy = {"params": {k: v.clone() for k, v in params.items()},
+            "opt_state": OptState(opt_state.adam_count, {k: v.clone() for k, v in opt_state.mu.items()},
+                                  {k: v.clone() for k, v in opt_state.nu.items()}, opt_state.schedule_count)}
+    mngr = CheckpointManager(str(root / "round_trip"), save_interval_steps=1)
+    mngr.save(0, {"params": params, "opt_state": opt_state})
+    with_writer = step_ms(1)
+    mngr.wait()
+    without = step_ms(3)
+    t0 = time.perf_counter()
+    restored = mngr.restore(0, state_template(cfg), device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    zero_copy, ckpt._write_npz = ckpt._write_npz, savez_write
+    try:
+        mngr.save(5, {"params": params, "opt_state": opt_state})
+        with_savez = step_ms(5)
+        mngr.wait()
+    finally:
+        ckpt._write_npz = zero_copy
+    mngr.close()
+    diff = state_diff(restored, copy)
+    moved = state_diff(copy, {"params": params, "opt_state": OptState(
+        copy["opt_state"].adam_count, opt_state.mu, opt_state.nu, copy["opt_state"].schedule_count)})
+    rec = mngr.history[0]
+    print(f"checkpoint round trip at full width: restored step 0 after 4 more steps (which moved the state by "
+          f"up to {moved:.3e}), max |restored - copy| {diff} over params, mu, nu; counts "
+          f"{restored['opt_state'].adam_count}/{restored['opt_state'].schedule_count}")
+    if diff != 0.0 or moved == 0.0:
+        raise SystemExit("the checkpoint round trip is not bit for bit (or the later steps moved nothing)")
+    print(f"checkpoint: {rec['bytes']} bytes per step ({rec['bytes'] / 1e9:.3f} GB: f32 params + mu + nu), "
+          f"save stalls the loop {1e3 * rec['stall_s']:.1f} ms (copy to pinned host memory, one sync), "
+          f"background write + sha256 {rec['write_s']:.2f} s, restore (verify + read + to the card) "
+          f"{restore_s:.2f} s on {card}")
+    old = mngr.history[-1]
+    overlapped = [2e-3 * ms < r["write_s"] for ms, r in ((with_writer, rec), (with_savez, old))]  # writers outlived the steps
+    print(f"a full-width step (G={G}) takes {with_writer:.1f} ms beside the writer thread ({100 * (with_writer / without - 1):+.1f}%; "
+          f"it outlived both steps: {overlapped[0]}), {without:.1f} ms without it, {with_savez:.1f} ms beside the earlier "
+          f"np.savez writer ({100 * (with_savez / without - 1):+.1f}%; outlived: {overlapped[1]}; its write + sha256 "
+          f"{old['write_s']:.2f} s) — steps 1-2, 3-4, 5-6 of one call, on {card}")
+    shutil.rmtree(root / "round_trip")
+    return {**rec, "restore_s": restore_s, "step_ms_writer": with_writer, "step_ms": without, "step_ms_savez": with_savez}
+
+
+def resume_main_path(data_dir: Path, card: str):
+    """Phase 6b: checkpoints and resume on the training main path (see the
+    module docstring). Returns the resumed run's flash launches."""
+    from midgpt_tpu_torch import launch
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.training.checkpoint import MANIFEST_NAME
+
+    t_phase = time.perf_counter()
+    base = load_config("local_text_124m")
+    mc = base.model_config
+    root = data_dir / "resume"
+    root.mkdir()
+    print(f"phase 6b reduced: " + ", ".join(f"{k} {getattr(base, k)} -> {v}" for k, v in RESUME_CUTS.items())
+          + f"; {shutil.disk_usage(root).free / 2**30:.0f} GiB free under the run directories")
+    rt = checkpoint_round_trip(data_dir, root, card)
+    free_memory()
+
+    def args(rundir):
+        return ["--config=local_text_124m", f"--rundir={rundir}",
+                *sets({"data_dir": data_dir, "log_interval": 1, **RESUME_CUTS})]
+
+    steps, every = RESUME_CUTS["max_steps"], RESUME_CUTS["eval_interval"]
+    straight_dir, killed_dir = root / "straight", root / "killed"
+    straight = launch.main(args(straight_dir))
+    free_memory()
+    saved = [r["step"] for r in straight["checkpoints"]]
+    if saved != [*range(0, steps, every), steps - 1]:
+        raise SystemExit(f"the straight run saved steps {saved}")
+
+    # a second launcher, SIGKILLed once step `every` is verified and the next save has begun
+    log = open(root / "killed.log", "w")
+    proc = subprocess.Popen([sys.executable, "-m", "midgpt_tpu_torch.launch", *args(killed_dir)],
+                            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    nxt = killed_dir / str(2 * every)
+    try:
+        deadline = time.time() + 300
+        while not nxt.exists():
+            if proc.poll() is not None or time.time() > deadline:
+                raise SystemExit(f"the launcher to be killed ended or stalled (rc {proc.returncode}):\n"
+                                 + (root / "killed.log").read_text()[-3000:])
+            time.sleep(0.002)
+        verified_at_kill = (killed_dir / str(every) / MANIFEST_NAME).exists()
+    finally:
+        proc.kill()
+        proc.wait()
+        log.close()
+    partial = not (nxt / MANIFEST_NAME).exists()
+    left = sorted(int(p.name) for p in killed_dir.iterdir() if p.name.isdigit())
+    print(f"SIGKILLed the second launcher: step {every} verified {verified_at_kill}, step directories left {left}, "
+          f"step {2 * every} partly written: {partial}")
+    if not verified_at_kill:
+        raise SystemExit(f"step {every} was not verified when step {2 * every}'s save began")
+
+    counters = flash_counters()
+    for c in counters.values():
+        c.reset()
+    resumed = launch.main(args(killed_dir))
+    torch.cuda.synchronize()
+    launches = {n: c.count for n, c in counters.items()}
+    first = resumed["resumed_from"] + 1 if resumed["resumed_from"] is not None else 0
+    print(f"relaunched into the same run directory: resumed from step {resumed['resumed_from']} "
+          f"(restored in {resumed['restore_s']:.2f} s), trained steps {first}-{steps - 1}")
+    if resumed["resumed_from"] != every:
+        raise SystemExit(f"the relaunch resumed from {resumed['resumed_from']}, want step {every} "
+                         "(the newest verified step; a partial step is never restored)")
+    G, E = RESUME_CUTS["g_accum_iters"], RESUME_CUTS["eval_steps"]
+    micro = G * (steps - first)
+    evals = E * (2 * sum(1 for i in range(first, steps) if i % every == 0) + 1)
+    want = {"flash_fwd": mc.n_layer * (micro + evals), "flash_bwd_dq": mc.n_layer * micro,
+            "flash_bwd_dkv": mc.n_layer * micro}
+    print(f"flash launches over the resumed run: {launches}, want {want} ({mc.n_layer} layers x "
+          f"({micro} microsteps + {evals} eval batches))")
+    if launches != want:
+        raise SystemExit("the resumed run's flash launches != n_layer x (microsteps + eval batches) / n_layer x microsteps")
+
+    # the resumed run against the straight one: logged losses and the final checkpoint
+    (sl, se), (rl, re_) = logged(straight_dir), logged(killed_dir)
+    loss_diff = max(abs(sl[i] - rl[i]) for i in range(first, steps))
+    eval_diff = max(abs(se[k] - re_[k]) for k in se if k[0] >= first)
+    ckpt_diff = final_diff(straight_dir, killed_dir, steps - 1)
+    free_memory()
+    print(f"resumed vs straight: logged losses of steps {first}-{steps - 1} differ by at most {loss_diff}, "
+          f"eval losses by {eval_diff}, the final checkpoints (step {steps - 1}: params, mu, nu) by {ckpt_diff}"
+          + (" (the same bytes: equal manifests)" if ckpt_diff == 0.0 else ""))
+    if max(loss_diff, eval_diff, ckpt_diff) > 0:
+        # not bit for bit: hold it to the spread of two straight runs in this call
+        again = launch.main(args(root / "straight2"))
+        free_memory()
+        (al, ae) = logged(root / "straight2")
+        spread = max(max(abs(sl[i] - al[i]) for i in range(steps)), max(abs(se[k] - ae[k]) for k in se),
+                     final_diff(straight_dir, root / "straight2", steps - 1))
+        del again
+        print(f"two straight runs differ by up to {spread}: the run is not deterministic on this card")
+        if max(loss_diff, eval_diff, ckpt_diff) > spread:
+            raise SystemExit("the resumed run departs from the straight run by more than two straight runs do")
+
+    # serving the resumed run
+    from contextlib import redirect_stdout
+    import io
+
+    out = io.StringIO()
+    with redirect_stdout(out):
+        specs = sample_specs(killed_dir, "--spec_layers=0")
+    print(out.getvalue(), end="")
+    if f"restored checkpoint step {steps - 1}" not in out.getvalue() or specs != {"decode"}:
+        raise SystemExit("sample --ckpt_dir must restore the resumed run's final step and launch the decode spec")
+    free_memory()
+
+    # the loop's view: tokens/s of log intervals that hold a save and of ones that do not
+    recs = {}
+    for line in (straight_dir / "metrics.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        if "throughput/tokens_per_sec" in rec:
+            recs[rec["step"]] = rec["throughput/tokens_per_sec"]
+    # a save at step s lands in step s + 1's interval unless an eval opens that interval
+    with_save = [recs[s + 1] for s in saved if 0 < s + 1 < steps and (s + 1) % every != 0]
+    without = [recs[i] for i in range(1, steps) if i % every == 0]
+    stalls = [1e3 * r["stall_s"] for r in straight["checkpoints"]]
+    writes = [r["write_s"] for r in straight["checkpoints"]]
+    print(f"straight run saves (steps {saved}): bytes {[r['bytes'] for r in straight['checkpoints']]}, loop "
+          f"stalls {[round(x, 1) for x in stalls]} ms (each includes the barrier on the previous save), "
+          f"write + sha256 {[round(x, 2) for x in writes]} s on {card}")
+    print(f"tokens/s of log intervals holding a save (steps {[s + 1 for s in saved if 0 < s + 1 < steps and (s + 1) % every]}): "
+          f"{[round(x, 1) for x in with_save]}; without one (steps {[i for i in range(1, steps) if i % every == 0]}): "
+          f"{[round(x, 1) for x in without]} on {card}")
+    shutil.rmtree(root)
+    print(f"phase 6b took {time.perf_counter() - t_phase:.1f} s")
+    return launches, rt
 
 
 def parity_run(data_dir: Path, n_layer, compute_dtype, steps, impl):
@@ -1620,9 +1907,14 @@ def main() -> int:
             train_variant(data_dir, rundir, variant, card)
             free_memory()
         gqa_launches, window_launches = gqa_serving(card, rundirs)
+        for rundir in rundirs.values():
+            shutil.rmtree(rundir)  # two checkpoint steps each
         free_memory()
         # 6. the training main path: counters zeroed just before, read just after
         flash_launches, train_tok_s, train_mfu, _ = train_main_path(data_dir, card)
+        free_memory()
+        # 6b. checkpoints and resume on the main path: counters zeroed just before the resumed run
+        resume_main_path(data_dir, card)
         free_memory()
         # 7-9. parity, the tiled dispatch, where a training step's time goes
         train_parity(data_dir, card)

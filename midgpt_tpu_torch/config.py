@@ -5,9 +5,10 @@ written by the JAX package's run directory loads here (`from_json`), and
 named presets live in `midgpt_tpu_torch/configs/*.py` as modules exposing a
 module-level `config` (`load_config`); `to_json` writes the run
 directory's `config.json`, which either package reads back. Validation
-covers the fields the port reads; the parallelism and robustness knobs are
-carried for the round trip and are inert until those parts are ported
-(ROADMAP.md).
+covers the fields the port reads, the checkpoint knobs and the robustness
+knobs JAX checks at the same place; the parallelism knobs, the supervisor's
+and preemption's are carried for the round trip and are inert until those
+parts are ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -107,6 +108,20 @@ class ExperimentConfig:
             raise ValueError(
                 f"unknown kv_cache_dtype {self.kv_cache_dtype!r} ('bf16' or 'int8')"
             )
+        if self.data_step_offset < 0:
+            raise ValueError(f"data_step_offset={self.data_step_offset} must be >= 0")
+        if self.max_restarts < 0:
+            raise ValueError(f"max_restarts={self.max_restarts} must be >= 0")
+        if self.ckpt_max_to_keep < 1:
+            raise ValueError(f"ckpt_max_to_keep={self.ckpt_max_to_keep} must be >= 1")
+        if self.ckpt_write_retries < 1:
+            raise ValueError(f"ckpt_write_retries={self.ckpt_write_retries} must be >= 1")
+        if self.preempt_check_interval < 1:
+            raise ValueError(
+                f"preempt_check_interval={self.preempt_check_interval} must be >= 1"
+            )
+        if self.restart_backoff_sec < 0 or self.ckpt_retry_backoff_sec < 0:
+            raise ValueError("backoff seconds must be >= 0")
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)

@@ -6,12 +6,12 @@
 Loads a named preset (midgpt_tpu_torch/configs), applies the dotted
 `--set` overrides in one rebuild, writes `config.json` to the run
 directory (default: a timestamped directory under outputs/, none with
---debug), trains on one device (CUDA unless `--device cpu`) with
-`metrics.jsonl` beside it, and at the end writes the final parameters as
-`params.npz` in the converter's layout (midgpt_tpu_torch/convert.py),
-which `python -m midgpt_tpu_torch.sample --ckpt_dir=R` serves. The port
-keeps no Orbax checkpoint: a run cannot be resumed, and a rerun into the
-same directory starts from scratch.
+--debug) and trains on one device (CUDA unless `--device cpu`) with
+`metrics.jsonl` beside it. Every `eval_interval` steps and at the end the
+state is checkpointed into a step directory `R/<step>/`
+(training/checkpoint.py), which `python -m midgpt_tpu_torch.sample
+--ckpt_dir=R` serves. A rerun into the same `--rundir` resumes from the
+newest verified step. `--debug` writes nothing.
 """
 
 from __future__ import annotations
@@ -67,7 +67,8 @@ def apply_overrides(config, pairs):
     return rebuild(config, tree)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
+    """Parse the command line and train; returns `train`'s result."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--rundir", type=str)
@@ -85,7 +86,6 @@ def main(argv=None) -> None:
         )
 
     from midgpt_tpu_torch.config import load_config, to_json
-    from midgpt_tpu_torch.convert import params_to_numpy
     from midgpt_tpu_torch.device import resolve_device
     from midgpt_tpu_torch.training.train import train
 
@@ -101,23 +101,13 @@ def main(argv=None) -> None:
     if args.debug:
         config = config.replace(debug=True)
 
-    write = bool(config.rundir) and not config.debug
-    if write:
+    if config.rundir and not config.debug:
         os.makedirs(config.rundir, exist_ok=True)
         with open(os.path.join(config.rundir, "config.json"), "w") as f:
             f.write(to_json(config))
         print(f"Writing to {config.rundir}")
     print(config)
-    result = train(config, device=device)
-    if write:
-        import numpy as np
-
-        path = os.path.join(config.rundir, "params.npz")
-        np.savez(path, **params_to_numpy(result["params"]))
-        print(
-            f"wrote the final parameters to {path}; no Orbax checkpoint was "
-            "written, so this run cannot be resumed"
-        )
+    return train(config, device=device)
 
 
 if __name__ == "__main__":

@@ -90,6 +90,25 @@ def param_names(config: "GPTConfig") -> tp.Tuple[str, ...]:
     return PARAM_NAMES if config.n_kv_heads is None else GQA_PARAM_NAMES
 
 
+def param_shapes(config: "GPTConfig") -> tp.Dict[str, tp.Tuple[int, ...]]:
+    """The shape of each leaf `GPT.init` makes (in `param_names` order),
+    without making it: a checkpoint restore's template."""
+    L, D, C, V = config.n_layer, config.n_embd, config.head_dim, config.vocab_size
+    gqa = config.n_kv_heads is not None
+    shapes = {
+        "wte": (V, D),
+        "blocks.attn.wqkv": (L, 1 if gqa else 3, D, D),
+        WKV: (L, 2, config.kv_heads * C, D),
+        "blocks.attn.wo": (L, D, D),
+        "blocks.attn.q_scale": (L, C),
+        "blocks.attn.k_scale": (L, C),
+        "blocks.mlp.w_up": (L, 4 * D, D),
+        "blocks.mlp.w_down": (L, D, 4 * D),
+        "lm_head": (V, D),
+    }
+    return {name: shapes[name] for name in param_names(config)}
+
+
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
     """Model shape. Field names and validation follow the JAX GPTConfig so

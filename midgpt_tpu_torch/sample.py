@@ -9,8 +9,11 @@
 
 `--config` serves random weights made from `--seed` (the way
 tools/bench_serve.py serves random-init models); `--ckpt_dir` reads a
-run directory holding `config.json` and `params.npz` in the converter's
-layout (midgpt_tpu_torch/convert.py). Each sample is an independent
+run directory's `config.json` and the parameters of its newest verified
+checkpoint step (training/checkpoint.py; a directory whose steps all fail
+verification is refused), or, where it has no step directory at all, a
+bare `params.npz` in the converter's layout (midgpt_tpu_torch/convert.py:
+weights handed over from a JAX run). Each sample is an independent
 request. Prompts use the dataset's char codec when the config's
 `data_dir/meta.pkl` is a char table, else `--start_ids` (comma-separated
 token ids). Runs on CUDA unless `--device cpu` is given.
@@ -35,7 +38,7 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     src = parser.add_mutually_exclusive_group(required=True)
     src.add_argument("--config", type=str, help="named preset (midgpt_tpu_torch/configs)")
-    src.add_argument("--ckpt_dir", type=str, help="run dir with config.json + params.npz")
+    src.add_argument("--ckpt_dir", type=str, help="run dir with config.json + checkpoint steps (or params.npz)")
     parser.add_argument("--seed", type=int, default=0, help="weights (--config) and sampling seed")
     parser.add_argument("--start", type=str, default="\n", help="prompt text (char codec only)")
     parser.add_argument("--start_ids", type=str, default=None, help="comma-separated prompt token ids")
@@ -58,8 +61,8 @@ def main(argv=None) -> None:
     )
     parser.add_argument(
         "--draft_ckpt", type=str, default=None,
-        help="speculative decoding with a SEPARATE draft run dir (config.json + "
-        "params.npz; same vocab and block_size); excludes --spec_layers",
+        help="speculative decoding with a SEPARATE draft run dir (as --ckpt_dir; "
+        "same vocab and block_size); excludes --spec_layers",
     )
     args = parser.parse_args(argv)
     if args.draft_ckpt is not None and args.spec_layers:
@@ -72,6 +75,7 @@ def main(argv=None) -> None:
     from midgpt_tpu_torch.convert import load_npz
     from midgpt_tpu_torch.device import resolve_device
     from midgpt_tpu_torch.models.gpt import GPT
+    from midgpt_tpu_torch.sampling.engine import restore_for_sampling
     from midgpt_tpu_torch.sampling.serve import ServeEngine
     from midgpt_tpu_torch.sampling.spec import self_draft
     from midgpt_tpu_torch.utils.precision import cast_floating
@@ -79,7 +83,9 @@ def main(argv=None) -> None:
     def read_run(run_dir):
         with open(os.path.join(run_dir, "config.json")) as f:
             cfg = from_json(f.read())
-        return cfg, load_npz(os.path.join(run_dir, "params.npz"), config=cfg.model_config, device=device)
+        if not any(name.isdigit() for name in os.listdir(run_dir)):  # weights handed over as params.npz
+            return cfg, load_npz(os.path.join(run_dir, "params.npz"), config=cfg.model_config, device=device)
+        return cfg, restore_for_sampling(run_dir, cfg, device)[0]
 
     device = resolve_device(args.device)
     if args.config is not None:

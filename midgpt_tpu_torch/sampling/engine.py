@@ -1,6 +1,6 @@
-"""Logit warping and token sampling (counterpart of the sampling functions
-of midgpt_tpu/sampling/engine.py; the contiguous-cache `generate` loop is
-still to be ported, ROADMAP.md).
+"""Logit warping, token sampling and the sampler's checkpoint restore
+(counterpart of those functions of midgpt_tpu/sampling/engine.py; the
+contiguous-cache `generate` loop is still to be ported, ROADMAP.md).
 
 torch's generators are not JAX's keys: a seed gives a different stream, so
 stochastic sampling matches the JAX package in distribution only. Greedy
@@ -61,3 +61,37 @@ def sample_logits(
     probs = torch.softmax(warp_logits(logits, temperature, top_k, top_p), dim=-1)
     race = torch.empty_like(probs).exponential_(1.0, generator=generator)
     return torch.argmax(probs / race, dim=-1)
+
+
+def restore_for_sampling(ckpt_dir: str, config, device=None) -> tp.Tuple[tp.Dict[str, Tensor], int]:
+    """Restore only the "params" item of the newest verified checkpoint
+    step under `ckpt_dir` (training/checkpoint.py) onto `device` (CUDA
+    unless told otherwise), in the config's param_dtype. `config` is the
+    run's ExperimentConfig. Returns (params, step); prints the step. Raises
+    CheckpointCorruptError, naming each step's problems, when steps exist
+    but none verifies, and FileNotFoundError when there is no step."""
+    from midgpt_tpu_torch.device import resolve_device
+    from midgpt_tpu_torch.robustness.errors import CheckpointCorruptError
+    from midgpt_tpu_torch.training.checkpoint import CheckpointManager
+    from midgpt_tpu_torch.training.train import state_template
+
+    mngr = CheckpointManager(ckpt_dir)
+    try:
+        step = mngr.latest_verified_step()
+        if step is None:
+            steps = mngr.all_steps()
+            if not steps:
+                raise FileNotFoundError(f"no checkpoint step under {ckpt_dir}")
+            problems = [f"step {s}: {p}" for s in steps for p in mngr.verify(s)]
+            raise CheckpointCorruptError(
+                f"no verified checkpoint under {ckpt_dir}; refusing to serve any of steps {steps}:\n  "
+                + "\n  ".join(problems),
+                step=steps[-1],
+                problems=problems,
+            )
+        like = {"params": state_template(config)["params"]}
+        params = mngr.restore(step, like, device=resolve_device(device))["params"]
+    finally:
+        mngr.close()
+    print(f"restored checkpoint step {step}")
+    return params, step

@@ -11,8 +11,16 @@ Step semantics follow the JAX step (reference train.py:69-97):
     in place, and the loss is folded with the sticky `health_flag`.
 PyTorch runs eagerly: the step is a Python function, not one compiled
 program. Eval runs `eval_steps` seeded batches at the compute dtype with
-dropout off. Periodic checkpoints, resume, the supervisor, preemption, the
-watchdog and the flight recorder are not ported (ROADMAP.md).
+dropout off.
+
+`train` checkpoints and resumes as JAX's does (midgpt_tpu/training/train.py:497-849):
+a run with a `rundir` (and not `debug`) resumes from the newest verified
+step (training/checkpoint.py), checks the restored state is finite, saves
+in the background every `eval_interval` steps after one host check of the
+sticky loss, and force-saves the final step. Data and dropout are
+positional (`data_step_offset`, `_generators`), so a resumed run continues
+the straight run's trajectory. The supervisor, preemption, the watchdog
+and the flight recorder are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,9 +34,10 @@ import torch
 from midgpt_tpu_torch.config import ExperimentConfig
 from midgpt_tpu_torch.data.dataset import TokenDataset
 from midgpt_tpu_torch.device import DeviceLike, resolve_device
-from midgpt_tpu_torch.models.gpt import GPT, Params
+from midgpt_tpu_torch.models.gpt import GPT, Params, param_shapes
 from midgpt_tpu_torch.ops.loss import fused_linear_cross_entropy
 from midgpt_tpu_torch.robustness.errors import DivergenceError
+from midgpt_tpu_torch.training.checkpoint import CheckpointManager
 from midgpt_tpu_torch.training.metrics import MetricLogger, mfu
 from midgpt_tpu_torch.training.optim import Optimizer, OptState, make_optimizer
 
@@ -169,14 +178,60 @@ def evaluate(
     return float(total) / n
 
 
+def state_template(config: ExperimentConfig) -> tp.Dict[str, tp.Any]:
+    """The saved state's restore template: the master parameters' and
+    Adam moments' shapes and dtype on the `meta` device (no memory)."""
+    dtype = getattr(torch, config.param_dtype)
+    shapes = param_shapes(config.model_config)
+    like = {k: torch.empty(s, dtype=dtype, device="meta") for k, s in shapes.items()}
+    return {"params": like, "opt_state": OptState(0, like, like, 0)}
+
+
+def _all_finite(params: Params, opt_state: OptState) -> bool:
+    """One device-side finiteness sweep of params and moments, one sync."""
+    leaves = [*params.values(), *opt_state.mu.values(), *opt_state.nu.values()]
+    return bool(torch.stack([torch.isfinite(t).all() for t in leaves]).all())
+
+
 def train(config: ExperimentConfig, *, device: DeviceLike = None) -> dict:
     """Run the experiment on one device (CUDA unless told otherwise);
-    returns {"params", "opt_state", "metrics"}."""
+    returns {"params", "opt_state", "metrics", "resumed_from", "restore_s",
+    "checkpoints"} (the resume step or None, the restore's seconds, one
+    record per save: CheckpointManager.history)."""
     dev = resolve_device(device)
     dataset = TokenDataset(config.data_dir, seed=config.data_seed)
-    params, opt_state, optimizer = init_state(config, dev)
-    schedule = optimizer.schedule
+    optimizer, schedule = make_optimizer(config)
     step, eval_loss_many = make_train_step(config, optimizer)
+
+    mngr = None
+    first_step, resume_step, restore_s = 0, None, None
+    params = opt_state = None
+    if not config.debug and config.rundir:
+        mngr = CheckpointManager(
+            config.rundir,
+            max_to_keep=config.ckpt_max_to_keep,
+            save_interval_steps=config.eval_interval,
+            write_retries=config.ckpt_write_retries,
+            retry_backoff_sec=config.ckpt_retry_backoff_sec,
+        )
+        resume_step = mngr.latest_verified_step()
+        if resume_step is not None:
+            t0 = time.perf_counter()
+            state = mngr.restore(resume_step, state_template(config), device=dev)
+            params, opt_state = state["params"], state["opt_state"]
+            restore_s = time.perf_counter() - t0
+            # The manifest guards the bytes; this guards the VALUES (a state
+            # saved non-finite by other code): once, at resume.
+            if not _all_finite(params, opt_state):
+                raise FloatingPointError(
+                    f"checkpoint step {resume_step} in {config.rundir} restored non-finite "
+                    "values — it is corrupt; do not resume from it."
+                )
+            first_step = resume_step + 1
+            print(f"resumed from checkpoint step {resume_step} in {config.rundir} "
+                  f"(restored in {restore_s:.2f} s); training from step {first_step}")
+    if params is None:
+        params, opt_state, _ = init_state(config, dev)
     print(f"Model has {GPT.count_params(params):,} parameters.")
 
     logger = MetricLogger("" if config.debug else config.rundir)
@@ -185,7 +240,7 @@ def train(config: ExperimentConfig, *, device: DeviceLike = None) -> dict:
     loss = torch.zeros((), dtype=torch.float32, device=dev)  # sticky health carrier
     t_last, tokens_since = time.time(), 0
     try:
-        for itr in range(config.max_steps):
+        for itr in range(first_step, config.max_steps):
             if itr % config.eval_interval == 0:
                 metrics["loss/train"] = evaluate(config, eval_loss_many, params, dataset, "train", itr)
                 metrics["loss/val"] = evaluate(config, eval_loss_many, params, dataset, "val", itr)
@@ -202,11 +257,15 @@ def train(config: ExperimentConfig, *, device: DeviceLike = None) -> dict:
             if itr % config.log_interval == 0:
                 loss_f = float(loss)  # the one host sync per log interval
                 if not np.isfinite(loss_f):
+                    last_good = mngr.latest_verified_step() if mngr is not None else None
                     raise DivergenceError(
-                        f"non-finite loss ({loss_f}) at step {itr} — training has "
-                        "diverged. No checkpoint was saved (the port keeps none "
-                        "during a run). Lower learning_rate or raise warmup_steps.",
+                        f"non-finite loss ({loss_f}) at step {itr} — training has diverged. "
+                        "Last good checkpoint: "
+                        + (f"step {last_good} in {config.rundir}" if last_good is not None
+                           else "none was saved")
+                        + ". Lower learning_rate or raise warmup_steps and resume.",
                         step=itr,
+                        last_good_step=last_good,
                         rundir=config.rundir,
                     )
                 dt = time.time() - t_last
@@ -221,9 +280,41 @@ def train(config: ExperimentConfig, *, device: DeviceLike = None) -> dict:
                 if m is not None:
                     metrics["throughput/mfu"] = m
                 logger.log(itr, dict(metrics))
+            if mngr is not None and mngr.should_save(itr):
+                # One host sync per SAVE interval: never let a poisoned
+                # state overwrite the rolling checkpoints.
+                if not np.isfinite(float(loss)):
+                    last_good = mngr.latest_verified_step()
+                    raise DivergenceError(
+                        f"non-finite training state at step {itr} — refusing to overwrite the "
+                        f"rolling checkpoint. Last good checkpoint: step {last_good} in "
+                        f"{config.rundir}. Lower learning_rate or raise warmup_steps and resume.",
+                        step=itr,
+                        last_good_step=last_good,
+                        rundir=config.rundir,
+                    )
+                mngr.save(itr, {"params": params, "opt_state": opt_state})
 
         metrics["loss/final"] = evaluate(config, eval_loss_many, params, dataset, "val", config.max_steps)
         logger.log(config.max_steps, {"loss/val_final": metrics["loss/final"]})
+        if mngr is not None and first_step < config.max_steps:
+            # Force-persist the final state unless the loop's save did, and
+            # not if it is poisoned: the sticky loss gates too, since a
+            # transient poisoning may leave NaN only in the moments.
+            mngr.wait()
+            if (
+                mngr.latest_verified_step() != config.max_steps - 1
+                and np.isfinite(metrics["loss/final"])
+                and np.isfinite(float(loss))
+            ):
+                mngr.save(config.max_steps - 1, {"params": params, "opt_state": opt_state}, force=True)
     finally:
+        # Never abandon an in-flight save: close() joins the writer,
+        # raises its error, and garbage-collects.
         logger.close()
-    return {"params": params, "opt_state": opt_state, "metrics": metrics}
+        if mngr is not None:
+            mngr.close()
+    return {
+        "params": params, "opt_state": opt_state, "metrics": metrics, "resumed_from": resume_step,
+        "restore_s": restore_s, "checkpoints": mngr.history if mngr is not None else [],
+    }

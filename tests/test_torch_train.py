@@ -252,15 +252,18 @@ def test_launch_on_cpu_then_serve_its_params(data_dir, tmp_path):
     r = _run(["-m", "midgpt_tpu_torch.launch", "--config=local_text_124m", "--device", "cpu",
               f"--rundir={rundir}", "--set", f"data_dir={data_dir}", *TINY])
     assert r.returncode == 0, r.stderr
-    assert "cannot be resumed" in r.stdout
-    assert {p.name for p in rundir.iterdir()} == {"config.json", "metrics.jsonl", "params.npz"}
+    assert "cannot be resumed" not in r.stdout
+    # saves at steps 0 and 2 and the final step 3; the two newest verified are kept
+    assert {p.name for p in rundir.iterdir()} == {"config.json", "metrics.jsonl", "2", "3"}
+    assert {p.name for p in (rundir / "3").iterdir()} == {
+        "params.npz", "opt_state.npz", "format.json", "midgpt_manifest.json"}
     records = [json.loads(line) for line in (rundir / "metrics.jsonl").read_text().splitlines()]
     losses = [rec["loss/optimized"] for rec in records if "loss/optimized" in rec]
     assert len(losses) == 4 and all(np.isfinite(losses))
     r = _run(["-m", "midgpt_tpu_torch.sample", f"--ckpt_dir={rundir}", "--device=cpu",
               "--start_ids=1,2,3", "--num_samples=2", "--max_new_tokens=4", "--temperature=0"])
     assert r.returncode == 0, r.stderr
-    assert "2 requests on cpu" in r.stdout
+    assert "restored checkpoint step 3" in r.stdout and "2 requests on cpu" in r.stdout
 
 
 def test_launch_needs_cuda_unless_cpu_is_asked(data_dir):

@@ -523,8 +523,8 @@ def _run(args, timeout=240):
 def test_launch_gqa_on_cpu_then_serve_its_params(tmp_path):
     """The slice's entry points: the launcher trains local_text_124m with
     `--set model_config.n_kv_heads=2` (cut to a tiny width), its params.npz
-    carries wkv and its config.json round-trips n_kv_heads; `sample
-    --ckpt_dir` serves it."""
+    carries wkv in its final checkpoint step's params.npz and its
+    config.json round-trips n_kv_heads; `sample --ckpt_dir` serves it."""
     import json
 
     r = np.random.default_rng(0)
@@ -544,7 +544,7 @@ def test_launch_gqa_on_cpu_then_serve_its_params(tmp_path):
                 f"--rundir={rundir}", *args])
     assert out.returncode == 0, out.stderr
     assert json.loads((rundir / "config.json").read_text())["model_config"]["n_kv_heads"] == 2
-    with np.load(rundir / "params.npz") as f:
+    with np.load(rundir / "1" / "params.npz") as f:  # the forced final save of step max_steps - 1
         assert f["blocks.attn.wkv"].shape == (2, 2, 2 * 16, 64) and f["blocks.attn.wqkv"].shape == (2, 1, 64, 64)
     out = _run(["-m", "midgpt_tpu_torch.sample", f"--ckpt_dir={rundir}", "--device=cpu", "--start_ids=1,2,3",
                 "--num_samples=2", "--max_new_tokens=4", "--temperature=0"])
