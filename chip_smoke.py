@@ -133,7 +133,34 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      final step and launch the decode spec. Printed: bytes per
      checkpoint, the loop's stall per save, the background write and hash
      time, restore time, tokens/s of log intervals with and without a
-     save. The run directories (~12 GB) are deleted;
+     save. Every run directory but the straight run's is deleted;
+  6c. the supervised trainer (robustness/), on 6b's cuts, each run held to
+     6b's straight run, the launcher's flash launches counted per run:
+     (d) an armed 60 s watchdog: losses and the final checkpoint bit for
+     bit, tokens/s of steps 2-3 beside the unarmed run, the guarded syncs
+     timed; (a) `fault_plan=nan_grad@3`: one rollback to step 2, window
+     [3, 3] skipped, offset 1 (JAX's formula), a finite final loss, the
+     ledger on disk, the rollback's seconds (the flight recorder's
+     divergence instant to the next attempt's first step) and
+     torch.cuda.memory_allocated before and after (the failed attempt's
+     state must not outlive the run); (b) `hang_step@3` under a watchdog
+     three times the longest sync of (d) (at least 2 s): hung_steps [3],
+     offset 0, the flight recorder dumped, the replay bit for bit the
+     straight run; (c) a launcher subprocess (saves at step 0 only,
+     preempt_grace_s 30) sent SIGTERM once step 2 is logged: exit code 0,
+     the newest verified step the boundary it printed, `train.preempt` in
+     its dumped flight recorder, the seconds from SIGTERM to exit; the
+     relaunch resumes there and is bit for bit the straight run. All run
+     directories are deleted. The serving half, (e), runs after phase 5b
+     on phase 4's weights and trace: `kill_mid_decode@3` ("off"),
+     `kill_overlapped_round@3` ("double") and `poisoned_page@3` ("off"), in
+     f32 (streams == the unfaulted run's but the poisoned slot's, a
+     departure allowed only at a near-tie) and in bf16 (printed only: the
+     re-prefill rounds its products otherwise than decode did); each fault
+     fires once, pages conserved, launches == n_layer x device steps;
+     `obs=Observability()` under group:4 (streams == phase 4b's, the round
+     decomposition and tokens/s beside obs off); an armed 60 s watchdog
+     under "double" (streams == phase 4b's, no expiry);
   7. parity on the card: training steps through the flash kernels against
      the same steps through the dense (naive) attention, same params and
      batches — f32 at full width and 2 layers (losses and the parameter
@@ -178,6 +205,7 @@ from __future__ import annotations
 
 import json
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -603,7 +631,8 @@ def device_steps(stats):
 
 def overlap_serving(card, cfg, params32, params16, kernel_streams, gather_streams):
     """Phase 4b. Returns {mode: (decode tokens/s, end-to-end tokens/s)} of
-    the bf16 runs' second pass (every graph already captured)."""
+    the bf16 runs' second pass (every graph already captured), and the bf16
+    streams by mode."""
     from midgpt_tpu_torch.kernels import attention_template as tpl
     from midgpt_tpu_torch.sampling.serve import parse_overlap
 
@@ -643,7 +672,7 @@ def overlap_serving(card, cfg, params32, params16, kernel_streams, gather_stream
         _, streams, _ = serve(cfg, params32, torch.float32, overlap=overlap, round_group=round_group)
         compare_streams(f"f32 overlap {spec} vs off (kernel)", streams, kernel_streams)
         compare_streams(f"f32 overlap {spec} vs off (gather)", streams, gather_streams)
-    return rates
+    return rates, streams16
 
 
 # ---------------------------------------------------------------- verify and int8 specs
@@ -1468,9 +1497,18 @@ def checkpoint_round_trip(data_dir: Path, root: Path, card: str) -> dict:
     return {**rec, "restore_s": restore_s, "step_ms_writer": with_writer, "step_ms": without, "step_ms_savez": with_savez}
 
 
+def resume_args(data_dir: Path, rundir: Path, **extra):
+    """The launcher's arguments of phase 6b's runs (and 6c's), with `extra`
+    --set overrides."""
+    return ["--config=local_text_124m", f"--rundir={rundir}",
+            *sets({"data_dir": data_dir, "log_interval": 1, **RESUME_CUTS, **extra})]
+
+
 def resume_main_path(data_dir: Path, card: str):
     """Phase 6b: checkpoints and resume on the training main path (see the
-    module docstring). Returns the resumed run's flash launches."""
+    module docstring). Returns the resumed run's flash launches, the round
+    trip's record and the straight run's directory (kept for phase 6c
+    under data_dir/resume, with nothing else)."""
     from midgpt_tpu_torch import launch
     from midgpt_tpu_torch.config import load_config
     from midgpt_tpu_torch.training.checkpoint import MANIFEST_NAME
@@ -1486,8 +1524,7 @@ def resume_main_path(data_dir: Path, card: str):
     free_memory()
 
     def args(rundir):
-        return ["--config=local_text_124m", f"--rundir={rundir}",
-                *sets({"data_dir": data_dir, "log_interval": 1, **RESUME_CUTS})]
+        return resume_args(data_dir, rundir)
 
     steps, every = RESUME_CUTS["max_steps"], RESUME_CUTS["eval_interval"]
     straight_dir, killed_dir = root / "straight", root / "killed"
@@ -1593,9 +1630,299 @@ def resume_main_path(data_dir: Path, card: str):
     print(f"tokens/s of log intervals holding a save (steps {[s + 1 for s in saved if 0 < s + 1 < steps and (s + 1) % every]}): "
           f"{[round(x, 1) for x in with_save]}; without one (steps {[i for i in range(1, steps) if i % every == 0]}): "
           f"{[round(x, 1) for x in without]} on {card}")
-    shutil.rmtree(root)
+    for d in root.iterdir():
+        if d != straight_dir:
+            shutil.rmtree(d) if d.is_dir() else d.unlink()
     print(f"phase 6b took {time.perf_counter() - t_phase:.1f} s")
-    return launches, rt
+    return launches, rt, straight_dir
+
+
+# ---------------------------------------------------------------- phase 6c: the supervised trainer
+
+
+def flash_want(attempts, layers):
+    """Flash launches of a run's attempts on RESUME_CUTS: each attempt is
+    (first step, end step, final eval) — its steps' microsteps, the train
+    and val eval batches at each eval step, the final val batch."""
+    G, E, every = RESUME_CUTS["g_accum_iters"], RESUME_CUTS["eval_steps"], RESUME_CUTS["eval_interval"]
+    micro = sum(G * (end - first) for first, end, _ in attempts)
+    evals = sum(E * (2 * sum(1 for i in range(first, end) if i % every == 0) + final)
+                for first, end, final in attempts)
+    return {"flash_fwd": layers * (micro + evals), "flash_bwd_dq": layers * micro,
+            "flash_bwd_dkv": layers * micro}
+
+
+def recorded(name: str):
+    """(time, duration, args) of the flight recorder's events called `name`."""
+    from midgpt_tpu_torch.obs import flight_recorder
+
+    return [(t, dur, args) for _, n, _, _, t, dur, _, args in flight_recorder().tracer.events() if n == name]
+
+
+def logs_step(rundir: Path, step: int) -> bool:
+    """Has a running launcher's metrics.jsonl logged `step`'s loss yet
+    (complete lines only)?"""
+    path = rundir / "metrics.jsonl"
+    if not path.exists():
+        return False
+    for line in path.read_text().split("\n")[:-1]:
+        rec = json.loads(line)
+        if rec.get("step") == step and "loss/optimized" in rec:
+            return True
+    return False
+
+
+def same_run(label: str, straight_dir: Path, rundir: Path, steps):
+    """The logged losses of `steps` and the final checkpoint of `rundir`
+    must equal the straight run's bit for bit."""
+    final = RESUME_CUTS["max_steps"] - 1
+    (sl, _), (rl, _) = logged(straight_dir), logged(rundir)
+    loss_diff = max(abs(sl[i] - rl[i]) for i in steps)
+    ckpt_diff = final_diff(straight_dir, rundir, final)
+    print(f"{label} vs the straight run: logged losses of steps {list(steps)} differ by at most {loss_diff}, the "
+          f"final checkpoints (step {final}: params, mu, nu) by {ckpt_diff}"
+          + (" (the same bytes: equal manifests)" if ckpt_diff == 0.0 else ""))
+    if loss_diff != 0.0 or ckpt_diff != 0.0:
+        raise SystemExit(f"{label}: not bit for bit the straight run")
+
+
+def supervised_main_path(data_dir: Path, straight_dir: Path, save_cost: dict, card: str):
+    """Phase 6c, training: the supervised launcher on RESUME_CUTS (see the
+    module docstring), each run held to phase 6b's straight run. Returns
+    {run: flash launches}."""
+    from midgpt_tpu_torch import launch
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.training.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    layers = load_config("local_text_124m").model_config.n_layer
+    steps = RESUME_CUTS["max_steps"]
+    root = straight_dir.parent
+    counters = flash_counters()
+    launches = {}
+    k = 3  # a fault at step 3: past the verified saves at 0 and 2
+
+    def run(label, rundir, **extra):
+        for c in counters.values():
+            c.reset()
+        result = launch.main(resume_args(data_dir, rundir, restart_backoff_sec=0, **extra))
+        torch.cuda.synchronize()
+        launches[label] = {n: c.count for n, c in counters.items()}
+        return result
+
+    def tok_s(rundir):
+        recs = {}
+        for line in Path(rundir, "metrics.jsonl").read_text().splitlines():
+            rec = json.loads(line)
+            if "throughput/tokens_per_sec" in rec:
+                recs[rec["step"]] = rec["throughput/tokens_per_sec"]
+        return [recs[2], recs[3]]
+
+    # (d) an armed 60 s watchdog: bit for bit the unarmed straight run
+    armed_dir = root / "armed"
+    n_syncs = len(recorded("train.sync"))
+    run("armed watchdog", armed_dir, watchdog_deadline_s=60)
+    syncs = [dur for _, dur, _ in recorded("train.sync")[n_syncs:]]
+    same_run("(d) armed watchdog (60 s)", straight_dir, armed_dir, range(steps))
+    unarmed, armed = tok_s(straight_dir), tok_s(armed_dir)
+    print(f"(d) tokens/s of steps 2-3: unarmed {[round(x, 1) for x in unarmed]} (phase 6b's straight run), armed "
+          f"{[round(x, 1) for x in armed]}; {len(syncs)} guarded syncs, the longest {max(syncs):.3f} s, on {card}")
+    if launches["armed watchdog"] != flash_want([(0, steps, 1)], layers):
+        raise SystemExit(f"(d) flash launches {launches['armed watchdog']} != n_layer x (microsteps + evals)")
+    shutil.rmtree(armed_dir)
+
+    # (a) divergence at step k: rolled back to step 2 with the data window skipped
+    div_dir = root / "diverged"
+    free_memory()
+    before = torch.cuda.memory_allocated()
+    n_events = len(recorded("train.step"))
+    result = run("divergence", div_dir, fault_plan=f"nan_grad@{k}")
+    after = torch.cuda.memory_allocated()
+    sup = result["supervisor"]
+    loss_final = result["metrics"]["loss/final"]
+    del result
+    free_memory()
+    released = torch.cuda.memory_allocated()
+    raised = recorded("train.divergence")[-1][0]
+    first_after = min(t for t, _, _ in recorded("train.step")[n_events:] if t > raised)
+    ledger = json.loads((div_dir / "supervisor_state.json").read_text())
+    last_good = 2  # JAX's supervisor: window [last_good + 1, k] + offset, offset += max(1, k - last_good)
+    want = {"restarts": 1, "windows_skipped": [[last_good + 1, k]], "data_step_offset": max(1, k - last_good),
+            "hung_steps": [], "faults_fired": {"nan_grad": 1}}
+    got = {key: sup[key] for key in want}
+    print(f"(a) nan_grad@{k}: supervisor {got}, ledger offset {ledger['data_step_offset']} windows "
+          f"{ledger['windows_skipped']}; final loss {loss_final:.4f}; rollback {first_after - raised:.3f} s "
+          f"from the raise to the next attempt's first step (restore included, backoff 0) on {card}")
+    print(f"(a) torch.cuda.memory_allocated: {before} bytes before the supervised run, {after} after it returned "
+          f"(its result holds the final state), {released} once the result was released "
+          f"({released - before:+d} bytes against before) on {card}")
+    if got != want or ledger["data_step_offset"] != want["data_step_offset"] or \
+            ledger["windows_skipped"] != want["windows_skipped"] or not np.isfinite(loss_final):
+        raise SystemExit("(a) the rollback does not match JAX's supervisor for these cuts")
+    if released - before > 256 * 2**20:
+        raise SystemExit("(a) the failed attempt's state outlived the supervised run")
+    wanted = flash_want([(0, k + 1, 0), (last_good + 1, steps, 1)], layers)
+    print(f"(a) flash launches over both attempts: {launches['divergence']}, want {wanted}")
+    if launches["divergence"] != wanted:
+        raise SystemExit("(a) flash launches != n_layer x (microsteps + eval batches) over both attempts")
+    shutil.rmtree(div_dir)
+
+    # (b) hang at step k: the watchdog ends the wait, the replay is the straight run
+    deadline = max(2.0, round(3 * max(syncs), 1))
+    hang_dir = root / "hung"
+    result = run("hang", hang_dir, fault_plan=f"hang_step@{k}", watchdog_deadline_s=deadline)
+    sup = result["supervisor"]
+    del result
+    free_memory()
+    waited = recorded("supervisor.hung_restart")[-1][2]["waited_s"]
+    print(f"(b) hang_step@{k}: hung_steps {sup['hung_steps']}, offset {sup['data_step_offset']}, restarts "
+          f"{sup['restarts']}; waited {waited:.3f} s at expiry against a {deadline:g} s deadline (3x the longest "
+          f"guarded sync of (d), at least 2 s) on {card}")
+    if (sup["hung_steps"], sup["data_step_offset"], sup["restarts"]) != ([k], 0, 1):
+        raise SystemExit("(b) the hang restart must mark the step hung and keep the offset")
+    if not all((hang_dir / f"flight_recorder.{ext}").exists() for ext in ("json", "prom")):
+        raise SystemExit("(b) the watchdog must dump flight_recorder.json and .prom")
+    same_run(f"(b) hang restart", straight_dir, hang_dir, range(steps))
+    wanted = flash_want([(0, k + 1, 0), (last_good + 1, steps, 1)], layers)
+    if launches["hang"] != wanted:
+        raise SystemExit(f"(b) flash launches {launches['hang']} != {wanted}")
+    shutil.rmtree(hang_dir)
+
+    # (c) a real SIGTERM to a launcher subprocess: emergency save, clean exit, exact relaunch
+    sig_dir, grace = root / "sigterm", 30
+    log = open(root / "sigterm.log", "w")
+    # saves at step 0 only: the boundary's save is the emergency one
+    argv = resume_args(data_dir, sig_dir, eval_interval=steps, preempt_grace_s=grace)
+    proc = subprocess.Popen([sys.executable, "-m", "midgpt_tpu_torch.launch", *argv], cwd=ROOT,
+                            stdout=log, stderr=subprocess.STDOUT)
+    try:
+        deadline_t = time.time() + 300
+        while not logs_step(sig_dir, 2):
+            if proc.poll() is not None or time.time() > deadline_t:
+                raise SystemExit(f"the launcher to be preempted ended or stalled (rc {proc.returncode}):\n"
+                                 + (root / "sigterm.log").read_text()[-3000:])
+            time.sleep(0.002)
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+        to_exit = time.perf_counter() - t_sig
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    out = (root / "sigterm.log").read_text()
+    said = [line for line in out.splitlines() if line.startswith("preemption: emergency checkpoint at step")]
+    boundary = int(said[-1].split("step ")[1].split()[0]) if said else None
+    newest = CheckpointManager(str(sig_dir)).latest_verified_step()
+    dumped = json.loads((sig_dir / "flight_recorder.json").read_text())["traceEvents"] \
+        if (sig_dir / "flight_recorder.json").exists() else []
+    preempted = any(e["name"] == "train.preempt" for e in dumped)
+    print(f"(c) SIGTERM after step 2 logged: exit code {rc} after {to_exit:.3f} s (preempt_grace_s {grace}; a save "
+          f"here costs {1e3 * save_cost['stall_s']:.1f} ms of stall + {save_cost['write_s']:.2f} s of write and hash, "
+          f"phase 6b), boundary step {boundary}, newest verified step {newest}, train.preempt in the dumped "
+          f"flight recorder: {preempted} on {card}")
+    if rc != 0 or boundary is None or newest != boundary or not preempted:
+        raise SystemExit("(c) SIGTERM must end in a verified emergency save at the boundary and exit 0:\n" + out[-3000:])
+    result = run("sigterm relaunch", sig_dir)
+    del result
+    free_memory()
+    same_run(f"(c) relaunch after SIGTERM (resumed from {boundary})", straight_dir, sig_dir, range(steps))
+    wanted = flash_want([(boundary + 1, steps, 1)], layers)
+    if launches["sigterm relaunch"] != wanted:
+        raise SystemExit(f"(c) the relaunch's flash launches {launches['sigterm relaunch']} != {wanted}")
+    shutil.rmtree(root)
+    print("flash launches on phase 6c's training paths: " + "; ".join(f"{k_}: {v}" for k_, v in launches.items()))
+    print(f"phase 6c (training) took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def faulted_serving(card, cfg, params32, params16, streams16):
+    """Phase 6c, serving: phase 4's trace under the serving faults, with obs
+    on and with an armed watchdog. `streams16` are phase 4b's bf16 streams
+    by overlap mode. Returns {run: paged launches}."""
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+    from midgpt_tpu_torch.obs import Observability
+    from midgpt_tpu_torch.robustness import faults
+    from midgpt_tpu_torch.robustness.watchdog import StepWatchdog
+    from midgpt_tpu_torch.sampling.serve import parse_overlap
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def counted(label, params, dtype, spec, plan="", **kw):
+        overlap, round_group = parse_overlap(spec)
+        faults.clear()
+        if plan:
+            faults.activate_plan(plan)
+        tpl.LAUNCHES.reset()
+        tpl.MERGE_LAUNCHES.reset()
+        st, streams, wall = serve(cfg, params, dtype, overlap=overlap, round_group=round_group, **kw)
+        n, m = tpl.LAUNCHES.count, tpl.MERGE_LAUNCHES.count
+        launches[label] = n
+        fired = faults.fired_counts()
+        faults.clear()
+        if plan and fired != {plan.split("@")[0]: 1}:
+            raise SystemExit(f"{label}: the fault did not fire once: {fired}")
+        if n != cfg.n_layer * device_steps(st) or m != n:
+            raise SystemExit(f"{label}: launches {n} / merges {m} != n_layer x device steps {device_steps(st)}")
+        return st, streams, wall
+
+    # The faults recompute-preempt (re-prefill) their slots: in f32 that
+    # regenerates each stream (a departure only at a near-tie); bf16 rounds
+    # the prefill's products otherwise than the decode's, so its streams are
+    # printed, not held.
+    for precision, params, dtype in (("f32", params32, torch.float32), ("bf16", params16, torch.bfloat16)):
+        want = {}
+        for spec in ("off", "double"):
+            want[spec] = counted(f"{precision} {spec} unfaulted", params, dtype, spec)[1]
+        for spec, plan in (("off", "kill_mid_decode@3"), ("double", "kill_overlapped_round@3"),
+                           ("off", "poisoned_page@3")):
+            label = f"{precision} {spec} {plan}"
+            st, got, _ = counted(label, params, dtype, spec, plan)
+            keep = [i for i in range(len(got)) if i not in st["poisoned_uids"]]
+            print(f"{label}: preemptions {st['preemptions']}, decode_kills {st['decode_kills']}, overlap_kills "
+                  f"{st['overlap_kills']}, poisoned uids {st['poisoned_uids']}, paged launches {launches[label]}, "
+                  "every page back in the pool")
+            if precision == "f32":
+                compare_streams(f"{label} vs unfaulted", [got[i] for i in keep], [want[spec][i] for i in keep],
+                                cfg, params)
+            else:
+                same = sum(np.array_equal(got[i], want[spec][i]) for i in keep)
+                print(f"{label}: {same} of {len(keep)} streams equal the unfaulted bf16 run's (not held)")
+            if "poisoned" in plan and len(st["poisoned_uids"]) != 1:
+                raise SystemExit(f"{label}: one slot must be poisoned")
+            if "poisoned" not in plan and st["preemptions"] < 1:
+                raise SystemExit(f"{label}: the fault must recompute-preempt")
+
+    # obs under group:4, bf16: identical streams; the decomposition and tokens/s beside obs off
+    total = sum(m for _, m in trace(cfg.vocab_size))
+    rates = {}
+    for label, kw in (("obs off", {}), ("obs on", {"obs": Observability()})):
+        eng = new_engine(cfg, params16, torch.bfloat16, overlap="group", round_group=4, **kw)
+        serve_trace(eng)  # the first pass captures
+        tpl.LAUNCHES.reset()
+        streams, wall = serve_trace(eng)
+        launches[f"group:4 {label}"] = tpl.LAUNCHES.count
+        rates[label] = total / wall
+        compare_streams(f"bf16 group:4 {label} vs phase 4b", streams, streams16["group:4"])
+        if label == "obs on":
+            snap = eng.stats()["obs"]
+            print(f"group:4 obs on, round decomposition (both passes): {json.dumps(snap['round_decomp'])}; "
+                  f"{snap['spans']} spans, {snap['spans_dropped']} dropped")
+    print(f"group:4 bf16 second pass end to end: obs off {rates['obs off']:.1f} tokens/s, obs on "
+          f"{rates['obs on']:.1f} tokens/s ({100 * (rates['obs on'] / rates['obs off'] - 1):+.1f}%) on {card}")
+
+    # an armed watchdog on the engine, bf16, "double" (every settle in a worker thread)
+    wd = StepWatchdog(60.0)
+    st, streams, _ = counted("bf16 double watchdog", params16, torch.bfloat16, "double", watchdog=wd)
+    compare_streams("bf16 double, armed watchdog (60 s) vs phase 4b", streams, streams16["double"])
+    print(f"bf16 double, armed watchdog: {wd.syncs} guarded settles, {wd.expiries} expired")
+    if wd.syncs < 1 or wd.expiries:
+        raise SystemExit("the engine's watchdog must guard every settle and never expire here")
+    print("paged launches on phase 6c's serving paths: " + "; ".join(f"{k}: {v}" for k, v in launches.items()))
+    print(f"phase 6c (serving) took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def parity_run(data_dir: Path, n_layer, compute_dtype, steps, impl):
@@ -1886,7 +2213,7 @@ def main() -> int:
     wall_us, by_name = profile_decode(cfg, params16)
     busy = {"off": print_busy("decode rounds", wall_us, by_name, card)}
     # 4b. the overlap modes as CUDA-graph replays (after phase 5: its f32 streams are the reference)
-    overlap_rates = overlap_serving(card, cfg, params32, params16, kernel_streams, gather_streams)
+    overlap_rates, streams16 = overlap_serving(card, cfg, params32, params16, kernel_streams, gather_streams)
     wall_us, by_name = profile_decode(cfg, params16, warm=3, overlap="group", round_group=4)
     busy["group:4"] = print_busy("group:4 decode rounds (CUDA-graph replays)", wall_us, by_name, card)
     print("decode by overlap mode, bf16 (" + card + "): " + "; ".join(
@@ -1895,6 +2222,8 @@ def main() -> int:
         f"{spec} {'not measured' if b is None else f'{100 * b:.1f}%'}" for spec, b in busy.items()))
     # 5b. speculative serving, bf16 and int8: counters zeroed just before each run, read just after
     spec_launches_by_run = spec_serving(card, params32, params16, kernel_streams)
+    # 6c(e). the serving faults, obs and the engine's watchdog on phase 4's trace
+    faulted_serving(card, cfg, params32, params16, streams16)
     del params32, params16
     free_memory()
 
@@ -1914,7 +2243,10 @@ def main() -> int:
         flash_launches, train_tok_s, train_mfu, _ = train_main_path(data_dir, card)
         free_memory()
         # 6b. checkpoints and resume on the main path: counters zeroed just before the resumed run
-        resume_main_path(data_dir, card)
+        _, round_trip, straight_dir = resume_main_path(data_dir, card)
+        free_memory()
+        # 6c(a-d). the supervised trainer: rollback, hang restart, SIGTERM, the armed watchdog
+        supervised_main_path(data_dir, straight_dir, round_trip, card)
         free_memory()
         # 7-9. parity, the tiled dispatch, where a training step's time goes
         train_parity(data_dir, card)

@@ -5,10 +5,10 @@ written by the JAX package's run directory loads here (`from_json`), and
 named presets live in `midgpt_tpu_torch/configs/*.py` as modules exposing a
 module-level `config` (`load_config`); `to_json` writes the run
 directory's `config.json`, which either package reads back. Validation
-covers the fields the port reads, the checkpoint knobs and the robustness
-knobs JAX checks at the same place; the parallelism knobs, the supervisor's
-and preemption's are carried for the round trip and are inert until those
-parts are ported (ROADMAP.md).
+covers the fields the port reads and the checkpoint, supervisor,
+preemption, watchdog and fault knobs, as JAX checks them at the same
+place; the parallelism knobs are carried for the round trip and are inert
+until parallelism is ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -122,6 +122,17 @@ class ExperimentConfig:
             )
         if self.restart_backoff_sec < 0 or self.ckpt_retry_backoff_sec < 0:
             raise ValueError("backoff seconds must be >= 0")
+        if self.watchdog_deadline_s < 0:
+            # negative would expire before the first poll; 0 is the off switch
+            raise ValueError(
+                f"watchdog_deadline_s={self.watchdog_deadline_s} must be >= 0 (0 disables the watchdog)"
+            )
+        if self.watchdog_escalate not in ("raise", "exit"):
+            raise ValueError(f"unknown watchdog_escalate {self.watchdog_escalate!r} ('raise' or 'exit')")
+        if self.on_resume_mesh not in ("same", "any"):
+            raise ValueError(f"unknown on_resume_mesh {self.on_resume_mesh!r} ('same' or 'any')")
+        if self.preempt_grace_s < 0:
+            raise ValueError(f"preempt_grace_s={self.preempt_grace_s} must be >= 0 (0 = unbounded)")
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)

@@ -6,12 +6,25 @@
 Loads a named preset (midgpt_tpu_torch/configs), applies the dotted
 `--set` overrides in one rebuild, writes `config.json` to the run
 directory (default: a timestamped directory under outputs/, none with
---debug) and trains on one device (CUDA unless `--device cpu`) with
+--debug), installs the SIGTERM/SIGINT preemption handlers
+(robustness/preempt.py) and trains on one device (CUDA unless `--device
+cpu`) under the run supervisor (robustness/supervisor.py), with
 `metrics.jsonl` beside it. Every `eval_interval` steps and at the end the
 state is checkpointed into a step directory `R/<step>/`
 (training/checkpoint.py), which `python -m midgpt_tpu_torch.sample
 --ckpt_dir=R` serves. A rerun into the same `--rundir` resumes from the
 newest verified step. `--debug` writes nothing.
+
+The supervisor rolls a divergence back to the newest verified step with
+the poisoned data window skipped, and restarts a hung step, up to
+`max_restarts` times (`restart_backoff_sec` apart, doubling); its ledger is
+`R/supervisor_state.json`. A SIGTERM or SIGINT makes one emergency save at
+the next step boundary (within `preempt_grace_s`, if set) and a clean exit
+(code 0); a second one reaches the previous handler. `watchdog_deadline_s >
+0` bounds every loss sync: an expiry dumps `R/flight_recorder.json` and
+`.prom` and restarts the step (`watchdog_escalate=raise`) or exits with code
+17 (`exit`: the path for a really wedged device). `--set fault_plan=...`
+or MIDGPT_FAULTS injects faults (robustness/faults.py).
 """
 
 from __future__ import annotations
@@ -68,7 +81,9 @@ def apply_overrides(config, pairs):
 
 
 def main(argv=None) -> dict:
-    """Parse the command line and train; returns `train`'s result."""
+    """Parse the command line and train under the supervisor; returns
+    `supervise`'s result. The preemption handlers are restored when it
+    returns, so an in-process caller keeps its own."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--rundir", type=str)
@@ -87,7 +102,8 @@ def main(argv=None) -> dict:
 
     from midgpt_tpu_torch.config import load_config, to_json
     from midgpt_tpu_torch.device import resolve_device
-    from midgpt_tpu_torch.training.train import train
+    from midgpt_tpu_torch.robustness import preempt
+    from midgpt_tpu_torch.robustness.supervisor import supervise
 
     device = resolve_device(args.device)
     config = load_config(args.config)
@@ -107,7 +123,11 @@ def main(argv=None) -> dict:
             f.write(to_json(config))
         print(f"Writing to {config.rundir}")
     print(config)
-    return train(config, device=device)
+    preempt.install_handlers()
+    try:
+        return supervise(config, device=device)
+    finally:
+        preempt.reset()
 
 
 if __name__ == "__main__":

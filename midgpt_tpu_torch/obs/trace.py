@@ -1,0 +1,246 @@
+"""Host-side span tracer with a bounded ring-buffer flight recorder (the
+port's own copy of midgpt_tpu/obs/trace.py, same events and export).
+
+Clock-injected: the tracer never touches device state and reads time only
+through the callable handed to it at construction, so tests drive it with
+a fake clock. Events are recorded as cheap tuples into a
+`collections.deque(maxlen=...)`: when the ring fills, the OLDEST events
+fall off and `dropped` counts them — a flight recorder keeps the
+crash-adjacent tail, not the takeoff.
+
+Export is Chrome trace-event JSON (the `{"traceEvents": [...]}` container),
+loadable in Perfetto / chrome://tracing. Span begin/end pairs are emitted
+as complete events (ph "X", ts/dur in microseconds), point events as
+instants (ph "i"), and long-lived lifecycles as async begin/end pairs (ph
+"b"/"e") keyed by id. Thread names ("engine", "train", ...) become tid
+lanes via metadata events (ph "M", name "thread_name").
+
+The off switch is `NULL_TRACER`: a shared singleton whose `span()` returns
+one reusable no-op context manager and whose record methods are `pass`, so
+instrumented code calls the tracer unconditionally and pays one attribute
+lookup and an empty call when tracing is off — no clock read, no
+allocation.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+import typing as tp
+from collections import deque
+
+# Event kinds stored in the ring (first tuple field). Kept as one-char
+# tags: the ring holds tens of thousands of tuples and these are compared
+# on every export.
+_COMPLETE = "X"
+_INSTANT = "i"
+_ASYNC_BEGIN = "b"
+_ASYNC_END = "e"
+
+
+class _SpanHandle:
+    """Context manager for one open span; re-armed per `span()` call.
+
+    Not reentrant and not thread-safe per instance — each `span()` call
+    returns a fresh handle, so nesting and cross-thread use are safe at
+    the Tracer level (the ring append is the only shared mutation, and
+    deque.append is atomic under the GIL).
+    """
+
+    __slots__ = ("_tracer", "_name", "_cat", "_tid", "_t0")
+
+    def __init__(self, tracer: "Tracer", name: str, cat: str, tid: str):
+        self._tracer = tracer
+        self._name = name
+        self._cat = cat
+        self._tid = tid
+        self._t0 = 0.0
+
+    def __enter__(self) -> "_SpanHandle":
+        self._t0 = self._tracer._clock()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        t1 = self._tracer._clock()
+        self._tracer._push(
+            (_COMPLETE, self._name, self._cat, self._tid, self._t0,
+             t1 - self._t0, None, None)
+        )
+
+
+class _NullSpan:
+    """The no-op context manager NULL_TRACER hands out — one shared
+    instance, no state, so `with tracer.span(...)` costs two empty calls
+    when tracing is off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class Tracer:
+    """Bounded-ring span recorder. All timestamps come from the injected
+    `clock` (seconds, monotonic-ish); export rebases them to the tracer's
+    construction instant so Perfetto timelines start near zero."""
+
+    def __init__(
+        self,
+        capacity: int = 16384,
+        clock: tp.Callable[[], float] = time.perf_counter,
+    ):
+        self._clock = clock
+        self._ring: tp.Deque[tuple] = deque(maxlen=capacity)
+        self._capacity = capacity
+        self._t_base = clock()
+        self.dropped = 0
+
+    # -- recording -------------------------------------------------------
+
+    def _push(self, ev: tuple) -> None:
+        if len(self._ring) == self._capacity:
+            self.dropped += 1
+        self._ring.append(ev)
+
+    def span(self, name: str, cat: str = "", tid: str = "main") -> _SpanHandle:
+        """Context manager measuring one host-side phase."""
+        return _SpanHandle(self, name, cat, tid)
+
+    def complete(
+        self, name: str, cat: str, tid: str, start: float, dur: float,
+        args: tp.Optional[dict] = None,
+    ) -> None:
+        """Record a span from explicit clock readings — for phases whose
+        boundaries were already captured (the round decomposition reads
+        the clock once per boundary and derives several spans)."""
+        self._push((_COMPLETE, name, cat, tid, start, dur, None, args))
+
+    def instant(
+        self, name: str, cat: str = "", tid: str = "main",
+        args: tp.Optional[dict] = None,
+    ) -> None:
+        """Point event (admission, eviction, shed, rollback, ...)."""
+        self._push((_INSTANT, name, cat, tid, self._clock(), 0.0, None, args))
+
+    def async_begin(
+        self, name: str, ident: str, cat: str = "", tid: str = "main",
+        args: tp.Optional[dict] = None,
+    ) -> None:
+        """Open one track of a long-lived overlapping lifecycle (a request
+        from submit to finish). `ident` pairs it with async_end."""
+        self._push(
+            (_ASYNC_BEGIN, name, cat, tid, self._clock(), 0.0, ident, args)
+        )
+
+    def async_end(
+        self, name: str, ident: str, cat: str = "", tid: str = "main",
+        args: tp.Optional[dict] = None,
+    ) -> None:
+        self._push(
+            (_ASYNC_END, name, cat, tid, self._clock(), 0.0, ident, args)
+        )
+
+    # -- introspection / export -----------------------------------------
+
+    def __len__(self) -> int:
+        return len(self._ring)
+
+    def clear(self) -> None:
+        self._ring.clear()
+        self.dropped = 0
+
+    def events(self) -> tp.List[tuple]:
+        """Raw ring contents, oldest first (tests introspect these)."""
+        return list(self._ring)
+
+    def export(self) -> tp.List[dict]:
+        """Chrome trace events (ts/dur in microseconds, rebased to the
+        tracer's birth). tid strings map to stable integer lanes with
+        `thread_name` metadata events so Perfetto labels them."""
+        tids: tp.Dict[str, int] = {}
+        out: tp.List[dict] = []
+        for kind, name, cat, tid, t, dur, ident, args in self._ring:
+            lane = tids.setdefault(tid, len(tids) + 1)
+            ev: tp.Dict[str, tp.Any] = {
+                "name": name,
+                "cat": cat or "obs",
+                "ph": kind,
+                "pid": 1,
+                "tid": lane,
+                "ts": round((t - self._t_base) * 1e6, 3),
+            }
+            if kind == _COMPLETE:
+                ev["dur"] = round(dur * 1e6, 3)
+            if kind == _INSTANT:
+                ev["s"] = "t"  # thread-scoped instant
+            if ident is not None:
+                ev["id"] = ident
+            if args:
+                ev["args"] = args
+            out.append(ev)
+        for tid, lane in tids.items():
+            out.append(
+                {
+                    "name": "thread_name",
+                    "ph": "M",
+                    "pid": 1,
+                    "tid": lane,
+                    "args": {"name": tid},
+                }
+            )
+        return out
+
+    def dump(self, path: str) -> str:
+        """Write `{"traceEvents": [...]}` to `path`; returns the path."""
+        with open(path, "w", encoding="utf-8") as fh:
+            json.dump({"traceEvents": self.export()}, fh)
+        return path
+
+
+class _NullTracer:
+    """Off switch. Shares the Tracer surface; every method is free."""
+
+    __slots__ = ()
+
+    dropped = 0
+
+    def span(self, name: str, cat: str = "", tid: str = "main") -> _NullSpan:
+        return _NULL_SPAN
+
+    def complete(self, *a, **k) -> None:
+        pass
+
+    def instant(self, *a, **k) -> None:
+        pass
+
+    def async_begin(self, *a, **k) -> None:
+        pass
+
+    def async_end(self, *a, **k) -> None:
+        pass
+
+    def __len__(self) -> int:
+        return 0
+
+    def clear(self) -> None:
+        pass
+
+    def events(self) -> tp.List[tuple]:
+        return []
+
+    def export(self) -> tp.List[dict]:
+        return []
+
+    def dump(self, path: str) -> str:
+        with open(path, "w", encoding="utf-8") as fh:
+            json.dump({"traceEvents": []}, fh)
+        return path
+
+
+NULL_TRACER = _NullTracer()

@@ -1,6 +1,6 @@
-"""Exception types of the training loop and its checkpoints (the port's own
-copy of midgpt_tpu/robustness/errors.py's DivergenceError,
-CheckpointCorruptError and CheckpointWriteError)."""
+"""Exception types of the training loop, its checkpoints, the watchdog and
+the fault injections (the port's own copy of
+midgpt_tpu/robustness/errors.py)."""
 
 from __future__ import annotations
 
@@ -28,6 +28,30 @@ class DivergenceError(FloatingPointError):
         super().__init__(message)
         self.step = step
         self.last_good_step = last_good_step
+        self.rundir = rundir
+
+
+class StepHangError(RuntimeError):
+    """A watchdog-guarded device sync did not land inside its deadline
+    (robustness/watchdog.py): a wedged dispatch that would otherwise stall
+    the run forever.
+
+    `step` is the loop iteration whose sync was armed (None outside the
+    training loop, e.g. the serving engine's settle); `waited_s` is how long
+    the watchdog's clock says it waited, at most one poll interval past the
+    deadline."""
+
+    def __init__(
+        self,
+        message: str,
+        *,
+        step: tp.Optional[int] = None,
+        waited_s: float = 0.0,
+        rundir: str = "",
+    ):
+        super().__init__(message)
+        self.step = step
+        self.waited_s = waited_s
         self.rundir = rundir
 
 
@@ -61,3 +85,13 @@ class CheckpointWriteError(OSError):
         self.step = step
         self.attempts = attempts
         self.directory = directory
+
+
+class SimulatedPreemption(BaseException):
+    """Raised by the `kill_mid_save` fault to model the process dying
+    between the checkpoint's file writes and its manifest commit.
+
+    Subclasses BaseException (like KeyboardInterrupt) on purpose: a real
+    SIGKILL cannot be caught, so no `except Exception` or
+    `retry_on=(OSError,)` recovery path may swallow its simulation either;
+    only the fault-injection tests catch it."""

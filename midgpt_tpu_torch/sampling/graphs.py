@@ -21,6 +21,13 @@ in-flight group safe to hand to a later prefill (JAX gets the same order
 from the donated cache). The warm-up and the capture use a side stream,
 fenced to the engine's stream on both sides.
 
+Captures use the thread-local capture mode: only the capturing thread's
+own unsafe CUDA calls (a sync, an allocation outside the pool) invalidate
+its capture. An armed watchdog (robustness/watchdog.py) forces each settle
+in a worker thread, and a worker abandoned by an expired deadline may still
+sit in an event's `synchronize()`; under the default global mode that call
+would break every later capture on the main thread.
+
 CPU tensors never get here: the engine runs the same body eagerly
 (sampling/serve.py). A failed capture raises; nothing falls back to eager
 execution on CUDA.
@@ -149,7 +156,7 @@ class DecodeGraphs:
         graph.register_generator_state(self.generator)
         tally = CaptureTally()
         # The capture executes nothing; the wrappers' launches land in `tally`.
-        with tally, torch.cuda.graph(graph, pool=self._pool, stream=stream):
+        with tally, torch.cuda.graph(graph, pool=self._pool, stream=stream, capture_error_mode="thread_local"):
             out = body(packed, chain_token, chain_len, False)
         self.captures[key] += 1
         return _Captured(graph, packed, chain_token, chain_len, out, tally)

@@ -53,11 +53,24 @@ Pools are bf16, f32 or int8 (`cache_dtype`; ops/quant.py scales ride
 beside int8 pages), at the model's K/V head count (GQA shrinks them). Under
 a sliding window (`config.sliding_window`) a plain-decoding engine frees,
 mid-request, every page no future row can see (`_reclaim_window`), so a
-long windowed request holds O(window) pages. Not ported yet (ROADMAP.md):
-the prefix cache and spill tier, the byte-budgeted pool, the token and
-finish hooks, hot-swap/resize and weight versions, fault hooks (among them
-the overlap faults), observability, the watchdog and mesh-sharded serving.
-Their constructor arguments raise NotImplementedError when set.
+long windowed request holds O(window) pages.
+
+Observability (`obs=`, obs/): spans of the round's phases
+(`engine.expire/admit/prefill/round`, `prefill.chunk`,
+`prefill.first_token`), lifecycle and fault instants, and the round
+decomposition (`Observability.record_round`), on `stats()["obs"]`. Off, the
+engine holds NULL_TRACER and reads no extra clock; tokens are the same
+either way. The watchdog (`watchdog=`, robustness/watchdog.py) bounds the
+round's one host<->device force (`_force`). The serving faults
+(robustness/faults.py) strike in `step()` and `_step_overlapped` in JAX's
+order, keyed on the round counter: `poisoned_page` corrupts one live
+slot's first page, `kill_mid_decode` recompute-preempts every decode-ready
+slot, `kill_overlapped_round` drops the in-flight group unforced and
+recompute-preempts its slots; the in-flight group is settled before a
+pool-mutating fault. Not ported yet (ROADMAP.md): the prefix cache and
+spill tier, the byte-budgeted pool, the token and finish hooks, hot-swap/
+resize and weight versions, and mesh-sharded serving. Their constructor
+arguments raise NotImplementedError when set.
 """
 
 from __future__ import annotations
@@ -72,6 +85,8 @@ import torch
 
 from midgpt_tpu_torch.device import DeviceLike, resolve_device
 from midgpt_tpu_torch.models.gpt import GPT, GPTConfig, PagedKVCache, Params
+from midgpt_tpu_torch.obs import DISABLED_SNAPSHOT, NULL_TRACER
+from midgpt_tpu_torch.robustness import faults
 from midgpt_tpu_torch.sampling.engine import sample_logits, warp_logits
 from midgpt_tpu_torch.sampling.graphs import DecodeGraphs, GroupResult
 from midgpt_tpu_torch.sampling.scheduler import FCFSScheduler, Scheduler
@@ -431,6 +446,7 @@ class _InflightRound:
     slots: tp.List[_Slot]
     worst_len: np.ndarray  # (max_slots,) int32
     t0: float  # host clock at dispatch
+    t1: float = 0.0  # host clock when the dispatch returned (obs only)
 
 
 class ServeEngine:
@@ -465,15 +481,15 @@ class ServeEngine:
         spec_adapt: bool = True,
         overlap: str = "off",  # "off" | "double" | "group" (module docstring)
         round_group: int = 1,  # fused rounds per dispatch (pow2-bucketed)
+        obs=None,  # obs.Observability, or None: no tracing
+        watchdog=None,  # robustness.watchdog.StepWatchdog bounding the round's force
         # Not ported yet (ROADMAP.md): setting any of these raises.
         pool_hbm_bytes: tp.Optional[int] = None,
         prefix_cache: bool = False,
         on_token: tp.Optional[tp.Callable[[int, int, float], None]] = None,
         on_finish: tp.Optional[tp.Callable[["FinishedRequest"], None]] = None,
         mesh=None,
-        obs=None,
         weights_version: str = "inline",
-        watchdog=None,
     ):
         unported = {
             "pool_hbm_bytes": pool_hbm_bytes is not None,
@@ -481,9 +497,7 @@ class ServeEngine:
             "on_token": on_token is not None,
             "on_finish": on_finish is not None,
             "mesh": mesh is not None,
-            "obs": obs is not None,
             "weights_version": weights_version != "inline",
-            "watchdog": watchdog is not None,
         }
         for name, is_set in unported.items():
             if is_set:
@@ -529,6 +543,12 @@ class ServeEngine:
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.scheduler = scheduler if scheduler is not None else FCFSScheduler()
         self._clock = clock
+        # Host-side instrumentation (module docstring): without obs every
+        # site calls NULL_TRACER and reads no extra clock.
+        self.obs = obs
+        self._trace = obs.tracer if obs is not None else NULL_TRACER
+        self._obs_tid = "engine"  # the trace's lane
+        self.watchdog = watchdog
         self.page_size = page_size
         self.max_slots = max_slots
         self.prefill_chunk = prefill_chunk
@@ -582,8 +602,12 @@ class ServeEngine:
         self.overlap = overlap
         self.round_group = _round_group_bucket(round_group)
         self._inflight: tp.Optional[_InflightRound] = None
-        # Killed in-flight groups: stays 0 until the fault hooks are ported.
+        # Killed in-flight groups (kill_overlapped_round) and killed decode
+        # rounds (kill_mid_decode); uids whose pages poisoned_page corrupted.
         self.overlap_kills = 0
+        self.decode_kills = 0
+        self.poisoned_uids: tp.List[int] = []
+        self._poisoned_pages: tp.Set[int] = set()  # corrupted, scrubbed when freed
         # (round, (uid, ...)) per decode dispatch: a request admitted or
         # evicted during round N's host work first appears in (disappears
         # from) dispatch N+1, or N+2 under "double".
@@ -653,6 +677,9 @@ class ServeEngine:
         if shed is not None:
             message, retryable = shed
             self.shed += 1
+            self._trace.instant(
+                "shed", "lifecycle", self._obs_tid, args={"needed_pages": need, "retryable": retryable}
+            )
             raise BackpressureError(
                 message,
                 needed_pages=need,
@@ -732,8 +759,12 @@ class ServeEngine:
             "overlap_mode": self.overlap,
             "round_group": self.round_group,
             "overlap_kills": self.overlap_kills,
+            "decode_kills": self.decode_kills,
+            "poisoned_uids": list(self.poisoned_uids),
             "decode_graphs": None if self._graphs is None else self._graphs.stats(),
             "spec": self.spec_stats() if self.draft_config is not None else None,
+            # {"enabled": False} without an Observability: consumers key on the flag
+            "obs": DISABLED_SNAPSHOT if self.obs is None else self.obs.snapshot(),
         }
 
     def spec_stats(self) -> tp.Dict[str, float]:
@@ -754,20 +785,31 @@ class ServeEngine:
         """One round: expire -> admit -> prefill chunks -> one decode chunk
         (or one draft-then-verify speculative round). overlap="group" keeps
         this order and fuses round_group decode rounds into the one dispatch;
-        overlap="double" (no draft) runs `_step_overlapped`'s order."""
+        overlap="double" (no draft) runs `_step_overlapped`'s order.
+
+        The serving faults fire here, keyed on the round counter, so a
+        seeded trace makes every firing deterministic (`kill_mid_decode@7`
+        strikes round 7)."""
         if self.overlap == "double" and self.draft_config is None:
             self._step_overlapped()
             return
         self.rounds += 1
-        self._expire_round()
-        self._admit()
-        self._prefill_round()
-        if self.draft_config is not None:
+        tr = self._trace
+        t_round = 0.0 if self.obs is None else self._clock()
+        if faults.should_fire("poisoned_page", step=self.rounds):
+            tr.instant("fault.poisoned_page", "fault", self._obs_tid)
+            self._poison_page()
+        self._host_phases()
+        if faults.should_fire("kill_mid_decode", step=self.rounds):
+            tr.instant("fault.kill_mid_decode", "fault", self._obs_tid)
+            self._kill_decode_round()
+        elif self.draft_config is not None:
             self._spec_round()
         elif self.overlap == "group":
             self._decode_round_grouped()
         else:
             self._decode_round()
+        self._round_span(t_round)
 
     def _step_overlapped(self) -> None:
         """One double-buffered round: dispatch round k's group FIRST —
@@ -775,15 +817,134 @@ class ServeEngine:
         k-1 — then settle round k-1 (which waits for round k-1 alone) and run
         the host phases (expire, admit, prefill) while round k computes. A
         request admitted or evicted during them first appears in (disappears
-        from) dispatch k+2, never mid-flight."""
+        from) dispatch k+2, never mid-flight. A fault that mutates the pool
+        assumes a settled round boundary, so the in-flight group is settled
+        before it strikes."""
         self.rounds += 1
-        handle = self._dispatch_decode(self._inflight)
+        tr = self._trace
+        t_round = 0.0 if self.obs is None else self._clock()
+        if self._inflight is not None and self._fault_needs_drain():
+            self._settle_inflight()
+        if self._inflight is not None and faults.should_fire("kill_overlapped_round", step=self.rounds):
+            tr.instant("fault.kill_overlapped_round", "fault", self._obs_tid)
+            self._kill_overlapped_round()
+        if faults.should_fire("poisoned_page", step=self.rounds):
+            tr.instant("fault.poisoned_page", "fault", self._obs_tid)
+            self._poison_page()
+        if faults.should_fire("kill_mid_decode", step=self.rounds):
+            # This round's dispatch dies: settle the previous group (its
+            # tokens landed before the failure), then recompute-preempt the
+            # decode-ready slots as the classic path does.
+            tr.instant("fault.kill_mid_decode", "fault", self._obs_tid)
+            self._settle_inflight()
+            self._kill_decode_round()
+            handle = None
+        else:
+            handle = self._dispatch_decode(self._inflight)
         prev, self._inflight = self._inflight, handle
         if prev is not None:
             self._settle_round(prev)
-        self._expire_round()
-        self._admit()
-        self._prefill_round()
+        self._host_phases()
+        self._round_span(t_round)
+
+    def _host_phases(self) -> None:
+        tr = self._trace
+        with tr.span("engine.expire", "phase", self._obs_tid):
+            self._expire_round()
+        with tr.span("engine.admit", "phase", self._obs_tid):
+            self._admit()
+        with tr.span("engine.prefill", "phase", self._obs_tid):
+            self._prefill_round()
+
+    def _round_span(self, t_round: float) -> None:
+        if self.obs is not None:
+            self._trace.complete("engine.round", "round", self._obs_tid, t_round, self._clock() - t_round,
+                                 args={"round": self.rounds})
+
+    # -- faults and the watchdog (robustness/) ---------------------------
+
+    def _evict_youngest_first(self, victims: tp.List[_Slot]) -> None:
+        """Recompute-preempt `victims`, youngest first: each _evict inserts
+        at the queue FRONT, so the queue ends oldest-first."""
+        for s in sorted(victims, key=lambda s: s.admit_order, reverse=True):
+            self._evict(s)
+
+    def _kill_decode_round(self) -> None:
+        """The `kill_mid_decode` fault: this round's decode dispatch died and
+        its tokens never landed. Every decode-ready slot is
+        recompute-preempted (pages freed, generated tokens folded into the
+        prompt, re-queued oldest-first), so the requests re-prefill and
+        continue; greedy streams come out as an unfaulted run's.
+        Mid-prefill slots are untouched: their chunks already landed."""
+        self._evict_youngest_first(
+            [s for s in self.slots if s is not None and not s.prefilling and s.remaining > 0]
+        )
+        self.decode_kills += 1
+
+    # Faults that mutate the pool mid-round and so assume a settled round
+    # boundary (JAX also drains for evict_shared_prefix, hot_swap_mid_decode
+    # and pool_resize, which arrive with the serving periphery).
+    _DRAIN_FAULTS = ("poisoned_page",)
+
+    def _fault_needs_drain(self) -> bool:
+        """Peek, without consuming, whether a boundary-assuming fault can
+        fire this round; `should_fire` later in the step consumes it."""
+        return any(
+            f.kind in self._DRAIN_FAULTS and f.times > 0 and (f.step is None or f.step == self.rounds)
+            for f in faults.active()
+        )
+
+    def _force(self, fn: tp.Callable[[], tp.Any], label: str) -> tp.Any:
+        """The one funnel every decode-path host<->device force takes:
+        through the watchdog when one is armed."""
+        if self.watchdog is not None:
+            return self.watchdog.sync(fn, label=label)
+        return fn()
+
+    def _settle_inflight(self) -> None:
+        """Settle the in-flight group now, if any (the drain point)."""
+        h, self._inflight = self._inflight, None
+        if h is not None:
+            self._settle_round(h)
+
+    def _kill_overlapped_round(self) -> None:
+        """The `kill_overlapped_round` fault: the in-flight group died while
+        the previous round's host work ran. Its tokens never land — the
+        handle is dropped without forcing (on CUDA its replay still runs, in
+        stream order before anything that reuses the pages freed here) — and
+        every slot of the killed batch still present is recompute-preempted,
+        as under kill_mid_decode. Other slots are untouched."""
+        h, self._inflight = self._inflight, None
+        if h is None:
+            return
+        self.overlap_kills += 1
+        self._evict_youngest_first(
+            [s for idx, s in zip(h.active_idx, h.slots) if self.slots[idx] is s and s.remaining > 0]
+        )
+
+    def _poison_page(self) -> None:
+        """The `poisoned_page` fault: corrupt the first live page of the
+        youngest running slot in place (NaN in a float pool, 127 in an int8
+        one), modelling memory damage to committed K/V. Nothing recovers it:
+        page tables never alias live pages, so every OTHER slot's stream
+        stays as an unfaulted run's and the pool stays conserved; the page
+        is scrubbed when it is freed (`_free_pages`). The slots mapping the
+        page land in `poisoned_uids`."""
+        victim = max(
+            (s for s in self.slots if s is not None and any(p >= 0 for p in s.pages)),
+            key=lambda s: s.admit_order,
+            default=None,
+        )
+        if victim is None:
+            return
+        page = next(p for p in victim.pages if p >= 0)
+        bad = float("nan") if self.cache.k.dtype.is_floating_point else 127
+        self.cache.k[:, :, page] = bad
+        self.cache.v[:, :, page] = bad
+        self._poisoned_pages.add(page)
+        for s in self.slots:
+            if s is not None and page in s.pages and s.request.uid not in self.poisoned_uids:
+                self.poisoned_uids.append(s.request.uid)
 
     def _expire_round(self) -> None:
         """Finish every deadline-expired request with a `timeout` status:
@@ -821,6 +982,7 @@ class ServeEngine:
                 # a preempted request restarts its k adaptation like a fresh one
                 self.slots[i] = _Slot(req, self._admitted, spec_k=self.spec_k_max)
                 self._admitted += 1
+                self._trace.instant("admitted", "lifecycle", self._obs_tid, args={"uid": req.uid, "slot": i})
 
     def _ensure_pages(self, slot: _Slot, upto_tokens: int) -> bool:
         """Grow slot's page list to cover positions [0, upto_tokens); True
@@ -871,12 +1033,27 @@ class ServeEngine:
         self._release_slot(victim)
         self.slots[i] = None
         self.preemptions += 1
+        self._trace.instant("preempt", "lifecycle", self._obs_tid, args={"uid": req.uid})
 
     def _release_slot(self, slot: _Slot) -> None:
         """The ONE funnel a departing slot's pages go through (finish,
         cancel, timeout, preemption). -1 entries are window-reclaimed
         placeholders, already freed."""
-        self.allocator.free(p for p in slot.pages if p >= 0)
+        self._free_pages([p for p in slot.pages if p >= 0])
+
+    def _free_pages(self, pages: tp.List[int]) -> None:
+        """Return pages to the pool, scrubbing any that `poisoned_page`
+        corrupted first: a recycled page keeps its old contents in the
+        columns its next owner has not written yet, and the attention's
+        masked columns weigh those by 0 — 0 * NaN would reach the new
+        owner's stream. (The JAX engine returns the page as is.)"""
+        bad = [p for p in pages if p in self._poisoned_pages]
+        if bad:
+            idx = torch.as_tensor(bad, device=self.device)
+            self.cache.k[:, :, idx] = 0
+            self.cache.v[:, :, idx] = 0
+            self._poisoned_pages.difference_update(bad)
+        self.allocator.free(pages)
 
     def _page_table(self, n_pages: tp.Optional[int] = None) -> np.ndarray:
         """(max_slots, n_pages) int32 host table; unallocated entries point
@@ -912,7 +1089,7 @@ class ServeEngine:
         dead = [j for j in range(sink_pages, first_live) if slot.pages[j] >= 0]
         if not dead:
             return
-        self.allocator.free(slot.pages[j] for j in dead)
+        self._free_pages([slot.pages[j] for j in dead])
         for j in dead:
             slot.pages[j] = -1
         self.window_reclaimed_pages += len(dead)
@@ -960,28 +1137,32 @@ class ServeEngine:
         bucket = self._page_bucket(slot.prompt_pos + n_valid)
         row = torch.as_tensor(self._page_table(bucket)[slot_i : slot_i + 1], device=self.device)
         chunk_t = torch.as_tensor(chunk, device=self.device)
-        logits, self.cache = GPT.prefill_paged_chunk(
-            self.config, self.params, chunk_t, slot.prompt_pos, n_valid, self.cache, row,
-        )
-        if self.draft_cache is not None:
-            # A separate draft's pool must hold the same positions as the
-            # target's; its logits are discarded (the pending token is the
-            # target's). A self-draft's layers were just filled above.
-            _, self.draft_cache = GPT.prefill_paged_chunk(
-                self.draft_config, self.draft_params, chunk_t, slot.prompt_pos, n_valid,
-                self.draft_cache, row,
+        # the span covers the enqueue only: nothing here waits for the device
+        with self._trace.span("prefill.chunk", "prefill", self._obs_tid):
+            logits, self.cache = GPT.prefill_paged_chunk(
+                self.config, self.params, chunk_t, slot.prompt_pos, n_valid, self.cache, row,
             )
+            if self.draft_cache is not None:
+                # A separate draft's pool must hold the same positions as the
+                # target's; its logits are discarded (the pending token is the
+                # target's). A self-draft's layers were just filled above.
+                _, self.draft_cache = GPT.prefill_paged_chunk(
+                    self.draft_config, self.draft_params, chunk_t, slot.prompt_pos, n_valid,
+                    self.draft_cache, row,
+                )
         slot.prompt_pos += n_valid
         slot.length = slot.prompt_pos
         self._reclaim_window(slot)  # long prompts free behind-window pages
         if not slot.prefilling:
             # Prompt complete: the first generated token comes from the last
             # valid prompt position's logits (greedy: first-index argmax).
-            last = logits[0, n_valid - 1]
-            if self.temperature == 0.0:
-                tok = int(torch.argmax(last.float()))
-            else:
-                tok = int(sample_logits(last[None], self.temperature, self.top_k, self.top_p, self._gen)[0])
+            # the int() is the sync: the span holds the last chunk's device time
+            with self._trace.span("prefill.first_token", "prefill", self._obs_tid):
+                last = logits[0, n_valid - 1]
+                if self.temperature == 0.0:
+                    tok = int(torch.argmax(last.float()))
+                else:
+                    tok = int(sample_logits(last[None], self.temperature, self.top_k, self.top_p, self._gen)[0])
             self._append_token(slot_i, slot, tok, self._clock())
 
     def _ready_slots(self) -> tp.List[int]:
@@ -1060,8 +1241,10 @@ class ServeEngine:
             self._gen,
             split,
         )
+        t1 = 0.0 if self.obs is None else self._clock()
         self.dispatch_log.append((self.rounds, tuple(self.slots[i].request.uid for i in active_idx)))
-        toks = toks.cpu().numpy()  # the round's one device sync
+        out = toks
+        toks = self._force(lambda: out.cpu().numpy(), "serve.decode_sync")  # the round's one device sync
         t_done = self._clock()
         self.split_rounds[split] += 1
         self.decode_steps += n
@@ -1075,6 +1258,8 @@ class ServeEngine:
                 self.decode_tokens += 1
                 if self._append_token(i, slot, int(toks[j, i]), t_done):
                     break  # finished (max_new or EOS); rest of chunk discarded
+        if self.obs is not None:
+            self.obs.record_round("decode", self._obs_tid, t0, t1, t_done, self._clock())
 
     def _decode_round_grouped(self) -> None:
         """overlap="group": one fused multi-round dispatch, settled at the
@@ -1172,6 +1357,7 @@ class ServeEngine:
             if chain is None:  # no slot chains: zero fillers of the chain's shapes
                 chain = (torch.zeros(B, dtype=torch.int64, device=dev), torch.zeros(B, dtype=torch.int32, device=dev))
             result = GroupResult(*body(torch.as_tensor(packed, device=dev), *chain, False))
+        t1 = 0.0 if self.obs is None else self._clock()
         self.split_rounds[split] += 1
         self.decode_steps += T
         self.dispatch_log.append((self.rounds, tuple(s.request.uid for _, s in cand)))
@@ -1182,6 +1368,7 @@ class ServeEngine:
             slots=[s for _, s in cand],
             worst_len=worst,
             t0=t0,
+            t1=t1,
         )
 
     def _group_body(self, n: int, split: int):
@@ -1205,8 +1392,11 @@ class ServeEngine:
         """Wait for a dispatched group and commit its tokens. Indices whose
         slot object changed since dispatch (finished, evicted, cancelled,
         timed out) are SKIPPED — their in-flight tokens are discarded, and
-        recompute preemption regenerates them."""
-        toks, emitted = h.result.host()  # waits for this group alone
+        recompute preemption regenerates them. Under "double" the host work
+        between the dispatch's return (h.t1) and this force is what the
+        overlap hid: `overlap_hidden` in the round decomposition."""
+        t_force = 0.0 if self.obs is None else self._clock()
+        toks, emitted = self._force(h.result.host, "serve.overlap_sync")  # waits for this group alone
         t_done = self._clock()
         self.decode_seconds += t_done - h.t0
         for idx, s in zip(h.active_idx, h.slots):
@@ -1219,6 +1409,9 @@ class ServeEngine:
                 self.decode_tokens += 1
                 if self._append_token(idx, s, int(toks[j, idx]), t_done):
                     break  # finished (max_new or EOS); rest discarded
+        if self.obs is not None:
+            self.obs.record_round("decode", self._obs_tid, h.t0, h.t1, t_done, self._clock(),
+                                  hidden_s=max(0.0, t_force - h.t1))
 
     def _spec_round(self) -> None:
         """One speculative round: k draft proposals per active slot, one
@@ -1262,11 +1455,13 @@ class ServeEngine:
             self.draft_config, self.draft_params, token_t, draft_cache, table, lengths_t,
             active_t, k, self.temperature, self.top_k, self.top_p, self.attn_impl, self._gen, split,
         )
+        t_draft = 0.0 if self.obs is None else self._clock()
         self.cache, n_accept, out = _spec_verify_chunk(
             self.config, self.params, token_t, drafts, draft_probs, self.cache, table,
             lengths_t, active_t, self.temperature, self.top_k, self.top_p, self.attn_impl,
             self._gen, split,
         )
+        t1 = 0.0 if self.obs is None else self._clock()
         n_accept = n_accept.cpu().numpy()  # the round's device sync
         out = out.cpu().numpy()
         t_done = self._clock()
@@ -1305,7 +1500,11 @@ class ServeEngine:
             if len(slot.pages) > keep:
                 tail = slot.pages[keep:]
                 del slot.pages[keep:]
-                self.allocator.free(tail)
+                self._free_pages(tail)
+        if self.obs is not None:
+            self.obs.record_round("spec", self._obs_tid, t0, t1, t_done, self._clock())
+            self._trace.complete("spec.draft_enqueue", "spec", self._obs_tid, t0, t_draft - t0)
+            self._trace.complete("spec.verify_enqueue", "spec", self._obs_tid, t_draft, t1 - t_draft)
 
     def _finished_from(self, slot: _Slot, status: str = "ok") -> FinishedRequest:
         req = slot.request
@@ -1320,6 +1519,7 @@ class ServeEngine:
         """Record a terminal transition (ok/EOS/timeout/cancelled) — the
         ONE funnel every path to `finished` goes through."""
         self.finished[fr.uid] = fr
+        self._trace.instant("finish", "lifecycle", self._obs_tid, args={"uid": fr.uid, "status": fr.status})
 
     def _append_token(self, slot_i: int, slot: _Slot, tok: int, t: float) -> bool:
         """Record one generated token; returns True if the request finished

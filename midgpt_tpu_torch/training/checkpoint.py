@@ -37,11 +37,19 @@ restore.
   * **Verified-only GC.** After a save lands, steps older than the
     `max_to_keep` newest verified steps are deleted: a crash at any point
     leaves at least one verified step on disk.
+  * **Faults** (robustness/faults.py), at JAX's points, in the writer
+    thread: `ckpt_io_error` and `ckpt_enospc` (partial bytes first) fail a
+    write attempt, which the retry absorbs; `kill_mid_save` lets the items
+    land, truncates one and raises SimulatedPreemption before the manifest
+    (a BaseException: no retry absorbs it, and the next barrier re-raises
+    it); `truncate_ckpt_item` truncates an item after the manifest, so the
+    barrier's check finds the step unverified and keeps the older ones.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import errno
 import hashlib
 import json
 import os
@@ -54,8 +62,14 @@ import zipfile
 import numpy as np
 import torch
 
+from midgpt_tpu_torch.obs import flight_recorder
+from midgpt_tpu_torch.robustness import faults
 from midgpt_tpu_torch.robustness.backoff import retry_with_backoff
-from midgpt_tpu_torch.robustness.errors import CheckpointCorruptError, CheckpointWriteError
+from midgpt_tpu_torch.robustness.errors import (
+    CheckpointCorruptError,
+    CheckpointWriteError,
+    SimulatedPreemption,
+)
 from midgpt_tpu_torch.training.optim import OptState
 
 # Format marker saved beside the state and checked at restore: JAX's
@@ -158,10 +172,12 @@ def _as_numpy(leaf: Leaf) -> np.ndarray:
     return a.astype(np.int64) if a.dtype.kind in "iu" and a.ndim == 0 else a
 
 
-def write_step_files(step_dir: str, step: int, items: tp.Mapping[str, tp.Mapping[str, Leaf]]) -> None:
+def write_step_files(
+    step_dir: str, step: int, items: tp.Mapping[str, tp.Mapping[str, Leaf]], *, commit: bool = True
+) -> None:
     """Write one step directory: an npz per item, the format marker, then
-    the manifest (last, so the step is verified only once all bytes are
-    down)."""
+    (with `commit`) the manifest — last, so the step is verified only once
+    all bytes are down."""
     os.makedirs(step_dir, exist_ok=True)
     _each(
         lambda name: _write_npz(
@@ -171,7 +187,22 @@ def write_step_files(step_dir: str, step: int, items: tp.Mapping[str, tp.Mapping
     )
     with open(os.path.join(step_dir, FORMAT_NAME), "w") as fh:
         json.dump(FORMAT, fh)
-    write_manifest(step_dir, step)
+    if commit:
+        write_manifest(step_dir, step)
+
+
+def _corrupt_one_item(step_dir: str) -> None:
+    """Truncate the largest non-manifest file of a step to half: realistic
+    partial-write damage (the `kill_mid_save` and `truncate_ckpt_item`
+    faults)."""
+    sizes = [
+        (os.path.getsize(os.path.join(step_dir, n)), os.path.join(step_dir, n))
+        for n in os.listdir(step_dir) if not n.startswith(MANIFEST_NAME)
+    ]
+    if sizes:
+        size, path = max(sizes)
+        with open(path, "rb+") as fh:
+            fh.truncate(max(1, size // 2))
 
 
 def write_step_dir(rundir: str, step: int, items: tp.Mapping[str, tp.Mapping[str, Leaf]]) -> str:
@@ -251,6 +282,7 @@ class CheckpointManager:
         self._pending: tp.Optional[int] = None
         self._writer: tp.Optional[threading.Thread] = None
         self._error: tp.Optional[BaseException] = None
+        self._written_key: tp.Optional[tp.Tuple] = None  # the step's stat key as its writer left it
         self._host: tp.Dict[tp.Tuple[str, str], torch.Tensor] = {}  # reused snapshot buffers
         self._verified: tp.Dict[int, tp.Tuple] = {}  # step -> stat key it verified under
         # one record per save: step, stall_s (the loop's wait), then from
@@ -362,7 +394,8 @@ class CheckpointManager:
             raise ValueError(f"step {step} already has a verified checkpoint under {self._dir}")
         # A leftover of a killed or failed attempt at this step is garbage.
         shutil.rmtree(self._step_dir(step), ignore_errors=True)
-        items = self._snapshot(state)
+        with flight_recorder().tracer.span("ckpt.save_queue", "ckpt", "train"):
+            items = self._snapshot(state)
         record = {"step": step, "stall_s": time.perf_counter() - t0}
         self.history.append(record)
         self._pending = step
@@ -406,19 +439,38 @@ class CheckpointManager:
         leave the error for the next barrier."""
         t0 = time.perf_counter()
         attempts = 0
+        d = self._step_dir(step)
+        kill = faults.should_fire("kill_mid_save", step=step)
 
         def attempt() -> None:
             nonlocal attempts
             attempts += 1
             self._clear_partial(step)
-            write_step_files(self._step_dir(step), step, items)
+            if faults.should_fire("ckpt_io_error"):
+                raise IOError("injected transient checkpoint-write failure (faults: ckpt_io_error)")
+            if faults.should_fire("ckpt_enospc"):
+                # disk exhaustion mid-write: partial bytes, no manifest
+                os.makedirs(d, exist_ok=True)
+                with open(os.path.join(d, "partial_item.bin"), "wb") as fh:
+                    fh.write(b"\x00" * 1024)
+                raise OSError(errno.ENOSPC, "injected ENOSPC mid checkpoint write (faults: ckpt_enospc)")
+            write_step_files(d, step, items, commit=not kill)
 
         try:
             retry_with_backoff(
                 attempt, retries=self.write_retries, base_s=self.retry_backoff_sec, retry_on=(OSError,)
             )
-            d = self._step_dir(step)
+            if kill:
+                # SIGKILL between the writes and the commit: bytes on disk,
+                # one item truncated, no manifest.
+                _corrupt_one_item(d)
+                raise SimulatedPreemption(f"simulated kill mid-save at step {step}")
             record["bytes"] = sum(os.path.getsize(os.path.join(d, n)) for n in os.listdir(d))
+            self._written_key = self._stat_key(step)
+            if faults.should_fire("truncate_ckpt_item", step=step):
+                _corrupt_one_item(d)  # later damage: the manifest no longer matches
+        except SimulatedPreemption as e:  # a kill leaves its partial step behind
+            self._error = e
         except OSError as e:
             self._clear_partial(step)
             err = CheckpointWriteError(
@@ -447,14 +499,25 @@ class CheckpointManager:
         if step is None:
             return
         writer, self._writer = self._writer, None
-        writer.join()
+        tr = flight_recorder().tracer
+        with tr.span("ckpt.finalize", "ckpt", "train"):
+            writer.join()
         error, self._error = self._error, None
+        written, self._written_key = self._written_key, None
         if error is not None:
             raise error
         if not self._has_manifest(step):
             raise RuntimeError(f"the writer of checkpoint step {step} ended without committing its manifest")
-        # The writer hashed the files back from disk into the manifest.
-        self._verified[step] = self._stat_key(step)
+        # The writer hashed the files back from disk into the manifest; a
+        # file changed since then is re-checked.
+        problems = [] if self._stat_key(step) == written else self.verify(step)
+        if problems:
+            tr.instant("ckpt.verify_failed", "ckpt", "train", args={"step": step, "n_problems": len(problems)})
+            print(f"WARNING: checkpoint step {step} failed post-save verification and will not be resumed "
+                  "from:\n  " + "\n  ".join(problems))
+            return  # keep the older verified steps: no GC off an unverified save
+        self._verified[step] = written
+        tr.instant("ckpt.verified", "ckpt", "train", args={"step": step})
         rec = self.history[-1]
         print(f"checkpoint step {step} verified in {self._dir}: {rec['bytes'] / 1e9:.3f} GB, "
               f"loop stalled {1e3 * rec['stall_s']:.1f} ms, written and hashed in {rec['write_s']:.2f} s")

@@ -19,12 +19,33 @@ step (training/checkpoint.py), checks the restored state is finite, saves
 in the background every `eval_interval` steps after one host check of the
 sticky loss, and force-saves the final step. Data and dropout are
 positional (`data_step_offset`, `_generators`), so a resumed run continues
-the straight run's trajectory. The supervisor, preemption, the watchdog
-and the flight recorder are not ported (ROADMAP.md).
+the straight run's trajectory.
+
+The robustness hooks sit where JAX puts them (train.py:581-816), and
+`robustness/supervisor.py` runs `train` under its restart policy:
+
+  * the loop records `train.eval`, `train.step` and `train.sync` spans and
+    lifecycle instants into the process-global flight recorder (obs/).
+    CUDA launches are asynchronous, so the step span covers the host's
+    enqueue of the step, not its device time, which lands in the next
+    `train.sync`;
+  * both loss syncs (the log interval's and the check before a save) go
+    through `_sync`, which the hung-step watchdog bounds when
+    `watchdog_deadline_s > 0` (robustness/watchdog.py);
+  * the `nan_grad`, `preempt` and `hang_step` faults (robustness/faults.py)
+    strike at their data step;
+  * a divergence records a `train.divergence` instant, then raises
+    DivergenceError naming the newest verified step;
+  * every `preempt_check_interval` steps a requested preemption (SIGTERM,
+    SIGINT, the `preempt` fault) makes one emergency save at this step
+    boundary — unless the `preempt_grace_s` budget is already spent, when
+    the save is skipped loudly — then the loop ends: no final eval, no
+    final save, `metrics["preempted"] = True`.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 import typing as tp
 
@@ -35,8 +56,11 @@ from midgpt_tpu_torch.config import ExperimentConfig
 from midgpt_tpu_torch.data.dataset import TokenDataset
 from midgpt_tpu_torch.device import DeviceLike, resolve_device
 from midgpt_tpu_torch.models.gpt import GPT, Params, param_shapes
+from midgpt_tpu_torch.obs import dump_flight_recorder, flight_recorder
 from midgpt_tpu_torch.ops.loss import fused_linear_cross_entropy
+from midgpt_tpu_torch.robustness import faults, preempt
 from midgpt_tpu_torch.robustness.errors import DivergenceError
+from midgpt_tpu_torch.robustness.watchdog import StepWatchdog
 from midgpt_tpu_torch.training.checkpoint import CheckpointManager
 from midgpt_tpu_torch.training.metrics import MetricLogger, mfu
 from midgpt_tpu_torch.training.optim import Optimizer, OptState, make_optimizer
@@ -236,28 +260,63 @@ def train(config: ExperimentConfig, *, device: DeviceLike = None) -> dict:
 
     logger = MetricLogger("" if config.debug else config.rundir)
     T, G = config.model_config.block_size, config.g_accum_iters
-    metrics: tp.Dict[str, float] = {}
+    metrics: tp.Dict[str, tp.Any] = {}
     loss = torch.zeros((), dtype=torch.float32, device=dev)  # sticky health carrier
     t_last, tokens_since = time.time(), 0
+    tr = flight_recorder().tracer
+    wd = (
+        StepWatchdog(config.watchdog_deadline_s, escalate=config.watchdog_escalate, rundir=config.rundir)
+        if config.watchdog_deadline_s > 0
+        else None
+    )
+
+    def _sync(t: Tensor, itr: int, data_itr: int) -> float:
+        """The loop's host<->device force, watchdog-bounded when armed. The
+        `hang_step` fault wedges the force itself (an event nothing sets),
+        so only the watchdog's worker-thread inversion ends the wait."""
+        hang = faults.should_fire("hang_step", step=data_itr)
+
+        def force() -> float:
+            if hang:
+                threading.Event().wait()
+            return float(t)
+
+        with tr.span("train.sync", "train", "train"):
+            return force() if wd is None else wd.sync(force, step=itr, label="train.loss_sync")
+
+    def _last_good(itr: int) -> tp.Optional[int]:
+        """The newest verified step, recorded with a divergence instant."""
+        last_good = mngr.latest_verified_step() if mngr is not None else None
+        tr.instant("train.divergence", "train", "train", args={"step": itr, "last_good": last_good})
+        return last_good
+
+    saved_at = None  # the step of the newest save this run started
     try:
         for itr in range(first_step, config.max_steps):
             if itr % config.eval_interval == 0:
-                metrics["loss/train"] = evaluate(config, eval_loss_many, params, dataset, "train", itr)
-                metrics["loss/val"] = evaluate(config, eval_loss_many, params, dataset, "val", itr)
+                with tr.span("train.eval", "train", "train"):
+                    metrics["loss/train"] = evaluate(config, eval_loss_many, params, dataset, "train", itr)
+                    metrics["loss/val"] = evaluate(config, eval_loss_many, params, dataset, "val", itr)
                 logger.log(itr, {k: metrics[k] for k in ("loss/train", "loss/val")})
                 t_last, tokens_since = time.time(), 0  # eval pauses don't count
 
             data_itr = itr + config.data_step_offset
             x, y = dataset.batch("train", data_itr, T, config.batch_size, G)
-            params, opt_state, loss = step(
-                params, opt_state, _tokens(x, dev), _tokens(y, dev),
-                _generators(config, data_itr, G, dev), loss,
-            )
+            with tr.span("train.step", "train", "train"):
+                params, opt_state, loss = step(
+                    params, opt_state, _tokens(x, dev), _tokens(y, dev),
+                    _generators(config, data_itr, G, dev), loss,
+                )
+            if faults.should_fire("nan_grad", step=data_itr):
+                # poison the carrier as a NaN gradient would; no sync
+                loss = torch.full((), float("nan"), dtype=torch.float32, device=dev)
+            if faults.should_fire("preempt", step=data_itr):
+                preempt.request()
             tokens_since += config.batch_size * G * T
             if itr % config.log_interval == 0:
-                loss_f = float(loss)  # the one host sync per log interval
+                loss_f = _sync(loss, itr, data_itr)  # the one host sync per log interval
                 if not np.isfinite(loss_f):
-                    last_good = mngr.latest_verified_step() if mngr is not None else None
+                    last_good = _last_good(itr)
                     raise DivergenceError(
                         f"non-finite loss ({loss_f}) at step {itr} — training has diverged. "
                         "Last good checkpoint: "
@@ -283,31 +342,63 @@ def train(config: ExperimentConfig, *, device: DeviceLike = None) -> dict:
             if mngr is not None and mngr.should_save(itr):
                 # One host sync per SAVE interval: never let a poisoned
                 # state overwrite the rolling checkpoints.
-                if not np.isfinite(float(loss)):
-                    last_good = mngr.latest_verified_step()
+                if not np.isfinite(_sync(loss, itr, data_itr)):
+                    last_good = _last_good(itr)
                     raise DivergenceError(
-                        f"non-finite training state at step {itr} — refusing to overwrite the "
-                        f"rolling checkpoint. Last good checkpoint: step {last_good} in "
-                        f"{config.rundir}. Lower learning_rate or raise warmup_steps and resume.",
+                        f"non-finite training state at step {itr} — refusing to overwrite the rolling "
+                        f"checkpoint. Last good checkpoint: step {last_good} in {config.rundir}. Lower "
+                        "learning_rate or raise warmup_steps and resume.",
                         step=itr,
                         last_good_step=last_good,
                         rundir=config.rundir,
                     )
                 mngr.save(itr, {"params": params, "opt_state": opt_state})
+                saved_at = itr
+            if itr % config.preempt_check_interval == 0 and preempt.any_host_requested():
+                grace = config.preempt_grace_s
+                req_at = preempt.requested_at()
+                save_late = bool(grace > 0 and req_at is not None and time.monotonic() - req_at > grace)
+                if save_late:
+                    # The grace budget was spent before the save could START:
+                    # a multi-second write now risks a kill mid-write. Skip
+                    # it loudly; resume falls back to the newest verified step.
+                    tr.instant("train.preempt_save_skipped", "train", "train",
+                               args={"step": itr, "grace_s": grace})
+                    if config.rundir:
+                        from midgpt_tpu_torch.robustness import supervisor
 
-        metrics["loss/final"] = evaluate(config, eval_loss_many, params, dataset, "val", config.max_steps)
-        logger.log(config.max_steps, {"loss/val_final": metrics["loss/final"]})
-        if mngr is not None and first_step < config.max_steps:
-            # Force-persist the final state unless the loop's save did, and
-            # not if it is poisoned: the sticky loss gates too, since a
-            # transient poisoning may leave NaN only in the moments.
-            mngr.wait()
-            if (
-                mngr.latest_verified_step() != config.max_steps - 1
-                and np.isfinite(metrics["loss/final"])
-                and np.isfinite(float(loss))
-            ):
-                mngr.save(config.max_steps - 1, {"params": params, "opt_state": opt_state}, force=True)
+                        supervisor.append_note(
+                            config.rundir, {"event": "preempt_save_skipped", "step": itr, "grace_s": grace}
+                        )
+                    print(f"preemption: grace budget ({grace:g}s) already spent at step {itr} — skipping "
+                          "the emergency save; resume falls back to the last verified checkpoint")
+                elif mngr is not None and saved_at != itr and np.isfinite(_sync(loss, itr, data_itr)):
+                    mngr.save(itr, {"params": params, "opt_state": opt_state}, force=True)
+                if mngr is not None and not save_late:
+                    mngr.wait()  # barrier + manifest: verified before the process exits
+                metrics["preempted"] = True
+                tr.instant("train.preempt", "train", "train", args={"step": itr})
+                if config.rundir:
+                    dump_flight_recorder(config.rundir)
+                if not save_late:
+                    print(f"preemption: emergency checkpoint at step {itr} in "
+                          f"{config.rundir or '(no rundir)'}; exiting")
+                break
+
+        if not metrics.get("preempted"):
+            metrics["loss/final"] = evaluate(config, eval_loss_many, params, dataset, "val", config.max_steps)
+            logger.log(config.max_steps, {"loss/val_final": metrics["loss/final"]})
+            if mngr is not None and first_step < config.max_steps:
+                # Force-persist the final state unless the loop's save did, and
+                # not if it is poisoned: the sticky loss gates too, since a
+                # transient poisoning may leave NaN only in the moments.
+                mngr.wait()
+                if (
+                    mngr.latest_verified_step() != config.max_steps - 1
+                    and np.isfinite(metrics["loss/final"])
+                    and np.isfinite(float(loss))
+                ):
+                    mngr.save(config.max_steps - 1, {"params": params, "opt_state": opt_state}, force=True)
     finally:
         # Never abandon an in-flight save: close() joins the writer,
         # raises its error, and garbage-collects.

@@ -412,7 +412,8 @@ def test_exact_continuation_resume(data_dir, straight16, tmp_path):
     straight, straight_dir = straight16
     first = launch.main(_launch_args(data_dir, tmp_path, 8))
     assert first["resumed_from"] is None and [r["step"] for r in first["checkpoints"]] == [0, 4, 7]
-    assert sorted(os.listdir(tmp_path)) == ["4", "7", "config.json", "metrics.jsonl"]  # max_to_keep 2
+    # max_to_keep 2; the launcher's supervisor keeps its ledger beside the steps
+    assert sorted(os.listdir(tmp_path)) == ["4", "7", "config.json", "metrics.jsonl", "supervisor_state.json"]
     resumed = launch.main(_launch_args(data_dir, tmp_path, 16))
     assert resumed["resumed_from"] == 7 and resumed["restore_s"] is not None
     _assert_continues(straight, straight_dir, resumed, tmp_path, 8)

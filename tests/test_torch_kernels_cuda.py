@@ -3,7 +3,8 @@ card (paged attention: the decode, verify, int8, GQA-fold and window specs,
 the merge of its partitions and its capture in a CUDA graph; flash
 attention: forward and both backward kernels), and the decode step and the
 overlap modes' fused decode group as CUDA-graph replays (bit for bit
-against eager runs, launch tallies per replay, two groups in flight).
+against eager runs, launch tallies per replay, two groups in flight, a
+capture beside another thread's sync).
 Every test here needs an
 NVIDIA GPU and skips with a reason without one. The file imports no JAX, so it also runs where JAX is absent:
 
@@ -744,3 +745,40 @@ def test_group_replays_draw_fresh_samples(cuda):
     assert (emitted_1 == emitted_2).all() and emitted_1[:, :2].all()
     assert (toks_1[:, :2] != toks_2[:, :2]).any()
     assert ((0 <= toks_1) & (toks_1 < cfg.vocab_size)).all()
+
+
+@pytest.mark.cuda
+def test_capture_beside_a_thread_in_a_sync(cuda):
+    """The armed watchdog forces each settle in a worker thread, and a worker
+    abandoned by an expired deadline may still sit in an event's
+    synchronize(). Captures are thread-local (sampling/graphs.py), so a new
+    key captured while another thread keeps synchronizing succeeds, and its
+    replay equals the eager body."""
+    import threading
+
+    graph_eng, eager_eng = _group_engines(cuda, torch.bfloat16)
+    body = graph_eng._group_body(4, 1)
+    first = graph_eng._graphs.dispatch(("test", "first"), body, _packed(_GROUP_A), None)
+    stop, errors = threading.Event(), []
+
+    def parked_worker():
+        while not stop.is_set():
+            try:
+                first.host()  # Event.synchronize, as the watchdog's worker does
+            except Exception as e:  # recorded for the assertion below
+                errors.append(e)
+                return
+
+    worker = threading.Thread(target=parked_worker, daemon=True)
+    worker.start()
+    try:
+        res = graph_eng._graphs.dispatch(("test", "captured beside a sync"), body, _packed(_GROUP_A), None)
+        toks, emitted = res.host()
+    finally:
+        stop.set()
+        worker.join(timeout=30)
+    assert not worker.is_alive() and not errors
+    assert graph_eng._graphs.stats()["captured"] == 2
+    want = _eager_group(eager_eng, _GROUP_A, _zero_chain(cuda))[0]
+    assert torch.equal(torch.from_numpy(toks), want[:8].cpu())
+    assert torch.equal(torch.from_numpy(emitted), want[8:].cpu().bool())

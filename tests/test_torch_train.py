@@ -253,8 +253,9 @@ def test_launch_on_cpu_then_serve_its_params(data_dir, tmp_path):
               f"--rundir={rundir}", "--set", f"data_dir={data_dir}", *TINY])
     assert r.returncode == 0, r.stderr
     assert "cannot be resumed" not in r.stdout
-    # saves at steps 0 and 2 and the final step 3; the two newest verified are kept
-    assert {p.name for p in rundir.iterdir()} == {"config.json", "metrics.jsonl", "2", "3"}
+    # saves at steps 0 and 2 and the final step 3; the two newest verified are
+    # kept; the supervisor's ledger beside them
+    assert {p.name for p in rundir.iterdir()} == {"config.json", "metrics.jsonl", "supervisor_state.json", "2", "3"}
     assert {p.name for p in (rundir / "3").iterdir()} == {
         "params.npz", "opt_state.npz", "format.json", "midgpt_manifest.json"}
     records = [json.loads(line) for line in (rundir / "metrics.jsonl").read_text().splitlines()]
