@@ -170,6 +170,30 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
   9. torch.profiler over one training microstep at the main path's shape:
      the device's busy and idle share, the kernels with the most device
      time, and the flash kernels' share beside the SIMT kernels' share;
+ 11. (run after phase 9) the six presets' slice, each number beside the
+     card's name and power limit:
+     a. `wide610m` through the launcher at full width and depth (8 x 2048,
+        16 heads of 128, microbatch 12, T 1024, split RoPE, flash), cut
+        only in steps and eval (printed), with no run directory: finite
+        losses, tokens/s and MFU of the steady steps, peak memory, and
+        flash launches (single-visit bodies only) == n_layer x
+        (microsteps + eval batches) forward, n_layer x microsteps each
+        backward;
+     b. the same cut for 2 steps with remat off and under each remat
+        policy: peak memory, tokens/s and flash_fwd launches per policy
+        (n_layer x (2 microsteps + eval batches) under 'none' and 'dots',
+        which recompute the forward; n_layer x (microsteps + eval batches)
+        otherwise); losses and final parameters == the remat-off run's bit
+        for bit, or within the train-step tolerances (printed);
+     c. `openwebtext_xl` (24 x 2048) at microbatch XL_BATCH, 2 steps, its
+        own remat policy ('dots') against remat off: peak memory, tokens/s,
+        equal losses;
+     d. `llama7b_long` served in bf16 at full width and depth through
+        `sample.main --config=llama7b_long --start_ids=...`: 4 greedy
+        requests of one prompt (identical streams, each its budget), the
+        weights' and the paged pool's bytes, init seconds, peak memory,
+        decode tokens/s, and paged (and merge) launches == n_layer x
+        decode steps;
  10. timings: the paged decode kernel as before (CUDA-graph replay, cold
      L2), and each flash kernel in bf16 (CUDA events over repeated
      launches) at the main path's shape and at one shape per other
@@ -193,7 +217,10 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      third of the earlier time and SDPA's; f32 decode: the earlier time).
      Then the merge kernel alone at the decode shape (graph replay, cold
      L2), beside its plain version and its bound (the partials' bytes over
-     3.35 TB/s). The "kernels" line carries the main paths' numbers.
+     3.35 TB/s). The flash kernels also at wide610m's shape (B 12, H 16,
+     T 1024, C 128), beside their bounds and SDPA. The "kernels" line
+     carries the main paths' numbers, and phase 11a's flash launches
+     under the C 128 entries.
 
 The last lines are the card's name and power limit as nvidia-smi prints
 them, one JSON object with a "kernels" list and phase 4b's "decode_modes"
@@ -203,6 +230,8 @@ them, one JSON object with a "kernels" list and phase 4b's "decode_modes"
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import shutil
 import signal
@@ -246,6 +275,9 @@ FLASH_CHECKS = [
       for label, T, C, bq, bk in (("ragged T", 200, 64, 64, 64), ("chunks narrower than a tile", 96, 128, 32, 32))
       for dt in (torch.bfloat16, torch.float32)),
 ]
+# phase 11a: wide610m's training shape (microbatch 12, 16 heads of 128)
+FLASH_WIDE = ("wide610m", 12, 16, 1024, 128, 512, 1024)
+FLASH_CHECKS.append((*FLASH_WIDE, torch.bfloat16))
 # flash timings (bf16): the main path, then one shape per other dispatch
 FLASH_TIMED = [
     FLASH_MAIN,
@@ -268,6 +300,12 @@ RESUME_CUTS = {"g_accum_iters": 2, "max_steps": 6, "eval_steps": 1, "eval_interv
 # parity tolerances (printed): f32 losses relative, f32 update relative
 # norm, bf16 loss relative (dense attention rounds its scores to bf16)
 PARITY_TOL = {"f32_loss": 1e-5, "f32_update": 1e-3, "bf16_loss": 1e-2}
+# phase 11: the cuts of wide610m (a) and of the remat runs (b, c), printed
+WIDE_CUTS = {"max_steps": 4, "eval_steps": 1, "eval_interval": 1000}
+REMAT_CUTS = {"max_steps": 2, "eval_steps": 1, "eval_interval": 1000}
+REMAT_POLICIES = (None, "none", "dots", "dots_attn", "flash")  # None: remat off
+XL_BATCH = 8  # openwebtext_xl's microbatch (preset 1024) that fits with remat off and on
+LLAMA_PROMPT = 64  # llama7b_long's prompt length; 4 requests of 32 new tokens
 # phase 3d: (slots, query heads, K/V heads, head_dim, bucket, counts) of the
 # serving main path's GQA variant and of llama7b_long's attention
 GQA_GEOMETRIES = {
@@ -2032,6 +2070,221 @@ def profile_train(data_dir: Path, card: str):
         f"{kind} {us / 1e3:.3f} ms ({100 * us / busy:.1f}%)" for kind, us in time_by_kind(by_name).items()))
 
 
+# ---------------------------------------------------------------- phase 11: the six presets' slice
+
+
+def launch_logged(argv):
+    """`launch.main(argv)` with its standard output echoed; returns
+    (train's result, the logged records that carry a step)."""
+    from midgpt_tpu_torch import launch
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            result = launch.main(argv)
+    finally:
+        sys.stdout.write(buf.getvalue())
+    records = [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith('{"step"')]
+    return result, records
+
+
+def gib(n: int) -> str:
+    return f"{n / 2**30:.2f} GiB"
+
+
+def preset_run(data_dir: Path, preset: str, cuts: dict, **over):
+    """Phase 11's training runs: the launcher on `preset` with no run
+    directory (nothing saved), `cuts` and `over` as --set overrides, flash
+    counters zeroed just before and peak memory reset. Returns (result,
+    losses by step, steady tokens/s, steady MFU, peak bytes, launches by
+    kernel and variant); steps after the first are the steady ones (no
+    save, and the step-0 eval is outside the timed intervals)."""
+    counters = flash_counters()
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    result, records = launch_logged([f"--config={preset}", "--rundir=", *sets(
+        {"data_dir": data_dir, "log_interval": 1, **cuts, **over})])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: dict(c.by_variant) for n, c in counters.items()}
+    steps = [r for r in records if "loss/optimized" in r]
+    losses = [r["loss/optimized"] for r in steps]
+    evals = [v for r in records for k, v in r.items() if k.startswith("loss/") and k != "loss/optimized"]
+    if len(losses) != cuts["max_steps"] or not all(np.isfinite(losses + evals)):
+        raise SystemExit(f"{preset} {over}: losses not all finite: {losses}, evals {evals}")
+    steady = steps[1:]
+    tok_s = float(np.mean([r["throughput/tokens_per_sec"] for r in steady]))
+    mfu = float(np.mean([r["throughput/mfu"] for r in steady])) if "throughput/mfu" in steady[0] else None
+    return result, losses, tok_s, mfu, peak, launches
+
+
+def flash_launch_check(label, launches, n_layer, micro, evals, fwd_visits=1):
+    """Flash launches of a training run: single-visit bodies only, the
+    forward n_layer x (fwd_visits x microsteps + eval batches), each
+    backward n_layer x microsteps."""
+    totals = {n: sum(v.values()) for n, v in launches.items()}
+    want = {"flash_fwd": n_layer * (fwd_visits * micro + evals), "flash_bwd_dq": n_layer * micro,
+            "flash_bwd_dkv": n_layer * micro}
+    if totals != want or any(set(v) != {"single"} for v in launches.values()):
+        raise SystemExit(f"{label}: flash launches {launches}, want {want} on the single-visit bodies")
+
+
+def wide_main_path(data_dir: Path, card: str):
+    """Phase 11a: wide610m through the launcher at full width and depth.
+    Returns (launches by kernel, tokens/s, mfu, peak bytes)."""
+    from midgpt_tpu_torch.config import load_config
+
+    base = load_config("wide610m")
+    mc = base.model_config
+    print("phase 11a reduced: " + ", ".join(f"{k} {getattr(base, k)} -> {v}" for k, v in WIDE_CUTS.items())
+          + f"; g_accum_iters {base.g_accum_iters} (kept); no run directory (no checkpoint); data: seeded synthetic "
+          f"uint16 stream (vocab {mc.vocab_size})")
+    result, losses, tok_s, mfu, peak, launches = preset_run(data_dir, "wide610m", WIDE_CUTS)
+    del result
+    micro, evals = WIDE_CUTS["max_steps"] * base.g_accum_iters, 3 * WIDE_CUTS["eval_steps"]
+    flash_launch_check("wide610m", launches, mc.n_layer, micro, evals)
+    print(f"wide610m ({mc.n_layer} x {mc.n_embd}, {mc.n_head} heads of {mc.head_dim}, microbatch {base.batch_size}, "
+          f"T {mc.block_size}): losses {[round(x, 4) for x in losses]}; steps 1-{WIDE_CUTS['max_steps'] - 1}: "
+          f"{tok_s:.1f} tokens/s, MFU {'not known for this card' if mfu is None else f'{100 * mfu:.2f}%'}; "
+          f"peak memory {gib(peak)} ({peak:,} bytes); flash launches {launches} ({mc.n_layer} layers x ({micro} "
+          f"microsteps + {evals} eval batches)) on {card}")
+    return launches, tok_s, mfu, peak
+
+
+def update_rel_err(params, ref, p0) -> float:
+    """||(params - p0) - (ref - p0)|| / ||ref - p0|| over all leaves."""
+    num = sum(((params[k].float() - ref[k].float()).double() ** 2).sum() for k in ref).sqrt().item()
+    den = sum(((ref[k].float() - p0[k].float()).double() ** 2).sum() for k in ref).sqrt().item()
+    return num / den
+
+
+def same_as_off(label, losses, params, ref_losses, ref_params, init_params):
+    """A remat run against remat off: bit for bit, or (printed) within the
+    train-step tolerances of PERF.md §2 — bf16 losses 1e-2 relative, the
+    parameter update 1e-3 relative."""
+    if losses == ref_losses and all(torch.equal(params[k], ref_params[k]) for k in ref_params):
+        return "bit for bit"
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    max_p = max((params[k].float() - ref_params[k].float()).abs().max().item() for k in ref_params)
+    upd = update_rel_err(params, ref_params, init_params())
+    verdict = (f"not bit for bit: losses rel err {loss_err:.2e} (tol {PARITY_TOL['bf16_loss']:g}), update rel err "
+               f"{upd:.2e} (tol {PARITY_TOL['f32_update']:g}), max |param diff| {max_p:.2e}")
+    if loss_err > PARITY_TOL["bf16_loss"] or upd > PARITY_TOL["f32_update"]:
+        raise SystemExit(f"{label} disagrees with remat off: {verdict}")
+    return verdict
+
+
+def remat_policies(data_dir: Path, card: str):
+    """Phase 11b: the wide610m cut for 2 steps with remat off and under
+    each policy. Returns {policy: (peak bytes, tokens/s, flash_fwd
+    launches)}."""
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.models.gpt import GPT
+
+    base = load_config("wide610m")
+    mc = base.model_config
+    micro, evals = REMAT_CUTS["max_steps"] * base.g_accum_iters, 3 * REMAT_CUTS["eval_steps"]
+    print("phase 11b reduced: " + ", ".join(f"{k} {getattr(base, k)} -> {v}" for k, v in REMAT_CUTS.items()))
+    out, ref = {}, None
+    for policy in REMAT_POLICIES:
+        over = {"model_config.remat": policy is not None}
+        if policy is not None:
+            over["model_config.remat_policy"] = policy
+        result, losses, tok_s, _, peak, launches = preset_run(data_dir, "wide610m", REMAT_CUTS, **over)
+        params = {k: v.cpu() for k, v in result["params"].items()}
+        del result
+        label = "remat off" if policy is None else f"remat {policy}"
+        recomputes = policy in ("none", "dots")
+        flash_launch_check(f"wide610m {label}", launches, mc.n_layer, micro, evals, 2 if recomputes else 1)
+        if ref is None:
+            ref, verdict = (losses, params), "the reference"
+        else:
+            verdict = same_as_off(label, losses, params, *ref,
+                                  lambda: {k: v.cpu() for k, v in GPT.init(mc, base.seed, device="cuda").items()})
+        fwd = sum(launches["flash_fwd"].values())
+        print(f"wide610m {label}: peak memory {gib(peak)} ({peak:,} bytes), step 1 {tok_s:.1f} tokens/s, flash_fwd "
+              f"launches {fwd} ({mc.n_layer} x ({'2 x ' if recomputes else ''}{micro} microsteps + {evals} eval "
+              f"batches)); losses {losses}: {verdict} on {card}")
+        out[label] = (peak, tok_s, fwd)
+        del params
+    return out
+
+
+def xl_remat_pair(data_dir: Path, card: str):
+    """Phase 11c: openwebtext_xl at microbatch XL_BATCH, its own remat
+    policy against remat off. Returns {label: (peak bytes, tokens/s)}."""
+    from midgpt_tpu_torch.config import load_config
+
+    base = load_config("openwebtext_xl")
+    mc = base.model_config
+    print(f"phase 11c reduced: batch_size {base.batch_size} -> {XL_BATCH} (one microbatch that fits with remat off), "
+          + ", ".join(f"{k} {getattr(base, k)} -> {v}" for k, v in REMAT_CUTS.items()))
+    out, ref = {}, None
+    for remat_on in (True, False):
+        label = f"remat {mc.remat_policy}" if remat_on else "remat off"
+        result, losses, tok_s, mfu, peak, _ = preset_run(
+            data_dir, "openwebtext_xl", REMAT_CUTS, batch_size=XL_BATCH, **{"model_config.remat": remat_on})
+        del result
+        if ref is None:
+            ref, verdict = losses, "the reference"
+        elif losses == ref:
+            verdict = "equal bit for bit"
+        else:
+            err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+            verdict = f"rel err {err:.2e} (tol {PARITY_TOL['bf16_loss']:g})"
+            if err > PARITY_TOL["bf16_loss"]:
+                raise SystemExit(f"openwebtext_xl: remat off disagrees with remat on: {verdict}")
+        print(f"openwebtext_xl ({mc.n_layer} x {mc.n_embd}) {label}, microbatch {XL_BATCH}: peak memory {gib(peak)} "
+              f"({peak:,} bytes), step 1 {tok_s:.1f} tokens/s, MFU "
+              f"{'not known for this card' if mfu is None else f'{100 * mfu:.2f}%'}; losses {losses}: {verdict} "
+              f"on {card}")
+        out[label] = (peak, tok_s)
+    return out
+
+
+def llama_serving(card: str):
+    """Phase 11d: llama7b_long served in bf16 through `sample.main
+    --config`. Returns (paged launches, decode tokens/s)."""
+    from midgpt_tpu_torch import sample
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+
+    mc = load_config("llama7b_long").model_config
+    prompt = np.random.default_rng(0).integers(0, mc.vocab_size, LLAMA_PROMPT)
+    new_tokens, n_req = 32, 4
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    tpl.LAUNCHES.reset()
+    tpl.MERGE_LAUNCHES.reset()
+    out = sample.main(["--config=llama7b_long", f"--start_ids={','.join(map(str, prompt))}", "--temperature=0",
+                       f"--num_samples={n_req}", f"--max_new_tokens={new_tokens}"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    st, streams = out["stats"], out["streams"]
+    by_variant = dict(tpl.LAUNCHES.by_variant)
+    launches = sum(by_variant.values())
+    steps = device_steps(st)
+    if any(len(t) != LLAMA_PROMPT + new_tokens or not ((0 <= t) & (t < mc.vocab_size)).all() for t in streams):
+        raise SystemExit(f"llama7b_long: a request did not finish with its {new_tokens} tokens in the vocabulary")
+    if not all(np.array_equal(t, streams[0]) for t in streams):
+        raise SystemExit("llama7b_long: greedy streams of one prompt differ between slots")
+    if {spec for spec, _ in by_variant} != {"decode"} or launches != mc.n_layer * steps:
+        raise SystemExit(f"llama7b_long: paged launches {by_variant} != {mc.n_layer} x {steps} decode steps")
+    if tpl.MERGE_LAUNCHES.count != launches:
+        raise SystemExit("llama7b_long: merge launches != template launches")
+    tok_s = st["decode_tokens"] / st["decode_seconds"]
+    print(f"llama7b_long served in bf16 ({mc.n_layer} x {mc.n_embd}, {mc.n_head} heads of {mc.head_dim}): "
+          f"{n_req} greedy requests of a {LLAMA_PROMPT}-token prompt, {new_tokens} new tokens each (streams "
+          f"identical); weights {out['weight_bytes']:,} bytes, paged pool {st['cache_hbm_bytes']:,} bytes, made in "
+          f"{out['init_s']:.2f} s; peak memory {gib(peak)} ({peak:,} bytes); decode {tok_s:.1f} tokens/s "
+          f"({st['decode_tokens']} tokens in {st['decode_seconds']:.3f} s of decode rounds, {out['wall_s']:.3f} s "
+          f"wall); paged launches {by_variant} = {mc.n_layer} x {steps} decode steps, merge "
+          f"{tpl.MERGE_LAUNCHES.count} on {card}")
+    return launches, tok_s
+
+
 # kernel-name markers of each kind, first match wins
 KINDS = {
     "flash kernels": ("flash_",),
@@ -2254,6 +2507,17 @@ def main() -> int:
         free_memory()
         profile_train(data_dir, card)
         free_memory()
+        # 11. the six presets' slice: wide610m, the remat policies, openwebtext_xl
+        t_phase = time.perf_counter()
+        wide_launches, *_ = wide_main_path(data_dir, card)
+        remat_policies(data_dir, card)
+        xl_remat_pair(data_dir, card)
+        print(f"phase 11a-c took {time.perf_counter() - t_phase:.1f} s")
+    # 11d. llama7b_long served in bf16
+    t_phase = time.perf_counter()
+    llama_serving(card)
+    free_memory()
+    print(f"phase 11d took {time.perf_counter() - t_phase:.1f} s")
 
     # 10. timings
     kernels = []
@@ -2374,6 +2638,34 @@ def main() -> int:
                 f"{kname} {f_ms[kname]:.4f} ms vs {target} ms {'met' if f_ms[kname] <= target else 'MISSED'}"
                 for kname, target in FLASH_TARGET_MS.items()))
             main_ms, main_plain, main_lib, main_bounds = f_ms, f_plain, f_lib, bounds
+    # wide610m's shape (phase 11a): the C 128 single-visit bodies
+    w_label, B, H, T, C, bq, bk = FLASH_WIDE
+    wide_ms, wide_plain, wide_lib = time_flash(B, H, T, C, bq, bk)
+    free_memory()
+    wide_bounds, wide_flops = flash_bounds(B, H, T, C, torch.bfloat16), flash_flops(B, H, T, C)
+    wide_errs = flash_errs[(w_label, torch.bfloat16)]
+    wide_err = {"flash_fwd": wide_errs["out"], "flash_bwd_dq": wide_errs["dq"],
+                "flash_bwd_dkv": max(wide_errs["dk"], wide_errs["dv"])}
+    for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        b_ms, b_by = wide_bounds[kname]
+        lib_what = "sdpa forward" if kname == "flash_fwd" else "sdpa backward (dq, dk and dv in one call)"
+        print(f"{kname} [single] {w_label} bf16 B={B} H={H} T={T} C={C} blocks=({bq},{bk}): {wide_ms[kname]:.4f} ms "
+              f"device ({wide_flops[kname] / wide_ms[kname] / 1e9:.1f} TFLOP/s), bound {b_ms:.4f} ms by {b_by} "
+              f"({wide_ms[kname] / b_ms:.1f}x), plain {wide_plain[kname]:.3f} ms, {lib_what} {wide_lib[kname]:.4f} ms "
+              f"on {card}")
+        kernels.append({
+            "name": f"{kname}[bf16,C={C}]",
+            "route": "cuda",
+            "source": "midgpt_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_SOURCES[kname],
+            "launches": sum(wide_launches[kname].values()),
+            "max_abs_err": wide_err[kname],
+            "ms": wide_ms[kname],
+            "plain_ms": wide_plain[kname],
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": wide_lib[kname],
+        })
     _, B, H, T, C, bq, bk = FLASH_MAIN
     print(f"main path: {cfg.n_layer} launches of each flash kernel per microstep, {cfg.n_layer * 16} per "
           f"local_text_124m step (G=16), plus {cfg.n_layer} forward launches per eval batch")

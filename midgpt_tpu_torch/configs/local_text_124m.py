@@ -2,9 +2,9 @@
 same values as midgpt_tpu/configs/local_text_124m.py): lr 1e-3 cosine to
 1e-5 over 3000 steps with 300 of warmup, beta2 0.95, wd 1e-4 decoupled from
 the lr, microbatch 16 x G=16 accumulation, bf16 compute over f32 master
-params. Data comes from data/local_text/prepare.py. The remat and
-scan_unroll fields are the JAX package's lowering knobs and change nothing
-here (models/gpt.py GPTConfig)."""
+params, remat off. Data comes from data/local_text/prepare.py.
+`scan_unroll` is the JAX package's lowering knob and changes nothing here
+(models/gpt.py GPTConfig)."""
 
 from midgpt_tpu_torch.config import ExperimentConfig, MeshConfig
 from midgpt_tpu_torch.models.gpt import GPTConfig

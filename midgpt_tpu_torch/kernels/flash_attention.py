@@ -34,7 +34,9 @@ policy as its contract, and carries:
     more;
   * `flash_attention(q, k, v, block_q, block_k)`, the `autograd.Function`
     over (B, H, T, C) that saves q, k, v, out and lse for the backward, as
-    the JAX forward rule does.
+    the JAX forward rule does. Its forward calls `flash_fwd_op`, the
+    forward as one dispatcher op (`midgpt::flash_fwd`), which a remat
+    policy can keep (ops/remat.py) as JAX's names `attn_out`/`attn_lse`.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels or
 raises — there is no fallback between the two. Each kernel has a launch
@@ -305,6 +307,15 @@ def flash_backward(
     return flash_backward_plain(q, k, v, out, lse, dout, block_q, block_k)
 
 
+@torch.library.custom_op("midgpt::flash_fwd", mutates_args=())
+def flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, block_q: int, block_k: int) -> tp.Tuple[Tensor, Tensor]:
+    """`flash_forward` as one dispatcher op, so a remat policy
+    (ops/remat.py) sees the forward kernel — a ctypes launch is invisible
+    to the dispatcher — and can keep its (out, lse) instead of launching it
+    again in the backward's recompute."""
+    return flash_forward(q, k, v, block_q, block_k)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Residuals q, k, v, out, lse saved by the forward (the JAX `_fwd_rule`);
     the backward never re-runs the forward kernel."""
@@ -313,7 +324,7 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, block_q, block_k):
         B, H, T, C = q.shape
         flat = [t.reshape(B * H, T, C) for t in (q, k, v)]
-        out, lse = flash_forward(*flat, block_q, block_k)
+        out, lse = flash_fwd_op(*flat, block_q, block_k)
         ctx.save_for_backward(*flat, out, lse)
         ctx.blocks = (block_q, block_k)
         return out.reshape(B, H, T, C)

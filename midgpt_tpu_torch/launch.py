@@ -13,7 +13,13 @@ cpu`) under the run supervisor (robustness/supervisor.py), with
 state is checkpointed into a step directory `R/<step>/`
 (training/checkpoint.py), which `python -m midgpt_tpu_torch.sample
 --ckpt_dir=R` serves. A rerun into the same `--rundir` resumes from the
-newest verified step. `--debug` writes nothing.
+newest verified step. `--debug` writes no run directory, evaluates one
+batch and traces the first step after the first with torch.profiler
+(training/metrics.py `Profiler`: a Chrome trace under
+`<tempdir>/midgpt_trace`). The port trains on one device: a preset whose
+mesh spans several (openwebtext_mh, openwebtext_xl, the llama pair) gets
+one printed line naming the mesh left unused; cut its batch with `--set
+batch_size=...`.
 
 The supervisor rolls a divergence back to the newest verified step with
 the poisoned data window skipped, and restarts a hung step, up to
@@ -32,6 +38,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import typing as tp
 from datetime import datetime
 
 
@@ -41,7 +48,10 @@ def apply_overrides(config, pairs):
     Each touched dataclass is replaced exactly once with every override it
     receives, so cross-field validation (__post_init__) sees the final
     state. Values parse by the current value's type, or by the field's
-    declared annotation where the current value is None."""
+    declared annotation where the current value is None. "none" and "null"
+    are None where the field may be None (its annotation or its current
+    value says so); a plain `str` field keeps the word, so
+    `--set model_config.remat_policy=none` picks the 'none' policy."""
     tree: dict = {}
     for dotted_key, raw_value in pairs:
         parts = dotted_key.split(".")
@@ -51,7 +61,8 @@ def apply_overrides(config, pairs):
         current = getattr(target, parts[-1])
         fields = getattr(target, "__dataclass_fields__", {})
         ann = str(fields[parts[-1]].type) if parts[-1] in fields else ""
-        if raw_value.lower() in ("none", "null"):
+        nullable = current is None or "Optional" in ann or "None" in ann
+        if raw_value.lower() in ("none", "null") and (nullable or not isinstance(current, str)):
             value = None
         elif isinstance(current, bool) or "bool" in ann:
             value = raw_value.lower() in ("1", "true", "yes")
@@ -78,6 +89,18 @@ def apply_overrides(config, pairs):
         return dataclasses.replace(obj, **kwargs)
 
     return rebuild(config, tree)
+
+
+def unused_mesh(config) -> tp.Optional[str]:
+    """The line the launcher prints when the preset's mesh spans several
+    devices (any axis above 1; `data=-1` is "every device left", one
+    here), or None: the port trains on one device."""
+    axes = {f.name: getattr(config.mesh, f.name) for f in dataclasses.fields(config.mesh)}
+    wide = {k: v for k, v in axes.items() if v > 1}
+    if not wide:
+        return None
+    return (f"mesh {' x '.join(f'{k}={v}' for k, v in wide.items())} spans several devices: the port trains on one "
+            "device and leaves that mesh unused (parallelism: ROADMAP.md Queue 1 item 7)")
 
 
 def main(argv=None) -> dict:
@@ -123,6 +146,9 @@ def main(argv=None) -> dict:
             f.write(to_json(config))
         print(f"Writing to {config.rundir}")
     print(config)
+    mesh_note = unused_mesh(config)
+    if mesh_note:
+        print(mesh_note)
     preempt.install_handlers()
     try:
         return supervise(config, device=device)

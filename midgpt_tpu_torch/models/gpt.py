@@ -55,7 +55,8 @@ import torch.nn.functional as F
 
 from midgpt_tpu_torch.device import DeviceLike, resolve_device
 from midgpt_tpu_torch.kernels.decode_attention import paged_attention, paged_verify_attention
-from midgpt_tpu_torch.ops.attention import multihead_attention, visible_mask
+from midgpt_tpu_torch.ops import remat
+from midgpt_tpu_torch.ops.attention import flash_kernel_usable, multihead_attention, visible_mask
 from midgpt_tpu_torch.ops.dropout import dropout
 from midgpt_tpu_torch.ops.norms import head_layer_norm, rms_norm
 from midgpt_tpu_torch.ops.quant import dequantize_q8, quantize_q8
@@ -114,9 +115,11 @@ class GPTConfig:
     """Model shape. Field names and validation follow the JAX GPTConfig so
     a config.json written by either package loads in both. attn_impl and
     attn_block_size pick the training attention path and its tiles, as in
-    JAX. The other JAX lowering knobs (remat, remat_policy, scan_unroll,
-    qkv_proj, attn_layout, decode_layer_scan) are kept for that reason and
-    change nothing here: every choice computes the same function."""
+    JAX; remat and remat_policy checkpoint each block of the training
+    forward with JAX's policies (`GPT.hidden`, ops/remat.py). The other JAX
+    lowering knobs (scan_unroll, qkv_proj, attn_layout, decode_layer_scan)
+    are kept for that reason and change nothing here: every choice
+    computes the same function."""
 
     block_size: int  # max sequence length
     vocab_size: int
@@ -378,42 +381,35 @@ class GPT:
         device: DeviceLike = None,
         dtype: torch.dtype = torch.float32,
     ) -> Params:
-        """Random parameters from a seed (or a CPU torch.Generator). Drawn
-        on the CPU, so a seed gives the same weights on every device; torch's
-        generator is not JAX's, so init matches the JAX package in
-        distribution, not bit for bit."""
+        """Random parameters from a seed (or a CPU torch.Generator), made
+        in `dtype` on `device`. Drawn on the CPU, so a seed gives the same
+        weights on every device; torch's generator is not JAX's, so init
+        matches the JAX package in distribution, not bit for bit. Each
+        leaf is allocated once on the device and filled layer by layer, so
+        the host holds one layer's f32 draws at a time (a 7B model's
+        weights are never all on the host, nor in f32 on a bf16 card)."""
         dev = resolve_device(device)
         gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(seed)
-        L, D, C, V = config.n_layer, config.n_embd, config.head_dim, config.vocab_size
-        KVD = config.kv_heads * C
-        gqa = config.n_kv_heads is not None
-        wqkv, wkv, wo, w_up, w_down = [], [], [], [], []
-        for _ in range(L):
-            if gqa:
+        L, D, V = config.n_layer, config.n_embd, config.vocab_size
+        KVD = config.kv_heads * config.head_dim
+        params = {k: torch.empty(s, device=dev, dtype=dtype) for k, s in param_shapes(config).items()}
+        for i in range(L):
+            if WKV in params:
                 # GQA layout: q at full width, k/v at n_kv_heads * C each
-                wqkv.append(_linear_init(gen, D, D).reshape(1, D, D))
-                wkv.append(_linear_init(gen, 2 * KVD, D).reshape(2, KVD, D))
+                params["blocks.attn.wqkv"][i].copy_(_linear_init(gen, D, D).reshape(1, D, D))
+                params[WKV][i].copy_(_linear_init(gen, 2 * KVD, D).reshape(2, KVD, D))
             else:
                 # iid rows: the (3, D, D) reshape of a (3D, D) init
-                wqkv.append(_linear_init(gen, 3 * D, D).reshape(3, D, D))
-            wo.append(_linear_init(gen, D, D))
-            w_up.append(_linear_init(gen, 4 * D, D))
-            w_down.append(_linear_init(gen, D, 4 * D))
+                params["blocks.attn.wqkv"][i].copy_(_linear_init(gen, 3 * D, D).reshape(3, D, D))
+            params["blocks.attn.wo"][i].copy_(_linear_init(gen, D, D))
+            params["blocks.mlp.w_up"][i].copy_(_linear_init(gen, 4 * D, D))
+            params["blocks.mlp.w_down"][i].copy_(_linear_init(gen, D, 4 * D))
         embed = torch.randn(V, D, generator=gen) / math.sqrt(D)
-        params = {
-            "wte": embed,
-            "blocks.attn.wqkv": torch.stack(wqkv),
-            "blocks.attn.wo": torch.stack(wo),
-            "blocks.attn.q_scale": torch.ones(L, C),
-            "blocks.attn.k_scale": torch.ones(L, C),
-            "blocks.mlp.w_up": torch.stack(w_up),
-            "blocks.mlp.w_down": torch.stack(w_down),
-            # init-only tying: same values, an independent tensor
-            "lm_head": embed.clone(),
-        }
-        if gqa:
-            params[WKV] = torch.stack(wkv)
-        return {k: params[k].to(device=dev, dtype=dtype) for k in param_names(config)}
+        params["wte"].copy_(embed)
+        params["lm_head"].copy_(embed)  # init-only tying: same values, an independent tensor
+        params["blocks.attn.q_scale"].fill_(1.0)
+        params["blocks.attn.k_scale"].fill_(1.0)
+        return params
 
     @staticmethod
     def _qkv_weights(
@@ -487,6 +483,38 @@ class GPT:
         return x + dropout(h, config.dropout, generator, inference)
 
     @staticmethod
+    def _block_apply(
+        config: GPTConfig,
+        blk: Params,
+        x: Tensor,
+        sin: Tensor,
+        cos: Tensor,
+        *,
+        generator: tp.Optional[torch.Generator] = None,
+        inference: bool = False,
+        policy: tp.Optional[str] = None,
+    ) -> Tensor:
+        """One block: QKV, QK-norm, RoPE, attention, output projection, MLP.
+        Under a remat `policy` the tensors it keeps by name are named
+        (ops/remat.py `name`); otherwise nothing is."""
+        q, k, v = GPT._project_qkv(config, blk, rms_norm(x))
+        q = apply_rope_bthc(q, sin, cos, style=config.rope_style)
+        k = apply_rope_bthc(k, sin, cos, style=config.rope_style)
+        # GQA: the training attention takes equal head counts — K/V
+        # repeat to the query heads after RoPE (which ran at H_kv)
+        k, v = _repeat_kv(config, k, 2), _repeat_kv(config, v, 2)
+        q, k, v = (remat.name(t, tag, policy) for t, tag in zip((q, k, v), ("q_rot", "k_rot", "v_proj")))
+        att = multihead_attention(
+            q, k, v, impl=config.attn_impl, dropout_rate=config.dropout,
+            generator=generator, inference=inference,
+            block_size=config.attn_block_size, layout="bthc",
+            sliding_window=config.sliding_window, attn_sinks=config.attn_sinks,
+        )
+        if not (config.attn_impl == "flash" and flash_kernel_usable(x.shape[1], config.attn_block_size)):
+            att = remat.name(att, "attn_out", policy)  # the flash op's out is kept as the op's
+        return GPT._attn_out_and_mlp(config, blk, x, att, generator=generator, inference=inference)
+
+    @staticmethod
     def hidden(
         config: GPTConfig,
         params: Params,
@@ -500,25 +528,33 @@ class GPT:
         Training mode (inference=False) applies dropout at config.dropout
         from `generator` (required when dropout > 0). The lm_head projection
         is applied by `apply` (full logits) or fused into the chunked loss
-        (training — ops/loss.py fused_linear_cross_entropy)."""
+        (training — ops/loss.py fused_linear_cross_entropy).
+
+        With `config.remat`, a training forward that records gradients runs
+        each block under torch.utils.checkpoint (ops/remat.py
+        `checkpoint_block`): the backward recomputes the block, and
+        `config.remat_policy` says what the forward keeps for it besides
+        the block input —
+          'none': nothing;
+          'dots': the QKV, wo, w_up and w_down products (not the batched
+            products of naive or blockwise attention);
+          'dots_attn': dots' tensors and the attention output (with flash,
+            the forward kernel's out and lse, so it is not launched again);
+          'flash': dots_attn's tensors and the rotated q and k, and v.
+        Eval (`torch.no_grad`) and serving do not checkpoint. The dropout
+        generator is set back for each block's recompute, so it draws the
+        forward's masks."""
         T = tokens.shape[1]
+        checkpointed = config.remat and not inference and torch.is_grad_enabled()
+        policy = config.remat_policy if checkpointed else None
         x = dropout(params["wte"][tokens], config.dropout, generator, inference)
         sin, cos = rope_table(config.head_dim, T, device=x.device)
         for i in range(config.n_layer):
-            blk = _block(params, i)
-            q, k, v = GPT._project_qkv(config, blk, rms_norm(x))
-            q = apply_rope_bthc(q, sin, cos, style=config.rope_style)
-            k = apply_rope_bthc(k, sin, cos, style=config.rope_style)
-            # GQA: the training attention takes equal head counts — K/V
-            # repeat to the query heads after RoPE (which ran at H_kv)
-            k, v = _repeat_kv(config, k, 2), _repeat_kv(config, v, 2)
-            att = multihead_attention(
-                q, k, v, impl=config.attn_impl, dropout_rate=config.dropout,
-                generator=generator, inference=inference,
-                block_size=config.attn_block_size, layout="bthc",
-                sliding_window=config.sliding_window, attn_sinks=config.attn_sinks,
+            block = functools.partial(
+                GPT._block_apply, config, _block(params, i), sin=sin, cos=cos,
+                generator=generator, inference=inference, policy=policy,
             )
-            x = GPT._attn_out_and_mlp(config, blk, x, att, generator=generator, inference=inference)
+            x = remat.checkpoint_block(block, x, policy, generator) if checkpointed else block(x)
         return rms_norm(x, eps=1e-5)
 
     @staticmethod

@@ -34,7 +34,10 @@ import pickle
 import time
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
+    """Serve the requests; returns the engine's `stats()`, the seconds to
+    make the weights, pool and engine, the weights' bytes, the wall
+    seconds of `run` and each request's tokens."""
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     src = parser.add_mutually_exclusive_group(required=True)
     src.add_argument("--config", type=str, help="named preset (midgpt_tpu_torch/configs)")
@@ -88,9 +91,12 @@ def main(argv=None) -> None:
         return cfg, restore_for_sampling(run_dir, cfg, device)[0]
 
     device = resolve_device(args.device)
+    t_init = time.perf_counter()
     if args.config is not None:
         config = load_config(args.config)
-        params = GPT.init(config.model_config, args.seed, device=device)
+        # made in the compute dtype: a 7B model's f32 copy never exists
+        params = GPT.init(config.model_config, args.seed, device=device,
+                          dtype=getattr(torch, config.compute_dtype))
     else:
         config, params = read_run(args.ckpt_dir)
     compute_dtype = getattr(torch, config.compute_dtype)
@@ -146,6 +152,10 @@ def main(argv=None) -> None:
         spec_k_min=config.spec_k_min,
         spec_adapt=config.spec_adapt,
     )
+    init_s = time.perf_counter() - t_init
+    weight_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    print(f"weights: {weight_bytes:,} bytes ({str(compute_dtype)[6:]}); paged pool "
+          f"{eng.cache_hbm_bytes():,} bytes ({kv_dtype}); weights, pool and engine made in {init_s:.2f} s")
     prompt = np.asarray(start_ids, np.int32)
     uids = [eng.submit(prompt, args.max_new_tokens) for _ in range(args.num_samples)]
     t0 = time.perf_counter()
@@ -167,6 +177,8 @@ def main(argv=None) -> None:
             f"speculative: {s['rounds']} verify rounds, accept_rate {s['accept_rate']:.2f}, "
             f"tokens/verify {s['tokens_per_verify']:.2f}"
         )
+    return {"stats": st, "init_s": init_s, "weight_bytes": weight_bytes, "wall_s": wall,
+            "streams": [finished[u].tokens for u in uids]}
 
 
 if __name__ == "__main__":

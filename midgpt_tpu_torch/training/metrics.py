@@ -1,11 +1,13 @@
-"""Training metrics: FLOPs per token, MFU against the card's own peak, and
-a jsonl + stdout logger (counterpart of midgpt_tpu/training/metrics.py;
-wandb, the progress bar and the profiler hook are not ported)."""
+"""Training metrics: FLOPs per token, MFU against the card's own peak, a
+jsonl + stdout logger and the `--debug` one-step trace (counterpart of
+midgpt_tpu/training/metrics.py; wandb and the progress bar are not
+ported)."""
 
 from __future__ import annotations
 
 import json
 import os
+import tempfile
 import time
 import typing as tp
 
@@ -71,3 +73,40 @@ class MetricLogger:
         if self._file is not None:
             self._file.close()
             self._file = None
+
+
+class Profiler:
+    """One-shot `torch.profiler` trace of one step (JAX's Profiler,
+    midgpt_tpu/training/metrics.py:183): `train` starts it before the
+    first step after the first and stops it after that step, under
+    `debug` only. The Chrome trace goes to the run directory, or to
+    `<tempdir>/midgpt_trace` when there is none, as
+    `trace_step<N>.json`."""
+
+    def __init__(self, rundir: str, enabled: bool):
+        self.rundir, self.enabled = rundir, enabled
+        self._prof: tp.Optional[torch.profiler.profile] = None
+        self._step = -1
+
+    def maybe_start(self, step: int, at_step: int = 0) -> None:
+        if self.enabled and step == at_step:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=activities)
+            self._prof.start()
+            self._step = step
+
+    def maybe_stop(self, wait_for: tp.Optional[torch.Tensor] = None) -> None:
+        """Stop an active trace once `wait_for` is computed and export it."""
+        if self._prof is None:
+            return
+        if wait_for is not None and wait_for.is_cuda:
+            torch.cuda.synchronize(wait_for.device)
+        self._prof.stop()
+        out_dir = self.rundir or os.path.join(tempfile.gettempdir(), "midgpt_trace")
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"trace_step{self._step}.json")
+        self._prof.export_chrome_trace(path)
+        self._prof = None
+        print(f"profiler: step {self._step} traced to {path}")

@@ -11,7 +11,10 @@ Step semantics follow the JAX step (reference train.py:69-97):
     in place, and the loss is folded with the sticky `health_flag`.
 PyTorch runs eagerly: the step is a Python function, not one compiled
 program. Eval runs `eval_steps` seeded batches at the compute dtype with
-dropout off.
+dropout off. With `model_config.remat` each block of the training forward
+is checkpointed under `remat_policy` (models/gpt.py `GPT.hidden`). Under
+`debug`, the first step after the first is traced with torch.profiler
+(training/metrics.py `Profiler`), as JAX traces it.
 
 `train` checkpoints and resumes as JAX's does (midgpt_tpu/training/train.py:497-849):
 a run with a `rundir` (and not `debug`) resumes from the newest verified
@@ -62,7 +65,7 @@ from midgpt_tpu_torch.robustness import faults, preempt
 from midgpt_tpu_torch.robustness.errors import DivergenceError
 from midgpt_tpu_torch.robustness.watchdog import StepWatchdog
 from midgpt_tpu_torch.training.checkpoint import CheckpointManager
-from midgpt_tpu_torch.training.metrics import MetricLogger, mfu
+from midgpt_tpu_torch.training.metrics import MetricLogger, Profiler, mfu
 from midgpt_tpu_torch.training.optim import Optimizer, OptState, make_optimizer
 
 Tensor = torch.Tensor
@@ -259,6 +262,7 @@ def train(config: ExperimentConfig, *, device: DeviceLike = None) -> dict:
     print(f"Model has {GPT.count_params(params):,} parameters.")
 
     logger = MetricLogger("" if config.debug else config.rundir)
+    profiler = Profiler(config.rundir, enabled=config.debug)
     T, G = config.model_config.block_size, config.g_accum_iters
     metrics: tp.Dict[str, tp.Any] = {}
     loss = torch.zeros((), dtype=torch.float32, device=dev)  # sticky health carrier
@@ -302,11 +306,13 @@ def train(config: ExperimentConfig, *, device: DeviceLike = None) -> dict:
 
             data_itr = itr + config.data_step_offset
             x, y = dataset.batch("train", data_itr, T, config.batch_size, G)
+            profiler.maybe_start(itr, at_step=first_step + 1)
             with tr.span("train.step", "train", "train"):
                 params, opt_state, loss = step(
                     params, opt_state, _tokens(x, dev), _tokens(y, dev),
                     _generators(config, data_itr, G, dev), loss,
                 )
+            profiler.maybe_stop(wait_for=loss)
             if faults.should_fire("nan_grad", step=data_itr):
                 # poison the carrier as a NaN gradient would; no sync
                 loss = torch.full((), float("nan"), dtype=torch.float32, device=dev)

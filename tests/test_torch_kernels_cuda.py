@@ -782,3 +782,63 @@ def test_capture_beside_a_thread_in_a_sync(cuda):
     want = _eager_group(eager_eng, _GROUP_A, _zero_chain(cuda))[0]
     assert torch.equal(torch.from_numpy(toks), want[:8].cpu())
     assert torch.equal(torch.from_numpy(emitted), want[8:].cpu().bool())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["none", "dots", "dots_attn", "flash"])
+def test_remat_policy_matches_remat_off_through_the_kernels(cuda, policy):
+    """A bf16 flash training forward and backward with per-block remat
+    equals remat off bit for bit (deterministic kernels, the same ops), and
+    the flash forward kernel is launched again in the backward exactly
+    under the policies that do not keep its output."""
+    import dataclasses
+
+    from midgpt_tpu_torch.ops.loss import fused_linear_cross_entropy
+
+    off = GPTConfig(block_size=256, vocab_size=256, n_layer=2, n_head=2, n_embd=256,
+                    attn_impl="flash", rope_style="split", remat=False)
+    params = GPT.init(off, 0, device=cuda, dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(1)
+    x, y = (torch.randint(0, 256, (2, 256), generator=g).to(cuda) for _ in range(2))
+
+    def run(cfg):
+        p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+        fa.FWD_LAUNCHES.reset()
+        loss = fused_linear_cross_entropy(GPT.hidden(cfg, p, x), p["lm_head"], y, 8192, None)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        torch.cuda.synchronize()
+        return loss, grads, fa.FWD_LAUNCHES.count
+
+    want_loss, want_grads, want_fwd = run(off)
+    loss, grads, fwd = run(dataclasses.replace(off, remat=True, remat_policy=policy))
+    assert torch.equal(loss, want_loss)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))
+    assert want_fwd == off.n_layer
+    assert fwd == off.n_layer * (2 if policy in ("none", "dots") else 1)
+
+
+@pytest.mark.cuda
+def test_remat_with_dropout_on_the_card(cuda):
+    """Dropout from a CUDA generator under remat: the recompute draws the
+    forward's masks, so loss and grads equal remat off bit for bit."""
+    import dataclasses
+
+    from midgpt_tpu_torch.ops.loss import fused_linear_cross_entropy
+
+    off = GPTConfig(block_size=128, vocab_size=128, n_layer=2, n_head=2, n_embd=128, dropout=0.2, remat=False)
+    params = GPT.init(off, 0, device=cuda)
+    g = torch.Generator().manual_seed(1)
+    x, y = (torch.randint(0, 128, (2, 128), generator=g).to(cuda) for _ in range(2))
+
+    def run(cfg):
+        p = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        h = GPT.hidden(cfg, p, x, generator=gen)
+        loss = fused_linear_cross_entropy(h, p["lm_head"], y, 8192, None)
+        return loss, torch.autograd.grad(loss, list(p.values()))
+
+    want_loss, want_grads = run(off)
+    for policy in ("none", "dots"):
+        loss, grads = run(dataclasses.replace(off, remat=True, remat_policy=policy))
+        assert torch.equal(loss, want_loss)
+        assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))

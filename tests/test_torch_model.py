@@ -197,7 +197,11 @@ def test_init_statistics():
     assert not torch.equal(GPT.init(GPTConfig(**shape), 1, device=CPU)["wte"], tp_["wte"])
 
 
-@pytest.mark.parametrize("name", ["openwebtext", "shakespeare_char", "local_text_124m"])
+PRESETS = ["openwebtext", "shakespeare_char", "local_text_124m", "wide610m", "openwebtext_xl", "openwebtext_mh",
+           "local_text_124m_10k", "llama7b_long", "llama7b_32k"]
+
+
+@pytest.mark.parametrize("name", PRESETS)
 def test_configs_load_from_jax_config_json(name):
     """A config.json written by the JAX package loads in the port, and the
     port's presets equal the JAX presets field for field."""
@@ -212,6 +216,75 @@ def test_configs_load_from_jax_config_json(name):
     for got in (from_json(to_json(jcfg)), load_config(name)):
         assert dataclasses.asdict(got) == dataclasses.asdict(jcfg)
     assert t_to_json(load_config(name)) == to_json(jcfg)
+
+
+def test_every_jax_preset_has_a_port_preset():
+    import pkgutil
+
+    import midgpt_tpu.configs
+
+    assert sorted(m.name for m in pkgutil.iter_modules(midgpt_tpu.configs.__path__)) == sorted(PRESETS)
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_launcher_names_a_mesh_it_leaves_unused(name):
+    """The presets whose mesh spans several devices (an axis above 1) get
+    the launcher's one line; the single-device ones none."""
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.launch import unused_mesh
+
+    note = unused_mesh(load_config(name))
+    if name in ("openwebtext_xl", "openwebtext_mh", "llama7b_long", "llama7b_32k"):
+        assert "fsdp=" in note and "Queue 1 item 7" in note
+    else:
+        assert note is None
+
+
+def _stacked_init(config, seed, dtype):
+    """GPT.init as it was before it filled its leaves layer by layer: every
+    layer's f32 draws stacked on the host, then cast."""
+    import math
+
+    from midgpt_tpu_torch.models.gpt import WKV, _linear_init, param_names
+
+    gen = torch.Generator().manual_seed(seed)
+    L, D, C, V = config.n_layer, config.n_embd, config.head_dim, config.vocab_size
+    KVD = config.kv_heads * C
+    gqa = config.n_kv_heads is not None
+    wqkv, wkv, wo, w_up, w_down = [], [], [], [], []
+    for _ in range(L):
+        if gqa:
+            wqkv.append(_linear_init(gen, D, D).reshape(1, D, D))
+            wkv.append(_linear_init(gen, 2 * KVD, D).reshape(2, KVD, D))
+        else:
+            wqkv.append(_linear_init(gen, 3 * D, D).reshape(3, D, D))
+        wo.append(_linear_init(gen, D, D))
+        w_up.append(_linear_init(gen, 4 * D, D))
+        w_down.append(_linear_init(gen, D, 4 * D))
+    embed = torch.randn(V, D, generator=gen) / math.sqrt(D)
+    params = {
+        "wte": embed, "blocks.attn.wqkv": torch.stack(wqkv), "blocks.attn.wo": torch.stack(wo),
+        "blocks.attn.q_scale": torch.ones(L, C), "blocks.attn.k_scale": torch.ones(L, C),
+        "blocks.mlp.w_up": torch.stack(w_up), "blocks.mlp.w_down": torch.stack(w_down), "lm_head": embed.clone(),
+    }
+    if gqa:
+        params[WKV] = torch.stack(wkv)
+    return {k: params[k].to(dtype) for k in param_names(config)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("extra", [{}, dict(n_kv_heads=1)])
+def test_init_fills_each_layer_with_the_stacked_draws(dtype, extra):
+    """Filling preallocated leaves layer by layer in the target dtype gives
+    the values of every layer's draws stacked in f32 and cast: a seed's
+    weights did not change."""
+    cfg = GPTConfig(**SHAPE, **extra)
+    got = GPT.init(cfg, 3, device=CPU, dtype=dtype)
+    want = _stacked_init(cfg, 3, dtype)
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == dtype and torch.equal(got[k], want[k]), k
+    assert got["lm_head"].data_ptr() != got["wte"].data_ptr()
 
 
 @pytest.mark.parametrize("extra", [dict(n_experts=2)])

@@ -275,3 +275,25 @@ def test_launch_needs_cuda_unless_cpu_is_asked(data_dir):
     assert r.returncode != 0 and "CUDA" in r.stderr
     r = _run(["-m", "midgpt_tpu_torch.launch", "--config=local_text_124m", "--multihost", "--device=cpu"])
     assert r.returncode != 0 and "multi-host" in r.stderr
+
+
+def test_debug_run_traces_its_second_step_only(data_dir, tmp_path, monkeypatch):
+    """`--debug` on the CPU: a 2-step launcher run writes one Chrome trace,
+    of step 1 (the first step after the first), to <tempdir>/midgpt_trace
+    (no run directory under --debug), and writes nothing else."""
+    import json
+    import tempfile
+
+    from midgpt_tpu_torch import launch
+
+    tmp, cwd = tmp_path / "tmp", tmp_path / "cwd"
+    tmp.mkdir()
+    cwd.mkdir()
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp))
+    monkeypatch.chdir(cwd)
+    tiny = [a if not a.startswith("max_steps=") else "max_steps=2" for a in TINY]
+    launch.main(["--config=local_text_124m", "--device=cpu", "--debug", "--set", f"data_dir={data_dir}", *tiny])
+    written = sorted(str(p.relative_to(tmp_path)) for p in tmp_path.rglob("*") if p.is_file())
+    assert written == ["tmp/midgpt_trace/trace_step1.json"]
+    events = json.loads((tmp / "midgpt_trace" / "trace_step1.json").read_text())["traceEvents"]
+    assert any(e.get("name") == "aten::mm" for e in events)
