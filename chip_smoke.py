@@ -194,6 +194,29 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
         weights' and the paged pool's bytes, init seconds, peak memory,
         decode tokens/s, and paged (and merge) launches == n_layer x
         decode steps;
+     Every `sample.main` call of phases 5b, 5c, 6b and 11d passes
+     `--engine=continuous` (the batch engine is the default, as in JAX);
+ 12. (run after phase 11) the batch sampler (`sample --engine batch`,
+     sampling/engine.py `generate`): the prompt is a 37-token text through
+     data/local_text's HF BPE codec where `tokenizers` imports, else its
+     ids (printed). a. `sample.main --config=local_text_124m --engine=batch
+     --temperature=0` on random bf16 weights from seed 0, B 1 and 8, 256
+     new tokens, and a 1000-token prompt with 40 new tokens that crosses
+     the cache (15 windowed forwards); flash counters zeroed just before
+     each run and read just after: flash_fwd launches == n_layer x (1 +
+     overflow tokens), all single-visit; chunks == JAX's rule; one capture
+     and a replay per decoded step; every row its budget, rows identical.
+     Then on the same weights, decode tokens/s with the step replayed and
+     eager (one `generate` call each, in turns; tokens bit for bit
+     sample.main's), the device busy share of a replayed chunk of 64 steps
+     (torch.profiler), and the step's byte bound (weights and the whole
+     cache over 3.35 TB/s); b. the same for wide610m (C 128), B 8, 128 new
+     tokens; c. f32 on local_text_124m's weights: batch greedy streams of
+     4 prompts == the continuous engine's (a departure only at a near-tie,
+     as 5b), replayed == eager bit for bit, and the flash forward at each
+     of the phase's prompt lengths (37, 1000, 1024) in bf16 and f32 ==
+     its plain version, then timed in bf16 beside its bound, its plain
+     version and SDPA's forward;
  10. timings: the paged decode kernel as before (CUDA-graph replay, cold
      L2), and each flash kernel in bf16 (CUDA events over repeated
      launches) at the main path's shape and at one shape per other
@@ -223,8 +246,10 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      under the C 128 entries.
 
 The last lines are the card's name and power limit as nvidia-smi prints
-them, one JSON object with a "kernels" list and phase 4b's "decode_modes"
-(tokens/s and busy share per overlap mode), and the contract line
+them, one JSON object with a "kernels" list (flash_fwd's launches include
+phase 12's), phase 4b's "decode_modes" (tokens/s and busy share per
+overlap mode) and phase 12's "batch_decode" (replayed and eager tokens/s
+and the replayed chunk's busy share per cell), and the contract line
 {"ok": true, "device": {...}}.
 """
 
@@ -921,7 +946,7 @@ def spec_serving(card, params32, params16, plain32_streams):
 
     # sample.main with the config's defaults: the 4-layer self-draft, bf16
     tpl.LAUNCHES.reset()
-    sample.main(["--config=local_text_124m", "--start_ids=50,11,3", "--num_samples=2",
+    sample.main(["--config=local_text_124m", "--engine=continuous", "--start_ids=50,11,3", "--num_samples=2",
                  "--max_new_tokens=24", "--temperature=0"])
     torch.cuda.synchronize()
     specs = {spec for spec, _ in tpl.LAUNCHES.by_variant}
@@ -1142,8 +1167,8 @@ def sample_specs(rundir: Path, *extra):
     from midgpt_tpu_torch.kernels import attention_template as tpl
 
     tpl.LAUNCHES.reset()
-    sample.main([f"--ckpt_dir={rundir}", "--start_ids=50,11,3", "--num_samples=2", "--max_new_tokens=24",
-                 "--temperature=0", *extra])
+    sample.main([f"--ckpt_dir={rundir}", "--engine=continuous", "--start_ids=50,11,3", "--num_samples=2",
+                 "--max_new_tokens=24", "--temperature=0", *extra])
     torch.cuda.synchronize()
     print(f"sample.main --ckpt_dir ({rundir.name}{' ' if extra else ''}{' '.join(extra)}) launches: "
           f"{dict(tpl.LAUNCHES.by_variant)}")
@@ -2258,8 +2283,8 @@ def llama_serving(card: str):
     torch.cuda.reset_peak_memory_stats()
     tpl.LAUNCHES.reset()
     tpl.MERGE_LAUNCHES.reset()
-    out = sample.main(["--config=llama7b_long", f"--start_ids={','.join(map(str, prompt))}", "--temperature=0",
-                       f"--num_samples={n_req}", f"--max_new_tokens={new_tokens}"])
+    out = sample.main(["--config=llama7b_long", "--engine=continuous", f"--start_ids={','.join(map(str, prompt))}",
+                       "--temperature=0", f"--num_samples={n_req}", f"--max_new_tokens={new_tokens}"])
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     st, streams = out["stats"], out["streams"]
@@ -2367,6 +2392,301 @@ FLASH_SOURCES = {  # the TPU body each kernel replaces on the main path (all: cs
     "flash_bwd_dq": "midgpt_tpu/kernels/flash_attention.py:265",
     "flash_bwd_dkv": "midgpt_tpu/kernels/flash_attention.py:265",
 }
+
+
+# ---------------------------------------------------------------- phase 12: the batch sampler
+
+# the phase's prompt: text through data/local_text's HF BPE codec, and its 37 ids
+BATCH_TEXT = ("Once upon a time, in a quiet village at the edge of a great forest, there lived an old clockmaker "
+              "who repaired every clock in town and never")
+BATCH_IDS = (35545, 13946, 279, 1023, 12, 302, 279, 24270, 338, 13650, 637, 561, 308, 5428, 391, 279, 31875, 14230,
+             266, 12, 2833, 1679, 1774, 396, 3759, 12994, 27972, 22025, 301, 42183, 5062, 12994, 302, 367, 3132, 466,
+             8901)
+BATCH_ROWS, BATCH_NEW = (1, 8), 256  # 12a: local_text_124m
+OVERFLOW_PROMPT, OVERFLOW_NEW = 1000, 40  # 12a: 24 tokens decoded in the cache, 15 by windowed forwards
+WIDE_ROWS, WIDE_NEW = 8, 128  # 12b: wide610m
+PARITY_ROWS, PARITY_NEW = 4, 64  # 12c: f32 parity, distinct 37-token prompts
+EARLIER_SMOKE_S = 499.9  # this script's wall time before phase 12 was added (PERF.md, earlier slices)
+
+
+def jax_chunks(T0: int, new: int, S: int, chunk: int = 64):
+    """(chunk lengths, overflow tokens) of JAX's `generate` for a prompt of
+    T0 tokens, `new` new tokens and a cache of S: its rule
+    (midgpt_tpu/sampling/engine.py), restated here, as this script imports
+    no JAX (tests/test_torch_generate.py holds the port to JAX's own loop)."""
+    T_ctx, produced, out = min(T0, S), 1, []
+    while produced < new and T_ctx + produced <= S:
+        budget = min(chunk, new - produced, S - T_ctx - produced + 1)
+        n = 1 << (budget.bit_length() - 1)
+        out.append(n)
+        produced += n
+    return out, new - produced
+
+
+def batch_prompt_args():
+    """The phase's prompt as `sample.main` arguments: the text where
+    `tokenizers` imports (the BPE codec then encodes it), else its ids."""
+    try:
+        import tokenizers  # noqa: F401
+    except ImportError:
+        print("phase 12: `tokenizers` is not importable here: the prompt goes in as --start_ids (its 37 BPE ids), "
+              "and rows are printed as ids")
+        return [f"--start_ids={','.join(map(str, BATCH_IDS))}"]
+    print(f"phase 12: the prompt goes in as --start text through data/local_text's HF BPE codec: {BATCH_TEXT!r}")
+    return [f"--start={BATCH_TEXT}"]
+
+
+def batch_main(preset: str, rows: int, new: int, prompt_args, label: str):
+    """`sample.main --config=<preset> --engine=batch --temperature=0`, its
+    flash counters zeroed just before and read just after. Every row must
+    hold the prompt and `new` tokens in the vocabulary, all rows the same
+    tokens; the chunks JAX's rule; one capture and a replay per decoded
+    step; and flash_fwd launches n_layer x (1 + overflow tokens), all
+    single-visit, with no backward launch. Returns (sample.main's result,
+    flash_fwd launches)."""
+    from midgpt_tpu_torch import sample
+    from midgpt_tpu_torch.config import load_config
+
+    mc = load_config(preset).model_config
+    for counter in flash_counters().values():
+        counter.reset()
+    printed = io.StringIO()
+    with contextlib.chdir(ROOT), contextlib.redirect_stdout(printed):  # the preset's data_dir is the repo's
+        out = sample.main([f"--config={preset}", "--engine=batch", "--temperature=0", f"--num_samples={rows}",
+                           f"--max_new_tokens={new}", *prompt_args])
+    torch.cuda.synchronize()
+    launches = {name: dict(c.by_variant) for name, c in flash_counters().items()}
+    text = printed.getvalue()
+    summary = next(line for line in text.splitlines() if "(batch engine)" in line)
+    streams = out["streams"]
+    T0 = len(streams[0]) - new
+    chunks, overflow = jax_chunks(T0, new, mc.block_size)
+    print(f"{label}: {summary}")
+    print(f"  row 0 as printed: {text[:160]!r}")
+    bad = []
+    if out["engine"] != "batch":
+        bad.append(f"engine {out['engine']}")
+    if any(len(t) != T0 + new or not ((0 <= t) & (t < mc.vocab_size)).all() for t in streams) or len(streams) != rows:
+        bad.append("a row is not the prompt and its new tokens in the vocabulary")
+    if not all(np.array_equal(t, streams[0]) for t in streams):
+        bad.append("greedy rows of one prompt differ")
+    if out["chunks"] != chunks or out["overflow_tokens"] != overflow:
+        bad.append(f"chunks {out['chunks']} + {out['overflow_tokens']} overflow, JAX's rule {chunks} + {overflow}")
+    if (out["captures"], out["replays"]) != (1 if chunks else 0, sum(chunks)):
+        bad.append(f"captures {out['captures']}, replays {out['replays']}")
+    want = {"single": mc.n_layer * (1 + overflow)}
+    if launches["flash_fwd"] != want or out["flash_launches"] != want or any(
+            launches[k] for k in ("flash_bwd_dq", "flash_bwd_dkv")):
+        bad.append(f"flash launches {launches}, want flash_fwd {want} (n_layer x (1 prefill + {overflow} windows))")
+    print(f"  prefill {1e3 * out['prefill_s']:.2f} ms ({T0} tokens x {rows} rows); flash_fwd launches "
+          f"{launches['flash_fwd']} = {mc.n_layer} x (1 + {overflow}); chunks {out['chunks']} (JAX's rule "
+          f"{chunks}); graphs captured {out['captures']}, replays {out['replays']}; "
+          f"{'ok' if not bad else 'FAIL: ' + '; '.join(bad)}")
+    if bad:
+        raise SystemExit(f"{label}: " + "; ".join(bad))
+    return out, sum(launches["flash_fwd"].values())
+
+
+def batch_decode_rates(label: str, mc, params, rows: int, new: int, want_streams):
+    """Decode tokens/s of `generate` with the step replayed and eager (the
+    same loop, its private hook), in turns (eager, replayed, replayed,
+    eager) after one capturing call; every call's greedy tokens must equal
+    `want_streams` (sample.main's on the same weights) bit for bit.
+    Returns {mode: [tokens/s, ...]} with the capturing call's beside."""
+    from midgpt_tpu_torch.sampling import engine
+    from midgpt_tpu_torch.sampling.graphs import StepGraphs
+
+    prompt = np.tile(np.asarray(BATCH_IDS, np.int64), (rows, 1))
+    graphs = StepGraphs(torch.device("cuda"))
+    rates = {"capturing": [], "replayed": [], "eager": []}
+    for mode in ("capturing", "eager", "replayed", "replayed", "eager"):
+        st = {}
+        kw = {"_eager": True} if mode == "eager" else {"graphs": graphs}
+        got = engine.generate(mc, params, prompt, new, temperature=0.0, device="cuda", stats=st, **kw)
+        if not np.array_equal(got.numpy(), np.stack(want_streams)):
+            raise SystemExit(f"{label}: {mode} greedy tokens differ from sample.main's")
+        rates[mode].append(rows * (new - 1) / st["decode_s"])
+    if graphs.captures != 1:
+        raise SystemExit(f"{label}: {graphs.captures} captures for one key")
+    return rates
+
+
+def profile_replayed_chunk(mc, params, rows: int, steps: int = 64):
+    """torch.profiler over one replayed decode chunk of `steps` steps (the
+    captured step, as `generate` replays it) after a prefill of the phase's
+    prompt and one chunk outside the window. Returns (wall us, {kernel:
+    device us})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from midgpt_tpu_torch.sampling import engine
+    from midgpt_tpu_torch.sampling.graphs import StepGraphs
+
+    dev = torch.device("cuda")
+    prompt = torch.tensor(BATCH_IDS, device=dev).repeat(rows, 1)
+    T, dtype, knobs = prompt.shape[1], engine.tokens_dtype(params), (0.0, None, None)
+    graphs = StepGraphs(dev)
+    cap = graphs.get("profile", lambda: engine._new_batch(mc, rows, dtype, dev),
+                     lambda state, gen: engine._decode_step(mc, params, *knobs, state, gen), None)
+    first, _ = engine._prefill_and_first(mc, params, prompt, *knobs, None, cache=cap.state.cache)
+    cap.state.seq[:, :T] = prompt
+    cap.state.seq[:, T] = first
+    graphs.replay(cap, steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        graphs.replay(cap, steps)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return wall_us, device_time_by_kernel(prof)
+
+
+def decode_bound_ms(mc, params, rows: int):
+    """(least ms of one decode step by bytes, weight bytes, cache bytes): the
+    weights it reads (all leaves but the embedding, of which it reads `rows`
+    rows) and the whole cache, 2 x n_layer x B x H_kv x S x C, which the
+    step attends over under a mask, over 3.35 TB/s. Its operations (~2
+    flops a weight a row) bound it far below that."""
+    item = params["wte"].element_size()
+    weights = sum(t.numel() * t.element_size() for name, t in params.items() if name != "wte")
+    weights += rows * mc.n_embd * item
+    cache = 2 * mc.n_layer * rows * mc.kv_heads * mc.block_size * mc.head_dim * item
+    return (weights + cache) / HBM_BYTES_PER_S * 1e3, weights, cache
+
+
+def batch_speed(card: str, label: str, preset: str, rows: int, new: int, want_streams):
+    """Replayed against eager decode, the busy share of a replayed chunk and
+    the step's byte bound, on `preset`'s bf16 weights from seed 0
+    (sample.main's)."""
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.models.gpt import GPT
+
+    mc = load_config(preset).model_config
+    params = GPT.init(mc, 0, device="cuda", dtype=torch.bfloat16)
+    rates = batch_decode_rates(label, mc, params, rows, new, want_streams)
+    b_ms, w_bytes, c_bytes = decode_bound_ms(mc, params, rows)
+    print(f"{label} decode, bf16 B={rows}, {new} new tokens: replayed {[round(r, 1) for r in rates['replayed']]} "
+          f"tokens/s, eager {[round(r, 1) for r in rates['eager']]} tokens/s (one call each, in turns), capturing "
+          f"call {rates['capturing'][0]:.1f}; replayed / eager {np.mean(rates['replayed']) / np.mean(rates['eager']):.2f}x; "
+          f"replayed step {1e3 * rows / np.mean(rates['replayed']):.4f} ms vs bound {b_ms:.4f} ms by bytes "
+          f"(weights {w_bytes:,} + cache {c_bytes:,} bytes over 3.35 TB/s) on {card}")
+    busy = print_busy(f"{label} B={rows} replayed chunk (64 steps)", *profile_replayed_chunk(mc, params, rows), card,
+                      top=4)
+    del params
+    free_memory()
+    return rates, busy
+
+
+def check_flash_forward(label, B, H, T, C, dtype):
+    """Phase 12: the flash forward at one prompt length of the batch path,
+    at the blocks the prefill gives it, vs the plain version (out: TOL,
+    lse: 1e-5 abs+rel); returns max |err| of out."""
+    from midgpt_tpu_torch.kernels import flash_attention as fa
+    from midgpt_tpu_torch.ops.attention import flash_block_sizes
+
+    bq, bk = flash_block_sizes(T, 1024)
+    q, k, v, _ = flash_problem(B, H, T, C, dtype, seed=T)
+    out, lse = fa.flash_forward(q, k, v, bq, bk)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_forward_plain(q, k, v, bq, bk)
+    tol = TOL[dtype]
+    err = (out.float() - want_out.float()).abs().max().item()
+    ok = (bool(torch.isfinite(out).all()) and torch.allclose(out.float(), want_out.float(), atol=tol, rtol=tol)
+          and torch.allclose(lse, want_lse, atol=1e-5, rtol=1e-5))
+    print(f"kernel check flash forward {label} B={B} H={H} T={T} C={C} blocks=({bq},{bk}) {str(dtype)[6:]}: "
+          f"out {err:.3e} lse {(lse - want_lse).abs().max().item():.3e} (tol {tol:g}, 1e-5) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"flash forward disagrees with its plain version ({label}, T {T}, {dtype})")
+    return err
+
+
+def time_flash_forward(B, H, T, C, dtype=torch.bfloat16):
+    """(device ms, plain ms, SDPA forward ms, (bound ms, by)) of the forward
+    at one prefill shape (CUDA events over repeated launches)."""
+    import torch.nn.functional as F
+
+    from midgpt_tpu_torch.kernels import flash_attention as fa
+    from midgpt_tpu_torch.ops.attention import flash_block_sizes
+
+    bq, bk = flash_block_sizes(T, 1024)
+    q, k, v, _ = flash_problem(B, H, T, C, dtype, seed=3)
+    ms = event_ms(lambda: fa.flash_forward(q, k, v, bq, bk), 50)
+    plain = event_ms(lambda: fa.flash_forward_plain(q, k, v, bq, bk), 5, 1)
+    q4, k4, v4 = (t.view(B, H, T, C) for t in (q, k, v))
+    sdpa = event_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), 50)
+    return ms, plain, sdpa, flash_bounds(B, H, T, C, dtype)["flash_fwd"]
+
+
+def batch_parity(card: str):
+    """Phase 12c, f32 on local_text_124m's weights from seed 0: batch greedy
+    streams of distinct prompts == the continuous engine's (phase 5's f32
+    engine; a departure only at a near-tie), replayed == eager bit for bit."""
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.models.gpt import GPT
+    from midgpt_tpu_torch.sampling import engine
+
+    mc = load_config("local_text_124m").model_config
+    params = GPT.init(mc, 0, device="cuda")
+    prompts = np.random.default_rng(12).integers(0, 50257, (PARITY_ROWS, len(BATCH_IDS)))
+    replayed = engine.generate(mc, params, prompts, PARITY_NEW, temperature=0.0, device="cuda")
+    eager = engine.generate(mc, params, prompts, PARITY_NEW, temperature=0.0, device="cuda", _eager=True)
+    if not torch.equal(replayed, eager):
+        raise SystemExit("12c: f32 replayed greedy tokens differ from eager")
+    print(f"12c f32 batch, {PARITY_ROWS} prompts of {len(BATCH_IDS)} tokens, {PARITY_NEW} new: replayed == eager, "
+          "bit for bit")
+    eng = new_engine(mc, params, torch.float32)
+    uids = [eng.submit(p.astype(np.int32), PARITY_NEW) for p in prompts]
+    done = eng.run()
+    compare_streams("12c f32 batch (flash prefill, contiguous cache) vs continuous engine (paged)",
+                    list(replayed.numpy()), [done[u].tokens for u in uids], mc, params)
+    del params
+    free_memory()
+
+
+def batch_sampler(card: str):
+    """Phase 12. Returns the flash_fwd launches of the batch path's
+    sample.main runs at C 64 (12a) and C 128 (12b)."""
+    t_phase = time.perf_counter()
+    args = batch_prompt_args()
+    # 12a. local_text_124m through sample.main, B 1 and 8, then a prompt that crosses the cache
+    launches64, outs = 0, {}
+    for rows in BATCH_ROWS:
+        outs[rows], n = batch_main("local_text_124m", rows, BATCH_NEW, args, f"12a local_text_124m B={rows}")
+        launches64 += n
+        if args[0].startswith("--start=") and outs[rows]["streams"][0][: len(BATCH_IDS)].tolist() != list(BATCH_IDS):
+            raise SystemExit("12a: the BPE codec did not encode the prompt to its recorded ids")
+    long_ids = np.random.default_rng(0).integers(0, 50257, OVERFLOW_PROMPT)
+    _, n = batch_main("local_text_124m", 1, OVERFLOW_NEW, [f"--start_ids={','.join(map(str, long_ids))}"],
+                      f"12a overflow: {OVERFLOW_PROMPT}-token prompt + {OVERFLOW_NEW} new")
+    launches64 += n
+    free_memory()
+    print(f"12a sample.main runs took {time.perf_counter() - t_phase:.1f} s")
+    speed = {}
+    for rows in BATCH_ROWS:
+        speed[("12a", rows)] = batch_speed(card, "12a local_text_124m", "local_text_124m", rows, BATCH_NEW,
+                                           outs[rows]["streams"])
+    print(f"12a took {time.perf_counter() - t_phase:.1f} s")
+    # 12b. wide610m (C 128): the C 128 single-visit body on the prefill
+    wide, launches128 = batch_main("wide610m", WIDE_ROWS, WIDE_NEW, args, f"12b wide610m B={WIDE_ROWS}")
+    free_memory()
+    speed[("12b", WIDE_ROWS)] = batch_speed(card, "12b wide610m", "wide610m", WIDE_ROWS, WIDE_NEW, wide["streams"])
+    print(f"12a-b took {time.perf_counter() - t_phase:.1f} s")
+    # 12c. parity: f32 batch vs continuous, replayed vs eager; the flash forward at each prompt length
+    batch_parity(card)
+    shapes = [("12a prefill", 1, 12, len(BATCH_IDS), 64), ("12a prefill", 8, 12, len(BATCH_IDS), 64),
+              ("12a overflow prefill", 1, 12, OVERFLOW_PROMPT, 64), ("12a overflow window", 1, 12, 1024, 64),
+              ("12b prefill", WIDE_ROWS, 16, len(BATCH_IDS), 128), ("12c prefill", PARITY_ROWS, 12, len(BATCH_IDS), 64)]
+    for label, B, H, T, C in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            check_flash_forward(label, B, H, T, C, dtype)
+    free_memory()
+    for label, B, H, T, C in shapes[:5]:
+        ms, plain, sdpa, (b_ms, b_by) = time_flash_forward(B, H, T, C)
+        print(f"flash_fwd [single] {label} bf16 B={B} H={H} T={T} C={C}: {ms:.4f} ms device, bound {b_ms:.5f} ms by "
+              f"{b_by} ({ms / b_ms:.1f}x), plain {plain:.3f} ms, sdpa forward {sdpa:.4f} ms on {card}")
+    free_memory()
+    took = time.perf_counter() - t_phase
+    print(f"phase 12 took {took:.1f} s on {card}")
+    return launches64, launches128, speed
 
 
 def main() -> int:
@@ -2518,6 +2838,8 @@ def main() -> int:
     llama_serving(card)
     free_memory()
     print(f"phase 11d took {time.perf_counter() - t_phase:.1f} s")
+    # 12. the batch sampler: sample --engine batch, replayed decode chunks, parity
+    batch_launches64, batch_launches128, batch_speeds = batch_sampler(card)
 
     # 10. timings
     kernels = []
@@ -2658,7 +2980,7 @@ def main() -> int:
             "route": "cuda",
             "source": "midgpt_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_SOURCES[kname],
-            "launches": sum(wide_launches[kname].values()),
+            "launches": sum(wide_launches[kname].values()) + (batch_launches128 if kname == "flash_fwd" else 0),
             "max_abs_err": wide_err[kname],
             "ms": wide_ms[kname],
             "plain_ms": wide_plain[kname],
@@ -2679,7 +3001,7 @@ def main() -> int:
             "route": "cuda",
             "source": "midgpt_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_SOURCES[kname],
-            "launches": sum(flash_launches[kname].values()),
+            "launches": sum(flash_launches[kname].values()) + (batch_launches64 if kname == "flash_fwd" else 0),
             "max_abs_err": err_of[kname],
             "ms": main_ms[kname],
             "plain_ms": main_plain[kname],
@@ -2687,11 +3009,14 @@ def main() -> int:
             "bound_by": b_by,
             "library_ms": main_lib[kname],
         })
-    print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s (before phase 12: {EARLIER_SMOKE_S} s) on {card}")
     print(card)  # exactly as nvidia-smi gives it: name, power limit
     decode_modes = {spec: {"decode_tokens_per_s": dec, "end_to_end_tokens_per_s": e2e,
                            "busy_share": busy.get(spec)} for spec, (dec, e2e) in overlap_rates.items()}
-    print(json.dumps({"kernels": kernels, "decode_modes": decode_modes}))
+    batch_decode = {f"{phase} B={rows}": {"replayed_tokens_per_s": rates["replayed"], "eager_tokens_per_s": rates["eager"],
+                                           "replayed_busy_share": busy}
+                    for (phase, rows), (rates, busy) in batch_speeds.items()}
+    print(json.dumps({"kernels": kernels, "decode_modes": decode_modes, "batch_decode": batch_decode}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

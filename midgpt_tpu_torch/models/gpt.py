@@ -36,7 +36,9 @@ and, when `n_kv_heads` is set (even to n_head, as in JAX), wqkv is the
 query projection (L, 1, D, D) and blocks.attn.wkv (L, 2, H_kv*C, D) holds
 k then v (`param_names`).
 
-The serving path is `decode_step_paged` + `prefill_paged_chunk`, plus
+The batch sampler (sampling/engine.py `generate`) runs `prefill` and
+`decode_step` over a contiguous `KVCache`, updated in place. The serving
+path is `decode_step_paged` + `prefill_paged_chunk`, plus
 `verify_step_paged` for speculative decoding, over a bf16, f32 or int8
 `PagedKVCache`, updated IN PLACE (the JAX code donates the pool to its
 jitted step and gets a new one back; here the pool tensors are written
@@ -114,9 +116,10 @@ def param_shapes(config: "GPTConfig") -> tp.Dict[str, tp.Tuple[int, ...]]:
 class GPTConfig:
     """Model shape. Field names and validation follow the JAX GPTConfig so
     a config.json written by either package loads in both. attn_impl and
-    attn_block_size pick the training attention path and its tiles, as in
-    JAX; remat and remat_policy checkpoint each block of the training
-    forward with JAX's policies (`GPT.hidden`, ops/remat.py). The other JAX
+    attn_block_size pick the attention path of training and of the batch
+    sampler's prefill, and its tiles, as in JAX; remat and remat_policy
+    checkpoint each block of the training forward with JAX's policies
+    (`GPT.hidden`, ops/remat.py). The other JAX
     lowering knobs (scan_unroll, qkv_proj, attn_layout, decode_layer_scan)
     are kept for that reason and change nothing here: every choice
     computes the same function."""
@@ -196,6 +199,33 @@ class GPTConfig:
     def kv_groups(self) -> int:
         """Query heads per K/V head (1 = MHA)."""
         return self.n_head // self.kv_heads
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Static-shape decode cache of the batch sampler (sampling/engine.py
+    `generate`): keys and values of every layer, filled up to `length`.
+
+    `length` is a 0-d int64 tensor on the cache's device, so a decode step
+    reads its position without a host sync and can be captured in a CUDA
+    graph. `GPT.prefill` and `GPT.decode_step` update the cache IN PLACE
+    and return the same object (the JAX code returns a new cache)."""
+
+    k: Tensor  # (n_layer, B, n_kv_heads, S, head_dim)
+    v: Tensor
+    length: Tensor  # () int64: number of valid positions
+
+    @staticmethod
+    def init(
+        config: GPTConfig, batch_size: int, dtype: torch.dtype = torch.bfloat16, *, device: DeviceLike = None
+    ) -> "KVCache":
+        dev = resolve_device(device)
+        shape = (config.n_layer, batch_size, config.kv_heads, config.block_size, config.head_dim)
+        return KVCache(
+            k=torch.zeros(shape, dtype=dtype, device=dev),
+            v=torch.zeros(shape, dtype=dtype, device=dev),
+            length=torch.zeros((), dtype=torch.int64, device=dev),
+        )
 
 
 @dataclasses.dataclass
@@ -575,6 +605,92 @@ class GPT:
         """Parameter count excluding the duplicated tied embedding
         (reference model.py:161-164)."""
         return sum(p.numel() for p in params.values()) - params["lm_head"].numel()
+
+    # ------------------------------------------------------------------
+    # KV-cached decoding (the batch sampler, sampling/engine.py). Inference only.
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def prefill_hidden(
+        config: GPTConfig, params: Params, tokens: Tensor, cache: KVCache
+    ) -> tp.Tuple[Tensor, KVCache]:
+        """Run the prompt (B, T), T <= block_size, through the model, filling
+        cache positions [0, T) and zeroing the rest. Attention is
+        `multihead_attention` at the config's impl (flash: the forward
+        kernel once per layer, or the blockwise path where its block does
+        not tile T, as in JAX). The cache stores post-norm, post-RoPE keys
+        and raw values, head-major, at the K/V head count.
+
+        Returns (final-normed hidden states (B, T, D), cache with length T)."""
+        T = tokens.shape[1]
+        x = params["wte"][tokens.long()]
+        sin, cos = rope_table(config.head_dim, T, device=x.device)
+        for i in range(config.n_layer):
+            blk = _block(params, i)
+            q, k, v = GPT._project_qkv(config, blk, rms_norm(x))  # k/v (B, T, H_kv, C)
+            qr = apply_rope_bthc(q, sin, cos, style=config.rope_style)
+            kr = apply_rope_bthc(k, sin, cos, style=config.rope_style)
+            att = multihead_attention(
+                qr, _repeat_kv(config, kr, 2), _repeat_kv(config, v, 2),
+                impl=config.attn_impl, inference=True, block_size=config.attn_block_size, layout="bthc",
+                sliding_window=config.sliding_window, attn_sinks=config.attn_sinks,
+            )
+            x = GPT._attn_out_and_mlp(config, blk, x, att)
+            for pool, new in ((cache.k, kr), (cache.v, v)):
+                pool[i, :, :, :T] = new.transpose(1, 2)
+                pool[i, :, :, T:] = 0
+        cache.length.fill_(T)
+        return rms_norm(x, eps=1e-5), cache
+
+    @staticmethod
+    def prefill(
+        config: GPTConfig, params: Params, tokens: Tensor, cache: KVCache
+    ) -> tp.Tuple[Tensor, KVCache]:
+        """`prefill_hidden`, projected: (logits (B, T, V), cache with length
+        T). The sampler projects the last position only
+        (sampling/engine.py `_prefill_and_first`)."""
+        x, cache = GPT.prefill_hidden(config, params, tokens, cache)
+        return x @ params["lm_head"].T, cache
+
+    @staticmethod
+    def decode_step(
+        config: GPTConfig, params: Params, token: Tensor, cache: KVCache
+    ) -> tp.Tuple[Tensor, KVCache]:
+        """One incremental decode step for the newest tokens (B,) at position
+        `cache.length`, which must be below block_size (the sampler falls
+        back to a windowed full forward there).
+
+        Layer i writes its key and value into column `pos` in place, then
+        attends over all S columns of the cache: scores in the query's dtype,
+        `/ sqrt(C)` and the softmax in f32 under the mask `col <= pos` (and
+        the sliding window with its sinks), probabilities cast back for the
+        PV product. Under GQA the cache's heads are repeated for the two
+        contractions only. The position stays on the device (no host read),
+        so a step can be captured in a CUDA graph. The layers run as a
+        Python loop: JAX's `decode_layer_scan` picks between two lowerings of
+        the same function and changes nothing here.
+
+        Returns (logits (B, V), cache with length + 1)."""
+        S, C = config.block_size, config.head_dim
+        pos = cache.length.reshape(1)
+        x = params["wte"][token[:, None].long()]  # (B, 1, D)
+        sin, cos = rope_table(C, S, device=x.device)
+        visible = visible_mask(torch.arange(S, device=x.device), pos + 1, config.sliding_window, config.attn_sinks)
+        for i in range(config.n_layer):
+            blk = _block(params, i)
+            q, k, v = GPT._project_qkv(config, blk, rms_norm(x))
+            q = apply_rope_bthc(q, sin, cos, pos, style=config.rope_style).transpose(1, 2)  # (B, H, 1, C)
+            k = apply_rope_bthc(k, sin, cos, pos, style=config.rope_style).transpose(1, 2)  # (B, H_kv, 1, C)
+            cache.k[i][:, :, pos] = k.to(cache.k.dtype)
+            cache.v[i][:, :, pos] = v.transpose(1, 2).to(cache.v.dtype)
+            ck, cv = _repeat_kv(config, cache.k[i], 1), _repeat_kv(config, cache.v[i], 1)
+            scores = torch.einsum("bhqc,bhkc->bhqk", q.to(ck.dtype), ck).masked_fill(~visible, float("-inf"))
+            probs = torch.softmax(scores.float() / math.sqrt(C), dim=-1).to(ck.dtype)
+            att = torch.einsum("bhqk,bhkc->bhqc", probs, cv)
+            x = GPT._attn_out_and_mlp(config, blk, x, att.transpose(1, 2).to(x.dtype))
+        x = rms_norm(x, eps=1e-5)
+        cache.length.add_(1)
+        return (x @ params["lm_head"].T)[:, 0], cache
 
     # ------------------------------------------------------------------
     # Paged decoding (continuous-batching serving engine, sampling/serve.py)

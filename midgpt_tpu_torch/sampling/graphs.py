@@ -1,6 +1,7 @@
-"""CUDA-graph replays of the fused decode group: the port's counterpart of
-the one XLA program per static key that the JAX engine compiles and
-dispatches for `_serve_decode_group` (midgpt_tpu/sampling/serve.py).
+"""CUDA-graph replays of the decode loops: the port's counterpart of the
+one XLA program per static key that the JAX engine compiles and dispatches
+for `_serve_decode_group` (midgpt_tpu/sampling/serve.py), and of the batch
+sampler's `_decode_chunk` (`StepGraphs`, at the end of this module).
 
 `DecodeGraphs` holds one `torch.cuda.CUDAGraph` per static program key —
 (n_steps, round_group, page bucket, split, temperature, top_k, top_p,
@@ -168,3 +169,81 @@ class DecodeGraphs:
             "replays": self.replays,
             "warmup_steps": self.warmup_steps,
         }
+
+
+@dataclasses.dataclass
+class CapturedStep:
+    """One key's captured step and the buffers it reads and writes."""
+
+    graph: torch.cuda.CUDAGraph
+    state: tp.Any  # the caller's buffers, made once per key and reused by every later call
+
+
+class StepGraphs:
+    """CUDA-graph replays of the batch sampler's decode step
+    (sampling/engine.py `generate`): the port's counterpart of the
+    `_decode_chunk` program JAX compiles per static key.
+
+    One decode+sample step is captured per static key — batch size, model
+    config, dtype, sampling knobs, the weights' addresses, the generator —
+    and a chunk of n steps is n replays, with no host work between them.
+    Capturing a whole chunk instead would put n copies of the step's
+    kernels into one graph, for each of the chunk lengths. The step reads and writes only buffers the key owns (`state`:
+    the contiguous cache with its device-side length, and the token
+    sequence), so one replay follows the previous one through device memory
+    alone, and the same capture serves every later call of its key.
+
+    The warm-up and the capture run on a side stream, fenced to the current
+    stream on both sides; the warm-up draws from a scratch generator, so
+    the caller's generator advances by the replays only. With temperature
+    > 0 the caller's generator is registered with the graph: each replay
+    draws fresh numbers from it. A failed capture raises; nothing falls
+    back to eager execution. CPU tensors never get here (the sampler runs
+    the same step eagerly)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._graphs: tp.Dict[tp.Hashable, CapturedStep] = {}
+        self.captures = 0
+        self.replays = 0
+        self._pool = torch.cuda.graph_pool_handle()  # one memory pool for all keys' graphs
+        self._stream = torch.cuda.Stream(device)
+
+    def get(
+        self,
+        key: tp.Hashable,
+        make_state: tp.Callable[[], tp.Any],
+        step: tp.Callable[[tp.Any, tp.Optional[torch.Generator]], None],
+        generator: tp.Optional[torch.Generator],
+    ) -> CapturedStep:
+        """The key's captured step, capturing it first if the key is new:
+        `make_state()` makes the buffers, `step(state, generator)` runs one
+        step on them in place (the warm-up runs it once for real, so the
+        caller fills the buffers afterwards)."""
+        cap = self._graphs.get(key)
+        if cap is None:
+            cap = self._graphs[key] = self._capture(make_state, step, generator)
+        return cap
+
+    def replay(self, cap: CapturedStep, n: int) -> None:
+        """n steps: n replays on the current stream, without waiting."""
+        for _ in range(n):
+            cap.graph.replay()
+        self.replays += n
+
+    def _capture(self, make_state, step, generator) -> CapturedStep:
+        state = make_state()
+        stream, current = self._stream, torch.cuda.current_stream(self.device)
+        scratch = None if generator is None else torch.Generator(self.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            step(state, scratch)
+        current.wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        with torch.cuda.graph(graph, pool=self._pool, stream=stream, capture_error_mode="thread_local"):
+            step(state, generator)
+        current.wait_stream(stream)
+        self.captures += 1
+        return CapturedStep(graph, state)

@@ -565,7 +565,8 @@ def _serve(run):
     from midgpt_tpu_torch import sample
 
     sample.main(["--ckpt_dir", str(run), "--device", "cpu", "--start_ids", "1,2,3", "--num_samples", "1",
-                 "--max_new_tokens", "4", "--temperature", "0", "--spec_layers", "0"])
+                 "--max_new_tokens", "4", "--temperature", "0", "--spec_layers", "0",
+                 "--engine", "continuous"])
 
 
 @pytest.mark.parametrize("layout", ["verified steps", "no verified step", "bare params.npz"])

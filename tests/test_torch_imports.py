@@ -74,7 +74,7 @@ def test_sample_entry_point_needs_cuda_or_explicit_cpu(no_cuda):
     r = _run(["-m", "midgpt_tpu_torch.sample", "--config=shakespeare_char", "--num_samples=1", "--max_new_tokens=2"])
     assert r.returncode != 0 and "CUDA" in r.stderr
     r = _run(["-m", "midgpt_tpu_torch.sample", "--config=shakespeare_char", "--num_samples=2",
-              "--max_new_tokens=3", "--device=cpu", "--temperature=0"])
+              "--max_new_tokens=3", "--device=cpu", "--temperature=0", "--engine=continuous"])
     assert r.returncode == 0, r.stderr
     assert "2 requests on cpu" in r.stdout
 

@@ -842,3 +842,106 @@ def test_remat_with_dropout_on_the_card(cuda):
         loss, grads = run(dataclasses.replace(off, remat=True, remat_policy=policy))
         assert torch.equal(loss, want_loss)
         assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))
+
+
+# ---------------------------------------------------------------- the batch sampler
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [64, 128])
+@pytest.mark.parametrize("T", [1, 7, 37, 200, 1000, 1023])
+def test_flash_forward_at_prompt_lengths(cuda, dtype, C, T):
+    """The batch sampler's prefill gives the forward any prompt length T <=
+    attn_block_size, at the blocks `flash_block_sizes` picks (one KV block:
+    the single-visit body): out and lse against the plain version."""
+    from midgpt_tpu_torch.ops.attention import flash_block_sizes
+
+    bq, bk = flash_block_sizes(T, 1024)
+    q, k, v, _ = _flash_inputs(cuda, dtype, 6, T, C, seed=T)
+    before = fa.FWD_LAUNCHES.by_variant["single"]
+    out, lse = fa.flash_forward(q, k, v, bq, bk)
+    torch.cuda.synchronize()
+    assert fa.FWD_LAUNCHES.by_variant["single"] == before + 1
+    want_out, want_lse = fa.flash_forward_plain(q, k, v, bq, bk)
+    tol = TOL[dtype]
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want_out.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+
+
+def _batch_model(dev, dtype):
+    cfg = GPTConfig(**GRAPH_CFG, attn_impl="flash")
+    prompt = torch.randint(0, cfg.vocab_size, (3, 9), generator=torch.Generator().manual_seed(0)).to(dev)
+    return cfg, _graph_params(dev, dtype), prompt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_decode_replay_matches_eager(cuda, dtype):
+    """8 replays of the captured decode step after a flash prefill equal 8
+    eager steps bit for bit: the tokens, both caches and the length."""
+    from midgpt_tpu_torch.sampling import engine
+    from midgpt_tpu_torch.sampling.graphs import StepGraphs
+
+    cfg, params, prompt = _batch_model(cuda, dtype)
+    knobs = (0.0, None, None)
+    graphs = StepGraphs(cuda)
+    cap = graphs.get("key", lambda: engine._new_batch(cfg, 3, dtype, cuda),
+                     lambda state, gen: engine._decode_step(cfg, params, *knobs, state, gen), None)
+    eager = engine._new_batch(cfg, 3, dtype, cuda)
+    for batch in (cap.state, eager):
+        first, _ = engine._prefill_and_first(cfg, params, prompt, *knobs, None, cache=batch.cache)
+        batch.seq[:, :9] = prompt
+        batch.seq[:, 9] = first
+    graphs.replay(cap, 8)
+    engine._decode_chunk(cfg, params, eager, *knobs, 8, None)
+    torch.cuda.synchronize()
+    got = cap.state
+    assert torch.equal(got.seq[:, :18], eager.seq[:, :18])
+    assert torch.equal(got.cache.k, eager.cache.k) and torch.equal(got.cache.v, eager.cache.v)
+    assert int(got.cache.length) == int(eager.cache.length) == 17
+    assert graphs.captures == 1 and graphs.replays == 8
+
+
+@pytest.mark.cuda
+def test_batch_generate_reuses_its_capture(cuda):
+    """Two generate calls of one key share one capture (the second captures
+    nothing), replay the same greedy tokens as the eager loop, and launch
+    the flash forward once per layer for the prefill only."""
+    from midgpt_tpu_torch.sampling import engine
+    from midgpt_tpu_torch.sampling.graphs import StepGraphs
+
+    cfg, params, prompt = _batch_model(cuda, torch.bfloat16)
+    graphs = StepGraphs(cuda)
+    stats = [{}, {}]
+    before = fa.FWD_LAUNCHES.count
+    outs = [engine.generate(cfg, params, prompt, 20, temperature=0.0, device=cuda, graphs=graphs, stats=s)
+            for s in stats]
+    assert fa.FWD_LAUNCHES.count - before == 2 * cfg.n_layer
+    assert [s["captures"] for s in stats] == [1, 0] and graphs.captures == 1
+    assert stats[1]["replays"] == 19 and stats[1]["chunks"] == [16, 2, 1]
+    eager = engine.generate(cfg, params, prompt, 20, temperature=0.0, device=cuda, _eager=True)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], eager)
+    assert torch.equal(outs[0][:, :9], prompt.cpu())
+
+
+@pytest.mark.cuda
+def test_batch_generate_replays_draw_from_the_callers_generator(cuda):
+    """temperature > 0: the capture draws nothing from the caller's
+    generator (its warm-up uses a scratch one), so a generator seeded alike
+    gives the same tokens on the capturing call and on a replay-only call;
+    another seed gives others."""
+    from midgpt_tpu_torch.sampling import engine
+    from midgpt_tpu_torch.sampling.graphs import StepGraphs
+
+    cfg, params, prompt = _batch_model(cuda, torch.float32)
+    graphs, gen = StepGraphs(cuda), torch.Generator(cuda)
+    runs = []
+    for seed in (11, 11, 12):
+        gen.manual_seed(seed)
+        runs.append(engine.generate(cfg, params, prompt, 24, temperature=1.0, device=cuda, generator=gen,
+                                    graphs=graphs))
+    assert graphs.captures == 1
+    assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
+    assert ((0 <= runs[0]) & (runs[0] < cfg.vocab_size)).all()

@@ -342,7 +342,7 @@ def test_sample_main_speculates_as_configured(tmp_path, capsys, flags, config_kw
 
     run = _run_dir(tmp_path, **config_kw)
     sample.main(["--ckpt_dir", run, "--device", "cpu", "--start_ids", "1,2,3", "--num_samples", "2",
-                 "--max_new_tokens", "9", "--temperature", "0", *flags])
+                 "--max_new_tokens", "9", "--temperature", "0", "--engine", "continuous", *flags])
     out = capsys.readouterr().out
     for w in want:
         assert w in out, out
@@ -369,7 +369,7 @@ def test_sample_main_with_a_separate_draft(tmp_path, capsys):
     with open(f"{run}/config.json") as f:
         assert json.load(f)["spec_layers"] == 0
     sample.main(["--ckpt_dir", run, "--device", "cpu", "--start_ids", "4,5", "--num_samples", "1",
-                 "--max_new_tokens", "6", "--temperature", "0", "--draft_ckpt", run])
+                 "--max_new_tokens", "6", "--temperature", "0", "--engine", "continuous", "--draft_ckpt", run])
     out = capsys.readouterr().out
     assert f"draft model: {run}" in out and "speculative:" in out
     # the draft is the target itself here: every proposal is accepted

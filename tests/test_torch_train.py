@@ -262,7 +262,7 @@ def test_launch_on_cpu_then_serve_its_params(data_dir, tmp_path):
     losses = [rec["loss/optimized"] for rec in records if "loss/optimized" in rec]
     assert len(losses) == 4 and all(np.isfinite(losses))
     r = _run(["-m", "midgpt_tpu_torch.sample", f"--ckpt_dir={rundir}", "--device=cpu",
-              "--start_ids=1,2,3", "--num_samples=2", "--max_new_tokens=4", "--temperature=0"])
+              "--start_ids=1,2,3", "--num_samples=2", "--max_new_tokens=4", "--temperature=0", "--engine=continuous"])
     assert r.returncode == 0, r.stderr
     assert "restored checkpoint step 3" in r.stdout and "2 requests on cpu" in r.stdout
 

@@ -547,7 +547,7 @@ def test_launch_gqa_on_cpu_then_serve_its_params(tmp_path):
     with np.load(rundir / "1" / "params.npz") as f:  # the forced final save of step max_steps - 1
         assert f["blocks.attn.wkv"].shape == (2, 2, 2 * 16, 64) and f["blocks.attn.wqkv"].shape == (2, 1, 64, 64)
     out = _run(["-m", "midgpt_tpu_torch.sample", f"--ckpt_dir={rundir}", "--device=cpu", "--start_ids=1,2,3",
-                "--num_samples=2", "--max_new_tokens=4", "--temperature=0"])
+                "--num_samples=2", "--max_new_tokens=4", "--temperature=0", "--engine=continuous"])
     assert out.returncode == 0, out.stderr
     assert "2 requests on cpu" in out.stdout
 
