@@ -217,6 +217,27 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      of the phase's prompt lengths (37, 1000, 1024) in bf16 and f32 ==
      its plain version, then timed in bf16 beside its bound, its plain
      version and SDPA's forward;
+ 13. (run after phase 12) the serving front door at GPT-2 small's full width
+     (openwebtext's model, random weights from seed 0): a. the paged kernel
+     on page tables that alias physical pages across slots, as prefix-cache
+     hits make them, bf16 and f32, split 1 and 2, against its plain version;
+     b. `loadgen.main` in process (Poisson, 24 requests at two offered
+     loads, half of them template-headed, group:4, 4 slots, 513 pages of
+     8, bf16 pool) with the prefix cache off and on: TTFT and TPOT p50/p95,
+     shed and timeout fractions, prefix_hit_rate and the prefill tokens the
+     trie saved per point, no capture inside a timed point, paged launches
+     == n_layer x decode steps; then a template trace served directly with
+     the cache on and off, f32 streams identical, bf16 ones identical or
+     departing at a near-tie; c. the same loadgen trace with --hot-swap
+     (each point flips once, with no capture), then in f32 two requests
+     admitted after a flip under load == a fresh engine's on the new
+     weights, bit for bit, with no capture after the flip; d. phase 4's
+     trace under group:1 in f32 and on an int8 pool, grown at round 3 and shrunk at
+     round 6 by the pool_resize fault: conservation at every round, streams
+     == the run without a resize, each migration's ms, and device memory
+     after the shrink within the new pool's size of the value before the
+     grow; e. pool_hbm_bytes = 1 GiB gives JAX's num_pages for bf16, int8
+     and GQA (3 K/V heads) pools;
  10. timings: the paged decode kernel as before (CUDA-graph replay, cold
      L2), and each flash kernel in bf16 (CUDA events over repeated
      launches) at the main path's shape and at one shape per other
@@ -247,7 +268,7 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
 
 The last lines are the card's name and power limit as nvidia-smi prints
 them, one JSON object with a "kernels" list (flash_fwd's launches include
-phase 12's), phase 4b's "decode_modes" (tokens/s and busy share per
+phase 12's; the paged decode and int8 entries include phase 13's), phase 4b's "decode_modes" (tokens/s and busy share per
 overlap mode) and phase 12's "batch_decode" (replayed and eager tokens/s
 and the replayed chunk's busy share per cell), and the contract line
 {"ok": true, "device": {...}}.
@@ -255,7 +276,9 @@ and the replayed chunk's busy share per cell), and the contract line
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import io
 import json
 import shutil
@@ -2689,6 +2712,308 @@ def batch_sampler(card: str):
     return launches64, launches128, speed
 
 
+# ---------------------------------------------------------------- phase 13: the serving front door
+
+# 13b: the loadgen cell (GPT-2 small's full width, bf16 pool, random weights
+# from seed 0). The two offered loads are ~25% and ~90% of the request rate a
+# saturating warm pass sustained (PERF.md, phase 13's cell).
+FRONT_DOOR_RATES = (7.0, 26.0)
+FRONT_DOOR_ARGS = ["--process=poisson", "--n-requests=24", "--template-frac=0.5", "--overlap=group:4",
+                   "--max-slots=4", "--num-pages=513", "--page-size=8", "--prefill-chunk=256", "--decode-chunk=4",
+                   "--block-size=1024", "--vocab-size=50304", "--n-layer=12", "--n-head=12", "--n-embd=768",
+                   "--seed=0"]
+RESIZE_PLAN = (384, 200)  # 13d: grow at round 3, shrink at round 6 (the pool_resize fault)
+BUDGET_BYTES = 2**30  # 13e
+EARLIER_SMOKE_PHASE13_S = 507.5  # this script's wall time before phase 13 was added (PERF.md, PR 12)
+
+
+def check_aliased_kernel(dtype, split_k):
+    """13a: the phase-3a problem with page tables as prefix-cache hits make
+    them: slots 0-2 map the same first 16 physical pages (a 128-token
+    template), slots 0-1 a 17th too, then their own. Kernel vs plain;
+    returns max |err|."""
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+
+    q, k, v, table, counts = decode_problem(dtype)
+    own = table[2, 16].clone()
+    table[1:3, :17] = table[0, :17]
+    table[2, 16] = own  # slot 2 shares 16 pages only
+    assert len({tuple(r[:16].tolist()) for r in table[:3]}) == 1
+    got = tpl.paged_attention_template(q[:, :, None], k, v, table, counts[:, None], split_k=split_k)
+    torch.cuda.synchronize()
+    want = tpl.paged_attention_template_plain(q[:, :, None], k, v, table, counts[:, None], split_k=split_k)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = TOL[dtype]
+    ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol) and bool(torch.isfinite(got).all())
+    print(f"13a paged decode on aliased page tables {str(dtype)[6:]} split_k={split_k}: max_abs_err={err:.3e} "
+          f"(tol {tol:g} abs+rel) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"13a: the paged kernel disagrees with its plain version on shared pages ({dtype}, {split_k})")
+    return err
+
+
+def run_loadgen(label: str, extra, card: str, n_layer: int):
+    """One in-process loadgen run; counters zeroed just before, read just
+    after. Checks: the serve_slo line parses, every point captured nothing,
+    the decode-spec launches == n_layer x the device's decode steps.
+    Returns (the line, launches by (spec, split))."""
+    from midgpt_tpu_torch import loadgen
+
+    argv = FRONT_DOOR_ARGS + [f"--rates={','.join(f'{r:g}' for r in FRONT_DOOR_RATES)}"] + list(extra)
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        loadgen.main(argv)
+    took = time.perf_counter() - t0
+    rec = json.loads(out.getvalue().strip().splitlines()[-1])
+    steps = rec["decode_steps"] + rec["capture_warmup_steps"]
+    by_variant = check_launches(f"13{label}", n_layer, steps)
+    print(f"13{label} loadgen {' '.join(extra)} ({took:.1f} s): {json.dumps(rec)}")
+    print(f"13{label} device: {rec['device']}; {rec['warm_captures']} graphs captured by the warm-up; paged launches "
+          f"{dict(by_variant)} == {n_layer} layers x {steps} decode steps ({rec['decode_steps']} dispatched, "
+          f"{rec['capture_warmup_steps']} capture warm-ups) on {card}")
+    if {spec for spec, _ in by_variant} - {"decode", "merge"}:
+        raise SystemExit(f"13{label}: the bf16 pool must launch the decode spec only, got {dict(by_variant)}")
+    for p in rec["points"]:
+        hit = (f", prefix_hit_rate {p['prefix_hit_rate']}, prefill tokens the trie saved "
+               f"{p['prefill_tokens_saved']}" if "prefix_hit_rate" in p else "")
+        swap = (f", weights_version {p['weights_version']} (flip round {p['swap_flip_round']})"
+                if "weights_version" in p else "")
+        print(f"13{label} {p['offered_rps']:g} req/s offered: TTFT p50 {p['ttft_p50_ms']} / p95 {p['ttft_p95_ms']} ms, "
+              f"TPOT p50 {p['tpot_p50_ms']} / p95 {p['tpot_p95_ms']} ms, {p['completed']}/{p['n_offered']} completed "
+              f"in {p['wall_s']} s ({p['completed'] / p['wall_s']:.2f} req/s), shed {p['shed_frac']}, timeout "
+              f"{p['timeout_frac']}, round host p50 {p['round_host_ms']['p50']} ms, device p50 "
+              f"{p['round_device_ms']['p50']} ms{hit}{swap}; captures inside the point {p['captures']} on {card}")
+        if p["captures"] != 0:
+            raise SystemExit(f"13{label}: a graph was captured inside a timed point")
+        if p["completed"] != p["n_offered"]:
+            raise SystemExit(f"13{label}: {p['n_offered'] - p['completed']} requests did not complete")
+    return rec, by_variant
+
+
+def template_trace(vocab: int, n: int = 8, head: int = 256, seed: int = 13):
+    """Template traffic at full width: two 256-token heads, short tails."""
+    rng = np.random.default_rng(seed)
+    heads = [rng.integers(0, vocab, head).astype(np.int32) for _ in range(2)]
+    return [(np.concatenate([heads[i % 2], rng.integers(0, vocab, int(rng.integers(3, 20))).astype(np.int32)]),
+             int(rng.integers(16, 48))) for i in range(n)]
+
+
+def serve_waves(eng, reqs, watch=None):
+    """Half the requests, two rounds, the rest (so the trie has content to
+    match), then to the end; `watch(eng)` after every step. Returns the
+    streams; every request must finish with its budget."""
+    half = len(reqs) // 2
+    uids = [eng.submit(p, m) for p, m in reqs[:half]]
+    for i in range(10**6):
+        if i == 2:
+            uids += [eng.submit(p, m) for p, m in reqs[half:]]
+        elif eng.idle:
+            break
+        eng.step()
+        if watch is not None:
+            watch(eng)
+    torch.cuda.synchronize()
+    streams = []
+    for (p, m), u in zip(reqs, uids):
+        fr = eng.finished[u]
+        if fr.status != "ok" or len(fr.tokens) != len(p) + m:
+            raise SystemExit(f"request {u} ended {fr.status} with {len(fr.tokens) - len(p)}/{m} tokens")
+        streams.append(fr.tokens)
+    return streams
+
+
+
+
+def captures_of(eng) -> int:
+    graphs = eng.stats()["decode_graphs"]
+    return 0 if graphs is None else sum(graphs["captures_per_key"])
+
+
+def reset_launches() -> None:
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+
+    tpl.LAUNCHES.reset()
+    tpl.MERGE_LAUNCHES.reset()
+
+
+def check_launches(label: str, n_layer: int, steps: int) -> collections.Counter:
+    """The paged launches by (spec, split) since `reset_launches`, and the
+    merge kernel's under ("merge", None): n_layer x `steps` each (no decode
+    step bypassed either kernel)."""
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+
+    n = collections.Counter(tpl.LAUNCHES.by_variant)
+    merges = tpl.MERGE_LAUNCHES.count
+    if sum(n.values()) != n_layer * steps or merges != n_layer * steps:
+        raise SystemExit(f"{label}: paged launches {dict(n)}, merge launches {merges} != {n_layer} layers x "
+                         f"{steps} decode steps")
+    n[("merge", None)] = merges
+    return n
+
+
+def front_door(card: str):
+    """Phase 13. Returns the paged-kernel launches by (spec, split) of its
+    serving runs (counters zeroed just before each, read just after) and
+    the aliased-table kernel errors."""
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.models.gpt import GPT, PagedKVCache
+    from midgpt_tpu_torch.robustness import faults
+    from midgpt_tpu_torch.sampling.ops import assert_conserved
+    from midgpt_tpu_torch.sampling.serve import ServeEngine
+    from midgpt_tpu_torch.utils.precision import cast_floating
+
+    t_phase = time.perf_counter()
+    launches = collections.Counter()
+    # 13a. the kernel on shared pages
+    alias_errs = {(dt, s): check_aliased_kernel(dt, s) for dt in (torch.bfloat16, torch.float32) for s in (1, 2)}
+    cfg = load_config("openwebtext").model_config
+    L = cfg.n_layer
+    # 13b. loadgen, prefix cache off and on
+    recs = {}
+    for label, extra in (("b off", []), ("b on", ["--prefix-cache"])):
+        recs[label], n = run_loadgen(label, extra, card, L)
+        launches += n
+        free_memory()
+    print("13b TTFT p95 ms by offered load, cache off vs on: " + "; ".join(
+        f"{a['offered_rps']:g} req/s {a['ttft_p95_ms']} vs {b['ttft_p95_ms']} (TPOT p95 {a['tpot_p95_ms']} vs "
+        f"{b['tpot_p95_ms']})" for a, b in zip(recs["b off"]["points"], recs["b on"]["points"])) + f" on {card}")
+    if not all(p["prefix_hit_rate"] > 0 for p in recs["b on"]["points"]):
+        raise SystemExit("13b: template traffic never hit the prefix cache")
+    # The cache is page-table indirection only: f32 streams equal with it on
+    # and off, bf16 ones equal or part at a near-tie (the tail's prefill
+    # chunks start at a page boundary instead of 0).
+    params32 = GPT.init(cfg, 0, device="cuda")
+    params16 = cast_floating(params32, torch.bfloat16)
+    reqs = template_trace(cfg.vocab_size)
+    for dt, params in ((torch.float32, params32), (torch.bfloat16, params16)):
+        reset_launches()
+        got, steps = {}, 0
+        for prefix in (False, True):
+            eng = new_engine(cfg, params, dt, overlap="group", round_group=4, prefix_cache=prefix)
+            got[prefix] = serve_waves(eng, reqs)
+            steps += device_steps(eng.stats())
+            if prefix:
+                assert_conserved(eng, "13b streams")
+                ps = eng.prefix_stats()
+                print(f"13b {str(dt)[6:]} template trace ({len(reqs)} requests, two 256-token heads), cache on: hit "
+                      f"rate {ps['hit_rate']:.3f}, prefill tokens {ps['prefilled_tokens']} ({ps['matched_tokens']} "
+                      f"matched), trie pages {ps['trie_pages']}")
+        launches += check_launches(f"13b {dt}", L, steps)
+        compare_streams(f"13b {str(dt)[6:]} group:4 cache on vs off", got[True], got[False],
+                        *((cfg, params32) if dt == torch.bfloat16 else ()))
+        free_memory()
+    # 13c. hot swap under load
+    rec, n = run_loadgen("c", ["--prefix-cache", "--hot-swap"], card, L)
+    launches += n
+    versions = [p["weights_version"] for p in rec["points"]]
+    print(f"13c weights_version inline -> {versions} (flip rounds {[p['swap_flip_round'] for p in rec['points']]}); "
+          f"captures inside each point, the flip included: {[p['captures'] for p in rec['points']]} on {card}")
+    if rec["hot_swaps"] != len(rec["points"]) or len(set(versions)) != 1 or versions[0] == "inline":
+        raise SystemExit(f"13c: every point must flip once to the checkpoint's weights, got {versions}")
+    # f32: two requests admitted after a flip equal a fresh engine's on the
+    # new weights, bit for bit; the keys they reach were captured on the old
+    # weights first, so the flip adds no capture
+    new32 = GPT.init(cfg, 101, device="cuda")
+    after = template_trace(cfg.vocab_size, n=2, seed=17)
+    long_req = template_trace(cfg.vocab_size, n=1, seed=19)[0][0], 200
+
+    def serve_all(e, batch):
+        uids = [e.submit(p, m) for p, m in batch]
+        e.run()
+        return [e.finished[u].tokens for u in uids]
+
+    reset_launches()
+    eng = new_engine(cfg, {k: v.clone() for k, v in params32.items()}, torch.float32, overlap="group", round_group=4)
+    serve_all(eng, after)
+    u0 = eng.submit(*long_req)
+    for _ in range(3):
+        eng.step()
+    if eng.hot_swap(new32, version="new")["flipped"]:
+        raise SystemExit("13c: the swap flipped with a live slot")
+    uids = [eng.submit(p, m) for p, m in after]
+    at_flip = None
+    while not eng.idle:
+        eng.step()
+        if at_flip is None and eng.weights_version == "new":
+            at_flip = captures_of(eng)
+    captures = captures_of(eng)
+    fresh = new_engine(cfg, new32, torch.float32, overlap="group", round_group=4)
+    want = serve_all(fresh, after)
+    launches += check_launches("13c f32", L, device_steps(eng.stats()) + device_steps(fresh.stats()))
+    flip = eng.swap_history[-1]
+    print(f"13c f32 swap staged at round {flip['staged_round']} with uid {u0} in flight, flipped at round "
+          f"{flip['flip_round']} ({flip['swap_latency_s'] * 1e3:.1f} ms later); graphs captured at the flip "
+          f"{at_flip}, at the end {captures} on {card}")
+    if at_flip != captures:
+        raise SystemExit("13c: a graph was captured after the flip")
+    compare_streams("13c f32 requests admitted after the flip vs a fresh engine on the new weights",
+                    [eng.finished[u].tokens for u in uids], want)
+    del eng, fresh, new32
+    free_memory()
+    # 13d. resize mid-trace: grow at round 3, shrink at round 6 (the
+    # pool_resize fault), phase 4's trace under group:1 (14 rounds) in f32
+    # and on an int8 pool
+    for dt in (torch.float32, torch.int8):
+        mem, runs, resized = {}, {}, None
+
+        for plan in ((), RESIZE_PLAN):
+
+            def watch(e):
+                assert_conserved(e, f"round {e.rounds}")
+                if e.rounds in (2, 6):
+                    torch.cuda.synchronize()
+                    mem[(plan, e.rounds)] = torch.cuda.memory_allocated()
+
+            reset_launches()
+            eng = new_engine(cfg, params32, dt, overlap="group", round_group=1)
+            eng.resize_plan = list(plan)
+            faults.clear()
+            for r in (3, 6)[: len(plan)]:
+                faults.activate("pool_resize", step=r)
+            try:
+                runs[plan], _ = serve_trace(eng, watch)
+            finally:
+                faults.clear()
+            launches += check_launches(f"13d {dt}", L, device_steps(eng.stats()))
+            if plan:
+                resized = (eng.resize_history, eng.cache.nbytes, eng.stats()["dropped_graphs"])
+            del eng
+            free_memory()
+        hist, new_bytes, dropped = resized
+        mib = {k: v / 2**20 for k, v in mem.items()}
+        print(f"13d {str(dt)[6:]} pool: " + "; ".join(
+            f"{h['from_pages']} -> {h['to_pages']} pages at round {h['round']}: {h['pages_migrated']} migrated in "
+            f"{h['migrate_s'] * 1e3:.2f} ms" for h in hist) + f"; {dropped} captures dropped and recaptured; "
+            f"conservation held at every round; device memory after round 2 / round 6: {mib[(RESIZE_PLAN, 2)]:.1f} "
+            f"/ {mib[(RESIZE_PLAN, 6)]:.1f} MiB resized, {mib[((), 2)]:.1f} / {mib[((), 6)]:.1f} MiB not (new pool "
+            f"{new_bytes / 2**20:.1f} MiB) on {card}")
+        # after the shrink the engine holds less than one new pool more than
+        # before the grow: the old pools and their captures are gone
+        if len(hist) != 2 or mem[(RESIZE_PLAN, 6)] - mem[(RESIZE_PLAN, 2)] >= new_bytes:
+            raise SystemExit("13d: the resizes did not both land, or the old pools or their captures stayed")
+        compare_streams(f"13d {str(dt)[6:]} pool, grow then shrink vs no resize", runs[RESIZE_PLAN], runs[()])
+    del params32, params16
+    free_memory()
+    # 13e. the byte budget: JAX's num_pages = max(2, budget // page bytes)
+    for label, dt, mc in (("bf16", torch.bfloat16, cfg), ("int8", torch.int8, cfg),
+                          ("gqa bf16", torch.bfloat16, dataclasses.replace(cfg, n_kv_heads=3))):
+        eng = ServeEngine(mc, {}, pool_hbm_bytes=BUDGET_BYTES, cache_dtype=dt, device="cuda")
+        item = torch.empty((), dtype=dt).element_size()
+        page = 2 * mc.n_layer * mc.kv_heads * mc.head_dim * PAGE * item
+        want = max(2, BUDGET_BYTES // page)
+        print(f"13e pool_hbm_bytes 1 GiB, {label}: {eng.allocator.num_pages} pages (JAX's formula {want}; "
+              f"{page} bytes a page), {eng.allocator.num_pages * PAGE} tokens a GiB, cache_hbm_bytes "
+              f"{eng.cache_hbm_bytes()} on {card}")
+        if eng.allocator.num_pages != want or PagedKVCache.page_bytes(mc, PAGE, dt) != page:
+            raise SystemExit(f"13e: {label} pool has {eng.allocator.num_pages} pages, JAX's formula gives {want}")
+        del eng
+        free_memory()
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches, alias_errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script needs an NVIDIA GPU", file=sys.stderr)
@@ -2840,6 +3165,8 @@ def main() -> int:
     print(f"phase 11d took {time.perf_counter() - t_phase:.1f} s")
     # 12. the batch sampler: sample --engine batch, replayed decode chunks, parity
     batch_launches64, batch_launches128, batch_speeds = batch_sampler(card)
+    # 13. the serving front door: aliased page tables, loadgen, hot swap, resize, the byte budget
+    front_launches, alias_errs = front_door(card)
 
     # 10. timings
     kernels = []
@@ -2857,8 +3184,8 @@ def main() -> int:
                     "route": "cuda",
                     "source": "midgpt_tpu_torch/csrc/paged_attention.cu",
                     "replaces": "midgpt_tpu/kernels/attention_template.py:95",
-                    "launches": launches[s],
-                    "max_abs_err": errs[(dt, s)],
+                    "launches": launches[s] + front_launches[("decode", s)],
+                    "max_abs_err": max(errs[(dt, s)], alias_errs[(dt, s)]),
                     "ms": ms,
                     "plain_ms": plain_ms,
                     "bound_ms": b_ms,
@@ -2880,7 +3207,8 @@ def main() -> int:
                 "route": "cuda",
                 "source": "midgpt_tpu_torch/csrc/paged_attention.cu",
                 "replaces": "midgpt_tpu/kernels/attention_template.py:95",
-                "launches": spec_launches_by_run[run].get((spec, s), 0),
+                "launches": spec_launches_by_run[run].get((spec, s), 0) + (
+                    front_launches[(spec, s)] if spec == "int8-decode" else 0),
                 "max_abs_err": spec_errs[(torch.bfloat16, R, int8, s)],
                 "ms": ms,
                 "plain_ms": plain_ms,
@@ -2926,7 +3254,7 @@ def main() -> int:
         "route": "cuda",
         "source": "midgpt_tpu_torch/csrc/paged_attention.cu",
         "replaces": "midgpt_tpu/kernels/attention_template.py:314",
-        "launches": merge_launches,
+        "launches": merge_launches + front_launches[("merge", None)],
         "max_abs_err": merge_errs[torch.bfloat16],
         "ms": ms,
         "plain_ms": plain_ms,
@@ -3009,7 +3337,8 @@ def main() -> int:
             "bound_by": b_by,
             "library_ms": main_lib[kname],
         })
-    print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s (before phase 12: {EARLIER_SMOKE_S} s) on {card}")
+    print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s (before phase 12: {EARLIER_SMOKE_S} s, before "
+          f"phase 13: {EARLIER_SMOKE_PHASE13_S} s) on {card}")
     print(card)  # exactly as nvidia-smi gives it: name, power limit
     decode_modes = {spec: {"decode_tokens_per_s": dec, "end_to_end_tokens_per_s": e2e,
                            "busy_share": busy.get(spec)} for spec, (dec, e2e) in overlap_rates.items()}

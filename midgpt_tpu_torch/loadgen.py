@@ -1,0 +1,510 @@
+"""Arrival-process load harness for the serving front door: one JSON line
+(the port's counterpart of tools/loadgen.py's single-engine path).
+
+A seeded arrival process (Poisson or bursty) offers a prompt/output-length
+mixture — short chat-like requests, a `--long-frac` tail of long-document
+requests, optionally a `--template-frac` share of template-headed
+system-prompt traffic — to the asyncio front door (sampling/server.py) at
+each offered load, and the line reports what a client feels there:
+time to first token (TTFT) and time per output token (TPOT) percentiles,
+the shed and timeout fractions, and whether the point met its SLO:
+
+    python -m midgpt_tpu_torch.loadgen --process poisson --rates 20,60 \\
+        [--device cpu] [--prefix-cache --template-frac 0.5] [--overlap group:4] \\
+        [--scheduler slo] [--ttl-s 2.0] [--slo-ttft-ms 500 --slo-tpot-ms 50] \\
+        [--hot-swap] [--trace-out DIR]
+
+It runs on CUDA unless `--device cpu` is given. The pool is bf16 on CUDA
+and f32 on the CPU, as JAX's harness has it (bf16 on the TPU); the random
+weights (`--seed`) are made in the pool's dtype. For a seed, the request
+stream and the arrival times are JAX's (`_mixture` and `_arrivals` are the
+same code); the weights are not (torch draws them).
+
+TTFT is measured from the client's submit attempt (admission retries and
+queueing included), TPOT from the first to the last streamed token.
+`shed_frac` counts requests refused after the bounded retry budget,
+`timeout_frac` TTL expiries. A point is `slo_ok` when its p95s meet the
+(optional) targets AND shed + timeout stays inside the error budget. Each
+point also carries the round decomposition (`round_host_ms`,
+`round_device_ms`: dispatch + token commit vs the wait for the device,
+from a per-point Observability) and, with `--prefix-cache`,
+`prefix_hit_rate` and `prefill_tokens_saved`.
+
+Capture time is not a latency claim. JAX warms every program the workload
+can reach before the first timed point; here that is every CUDA graph of
+the decode group, one per (decode-chunk tail x page bucket) key
+(`_warm_captures`), and each point reports the captures made inside it
+(`captures`, 0 when the warm-up was complete). A capture belongs to its
+engine's pool and weights, so every point runs on the one warmed engine,
+returned to a fresh engine's state in between (`ServeEngine.reset`).
+With `--hot-swap`, each point stages a verified checkpoint's weights
+mid-arrival-window (training/checkpoint.py); the next point starts on the
+inline weights again (one more flip, between points).
+
+JAX's `--fleet`, `--procs`, `--tp` and `--cpu-devices` are refused: the
+port has no fleet, process fleet or tensor-parallel serving yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+import types
+import typing as tp
+
+import numpy as np
+import torch
+
+
+def _percentile_ms(xs: tp.List[float], q: float) -> float:
+    """Percentile of a list of seconds, in ms; 0.0 for an empty list (a
+    degenerate point — visible as completed == 0, never NaN: the JSON
+    contract rejects non-finite constants)."""
+    if not xs:
+        return 0.0
+    return round(float(np.percentile(np.asarray(xs), q)) * 1e3, 3)
+
+
+def _arrivals(process: str, rate: float, n: int, rng, burst_size: int):
+    """Seeded arrival offsets (seconds from point start) at offered rate
+    `rate` req/s: exponential inter-arrivals (poisson) or bursts of
+    `burst_size` simultaneous arrivals with exponential gaps sized so the
+    long-run offered rate matches (bursty)."""
+    t, out = 0.0, []
+    if process == "poisson":
+        for _ in range(n):
+            t += float(rng.exponential(1.0 / rate))
+            out.append(t)
+    else:  # bursty
+        while len(out) < n:
+            t += float(rng.exponential(burst_size / rate))
+            out.extend([t] * min(burst_size, n - len(out)))
+    return out
+
+
+def _mixture(
+    rng, n: int, block_size: int, vocab: int, long_frac: float,
+    templates: tp.Sequence[np.ndarray] = (), template_frac: float = 0.0,
+):
+    """Prompt/output-length mixture: mostly short interactive requests, a
+    `long_frac` tail of long-document prompts with bigger budgets. With
+    `template_frac` > 0, that fraction of requests instead share one of
+    `templates` as a common prompt head (system-prompt traffic) with a
+    short unique tail — the workload the prefix cache exists for.
+    Templates are built once per SEED, not per point, so every offered-load
+    point measures the same shared heads."""
+    reqs = []
+    for _ in range(n):
+        if templates and rng.random() < template_frac:
+            head = templates[int(rng.integers(0, len(templates)))]
+            tail = rng.integers(0, vocab, int(rng.integers(2, 8)), dtype=np.int64)
+            prompt = np.concatenate([head, tail])
+            m = min(int(rng.integers(6, 14)), block_size - len(prompt) - 1)
+            reqs.append((prompt, m))
+            continue
+        if rng.random() < long_frac:
+            if block_size >= 2048:
+                # long-context regime: near-context document prompts with
+                # bigger output budgets (the split-K bucket rule's territory)
+                t0 = int(rng.integers(block_size // 2, block_size * 7 // 8))
+                m = int(rng.integers(24, 48))
+            else:
+                t0 = int(rng.integers(block_size // 4, block_size // 2))
+                m = int(rng.integers(12, 24))
+        else:
+            t0 = int(rng.integers(4, max(5, block_size // 8)))
+            m = int(rng.integers(6, 14))
+        m = min(m, block_size - t0 - 1)
+        reqs.append((rng.integers(0, vocab, t0, dtype=np.int64), m))
+    return reqs
+
+
+def _warm_captures(engine, cfg, decode_chunk: int, page_size: int, seed: int) -> None:
+    """Capture every decode-group graph the workload can reach: for each
+    pow2 page bucket and each pow2 decode-chunk tail, one solo request
+    whose prompt pins the bucket and whose budget pins the tail (JAX's
+    `_warm_compile_grid`, the same requests)."""
+    rng = np.random.default_rng(seed + 7919)
+    S = cfg.block_size
+    tails = []
+    n = decode_chunk
+    while n >= 1:
+        tails.append(n)
+        n //= 2
+    b = 1
+    while b <= engine.max_pages_per_slot:
+        # mid-page prompt: the bucket stays at b while the tail decodes
+        prompt_len = max(2, (b - 1) * page_size + 2)
+        for tail in tails:
+            if prompt_len + 1 + tail >= S:
+                continue
+            engine.submit(rng.integers(0, cfg.vocab_size, prompt_len, np.int64), tail + 1)
+            engine.run()
+        b *= 2
+
+
+async def _drive_point(server, reqs, arrivals, ttl_s):
+    """One offered-load point: a client task per request (sleep to its
+    arrival, submit with the server's bounded backpressure retry, consume
+    the stream). Returns per-request client-side records."""
+    from midgpt_tpu_torch.sampling.serve import BackpressureError
+    from midgpt_tpu_torch.sampling.server import ServerDraining
+
+    t0 = time.perf_counter()
+    records = []
+
+    async def client(i, prompt, m, at):
+        delay = at - (time.perf_counter() - t0)
+        if delay > 0:
+            await asyncio.sleep(delay)
+        rec = {"i": i, "status": "shed", "ttft_s": None, "tpot_s": None}
+        records.append(rec)
+        t_submit = time.perf_counter()
+        try:
+            uid = await server.submit(prompt, m, ttl_s=ttl_s)
+        except (BackpressureError, ServerDraining):
+            return
+        times = []
+        async for _tok in server.stream(uid):
+            times.append(time.perf_counter())
+        fr = server.result(uid)
+        rec["status"] = fr.status if fr is not None else "lost"
+        if times:
+            rec["ttft_s"] = times[0] - t_submit
+            if len(times) > 1:
+                rec["tpot_s"] = (times[-1] - times[0]) / (len(times) - 1)
+
+    await asyncio.gather(*(client(i, p, m, at) for i, ((p, m), at) in enumerate(zip(reqs, arrivals))))
+    return records
+
+
+def _point_stats(rate, records, error_budget, slo_ttft_ms, slo_tpot_ms):
+    n = len(records)
+    shed = sum(1 for r in records if r["status"] == "shed")
+    timeouts = sum(1 for r in records if r["status"] == "timeout")
+    completed = sum(1 for r in records if r["status"] == "ok")
+    ttfts = [r["ttft_s"] for r in records if r["ttft_s"] is not None]
+    tpots = [r["tpot_s"] for r in records if r["tpot_s"] is not None]
+    stats = {
+        "offered_rps": rate,
+        "n_offered": n,
+        "completed": completed,
+        "shed": shed,
+        "timeouts": timeouts,
+        "shed_frac": round(shed / max(n, 1), 4),
+        "timeout_frac": round(timeouts / max(n, 1), 4),
+        "ttft_p50_ms": _percentile_ms(ttfts, 50),
+        "ttft_p95_ms": _percentile_ms(ttfts, 95),
+        "tpot_p50_ms": _percentile_ms(tpots, 50),
+        "tpot_p95_ms": _percentile_ms(tpots, 95),
+    }
+    ok = (shed + timeouts) / max(n, 1) <= error_budget
+    if slo_ttft_ms:
+        ok = ok and stats["ttft_p95_ms"] <= slo_ttft_ms
+    if slo_tpot_ms:
+        ok = ok and stats["tpot_p95_ms"] <= slo_tpot_ms
+    stats["slo_ok"] = bool(ok and completed > 0)
+    return stats
+
+
+def _captures(engine) -> int:
+    graphs = engine.stats()["decode_graphs"]
+    return 0 if graphs is None else sum(graphs["captures_per_key"])
+
+
+def _swap_candidate(cfg, seed: int, dtype: torch.dtype, device: torch.device):
+    """(params, weights_version) of a verified checkpoint written from
+    seed `seed` and restored as a sampler restores it."""
+    from midgpt_tpu_torch.models.gpt import GPT
+    from midgpt_tpu_torch.sampling.engine import restore_for_sampling
+    from midgpt_tpu_torch.training.checkpoint import CheckpointManager
+
+    dtype_name = str(dtype).replace("torch.", "")
+    with tempfile.TemporaryDirectory(prefix="midgpt_loadgen_swap_") as tmp:
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        mgr = CheckpointManager(ckpt_dir, save_interval_steps=1)
+        mgr.save(3, {"params": GPT.init(cfg, seed, device=device, dtype=dtype)}, force=True)
+        mgr.wait()
+        version = mgr.weights_version(3)
+        mgr.close()
+        shim = types.SimpleNamespace(model_config=cfg, param_dtype=dtype_name)
+        params, _ = restore_for_sampling(ckpt_dir, shim, device=device)
+    return params, version
+
+
+# JAX's options the port refuses, with the ROADMAP.md item that brings each
+_REFUSED = {
+    "fleet": "--fleet (a replica fleet) waits for ROADMAP.md Queue 1 item 5.6 (fleet, fleet_proc and disagg)",
+    "procs": "--procs (worker processes) waits for ROADMAP.md Queue 1 item 5.6 (fleet, fleet_proc and disagg)",
+    "tp": "--tp (tensor-parallel serving) waits for ROADMAP.md Queue 1 item 7 (parallelism)",
+    "cpu_devices": "--cpu-devices (a virtual device mesh) waits for ROADMAP.md Queue 1 item 7 (parallelism); "
+                   "--device cpu runs on the CPU",
+}
+
+
+def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--process", choices=("poisson", "bursty"), default="poisson")
+    ap.add_argument("--rates", type=str, default="20,60",
+                    help="comma-separated offered loads (req/s), one timed point each")
+    ap.add_argument("--n-requests", type=int, default=8, help="requests offered per point")
+    ap.add_argument("--burst-size", type=int, default=4, help="--process bursty: simultaneous arrivals per burst")
+    ap.add_argument("--long-frac", type=float, default=0.25,
+                    help="fraction of long-document requests in the mixture")
+    ap.add_argument("--template-frac", type=float, default=0.0,
+                    help="fraction of requests sharing a template prompt head (pair with --prefix-cache)")
+    ap.add_argument("--n-templates", type=int, default=2, help="distinct shared prompt heads in the template mix")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="serve with the prefix cache (sampling/prefix_cache.py); points report prefix_hit_rate")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--scheduler", choices=("fcfs", "slo"), default="fcfs")
+    ap.add_argument("--min-headroom-s", type=float, default=0.0,
+                    help="--scheduler slo: shed requests whose deadline is nearer than this at submit")
+    ap.add_argument("--ttl-s", type=float, default=0.0, help="per-request TTL (0 = none)")
+    ap.add_argument("--slo-ttft-ms", type=float, default=0.0, help="p95 TTFT target (0 = unset)")
+    ap.add_argument("--slo-tpot-ms", type=float, default=0.0, help="p95 TPOT target (0 = unset)")
+    ap.add_argument("--error-budget", type=float, default=0.2,
+                    help="max shed+timeout fraction for a point to be slo_ok")
+    ap.add_argument("--trace-out", type=str, default=None,
+                    help="directory for one Chrome trace (+ .prom metrics) per offered-load point")
+    ap.add_argument("--hot-swap", action="store_true",
+                    help="stage a verified checkpoint's weights mid-arrival-window at each point")
+    ap.add_argument("--overlap", type=str, default="off", help="'off', 'double' or 'group:k'")
+    ap.add_argument("--device", type=str, default=None, help="cuda (the default) or cpu")
+    # engine/model shape (JAX's tiny defaults)
+    ap.add_argument("--max-slots", type=int, default=3)
+    ap.add_argument("--page-size", type=int, default=8)
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="0 = auto: 27 below block 2048, else every slot at its largest bucket")
+    ap.add_argument("--max-backlog-pages", type=int, default=0, help="backpressure budget (0 = unbounded)")
+    ap.add_argument("--prefill-chunk", type=int, default=16)
+    ap.add_argument("--decode-chunk", type=int, default=4)
+    ap.add_argument("--block-size", type=int, default=64)
+    ap.add_argument("--vocab-size", type=int, default=96)
+    ap.add_argument("--n-layer", type=int, default=2)
+    ap.add_argument("--n-head", type=int, default=2)
+    ap.add_argument("--n-embd", type=int, default=32)
+    ap.add_argument("--n-kv-heads", type=int, default=0, help="GQA: K/V heads (0 = MHA)")
+    ap.add_argument("--sliding-window", type=int, default=0, help="sliding-window attention (0 = full context)")
+    ap.add_argument("--attn-sinks", type=int, default=0, help="with --sliding-window: positions kept visible")
+    # refused (module docstring)
+    ap.add_argument("--fleet", type=int, default=0, help="refused: " + _REFUSED["fleet"])
+    ap.add_argument("--procs", action="store_true", help="refused: " + _REFUSED["procs"])
+    ap.add_argument("--tp", type=int, default=0, help="refused: " + _REFUSED["tp"])
+    ap.add_argument("--cpu-devices", type=int, default=0, help="refused: " + _REFUSED["cpu_devices"])
+    args = ap.parse_args(argv)
+    for name, why in _REFUSED.items():
+        if getattr(args, name):
+            ap.error(why)
+    rates = [float(r) for r in args.rates.split(",") if r.strip()]
+    if not args.num_pages:
+        pages_per_slot = -(-args.block_size // args.page_size)
+        args.num_pages = 27 if args.block_size < 2048 else 1 + args.max_slots * pages_per_slot
+
+    from midgpt_tpu_torch.device import resolve_device
+    from midgpt_tpu_torch.models.gpt import GPT, GPTConfig
+    from midgpt_tpu_torch.obs import Observability
+    from midgpt_tpu_torch.sampling.scheduler import FCFSScheduler, SLOScheduler
+    from midgpt_tpu_torch.sampling.serve import ServeEngine, parse_overlap
+    from midgpt_tpu_torch.sampling.server import AsyncServeServer
+
+    dev = resolve_device(args.device)
+    overlap_mode, overlap_group = parse_overlap(args.overlap)
+    cfg = GPTConfig(
+        block_size=args.block_size,
+        vocab_size=args.vocab_size,
+        n_layer=args.n_layer,
+        n_head=args.n_head,
+        n_embd=args.n_embd,
+        n_kv_heads=args.n_kv_heads or None,
+        sliding_window=args.sliding_window,
+        attn_sinks=args.attn_sinks,
+    )
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    params = GPT.init(cfg, args.seed, device=dev, dtype=dtype)
+    engine = ServeEngine(
+        cfg,
+        params,
+        max_slots=args.max_slots,
+        page_size=args.page_size,
+        num_pages=args.num_pages,
+        prefill_chunk=args.prefill_chunk,
+        decode_chunk=args.decode_chunk,
+        temperature=0.0,
+        cache_dtype=dtype,
+        max_backlog_pages=args.max_backlog_pages or None,
+        scheduler=SLOScheduler(min_headroom_s=args.min_headroom_s) if args.scheduler == "slo" else FCFSScheduler(),
+        prefix_cache=bool(args.prefix_cache),
+        overlap=overlap_mode,
+        round_group=overlap_group,
+        device=dev,
+    )
+    # Capture every decode-group graph the workload can reach, on the
+    # engine every point runs on (module docstring).
+    _warm_captures(engine, cfg, args.decode_chunk, args.page_size, args.seed)
+    warm_captures = _captures(engine)
+    decode_steps = engine.decode_steps  # summed over the warm-up and every point
+
+    # --hot-swap: one verified checkpoint restored once; every point stages
+    # the same candidate. The flip writes into the engine's tensors, which
+    # are `params`' own, so the inline weights are kept apart to restore.
+    swap_payload = inline = None
+    if args.hot_swap:
+        swap_payload = _swap_candidate(cfg, args.seed + 101, dtype, dev)
+        inline = {k: v.clone() for k, v in params.items()}
+
+    # Shared prompt heads for the template mixture: ~3 pages each, built
+    # once per seed.
+    template_rng = np.random.default_rng(args.seed + 31)
+    templates = [
+        template_rng.integers(0, cfg.vocab_size, 3 * args.page_size, np.int64)
+        for _ in range(args.n_templates)
+    ] if args.template_frac > 0.0 else []
+
+    S = cfg.block_size
+    points = []
+    for pi, rate in enumerate(rates):
+        point_rng = np.random.default_rng(args.seed + 1000 * pi)
+        reqs = _mixture(point_rng, args.n_requests, S, cfg.vocab_size, args.long_frac,
+                        templates=templates, template_frac=args.template_frac)
+        arrivals = _arrivals(args.process, rate, args.n_requests, point_rng, args.burst_size)
+        if inline is not None and engine.weights_version != "inline":
+            engine.hot_swap(inline, version="inline")  # idle: flips at once
+        # One Observability per point: the round decomposition is a
+        # per-offered-load number, and a dumped trace covers one point.
+        obs = Observability()
+        engine.reset(obs)
+        captures_before = _captures(engine)
+        server = AsyncServeServer(engine, idle_poll_s=0.001)
+
+        async def run_point():
+            driver = asyncio.create_task(server.run())
+            swapper = None
+            if swap_payload is not None:
+                # Stage at the median arrival: traffic lands on both sides
+                # of the flip.
+                async def do_swap():
+                    await asyncio.sleep(arrivals[len(arrivals) // 2])
+                    await server.hot_swap(swap_payload[0], version=swap_payload[1], config=cfg)
+
+                swapper = asyncio.create_task(do_swap())
+            records = await _drive_point(server, reqs, arrivals, args.ttl_s or None)
+            if swapper is not None:
+                await swapper
+            await server.drain()
+            await driver
+            return records
+
+        t0 = time.perf_counter()
+        records = asyncio.run(run_point())
+        wall_s = time.perf_counter() - t0
+        decode_steps += engine.decode_steps
+        stats = _point_stats(rate, records, args.error_budget, args.slo_ttft_ms, args.slo_tpot_ms)
+        stats["wall_s"] = round(wall_s, 4)  # from the point's start to its drain
+        stats["captures"] = _captures(engine) - captures_before
+        if swap_payload is not None:
+            stats["weights_version"] = engine.weights_version
+            stats["hot_swaps"] = engine.hot_swaps
+            stats["swap_flip_round"] = engine.swap_history[-1]["flip_round"] if engine.swap_history else None
+        srv = server.stats()
+        if args.prefix_cache:
+            stats["prefix_hit_rate"] = round(srv["prefix"]["hit_rate"], 4)
+            stats["prefill_tokens_saved"] = srv["prefix"]["matched_tokens"]
+        decomp = srv["obs"]["round_decomp"]
+        stats["rounds"] = decomp["rounds"]
+        stats["round_host_ms"] = {
+            "p50": round(decomp["dispatch"]["p50_ms"] + decomp["host_post"]["p50_ms"], 3),
+            "p95": round(decomp["dispatch"]["p95_ms"] + decomp["host_post"]["p95_ms"], 3),
+        }
+        stats["round_device_ms"] = {"p50": decomp["device_wait"]["p50_ms"], "p95": decomp["device_wait"]["p95_ms"]}
+        stats["overlap_mode"] = engine.overlap
+        stats["round_group"] = engine.round_group
+        stats["overlap_hidden_ms"] = {
+            "p50": decomp["overlap_hidden"]["p50_ms"],
+            "p95": decomp["overlap_hidden"]["p95_ms"],
+        }
+        if args.trace_out:
+            obs.dump(args.trace_out, filename=f"loadgen_point{pi}_r{rate:g}.json")
+        points.append(stats)
+
+    worst = points[-1]  # rates ascending by convention: report the hottest
+    graphs = engine.stats()["decode_graphs"]
+    if dev.type == "cuda":
+        device = torch.cuda.get_device_name(dev)
+        try:
+            device = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                capture_output=True, text=True, check=True,
+            ).stdout.strip().splitlines()[0]
+        except (OSError, subprocess.CalledProcessError):
+            pass  # the name alone
+    else:
+        device = "cpu"
+    print(json.dumps({
+        "bench": "serve_slo",
+        "backend": dev.type,
+        "device": device,
+        "process": args.process,
+        "scheduler": args.scheduler,
+        "seed": args.seed,
+        "n_requests": args.n_requests,
+        "long_frac": args.long_frac,
+        "template_frac": args.template_frac or None,
+        "prefix_cache": bool(args.prefix_cache),
+        "ttl_s": args.ttl_s or None,
+        "error_budget": args.error_budget,
+        "slo_ttft_ms": args.slo_ttft_ms or None,
+        "slo_tpot_ms": args.slo_tpot_ms or None,
+        "model": {
+            "n_layer": cfg.n_layer,
+            "n_head": cfg.n_head,
+            "n_embd": cfg.n_embd,
+            "block_size": S,
+            "n_kv_heads": cfg.kv_heads,
+            "kv_groups": cfg.kv_groups,
+            "sliding_window": cfg.sliding_window,
+            "attn_sinks": cfg.attn_sinks,
+        },
+        "max_slots": args.max_slots,
+        "num_pages": args.num_pages,
+        "cache_dtype": str(dtype).replace("torch.", ""),
+        "tp": None,
+        "mesh": None,
+        "max_backlog_pages": args.max_backlog_pages or None,
+        "warm_captures": warm_captures,
+        # the device's decode steps: dispatched (a fused group's masked
+        # steps included) and one warm-up step per capture
+        "decode_steps": decode_steps,
+        "capture_warmup_steps": 0 if graphs is None else graphs["warmup_steps"],
+        "points": points,
+        # hottest-point headline numbers
+        "ttft_p50_ms": worst["ttft_p50_ms"],
+        "ttft_p95_ms": worst["ttft_p95_ms"],
+        "tpot_p50_ms": worst["tpot_p50_ms"],
+        "tpot_p95_ms": worst["tpot_p95_ms"],
+        "shed_frac": worst["shed_frac"],
+        "timeout_frac": worst["timeout_frac"],
+        "round_host_ms": worst["round_host_ms"],
+        "round_device_ms": worst["round_device_ms"],
+        "overlap_mode": worst["overlap_mode"],
+        "round_group": worst["round_group"],
+        "overlap_hidden_ms": worst["overlap_hidden_ms"],
+        "prefix_hit_rate": worst.get("prefix_hit_rate"),
+        "fleet_size": None,
+        "procs": False,
+        "weights_versions": ["inline", swap_payload[1]] if swap_payload else None,
+        "weights_version": engine.weights_version,
+        "hot_swaps": sum(p.get("hot_swaps", 0) for p in points) if swap_payload else None,
+        "slo_ok": bool(all(p["slo_ok"] for p in points)),
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -43,6 +43,16 @@ Hooked kinds and where they strike:
                      unforced; its slots are recompute-preempted.
   poisoned_page      one live slot's first pool page is corrupted in place;
                      every other stream must stay identical.
+  evict_shared_prefix  every unreferenced prefix-trie page is flushed at
+                     once (ServeEngine.flush_prefix_cache); live streams
+                     must stay identical.
+  hot_swap_mid_decode  the engine stages `swap_source()`'s weights, which
+                     flip at the next round boundary with no live slot.
+  pool_resize        the engine resizes its pool to the next target of its
+                     `resize_plan`.
+  slow_client        sampling/server.py, keyed on the request uid: the
+                     client stops draining its stream; the bounded buffer
+                     sheds it with status "slow_client".
 
 Activation: programmatic (`activate(...)`), or a plan string from the
 config (`fault_plan`) or the MIDGPT_FAULTS environment variable, parsed by
@@ -116,9 +126,9 @@ DESCRIPTIONS: tp.Dict[str, str] = {
 
 # The kinds the port has no hook for yet, by the ROADMAP.md item that brings it.
 UNHOOKED: tp.Dict[str, str] = {
-    "resume_reshard": "Queue 1 item 8 (parallelism)",
-    **{k: "Queue 1 item 6 (the serving periphery)" for k in (
-        "slow_client", "submit_storm", "evict_shared_prefix", "hot_swap_mid_decode", "pool_resize",
+    "resume_reshard": "Queue 1 item 7 (parallelism)",
+    "submit_storm": "Queue 1 item 5.5 (serving chaos)",
+    **{k: "Queue 1 item 5.6 (fleet, fleet_proc and disagg)" for k in (
         "engine_crash", "handoff_stall", "spill_corrupt",
         "proc_kill9", "conn_drop", "wire_corrupt", "wire_stall",
     )},

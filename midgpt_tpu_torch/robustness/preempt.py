@@ -14,7 +14,7 @@ thread, so the handlers are installed by the launcher, never by `train`.
 `install_handlers` chains: after the first signal fires, the previous
 handler is restored, so a second SIGINT still stops a wedged run.
 The port runs one process, so `any_host_requested` is the local flag
-(`launch --multihost` is refused; ROADMAP.md Queue 1 item 8).
+(`launch --multihost` is refused; ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations

@@ -41,7 +41,7 @@ Geometry: the port trains on one device, so the ledger records
 `n_devices: 1`. A ledger that recorded another count makes
 `on_resume_mesh="same"` refuse the resume; `"any"` (a resume resharded
 across a new device count) waits for parallelism (ROADMAP.md Queue 1
-item 8).
+item 7).
 """
 
 from __future__ import annotations
@@ -153,7 +153,7 @@ def supervise(
             )
         raise NotImplementedError(
             f"on_resume_mesh='any': resuming a run from {n_prev} device(s) on {n_now} needs "
-            "parallelism, which the port does not have yet (ROADMAP.md Queue 1 item 8)"
+            "parallelism, which the port does not have yet (ROADMAP.md Queue 1 item 7)"
         )
     if not mesh_history or mesh_history[-1] != GEOMETRY:
         mesh_history.append(dict(GEOMETRY))

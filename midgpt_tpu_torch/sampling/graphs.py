@@ -162,6 +162,18 @@ class DecodeGraphs:
         self.captures[key] += 1
         return _Captured(graph, packed, chain_token, chain_len, out, tally)
 
+    def drop(self, slots: int) -> int:
+        """Drop every capture (each reads the pool it was captured against,
+        and a live resize replaces that pool) for `slots` slots from now on;
+        returns how many were dropped. Each key captures anew at its next
+        dispatch, on the same side stream and memory pool: a new stream
+        would bring cuBLAS a new workspace, which it keeps for the
+        process's life. The counters keep counting."""
+        n = len(self._graphs)
+        self._graphs.clear()
+        self.slots = slots
+        return n
+
     def stats(self) -> tp.Dict[str, tp.Any]:
         return {
             "captured": len(self._graphs),

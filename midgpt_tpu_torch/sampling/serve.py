@@ -66,16 +66,42 @@ round's one host<->device force (`_force`). The serving faults
 order, keyed on the round counter: `poisoned_page` corrupts one live
 slot's first page, `kill_mid_decode` recompute-preempts every decode-ready
 slot, `kill_overlapped_round` drops the in-flight group unforced and
-recompute-preempts its slots; the in-flight group is settled before a
-pool-mutating fault. Not ported yet (ROADMAP.md): the prefix cache and
-spill tier, the byte-budgeted pool, the token and finish hooks, hot-swap/
-resize and weight versions, and mesh-sharded serving. Their constructor
-arguments raise NotImplementedError when set.
+recompute-preempts its slots, `evict_shared_prefix` flushes every
+unreferenced trie page, `hot_swap_mid_decode` stages `swap_source()`'s
+weights and `pool_resize` resizes to the next `resize_plan` target; the
+in-flight group is settled before a pool-mutating fault.
+
+With `prefix_cache=True`, admissions walk a host-side radix trie over the
+pool (sampling/prefix_cache.py): fully matched prompt pages map into the
+new slot's page table with a reference taken and their prefill skipped,
+so the slot starts at `length = matched` and prefills only the tail.
+Departing slots release their pages through the trie, which keeps their
+complete committed pages for later matches; when the allocator runs dry,
+refcount-0 trie pages are reclaimed (LRU) before any slot is preempted.
+Sharing is page-table indirection only: the captured graphs and every
+kernel are the same with the cache on or off, and all three pool dtypes
+work unchanged (int8 scales are indexed by physical page).
+
+`pool_hbm_bytes` sizes the pool by a byte budget instead of a page count;
+`on_token(uid, token, t)` fires per token a settled round commits and
+`on_finish(FinishedRequest)` on every terminal transition (the asyncio
+front door, sampling/server.py, streams through them). Zero-downtime ops
+(sampling/ops.py): `hot_swap` stages new weights that flip in place at
+the first round boundary with no live slot (`weights_version` names the
+weights serving), and `resize` migrates the resident pages into a pool of
+another size. Mesh-sharded serving is not ported (ROADMAP.md); `mesh=`
+raises NotImplementedError.
+
+Every device operation runs on the stream that was current when the
+engine was built (`_on_stream`): the current stream is thread-local, and
+the asyncio server steps the engine from worker threads, while stream
+order is what makes page reuse safe (sampling/graphs.py).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 import typing as tp
@@ -89,6 +115,7 @@ from midgpt_tpu_torch.obs import DISABLED_SNAPSHOT, NULL_TRACER
 from midgpt_tpu_torch.robustness import faults
 from midgpt_tpu_torch.sampling.engine import sample_logits, warp_logits
 from midgpt_tpu_torch.sampling.graphs import DecodeGraphs, GroupResult
+from midgpt_tpu_torch.sampling.prefix_cache import PrefixCache
 from midgpt_tpu_torch.sampling.scheduler import FCFSScheduler, Scheduler
 from midgpt_tpu_torch.sampling.spec import speculative_accept
 
@@ -401,6 +428,11 @@ class _Slot:
     pages: tp.List[int] = dataclasses.field(default_factory=list)
     length: int = 0  # tokens in the paged cache
     prompt_pos: int = 0  # prompt tokens prefilled so far
+    # pages[:n_shared] are prefix-trie entries this slot holds one reference
+    # each on (prefix_cache engines only). The slot never writes them: the
+    # match caps at len(prompt) - 1 tokens and insert_live shares complete
+    # prompt pages only, while every write lands at a position >= length.
+    n_shared: int = 0
     generated: tp.List[int] = dataclasses.field(default_factory=list)
     token_times: tp.List[float] = dataclasses.field(default_factory=list)
     # speculative decoding (draft engines only): the slot's current draft
@@ -423,7 +455,7 @@ class FinishedRequest:
     uid: int
     tokens: np.ndarray  # prompt + generated
     token_times: tp.List[float]  # clock() completion time per new token
-    status: str = "ok"  # "ok" | "timeout" | "cancelled"
+    status: str = "ok"  # "ok" | "timeout" | "cancelled" | "slow_client" (sampling/server.py)
 
 
 @dataclasses.dataclass
@@ -483,28 +515,18 @@ class ServeEngine:
         round_group: int = 1,  # fused rounds per dispatch (pow2-bucketed)
         obs=None,  # obs.Observability, or None: no tracing
         watchdog=None,  # robustness.watchdog.StepWatchdog bounding the round's force
-        # Not ported yet (ROADMAP.md): setting any of these raises.
-        pool_hbm_bytes: tp.Optional[int] = None,
+        obs_tid: str = "engine",  # the trace's lane for this engine
+        pool_hbm_bytes: tp.Optional[int] = None,  # size the pool by bytes instead of num_pages
         prefix_cache: bool = False,
         on_token: tp.Optional[tp.Callable[[int, int, float], None]] = None,
         on_finish: tp.Optional[tp.Callable[["FinishedRequest"], None]] = None,
-        mesh=None,
-        weights_version: str = "inline",
+        weights_version: str = "inline",  # "<step>:<sha12>" of a verified checkpoint, or "inline"
+        mesh=None,  # not ported: raises
     ):
-        unported = {
-            "pool_hbm_bytes": pool_hbm_bytes is not None,
-            "prefix_cache": bool(prefix_cache),
-            "on_token": on_token is not None,
-            "on_finish": on_finish is not None,
-            "mesh": mesh is not None,
-            "weights_version": weights_version != "inline",
-        }
-        for name, is_set in unported.items():
-            if is_set:
-                raise NotImplementedError(
-                    f"ServeEngine({name}=...) is not ported yet (ROADMAP.md "
-                    "port queue: serving periphery)"
-                )
+        if mesh is not None:
+            raise NotImplementedError(
+                "ServeEngine(mesh=...) is not ported yet (ROADMAP.md Queue 1 item 7: parallelism)"
+            )
         if decode_chunk < 1 or decode_chunk & (decode_chunk - 1):
             raise ValueError(f"decode_chunk={decode_chunk} must be a power of two")
         if split_k != "auto" and (not isinstance(split_k, int) or split_k < 1):
@@ -539,6 +561,10 @@ class ServeEngine:
                     "n_head/head_dim, fewer layers (sampling/spec.py self_draft)"
                 )
         self.device = resolve_device(device)
+        # The stream of every device operation (module docstring). A hot swap
+        # writes the new weights into these tensors in place (sampling/ops.py):
+        # the captured graphs read them by address.
+        self._stream = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
         self.config = config
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.scheduler = scheduler if scheduler is not None else FCFSScheduler()
@@ -547,8 +573,10 @@ class ServeEngine:
         # site calls NULL_TRACER and reads no extra clock.
         self.obs = obs
         self._trace = obs.tracer if obs is not None else NULL_TRACER
-        self._obs_tid = "engine"  # the trace's lane
+        self._obs_tid = obs_tid  # the trace's lane
         self.watchdog = watchdog
+        self.on_token = on_token
+        self.on_finish = on_finish
         self.page_size = page_size
         self.max_slots = max_slots
         self.prefill_chunk = prefill_chunk
@@ -561,13 +589,25 @@ class ServeEngine:
         self.split_k = split_k
         self.max_pages_per_slot = -(-config.block_size // page_size)
         self.cache_dtype = normalize_cache_dtype(cache_dtype)
-        if num_pages is None:
+        if pool_hbm_bytes is not None:
+            # Byte-budgeted paging: the pool is sized by device memory spent,
+            # so the page count follows the cache dtype and the K/V head count
+            # (int8 holds 2x the pages of bf16, GQA the group factor more).
+            # The int8 scales and the spare page ride on top of the budget;
+            # cache_hbm_bytes() reports the true total.
+            if num_pages is not None:
+                raise ValueError("pass num_pages OR pool_hbm_bytes, not both")
+            per_page = PagedKVCache.page_bytes(config, page_size, self.cache_dtype)
+            num_pages = max(2, pool_hbm_bytes // per_page)  # the sink + at least one
+        elif num_pages is None:
             # Half of what dedicated full-length caches would take (+ the
             # sink): the continuous-batching bet that the sum of used
             # lengths stays well under n_slots * block_size.
             num_pages = 1 + max_slots * self.max_pages_per_slot // 2
         self.max_backlog_pages = max_backlog_pages
         self.allocator = PageAllocator(num_pages)
+        # Cross-request prefix sharing (module docstring); off by default.
+        self.prefix_cache = PrefixCache(page_size) if prefix_cache else None
         self.cache = PagedKVCache.init(
             config, num_pages=num_pages, page_size=page_size,
             dtype=self.cache_dtype, device=self.device,
@@ -592,32 +632,43 @@ class ServeEngine:
                 dtype=self.cache_dtype, device=self.device,
             )
         )
-        self.slots: tp.List[tp.Optional[_Slot]] = [None] * max_slots
-        self.queue: tp.List[Request] = []
-        self.finished: tp.Dict[int, FinishedRequest] = {}
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         # Round overlap (module docstring). Speculative engines keep their
         # draft-then-verify rounds in every mode, as in JAX: overlapping them
         # would re-order the rollback against the next draft.
         self.overlap = overlap
         self.round_group = _round_group_bucket(round_group)
-        self._inflight: tp.Optional[_InflightRound] = None
-        # Killed in-flight groups (kill_overlapped_round) and killed decode
-        # rounds (kill_mid_decode); uids whose pages poisoned_page corrupted.
-        self.overlap_kills = 0
-        self.decode_kills = 0
-        self.poisoned_uids: tp.List[int] = []
         self._poisoned_pages: tp.Set[int] = set()  # corrupted, scrubbed when freed
-        # (round, (uid, ...)) per decode dispatch: a request admitted or
-        # evicted during round N's host work first appears in (disappears
-        # from) dispatch N+1, or N+2 under "double".
-        self.dispatch_log: tp.Deque[tp.Tuple[int, tp.Tuple[int, ...]]] = collections.deque(maxlen=256)
         # On CUDA every group is a CUDA-graph replay; never eager there.
         self._graphs = (
             DecodeGraphs(self.device, max_slots, self._gen)
             if self.device.type == "cuda" and overlap != "off" and draft_config is None
             else None
         )
+        self.dropped_graphs = 0  # captures a resize dropped (they read the old pool)
+        self.weights_version = weights_version
+        # Fault hooks: hot_swap_mid_decode stages swap_source()'s payload
+        # (hot_swap's keyword arguments, "params" among them); pool_resize
+        # pops its num_pages target from resize_plan.
+        self.swap_source: tp.Optional[tp.Callable[[], tp.Dict[str, tp.Any]]] = None
+        self.resize_plan: tp.List[int] = []
+        self._reset_state()
+
+    def _reset_state(self) -> None:
+        """The scheduling state and counters of a newly built engine."""
+        self.slots: tp.List[tp.Optional[_Slot]] = [None] * self.max_slots
+        self.queue: tp.List[Request] = []
+        self.finished: tp.Dict[int, FinishedRequest] = {}
+        self._inflight: tp.Optional[_InflightRound] = None
+        # Killed in-flight groups (kill_overlapped_round) and killed decode
+        # rounds (kill_mid_decode); uids whose pages poisoned_page corrupted.
+        self.overlap_kills = 0
+        self.decode_kills = 0
+        self.poisoned_uids: tp.List[int] = []
+        # (round, (uid, ...)) per decode dispatch: a request admitted or
+        # evicted during round N's host work first appears in (disappears
+        # from) dispatch N+1, or N+2 under "double".
+        self.dispatch_log: tp.Deque[tp.Tuple[int, tp.Tuple[int, ...]]] = collections.deque(maxlen=256)
         self._uid = 0
         self._admitted = 0
         # Counters (stats()): recompute-style preemptions, scheduling
@@ -644,8 +695,45 @@ class ServeEngine:
         self._spec_drafted = 0
         self._spec_accepted = 0
         # Sliding-window page reclamation (config.sliding_window > 0, no
-        # draft): pages freed mid-request behind every future row's window.
+        # draft, no prefix cache): pages freed mid-request behind every
+        # future row's window.
         self.window_reclaimed_pages = 0
+        # Prefix-cache counters (prefix_stats()): matched vs structurally
+        # matchable prompt tokens per admission, copy-on-write tail
+        # re-prefills, trie pages reclaimed, and prompt tokens pushed
+        # through prefill chunks.
+        self._prefix_matched_tokens = 0
+        self._prefix_matchable_tokens = 0
+        self.cow_pages = 0
+        self.prefix_evictions = 0
+        self.prefilled_tokens = 0
+        # Zero-downtime ops (sampling/ops.py): flips and resizes done, their
+        # records, the staged swap, and the uids recompute-preempted at least
+        # once — a queued entry with one of these is a stream already in
+        # flight, which a staged swap lets resume on the old weights.
+        self.hot_swaps = 0
+        self.resizes = 0
+        self.swap_history: tp.List[tp.Dict[str, tp.Any]] = []
+        self.resize_history: tp.List[tp.Dict[str, tp.Any]] = []
+        self._staged_swap: tp.Optional[tp.Dict[str, tp.Any]] = None
+        self._resumed_uids: tp.Set[int] = set()
+
+    def reset(self, obs=None) -> None:
+        """Return an idle engine to a newly built one's state, keeping what
+        is dear to rebuild: the weights (and `weights_version`), the pool
+        with every page free again (the trie is flushed), the generator and
+        the captured graphs. `obs` replaces the Observability, and the
+        streaming hooks are removed. A capture belongs to its engine's pool
+        and weights, so loadgen (midgpt_tpu_torch/loadgen.py) serves every
+        offered-load point on one engine reset this way, and no point's
+        timing includes a capture."""
+        if not self.idle:
+            raise RuntimeError("reset() needs an idle engine (no queued, running or staged work)")
+        self.flush_prefix_cache()
+        self.obs = obs
+        self._trace = obs.tracer if obs is not None else NULL_TRACER
+        self.on_token = self.on_finish = None
+        self._reset_state()
 
     # -- public surface ------------------------------------------------
 
@@ -694,20 +782,34 @@ class ServeEngine:
 
     def _backlog_pages(self) -> int:
         """Worst-case page demand (prompt + whole generation budget) of
-        every live request, queued or running."""
+        every live request, queued or running. With the prefix cache a
+        shared page is charged once: each running slot subtracts its
+        n_shared, each queued request what it would match now (a ref-free
+        `peek`), and the trie's referenced entries are added once;
+        refcount-0 trie pages cost nothing (they are reclaimed on demand)."""
 
         def worst(req: Request) -> int:
             return -(-(len(req.prompt) + req.max_new_tokens) // self.page_size)
 
-        return sum(worst(r) for r in self.queue) + sum(
-            worst(s.request) for s in self.slots if s is not None
+        pc = self.prefix_cache
+        queued = sum(
+            worst(r) - (0 if pc is None else pc.peek(r.prompt, max_tokens=len(r.prompt) - 1))
+            for r in self.queue
         )
+        running = sum(worst(s.request) - s.n_shared for s in self.slots if s is not None)
+        return queued + running + (0 if pc is None else pc.referenced_page_count())
 
     @property
     def idle(self) -> bool:
-        # An unsettled in-flight group is pending work: its tokens are not
-        # committed until the next step settles it.
-        return not self.queue and all(s is None for s in self.slots) and self._inflight is None
+        # An unsettled in-flight group is pending work (its tokens are not
+        # committed until the next step settles it), and so is a staged hot
+        # swap: the drive loop must step until it flips.
+        return (
+            not self.queue
+            and all(s is None for s in self.slots)
+            and self._inflight is None
+            and self._staged_swap is None
+        )
 
     def run(self) -> tp.Dict[int, FinishedRequest]:
         """Drive step() until everything submitted so far has finished."""
@@ -719,6 +821,10 @@ class ServeEngine:
         """Finish a queued or running request NOW: its pages return to the
         pool and its partial tokens are recorded under `status`; no other
         slot is touched. False if `uid` is unknown or already finished."""
+        with self._on_stream():
+            return self._cancel(uid, status)
+
+    def _cancel(self, uid: int, status: str) -> bool:
         for qi, req in enumerate(self.queue):
             if req.uid == uid:
                 self.queue.pop(qi)
@@ -733,6 +839,54 @@ class ServeEngine:
                 self.slots[i] = None
                 return True
         return False
+
+    def hot_swap(
+        self,
+        params: Params,
+        *,
+        draft_params: tp.Optional[Params] = None,
+        version: str = "inline",
+        config: tp.Optional[GPTConfig] = None,
+    ) -> tp.Dict[str, tp.Any]:
+        """Stage a blue/green weight swap; it flips at the first round
+        boundary with no live slot (at once when idle), by copying the new
+        weights into the engine's parameter tensors, so every captured graph
+        stays valid and none is added. Those tensors are the ones passed to
+        the constructor when they were already on the engine's device. A
+        mismatch raises HotSwapError before anything changes
+        (sampling/ops.py)."""
+        from midgpt_tpu_torch.sampling import ops
+
+        with self._on_stream():
+            return ops.stage_hot_swap(self, params, draft_params=draft_params, version=version, config=config)
+
+    def resize(self, num_pages: tp.Optional[int] = None, *, max_slots: tp.Optional[int] = None) -> tp.Dict[str, tp.Any]:
+        """Live pool resize: migrate the resident pages into a new pool of
+        `num_pages` (int8 scales with them), remap slots and trie, install a
+        new allocator, and drop the captures of the old pool. A shrink below
+        the resident working set raises PoolResizeError (sampling/ops.py)."""
+        from midgpt_tpu_torch.sampling import ops
+
+        with self._on_stream():
+            # An in-flight group still writes the old pool: it lands first.
+            self._settle_inflight()
+            return ops.resize_pool(self, num_pages, max_slots=max_slots)
+
+    def flush_prefix_cache(self) -> int:
+        """Reclaim every unreferenced trie page at once (an operator flush;
+        the `evict_shared_prefix` fault strikes through it). Referenced
+        pages stay. Returns the pages freed."""
+        if self.prefix_cache is None:
+            return 0
+        freed = self.prefix_cache.evict(0, force_all=True)
+        with self._on_stream():
+            self._free_pages(freed)
+        self.prefix_evictions += len(freed)
+        return len(freed)
+
+    def _on_stream(self) -> tp.ContextManager:
+        """Enter the engine's stream (module docstring)."""
+        return contextlib.nullcontext() if self._stream is None else torch.cuda.stream(self._stream)
 
     def cache_hbm_bytes(self) -> int:
         """Device bytes of the paged pools (K and V, int8 scales included,
@@ -756,6 +910,11 @@ class ServeEngine:
             "decode_tokens": self.decode_tokens,
             "decode_seconds": self.decode_seconds,
             "window_reclaimed_pages": self.window_reclaimed_pages,
+            "weights_version": self.weights_version,
+            "hot_swaps": self.hot_swaps,
+            "resizes": self.resizes,
+            "swap_pending": self._staged_swap is not None,
+            "dropped_graphs": self.dropped_graphs,
             "overlap_mode": self.overlap,
             "round_group": self.round_group,
             "overlap_kills": self.overlap_kills,
@@ -779,6 +938,27 @@ class ServeEngine:
             "tokens_per_verify": (self._spec_accepted + self._spec_verifies) / max(self._spec_verifies, 1),
         }
 
+    def prefix_stats(self) -> tp.Dict[str, tp.Any]:
+        """Prefix-cache counters since construction. `hit_rate` is matched
+        over MATCHABLE prompt tokens, matchable being ((len(prompt) - 1) //
+        page_size) * page_size per admission (the most a match can hand out
+        under the reserve-the-last-token rule), so a perfect template
+        workload reaches 1.0. `prefilled_tokens` counts what went through
+        prefill chunks."""
+        pc = self.prefix_cache
+        matchable = self._prefix_matchable_tokens
+        return {
+            "enabled": pc is not None,
+            "matched_tokens": self._prefix_matched_tokens,
+            "matchable_tokens": matchable,
+            "hit_rate": self._prefix_matched_tokens / matchable if matchable else 0.0,
+            "cow_pages": self.cow_pages,
+            "prefilled_tokens": self.prefilled_tokens,
+            "trie_pages": 0 if pc is None else pc.page_count(),
+            "trie_referenced": 0 if pc is None else pc.referenced_page_count(),
+            "reclaimed_pages": self.prefix_evictions,
+        }
+
     # -- scheduling round ----------------------------------------------
 
     def step(self) -> None:
@@ -790,15 +970,20 @@ class ServeEngine:
         The serving faults fire here, keyed on the round counter, so a
         seeded trace makes every firing deterministic (`kill_mid_decode@7`
         strikes round 7)."""
-        if self.overlap == "double" and self.draft_config is None:
-            self._step_overlapped()
-            return
+        with self._on_stream():
+            if self.overlap == "double" and self.draft_config is None:
+                self._step_overlapped()
+            else:
+                self._step_classic()
+
+    def _step_classic(self) -> None:
         self.rounds += 1
         tr = self._trace
         t_round = 0.0 if self.obs is None else self._clock()
         if faults.should_fire("poisoned_page", step=self.rounds):
             tr.instant("fault.poisoned_page", "fault", self._obs_tid)
             self._poison_page()
+        self._pool_faults()
         self._host_phases()
         if faults.should_fire("kill_mid_decode", step=self.rounds):
             tr.instant("fault.kill_mid_decode", "fault", self._obs_tid)
@@ -831,6 +1016,7 @@ class ServeEngine:
         if faults.should_fire("poisoned_page", step=self.rounds):
             tr.instant("fault.poisoned_page", "fault", self._obs_tid)
             self._poison_page()
+        self._pool_faults()
         if faults.should_fire("kill_mid_decode", step=self.rounds):
             # This round's dispatch dies: settle the previous group (its
             # tokens landed before the failure), then recompute-preempt the
@@ -847,10 +1033,35 @@ class ServeEngine:
         self._host_phases()
         self._round_span(t_round)
 
+    def _pool_faults(self) -> None:
+        """The faults that act on the pool or the weights, in JAX's order."""
+        tr = self._trace
+        if faults.should_fire("evict_shared_prefix", step=self.rounds):
+            tr.instant("fault.evict_shared_prefix", "fault", self._obs_tid)
+            self.flush_prefix_cache()
+        if faults.should_fire("hot_swap_mid_decode", step=self.rounds):
+            tr.instant("fault.hot_swap_mid_decode", "fault", self._obs_tid)
+            if self.swap_source is not None:
+                payload = dict(self.swap_source())
+                self.hot_swap(payload.pop("params"), **payload)
+        if faults.should_fire("pool_resize", step=self.rounds):
+            tr.instant("fault.pool_resize", "fault", self._obs_tid)
+            if self.resize_plan:
+                self.resize(self.resize_plan.pop(0))
+
     def _host_phases(self) -> None:
         tr = self._trace
         with tr.span("engine.expire", "phase", self._obs_tid):
             self._expire_round()
+        if self._staged_swap is not None:
+            # The blue/green flip point: after expiry (slots may have just
+            # drained), before admission (paused while a swap is staged).
+            # Under "double" the in-flight group is pending work the flip
+            # must see settled.
+            from midgpt_tpu_torch.sampling import ops
+
+            self._settle_inflight()
+            ops.maybe_flip_swap(self)
         with tr.span("engine.admit", "phase", self._obs_tid):
             self._admit()
         with tr.span("engine.prefill", "phase", self._obs_tid):
@@ -881,10 +1092,9 @@ class ServeEngine:
         )
         self.decode_kills += 1
 
-    # Faults that mutate the pool mid-round and so assume a settled round
-    # boundary (JAX also drains for evict_shared_prefix, hot_swap_mid_decode
-    # and pool_resize, which arrive with the serving periphery).
-    _DRAIN_FAULTS = ("poisoned_page",)
+    # Faults that mutate the pool or the weights mid-round and so assume a
+    # settled round boundary.
+    _DRAIN_FAULTS = ("poisoned_page", "evict_shared_prefix", "hot_swap_mid_decode", "pool_resize")
 
     def _fault_needs_drain(self) -> bool:
         """Peek, without consuming, whether a boundary-assuming fault can
@@ -926,10 +1136,11 @@ class ServeEngine:
         """The `poisoned_page` fault: corrupt the first live page of the
         youngest running slot in place (NaN in a float pool, 127 in an int8
         one), modelling memory damage to committed K/V. Nothing recovers it:
-        page tables never alias live pages, so every OTHER slot's stream
-        stays as an unfaulted run's and the pool stays conserved; the page
-        is scrubbed when it is freed (`_free_pages`). The slots mapping the
-        page land in `poisoned_uids`."""
+        page tables never alias live pages across requests except through
+        the prefix trie, so every OTHER slot's stream stays as an unfaulted
+        run's and the pool stays conserved; the page is scrubbed when it is
+        freed (`_free_pages`), also when the trie holds it first. Every slot
+        mapping the page lands in `poisoned_uids`."""
         victim = max(
             (s for s in self.slots if s is not None and any(p >= 0 for p in s.pages)),
             key=lambda s: s.admit_order,
@@ -974,28 +1185,63 @@ class ServeEngine:
         now = self._clock()
         for i, s in enumerate(self.slots):
             if s is None and self.queue:
-                # Admission ORDER is the scheduler's call.
-                qi = self.scheduler.select_admit(self.queue, now)
+                if self._staged_swap is not None:
+                    # A staged hot swap pauses FRESH admissions (queued
+                    # arrivals take the new weights), but a recompute-
+                    # preempted stream is old-side work already in flight: it
+                    # resumes on the old weights, so its tokens never straddle
+                    # the flip and the drain the flip waits for can end.
+                    qi = next((j for j, q in enumerate(self.queue) if q.uid in self._resumed_uids), None)
+                else:
+                    # Admission ORDER is the scheduler's call.
+                    qi = self.scheduler.select_admit(self.queue, now)
                 if qi is None:
                     break
                 req = self.queue.pop(qi)
                 # a preempted request restarts its k adaptation like a fresh one
-                self.slots[i] = _Slot(req, self._admitted, spec_k=self.spec_k_max)
+                slot = _Slot(req, self._admitted, spec_k=self.spec_k_max)
+                if self.prefix_cache is not None:
+                    self._match_prefix(slot)
+                self.slots[i] = slot
                 self._admitted += 1
                 self._trace.instant("admitted", "lifecycle", self._obs_tid, args={"uid": req.uid, "slot": i})
 
+    def _match_prefix(self, slot: _Slot) -> None:
+        """Map every fully matched trie page into the admitted slot's table
+        and skip its prefill: the slot starts committed at the matched
+        length. The len(prompt) - 1 cap leaves the final prompt token to a
+        live prefill chunk, whose logits give the first generated token."""
+        prompt = slot.request.prompt
+        with self._trace.span("trie.match", "prefix", self._obs_tid):
+            mr = self.prefix_cache.match(prompt, max_tokens=len(prompt) - 1)
+        if mr.pages:
+            slot.pages = list(mr.pages)
+            slot.n_shared = len(mr.pages)
+            slot.prompt_pos = slot.length = mr.tokens
+        self._prefix_matchable_tokens += ((len(prompt) - 1) // self.page_size) * self.page_size
+        self._prefix_matched_tokens += mr.tokens
+        if mr.cow_truncated:
+            self.cow_pages += 1
+
     def _ensure_pages(self, slot: _Slot, upto_tokens: int) -> bool:
         """Grow slot's page list to cover positions [0, upto_tokens); True
-        on success. On pool exhaustion the scheduler picks a preemption
-        victim among the STRICTLY YOUNGER running slots (so the oldest
-        request always makes progress) and the allocation retries; False
-        only when no younger victim exists or the policy defers."""
+        on success. On pool exhaustion, unreferenced prefix-trie pages are
+        reclaimed first (LRU); then the scheduler picks a preemption victim
+        among the STRICTLY YOUNGER running slots (so the oldest request
+        always makes progress) and the allocation retries; False only when
+        no younger victim exists or the policy defers."""
         need = -(-upto_tokens // self.page_size) - len(slot.pages)
         while need > 0:
             got = self.allocator.alloc(need)
             if got is not None:
                 slot.pages.extend(got)
                 return True
+            if self.prefix_cache is not None:
+                reclaimed = self.prefix_cache.evict(need - self.allocator.free_count)
+                if reclaimed:
+                    self._free_pages(reclaimed)
+                    self.prefix_evictions += len(reclaimed)
+                    continue
             candidates = [
                 s for s in self.slots if s is not None and s.admit_order > slot.admit_order
             ]
@@ -1033,20 +1279,39 @@ class ServeEngine:
         self._release_slot(victim)
         self.slots[i] = None
         self.preemptions += 1
+        self._resumed_uids.add(req.uid)
         self._trace.instant("preempt", "lifecycle", self._obs_tid, args={"uid": req.uid})
 
     def _release_slot(self, slot: _Slot) -> None:
         """The ONE funnel a departing slot's pages go through (finish,
-        cancel, timeout, preemption). -1 entries are window-reclaimed
-        placeholders, already freed."""
-        self._free_pages([p for p in slot.pages if p >= 0])
+        cancel, timeout, preemption). Cache off: back to the allocator (-1
+        entries are window-reclaimed placeholders, already freed). Cache on:
+        the trie drops the slot's references, keeps its complete committed
+        pages for later matches, and returns the rest (partial tails,
+        content duplicates), so conservation reads free + trie pages +
+        live-only pages == num_pages - 1."""
+        self._taint(slot)
+        if self.prefix_cache is None:
+            self._free_pages([p for p in slot.pages if p >= 0])
+            return
+        with self._trace.span("trie.release", "prefix", self._obs_tid):
+            committed = np.concatenate([slot.request.prompt, np.asarray(slot.generated, np.int32)])[: slot.length]
+            self._free_pages(self.prefix_cache.release(committed, slot.pages, slot.n_shared))
+
+    def _taint(self, slot: _Slot) -> None:
+        """Mark every page of a slot that read a poisoned page: the K/V it
+        wrote after the damage are NaN too (from the second layer on), so
+        each is scrubbed when freed, like the damaged page itself."""
+        if slot.request.uid in self.poisoned_uids:
+            self._poisoned_pages.update(p for p in slot.pages if p >= 0)
 
     def _free_pages(self, pages: tp.List[int]) -> None:
         """Return pages to the pool, scrubbing any that `poisoned_page`
-        corrupted first: a recycled page keeps its old contents in the
-        columns its next owner has not written yet, and the attention's
-        masked columns weigh those by 0 — 0 * NaN would reach the new
-        owner's stream. (The JAX engine returns the page as is.)"""
+        corrupted (or a slot reading it wrote, `_taint`) first: a recycled
+        page keeps its old contents in the columns its next owner has not
+        written yet, and the attention's masked columns weigh those by 0 —
+        0 * NaN would reach the new owner's stream. (The JAX engine returns
+        the pages as they are.)"""
         bad = [p for p in pages if p in self._poisoned_pages]
         if bad:
             idx = torch.as_tensor(bad, device=self.device)
@@ -1078,10 +1343,12 @@ class ServeEngine:
         Freed entries become -1 placeholders, so the page list keeps its
         logical length (position -> table column stays the identity) and
         `_page_table` parks them on the sink page. Off with a draft model
-        (a verify rollback re-reads recent history). Conservation becomes
-        free + live non-placeholder pages == num_pages - 1."""
+        (a verify rollback re-reads recent history) and under the prefix
+        cache (a reclaimed page may be shared; the trie owns its lifetime).
+        Conservation becomes free + live non-placeholder pages ==
+        num_pages - 1."""
         W = self.config.sliding_window
-        if not W or self.draft_config is not None:
+        if not W or self.draft_config is not None or self.prefix_cache is not None:
             return
         ps = self.page_size
         first_live = max(0, slot.length - W) // ps  # pages below are dead
@@ -1089,6 +1356,7 @@ class ServeEngine:
         dead = [j for j in range(sink_pages, first_live) if slot.pages[j] >= 0]
         if not dead:
             return
+        self._taint(slot)
         self._free_pages([slot.pages[j] for j in dead])
         for j in dead:
             slot.pages[j] = -1
@@ -1153,7 +1421,13 @@ class ServeEngine:
         slot.prompt_pos += n_valid
         slot.length = slot.prompt_pos
         self._reclaim_window(slot)  # long prompts free behind-window pages
+        self.prefilled_tokens += n_valid
         if not slot.prefilling:
+            if self.prefix_cache is not None:
+                # The prompt's complete pages are immutable from here on
+                # (every later write lands at a position >= len(prompt)):
+                # share them with concurrent and later requests.
+                slot.n_shared = self.prefix_cache.insert_live(prompt, slot.pages, slot.n_shared)
             # Prompt complete: the first generated token comes from the last
             # valid prompt position's logits (greedy: first-index argmax).
             # the int() is the sync: the span holds the last chunk's device time
@@ -1495,10 +1769,13 @@ class ServeEngine:
             # page-aligned rollback: drop tail pages past the committed
             # length; the partial last page keeps its stale (masked)
             # columns. An int8 pool's scales are indexed by physical page,
-            # so the same free orphans them too.
-            keep = -(-slot.length // self.page_size)
+            # so the same free orphans them too. Shared prefix pages sit
+            # below the length; the max() keeps a rollback from ever
+            # handing a trie page to the allocator.
+            keep = max(-(-slot.length // self.page_size), slot.n_shared)
             if len(slot.pages) > keep:
                 tail = slot.pages[keep:]
+                self._taint(slot)
                 del slot.pages[keep:]
                 self._free_pages(tail)
         if self.obs is not None:
@@ -1516,18 +1793,26 @@ class ServeEngine:
         )
 
     def _finish(self, fr: FinishedRequest) -> None:
-        """Record a terminal transition (ok/EOS/timeout/cancelled) — the
-        ONE funnel every path to `finished` goes through."""
+        """Record a terminal transition (ok/EOS/timeout/cancelled) and fire
+        `on_finish` — the ONE funnel every path to `finished` goes through,
+        so the async server never misses an ending."""
         self.finished[fr.uid] = fr
         self._trace.instant("finish", "lifecycle", self._obs_tid, args={"uid": fr.uid, "status": fr.status})
+        if self.on_finish is not None:
+            self.on_finish(fr)
 
     def _append_token(self, slot_i: int, slot: _Slot, tok: int, t: float) -> bool:
-        """Record one generated token; returns True if the request finished
-        (and the slot was freed)."""
+        """Record one generated token and fire `on_token`; returns True if
+        the request finished (and the slot was freed). Every caller commits
+        a settled round's tokens (a prefill's first token, a classic round,
+        `_settle_round`, a verify), never a dispatch's: a streamed token is
+        final."""
         self._reclaim_window(slot)  # no-op unless config.sliding_window
         slot.generated.append(tok)
         slot.token_times.append(t)
         req = slot.request
+        if self.on_token is not None:
+            self.on_token(req.uid, tok, t)
         hit_eos = req.eos_id is not None and tok == req.eos_id
         if hit_eos or len(slot.generated) >= req.max_new_tokens:
             self._finish(self._finished_from(slot))

@@ -4,7 +4,10 @@ the merge of its partitions and its capture in a CUDA graph; flash
 attention: forward and both backward kernels), and the decode step and the
 overlap modes' fused decode group as CUDA-graph replays (bit for bit
 against eager runs, launch tallies per replay, two groups in flight, a
-capture beside another thread's sync).
+capture beside another thread's sync), and the serving front door's
+device side (the kernel on page tables that alias pages, replays after an
+in-place hot swap, a resize dropping the old pool's captures, steps from
+two threads).
 Every test here needs an
 NVIDIA GPU and skips with a reason without one. The file imports no JAX, so it also runs where JAX is absent:
 
@@ -945,3 +948,112 @@ def test_batch_generate_replays_draw_from_the_callers_generator(cuda):
     assert graphs.captures == 1
     assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
     assert ((0 <= runs[0]) & (runs[0] < cfg.vocab_size)).all()
+
+
+# ---------------------------------------------------------------- the serving front door
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("split_k", [1, 2])
+def test_kernel_on_page_tables_that_alias_pages(cuda, dtype, split_k):
+    """A prefix-cache hit maps the same physical pages into several slots'
+    tables: four slots share their first 16 pages (a 128-token template)
+    and two of them a 17th, then each goes on through private pages. The
+    kernel equals its plain version on that table."""
+    counts = [300, 200, 140, 129]
+    q, k, v, table, cnt = _problem(cuda, dtype, 4, 12, 64, 8, 64, counts)
+    shared = torch.arange(1, 18, dtype=torch.int32, device=cuda)
+    table[:, :16] = shared[:16]
+    table[:2, 16] = shared[16]
+    assert len({tuple(r[:16].tolist()) for r in table}) == 1
+    got = paged_attention_kernel(q, k, v, table, cnt, split_k=split_k)
+    torch.cuda.synchronize()
+    want = tpl.paged_attention_template_plain(q[:, :, None], k, v, table, cnt[:, None], split_k=split_k)[:, :, 0]
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _front_door_engine(dev, params, **kw):
+    from midgpt_tpu_torch.sampling.serve import ServeEngine
+
+    return ServeEngine(GPTConfig(**GRAPH_CFG), params, max_slots=3, page_size=8, num_pages=24, decode_chunk=4,
+                       cache_dtype=torch.float32, device=dev, **{"overlap": "group", "round_group": 2, **kw})
+
+
+def _front_door_trace():
+    g = torch.Generator().manual_seed(3)
+    return [(torch.randint(0, GRAPH_CFG["vocab_size"], (n,), generator=g).numpy(), m)
+            for n, m in ((5, 14), (19, 9), (11, 20), (26, 12))]
+
+
+def _serve_all(eng, trace=None):
+    uids = [eng.submit(p, m) for p, m in (trace or _front_door_trace())]
+    done = eng.run()
+    return [done[u].tokens.tolist() for u in uids]
+
+
+@pytest.mark.cuda
+def test_group_replays_after_an_in_place_hot_swap(cuda):
+    """An engine captures its groups on weights A, flips to weights B in
+    place (idle: at once) and serves again: no new capture, and the
+    replays' f32 streams equal a fresh engine's on B, bit for bit."""
+    eng = _front_door_engine(cuda, _graph_params(cuda, torch.float32))
+    before = _serve_all(eng)
+    captured = eng.stats()["decode_graphs"]["captured"]
+    new = GPT.init(GPTConfig(**GRAPH_CFG), 7, device=cuda)
+    assert eng.hot_swap(new, version="v2")["flipped"]
+    after = _serve_all(eng)
+    assert eng.stats()["decode_graphs"]["captured"] == captured
+    assert sum(eng.stats()["decode_graphs"]["captures_per_key"]) == captured
+    fresh = _front_door_engine(cuda, GPT.init(GPTConfig(**GRAPH_CFG), 7, device=cuda))
+    assert after == _serve_all(fresh)
+    assert after != before
+
+
+@pytest.mark.cuda
+def test_resize_leaves_no_capture_of_the_old_pool(cuda):
+    """A grow and a shrink each drop every captured graph (they read the
+    old pool) and the next dispatches recapture against the new one; the
+    streams equal the run without a resize, and the device memory comes
+    back to within the new pool's size of the value before."""
+    eng = _front_door_engine(cuda, _graph_params(cuda, torch.float32), prefix_cache=True)
+    want = _serve_all(eng)
+    torch.cuda.synchronize()
+    captured = eng.stats()["decode_graphs"]["captured"]
+    old_pool, before = eng.cache, torch.cuda.memory_allocated(cuda)
+    eng.resize(40)
+    assert eng.stats()["decode_graphs"]["captured"] == 0 and eng.dropped_graphs == captured
+    eng.resize(20)
+    assert eng.cache is not old_pool and eng.cache.num_pages == 20
+    del old_pool
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda) - before < eng.cache.nbytes
+    assert _serve_all(eng) == want  # the trie's pages moved with their content: these prompts hit it now
+    assert eng.stats()["decode_graphs"]["captured"] >= 1 and eng.dropped_graphs == captured
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", ["group", "double"])
+def test_steps_from_two_threads_match_one(cuda, overlap):
+    """The asyncio server steps the engine from worker threads. An engine
+    built under a side stream and stepped from two threads in turn (each
+    with the default stream current) gives the streams of one thread."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    params = _graph_params(cuda, torch.float32)
+    want = _serve_all(_front_door_engine(cuda, params, overlap=overlap))
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        eng = _front_door_engine(cuda, params, overlap=overlap)
+    uids = [eng.submit(p, m) for p, m in _front_door_trace()]
+    pools = [ThreadPoolExecutor(1), ThreadPoolExecutor(1)]
+    try:
+        turn = 0
+        while not eng.idle:
+            pools[turn % 2].submit(eng.step).result()
+            turn += 1
+    finally:
+        for pool in pools:
+            pool.shutdown()
+    assert turn > 2 and [eng.finished[u].tokens.tolist() for u in uids] == want

@@ -234,7 +234,7 @@ def test_on_resume_mesh_refuses_another_device_count(data_dir, tmp_path):
     sup_mod._save_state(str(tmp_path), {"mesh": {"n_devices": 4, "axes": {"data": 1, "fsdp": 4}}})
     with pytest.raises(RuntimeError, match="on_resume_mesh='same' refuses"):
         supervise(_config(data_dir, rundir=str(tmp_path)), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         supervise(_config(data_dir, rundir=str(tmp_path), on_resume_mesh="any"), device=CPU)
 
 
@@ -323,8 +323,8 @@ def test_launch_supervises_and_restores_the_handlers(data_dir, tmp_path, monkeyp
     assert seen == [True]
     assert result["supervisor"]["restarts"] == 1 and result["supervisor"]["faults_fired"] == {"nan_grad": 1}
     assert signal.getsignal(signal.SIGINT) is original
-    sets["fault_plan"] = "slow_client@2"
-    with pytest.raises(NotImplementedError, match="slow_client"):
+    sets["fault_plan"] = "submit_storm@2"
+    with pytest.raises(NotImplementedError, match="submit_storm"):
         launch.main(args + [a for k, v in sets.items() for a in ("--set", f"{k}={v}")])
     assert signal.getsignal(signal.SIGINT) is original
 

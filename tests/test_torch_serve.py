@@ -105,10 +105,10 @@ def test_cancel_and_timeout_free_pages(reference):
 def test_engine_validation():
     cfg = GPTConfig(**SHAPE)
     params = {}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(cfg, params, device=CPU, prefix_cache=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(cfg, params, device=CPU, pool_hbm_bytes=1 << 20)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
+        ServeEngine(cfg, params, device=CPU, mesh=object())
+    with pytest.raises(ValueError, match="not both"):
+        ServeEngine(cfg, params, device=CPU, pool_hbm_bytes=1 << 20, num_pages=10)
     with pytest.raises(ValueError, match="unknown cache dtype"):
         ServeEngine(cfg, params, device=CPU, cache_dtype="int4")
     if not torch.cuda.is_available():
