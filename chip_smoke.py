@@ -238,6 +238,30 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      after the shrink within the new pool's size of the value before the
      grow; e. pool_hbm_bytes = 1 GiB gives JAX's num_pages for bf16, int8
      and GQA (3 K/V heads) pools;
+ 14. (run after phase 13) serving chaos, the fleet and disagg at GPT-2
+     small's full width (random weights from seed 0; phase 13's template
+     trace at seed 14, whose two heads hash to different replicas): a. two
+     replicas behind a FleetRouter with the prefix cache on, group:4, f32
+     and bf16: the placement by head, the fleet-wide prefix_hit_rate
+     against one engine's, streams == one engine's (f32 bit for bit, bf16
+     or a near-tie); b. f32 faults on the fleet: engine_crash at router
+     round 4 (zero drops, failovers 1, every stream == one engine's,
+     device memory before and after the crash), the staged spill with
+     spill_corrupt and with handoff_stall (caught, ledger closed, no token
+     mismatch), the ms per page of a spill and of a re-adoption and the
+     host bytes a page (bf16, f32, int8), and an int8 pair whose re-adopted
+     pages carry their scales (streams == the int8 engine's); c. a
+     DisaggServe pair on one card (prefill role 2 slots, chunk 256; decode
+     role 4 slots, group:4 in bf16, off in f32): pages shipped, gather and
+     adopt ms a page, no capture in the timed pass, streams == a
+     monolithic engine's (f32 bit for bit; bf16 or a near-tie within
+     GAP_TOL_BF16_RECHUNK), one rebalance with conservation on both roles,
+     one ModelOps re-role on a scripted backlog; d. the kernel at the tiny
+     model's head_dim 16 against its plain version, then the 11 in-process
+     chaos scenarios of JAX's tests/test_chaos_serve.py through
+     `chaos_serve.main` (each line "status": "ok"); e. `loadgen --fleet 2`
+     at half the rate a saturating fleet pass sustained (FLEET_SATURATED_RPS).
+     Paged launches == n_layer x decode steps in a, b, c and e;
  10. timings: the paged decode kernel as before (CUDA-graph replay, cold
      L2), and each flash kernel in bf16 (CUDA events over repeated
      launches) at the main path's shape and at one shape per other
@@ -268,7 +292,8 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
 
 The last lines are the card's name and power limit as nvidia-smi prints
 them, one JSON object with a "kernels" list (flash_fwd's launches include
-phase 12's; the paged decode and int8 entries include phase 13's), phase 4b's "decode_modes" (tokens/s and busy share per
+phase 12's; the paged decode, int8 and merge entries include phases 13's
+and 14's), phase 4b's "decode_modes" (tokens/s and busy share per
 overlap mode) and phase 12's "batch_decode" (replayed and eager tokens/s
 and the replayed chunk's busy share per cell), and the contract line
 {"ok": true, "device": {...}}.
@@ -287,6 +312,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -310,6 +336,11 @@ PAGED_EARLIER_MS = {
     "gqa-verify": (0.6092, 0.3415), "window-gqa-decode": (0.0421, 0.0703),
 }
 GAP_TOL = 1e-5  # relative top-2 logit gap below which a spec/plain departure is a near-tie
+# 14c, bf16 only: the decode role re-prefills each prompt's tail in a chunk
+# of its own (the monolithic engine's chunk started 8-32 tokens earlier), so
+# the tail's bf16 K/V round differently; a departure whose f32 top-2 gap is
+# within 4 bf16 ulps (2^-8 relative each) is a near-tie at that precision
+GAP_TOL_BF16_RECHUNK = 2.0**-6
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 KERNEL_SOURCES = ("paged_attention", "flash_attention")
 # flash checks: (label, B, H, T, C, block_q, block_k, dtype)
@@ -912,12 +943,12 @@ def spec_launches(label, stats, launches, n_layer, int8, want=None):
         raise SystemExit(f"{label}: launched specs {sorted({s for s, _ in launches})}, want {sorted(want)}")
 
 
-def compare_streams(label, got, want, model_cfg=None, params=None):
+def compare_streams(label, got, want, model_cfg=None, params=None, gap_tol=GAP_TOL):
     """Greedy streams must be identical. With `params` (speculative vs plain
     decode), a departure is allowed only at a near-tie: the run prints the
     first departing position and the top-2 logit gap there (a dense f32
     forward of the plain stream's prefix) and fails unless the gap is under
-    GAP_TOL relative."""
+    `gap_tol` relative."""
     from midgpt_tpu_torch.models.gpt import GPT
 
     departed = 0
@@ -933,8 +964,8 @@ def compare_streams(label, got, want, model_cfg=None, params=None):
         top = torch.topk(logits, 2).values
         gap = ((top[0] - top[1]) / top[0].abs()).item()
         print(f"{label}: request {i} departs at token {pos} of {len(w)}: top-2 logit gap {gap:.3e} relative "
-              f"(tol {GAP_TOL:g})")
-        if gap >= GAP_TOL:
+              f"(tol {gap_tol:g})")
+        if gap >= gap_tol:
             raise SystemExit(f"{label}: request {i} departs at token {pos} with no near-tie there")
         departed += 1
     print(f"{label}: {len(got) - departed} of {len(got)} greedy streams identical"
@@ -2752,14 +2783,16 @@ def check_aliased_kernel(dtype, split_k):
     return err
 
 
-def run_loadgen(label: str, extra, card: str, n_layer: int):
+def run_loadgen(label: str, extra, card: str, n_layer: int, args=FRONT_DOOR_ARGS, rates=FRONT_DOOR_RATES,
+                phase: str = "13"):
     """One in-process loadgen run; counters zeroed just before, read just
     after. Checks: the serve_slo line parses, every point captured nothing,
     the decode-spec launches == n_layer x the device's decode steps.
     Returns (the line, launches by (spec, split))."""
     from midgpt_tpu_torch import loadgen
 
-    argv = FRONT_DOOR_ARGS + [f"--rates={','.join(f'{r:g}' for r in FRONT_DOOR_RATES)}"] + list(extra)
+    label = phase + label
+    argv = list(args) + [f"--rates={','.join(f'{r:g}' for r in rates)}"] + list(extra)
     out = io.StringIO()
     reset_launches()
     t0 = time.perf_counter()
@@ -2768,27 +2801,27 @@ def run_loadgen(label: str, extra, card: str, n_layer: int):
     took = time.perf_counter() - t0
     rec = json.loads(out.getvalue().strip().splitlines()[-1])
     steps = rec["decode_steps"] + rec["capture_warmup_steps"]
-    by_variant = check_launches(f"13{label}", n_layer, steps)
-    print(f"13{label} loadgen {' '.join(extra)} ({took:.1f} s): {json.dumps(rec)}")
-    print(f"13{label} device: {rec['device']}; {rec['warm_captures']} graphs captured by the warm-up; paged launches "
+    by_variant = check_launches(label, n_layer, steps)
+    print(f"{label} loadgen {' '.join(extra)} ({took:.1f} s): {json.dumps(rec)}")
+    print(f"{label} device: {rec['device']}; {rec['warm_captures']} graphs captured by the warm-up; paged launches "
           f"{dict(by_variant)} == {n_layer} layers x {steps} decode steps ({rec['decode_steps']} dispatched, "
           f"{rec['capture_warmup_steps']} capture warm-ups) on {card}")
     if {spec for spec, _ in by_variant} - {"decode", "merge"}:
-        raise SystemExit(f"13{label}: the bf16 pool must launch the decode spec only, got {dict(by_variant)}")
+        raise SystemExit(f"{label}: the bf16 pool must launch the decode spec only, got {dict(by_variant)}")
     for p in rec["points"]:
         hit = (f", prefix_hit_rate {p['prefix_hit_rate']}, prefill tokens the trie saved "
                f"{p['prefill_tokens_saved']}" if "prefix_hit_rate" in p else "")
         swap = (f", weights_version {p['weights_version']} (flip round {p['swap_flip_round']})"
                 if "weights_version" in p else "")
-        print(f"13{label} {p['offered_rps']:g} req/s offered: TTFT p50 {p['ttft_p50_ms']} / p95 {p['ttft_p95_ms']} ms, "
+        print(f"{label} {p['offered_rps']:g} req/s offered: TTFT p50 {p['ttft_p50_ms']} / p95 {p['ttft_p95_ms']} ms, "
               f"TPOT p50 {p['tpot_p50_ms']} / p95 {p['tpot_p95_ms']} ms, {p['completed']}/{p['n_offered']} completed "
               f"in {p['wall_s']} s ({p['completed'] / p['wall_s']:.2f} req/s), shed {p['shed_frac']}, timeout "
               f"{p['timeout_frac']}, round host p50 {p['round_host_ms']['p50']} ms, device p50 "
               f"{p['round_device_ms']['p50']} ms{hit}{swap}; captures inside the point {p['captures']} on {card}")
         if p["captures"] != 0:
-            raise SystemExit(f"13{label}: a graph was captured inside a timed point")
+            raise SystemExit(f"{label}: a graph was captured inside a timed point")
         if p["completed"] != p["n_offered"]:
-            raise SystemExit(f"13{label}: {p['n_offered'] - p['completed']} requests did not complete")
+            raise SystemExit(f"{label}: {p['n_offered'] - p['completed']} requests did not complete")
     return rec, by_variant
 
 
@@ -3014,6 +3047,372 @@ def front_door(card: str):
     return launches, alias_errs
 
 
+# ---------------------------------------------------------------- phase 14: serving chaos, the fleet, disagg
+
+# 14b: the engine_crash round (one arrival per router round: streams are in
+# flight on the busiest replica by then)
+CRASH_ROUND = 4
+# 14a-c: phase 13's template trace at the seed whose two heads hash to different replicas
+FLEET_TRACE_SEED = 14
+SPILL_COST_PAGES = 32  # 14b: pages per spill / re-adoption timing pass
+# 14d: every in-process plan of JAX's tests/test_chaos_serve.py, as
+# `chaos_serve --fault` arguments and --n-requests
+CHAOS_PLANS = [(["kill_mid_decode@6"], 5), (["kill_overlapped_round@6"], 5), (["poisoned_page@3"], 5),
+               (["slow_client@1"], 5), (["submit_storm@2"], 5), (["evict_shared_prefix@7"], 6),
+               (["hot_swap_mid_decode@5"], 5), (["pool_resize@4", "pool_resize@8"], 5), (["engine_crash@6"], 5),
+               (["handoff_stall"], 5), (["spill_corrupt"], 5)]
+# 14e: loadgen --fleet 2 at GPT-2 small's full width, bf16 pools, group:4,
+# template-headed mixture. FLEET_SATURATED_RPS is what a saturating pass
+# (every request at t=0) sustained, completed / wall (PERF.md, phase 14's
+# cell); the point is offered at half of it.
+FLEET_ARGS = ["--process=poisson", "--n-requests=16", "--template-frac=0.5", "--overlap=group:4", "--max-slots=4",
+              "--num-pages=513", "--page-size=8", "--prefill-chunk=256", "--decode-chunk=4", "--block-size=1024",
+              "--vocab-size=50304", "--n-layer=12", "--n-head=12", "--n-embd=768", "--seed=0", "--fleet=2"]
+FLEET_SATURATED_RPS = 29.6
+FLEET_RATE = FLEET_SATURATED_RPS / 2
+EARLIER_SMOKE_PHASE14_S = 616.8  # this script's wall time before phase 14 was added (PERF.md, the front door)
+
+
+def fleet_waves(router, reqs):
+    """serve_waves through a FleetRouter: half the requests, two rounds, the
+    rest, then to the end. Returns (streams, the replica each request was
+    placed on); every request must finish with its budget."""
+    half = len(reqs) // 2
+    uids = [router.submit(p, m) for p, m in reqs[:half]]
+    placed = [router._pending[u].replica for u in uids]
+    for i in range(10**6):
+        if i == 2:
+            more = [router.submit(p, m) for p, m in reqs[half:]]
+            placed += [router._pending[u].replica for u in more]
+            uids += more
+        elif router.idle:
+            break
+        router.step()
+    torch.cuda.synchronize()
+    return fleet_streams(router, reqs, uids), placed
+
+
+def fleet_trickle(router, reqs, watch=None):
+    """One arrival per router round (a mid-trace crash finds streams in
+    flight), then to the end; `watch(router)` after every round."""
+    uids, pending = [], list(reqs)
+    while pending or not router.idle:
+        if pending:
+            uids.append(router.submit_retry(*pending.pop(0)))
+        router.step()
+        if watch is not None:
+            watch(router)
+    torch.cuda.synchronize()
+    return fleet_streams(router, reqs, uids)
+
+
+def fleet_streams(router, reqs, uids):
+    streams = []
+    for (p, m), u in zip(reqs, uids):
+        fr = router.finished[u]
+        if fr.status != "ok" or len(fr.tokens) != len(p) + m:
+            raise SystemExit(f"fleet stream {u} ended {fr.status} with {len(fr.tokens) - len(p)}/{m} tokens")
+        streams.append(fr.tokens)
+    return streams
+
+
+def fleet_steps(engines) -> int:
+    return sum(device_steps(e.stats()) for e in engines)
+
+
+def staged_spill(router, reqs):
+    """chaos_serve's staged spill: the first request alone, every replica's
+    trie flushed into the shared tier, then the rest one a round (each
+    same-head admission consults the tier)."""
+    u0 = router.submit(*reqs[0])
+    router.run()
+    for eng in router.engines:
+        eng.flush_prefix_cache()
+    streams = fleet_trickle(router, reqs[1:])
+    return fleet_streams(router, reqs[:1], [u0]) + streams
+
+
+def spill_cost(cfg, dt, n=SPILL_COST_PAGES):
+    """ms per page of a spill (the page's blocks to the host plus their
+    crc32) and of a re-adoption (crc check, stack, copy back in place,
+    synchronized), and host bytes a page, at full width: the second of two
+    passes over `n` pages; the re-adopted pages must come back byte for
+    byte."""
+    from midgpt_tpu_torch.models.gpt import PagedKVCache
+    from midgpt_tpu_torch.sampling.disagg import adopt_pages, gather_pages
+    from midgpt_tpu_torch.sampling.fleet import SpillTier
+
+    cache = PagedKVCache.init(cfg, num_pages=n + 1, page_size=PAGE, dtype=dt, device="cuda")
+    for t in (cache.k, cache.v):
+        t.copy_(torch.randn(t.shape, device="cuda").mul(30).to(dt))
+    if cache.quantized:
+        cache.k_scale.uniform_()
+        cache.v_scale.uniform_()
+    before = gather_pages(cache, range(1, n + 1))
+    prompt = list(range(n * PAGE + 1))
+    for _ in range(2):
+        tier = SpillTier()
+        tier.set_page_size(PAGE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for d in range(n):
+            tier.spill(cache, tuple(prompt[: (d + 1) * PAGE]), d + 1, "v")
+        t1 = time.perf_counter()
+        run = tier.take_run(prompt, 0, n, "v")
+        blocks = {k: np.stack([b[k] for b in run], axis=1 if k.endswith("scale") else 2) for k in run[0]}
+        adopt_pages(cache, list(range(1, n + 1)), blocks)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    after = gather_pages(cache, range(1, n + 1))
+    if any(before[k].tobytes() != after[k].tobytes() for k in before) or tier.readopted != n:
+        raise SystemExit(f"14b {dt}: pages did not survive spill and re-adoption byte for byte")
+    return (t1 - t0) * 1e3 / n, (t2 - t1) * 1e3 / n, tier.spilled_bytes // n
+
+
+def handoff_ms(obs, since: int):
+    """Summed ms of the handoff.gather and handoff.adopt spans recorded
+    after the tracer's first `since` events."""
+    tot = collections.Counter()
+    for kind, name, _cat, _tid, _t, dur, _ident, _args in obs.tracer.events()[since:]:
+        if name in ("handoff.gather", "handoff.adopt"):
+            tot[name] += dur * 1e3
+    return tot
+
+
+def check_tiny_kernel(kv_dtype):
+    """14d's scenarios run chaos_serve's tiny model (2 heads of 16) in f32:
+    the kernel at that head width, f32 and int8 pools, against its plain
+    version. Returns max |err|."""
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+    from midgpt_tpu_torch.ops.quant import quantize_q8
+
+    g = torch.Generator().manual_seed(5)
+    B, H, C, counts = 3, 2, 16, [0, 9, 37]
+    table = torch.tensor([[0] * 8, [1, 2] + [0] * 6, [3, 4, 5, 6, 7] + [0] * 3], dtype=torch.int32, device="cuda")
+    q = torch.randn(B, H, 1, C, generator=g).cuda()
+    k, v = (torch.randn(H, 8, PAGE, C, generator=g).cuda() for _ in range(2))
+    cnt = torch.tensor(counts, dtype=torch.int32, device="cuda")[:, None]
+    kw = {}
+    if kv_dtype == torch.int8:
+        (k, ks), (v, vs) = (quantize_q8(x.transpose(0, 1)) for x in (k, v))  # per (page, head, position)
+        k, v = k.transpose(0, 1).contiguous(), v.transpose(0, 1).contiguous()
+        kw = dict(k_scale=ks, v_scale=vs)
+    got = tpl.paged_attention_template(q, k, v, table, cnt, **kw)
+    torch.cuda.synchronize()
+    want = tpl.paged_attention_template_plain(q, k, v, table, cnt, **kw)
+    err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, atol=1e-5, rtol=1e-5) or not bool(torch.isfinite(got).all()):
+        raise SystemExit(f"14d: the paged kernel at head_dim {C} ({kv_dtype}) disagrees with its plain version: {err}")
+    return err
+
+
+def fleet_chaos(card: str):
+    """Phase 14. Returns the paged-kernel launches by (spec, split) of its
+    fleet, disagg and loadgen runs (counters zeroed just before each, read
+    just after) and of the chaos scenarios."""
+    from midgpt_tpu_torch import loadgen
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+    from midgpt_tpu_torch.models.gpt import GPT
+    from midgpt_tpu_torch.obs import Observability
+    from midgpt_tpu_torch.robustness import chaos_serve, faults
+    from midgpt_tpu_torch.sampling.disagg import DisaggServe
+    from midgpt_tpu_torch.sampling.fleet import FleetRouter, assert_fleet_conserved
+    from midgpt_tpu_torch.sampling.ops import ModelOps, assert_conserved
+    from midgpt_tpu_torch.utils.precision import cast_floating
+
+    t_phase = time.perf_counter()
+    launches = collections.Counter()
+    cfg = load_config("openwebtext").model_config
+    L = cfg.n_layer
+    params32 = GPT.init(cfg, 0, device="cuda")
+    params16 = cast_floating(params32, torch.bfloat16)
+    reqs = template_trace(cfg.vocab_size, seed=FLEET_TRACE_SEED)
+    grouped = dict(overlap="group", round_group=4, prefix_cache=True)
+
+    def counted(label, steps, what):
+        """check_launches, printed: no decode step of `what` bypassed the kernel."""
+        n = check_launches(label, L, steps)
+        print(f"{label} paged launches {dict(n)} == {L} layers x {steps} decode steps ({what}) on {card}")
+        return n
+
+    # 14a. two replicas behind the router vs one engine, f32 and bf16
+    want = {}
+    for dt, params in ((torch.float32, params32), (torch.bfloat16, params16)):
+        label = str(dt)[6:]
+        reset_launches()
+        single = new_engine(cfg, params, dt, **grouped)
+        want[dt] = serve_waves(single, reqs)
+        router = FleetRouter([new_engine(cfg, params, dt, obs_tid=f"replica{i}", **grouped) for i in range(2)])
+        got, placed = fleet_waves(router, reqs)
+        assert_fleet_conserved(router, f"14a {label}")
+        launches += counted(f"14a {label}", device_steps(single.stats()) + fleet_steps(router.engines),
+                            "one engine and the two replicas, capture warm-ups included")
+        heads = {h: sorted({placed[i] for i in range(len(reqs)) if i % 2 == h}) for h in (0, 1)}
+        print(f"14a {label} placement by head: {heads}; fleet prefix_hit_rate {router.prefix_hit_rate():.3f} vs one "
+              f"engine's {single.prefix_stats()['hit_rate']:.3f}; per replica "
+              f"{[round(e.prefix_stats()['hit_rate'], 3) for e in router.engines]} on {card}")
+        if any(len(r) != 1 for r in heads.values()):
+            raise SystemExit(f"14a {label}: requests sharing a head landed on more than one replica: {heads}")
+        compare_streams(f"14a {label} fleet of 2 vs one engine", got, want[dt],
+                        *((cfg, params32) if dt == torch.bfloat16 else ()))
+        del single, router
+        free_memory()
+
+    # 14b. faults on the fleet, f32 (eager rounds: no captures to wait for)
+    reset_launches()
+    faults.clear()
+    faults.activate("engine_crash", step=CRASH_ROUND)
+    router = FleetRouter([new_engine(cfg, params32, torch.float32, prefix_cache=True) for _ in range(2)])
+    mem = {}
+
+    def watch(r):
+        if r.rounds in (CRASH_ROUND - 1, CRASH_ROUND):
+            torch.cuda.synchronize()
+            mem[r.rounds] = torch.cuda.memory_allocated()
+
+    try:
+        got = fleet_trickle(router, reqs, watch)
+    finally:
+        faults.clear()
+    torch.cuda.synchronize()
+    mem["end"] = torch.cuda.memory_allocated()
+    assert_fleet_conserved(router, "14b crash")
+    launches += counted("14b crash", fleet_steps(router.engines), "both replicas, the dead one included")
+    print(f"14b engine_crash@{CRASH_ROUND}: crash log {router.crash_log}, failovers {router.failovers}, failed-over "
+          f"streams {router.failed_over_streams}, alive {sum(router.alive)}/2, dropped 0; device memory allocated "
+          f"{mem[CRASH_ROUND - 1] / 2**20:.1f} MiB before the crash, {mem[CRASH_ROUND] / 2**20:.1f} MiB after it, "
+          f"{mem['end'] / 2**20:.1f} MiB after the drain (the dead replica keeps its pool) on {card}")
+    if router.failovers != 1 or router.failed_over_streams < 1:
+        raise SystemExit("14b: the crash must kill one replica with streams in flight")
+    compare_streams("14b f32 streams across the crash vs one engine", got, want[torch.float32])
+    del router
+    free_memory()
+    for kind in ("spill_corrupt", "handoff_stall"):
+        reset_launches()
+        router = FleetRouter([new_engine(cfg, params32, torch.float32, prefix_cache=True) for _ in range(2)])
+        faults.activate(kind)
+        try:
+            got = staged_spill(router, reqs)
+        finally:
+            faults.clear()
+        assert_fleet_conserved(router, f"14b {kind}")
+        launches += counted(f"14b {kind}", fleet_steps(router.engines), "both replicas")
+        sp = router.spill.stats()
+        print(f"14b staged spill with {kind}: {json.dumps(sp)}; readopted pages per replica "
+              f"{[e.spill_readopted_pages for e in router.engines]} on {card}")
+        if (kind == "spill_corrupt" and sp["corrupt_discarded"] < 1) or (
+                kind == "handoff_stall" and sp["stall_fallbacks"] < 1):
+            raise SystemExit(f"14b: {kind} was never caught")
+        compare_streams(f"14b f32 staged spill with {kind} vs one engine", got, want[torch.float32])
+        del router
+        free_memory()
+    for dt in (torch.bfloat16, torch.float32, torch.int8):
+        spill, readopt, nbytes = spill_cost(cfg, dt)
+        print(f"14b spill tier, {str(dt)[6:]} pages of {PAGE} tokens x {L} layers: spill {spill:.3f} ms a page "
+              f"(copy to the host + crc32), re-adoption {readopt:.3f} ms a page (crc32 check + copy back), "
+              f"{nbytes} host bytes a page, on {card}")
+    free_memory()
+    # the int8 pair: the staged spill's pages carry their scales
+    reset_launches()
+    single = new_engine(cfg, params32, torch.int8, prefix_cache=True)
+    want8 = serve_waves(single, reqs)
+    router = FleetRouter([new_engine(cfg, params32, torch.int8, prefix_cache=True) for _ in range(2)])
+    got = staged_spill(router, reqs)
+    assert_fleet_conserved(router, "14b int8")
+    launches += counted("14b int8", device_steps(single.stats()) + fleet_steps(router.engines),
+                        "the int8 engine and both replicas")
+    print(f"14b int8 pair, staged spill: {json.dumps(router.spill.stats())} on {card}")
+    if router.spill.readopted < 1:
+        raise SystemExit("14b int8: no page was re-adopted from the tier")
+    compare_streams("14b int8 fleet with re-adopted pages vs the int8 engine", got, want8)
+    del single, router
+    free_memory()
+
+    # 14c. disagg on one card: bf16 under group:4, f32 with overlap off
+    for dt, params, (mode, group) in ((torch.bfloat16, params16, ("group", 4)), (torch.float32, params32, ("off", 1))):
+        label = f"{str(dt)[6:]} decode role {mode}{f':{group}' if mode == 'group' else ''}"
+        obs = Observability()
+        reset_launches()
+        d = DisaggServe(cfg, params, obs=obs, page_size=PAGE, prefill_chunk=256, decode_chunk=8, cache_dtype=dt,
+                        device="cuda", prefill_kw=dict(max_slots=2), decode_kw=dict(max_slots=4, overlap=mode,
+                                                                                      round_group=group))
+        passes = []
+        for _ in range(2):  # the first pass captures; the second is timed
+            since, shipped0, caps0 = len(obs.tracer), d.queue.pages_copied, captures_of(d.decode)
+            uids = [d.submit(p, m) for p, m in reqs]
+            t0 = time.perf_counter()
+            d.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            streams = [d.finished[u].tokens for u in uids]
+            passes.append((streams, wall, d.queue.pages_copied - shipped0, captures_of(d.decode) - caps0,
+                           handoff_ms(obs, since)))
+        launches += counted(f"14c {label}", device_steps(d.decode.stats()) + device_steps(d.prefill.stats()),
+                            "both roles, both passes")
+        streams, wall, shipped, caps, ms = passes[1]
+        print(f"14c {label}: {shipped} pages shipped in the timed pass ({wall:.3f} s), gather "
+              f"{ms['handoff.gather'] / max(shipped, 1):.3f} ms a page, adopt {ms['handoff.adopt'] / max(shipped, 1):.3f} "
+              f"ms a page, fallback_reprefills {d.fallback_reprefills}, captures on the decode role inside the timed "
+              f"pass {caps} (warm-up pass {passes[0][3]}) on {card}")
+        if caps != 0 or shipped < 1:
+            raise SystemExit(f"14c {label}: {caps} captures inside the timed pass, {shipped} pages shipped")
+        compare_streams(f"14c {label} timed pass vs its warm-up pass", streams, passes[0][0])
+        compare_streams(f"14c {label} vs a monolithic engine", streams, want[dt],
+                        *((cfg, params32, GAP_TOL_BF16_RECHUNK) if dt == torch.bfloat16 else ()))
+        if dt == torch.float32:
+            move = d.rebalance(16)
+            assert_conserved(d.prefill, "14c after rebalance")
+            assert_conserved(d.decode, "14c after rebalance")
+            print(f"14c rebalance of 16 pages: prefill {move['src_resize']['from_pages']} -> "
+                  f"{move['src_resize']['to_pages']}, decode {move['dst_resize']['from_pages']} -> "
+                  f"{move['dst_resize']['to_pages']} pages, conservation held on both roles, on {card}")
+            for _ in range(5):
+                d.queue.push(types.SimpleNamespace(uid=-1, n_pages=0, blocks={}))
+            dec = ModelOps(d).tick()
+            d.queue._q.clear()
+            print(f"14c ModelOps on a scripted backlog of 5 handoffs: {dec.kind} ({dec.reason}) {dec.args}, applied "
+                  f"{dec.applied}; pools now prefill {d.prefill.allocator.num_pages} / decode "
+                  f"{d.decode.allocator.num_pages} pages, on {card}")
+            if (dec.kind, dec.reason, dec.applied) != ("re_role", "handoff_backlog_deep", True):
+                raise SystemExit("14c: the scripted backlog did not re-role pages to the decode role")
+        del d
+        free_memory()
+    del params32, params16
+    free_memory()
+
+    # 14d. the chaos scenarios on the card (chaos_serve's tiny model, f32)
+    errs = {dt: check_tiny_kernel(dt) for dt in (torch.float32, torch.int8)}
+    print(f"14d kernel at head_dim 16 vs plain: max |err| f32 pool {errs[torch.float32]:.2e}, int8 pool "
+          f"{errs[torch.int8]:.2e} on {card}")
+    reset_launches()
+    for plan, n in CHAOS_PLANS:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = chaos_serve.main([a for f in plan for a in ("--fault", f)] + [f"--n-requests={n}"])
+        line = out.getvalue().strip().splitlines()[-1]
+        print(f"14d {line}")
+        if rc != 0 or json.loads(line)["status"] != "ok":
+            raise SystemExit(f"14d: chaos scenario {plan} failed")
+    chaos_launches = collections.Counter(tpl.LAUNCHES.by_variant)
+    chaos_launches[("merge", None)] = tpl.MERGE_LAUNCHES.count
+    print(f"14d paged launches of the 11 scenarios (2 layers, tiny model): {dict(chaos_launches)} on {card}")
+    free_memory()
+
+    # 14e. loadgen --fleet 2 at half the saturating rate
+    rec, n = run_loadgen("e", [], card, L, args=FLEET_ARGS, rates=(FLEET_RATE,), phase="14")
+    launches += n
+    p = rec["points"][0]
+    print(f"14e loadgen --fleet 2 at {FLEET_RATE:g} req/s offered (half the saturating pass's "
+          f"{FLEET_SATURATED_RPS:g} req/s): TTFT p50 {p['ttft_p50_ms']} / p95 {p['ttft_p95_ms']} ms, TPOT p50 "
+          f"{p['tpot_p50_ms']} / p95 {p['tpot_p95_ms']} ms, failovers {p['failovers']}, spill_hits {p['spill_hits']}, "
+          f"fleet prefix_hit_rate {p['prefix_hit_rate']}, captures inside the point {p['captures']} on {card}")
+    if p["failovers"] != 0:
+        raise SystemExit("14e: a replica failed over under plain load")
+    print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches, chaos_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script needs an NVIDIA GPU", file=sys.stderr)
@@ -3167,6 +3566,9 @@ def main() -> int:
     batch_launches64, batch_launches128, batch_speeds = batch_sampler(card)
     # 13. the serving front door: aliased page tables, loadgen, hot swap, resize, the byte budget
     front_launches, alias_errs = front_door(card)
+    # 14. serving chaos, the fleet with its spill tier, disagg, loadgen --fleet
+    fleet_launches, chaos_launches = fleet_chaos(card)
+    front_launches += fleet_launches + chaos_launches
 
     # 10. timings
     kernels = []
@@ -3338,7 +3740,7 @@ def main() -> int:
             "library_ms": main_lib[kname],
         })
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s (before phase 12: {EARLIER_SMOKE_S} s, before "
-          f"phase 13: {EARLIER_SMOKE_PHASE13_S} s) on {card}")
+          f"phase 13: {EARLIER_SMOKE_PHASE13_S} s, before phase 14: {EARLIER_SMOKE_PHASE14_S} s) on {card}")
     print(card)  # exactly as nvidia-smi gives it: name, power limit
     decode_modes = {spec: {"decode_tokens_per_s": dec, "end_to_end_tokens_per_s": e2e,
                            "busy_share": busy.get(spec)} for spec, (dec, e2e) in overlap_rates.items()}

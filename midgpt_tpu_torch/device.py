@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import subprocess
 import typing as tp
 
 import torch
@@ -20,3 +21,18 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "(--device cpu) to run on the CPU explicitly"
         )
     return dev
+
+
+def device_label(dev: torch.device) -> str:
+    """What a result line names its device by: "cpu", or the card's name
+    and power limit as `nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader` prints them (the name alone without nvidia-smi)."""
+    if dev.type != "cuda":
+        return dev.type
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.CalledProcessError, IndexError):
+        return torch.cuda.get_device_name(dev)

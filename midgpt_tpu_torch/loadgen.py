@@ -12,7 +12,7 @@ the shed and timeout fractions, and whether the point met its SLO:
     python -m midgpt_tpu_torch.loadgen --process poisson --rates 20,60 \\
         [--device cpu] [--prefix-cache --template-frac 0.5] [--overlap group:4] \\
         [--scheduler slo] [--ttl-s 2.0] [--slo-ttft-ms 500 --slo-tpot-ms 50] \\
-        [--hot-swap] [--trace-out DIR]
+        [--hot-swap] [--fleet N] [--trace-out DIR]
 
 It runs on CUDA unless `--device cpu` is given. The pool is bf16 on CUDA
 and f32 on the CPU, as JAX's harness has it (bf16 on the TPU); the random
@@ -41,8 +41,18 @@ With `--hot-swap`, each point stages a verified checkpoint's weights
 mid-arrival-window (training/checkpoint.py); the next point starts on the
 inline weights again (one more flip, between points).
 
-JAX's `--fleet`, `--procs`, `--tp` and `--cpu-devices` are refused: the
-port has no fleet, process fleet or tensor-parallel serving yet.
+With `--fleet N` (N >= 2) the points are driven instead through N
+in-process replicas behind a FleetRouter (sampling/fleet.py: prefix
+affinity, failover, the shared host-RAM spill tier; the prefix cache is on)
+by a synchronous loop whose step IS the clock, as JAX's harness does
+(`_drive_fleet_point`). Every replica runs the capture warm-up before the
+first timed point, and each point gets a fresh router over the reset
+replicas; `assert_fleet_conserved` holds after each point, and the line
+adds `fleet_size`, `failovers`, `spill_hits` and the fleet-wide
+`prefix_hit_rate`.
+
+JAX's `--procs`, `--tp` and `--cpu-devices` are refused: the port has no
+process fleet or tensor-parallel serving yet.
 """
 
 from __future__ import annotations
@@ -51,7 +61,6 @@ import argparse
 import asyncio
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -184,6 +193,70 @@ async def _drive_point(server, reqs, arrivals, ttl_s):
     return records
 
 
+def _drive_fleet_point(router, reqs, arrivals, ttl_s, submit_retries=8):
+    """One offered-load point against a FleetRouter, driven synchronously:
+    the router's step loop IS the clock (in-process replicas: an asyncio
+    front door would add only scheduling noise). Arrivals submit when their
+    offset passes, under a bounded per-request retry budget; a request still
+    refused after `submit_retries` attempts stays a shed. TTFT runs from the
+    FIRST submit attempt; token times ride the router's on_token relay, so a
+    failed-over stream's replay counts in TPOT (at-least-once delivery)."""
+    from midgpt_tpu_torch.sampling.serve import BackpressureError
+
+    t0 = time.perf_counter()
+    records = [{"i": i, "status": "shed", "ttft_s": None, "tpot_s": None} for i in range(len(reqs))]
+    first_attempt: tp.Dict[int, float] = {}
+    token_times: tp.Dict[int, tp.List[float]] = {}
+    uid_to_i: tp.Dict[int, int] = {}
+
+    def on_token(uid, tok, t):
+        token_times.setdefault(uid, []).append(time.perf_counter())
+
+    router.on_token = on_token
+    order = sorted(range(len(reqs)), key=lambda i: arrivals[i])
+    qi = 0
+    waiting: tp.List[tp.List[int]] = []  # [request index, attempts so far]
+    guard = 0
+    while qi < len(order) or waiting or not router.idle:
+        guard += 1
+        if guard >= 1_000_000:
+            raise SystemExit("fleet point did not converge")
+        now = time.perf_counter() - t0
+        while qi < len(order) and arrivals[order[qi]] <= now:
+            waiting.append([order[qi], 0])
+            qi += 1
+        still: tp.List[tp.List[int]] = []
+        for item in waiting:
+            i = item[0]
+            first_attempt.setdefault(i, time.perf_counter())
+            try:
+                uid = router.submit(reqs[i][0], reqs[i][1], ttl_s=ttl_s)
+            except BackpressureError as e:
+                item[1] += 1
+                if item[1] < submit_retries and getattr(e, "retryable", False):
+                    still.append(item)
+                continue  # budget exhausted or terminal: stays "shed"
+            uid_to_i[uid] = i
+        waiting = still
+        if qi < len(order) and router.idle and not waiting:
+            # a quiet fleet and the next arrival in the future: sleep up to it
+            delay = arrivals[order[qi]] - (time.perf_counter() - t0)
+            if delay > 0:
+                time.sleep(delay)
+            continue
+        router.step()
+    for uid, i in uid_to_i.items():
+        fr = router.finished.get(uid)
+        rec = records[i]
+        rec["status"] = fr.status if fr is not None else "lost"
+        times = token_times.get(uid, [])
+        if times:
+            rec["ttft_s"] = times[0] - first_attempt[i]
+            if len(times) > 1:
+                rec["tpot_s"] = (times[-1] - times[0]) / (len(times) - 1)
+    return records
+
+
 def _point_stats(rate, records, error_budget, slo_ttft_ms, slo_tpot_ms):
     n = len(records)
     shed = sum(1 for r in records if r["status"] == "shed")
@@ -240,8 +313,8 @@ def _swap_candidate(cfg, seed: int, dtype: torch.dtype, device: torch.device):
 
 # JAX's options the port refuses, with the ROADMAP.md item that brings each
 _REFUSED = {
-    "fleet": "--fleet (a replica fleet) waits for ROADMAP.md Queue 1 item 5.6 (fleet, fleet_proc and disagg)",
-    "procs": "--procs (worker processes) waits for ROADMAP.md Queue 1 item 5.6 (fleet, fleet_proc and disagg)",
+    "procs": "--procs (worker processes) waits for ROADMAP.md Queue 1 item 5.6 (fleet_proc: worker processes and "
+             "the wire)",
     "tp": "--tp (tensor-parallel serving) waits for ROADMAP.md Queue 1 item 7 (parallelism)",
     "cpu_devices": "--cpu-devices (a virtual device mesh) waits for ROADMAP.md Queue 1 item 7 (parallelism); "
                    "--device cpu runs on the CPU",
@@ -293,8 +366,9 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
     ap.add_argument("--n-kv-heads", type=int, default=0, help="GQA: K/V heads (0 = MHA)")
     ap.add_argument("--sliding-window", type=int, default=0, help="sliding-window attention (0 = full context)")
     ap.add_argument("--attn-sinks", type=int, default=0, help="with --sliding-window: positions kept visible")
+    ap.add_argument("--fleet", type=int, default=0,
+                    help="N >= 2: serve through N in-process replicas behind a FleetRouter (prefix cache on)")
     # refused (module docstring)
-    ap.add_argument("--fleet", type=int, default=0, help="refused: " + _REFUSED["fleet"])
     ap.add_argument("--procs", action="store_true", help="refused: " + _REFUSED["procs"])
     ap.add_argument("--tp", type=int, default=0, help="refused: " + _REFUSED["tp"])
     ap.add_argument("--cpu-devices", type=int, default=0, help="refused: " + _REFUSED["cpu_devices"])
@@ -302,14 +376,21 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
     for name, why in _REFUSED.items():
         if getattr(args, name):
             ap.error(why)
+    if args.fleet:
+        if args.fleet < 2:
+            ap.error("--fleet needs >= 2 replicas (one cannot fail over)")
+        if args.hot_swap:
+            ap.error("--fleet is incompatible with --hot-swap")
+        args.prefix_cache = True  # the router's affinity target
     rates = [float(r) for r in args.rates.split(",") if r.strip()]
     if not args.num_pages:
         pages_per_slot = -(-args.block_size // args.page_size)
         args.num_pages = 27 if args.block_size < 2048 else 1 + args.max_slots * pages_per_slot
 
-    from midgpt_tpu_torch.device import resolve_device
+    from midgpt_tpu_torch.device import device_label, resolve_device
     from midgpt_tpu_torch.models.gpt import GPT, GPTConfig
     from midgpt_tpu_torch.obs import Observability
+    from midgpt_tpu_torch.sampling.fleet import FleetRouter, assert_fleet_conserved
     from midgpt_tpu_torch.sampling.scheduler import FCFSScheduler, SLOScheduler
     from midgpt_tpu_torch.sampling.serve import ServeEngine, parse_overlap
     from midgpt_tpu_torch.sampling.server import AsyncServeServer
@@ -328,28 +409,35 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
     )
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     params = GPT.init(cfg, args.seed, device=dev, dtype=dtype)
-    engine = ServeEngine(
-        cfg,
-        params,
-        max_slots=args.max_slots,
-        page_size=args.page_size,
-        num_pages=args.num_pages,
-        prefill_chunk=args.prefill_chunk,
-        decode_chunk=args.decode_chunk,
-        temperature=0.0,
-        cache_dtype=dtype,
-        max_backlog_pages=args.max_backlog_pages or None,
-        scheduler=SLOScheduler(min_headroom_s=args.min_headroom_s) if args.scheduler == "slo" else FCFSScheduler(),
-        prefix_cache=bool(args.prefix_cache),
-        overlap=overlap_mode,
-        round_group=overlap_group,
-        device=dev,
-    )
-    # Capture every decode-group graph the workload can reach, on the
-    # engine every point runs on (module docstring).
-    _warm_captures(engine, cfg, args.decode_chunk, args.page_size, args.seed)
-    warm_captures = _captures(engine)
-    decode_steps = engine.decode_steps  # summed over the warm-up and every point
+
+    def make_engine(obs_tid: str = "engine") -> ServeEngine:
+        return ServeEngine(
+            cfg,
+            params,
+            max_slots=args.max_slots,
+            page_size=args.page_size,
+            num_pages=args.num_pages,
+            prefill_chunk=args.prefill_chunk,
+            decode_chunk=args.decode_chunk,
+            temperature=0.0,
+            cache_dtype=dtype,
+            max_backlog_pages=args.max_backlog_pages or None,
+            scheduler=SLOScheduler(min_headroom_s=args.min_headroom_s) if args.scheduler == "slo" else FCFSScheduler(),
+            prefix_cache=bool(args.prefix_cache),
+            overlap=overlap_mode,
+            round_group=overlap_group,
+            obs_tid=obs_tid,
+            device=dev,
+        )
+
+    engines = [make_engine(f"replica{k}") for k in range(args.fleet)] if args.fleet else [make_engine()]
+    engine = engines[0]
+    # Capture every decode-group graph the workload can reach, on every
+    # engine the points run on (module docstring).
+    for eng in engines:
+        _warm_captures(eng, cfg, args.decode_chunk, args.page_size, args.seed)
+    warm_captures = sum(_captures(eng) for eng in engines)
+    decode_steps = sum(eng.decode_steps for eng in engines)  # over the warm-up and every point
 
     # --hot-swap: one verified checkpoint restored once; every point stages
     # the same candidate. The flip writes into the engine's tensors, which
@@ -379,44 +467,55 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         # One Observability per point: the round decomposition is a
         # per-offered-load number, and a dumped trace covers one point.
         obs = Observability()
-        engine.reset(obs)
-        captures_before = _captures(engine)
-        server = AsyncServeServer(engine, idle_poll_s=0.001)
-
-        async def run_point():
-            driver = asyncio.create_task(server.run())
-            swapper = None
-            if swap_payload is not None:
-                # Stage at the median arrival: traffic lands on both sides
-                # of the flip.
-                async def do_swap():
-                    await asyncio.sleep(arrivals[len(arrivals) // 2])
-                    await server.hot_swap(swap_payload[0], version=swap_payload[1], config=cfg)
-
-                swapper = asyncio.create_task(do_swap())
-            records = await _drive_point(server, reqs, arrivals, args.ttl_s or None)
-            if swapper is not None:
-                await swapper
-            await server.drain()
-            await driver
-            return records
-
+        for eng in engines:
+            eng.reset(obs)
+        captures_before = sum(_captures(eng) for eng in engines)
         t0 = time.perf_counter()
-        records = asyncio.run(run_point())
+        if args.fleet:
+            # a fresh router (its own counters and spill tier) over the reset replicas
+            router = FleetRouter(engines)
+            records = _drive_fleet_point(router, reqs, arrivals, args.ttl_s or None)
+            assert_fleet_conserved(router, f"loadgen point {pi}")
+        else:
+            server = AsyncServeServer(engine, idle_poll_s=0.001)
+
+            async def run_point():
+                stepper = asyncio.create_task(server.run())
+                swapper = None
+                if swap_payload is not None:
+                    # Stage at the median arrival: traffic lands on both sides
+                    # of the flip.
+                    async def do_swap():
+                        await asyncio.sleep(arrivals[len(arrivals) // 2])
+                        await server.hot_swap(swap_payload[0], version=swap_payload[1], config=cfg)
+
+                    swapper = asyncio.create_task(do_swap())
+                records = await _drive_point(server, reqs, arrivals, args.ttl_s or None)
+                if swapper is not None:
+                    await swapper
+                await server.drain()
+                await stepper
+                return records
+
+            records = asyncio.run(run_point())
         wall_s = time.perf_counter() - t0
-        decode_steps += engine.decode_steps
+        decode_steps += sum(eng.decode_steps for eng in engines)
         stats = _point_stats(rate, records, args.error_budget, args.slo_ttft_ms, args.slo_tpot_ms)
         stats["wall_s"] = round(wall_s, 4)  # from the point's start to its drain
-        stats["captures"] = _captures(engine) - captures_before
+        stats["captures"] = sum(_captures(eng) for eng in engines) - captures_before
+        if args.fleet:
+            stats.update(fleet_size=args.fleet, failovers=router.failovers, spill_hits=router.spill.readopted)
         if swap_payload is not None:
             stats["weights_version"] = engine.weights_version
             stats["hot_swaps"] = engine.hot_swaps
             stats["swap_flip_round"] = engine.swap_history[-1]["flip_round"] if engine.swap_history else None
-        srv = server.stats()
         if args.prefix_cache:
-            stats["prefix_hit_rate"] = round(srv["prefix"]["hit_rate"], 4)
-            stats["prefill_tokens_saved"] = srv["prefix"]["matched_tokens"]
-        decomp = srv["obs"]["round_decomp"]
+            # fleet-wide under --fleet: matched over matchable tokens of every replica
+            matched = sum(eng._prefix_matched_tokens for eng in engines)
+            matchable = sum(eng._prefix_matchable_tokens for eng in engines)
+            stats["prefix_hit_rate"] = round(matched / matchable if matchable else 0.0, 4)
+            stats["prefill_tokens_saved"] = matched
+        decomp = obs.round_decomp()
         stats["rounds"] = decomp["rounds"]
         stats["round_host_ms"] = {
             "p50": round(decomp["dispatch"]["p50_ms"] + decomp["host_post"]["p50_ms"], 3),
@@ -434,18 +533,8 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         points.append(stats)
 
     worst = points[-1]  # rates ascending by convention: report the hottest
-    graphs = engine.stats()["decode_graphs"]
-    if dev.type == "cuda":
-        device = torch.cuda.get_device_name(dev)
-        try:
-            device = subprocess.run(
-                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                capture_output=True, text=True, check=True,
-            ).stdout.strip().splitlines()[0]
-        except (OSError, subprocess.CalledProcessError):
-            pass  # the name alone
-    else:
-        device = "cpu"
+    graphs = [eng.stats()["decode_graphs"] for eng in engines]
+    device = device_label(dev)
     print(json.dumps({
         "bench": "serve_slo",
         "backend": dev.type,
@@ -481,7 +570,7 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         # the device's decode steps: dispatched (a fused group's masked
         # steps included) and one warm-up step per capture
         "decode_steps": decode_steps,
-        "capture_warmup_steps": 0 if graphs is None else graphs["warmup_steps"],
+        "capture_warmup_steps": sum(0 if g is None else g["warmup_steps"] for g in graphs),
         "points": points,
         # hottest-point headline numbers
         "ttft_p50_ms": worst["ttft_p50_ms"],
@@ -496,7 +585,11 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         "round_group": worst["round_group"],
         "overlap_hidden_ms": worst["overlap_hidden_ms"],
         "prefix_hit_rate": worst.get("prefix_hit_rate"),
-        "fleet_size": None,
+        # --fleet: the hottest point's availability and affinity numbers
+        # (prefix_hit_rate above is then the fleet-wide rate)
+        "fleet_size": args.fleet or None,
+        "failovers": worst.get("failovers") if args.fleet else None,
+        "spill_hits": worst.get("spill_hits") if args.fleet else None,
         "procs": False,
         "weights_versions": ["inline", swap_payload[1]] if swap_payload else None,
         "weights_version": engine.weights_version,

@@ -53,6 +53,16 @@ Hooked kinds and where they strike:
   slow_client        sampling/server.py, keyed on the request uid: the
                      client stops draining its stream; the bounded buffer
                      sheds it with status "slow_client".
+  submit_storm       robustness/chaos_serve.py, keyed on the arrival index:
+                     STORM_SIZE clones of that request are submitted at
+                     once; the excess sheds with BackpressureError.
+  engine_crash       sampling/fleet.py, keyed on the router's round: the
+                     busiest replica is marked dead; its accepted streams
+                     fail over to the survivors.
+  handoff_stall      sampling/fleet.py: the spill tier's next consult that
+                     would return pages refuses; the admission re-prefills.
+  spill_corrupt      sampling/fleet.py: one byte of the newest spilled page
+                     flips; the take-side crc32 discards it.
 
 Activation: programmatic (`activate(...)`), or a plan string from the
 config (`fault_plan`) or the MIDGPT_FAULTS environment variable, parsed by
@@ -127,9 +137,7 @@ DESCRIPTIONS: tp.Dict[str, str] = {
 # The kinds the port has no hook for yet, by the ROADMAP.md item that brings it.
 UNHOOKED: tp.Dict[str, str] = {
     "resume_reshard": "Queue 1 item 7 (parallelism)",
-    "submit_storm": "Queue 1 item 5.5 (serving chaos)",
-    **{k: "Queue 1 item 5.6 (fleet, fleet_proc and disagg)" for k in (
-        "engine_crash", "handoff_stall", "spill_corrupt",
+    **{k: "Queue 1 item 5.6 (fleet_proc: worker processes and the wire)" for k in (
         "proc_kill9", "conn_drop", "wire_corrupt", "wire_stall",
     )},
 }

@@ -29,6 +29,12 @@ in a worker thread, and a worker abandoned by an expired deadline may still
 sit in an event's `synchronize()`; under the default global mode that call
 would break every later capture on the main thread.
 
+No cyclic garbage collection runs during a capture (`_gc_paused`): an
+engine caught in a reference cycle (a fleet router's token relays, a spill
+hook) is freed by the collector, whenever it runs, and destroying its
+graphs while another one captures is an operation the capture may not
+see; it invalidates that capture.
+
 CPU tensors never get here: the engine runs the same body eagerly
 (sampling/serve.py). A failed capture raises; nothing falls back to eager
 execution on CUDA.
@@ -37,7 +43,9 @@ execution on CUDA.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import gc
 import typing as tp
 
 import numpy as np
@@ -50,6 +58,18 @@ Tensor = torch.Tensor
 # body(packed, chain_token, chain_len, warmup) -> (toks_emitted (2T, B),
 # tok_fin (B,), len_fin (B,)); warmup=True runs one step instead of T.
 Body = tp.Callable[[Tensor, Tensor, Tensor, bool], tp.Tuple[Tensor, Tensor, Tensor]]
+
+
+@contextlib.contextmanager
+def _gc_paused() -> tp.Iterator[None]:
+    """Hold off the cyclic garbage collector (module docstring)."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 @dataclasses.dataclass
@@ -157,7 +177,8 @@ class DecodeGraphs:
         graph.register_generator_state(self.generator)
         tally = CaptureTally()
         # The capture executes nothing; the wrappers' launches land in `tally`.
-        with tally, torch.cuda.graph(graph, pool=self._pool, stream=stream, capture_error_mode="thread_local"):
+        with _gc_paused(), tally, torch.cuda.graph(graph, pool=self._pool, stream=stream,
+                                                   capture_error_mode="thread_local"):
             out = body(packed, chain_token, chain_len, False)
         self.captures[key] += 1
         return _Captured(graph, packed, chain_token, chain_len, out, tally)
@@ -254,7 +275,7 @@ class StepGraphs:
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
-        with torch.cuda.graph(graph, pool=self._pool, stream=stream, capture_error_mode="thread_local"):
+        with _gc_paused(), torch.cuda.graph(graph, pool=self._pool, stream=stream, capture_error_mode="thread_local"):
             step(state, generator)
         current.wait_stream(stream)
         self.captures += 1

@@ -1,7 +1,6 @@
 """Zero-downtime model ops on one engine: blue/green weight hot swap,
 live KV pool resize, and the SLO-driven policy controller (the port's
-counterpart of midgpt_tpu/sampling/ops.py; JAX's disaggregated target is
-not ported).
+counterpart of midgpt_tpu/sampling/ops.py).
 
   * **Hot swap** (`stage_hot_swap` / `maybe_flip_swap`) is blue/green at
     round granularity: the new params are checked against the live ones
@@ -16,12 +15,14 @@ not ported).
     added. The KV pool and the prefix trie survive as in JAX (post-flip
     trie hits replay old-weight K/V, JAX's staleness contract).
   * **Resize** (`resize_pool`) moves the resident working set — live slot
-    pages plus every referenced trie page — into a new pool with an index
-    copy (int8 scales move with their pages), then remaps slot page lists,
-    trie entries and the poisoned-page set onto the new ids. JAX pads the
-    destination ids to a power of two with out-of-range ids that XLA's
-    scatter drops; torch drops nothing, so the port copies the real pages
-    only. The new pool's spare page (models/gpt.py PagedKVCache) is its
+    pages plus every referenced trie page — into a new pool through the
+    page-transport funnel (sampling/disagg.py `adopt_pages`, as JAX's
+    resize adopts through `_adopt_pages`; int8 scales move with their
+    pages), then remaps slot page lists, trie entries and the poisoned-page
+    set onto the new ids. It is the funnel's one caller that allocates a
+    pool. JAX pads the destination ids to a power of two with out-of-range
+    ids that XLA's scatter drops; torch drops nothing, so the port copies
+    the real pages only. The new pool's spare page (models/gpt.py PagedKVCache) is its
     own, at the new `num_pages`, and no page is adopted into it. A shrink
     below the resident working set refuses with a retryable
     `PoolResizeError`; unreferenced trie pages are LRU-evicted to fit.
@@ -32,8 +33,10 @@ not ported).
     (free + trie + live-only == num_pages - 1) is asserted on both sides.
   * **ModelOps** is a clock-injected controller over the signals the
     engine already surfaces — free-page fraction, backlog pages, shed
-    fraction, and a p95 TTFT the caller measured (midgpt_tpu_torch/
-    loadgen.py) — that emits grow / shrink / shed-threshold decisions as
+    fraction, the handoff queue's depth, and a p95 TTFT the caller measured
+    (midgpt_tpu_torch/loadgen.py) — that emits grow / shrink /
+    shed-threshold decisions for an engine and re-role decisions for a
+    disaggregated pair (sampling/disagg.py `DisaggServe.rebalance`), as
     `ops.decision` tracer instants and `ops_*` gauges.
 """
 
@@ -284,17 +287,18 @@ def assert_conserved(engine: ServeEngine, where: str) -> None:
 
 def _migrate_cache(engine: ServeEngine, cache: PagedKVCache, old_ids, new_ids, num_pages: int, config) -> PagedKVCache:
     """A new `num_pages` pool holding `cache`'s pages `old_ids` at
-    `new_ids` (int8 scales with them); every other page is zero."""
+    `new_ids` (int8 scales with them), written through the adoption funnel
+    from a gather on the device; every other page is zero."""
+    from midgpt_tpu_torch.sampling.disagg import adopt_pages
+
     new = PagedKVCache.init(config, num_pages=num_pages, page_size=engine.page_size, dtype=engine.cache_dtype,
                             device=engine.device)
     if old_ids:
         src = torch.as_tensor(old_ids, device=engine.device)
-        dst = torch.as_tensor(new_ids, device=engine.device)
-        new.k[:, :, dst] = cache.k[:, :, src]
-        new.v[:, :, dst] = cache.v[:, :, src]
+        blocks = {"k": cache.k[:, :, src], "v": cache.v[:, :, src]}
         if cache.quantized:
-            new.k_scale[:, dst] = cache.k_scale[:, src]
-            new.v_scale[:, dst] = cache.v_scale[:, src]
+            blocks.update(k_scale=cache.k_scale[:, src], v_scale=cache.v_scale[:, src])
+        adopt_pages(new, new_ids, blocks)
     return new
 
 
@@ -417,7 +421,7 @@ def resize_pool(engine: ServeEngine, num_pages: tp.Optional[int] = None, *,
 @dataclasses.dataclass
 class OpsDecision:
     """One controller tick's outcome. kind is one of "none" | "grow" |
-    "shrink" | "shed_threshold"; `applied` is False when the target refused
+    "shrink" | "shed_threshold" | "re_role"; `applied` is False when the target refused
     (a PoolResizeError on a shrink — recorded in `error`, retryable next
     tick) or when the controller runs advisory (`apply=False`)."""
 
@@ -429,10 +433,10 @@ class OpsDecision:
 
 
 class ModelOps:
-    """Clock-injected SLO policy loop over a ServeEngine. Consumes only
-    signals the engine already exposes (free-page fraction, backlog pages,
-    shed fraction) plus an optional caller-measured `ttft_p95_ms`, and emits
-    at most ONE decision per tick:
+    """Clock-injected SLO policy loop over a ServeEngine or a DisaggServe.
+    Consumes only signals the target already exposes (free-page fraction,
+    backlog pages, shed fraction, handoff queue depth) plus an optional
+    caller-measured `ttft_p95_ms`, and emits at most ONE decision per tick:
 
       grow            free pages below `low_free_frac`, or TTFT over budget
                       -> resize the pool up by `grow_frac`.
@@ -441,10 +445,13 @@ class ModelOps:
       shrink          free pages above `high_free_frac` with an empty
                       backlog -> resize down by `shrink_frac` (refusals are
                       recorded, not raised — retryable next tick).
+      re_role         disagg targets: a handoff backlog deeper than
+                      `handoff_backlog_high` -> move `rebalance_pages` of
+                      pool prefill->decode (DisaggServe.rebalance); a
+                      starved prefill pool with an idle queue and a roomy
+                      decode pool -> the reverse.
 
-    JAX's controller also drives a disaggregated prefill/decode pair
-    (re_role); that target is not ported. A "none" tick touches no device
-    state. Decisions surface as `ops.decision` tracer instants and `ops_*`
+    A "none" tick touches no device state. Decisions surface as `ops.decision` tracer instants and `ops_*`
     metrics."""
 
     def __init__(
@@ -460,14 +467,12 @@ class ModelOps:
         min_interval_s: float = 0.0,
         ttft_budget_ms: tp.Optional[float] = None,
         shed_budget_frac: float = 0.25,
+        handoff_backlog_high: int = 4,
+        rebalance_pages: int = 4,
         apply: bool = True,
     ):
-        if hasattr(target, "prefill") and hasattr(target, "decode"):
-            raise NotImplementedError(
-                "ModelOps over a disaggregated prefill/decode target is not ported yet (ROADMAP.md Queue 1 "
-                "item 5.6: fleet, fleet_proc and disagg)"
-            )
         self.target = target
+        self._disagg = hasattr(target, "prefill") and hasattr(target, "decode")
         self._clock = clock
         self.obs = obs if obs is not None else getattr(target, "obs", None)
         self.low_free_frac = low_free_frac
@@ -477,6 +482,8 @@ class ModelOps:
         self.min_interval_s = min_interval_s
         self.ttft_budget_ms = ttft_budget_ms
         self.shed_budget_frac = shed_budget_frac
+        self.handoff_backlog_high = handoff_backlog_high
+        self.rebalance_pages = rebalance_pages
         self.apply = apply
         self._last_tick: tp.Optional[float] = None
         self.decisions: tp.List[OpsDecision] = []
@@ -491,13 +498,14 @@ class ModelOps:
     def _shed_frac(eng) -> float:
         return eng.shed / max(1, eng.shed + eng._uid)
 
-    def _gauges(self, eng) -> None:
+    def _gauges(self, prefix: str, eng) -> None:
         if self.obs is None:
             return
         m = self.obs.metrics
-        m.gauge("ops_free_page_frac", "free pages / allocatable pages").set(self._free_frac(eng))
-        m.gauge("ops_backlog_pages", "worst-case page demand of live work").set(float(eng._backlog_pages()))
-        m.gauge("ops_shed_frac", "shed submits / total submits").set(self._shed_frac(eng))
+        m.gauge(f"ops_{prefix}free_page_frac", "free pages / allocatable pages").set(self._free_frac(eng))
+        m.gauge(f"ops_{prefix}backlog_pages", "worst-case page demand of live work").set(
+            float(eng._backlog_pages()))
+        m.gauge(f"ops_{prefix}shed_frac", "shed submits / total submits").set(self._shed_frac(eng))
 
     def _record(self, decision: OpsDecision) -> OpsDecision:
         self.decisions.append(decision)
@@ -521,8 +529,12 @@ class ModelOps:
         if self._last_tick is not None and now - self._last_tick < self.min_interval_s:
             return self._record(OpsDecision(kind="none", reason="interval"))
         self._last_tick = now
-        eng = self.target
-        self._gauges(eng)
+        if self._disagg:
+            return self._tick_disagg()
+        return self._tick_engine(self.target, ttft_p95_ms)
+
+    def _tick_engine(self, eng, ttft_p95_ms: tp.Optional[float]) -> OpsDecision:
+        self._gauges("", eng)
         cap = eng.allocator.num_pages - 1
         free_frac = self._free_frac(eng)
         shed_frac = self._shed_frac(eng)
@@ -561,4 +573,29 @@ class ModelOps:
                     except PoolResizeError as e:
                         d.error = str(e)
                 return self._record(d)
+        return self._record(OpsDecision(kind="none", reason="in_band"))
+
+    def _re_role(self, reason: str, src: str, dst: str, depth: int) -> OpsDecision:
+        dec = OpsDecision(kind="re_role", reason=reason,
+                          args={"src": src, "dst": dst, "pages": self.rebalance_pages, "depth": depth})
+        if self.apply:
+            try:
+                self.target.rebalance(self.rebalance_pages, src=src, dst=dst)
+                dec.applied = True
+            except PoolResizeError as e:
+                dec.error = str(e)
+        return self._record(dec)
+
+    def _tick_disagg(self) -> OpsDecision:
+        d = self.target
+        self._gauges("prefill_", d.prefill)
+        self._gauges("decode_", d.decode)
+        depth = d.queue.stats()["depth"]
+        if self.obs is not None:
+            self.obs.metrics.gauge("ops_handoff_depth", "prefill->decode handoff queue depth").set(float(depth))
+        if depth > self.handoff_backlog_high:
+            return self._re_role("handoff_backlog_deep", "prefill", "decode", depth)
+        if (depth == 0 and self._free_frac(d.prefill) < self.low_free_frac
+                and self._free_frac(d.decode) > self.high_free_frac):
+            return self._re_role("prefill_starved", "decode", "prefill", depth)
         return self._record(OpsDecision(kind="none", reason="in_band"))

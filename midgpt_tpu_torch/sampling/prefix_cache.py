@@ -119,8 +119,8 @@ class PrefixCache:
         self._root = _Node([], None)
         self._tick = 0  # monotonic LRU clock (bumped per trie operation)
         self._n_pages = 0  # entries currently held (refs 0 included)
-        # Spill hook (JAX's sampling/fleet.py SpillTier; the port has no
-        # spill tier yet, so nothing sets it): called per evicted entry
+        # Spill hook (ServeEngine.attach_spill sets it to hand the page to
+        # a sampling/fleet.py SpillTier): called per evicted entry
         # with (full_prefix_tokens, page) BEFORE the page returns to the
         # allocator, where full_prefix_tokens is the entry's complete token
         # prefix from the root (the spill tier's lookup key must be

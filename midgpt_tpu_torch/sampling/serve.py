@@ -80,7 +80,13 @@ complete committed pages for later matches; when the allocator runs dry,
 refcount-0 trie pages are reclaimed (LRU) before any slot is preempted.
 Sharing is page-table indirection only: the captured graphs and every
 kernel are the same with the cache on or off, and all three pool dtypes
-work unchanged (int8 scales are indexed by physical page).
+work unchanged (int8 scales are indexed by physical page). With a host-RAM
+spill tier attached (`attach_spill`, sampling/fleet.py SpillTier), an
+evicted trie page lands on the host instead of being discarded, and an
+admission whose match stops short re-adopts the following pages from the
+tier (`_readopt_from_spill`) through the in-place page-transport funnel
+(sampling/disagg.py `adopt_pages`), so no pool tensor is rebound under the
+captured graphs.
 
 `pool_hbm_bytes` sizes the pool by a byte budget instead of a page count;
 `on_token(uid, token, t)` fires per token a settled round commits and
@@ -105,6 +111,7 @@ import contextlib
 import dataclasses
 import time
 import typing as tp
+import weakref
 
 import numpy as np
 import torch
@@ -652,6 +659,9 @@ class ServeEngine:
         # pops its num_pages target from resize_plan.
         self.swap_source: tp.Optional[tp.Callable[[], tp.Dict[str, tp.Any]]] = None
         self.resize_plan: tp.List[int] = []
+        # The host-RAM spill tier under the trie (sampling/fleet.py
+        # SpillTier), wired by attach_spill.
+        self.spill_tier = None
         self._reset_state()
 
     def _reset_state(self) -> None:
@@ -717,6 +727,12 @@ class ServeEngine:
         self.resize_history: tp.List[tp.Dict[str, tp.Any]] = []
         self._staged_swap: tp.Optional[tp.Dict[str, tp.Any]] = None
         self._resumed_uids: tp.Set[int] = set()
+        # Spill tier (attach_spill): pages re-adopted from it at admission,
+        # the admissions that re-adopted any, and evicted pages it was not
+        # given because they were tainted (`_spill_page`).
+        self.spill_readopted_pages = 0
+        self.spill_readopt_events = 0
+        self.spill_tainted_skips = 0
 
     def reset(self, obs=None) -> None:
         """Return an idle engine to a newly built one's state, keeping what
@@ -729,6 +745,10 @@ class ServeEngine:
         timing includes a capture."""
         if not self.idle:
             raise RuntimeError("reset() needs an idle engine (no queued, running or staged work)")
+        # a new engine has no spill tier, and the flush must not spill
+        self.spill_tier = None
+        if self.prefix_cache is not None:
+            self.prefix_cache.on_evict = None
         self.flush_prefix_cache()
         self.obs = obs
         self._trace = obs.tracer if obs is not None else NULL_TRACER
@@ -872,14 +892,90 @@ class ServeEngine:
             self._settle_inflight()
             return ops.resize_pool(self, num_pages, max_slots=max_slots)
 
+    def attach_spill(self, tier) -> None:
+        """Wire a host-RAM spill tier (sampling/fleet.py SpillTier) under
+        the prefix trie: every refcount-0 eviction (allocator pressure, a
+        flush, a resize's overflow, disagg's adopt-side reclaim) lands the
+        page's content in `tier`, keyed by its full token prefix and stamped
+        with the CURRENT weights_version, instead of discarding it; and
+        admissions re-adopt from it (`_readopt_from_spill`). Requires the
+        prefix cache: the trie is the spill source and the re-adoption
+        anchor."""
+        if self.prefix_cache is None:
+            raise ValueError("attach_spill requires prefix_cache=True")
+        tier.set_page_size(self.page_size)
+        self.spill_tier = tier
+        # a weak reference: the engine owns its trie, and a hook holding the
+        # engine would keep both alive until a garbage collection
+        engine = weakref.ref(self)
+        self.prefix_cache.on_evict = lambda prefix, page: engine()._spill_page(prefix, page)
+
+    def _spill_page(self, prefix: tp.Tuple[int, ...], page: int) -> None:
+        """The trie's on_evict hook: hand the page to the tier on this
+        engine's stream (the evicting caller may be the router, a flush or
+        another role's adopt). A tainted page (`_poisoned_pages`: damaged by
+        poisoned_page, or written by a slot that read one) is skipped and
+        counted: the hook runs BEFORE `_free_pages` scrubs it, and its NaN
+        content would otherwise enter a tier every replica shares under a
+        valid checksum. (The JAX engine neither scrubs nor skips.)"""
+        if page in self._poisoned_pages:
+            self.spill_tainted_skips += 1
+            return
+        with self._on_stream():
+            self.spill_tier.spill(self.cache, prefix, page, self.weights_version)
+
+    def _readopt_from_spill(self, slot: _Slot) -> None:
+        """Extend an admission's trie match with spilled pages: consult the
+        tier for a resident run starting where the match stopped, allocate
+        plainly (a spill hit is an optimization, never a demand: it evicts
+        no trie page and preempts nobody), checksum-verify and take the run
+        out of the tier, write it into the pool through the page-transport
+        funnel (disagg.adopt_pages, in place), and start the slot committed
+        past it. The pages are private until prefill completion, when
+        insert_live shares them like any other complete prompt pages. A
+        checksum or weights_version mismatch truncates the run inside
+        take_run, and those tokens re-prefill."""
+        from midgpt_tpu_torch.sampling.disagg import adopt_pages
+
+        tier = self.spill_tier
+        prompt = slot.request.prompt
+        ps = self.page_size
+        start = len(slot.pages)
+        limit = (len(prompt) - 1) // ps - start
+        if limit <= 0:
+            return
+        n = min(tier.peek_run(prompt, start, limit, self.weights_version), self.allocator.free_count)
+        if n == 0:
+            return
+        got = self.allocator.alloc(n)
+        blocks_list = tier.take_run(prompt, start, n, self.weights_version)
+        m = len(blocks_list)
+        if m < n:
+            self.allocator.free(got[m:])
+            got = got[:m]
+        if m == 0:
+            return
+        with self._trace.span("spill.readopt", "prefix", self._obs_tid):
+            blocks = {
+                key: np.stack([b[key] for b in blocks_list], axis=1 if key.endswith("scale") else 2)
+                for key in blocks_list[0]
+            }
+            adopt_pages(self.cache, got, blocks)
+        slot.pages.extend(got)
+        slot.prompt_pos = slot.length = (start + m) * ps
+        self._prefix_matched_tokens += m * ps  # a cross-tier hit is a hit
+        self.spill_readopted_pages += m
+        self.spill_readopt_events += 1
+        self._trace.instant("spill.hit", "prefix", self._obs_tid, args={"uid": slot.request.uid, "pages": m})
+
     def flush_prefix_cache(self) -> int:
         """Reclaim every unreferenced trie page at once (an operator flush;
         the `evict_shared_prefix` fault strikes through it). Referenced
         pages stay. Returns the pages freed."""
         if self.prefix_cache is None:
             return 0
-        freed = self.prefix_cache.evict(0, force_all=True)
         with self._on_stream():
+            freed = self.prefix_cache.evict(0, force_all=True)
             self._free_pages(freed)
         self.prefix_evictions += len(freed)
         return len(freed)
@@ -915,6 +1011,9 @@ class ServeEngine:
             "resizes": self.resizes,
             "swap_pending": self._staged_swap is not None,
             "dropped_graphs": self.dropped_graphs,
+            "spill_readopted_pages": self.spill_readopted_pages,
+            "spill_readopt_events": self.spill_readopt_events,
+            "spill_tainted_skips": self.spill_tainted_skips,
             "overlap_mode": self.overlap,
             "round_group": self.round_group,
             "overlap_kills": self.overlap_kills,
@@ -1202,6 +1301,8 @@ class ServeEngine:
                 slot = _Slot(req, self._admitted, spec_k=self.spec_k_max)
                 if self.prefix_cache is not None:
                     self._match_prefix(slot)
+                    if self.spill_tier is not None:
+                        self._readopt_from_spill(slot)
                 self.slots[i] = slot
                 self._admitted += 1
                 self._trace.instant("admitted", "lifecycle", self._obs_tid, args={"uid": req.uid, "slot": i})

@@ -69,6 +69,7 @@ def _problem(dev, dtype, B, H, C, ps, max_pages, counts, seed=0):
         (4, 12, 64, 8, 128, [1024, 700, 300, 1], 2),
         (2, 4, 128, 16, 32, [500, 17], 8),
         (3, 2, 32, 8, 4, [0, 9, 32], 1),  # a count-0 slot gives a finite 0
+        (3, 2, 16, 8, 4, [0, 9, 32], 2),  # head_dim 16: the serving chaos scenarios' tiny model
         (2, 2, 512, 8, 16, [128, 77], 2),  # widest head: tiles shrink to fit shared memory
     ],
 )
@@ -1057,3 +1058,115 @@ def test_steps_from_two_threads_match_one(cuda, overlap):
         for pool in pools:
             pool.shutdown()
     assert turn > 2 and [eng.finished[u].tokens.tolist() for u in uids] == want
+
+
+# ---------------------------------------------------------------- page transport: spill, re-adoption, handoff
+
+
+def _pool_ptrs(cache):
+    return [t.data_ptr() for t in (cache.k, cache.v, cache.k_scale, cache.v_scale) if t is not None]
+
+
+@pytest.mark.cuda
+def test_readoption_keeps_captured_groups_valid(cuda):
+    """An engine captures its groups, its trie is flushed into a spill tier
+    and the same prompts come back: their pages are re-adopted from the host
+    into the live pool in place. No pool tensor is rebound, the replays'
+    f32 streams equal the first pass and a fresh engine's, bit for bit."""
+    from midgpt_tpu_torch.sampling.fleet import SpillTier
+
+    params = _graph_params(cuda, torch.float32)
+    eng = _front_door_engine(cuda, params, prefix_cache=True)
+    tier = SpillTier()
+    eng.attach_spill(tier)
+    ptrs = _pool_ptrs(eng.cache)
+    want = _serve_all(eng)
+    eng.flush_prefix_cache()
+    assert tier.total_spilled >= 1
+    again = _serve_all(eng)
+    torch.cuda.synchronize()
+    assert _pool_ptrs(eng.cache) == ptrs and eng.spill_readopted_pages >= 1 and tier.readopted >= 1
+    assert again == want == _serve_all(_front_door_engine(cuda, params, prefix_cache=True))
+    tier.assert_ledger("readoption")
+
+
+@pytest.mark.cuda
+def test_adopt_never_writes_the_spare_page(cuda):
+    from midgpt_tpu_torch.sampling import disagg
+
+    cfg = GPTConfig(**GRAPH_CFG)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        cache = PagedKVCache.init(cfg, num_pages=8, page_size=8, dtype=dtype, device=cuda)
+        src = PagedKVCache.init(cfg, num_pages=8, page_size=8, dtype=dtype, device=cuda)
+        for t in (src.k, src.v, cache.k[:, :, 8], cache.v[:, :, 8]):
+            t.copy_(torch.randint(-100, 100, t.shape, device=cuda).to(dtype))
+        spare = (cache.k[:, :, 8].clone(), cache.v[:, :, 8].clone())
+        ptrs = _pool_ptrs(cache)
+        disagg.adopt_pages(cache, [7, 1, 3], disagg.gather_pages(src, [1, 2, 7]))
+        torch.cuda.synchronize()
+        assert _pool_ptrs(cache) == ptrs
+        assert torch.equal(cache.k[:, :, 8], spare[0]) and torch.equal(cache.v[:, :, 8], spare[1])
+        assert torch.equal(cache.k[:, :, [7, 1, 3]], src.k[:, :, [1, 2, 7]])
+        with pytest.raises(ValueError):
+            disagg.adopt_pages(cache, [8], disagg.gather_pages(src, [1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_page_survives_spill_and_readoption_byte_for_byte(cuda, dtype):
+    """A page spilled to the host (bf16 as raw 16-bit words, int8 with its
+    scales) and adopted back into another page holds the same bytes."""
+    from midgpt_tpu_torch.sampling import disagg
+    from midgpt_tpu_torch.sampling.fleet import SpillTier
+
+    cfg = GPTConfig(**GRAPH_CFG)
+    cache = PagedKVCache.init(cfg, num_pages=8, page_size=8, dtype=dtype, device=cuda)
+    for t in (cache.k, cache.v):
+        t.copy_(torch.randn(t.shape, device=cuda).mul(40).to(dtype))
+    if cache.quantized:
+        cache.k_scale.uniform_()
+        cache.v_scale.uniform_()
+    tier = SpillTier()
+    tier.set_page_size(8)
+    prompt = list(range(16))
+    tier.spill(cache, tuple(prompt[:8]), 3, "v0")
+    (blocks,) = tier.take_run(prompt, 0, 1, "v0")
+    stacked = {k: b[:, None] if k.endswith("scale") else b[:, :, None] for k, b in blocks.items()}
+    disagg.adopt_pages(cache, [6], stacked)
+    torch.cuda.synchronize()
+    def same(t, axis):
+        return disagg.host_block(t.select(axis, 6)).tobytes() == disagg.host_block(t.select(axis, 3)).tobytes()
+
+    assert same(cache.k, 2) and same(cache.v, 2)
+    if cache.quantized:
+        assert same(cache.k_scale, 1) and same(cache.v_scale, 1)
+    assert tier.readopted == 1 and tier.corrupt_discarded == 0
+
+
+@pytest.mark.cuda
+def test_adopt_with_a_round_in_flight(cuda):
+    """The decode role under overlap="double" keeps a round in flight while
+    the next handoff is adopted into its pool: its f32 streams equal those
+    of a decode role with nothing in flight, and a monolithic engine's."""
+    from midgpt_tpu_torch.sampling.disagg import DisaggServe
+    from midgpt_tpu_torch.sampling.serve import ServeEngine
+
+    params = _graph_params(cuda, torch.float32)
+    trace = _front_door_trace() * 2
+
+    def run(**decode_kw):
+        d = DisaggServe(GPTConfig(**GRAPH_CFG), params, page_size=8, num_pages=40, decode_chunk=4,
+                        cache_dtype=torch.float32, device=cuda, prefill_kw=dict(max_slots=2, prefill_chunk=32),
+                        decode_kw=dict(max_slots=4, **decode_kw))
+        uids = []
+        for p, m in trace:  # staggered: handoffs land while the decode role runs
+            uids.append(d.submit(p, m))
+            d.step()
+        d.run()
+        return [d.finished[u].tokens.tolist() for u in uids], d.queue.pages_copied
+
+    inflight, shipped = run(overlap="double", round_group=4)
+    settled, _ = run()
+    mono = ServeEngine(GPTConfig(**GRAPH_CFG), params, max_slots=3, page_size=8, num_pages=40, decode_chunk=4,
+                       cache_dtype=torch.float32, device=cuda)
+    assert shipped >= 1 and inflight == settled == _serve_all(mono, trace)

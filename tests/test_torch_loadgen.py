@@ -5,8 +5,9 @@ bursty) equal JAX's exactly, and so do the percentile and point
 summaries. A tiny `--device cpu` run prints one JSON line that JAX's
 `check_serve_slo_bench` passes with no problems, with no capture inside a
 timed point, the prefix cache hitting and a hot swap on every point.
-JAX's fleet, process-fleet, tensor-parallel and virtual-device options are
-refused with the ROADMAP item that brings each.
+JAX's process-fleet, tensor-parallel and virtual-device options are
+refused with the ROADMAP item that brings each; `--fleet` is checked as
+JAX checks it.
 """
 
 import importlib.util
@@ -72,7 +73,7 @@ def test_cpu_run_passes_the_serve_slo_contract(capsys):
         assert p["swap_flip_round"] >= 1 and p["prefill_tokens_saved"] >= 0
 
 
-@pytest.mark.parametrize("flag,item", [(["--fleet", "2"], "5.6"), (["--procs"], "5.6"), (["--tp", "2"], "item 7"),
+@pytest.mark.parametrize("flag,item", [(["--procs"], "5.6"), (["--tp", "2"], "item 7"),
                                        (["--cpu-devices", "8"], "item 7")])
 def test_jax_only_options_are_refused(capsys, flag, item):
     with pytest.raises(SystemExit) as ei:
@@ -80,6 +81,15 @@ def test_jax_only_options_are_refused(capsys, flag, item):
     assert ei.value.code == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err and item in err
+
+
+@pytest.mark.parametrize("flag,why", [(["--fleet", "1"], ">= 2 replicas"), (["--fleet", "2", "--hot-swap"], "hot-swap")])
+def test_fleet_option_is_accepted_and_checked(capsys, flag, why):
+    """--fleet N is JAX's option (tests/test_torch_fleet.py runs it); one
+    replica cannot fail over and a fleet point stages no hot swap."""
+    with pytest.raises(SystemExit) as ei:
+        loadgen.main(["--device", "cpu"] + flag)
+    assert ei.value.code == 2 and why in capsys.readouterr().err
 
 
 def test_runs_on_cuda_unless_told_otherwise():

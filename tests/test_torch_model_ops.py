@@ -290,5 +290,60 @@ def test_model_ops_makes_jax_decisions(weights):
     want = _decisions(_jax, weights[0], j_ops.ModelOps, JBackpressure, j_set_budget)
     assert got == want
     assert [d[0] for d in got[0]] == ["shed_threshold", "none", "grow", "shrink", "none"]
-    with pytest.raises(NotImplementedError, match="5.6"):
-        ops.ModelOps(type("Disagg", (), {"prefill": None, "decode": None})())
+
+
+class _FakeRole:
+    """The signals ModelOps reads off one role of a disaggregated pair."""
+
+    def __init__(self, pages, free):
+        self.allocator = type("A", (), {"num_pages": pages, "free_count": free})()
+        self.shed = self._uid = 0
+
+    def _backlog_pages(self):
+        return 0
+
+
+class _FakeDisagg:
+    """A duck-typed disaggregated target: two roles, a handoff queue of
+    some depth, and a rebalance that moves pages or refuses."""
+
+    def __init__(self, err_cls):
+        self.prefill, self.decode = _FakeRole(17, 16), _FakeRole(17, 16)
+        self.depth = 0
+        self.err_cls = err_cls
+        self.obs = None
+        self.queue = type("Q", (), {"stats": lambda _: {"depth": self.depth}})()
+
+    def rebalance(self, n, *, src, dst):
+        a, b = getattr(self, src).allocator, getattr(self, dst).allocator
+        if a.free_count < n:
+            raise self.err_cls("refused", requested_pages=a.num_pages - n, resident_pages=a.num_pages,
+                               num_pages=a.num_pages)
+        a.num_pages -= n
+        a.free_count -= n
+        b.num_pages += n
+        b.free_count += n
+
+
+def _disagg_decisions(mod):
+    d = _FakeDisagg(mod.PoolResizeError)
+    mops = mod.ModelOps(d, rebalance_pages=6)
+    d.depth = 5
+    mops.tick()  # deep backlog: prefill -> decode
+    mops.tick()
+    mops.tick()  # the prefill pool is down to 4 free pages: refused, recorded
+    d.depth = 0
+    d.prefill.allocator.free_count = 0
+    mops.tick()  # starved prefill, roomy decode: decode -> prefill
+    mops.tick()
+    return [(x.kind, x.reason, x.args, x.applied, x.error is None) for x in mops.decisions]
+
+
+def test_model_ops_re_roles_a_disagg_target_as_jax_does():
+    """ModelOps over a disaggregated pair (JAX's _tick_disagg): a deep
+    handoff queue moves pages prefill -> decode, a refused move is recorded
+    and not raised, a starved prefill role takes pages back."""
+    got = _disagg_decisions(ops)
+    assert got == _disagg_decisions(j_ops)
+    assert [(k, a) for k, _, _, a, _ in got] == [("re_role", True), ("re_role", True), ("re_role", False),
+                                                  ("re_role", True), ("none", False)]

@@ -323,8 +323,8 @@ def test_launch_supervises_and_restores_the_handlers(data_dir, tmp_path, monkeyp
     assert seen == [True]
     assert result["supervisor"]["restarts"] == 1 and result["supervisor"]["faults_fired"] == {"nan_grad": 1}
     assert signal.getsignal(signal.SIGINT) is original
-    sets["fault_plan"] = "submit_storm@2"
-    with pytest.raises(NotImplementedError, match="submit_storm"):
+    sets["fault_plan"] = "proc_kill9@2"
+    with pytest.raises(NotImplementedError, match="proc_kill9"):
         launch.main(args + [a for k, v in sets.items() for a in ("--set", f"{k}={v}")])
     assert signal.getsignal(signal.SIGINT) is original
 
@@ -483,6 +483,28 @@ def test_unhooked_kind_raises_on_activation(kind):
         faults.activate_plan(f"nan_grad@3,{kind}@2")
     assert faults.active() == []  # nothing of the plan was activated
     assert kind not in faults.HOOKED and set(faults.HOOKED) | set(faults.UNHOOKED) == set(faults.KINDS)
+
+
+@pytest.fixture
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)  # tiny engines; the suite's workers share the cores
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("kind", ["submit_storm", "engine_crash", "handoff_stall", "spill_corrupt"])
+def test_serving_chaos_kind_is_hooked_and_fires(kind, one_thread):
+    """The four kinds of the serving chaos and the fleet fire at their hooks
+    (the submission loop, the router's round) through the port's own
+    scenario on the CPU, with every invariant held."""
+    from midgpt_tpu_torch.robustness.chaos_serve import run_serving_chaos
+
+    assert kind in faults.HOOKED
+    s = run_serving_chaos(kind + ("@2" if kind == "submit_storm" else "@6" if kind == "engine_crash" else ""),
+                          device="cpu")
+    assert s["faults_fired"] == {kind: 1} and s["pages_conserved"] and s["parity_ok"] == s["parity_checked"] >= 1
+    assert faults.active() == []
 
 
 def test_should_fire_is_exact_under_threads():
