@@ -244,7 +244,9 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      replicas behind a FleetRouter with the prefix cache on, group:4, f32
      and bf16: the placement by head, the fleet-wide prefix_hit_rate
      against one engine's, streams == one engine's (f32 bit for bit, bf16
-     or a near-tie); b. f32 faults on the fleet: engine_crash at router
+     or a near-tie); every fleet run prints its failovers, crash log and
+     the replica steps that raised, and fails on any failure outside its
+     plan; b. f32 faults on the fleet: engine_crash at router
      round 4 (zero drops, failovers 1, every stream == one engine's,
      device memory before and after the crash), the staged spill with
      spill_corrupt and with handoff_stall (caught, ledger closed, no token
@@ -252,16 +254,20 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      host bytes a page (bf16, f32, int8), and an int8 pair whose re-adopted
      pages carry their scales (streams == the int8 engine's); c. a
      DisaggServe pair on one card (prefill role 2 slots, chunk 256; decode
-     role 4 slots, group:4 in bf16, off in f32): pages shipped, gather and
-     adopt ms a page, no capture in the timed pass, streams == a
-     monolithic engine's (f32 bit for bit; bf16 or a near-tie within
-     GAP_TOL_BF16_RECHUNK), one rebalance with conservation on both roles,
+     role 4 slots, group:4 and off, bf16 and f32): pages shipped, gather
+     and adopt ms a page, no capture in the timed pass, streams == a
+     monolithic engine's (f32 bit for bit under both modes; bf16 or a
+     near-tie within GAP_TOL_BF16_RECHUNK, and the off run's bf16 streams
+     == the group:4 run's exactly), one rebalance with conservation on both roles,
      one ModelOps re-role on a scripted backlog; d. the kernel at the tiny
      model's head_dim 16 against its plain version, then the 11 in-process
      chaos scenarios of JAX's tests/test_chaos_serve.py through
      `chaos_serve.main` (each line "status": "ok"); e. `loadgen --fleet 2`
      at half the rate a saturating fleet pass sustained (FLEET_SATURATED_RPS).
-     Paged launches == n_layer x decode steps in a, b, c and e;
+     Paged launches == n_layer x decode steps in every run of a-e (in d
+     summed over the engines each scenario builds); the kernels line's
+     paged entries take phases 13-14's bf16-pool launches only, and the
+     f32, int8 and tiny-model ones are printed by pool beside it;
  10. timings: the paged decode kernel as before (CUDA-graph replay, cold
      L2), and each flash kernel in bf16 (CUDA events over repeated
      launches) at the main path's shape and at one shape per other
@@ -336,10 +342,15 @@ PAGED_EARLIER_MS = {
     "gqa-verify": (0.6092, 0.3415), "window-gqa-decode": (0.0421, 0.0703),
 }
 GAP_TOL = 1e-5  # relative top-2 logit gap below which a spec/plain departure is a near-tie
-# 14c, bf16 only: the decode role re-prefills each prompt's tail in a chunk
-# of its own (the monolithic engine's chunk started 8-32 tokens earlier), so
-# the tail's bf16 K/V round differently; a departure whose f32 top-2 gap is
-# within 4 bf16 ulps (2^-8 relative each) is a near-tie at that precision
+# 14c, bf16 only: the decode role prefills each prompt's partial last page
+# and the first token in a chunk of its own through the gather lowering,
+# where the monolithic engine wrote that tail in its prompt chunk and the
+# first token's K/V in a decode step through the paged kernel, so those
+# bf16 K/V round differently; a departure whose f32 top-2 gap is within 4
+# bf16 ulps (2^-8 relative each) is a near-tie at that precision. The
+# decode role's off run is held to its group:4 run exactly, and f32 to the
+# monolithic engine bit for bit under both modes: adoption itself, with a
+# round in flight or not, moves no token
 GAP_TOL_BF16_RECHUNK = 2.0**-6
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 KERNEL_SOURCES = ("paged_attention", "flash_attention")
@@ -2783,15 +2794,13 @@ def check_aliased_kernel(dtype, split_k):
     return err
 
 
-def run_loadgen(label: str, extra, card: str, n_layer: int, args=FRONT_DOOR_ARGS, rates=FRONT_DOOR_RATES,
-                phase: str = "13"):
+def run_loadgen(label: str, extra, card: str, n_layer: int, args=FRONT_DOOR_ARGS, rates=FRONT_DOOR_RATES):
     """One in-process loadgen run; counters zeroed just before, read just
     after. Checks: the serve_slo line parses, every point captured nothing,
     the decode-spec launches == n_layer x the device's decode steps.
     Returns (the line, launches by (spec, split))."""
     from midgpt_tpu_torch import loadgen
 
-    label = phase + label
     argv = list(args) + [f"--rates={','.join(f'{r:g}' for r in rates)}"] + list(extra)
     out = io.StringIO()
     reset_launches()
@@ -2833,30 +2842,37 @@ def template_trace(vocab: int, n: int = 8, head: int = 256, seed: int = 13):
              int(rng.integers(16, 48))) for i in range(n)]
 
 
-def serve_waves(eng, reqs, watch=None):
+def serve_waves(eng, reqs, watch=None, submit=None):
     """Half the requests, two rounds, the rest (so the trie has content to
-    match), then to the end; `watch(eng)` after every step. Returns the
-    streams; every request must finish with its budget."""
+    match), then to the end; `watch(eng)` after every step. `eng` is an
+    engine or a FleetRouter, and `submit(prompt, max_new_tokens)` its own
+    submit unless given. Returns the streams; every request must finish
+    with its budget."""
+    submit = submit or eng.submit
     half = len(reqs) // 2
-    uids = [eng.submit(p, m) for p, m in reqs[:half]]
+    uids = [submit(p, m) for p, m in reqs[:half]]
     for i in range(10**6):
         if i == 2:
-            uids += [eng.submit(p, m) for p, m in reqs[half:]]
+            uids += [submit(p, m) for p, m in reqs[half:]]
         elif eng.idle:
             break
         eng.step()
         if watch is not None:
             watch(eng)
     torch.cuda.synchronize()
+    return finished_streams(eng, reqs, uids)
+
+
+def finished_streams(owner, reqs, uids):
+    """The streams of `uids` (an engine's or a router's, in `reqs`' order);
+    each must have ended "ok" with its whole budget."""
     streams = []
     for (p, m), u in zip(reqs, uids):
-        fr = eng.finished[u]
+        fr = owner.finished[u]
         if fr.status != "ok" or len(fr.tokens) != len(p) + m:
             raise SystemExit(f"request {u} ended {fr.status} with {len(fr.tokens) - len(p)}/{m} tokens")
         streams.append(fr.tokens)
     return streams
-
-
 
 
 def captures_of(eng) -> int:
@@ -2869,6 +2885,13 @@ def reset_launches() -> None:
 
     tpl.LAUNCHES.reset()
     tpl.MERGE_LAUNCHES.reset()
+
+
+# The kernels line's paged entries are bf16 queries over bf16 pools at the
+# timed shapes. Phases 13 and 14 count their runs' launches by pool (the
+# keys below, and "tiny" for chaos_serve's 2-layer model) and the line
+# takes the "bf16" ones; the rest are printed beside it.
+POOL_OF = {torch.bfloat16: "bf16", torch.float32: "f32", torch.int8: "int8 pool, f32 queries"}
 
 
 def check_launches(label: str, n_layer: int, steps: int) -> collections.Counter:
@@ -2887,9 +2910,9 @@ def check_launches(label: str, n_layer: int, steps: int) -> collections.Counter:
 
 
 def front_door(card: str):
-    """Phase 13. Returns the paged-kernel launches by (spec, split) of its
-    serving runs (counters zeroed just before each, read just after) and
-    the aliased-table kernel errors."""
+    """Phase 13. Returns the paged-kernel launches of its serving runs
+    (counters zeroed just before each, read just after) by pool (POOL_OF)
+    and (spec, split), and the aliased-table kernel errors."""
     from midgpt_tpu_torch.config import load_config
     from midgpt_tpu_torch.models.gpt import GPT, PagedKVCache
     from midgpt_tpu_torch.robustness import faults
@@ -2898,21 +2921,21 @@ def front_door(card: str):
     from midgpt_tpu_torch.utils.precision import cast_floating
 
     t_phase = time.perf_counter()
-    launches = collections.Counter()
+    launches = collections.defaultdict(collections.Counter)
     # 13a. the kernel on shared pages
     alias_errs = {(dt, s): check_aliased_kernel(dt, s) for dt in (torch.bfloat16, torch.float32) for s in (1, 2)}
     cfg = load_config("openwebtext").model_config
     L = cfg.n_layer
     # 13b. loadgen, prefix cache off and on
     recs = {}
-    for label, extra in (("b off", []), ("b on", ["--prefix-cache"])):
+    for label, extra in (("13b off", []), ("13b on", ["--prefix-cache"])):
         recs[label], n = run_loadgen(label, extra, card, L)
-        launches += n
+        launches["bf16"] += n
         free_memory()
     print("13b TTFT p95 ms by offered load, cache off vs on: " + "; ".join(
         f"{a['offered_rps']:g} req/s {a['ttft_p95_ms']} vs {b['ttft_p95_ms']} (TPOT p95 {a['tpot_p95_ms']} vs "
-        f"{b['tpot_p95_ms']})" for a, b in zip(recs["b off"]["points"], recs["b on"]["points"])) + f" on {card}")
-    if not all(p["prefix_hit_rate"] > 0 for p in recs["b on"]["points"]):
+        f"{b['tpot_p95_ms']})" for a, b in zip(recs["13b off"]["points"], recs["13b on"]["points"])) + f" on {card}")
+    if not all(p["prefix_hit_rate"] > 0 for p in recs["13b on"]["points"]):
         raise SystemExit("13b: template traffic never hit the prefix cache")
     # The cache is page-table indirection only: f32 streams equal with it on
     # and off, bf16 ones equal or part at a near-tie (the tail's prefill
@@ -2933,13 +2956,13 @@ def front_door(card: str):
                 print(f"13b {str(dt)[6:]} template trace ({len(reqs)} requests, two 256-token heads), cache on: hit "
                       f"rate {ps['hit_rate']:.3f}, prefill tokens {ps['prefilled_tokens']} ({ps['matched_tokens']} "
                       f"matched), trie pages {ps['trie_pages']}")
-        launches += check_launches(f"13b {dt}", L, steps)
+        launches[POOL_OF[dt]] += check_launches(f"13b {dt}", L, steps)
         compare_streams(f"13b {str(dt)[6:]} group:4 cache on vs off", got[True], got[False],
                         *((cfg, params32) if dt == torch.bfloat16 else ()))
         free_memory()
     # 13c. hot swap under load
-    rec, n = run_loadgen("c", ["--prefix-cache", "--hot-swap"], card, L)
-    launches += n
+    rec, n = run_loadgen("13c", ["--prefix-cache", "--hot-swap"], card, L)
+    launches["bf16"] += n
     versions = [p["weights_version"] for p in rec["points"]]
     print(f"13c weights_version inline -> {versions} (flip rounds {[p['swap_flip_round'] for p in rec['points']]}); "
           f"captures inside each point, the flip included: {[p['captures'] for p in rec['points']]} on {card}")
@@ -2974,7 +2997,7 @@ def front_door(card: str):
     captures = captures_of(eng)
     fresh = new_engine(cfg, new32, torch.float32, overlap="group", round_group=4)
     want = serve_all(fresh, after)
-    launches += check_launches("13c f32", L, device_steps(eng.stats()) + device_steps(fresh.stats()))
+    launches["f32"] += check_launches("13c f32", L, device_steps(eng.stats()) + device_steps(fresh.stats()))
     flip = eng.swap_history[-1]
     print(f"13c f32 swap staged at round {flip['staged_round']} with uid {u0} in flight, flipped at round "
           f"{flip['flip_round']} ({flip['swap_latency_s'] * 1e3:.1f} ms later); graphs captured at the flip "
@@ -3009,7 +3032,7 @@ def front_door(card: str):
                 runs[plan], _ = serve_trace(eng, watch)
             finally:
                 faults.clear()
-            launches += check_launches(f"13d {dt}", L, device_steps(eng.stats()))
+            launches[POOL_OF[dt]] += check_launches(f"13d {dt}", L, device_steps(eng.stats()))
             if plan:
                 resized = (eng.resize_history, eng.cache.nbytes, eng.stats()["dropped_graphs"])
             del eng
@@ -3055,6 +3078,9 @@ CRASH_ROUND = 4
 # 14a-c: phase 13's template trace at the seed whose two heads hash to different replicas
 FLEET_TRACE_SEED = 14
 SPILL_COST_PAGES = 32  # 14b: pages per spill / re-adoption timing pass
+# 14c: (dtype, the decode role's overlap, round_group) of each disagg pair
+DISAGG_RUNS = ((torch.bfloat16, "group", 4), (torch.bfloat16, "off", 1), (torch.float32, "off", 1),
+               (torch.float32, "group", 4))
 # 14d: every in-process plan of JAX's tests/test_chaos_serve.py, as
 # `chaos_serve --fault` arguments and --n-requests
 CHAOS_PLANS = [(["kill_mid_decode@6"], 5), (["kill_overlapped_round@6"], 5), (["poisoned_page@3"], 5),
@@ -3073,63 +3099,31 @@ FLEET_RATE = FLEET_SATURATED_RPS / 2
 EARLIER_SMOKE_PHASE14_S = 616.8  # this script's wall time before phase 14 was added (PERF.md, the front door)
 
 
-def fleet_waves(router, reqs):
-    """serve_waves through a FleetRouter: half the requests, two rounds, the
-    rest, then to the end. Returns (streams, the replica each request was
-    placed on); every request must finish with its budget."""
-    half = len(reqs) // 2
-    uids = [router.submit(p, m) for p, m in reqs[:half]]
-    placed = [router._pending[u].replica for u in uids]
-    for i in range(10**6):
-        if i == 2:
-            more = [router.submit(p, m) for p, m in reqs[half:]]
-            placed += [router._pending[u].replica for u in more]
-            uids += more
-        elif router.idle:
-            break
-        router.step()
+def fleet_drive(router, reqs, **kw):
+    """chaos_serve.drive_fleet over `reqs` (one arrival a router round; kw:
+    stage_spill, watch). Returns the streams in `reqs`' order."""
+    from midgpt_tpu_torch.robustness.chaos_serve import drive_fleet
+
+    uids = list(drive_fleet(router, reqs, **kw))
     torch.cuda.synchronize()
-    return fleet_streams(router, reqs, uids), placed
+    return finished_streams(router, reqs, uids)
 
 
-def fleet_trickle(router, reqs, watch=None):
-    """One arrival per router round (a mid-trace crash finds streams in
-    flight), then to the end; `watch(router)` after every round."""
-    uids, pending = [], list(reqs)
-    while pending or not router.idle:
-        if pending:
-            uids.append(router.submit_retry(*pending.pop(0)))
-        router.step()
-        if watch is not None:
-            watch(router)
-    torch.cuda.synchronize()
-    return fleet_streams(router, reqs, uids)
-
-
-def fleet_streams(router, reqs, uids):
-    streams = []
-    for (p, m), u in zip(reqs, uids):
-        fr = router.finished[u]
-        if fr.status != "ok" or len(fr.tokens) != len(p) + m:
-            raise SystemExit(f"fleet stream {u} ended {fr.status} with {len(fr.tokens) - len(p)}/{m} tokens")
-        streams.append(fr.tokens)
-    return streams
+def fleet_health(label, router, card, crashes=0):
+    """Print the router's failovers, crash log and the replica steps that
+    raised. The router's health check turns a replica's exception into a
+    failover and a survivor replays its streams, which would hide a failure
+    on the card behind equal streams: fail unless no step raised and
+    exactly `crashes` replicas died, each by the planned engine_crash."""
+    print(f"{label}: failovers {router.failovers}, crash log {router.crash_log}, step errors "
+          f"{router.step_errors} on {card}")
+    if (router.step_errors or router.failovers != crashes or len(router.crash_log) != crashes
+            or any(c["reason"] != "fault" for c in router.crash_log)):
+        raise SystemExit(f"{label}: a replica failed outside the fault plan")
 
 
 def fleet_steps(engines) -> int:
     return sum(device_steps(e.stats()) for e in engines)
-
-
-def staged_spill(router, reqs):
-    """chaos_serve's staged spill: the first request alone, every replica's
-    trie flushed into the shared tier, then the rest one a round (each
-    same-head admission consults the tier)."""
-    u0 = router.submit(*reqs[0])
-    router.run()
-    for eng in router.engines:
-        eng.flush_prefix_cache()
-    streams = fleet_trickle(router, reqs[1:])
-    return fleet_streams(router, reqs[:1], [u0]) + streams
 
 
 def spill_cost(cfg, dt, n=SPILL_COST_PAGES):
@@ -3207,12 +3201,11 @@ def check_tiny_kernel(kv_dtype):
 
 
 def fleet_chaos(card: str):
-    """Phase 14. Returns the paged-kernel launches by (spec, split) of its
-    fleet, disagg and loadgen runs (counters zeroed just before each, read
-    just after) and of the chaos scenarios."""
-    from midgpt_tpu_torch import loadgen
+    """Phase 14. Returns the paged-kernel launches of its fleet, disagg,
+    chaos and loadgen runs (counters zeroed just before each, read just
+    after) by pool (POOL_OF, and "tiny" for the chaos scenarios) and
+    (spec, split)."""
     from midgpt_tpu_torch.config import load_config
-    from midgpt_tpu_torch.kernels import attention_template as tpl
     from midgpt_tpu_torch.models.gpt import GPT
     from midgpt_tpu_torch.obs import Observability
     from midgpt_tpu_torch.robustness import chaos_serve, faults
@@ -3222,7 +3215,7 @@ def fleet_chaos(card: str):
     from midgpt_tpu_torch.utils.precision import cast_floating
 
     t_phase = time.perf_counter()
-    launches = collections.Counter()
+    launches = collections.defaultdict(collections.Counter)
     cfg = load_config("openwebtext").model_config
     L = cfg.n_layer
     params32 = GPT.init(cfg, 0, device="cuda")
@@ -3230,11 +3223,11 @@ def fleet_chaos(card: str):
     reqs = template_trace(cfg.vocab_size, seed=FLEET_TRACE_SEED)
     grouped = dict(overlap="group", round_group=4, prefix_cache=True)
 
-    def counted(label, steps, what):
+    def counted(label, dt, steps, what):
         """check_launches, printed: no decode step of `what` bypassed the kernel."""
         n = check_launches(label, L, steps)
         print(f"{label} paged launches {dict(n)} == {L} layers x {steps} decode steps ({what}) on {card}")
-        return n
+        launches[POOL_OF[dt]] += n
 
     # 14a. two replicas behind the router vs one engine, f32 and bf16
     want = {}
@@ -3244,10 +3237,19 @@ def fleet_chaos(card: str):
         single = new_engine(cfg, params, dt, **grouped)
         want[dt] = serve_waves(single, reqs)
         router = FleetRouter([new_engine(cfg, params, dt, obs_tid=f"replica{i}", **grouped) for i in range(2)])
-        got, placed = fleet_waves(router, reqs)
+        placed = {}
+
+        def submit(p, m):
+            u = router.submit(p, m)
+            placed[u] = router._pending[u].replica
+            return u
+
+        got = serve_waves(router, reqs, submit=submit)
+        fleet_health(f"14a {label}", router, card)
         assert_fleet_conserved(router, f"14a {label}")
-        launches += counted(f"14a {label}", device_steps(single.stats()) + fleet_steps(router.engines),
-                            "one engine and the two replicas, capture warm-ups included")
+        counted(f"14a {label}", dt, device_steps(single.stats()) + fleet_steps(router.engines),
+                "one engine and the two replicas, capture warm-ups included")
+        placed = list(placed.values())  # submission order is `reqs`' order
         heads = {h: sorted({placed[i] for i in range(len(reqs)) if i % 2 == h}) for h in (0, 1)}
         print(f"14a {label} placement by head: {heads}; fleet prefix_hit_rate {router.prefix_hit_rate():.3f} vs one "
               f"engine's {single.prefix_stats()['hit_rate']:.3f}; per replica "
@@ -3256,7 +3258,7 @@ def fleet_chaos(card: str):
             raise SystemExit(f"14a {label}: requests sharing a head landed on more than one replica: {heads}")
         compare_streams(f"14a {label} fleet of 2 vs one engine", got, want[dt],
                         *((cfg, params32) if dt == torch.bfloat16 else ()))
-        del single, router
+        del single, router, submit
         free_memory()
 
     # 14b. faults on the fleet, f32 (eager rounds: no captures to wait for)
@@ -3272,18 +3274,19 @@ def fleet_chaos(card: str):
             mem[r.rounds] = torch.cuda.memory_allocated()
 
     try:
-        got = fleet_trickle(router, reqs, watch)
+        got = fleet_drive(router, reqs, watch=watch)
     finally:
         faults.clear()
     torch.cuda.synchronize()
     mem["end"] = torch.cuda.memory_allocated()
+    fleet_health("14b crash", router, card, crashes=1)
     assert_fleet_conserved(router, "14b crash")
-    launches += counted("14b crash", fleet_steps(router.engines), "both replicas, the dead one included")
+    counted("14b crash", torch.float32, fleet_steps(router.engines), "both replicas, the dead one included")
     print(f"14b engine_crash@{CRASH_ROUND}: crash log {router.crash_log}, failovers {router.failovers}, failed-over "
           f"streams {router.failed_over_streams}, alive {sum(router.alive)}/2, dropped 0; device memory allocated "
           f"{mem[CRASH_ROUND - 1] / 2**20:.1f} MiB before the crash, {mem[CRASH_ROUND] / 2**20:.1f} MiB after it, "
           f"{mem['end'] / 2**20:.1f} MiB after the drain (the dead replica keeps its pool) on {card}")
-    if router.failovers != 1 or router.failed_over_streams < 1:
+    if router.crash_log[0]["round"] != CRASH_ROUND or router.failed_over_streams < 1:
         raise SystemExit("14b: the crash must kill one replica with streams in flight")
     compare_streams("14b f32 streams across the crash vs one engine", got, want[torch.float32])
     del router
@@ -3293,11 +3296,12 @@ def fleet_chaos(card: str):
         router = FleetRouter([new_engine(cfg, params32, torch.float32, prefix_cache=True) for _ in range(2)])
         faults.activate(kind)
         try:
-            got = staged_spill(router, reqs)
+            got = fleet_drive(router, reqs, stage_spill=True)
         finally:
             faults.clear()
+        fleet_health(f"14b {kind}", router, card)
         assert_fleet_conserved(router, f"14b {kind}")
-        launches += counted(f"14b {kind}", fleet_steps(router.engines), "both replicas")
+        counted(f"14b {kind}", torch.float32, fleet_steps(router.engines), "both replicas")
         sp = router.spill.stats()
         print(f"14b staged spill with {kind}: {json.dumps(sp)}; readopted pages per replica "
               f"{[e.spill_readopted_pages for e in router.engines]} on {card}")
@@ -3318,10 +3322,11 @@ def fleet_chaos(card: str):
     single = new_engine(cfg, params32, torch.int8, prefix_cache=True)
     want8 = serve_waves(single, reqs)
     router = FleetRouter([new_engine(cfg, params32, torch.int8, prefix_cache=True) for _ in range(2)])
-    got = staged_spill(router, reqs)
+    got = fleet_drive(router, reqs, stage_spill=True)
+    fleet_health("14b int8", router, card)
     assert_fleet_conserved(router, "14b int8")
-    launches += counted("14b int8", device_steps(single.stats()) + fleet_steps(router.engines),
-                        "the int8 engine and both replicas")
+    counted("14b int8", torch.int8, device_steps(single.stats()) + fleet_steps(router.engines),
+            "the int8 engine and both replicas")
     print(f"14b int8 pair, staged spill: {json.dumps(router.spill.stats())} on {card}")
     if router.spill.readopted < 1:
         raise SystemExit("14b int8: no page was re-adopted from the tier")
@@ -3329,8 +3334,15 @@ def fleet_chaos(card: str):
     del single, router
     free_memory()
 
-    # 14c. disagg on one card: bf16 under group:4, f32 with overlap off
-    for dt, params, (mode, group) in ((torch.bfloat16, params16, ("group", 4)), (torch.float32, params32, ("off", 1))):
+    # 14c. disagg on one card, the decode role under group:4 and off in
+    # both precisions: f32 holds both bit for bit against the monolithic
+    # engine; in bf16 the off run is the witness that adopting while a
+    # group:4 round is in flight changes no token (its streams must equal
+    # the group:4 run's exactly), so a departure from the monolithic engine
+    # comes from the roles' split of the work, not from the overlap
+    disagg = {}
+    for dt, mode, group in DISAGG_RUNS:
+        params = params16 if dt == torch.bfloat16 else params32
         label = f"{str(dt)[6:]} decode role {mode}{f':{group}' if mode == 'group' else ''}"
         obs = Observability()
         reset_launches()
@@ -3348,9 +3360,10 @@ def fleet_chaos(card: str):
             streams = [d.finished[u].tokens for u in uids]
             passes.append((streams, wall, d.queue.pages_copied - shipped0, captures_of(d.decode) - caps0,
                            handoff_ms(obs, since)))
-        launches += counted(f"14c {label}", device_steps(d.decode.stats()) + device_steps(d.prefill.stats()),
-                            "both roles, both passes")
+        counted(f"14c {label}", dt, device_steps(d.decode.stats()) + device_steps(d.prefill.stats()),
+                "both roles, both passes")
         streams, wall, shipped, caps, ms = passes[1]
+        disagg[(dt, mode)] = streams
         print(f"14c {label}: {shipped} pages shipped in the timed pass ({wall:.3f} s), gather "
               f"{ms['handoff.gather'] / max(shipped, 1):.3f} ms a page, adopt {ms['handoff.adopt'] / max(shipped, 1):.3f} "
               f"ms a page, fallback_reprefills {d.fallback_reprefills}, captures on the decode role inside the timed "
@@ -3358,9 +3371,11 @@ def fleet_chaos(card: str):
         if caps != 0 or shipped < 1:
             raise SystemExit(f"14c {label}: {caps} captures inside the timed pass, {shipped} pages shipped")
         compare_streams(f"14c {label} timed pass vs its warm-up pass", streams, passes[0][0])
+        if mode == "off" and (dt, "group") in disagg:
+            compare_streams(f"14c {label} vs the decode role under group:4", streams, disagg[(dt, "group")])
         compare_streams(f"14c {label} vs a monolithic engine", streams, want[dt],
                         *((cfg, params32, GAP_TOL_BF16_RECHUNK) if dt == torch.bfloat16 else ()))
-        if dt == torch.float32:
+        if (dt, mode) == (torch.float32, "off"):
             move = d.rebalance(16)
             assert_conserved(d.prefill, "14c after rebalance")
             assert_conserved(d.decode, "14c after rebalance")
@@ -3381,36 +3396,52 @@ def fleet_chaos(card: str):
     del params32, params16
     free_memory()
 
-    # 14d. the chaos scenarios on the card (chaos_serve's tiny model, f32)
+    # 14d. the chaos scenarios on the card (chaos_serve's tiny model, f32):
+    # every engine a scenario builds is recorded, and its launches held
+    # against n_layer x the device steps of all of them
     errs = {dt: check_tiny_kernel(dt) for dt in (torch.float32, torch.int8)}
     print(f"14d kernel at head_dim 16 vs plain: max |err| f32 pool {errs[torch.float32]:.2e}, int8 pool "
           f"{errs[torch.int8]:.2e} on {card}")
-    reset_launches()
-    for plan, n in CHAOS_PLANS:
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            rc = chaos_serve.main([a for f in plan for a in ("--fault", f)] + [f"--n-requests={n}"])
-        line = out.getvalue().strip().splitlines()[-1]
-        print(f"14d {line}")
-        if rc != 0 or json.loads(line)["status"] != "ok":
-            raise SystemExit(f"14d: chaos scenario {plan} failed")
-    chaos_launches = collections.Counter(tpl.LAUNCHES.by_variant)
-    chaos_launches[("merge", None)] = tpl.MERGE_LAUNCHES.count
-    print(f"14d paged launches of the 11 scenarios (2 layers, tiny model): {dict(chaos_launches)} on {card}")
+    built, make_engine = [], chaos_serve._engine
+
+    def recorded_engine(*args, **kw):
+        built.append(make_engine(*args, **kw))
+        return built[-1]
+
+    chaos_serve._engine = recorded_engine
+    try:
+        for plan, n in CHAOS_PLANS:
+            built.clear()
+            reset_launches()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = chaos_serve.main([a for f in plan for a in ("--fault", f)] + [f"--n-requests={n}"])
+            line = out.getvalue().strip().splitlines()[-1]
+            print(f"14d {line}")
+            if rc != 0 or json.loads(line)["status"] != "ok":
+                raise SystemExit(f"14d: chaos scenario {plan} failed")
+            n_by = check_launches(f"14d {'+'.join(plan)}", chaos_serve._tiny_cfg().n_layer, fleet_steps(built))
+            print(f"14d {'+'.join(plan)} paged launches {dict(n_by)} == 2 layers x {fleet_steps(built)} decode steps "
+                  f"({len(built)} engines) on {card}")
+            launches["tiny"] += n_by
+    finally:
+        chaos_serve._engine = make_engine
+    del built
     free_memory()
 
     # 14e. loadgen --fleet 2 at half the saturating rate
-    rec, n = run_loadgen("e", [], card, L, args=FLEET_ARGS, rates=(FLEET_RATE,), phase="14")
-    launches += n
+    rec, n = run_loadgen("14e", [], card, L, args=FLEET_ARGS, rates=(FLEET_RATE,))
+    launches["bf16"] += n
     p = rec["points"][0]
     print(f"14e loadgen --fleet 2 at {FLEET_RATE:g} req/s offered (half the saturating pass's "
           f"{FLEET_SATURATED_RPS:g} req/s): TTFT p50 {p['ttft_p50_ms']} / p95 {p['ttft_p95_ms']} ms, TPOT p50 "
-          f"{p['tpot_p50_ms']} / p95 {p['tpot_p95_ms']} ms, failovers {p['failovers']}, spill_hits {p['spill_hits']}, "
-          f"fleet prefix_hit_rate {p['prefix_hit_rate']}, captures inside the point {p['captures']} on {card}")
-    if p["failovers"] != 0:
-        raise SystemExit("14e: a replica failed over under plain load")
+          f"{p['tpot_p50_ms']} / p95 {p['tpot_p95_ms']} ms, failovers {p['failovers']}, step errors "
+          f"{p['step_errors']}, spill_hits {p['spill_hits']}, fleet prefix_hit_rate {p['prefix_hit_rate']}, "
+          f"captures inside the point {p['captures']} on {card}")
+    if p["failovers"] != 0 or p["step_errors"] != 0:
+        raise SystemExit("14e: a replica failed under plain load")
     print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s on {card}")
-    return launches, chaos_launches
+    return launches
 
 
 def main() -> int:
@@ -3565,10 +3596,13 @@ def main() -> int:
     # 12. the batch sampler: sample --engine batch, replayed decode chunks, parity
     batch_launches64, batch_launches128, batch_speeds = batch_sampler(card)
     # 13. the serving front door: aliased page tables, loadgen, hot swap, resize, the byte budget
-    front_launches, alias_errs = front_door(card)
+    by_pool, alias_errs = front_door(card)
     # 14. serving chaos, the fleet with its spill tier, disagg, loadgen --fleet
-    fleet_launches, chaos_launches = fleet_chaos(card)
-    front_launches += fleet_launches + chaos_launches
+    for pool, n in fleet_chaos(card).items():
+        by_pool[pool] += n
+    print("paged launches of phases 13-14 by pool (the kernels line's paged entries take the bf16 pool's): "
+          + "; ".join(f"{pool}: {dict(n)}" for pool, n in by_pool.items()) + f" on {card}")
+    front_launches = by_pool["bf16"]
 
     # 10. timings
     kernels = []
@@ -3609,8 +3643,7 @@ def main() -> int:
                 "route": "cuda",
                 "source": "midgpt_tpu_torch/csrc/paged_attention.cu",
                 "replaces": "midgpt_tpu/kernels/attention_template.py:95",
-                "launches": spec_launches_by_run[run].get((spec, s), 0) + (
-                    front_launches[(spec, s)] if spec == "int8-decode" else 0),
+                "launches": spec_launches_by_run[run].get((spec, s), 0),
                 "max_abs_err": spec_errs[(torch.bfloat16, R, int8, s)],
                 "ms": ms,
                 "plain_ms": plain_ms,

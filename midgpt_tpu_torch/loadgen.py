@@ -49,7 +49,8 @@ by a synchronous loop whose step IS the clock, as JAX's harness does
 first timed point, and each point gets a fresh router over the reset
 replicas; `assert_fleet_conserved` holds after each point, and the line
 adds `fleet_size`, `failovers`, `spill_hits` and the fleet-wide
-`prefix_hit_rate`.
+`prefix_hit_rate`; each point also counts the replica steps that raised
+(`step_errors`: the router's health check absorbs them).
 
 JAX's `--procs`, `--tp` and `--cpu-devices` are refused: the port has no
 process fleet or tensor-parallel serving yet.
@@ -504,7 +505,8 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         stats["wall_s"] = round(wall_s, 4)  # from the point's start to its drain
         stats["captures"] = sum(_captures(eng) for eng in engines) - captures_before
         if args.fleet:
-            stats.update(fleet_size=args.fleet, failovers=router.failovers, spill_hits=router.spill.readopted)
+            stats.update(fleet_size=args.fleet, failovers=router.failovers, spill_hits=router.spill.readopted,
+                         step_errors=len(router.step_errors))
         if swap_payload is not None:
             stats["weights_version"] = engine.weights_version
             stats["hot_swaps"] = engine.hot_swaps

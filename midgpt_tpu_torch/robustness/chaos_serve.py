@@ -368,6 +368,38 @@ def _fleet_router(cfg, params, device, obs, n_replicas: int = 2):
     ])
 
 
+def drive_fleet(router, trace, *, stage_spill: bool = False, flush=None, watch=None) -> tp.Dict[int, int]:
+    """Drive a FleetRouter through `trace` with one arrival per router
+    round (a mid-trace crash finds streams in flight) until it is idle;
+    `watch(router)` after every round. With `stage_spill` the first request
+    runs alone first, then every alive replica's trie is flushed
+    (`flush(engine)`, by default `engine.flush_prefix_cache()`), spilling
+    its pages into the shared tier, so each later same-template admission
+    consults the tier. Returns uid -> trace index."""
+    uid_to_idx: tp.Dict[int, int] = {}
+    pending = list(enumerate(trace))
+    if stage_spill and pending:
+        idx, (prompt, m) = pending.pop(0)
+        uid_to_idx[router.submit(prompt, m)] = idx
+        router.run()
+        for i, rep in enumerate(router.engines):
+            if router.alive[i] and flush is None:
+                rep.flush_prefix_cache()
+            elif router.alive[i]:
+                flush(rep)
+    r = 0
+    while pending or not router.idle:
+        if pending:
+            idx, (prompt, m) = pending.pop(0)
+            uid_to_idx[router.submit_retry(prompt, m)] = idx
+        router.step()
+        if watch is not None:
+            watch(router)
+        r += 1
+        assert r < 10_000, "fleet drive did not converge"
+    return uid_to_idx
+
+
 def _run_fleet_chaos(fault_plan, *, seed, n_requests, trace_dir, device):
     """The fleet gate: the shared-template trace through a 2-replica fleet
     with `fault_plan` armed, the three invariants extended across replicas
@@ -393,24 +425,7 @@ def _run_fleet_chaos(fault_plan, *, seed, n_requests, trace_dir, device):
     stage_spill = any(k in fault_plan for k in ("handoff_stall", "spill_corrupt"))
 
     def body() -> tp.Dict[str, tp.Any]:
-        uid_to_idx: tp.Dict[int, int] = {}
-        pending = list(enumerate(trace))
-        if stage_spill and pending:
-            idx, (prompt, m) = pending.pop(0)
-            uid_to_idx[router.submit(prompt, m)] = idx
-            router.run()
-            for i, rep in enumerate(router.engines):
-                if router.alive[i]:
-                    rep.flush_prefix_cache()
-        r = 0
-        while pending or not router.idle:
-            if pending:
-                idx, (prompt, m) = pending.pop(0)
-                # one arrival per round: a mid-trace crash finds streams in flight
-                uid_to_idx[router.submit_retry(prompt, m)] = idx
-            router.step()
-            r += 1
-            assert r < 10_000, "fleet drive did not converge"
+        uid_to_idx = drive_fleet(router, trace, stage_spill=stage_spill)
         fired = faults.fired_counts()
         faults.clear()
 

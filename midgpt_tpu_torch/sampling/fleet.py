@@ -11,7 +11,8 @@ port's counterpart of midgpt_tpu/sampling/fleet.py, in-process replicas).
   * Health-checked FAILOVER: each replica steps inside a try/except with
     clock-injected heartbeats; one that raises `max_consecutive_failures`
     times in a row, or whose heartbeat goes stale past
-    `heartbeat_timeout_s`, is marked dead. Its finished results are
+    `heartbeat_timeout_s`, is marked dead; each caught exception is kept,
+    with its replica and round, in `step_errors`. Its finished results are
     harvested, and its accepted-but-unfinished streams are resubmitted to
     the survivors through the bounded `PageHandoffQueue` retry path
     (sampling/disagg.py) with the ORIGINAL prompt and FULL budget: greedy
@@ -48,6 +49,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import typing as tp
+import weakref
 import zlib
 
 import numpy as np
@@ -405,6 +407,8 @@ class FleetRouter:
         self.router_shed = 0  # submit-time refusals by every replica
         self.shed_streams = 0  # failovers terminally shed past the budget
         self.crash_log: tp.List[tp.Dict[str, tp.Any]] = []
+        # every exception a replica's step raised: {"replica", "round", "error" (its repr)}
+        self.step_errors: tp.List[tp.Dict[str, tp.Any]] = []
         # worker-process replicas mark themselves; none is ported yet
         self._proc_idx = [i for i, eng in enumerate(engines) if getattr(eng, "is_proc", False)]
         self.proc_failovers = 0
@@ -527,7 +531,8 @@ class FleetRouter:
                 continue
             try:
                 eng.step()
-            except Exception:  # a replica's failure is the health check's input, never the fleet's
+            except Exception as e:  # a replica's failure is the health check's input, never the fleet's
+                self.step_errors.append({"replica": i, "round": self.rounds, "error": repr(e)})
                 self._failures[i] += 1
                 if self._failures[i] >= self.max_consecutive_failures:
                     self._crash(i, reason="consecutive_failures")
@@ -630,10 +635,16 @@ class FleetRouter:
             self.on_finish(out)
 
     def _make_token_relay(self, i: int):
+        # the engine holds its relay and the router its engines: a weak
+        # reference keeps that from being a cycle, so a dropped router and
+        # its engines are freed at once, never by a later collection
+        router = weakref.ref(self)
+
         def relay(ruid: int, tok: int, t: float) -> None:
-            uid = self._by_replica.get((i, ruid))
-            if uid is not None and self.on_token is not None:
-                self.on_token(uid, tok, t)
+            r = router()
+            uid = None if r is None else r._by_replica.get((i, ruid))
+            if uid is not None and r.on_token is not None:
+                r.on_token(uid, tok, t)
 
         return relay
 

@@ -30,10 +30,12 @@ sit in an event's `synchronize()`; under the default global mode that call
 would break every later capture on the main thread.
 
 No cyclic garbage collection runs during a capture (`_gc_paused`): an
-engine caught in a reference cycle (a fleet router's token relays, a spill
-hook) is freed by the collector, whenever it runs, and destroying its
-graphs while another one captures is an operation the capture may not
-see; it invalidates that capture.
+engine caught in a reference cycle (one a caller's hooks make; the fleet
+router's token relays and the spill hook hold their targets weakly) is
+freed by the collector, whenever it runs, and destroying its graphs while
+another one captures is an operation the capture may not see; it
+invalidates that capture. Pauses nest across threads: the collector comes
+back on when the last capture in flight ends.
 
 CPU tensors never get here: the engine runs the same body eagerly
 (sampling/serve.py). A failed capture raises; nothing falls back to eager
@@ -46,6 +48,7 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import threading
 import typing as tp
 
 import numpy as np
@@ -60,16 +63,27 @@ Tensor = torch.Tensor
 Body = tp.Callable[[Tensor, Tensor, Tensor, bool], tp.Tuple[Tensor, Tensor, Tensor]]
 
 
+_gc_lock = threading.Lock()
+_gc_holds = 0  # captures in flight, all threads
+_gc_was_enabled = False  # the collector's state when the first of them began
+
+
 @contextlib.contextmanager
 def _gc_paused() -> tp.Iterator[None]:
     """Hold off the cyclic garbage collector (module docstring)."""
-    enabled = gc.isenabled()
-    gc.disable()
+    global _gc_holds, _gc_was_enabled
+    with _gc_lock:
+        if _gc_holds == 0:
+            _gc_was_enabled = gc.isenabled()
+            gc.disable()
+        _gc_holds += 1
     try:
         yield
     finally:
-        if enabled:
-            gc.enable()
+        with _gc_lock:
+            _gc_holds -= 1
+            if _gc_holds == 0 and _gc_was_enabled:
+                gc.enable()
 
 
 @dataclasses.dataclass

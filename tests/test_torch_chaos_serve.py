@@ -83,30 +83,23 @@ def port_weights(tiny, monkeypatch):
 
 
 def _fleet_runs(fmod, make):
-    """An engine_crash@6 run with one arrival per round, and a staged spill
-    (the first request alone, both tries flushed, the rest re-adopting)."""
+    """An engine_crash@6 run and a staged spill (the first request alone,
+    both tries flushed, the rest re-adopting), both through the port's
+    `drive_fleet` (one arrival per round), which drives either router."""
     fm = faults if fmod is fleet else j_faults
+    flush = None if fmod is fleet else (lambda eng: eng._evict_shared_prefix_fault())
     trace = j_chaos._trace(j_chaos._tiny_cfg(), 1, 6, shared=True)
     out = {}
     fm.activate("engine_crash", step=6)
     router = fmod.FleetRouter([make(), make()])
-    uids, pending = [], list(trace)
-    while pending or not router.idle:
-        if pending:
-            uids.append(router.submit_retry(*pending.pop(0)))
-        router.step()
+    uids = list(chaos_serve.drive_fleet(router, trace))
     fm.clear()
     fmod.assert_fleet_conserved(router, "crash")
     st = router.stats()
     out["crash"] = ([router.finished[u].tokens.tolist() for u in uids], st["crash_log"], st["failed_over_streams"],
                     st["alive"], st["prefix_hit_rate"], st["spill"])
     router = fmod.FleetRouter([make(), make()])
-    uids = [router.submit(*trace[0])]
-    router.run()
-    for eng in router.engines:
-        (eng.flush_prefix_cache if fmod is fleet else eng._evict_shared_prefix_fault)()
-    uids += [router.submit(p, m) for p, m in trace[1:]]
-    router.run()
+    uids = list(chaos_serve.drive_fleet(router, trace, stage_spill=True, flush=flush))
     fmod.assert_fleet_conserved(router, "spill")
     out["spill"] = ([router.finished[u].tokens.tolist() for u in uids], router.spill.stats(),
                     [e.spill_readopted_pages for e in router.engines], router.prefix_hit_rate())

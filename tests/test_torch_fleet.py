@@ -19,8 +19,11 @@ JAX's midgpt_tpu/sampling/fleet.py.
   `check_serve_slo_bench` accepts, fleet fields included.
 """
 
+import gc
 import json
+import threading
 import types
+import weakref
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +38,7 @@ from midgpt_tpu.sampling import serve as j_serve
 from midgpt_tpu_torch import loadgen
 from midgpt_tpu_torch.models.gpt import GPT, GPTConfig
 from midgpt_tpu_torch.robustness import faults
-from midgpt_tpu_torch.sampling import disagg, fleet, serve
+from midgpt_tpu_torch.sampling import disagg, fleet, graphs, serve
 
 PS = 8
 SHAPE = dict(block_size=64, vocab_size=96, n_layer=2, n_head=2, n_embd=32)
@@ -347,6 +350,55 @@ def test_router_policy_equals_jax(name):
         assert got[1][4] == 1
 
 
+def test_router_records_step_errors_and_holds_itself_weakly():
+    """Each exception a replica's step raises is kept with its replica and
+    round (the health check absorbs it); the token relays reach the router
+    through a weak reference, so a dropped router is freed at once, with
+    the collector off, and a relay that outlives it delivers nothing."""
+    clock = _Clock()
+    router = fleet.FleetRouter([_FakeEngine(serve, capacity=8, clock=clock) for _ in range(2)], clock=clock,
+                               max_consecutive_failures=2)
+    uid = router.submit(_prompt(range(8), [1]), 3)
+    victim = router._pending[uid].replica
+    router.engines[victim].fail_steps = 2
+    router.run()
+    assert router.step_errors == [{"replica": victim, "round": r, "error": "RuntimeError('injected replica failure')"}
+                                  for r in (1, 2)]
+    assert [c["reason"] for c in router.crash_log] == ["consecutive_failures"]
+    relay = router.engines[0].on_token
+    ref = weakref.ref(router)
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        del router
+        assert ref() is None
+    finally:
+        if was:
+            gc.enable()
+    relay(0, 1, 0.0)
+
+
+def test_capture_gc_pause_nests_across_threads():
+    """The collector stays off while any capture is in flight, whichever
+    thread began first, and comes back on after the last one."""
+    first_in, release = threading.Event(), threading.Event()
+
+    def capture():
+        with graphs._gc_paused():
+            first_in.set()
+            release.wait(5)
+
+    assert gc.isenabled()
+    t = threading.Thread(target=capture)
+    t.start()
+    first_in.wait(5)
+    with graphs._gc_paused():
+        release.set()
+        t.join(5)
+        assert not gc.isenabled()
+    assert gc.isenabled()
+
+
 # ---------------------------------------------------------------- real engines
 
 
@@ -395,3 +447,4 @@ def test_loadgen_fleet_passes_the_serve_slo_contract(capsys):
     assert 0.0 <= rec["prefix_hit_rate"] <= 1.0
     for p in rec["points"]:
         assert p["completed"] == p["n_offered"] and p["captures"] == 0 and p["fleet_size"] == 2
+        assert p["failovers"] == 0 and p["step_errors"] == 0
