@@ -188,7 +188,8 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      c. `openwebtext_xl` (24 x 2048) at microbatch XL_BATCH, 2 steps, its
         own remat policy ('dots') against remat off: peak memory, tokens/s,
         equal losses;
-     d. `llama7b_long` served in bf16 at full width and depth through
+     d. `llama7b_long` served in bf16 at full width, its depth cut to
+        LLAMA_LAYERS (8 of 32, the script's time), through
         `sample.main --config=llama7b_long --start_ids=...`: 4 greedy
         requests of one prompt (identical streams, each its budget), the
         weights' and the paged pool's bytes, init seconds, peak memory,
@@ -268,6 +269,34 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      summed over the engines each scenario builds); the kernels line's
      paged entries take phases 13-14's bf16-pool launches only, and the
      f32, int8 and tiny-model ones are printed by pool beside it;
+ 15. (run after phase 14) the worker-process fleet (sampling/fleet_proc.py)
+     at GPT-2 small's full width (random weights from seed 0 in every
+     worker; phase 14's template trace at seed 14): eight workers spawned
+     together (`python -m midgpt_tpu_torch.sampling.fleet_worker`, JAX's
+     worker engine: overlap off, 4 slots, pages of 8), each one's
+     spawn-to-PORT seconds printed. a. a fleet of two f32 workers and one of
+     two bf16 workers, each against its own reference worker: f32 8/8 bit
+     for bit, bf16 8/8 or a near-tie under GAP_TOL; RPC p50/p95; this
+     process launches no kernel and captures no graph; every worker's paged
+     and merge launches, read over its stats RPC, == n_layer x its decode
+     steps; b. proc_kill9 at router round KILL_ROUND on the f32 fleet: one
+     proc failover detected through the wire, streams failed over, f32 8/8,
+     seconds from the kill to the failover, and the card's memory per
+     process (nvidia-smi) and in use before and after the kill; c.
+     conn_drop, wire_corrupt and wire_stall, one run each on the survivor
+     and the reference worker: the kind's transport counter >= 1, no
+     failover, f32 8/8; d. SIGTERM to a bf16 worker with four streams in
+     flight: they finish, a new request is refused without retry, the
+     worker exits 0 (seconds printed); e. two int8 workers: the first
+     serves the trace, flushes its trie into its tier, the pages move to
+     the second over the wire (wire bytes and ms a page each way), both
+     ledgers close, and the second's streams on re-adopted pages equal the
+     first's; f. chaos_serve's four worker-process scenarios (tiny model,
+     four subprocesses side by side): each line "status": "ok"; g.
+     `loadgen --procs --fleet 2` (bf16 workers, overlap off): a saturating
+     point, then half PROC_SATURATED_RPS: TTFT, TPOT and RPC p50/p95, wire
+     bytes, no failover. The workers' bf16-pool launches go to the kernels
+     line's paged entries; f32 and int8 are printed by pool beside them;
  10. timings: the paged decode kernel as before (CUDA-graph replay, cold
      L2), and each flash kernel in bf16 (CUDA events over repeated
      launches) at the main path's shape and at one shape per other
@@ -299,7 +328,7 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
 The last lines are the card's name and power limit as nvidia-smi prints
 them, one JSON object with a "kernels" list (flash_fwd's launches include
 phase 12's; the paged decode, int8 and merge entries include phases 13's
-and 14's), phase 4b's "decode_modes" (tokens/s and busy share per
+and 14's, and phase 15's launches made in its bf16 workers), phase 4b's "decode_modes" (tokens/s and busy share per
 overlap mode) and phase 12's "batch_decode" (replayed and eager tokens/s
 and the replayed chunk's busy share per cell), and the contract line
 {"ok": true, "device": {...}}.
@@ -312,6 +341,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import shutil
 import signal
 import subprocess
@@ -396,6 +426,10 @@ REMAT_CUTS = {"max_steps": 2, "eval_steps": 1, "eval_interval": 1000}
 REMAT_POLICIES = (None, "none", "dots", "dots_attn", "flash")  # None: remat off
 XL_BATCH = 8  # openwebtext_xl's microbatch (preset 1024) that fits with remat off and on
 LLAMA_PROMPT = 64  # llama7b_long's prompt length; 4 requests of 32 new tokens
+# phase 11d: llama7b_long's depth, cut from 32 layers to keep the script
+# near its time budget once phase 15 was added (PERF.md, phase 11d); the width,
+# heads, vocab and context are the preset's
+LLAMA_LAYERS = 8
 # phase 3d: (slots, query heads, K/V heads, head_dim, bucket, counts) of the
 # serving main path's GQA variant and of llama7b_long's attention
 GQA_GEOMETRIES = {
@@ -2336,20 +2370,35 @@ def xl_remat_pair(data_dir: Path, card: str):
 
 def llama_serving(card: str):
     """Phase 11d: llama7b_long served in bf16 through `sample.main
-    --config`. Returns (paged launches, decode tokens/s)."""
+    --config`, its depth cut to LLAMA_LAYERS. Returns (paged launches,
+    decode tokens/s)."""
+    from midgpt_tpu_torch import config as config_mod
     from midgpt_tpu_torch import sample
-    from midgpt_tpu_torch.config import load_config
     from midgpt_tpu_torch.kernels import attention_template as tpl
 
-    mc = load_config("llama7b_long").model_config
+    load_config = config_mod.load_config
+
+    def load_cut(name):
+        c = load_config(name)
+        if name != "llama7b_long":
+            return c
+        return dataclasses.replace(c, model_config=dataclasses.replace(c.model_config, n_layer=LLAMA_LAYERS))
+
+    mc = load_cut("llama7b_long").model_config
+    print(f"phase 11d reduced: llama7b_long n_layer {load_config('llama7b_long').model_config.n_layer} -> "
+          f"{mc.n_layer} (full width)")
     prompt = np.random.default_rng(0).integers(0, mc.vocab_size, LLAMA_PROMPT)
     new_tokens, n_req = 32, 4
     free_memory()
     torch.cuda.reset_peak_memory_stats()
     tpl.LAUNCHES.reset()
     tpl.MERGE_LAUNCHES.reset()
-    out = sample.main(["--config=llama7b_long", "--engine=continuous", f"--start_ids={','.join(map(str, prompt))}",
-                       "--temperature=0", f"--num_samples={n_req}", f"--max_new_tokens={new_tokens}"])
+    config_mod.load_config = load_cut  # sample.main reads the preset through it
+    try:
+        out = sample.main(["--config=llama7b_long", "--engine=continuous", f"--start_ids={','.join(map(str, prompt))}",
+                           "--temperature=0", f"--num_samples={n_req}", f"--max_new_tokens={new_tokens}"])
+    finally:
+        config_mod.load_config = load_config
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     st, streams = out["stats"], out["streams"]
@@ -3444,6 +3493,298 @@ def fleet_chaos(card: str):
     return launches
 
 
+# ---------------------------------------------------------------- phase 15: the worker-process fleet
+
+# 15b: the proc_kill9 round, after the eighth and last arrival (one a router
+# round; as in JAX, a submit to a worker killed but not yet declared dead
+# raises out of the router), with streams in flight; 15c: each wire kind's round
+KILL_ROUND = 9
+WIRE_ROUND = 3
+# the workers' engine: phase 14's geometry with JAX's worker defaults
+# (overlap off, fcfs, an unbounded backlog)
+PROC_ENGINE = {"max_slots": 4, "page_size": PAGE, "prefill_chunk": 256, "decode_chunk": 8}
+# 15f: chaos_serve's four worker-process scenarios (JAX's tests/test_fleet_proc.py plans)
+PROC_PLANS = ("proc_kill9@6", "conn_drop@5", "wire_corrupt@5", "wire_stall@5")
+# 15g: loadgen --procs --fleet 2 at GPT-2 small's full width, bf16 workers,
+# template-headed mixture: a saturating point (every request at once), then
+# the timed point at half the rate a saturating pass sustained
+# (PROC_SATURATED_RPS, PERF.md, phase 15's cell)
+PROC_ARGS = ["--process=poisson", "--n-requests=16", "--template-frac=0.5", "--max-slots=4", "--num-pages=513",
+             "--page-size=8", "--prefill-chunk=256", "--decode-chunk=8", "--block-size=1024", "--vocab-size=50304",
+             "--n-layer=12", "--n-head=12", "--n-embd=768", "--seed=0", "--fleet=2", "--procs"]
+PROC_SATURATED_RPS = 13.09
+EARLIER_SMOKE_PHASE15_S = 729.0  # this script's wall time before phase 15 was added (PERF.md, earlier slices)
+
+
+def proc_spec(cfg, pool: str, params: str = "float32"):
+    from midgpt_tpu_torch.sampling.fleet_proc import parent_torch_config
+
+    return {"model": dataclasses.asdict(cfg), "seed": 0, "engine": {**PROC_ENGINE, "cache_dtype": pool},
+            "param_dtype": params, "device": "cuda", "torch_config": parent_torch_config()}
+
+
+def gpu_apps():
+    """Per-process device memory as nvidia-smi lists it, and the card's free
+    memory as CUDA reports it (every process's allocations)."""
+    apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()
+    free, total = torch.cuda.mem_get_info()
+    return apps, (total - free) / 2**20
+
+
+def proc_fleet(card: str):
+    """Phase 15. Returns the paged-kernel launches made in its workers (read
+    over their stats RPC, each worker held to n_layer x its decode steps)
+    by pool (POOL_OF)."""
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.models.gpt import GPT
+    from midgpt_tpu_torch.robustness import faults
+    from midgpt_tpu_torch.robustness.chaos_serve import drive_fleet
+    from midgpt_tpu_torch.sampling import fleet_proc as fp
+    from midgpt_tpu_torch.sampling.fleet import FleetRouter, assert_fleet_conserved
+    from midgpt_tpu_torch.sampling.serve import BackpressureError
+
+    t_phase = time.perf_counter()
+    cfg = load_config("openwebtext").model_config
+    L = cfg.n_layer
+    reqs = template_trace(cfg.vocab_size, seed=FLEET_TRACE_SEED)
+    launches = collections.defaultdict(collections.Counter)
+    seen = {}  # worker pid -> its launches at the last harvest
+    parent0 = fp.process_launch_counts()
+    roles = {"ref32": ("float32", "float32"), "f32a": ("float32", "float32"), "f32b": ("float32", "float32"),
+             "ref16": ("bfloat16", "bfloat16"), "b16a": ("bfloat16", "bfloat16"), "b16b": ("bfloat16", "bfloat16"),
+             "i8a": ("int8", "float32"), "i8b": ("int8", "float32")}
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        procs = fp.spawn_workers([proc_spec(cfg, pool, par) for pool, par in roles.values()])
+        spawn_wall = time.perf_counter() - t0
+        proc = dict(zip(roles, (p for p, _ in procs)))
+        rep = {name: fp.connect_replica(port, retry_base_s=0.05) for name, (_, port) in zip(roles, procs)}
+        print(f"15 spawned {len(procs)} workers together in {spawn_wall:.2f} s; spawn-to-PORT s per worker: "
+              + ", ".join(f"{n} ({r.cache_dtype} pool, pid {r.pid}) {r.announced_at - proc[n].spawned_at:.2f}"
+                          for n, r in rep.items()) + f" on {card}")
+
+        def harvest(label, names):
+            """Each worker's launches since its last harvest, by pool; every
+            worker's totals == n_layer x its decode steps (eager rounds)."""
+            for n in names:
+                r = rep[n]
+                counts, steps = r.launch_counts()["launches"], r.stats()["decode_steps"]
+                paged, merges = counts["paged_attention"], sum(counts["paged_attention_merge"].values())
+                if sum(paged.values()) != L * steps or merges != L * steps:
+                    raise SystemExit(f"{label} worker {n}: paged launches {dict(paged)}, merge {merges} != {L} layers "
+                                     f"x {steps} decode steps")
+                total = collections.Counter(paged)
+                total[("merge", None)] = merges
+                launches[POOL_OF[{"float32": torch.float32, "bfloat16": torch.bfloat16,
+                                  "int8": torch.int8}[r.cache_dtype]]] += total - seen.get(r.pid, collections.Counter())
+                seen[r.pid] = total
+                print(f"{label} worker {n} (pid {r.pid}, {r.cache_dtype} pool): paged launches {dict(paged)} == "
+                      f"{L} layers x {steps} decode steps, in its own process, on {card}")
+
+        def drive(label, names, **kw):
+            router = FleetRouter([rep[n] for n in names])
+            uids = list(drive_fleet(router, reqs, **kw))
+            assert_fleet_conserved(router, label)
+            return router, finished_streams(router, reqs, uids)
+
+        def parent_check(label):
+            if fp.process_launch_counts() != parent0:
+                raise SystemExit(f"{label}: the router process launched a kernel or captured a graph")
+
+        # 15a. f32 and bf16 process fleets against a reference worker each
+        want, got = {}, {}
+        for ref, pair, dt in (("ref32", ("f32a", "f32b"), torch.float32), ("ref16", ("b16a", "b16b"), torch.bfloat16)):
+            label = f"15a {str(dt)[6:]}"
+            # a worker serves one connection at a time: the reference pass
+            # runs over this phase's own connection to the reference worker
+            uids = [rep[ref].submit(p, m) for p, m in reqs]
+            rep[ref].run()
+            want[dt] = finished_streams(rep[ref], reqs, uids)
+            t0 = time.perf_counter()
+            router, got[dt] = drive(label, pair)
+            wall = time.perf_counter() - t0
+            fleet_health(label, router, card)
+            parent_check(label)
+            tr = router.transport_stats()
+            print(f"{label} process fleet of 2: {len(reqs)} requests in {wall:.3f} s, transport {json.dumps(tr)}, "
+                  f"RPC p50 {tr['rpc_p50_ms']} / p95 {tr['rpc_p95_ms']} ms, fleet prefix_hit_rate "
+                  f"{router.prefix_hit_rate():.3f}; parent launches 0 on {card}")
+        harvest("15a", ("ref32", "f32a", "f32b", "ref16", "b16a", "b16b"))
+        compare_streams("15a f32 process fleet vs the reference worker", got[torch.float32], want[torch.float32])
+        # a bf16 departure is allowed at a near-tie: the check's dense f32
+        # forward runs in this process, after its launches were held to 0
+        params32 = GPT.init(cfg, 0, device="cuda")
+        compare_streams("15a bf16 process fleet vs the reference worker", got[torch.bfloat16], want[torch.bfloat16],
+                        cfg, params32)
+        del params32
+        free_memory()
+        parent0 = fp.process_launch_counts()
+
+        # 15b. proc_kill9 mid-decode on the f32 pair
+        killed, failed_over = {}, {}
+        victim = {}
+        for n in ("f32a", "f32b"):
+            real = rep[n].kill9
+
+            def kill9(n=n, real=real):
+                victim["name"], killed["t"] = n, time.perf_counter()
+                killed["before"] = gpu_apps()
+                real()
+
+            rep[n].kill9 = kill9
+
+        def watch(router):
+            if router.crash_log and "t" not in failed_over:
+                failed_over["t"] = time.perf_counter()
+
+        faults.clear()
+        faults.activate("proc_kill9", step=KILL_ROUND)
+        try:
+            router, got = drive("15b", ("f32a", "f32b"), watch=watch)
+        finally:
+            faults.clear()
+        parent_check("15b")
+        dead = victim["name"]
+        proc[dead].wait(timeout=30)
+        after = gpu_apps()
+        print(f"15b proc_kill9@{KILL_ROUND} on worker {dead} (pid {rep[dead].pid}): crash log {router.crash_log}, "
+              f"failovers {router.failovers} (proc {router.proc_failovers}), failed-over streams "
+              f"{router.failed_over_streams}, alive {sum(router.alive)}/2, dropped 0; kill to failover "
+              f"{failed_over['t'] - killed['t']:.3f} s; step errors {len(router.step_errors)} (the dead worker's "
+              f"failing RPCs) on {card}")
+        print(f"15b device memory: before the kill {killed['before'][1]:.1f} MiB used on the card, per process "
+              f"{killed['before'][0]}; after it {after[1]:.1f} MiB, per process {after[0]} on {card}")
+        if (router.proc_failovers != 1 or router.failed_over_streams < 1 or len(router.crash_log) != 1
+                or router.crash_log[0]["reason"] != "consecutive_failures"):
+            raise SystemExit("15b: the kill must be detected through the wire, with streams failed over")
+        compare_streams("15b f32 streams across the kill vs the reference worker", got, want[torch.float32])
+        survivor = "f32b" if dead == "f32a" else "f32a"
+
+        # 15c. the wire kinds on a fleet of the survivor and the reference worker
+        counter_of = {"conn_drop": "reconnects", "wire_corrupt": "corrupt_frames", "wire_stall": "deadline_expiries"}
+        for kind, counter in counter_of.items():
+            faults.clear()
+            faults.activate(kind, step=WIRE_ROUND)
+            try:
+                router, got = drive(f"15c {kind}", (survivor, "ref32"))
+            finally:
+                fired = faults.fired_counts()
+                faults.clear()
+            fleet_health(f"15c {kind}", router, card)
+            tr = router.transport_stats()
+            print(f"15c {kind}@{WIRE_ROUND}: fired {fired}, {counter} {tr[counter]}, transport {json.dumps(tr)} on "
+                  f"{card}")
+            if fired.get(kind) != 1 or tr[counter] < 1:
+                raise SystemExit(f"15c: {kind} did not bite ({counter} {tr[counter]})")
+            compare_streams(f"15c f32 streams under {kind} vs the reference worker", got, want[torch.float32])
+        parent_check("15c")
+        harvest("15c", (survivor, "ref32"))
+
+        # 15d. SIGTERM to a bf16 worker with streams in flight
+        r = rep["b16a"]
+        uids = [r.submit(p, m) for p, m in reqs[:4]]
+        r.step()
+        t_term = time.perf_counter()
+        os.kill(r.pid, signal.SIGTERM)
+        r.step()  # the worker sees the flag between RPCs
+        try:
+            r.submit(*reqs[4])
+            raise SystemExit("15d: a draining worker admitted a request")
+        except BackpressureError as e:
+            if e.retryable:
+                raise SystemExit("15d: a draining worker's refusal must not be retryable")
+        r.run()
+        finished_streams(r, reqs[:4], uids)
+        r.assert_conserved("15d after the drain")
+        harvest("15d", ("b16a",))
+        r.close()
+        rc = proc["b16a"].wait(timeout=60)
+        print(f"15d SIGTERM with 4 streams in flight: all finished with their budgets, a new request refused "
+              f"(not retryable), rc {rc}, {time.perf_counter() - t_term:.3f} s from SIGTERM to exit on {card}")
+        if rc != 0:
+            raise SystemExit(f"15d: the drained worker exited with rc {rc}")
+
+        # 15e. a spill transfer between two live int8 workers
+        a, b = rep["i8a"], rep["i8b"]
+        ua = [a.submit(p, m) for p, m in reqs]
+        a.run()
+        want8 = finished_streams(a, reqs, ua)
+        flushed = a.flush_prefix_cache()
+        wa, wb = a.transport.wire_bytes, b.transport.wire_bytes
+        t0 = time.perf_counter()
+        items = a.export_spill()
+        t1 = time.perf_counter()
+        imported = b.import_spill(items)
+        t2 = time.perf_counter()
+        n = len(items)
+        a.assert_conserved("15e after the export")
+        b.assert_conserved("15e after the import")
+        ub = [b.submit(p, m) for p, m in reqs]
+        b.run()
+        got8 = finished_streams(b, reqs, ub)
+        b.assert_conserved("15e after the re-adoption")
+        la, lb = a.spill_ledger(), b.spill_ledger()
+        print(f"15e int8 spill transfer: {flushed} trie pages flushed, {n} pages moved ({imported} imported), "
+              f"export {(a.transport.wire_bytes - wa) / max(n, 1):.0f} wire bytes a page in {(t1 - t0) * 1e3 / max(n, 1):.3f} "
+              f"ms a page, import {(b.transport.wire_bytes - wb) / max(n, 1):.0f} wire bytes a page in "
+              f"{(t2 - t1) * 1e3 / max(n, 1):.3f} ms a page; ledgers {json.dumps(la)} / {json.dumps(lb)}; re-adopted "
+              f"pages {b.spill_readopted_pages} on {card}")
+        if n < 1 or imported != n or la["transferred"] != n or lb["received"] != n or b.spill_readopted_pages < 1:
+            raise SystemExit("15e: the pages did not move and come back into a decode")
+        compare_streams("15e int8 streams on re-adopted pages vs the int8 worker's", got8, want8)
+        harvest("15e", ("i8a", "i8b"))
+        parent_check("15e")
+        for name, r in rep.items():
+            if name not in (dead, "b16a"):
+                r.close()
+    finally:
+        fp.kill_workers(procs)
+
+    # 15f. chaos_serve's four worker-process scenarios, side by side
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    runs = [subprocess.Popen([sys.executable, "-m", "midgpt_tpu_torch.robustness.chaos_serve", "--fault", plan,
+                              "--n-requests=4"], cwd=ROOT, env=env, stdout=subprocess.PIPE, text=True)
+            for plan in PROC_PLANS]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in runs]
+    finally:
+        for p in runs:
+            p.kill()
+    for plan, p, out in zip(PROC_PLANS, runs, outs):
+        line = out.strip().splitlines()[-1] if out.strip() else "{}"
+        print(f"15f {line}")
+        if p.returncode != 0 or json.loads(line).get("status") != "ok":
+            raise SystemExit(f"15f: chaos scenario {plan} failed (rc {p.returncode})")
+    print(f"15f four scenarios side by side in {time.perf_counter() - t0:.1f} s on {card}")
+
+    # 15g. loadgen --procs --fleet 2: a saturating point, then half the saturating rate
+    from midgpt_tpu_torch import loadgen
+
+    rates = (1000.0, PROC_SATURATED_RPS / 2)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        loadgen.main(PROC_ARGS + [f"--rates={','.join(f'{x:g}' for x in rates)}"])
+    parent_check("15g")
+    rec = json.loads(out.getvalue().strip().splitlines()[-1])
+    print(f"15g loadgen --procs ({time.perf_counter() - t0:.1f} s): {json.dumps(rec)}")
+    sat, p = rec["points"]
+    print(f"15g saturating point: {sat['completed']}/{sat['n_offered']} in {sat['wall_s']} s = "
+          f"{sat['completed'] / sat['wall_s']:.2f} req/s (PROC_SATURATED_RPS {PROC_SATURATED_RPS:g}); at "
+          f"{rates[1]:g} req/s offered: TTFT p50 {p['ttft_p50_ms']} / p95 {p['ttft_p95_ms']} ms, TPOT p50 "
+          f"{p['tpot_p50_ms']} / p95 {p['tpot_p95_ms']} ms, RPC p50 {p['rpc_p50_ms']} / p95 {p['rpc_p95_ms']} ms, "
+          f"{p['wire_bytes']} wire bytes, failovers {p['failovers']}, step errors {p['step_errors']}, fleet "
+          f"prefix_hit_rate {p['prefix_hit_rate']} (workers' eager decode, overlap off) on {card}")
+    for q in rec["points"]:
+        if q["completed"] != q["n_offered"] or q["failovers"] or q["step_errors"] or q["wire_bytes"] < 1:
+            raise SystemExit("15g: a point lost requests or a worker failed under plain load")
+    print(f"phase 15 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script needs an NVIDIA GPU", file=sys.stderr)
@@ -3600,7 +3941,10 @@ def main() -> int:
     # 14. serving chaos, the fleet with its spill tier, disagg, loadgen --fleet
     for pool, n in fleet_chaos(card).items():
         by_pool[pool] += n
-    print("paged launches of phases 13-14 by pool (the kernels line's paged entries take the bf16 pool's): "
+    # 15. the worker-process fleet: its workers' launches, read over the wire
+    for pool, n in proc_fleet(card).items():
+        by_pool[pool] += n
+    print("paged launches of phases 13-15 by pool (the kernels line's paged entries take the bf16 pool's): "
           + "; ".join(f"{pool}: {dict(n)}" for pool, n in by_pool.items()) + f" on {card}")
     front_launches = by_pool["bf16"]
 
@@ -3773,7 +4117,8 @@ def main() -> int:
             "library_ms": main_lib[kname],
         })
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s (before phase 12: {EARLIER_SMOKE_S} s, before "
-          f"phase 13: {EARLIER_SMOKE_PHASE13_S} s, before phase 14: {EARLIER_SMOKE_PHASE14_S} s) on {card}")
+          f"phase 13: {EARLIER_SMOKE_PHASE13_S} s, before phase 14: {EARLIER_SMOKE_PHASE14_S} s, before phase 15: "
+          f"{EARLIER_SMOKE_PHASE15_S} s) on {card}")
     print(card)  # exactly as nvidia-smi gives it: name, power limit
     decode_modes = {spec: {"decode_tokens_per_s": dec, "end_to_end_tokens_per_s": e2e,
                            "busy_share": busy.get(spec)} for spec, (dec, e2e) in overlap_rates.items()}

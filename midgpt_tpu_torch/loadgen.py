@@ -12,7 +12,7 @@ the shed and timeout fractions, and whether the point met its SLO:
     python -m midgpt_tpu_torch.loadgen --process poisson --rates 20,60 \\
         [--device cpu] [--prefix-cache --template-frac 0.5] [--overlap group:4] \\
         [--scheduler slo] [--ttl-s 2.0] [--slo-ttft-ms 500 --slo-tpot-ms 50] \\
-        [--hot-swap] [--fleet N] [--trace-out DIR]
+        [--hot-swap] [--fleet N [--procs]] [--trace-out DIR]
 
 It runs on CUDA unless `--device cpu` is given. The pool is bf16 on CUDA
 and f32 on the CPU, as JAX's harness has it (bf16 on the TPU); the random
@@ -52,14 +52,25 @@ adds `fleet_size`, `failovers`, `spill_hits` and the fleet-wide
 `prefix_hit_rate`; each point also counts the replica steps that raised
 (`step_errors`: the router's health check absorbs them).
 
-JAX's `--procs`, `--tp` and `--cpu-devices` are refused: the port has no
-process fleet or tensor-parallel serving yet.
+Adding `--procs` makes every replica a worker PROCESS behind the framed
+socket transport (sampling/fleet_proc.py), spawned on `--device` with the
+same weights (`--seed`, in the pool's dtype). The parent builds no engine
+and launches no kernel; each worker is warmed over the wire before the
+first point and serves every point (its trie stays warm, as JAX's does).
+As in JAX, `--procs` needs `--fleet`, runs `fcfs` with `--overlap off`
+and an unbounded backlog; points and the line add `rpc_p50_ms`,
+`rpc_p95_ms` and `wire_bytes` (the hottest point's), and the point's
+`prefix_hit_rate` is over its own drive.
+
+JAX's `--tp` and `--cpu-devices` are refused: the port has no
+tensor-parallel serving yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
 import os
 import sys
@@ -314,8 +325,6 @@ def _swap_candidate(cfg, seed: int, dtype: torch.dtype, device: torch.device):
 
 # JAX's options the port refuses, with the ROADMAP.md item that brings each
 _REFUSED = {
-    "procs": "--procs (worker processes) waits for ROADMAP.md Queue 1 item 5.6 (fleet_proc: worker processes and "
-             "the wire)",
     "tp": "--tp (tensor-parallel serving) waits for ROADMAP.md Queue 1 item 7 (parallelism)",
     "cpu_devices": "--cpu-devices (a virtual device mesh) waits for ROADMAP.md Queue 1 item 7 (parallelism); "
                    "--device cpu runs on the CPU",
@@ -369,8 +378,9 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
     ap.add_argument("--attn-sinks", type=int, default=0, help="with --sliding-window: positions kept visible")
     ap.add_argument("--fleet", type=int, default=0,
                     help="N >= 2: serve through N in-process replicas behind a FleetRouter (prefix cache on)")
+    ap.add_argument("--procs", action="store_true",
+                    help="with --fleet: the replicas are worker processes behind the socket transport")
     # refused (module docstring)
-    ap.add_argument("--procs", action="store_true", help="refused: " + _REFUSED["procs"])
     ap.add_argument("--tp", type=int, default=0, help="refused: " + _REFUSED["tp"])
     ap.add_argument("--cpu-devices", type=int, default=0, help="refused: " + _REFUSED["cpu_devices"])
     args = ap.parse_args(argv)
@@ -383,11 +393,32 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         if args.hot_swap:
             ap.error("--fleet is incompatible with --hot-swap")
         args.prefix_cache = True  # the router's affinity target
-    rates = [float(r) for r in args.rates.split(",") if r.strip()]
+    if args.procs:
+        if not args.fleet:
+            ap.error("--procs requires --fleet N (it spawns the replicas)")
+        if args.scheduler != "fcfs":
+            ap.error("--procs workers run the default fcfs scheduler")
+        if args.overlap != "off":
+            ap.error("--procs workers run with --overlap off")
+        if args.max_backlog_pages:
+            ap.error("--procs workers run with an unbounded backlog")
     if not args.num_pages:
         pages_per_slot = -(-args.block_size // args.page_size)
         args.num_pages = 27 if args.block_size < 2048 else 1 + args.max_slots * pages_per_slot
+    workers: tp.List[tp.Any] = []  # --procs: (Popen, port) of every worker spawned
+    try:
+        return _run(args, workers)
+    finally:
+        if workers:
+            from midgpt_tpu_torch.sampling.fleet_proc import kill_workers
 
+            kill_workers(workers)
+
+
+def _run(args, workers: tp.List[tp.Any]) -> int:
+    """The points and the line (`main`, after its checks); spawned workers
+    are appended to `workers`, which the caller kills."""
+    rates = [float(r) for r in args.rates.split(",") if r.strip()]
     from midgpt_tpu_torch.device import device_label, resolve_device
     from midgpt_tpu_torch.models.gpt import GPT, GPTConfig
     from midgpt_tpu_torch.obs import Observability
@@ -409,7 +440,27 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         attn_sinks=args.attn_sinks,
     )
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    params = GPT.init(cfg, args.seed, device=dev, dtype=dtype)
+    dtype_name = str(dtype).replace("torch.", "")
+    if args.procs:
+        # The parent builds no weights and no engine: each replica is a
+        # worker process with the same seed's weights in the pool's dtype.
+        from midgpt_tpu_torch.sampling.fleet_proc import connect_replica, parent_torch_config, spawn_workers
+
+        spec = {
+            "model": dataclasses.asdict(cfg),
+            "seed": args.seed,
+            "engine": {"max_slots": args.max_slots, "page_size": args.page_size, "num_pages": args.num_pages,
+                       "prefill_chunk": args.prefill_chunk, "decode_chunk": args.decode_chunk,
+                       "cache_dtype": dtype_name},
+            "param_dtype": dtype_name,
+            "device": dev.type,
+            "torch_config": parent_torch_config(),
+        }
+        if dev.type == "cpu":
+            spec["threads"] = 1
+        workers.extend(spawn_workers(spec, args.fleet))
+    else:
+        params = GPT.init(cfg, args.seed, device=dev, dtype=dtype)
 
     def make_engine(obs_tid: str = "engine") -> ServeEngine:
         return ServeEngine(
@@ -431,10 +482,14 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
             device=dev,
         )
 
-    engines = [make_engine(f"replica{k}") for k in range(args.fleet)] if args.fleet else [make_engine()]
+    if args.procs:
+        engines = [connect_replica(port, retry_base_s=0.05) for _, port in workers]
+    else:
+        engines = [make_engine(f"replica{k}") for k in range(args.fleet)] if args.fleet else [make_engine()]
     engine = engines[0]
     # Capture every decode-group graph the workload can reach, on every
-    # engine the points run on (module docstring).
+    # engine the points run on (module docstring); a worker is warmed over
+    # the wire, so the first point's percentiles time no first-use work.
     for eng in engines:
         _warm_captures(eng, cfg, args.decode_chunk, args.page_size, args.seed)
     warm_captures = sum(_captures(eng) for eng in engines)
@@ -468,13 +523,18 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         # One Observability per point: the round decomposition is a
         # per-offered-load number, and a dumped trace covers one point.
         obs = Observability()
-        for eng in engines:
-            eng.reset(obs)
+        if not args.procs:
+            for eng in engines:
+                eng.reset(obs)
+        # workers keep counting across points (their tries stay warm): this
+        # point's numbers are deltas
+        matched0 = [(eng._prefix_matched_tokens, eng._prefix_matchable_tokens) for eng in engines]
         captures_before = sum(_captures(eng) for eng in engines)
         t0 = time.perf_counter()
         if args.fleet:
             # a fresh router (its own counters and spill tier) over the reset replicas
             router = FleetRouter(engines)
+            wire0 = router.transport_stats()["wire_bytes"] if args.procs else 0
             records = _drive_fleet_point(router, reqs, arrivals, args.ttl_s or None)
             assert_fleet_conserved(router, f"loadgen point {pi}")
         else:
@@ -500,21 +560,26 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
 
             records = asyncio.run(run_point())
         wall_s = time.perf_counter() - t0
-        decode_steps += sum(eng.decode_steps for eng in engines)
+        if not args.procs:  # reset each point
+            decode_steps += sum(eng.decode_steps for eng in engines)
         stats = _point_stats(rate, records, args.error_budget, args.slo_ttft_ms, args.slo_tpot_ms)
         stats["wall_s"] = round(wall_s, 4)  # from the point's start to its drain
         stats["captures"] = sum(_captures(eng) for eng in engines) - captures_before
         if args.fleet:
             stats.update(fleet_size=args.fleet, failovers=router.failovers, spill_hits=router.spill.readopted,
                          step_errors=len(router.step_errors))
+        if args.procs:
+            transport = router.transport_stats()
+            stats.update(rpc_p50_ms=transport["rpc_p50_ms"], rpc_p95_ms=transport["rpc_p95_ms"],
+                         wire_bytes=transport["wire_bytes"] - wire0, proc_failovers=router.proc_failovers)
         if swap_payload is not None:
             stats["weights_version"] = engine.weights_version
             stats["hot_swaps"] = engine.hot_swaps
             stats["swap_flip_round"] = engine.swap_history[-1]["flip_round"] if engine.swap_history else None
         if args.prefix_cache:
             # fleet-wide under --fleet: matched over matchable tokens of every replica
-            matched = sum(eng._prefix_matched_tokens for eng in engines)
-            matchable = sum(eng._prefix_matchable_tokens for eng in engines)
+            matched = sum(eng._prefix_matched_tokens - m0 for eng, (m0, _) in zip(engines, matched0))
+            matchable = sum(eng._prefix_matchable_tokens - a0 for eng, (_, a0) in zip(engines, matched0))
             stats["prefix_hit_rate"] = round(matched / matchable if matchable else 0.0, 4)
             stats["prefill_tokens_saved"] = matched
         decomp = obs.round_decomp()
@@ -524,8 +589,8 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
             "p95": round(decomp["dispatch"]["p95_ms"] + decomp["host_post"]["p95_ms"], 3),
         }
         stats["round_device_ms"] = {"p50": decomp["device_wait"]["p50_ms"], "p95": decomp["device_wait"]["p95_ms"]}
-        stats["overlap_mode"] = engine.overlap
-        stats["round_group"] = engine.round_group
+        stats["overlap_mode"] = "off" if args.procs else engine.overlap  # a worker's engine runs "off"
+        stats["round_group"] = 1 if args.procs else engine.round_group
         stats["overlap_hidden_ms"] = {
             "p50": decomp["overlap_hidden"]["p50_ms"],
             "p95": decomp["overlap_hidden"]["p95_ms"],
@@ -535,7 +600,12 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         points.append(stats)
 
     worst = points[-1]  # rates ascending by convention: report the hottest
-    graphs = [eng.stats()["decode_graphs"] for eng in engines]
+    worker_stats = [eng.stats() for eng in engines]
+    graphs = [st["decode_graphs"] for st in worker_stats]
+    if args.procs:
+        decode_steps = sum(st["decode_steps"] for st in worker_stats)
+        for eng in engines:
+            eng.close()
     device = device_label(dev)
     print(json.dumps({
         "bench": "serve_slo",
@@ -592,7 +662,11 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         "fleet_size": args.fleet or None,
         "failovers": worst.get("failovers") if args.fleet else None,
         "spill_hits": worst.get("spill_hits") if args.fleet else None,
-        "procs": False,
+        # --procs: the transport's numbers at the hottest point
+        "procs": bool(args.procs),
+        "rpc_p50_ms": worst.get("rpc_p50_ms") if args.procs else None,
+        "rpc_p95_ms": worst.get("rpc_p95_ms") if args.procs else None,
+        "wire_bytes": worst.get("wire_bytes") if args.procs else None,
         "weights_versions": ["inline", swap_payload[1]] if swap_payload else None,
         "weights_version": engine.weights_version,
         "hot_swaps": sum(p.get("hot_swaps", 0) for p in points) if swap_payload else None,

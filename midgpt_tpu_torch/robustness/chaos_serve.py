@@ -28,9 +28,17 @@ FleetRouter with its shared spill tier (sampling/fleet.py):
 `engine_crash@k` kills the busiest replica at router round k with zero
 accepted streams dropped; `handoff_stall` / `spill_corrupt` hit the spill
 path (a staged flush fills the tier first) and cost a re-prefill, never a
-token; `assert_fleet_conserved` holds after the drain. The worker-process
-kinds (`proc_kill9`, `conn_drop`, `wire_corrupt`, `wire_stall`) are not
-ported (ROADMAP.md Queue 1 item 5.6: fleet_proc) and are refused.
+token; `assert_fleet_conserved` holds after the drain.
+
+The worker-process scenarios (`proc_kill9`, `conn_drop`, `wire_corrupt`,
+`wire_stall`) run the same trace through two worker PROCESSES
+(sampling/fleet_proc.py, spawned on the scenario's device) behind a
+FleetRouter: zero drops (`proc_kill9` SIGKILLs the busiest worker and the
+failover is detected through the wire alone), conservation checked inside
+the workers, every stream equal to a fault-free pass served by a third
+worker, the wire kinds absorbed with their transport counter showing the
+fault bit, and the router process launching no kernel and capturing no
+graph (`router_launches_delta`).
 
 Faults are deterministic for a seeded trace: round-keyed kinds fire on the
 engine's (or router's) round counter, slow_client on the victim uid,
@@ -75,7 +83,7 @@ STORM_BACKLOG_PAGES = 24
 # the 29-page base geometry below (JAX's values).
 RESIZE_TARGETS = [43, 37]
 
-# The worker-process kinds: refused (module docstring).
+# The worker-process kinds (module docstring).
 PROC_KINDS = ("proc_kill9", "conn_drop", "wire_corrupt", "wire_stall")
 FLEET_KINDS = ("engine_crash", "handoff_stall", "spill_corrupt")
 
@@ -258,13 +266,10 @@ def run_serving_chaos(fault_plan: str, *, seed: int = 0, n_requests: int = 5, tr
     """Run the scenario (module docstring); returns the summary dict the
     entry point prints. Raises AssertionError when an invariant breaks:
     that IS the chaos verdict."""
-    if any(k in fault_plan for k in PROC_KINDS):
-        raise NotImplementedError(
-            f"the worker-process fault kinds {PROC_KINDS} are not ported yet "
-            "(ROADMAP.md Queue 1 item 5.6: fleet_proc)"
-        )
     dev = resolve_device(device)
     kw = dict(seed=seed, n_requests=n_requests, trace_dir=trace_dir, device=dev)
+    if any(k in fault_plan for k in PROC_KINDS):
+        return _run_proc_fleet_chaos(fault_plan, **kw)
     if any(k in fault_plan for k in FLEET_KINDS):
         return _run_fleet_chaos(fault_plan, **kw)
     if "hot_swap_mid_decode" in fault_plan:
@@ -485,6 +490,164 @@ def _run_fleet_chaos(fault_plan, *, seed, n_requests, trace_dir, device):
         }
 
     return _run_scenario(obs, trace_dir, body)
+
+
+# -- worker-process fleet scenarios (sampling/fleet_proc.py) ----------------------
+
+
+def proc_worker_spec(seed: int, *, device: DeviceLike = None) -> tp.Dict[str, tp.Any]:
+    """The worker spec of the fleet scenarios: the tiny model at `seed` (the
+    port's init, so every worker on one device holds the same weights), the
+    31-page fleet pool, f32, this process's numeric knobs, on `device`; a
+    CPU worker runs one torch thread."""
+    import dataclasses
+
+    from midgpt_tpu_torch.sampling.fleet_proc import parent_torch_config
+
+    dev = resolve_device(device)
+    spec = {
+        "model": dataclasses.asdict(_tiny_cfg()),
+        "seed": seed,
+        "engine": {"max_slots": 3, "page_size": 8, "num_pages": 31, "prefill_chunk": 16, "decode_chunk": 4,
+                   "cache_dtype": "float32"},
+        "device": dev.type,
+        "torch_config": parent_torch_config(),
+    }
+    if dev.type == "cpu":
+        spec["threads"] = 1
+    return spec
+
+
+def _proc_reference_pass(port: int, trace) -> tp.Dict[int, np.ndarray]:
+    """A fault-free pass over the wire on an already spawned worker of the
+    fleet's spec -> {trace index: tokens}. Worker against worker keeps the
+    parity claim about the process boundary alone. All requests go in at
+    once: greedy streams do not depend on the batch's composition."""
+    from midgpt_tpu_torch.sampling.fleet_proc import connect_replica
+
+    faults.clear()
+    rep = connect_replica(port)
+    uid_to_idx = {rep.submit(prompt, m): idx for idx, (prompt, m) in enumerate(trace)}
+    rep.run()
+    ref = {idx: np.asarray(rep.finished[uid].tokens) for uid, idx in uid_to_idx.items()}
+    rep.close()
+    return ref
+
+
+def _run_proc_fleet_chaos(fault_plan, *, seed, n_requests, trace_dir, device):
+    """The fleet gate across a process boundary: two worker PROCESSES
+    behind a FleetRouter speaking the framed socket transport.
+
+      1. Alive: `proc_kill9` SIGKILLs the busiest worker mid-decode and the
+         fleet still finishes every accepted stream, zero drops; detection
+         flows through the wire (ReplicaGoneError, then the consecutive-
+         failure health check and the engine_crash failover).
+      2. Conserved across the boundary: each alive worker runs the pool law
+         and its tier's ledger in its own process (the `conserve` RPC), and
+         the router's tier ledger closes.
+      3. Bit-identical: every stream, failover replays included, equals a
+         fault-free pass served by its own worker (`_proc_reference_pass`).
+
+    The wire kinds are absorbed by the transport: the same invariants, and
+    the kind's counter shows it bit (reconnects, corrupt_frames,
+    deadline_expiries). The router process launches no kernel and captures
+    no graph: its launch counters and captures are the same after the drive
+    as before."""
+    from midgpt_tpu_torch.sampling.fleet import FleetRouter, assert_fleet_conserved
+    from midgpt_tpu_torch.sampling.fleet_proc import connect_replica, kill_workers, process_launch_counts, \
+        spawn_workers
+
+    cfg = _tiny_cfg()
+    trace = _trace(cfg, seed + 1, n_requests, shared=True)
+    launches_before = process_launch_counts()
+    procs = []
+    try:
+        # all three workers (the reference and two replicas) spawn together
+        procs = spawn_workers(proc_worker_spec(seed, device=device), 3)
+        ref_tokens = _proc_reference_pass(procs[0][1], trace)
+        kill_workers(procs[:1])
+
+        faults.clear()
+        armed = faults.activate_plan(fault_plan)
+        obs = Observability()
+        replicas = [connect_replica(port, retry_base_s=0.05, obs=obs) for _, port in procs[1:]]
+        router = FleetRouter(replicas)
+
+        def body() -> tp.Dict[str, tp.Any]:
+            # one arrival a router round: the round-keyed kill lands mid-decode
+            uid_to_idx = drive_fleet(router, trace)
+            fired = faults.fired_counts()
+            faults.clear()
+
+            assert_fleet_conserved(router, "after proc drain")
+
+            statuses: tp.Dict[str, int] = {}
+            parity_checked = parity_ok = 0
+            for uid, idx in uid_to_idx.items():
+                fr = router.finished.get(uid)
+                assert fr is not None, f"accepted stream {uid} vanished"
+                statuses[fr.status] = statuses.get(fr.status, 0) + 1
+                assert fr.status == "ok", f"accepted stream {uid} dropped with status {fr.status!r}"
+                parity_checked += 1
+                if np.array_equal(np.asarray(fr.tokens), ref_tokens[idx]):
+                    parity_ok += 1
+            assert parity_ok == parity_checked, (
+                f"greedy parity broke on {parity_checked - parity_ok} stream(s) vs the fault-free worker's pass"
+            )
+            assert sum(fired.values()) >= min(1, len(armed)), "no armed fault fired"
+            transport = router.transport_stats()
+            if fired.get("proc_kill9"):
+                assert router.proc_failovers >= 1, "kill -9 fired but the wire never reported the death"
+                assert router.failed_over_streams >= 1, (
+                    "kill -9 fired with no accepted streams to fail over — the gate proved nothing"
+                )
+            if fired.get("conn_drop"):
+                assert transport["reconnects"] >= 1, "connection dropped but no RPC ever reconnected"
+            if fired.get("wire_corrupt"):
+                assert transport["corrupt_frames"] >= 1, "frame corruption armed but the checksum never rejected one"
+            if fired.get("wire_stall"):
+                assert transport["deadline_expiries"] >= 1, "stall armed but no RPC deadline ever expired"
+
+            launches_after = process_launch_counts()
+            assert launches_after == launches_before, (
+                f"the router process launched kernels or captured graphs: {launches_before} -> {launches_after}"
+            )
+
+            return {
+                "mode": "serve",
+                "fault_plan": fault_plan,
+                "faults_fired": fired,
+                "n_requests": n_requests,
+                "statuses": statuses,
+                "shed": router.router_shed,
+                "timeouts": sum(e.timeouts for e in router.engines),
+                "cancelled": sum(e.cancelled for e in router.engines),
+                "decode_kills": sum(e.decode_kills for e in router.engines),
+                "preemptions": sum(e.preemptions for e in router.engines),
+                "poisoned": 0,
+                "parity_checked": parity_checked,
+                "parity_ok": parity_ok,
+                "pages_conserved": True,
+                "prefix_cache": True,
+                "prefix_reclaimed": sum(e.prefix_evictions for e in router.engines),
+                "prefix_hit_rate": router.prefix_hit_rate(),
+                "fleet_size": len(router.engines),
+                "alive": sum(router.alive),
+                "failovers": router.failovers,
+                "failed_over_streams": router.failed_over_streams,
+                "dropped_streams": 0,
+                "spill": router.spill.stats(),
+                "procs": True,
+                "proc_failovers": router.proc_failovers,
+                "worker_pids": [rep.pid for rep in replicas],
+                "transport": transport,
+                "router_launches_delta": 0,
+            }
+
+        return _run_scenario(obs, trace_dir, body)
+    finally:
+        faults.clear()
+        kill_workers(procs)
 
 
 # -- model-ops scenarios (sampling/ops.py) ----------------------------------------

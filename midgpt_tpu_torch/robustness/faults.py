@@ -63,6 +63,17 @@ Hooked kinds and where they strike:
                      would return pages refuses; the admission re-prefills.
   spill_corrupt      sampling/fleet.py: one byte of the newest spilled page
                      flips; the take-side crc32 discards it.
+  proc_kill9         sampling/fleet.py, keyed on the router's round: the
+                     busiest worker process (sampling/fleet_proc.py) is
+                     SIGKILLed while more than one replica is alive; its
+                     failing RPCs trip the health check, and its streams
+                     fail over.
+  conn_drop          the same worker's socket is closed; the next RPC
+                     reconnects.
+  wire_corrupt       a byte of the next frame it receives flips; the crc32
+                     rejects it before decode and the RPC retries.
+  wire_stall         its next RPC's response misses the deadline; the
+                     backoff retry absorbs it.
 
 Activation: programmatic (`activate(...)`), or a plan string from the
 config (`fault_plan`) or the MIDGPT_FAULTS environment variable, parsed by
@@ -137,9 +148,6 @@ DESCRIPTIONS: tp.Dict[str, str] = {
 # The kinds the port has no hook for yet, by the ROADMAP.md item that brings it.
 UNHOOKED: tp.Dict[str, str] = {
     "resume_reshard": "Queue 1 item 7 (parallelism)",
-    **{k: "Queue 1 item 5.6 (fleet_proc: worker processes and the wire)" for k in (
-        "proc_kill9", "conn_drop", "wire_corrupt", "wire_stall",
-    )},
 }
 HOOKED = tuple(k for k in KINDS if k not in UNHOOKED)
 

@@ -38,10 +38,13 @@ past the queue's budget finishes "shed". `assert_fleet_conserved` checks
 every alive replica's pool law and the tier's ledger (resident + readopted
 + corrupt_discarded + capacity_dropped + stale_discarded == total_spilled).
 
-Worker-process replicas (JAX's sampling/fleet_proc.py) are not ported
-(ROADMAP.md Queue 1 item 5.6); the router keeps JAX's `is_proc` duck-typing
-and the `_fire_proc_faults` seam they plug into, and no replica here sets
-`is_proc`.
+A replica may also be a worker PROCESS (sampling/fleet_proc.py
+`ProcReplica`, `is_proc`): the same engine surface over a crc32-framed
+socket transport. The router then fires the wire fault kinds against the
+busiest alive worker (`proc_kill9`, `conn_drop`, `wire_corrupt`,
+`wire_stall`), a SIGKILLed worker is detected by the same consecutive-failure
+health check through its failing RPCs (`proc_failovers`), and
+`transport_stats` rolls up the workers' transports.
 """
 
 from __future__ import annotations
@@ -409,7 +412,7 @@ class FleetRouter:
         self.crash_log: tp.List[tp.Dict[str, tp.Any]] = []
         # every exception a replica's step raised: {"replica", "round", "error" (its repr)}
         self.step_errors: tp.List[tp.Dict[str, tp.Any]] = []
-        # worker-process replicas mark themselves; none is ported yet
+        # worker-process replicas (sampling/fleet_proc.py) mark themselves
         self._proc_idx = [i for i, eng in enumerate(engines) if getattr(eng, "is_proc", False)]
         self.proc_failovers = 0
 
@@ -546,8 +549,11 @@ class FleetRouter:
 
     def _fire_proc_faults(self) -> None:
         """The wire fault kinds, against the busiest alive worker-process
-        replica. None is ported (module docstring), so `_proc_idx` is empty
-        and the registry refuses those kinds at activation."""
+        replica, so the fault lands under traffic. `proc_kill9` SIGKILLs the
+        worker and does NOT mark it dead: detection flows through the health
+        checks, as its step RPCs fail with ReplicaGoneError until the
+        consecutive-failure threshold crashes it. The other three arm
+        transport-level faults the RPC retries must absorb."""
         procs = [i for i in self._proc_idx if self.alive[i]]
         if not procs:
             return
@@ -658,11 +664,20 @@ class FleetRouter:
         return matched / matchable if matchable else 0.0
 
     def transport_stats(self) -> tp.Optional[tp.Dict[str, tp.Any]]:
-        """The wire rollup over worker-process replicas: None for an
-        in-process fleet (the only kind ported)."""
+        """The wire rollup over the worker-process replicas (None for an
+        in-process fleet): the volume and recovery counters summed, the mean
+        p50 and the worst p95 RPC latency."""
         if not self._proc_idx:
             return None
-        raise NotImplementedError("worker-process replicas are not ported (ROADMAP.md Queue 1 item 5.6: fleet_proc)")
+        per = [self.engines[i].transport.stats() for i in self._proc_idx]
+        out: tp.Dict[str, tp.Any] = {
+            k: sum(s[k] for s in per)
+            for k in ("rpc_count", "wire_bytes", "connects", "reconnects", "retries", "corrupt_frames",
+                      "deadline_expiries", "forced_drops")
+        }
+        out["rpc_p50_ms"] = round(sum(s["rpc_p50_ms"] for s in per) / len(per), 3)
+        out["rpc_p95_ms"] = max(s["rpc_p95_ms"] for s in per)
+        return out
 
     def stats(self) -> tp.Dict[str, tp.Any]:
         return {
@@ -696,9 +711,9 @@ class FleetRouter:
 def assert_fleet_conserved(router: FleetRouter, where: str = "") -> None:
     """The cross-tier conservation law: every ALIVE replica obeys the
     single-engine pool law (ops.assert_conserved; a dead replica's pool
-    serves nobody), and the shared spill tier's ledger closes. Worker
-    processes would run the pool law in the worker (`assert_conserved` on
-    the proxy)."""
+    serves nobody), and the shared spill tier's ledger closes. A worker
+    process runs the pool law and its own tier's ledger in the worker
+    (`ProcReplica.assert_conserved`, over the `conserve` RPC)."""
     from midgpt_tpu_torch.sampling import ops
 
     for i, eng in enumerate(router.engines):

@@ -63,6 +63,12 @@ Tensor = torch.Tensor
 Body = tp.Callable[[Tensor, Tensor, Tensor, bool], tp.Tuple[Tensor, Tensor, Tensor]]
 
 
+# Captures made in this process, by kind ("decode_group", "batch_step"):
+# what a fleet worker reports over the wire, and what the router process of
+# a worker-process fleet must leave unchanged (sampling/fleet_proc.py
+# `process_launch_counts`).
+PROCESS_CAPTURES: tp.Counter[str] = collections.Counter()
+
 _gc_lock = threading.Lock()
 _gc_holds = 0  # captures in flight, all threads
 _gc_was_enabled = False  # the collector's state when the first of them began
@@ -195,6 +201,7 @@ class DecodeGraphs:
                                                    capture_error_mode="thread_local"):
             out = body(packed, chain_token, chain_len, False)
         self.captures[key] += 1
+        PROCESS_CAPTURES["decode_group"] += 1
         return _Captured(graph, packed, chain_token, chain_len, out, tally)
 
     def drop(self, slots: int) -> int:
@@ -293,4 +300,5 @@ class StepGraphs:
             step(state, generator)
         current.wait_stream(stream)
         self.captures += 1
+        PROCESS_CAPTURES["batch_step"] += 1
         return CapturedStep(graph, state)

@@ -3,6 +3,7 @@ neither JAX nor the JAX package, and their entry points refuse to run
 without CUDA unless the CPU is asked for explicitly."""
 
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -61,7 +62,37 @@ def _run(args, cwd=ROOT, timeout=120):
 def test_port_imports_with_jax_blocked():
     r = _run(["-c", _BLOCKER])
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 27  # every module of the port was imported
+    assert int(r.stdout.strip()) >= 29  # every module of the port was imported, the fleet's worker modules too
+
+
+_WORKER_BLOCKED = """
+import importlib.abc, runpy, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "midgpt_tpu"):
+            raise ImportError(f"blocked import of {name}")
+sys.meta_path.insert(0, Block())
+sys.argv = ["fleet_worker"] + sys.argv[1:]
+runpy.run_module("midgpt_tpu_torch.sampling.fleet_worker", run_name="__main__")
+"""
+
+
+def test_worker_process_runs_with_jax_blocked():
+    """A CPU worker spawned with jax and midgpt_tpu blocked from import
+    announces its port on stdout (its only line there) and serves hello."""
+    from midgpt_tpu_torch.robustness.chaos_serve import proc_worker_spec
+    from midgpt_tpu_torch.sampling import fleet_proc as fp
+
+    spec = proc_worker_spec(0, device="cpu")
+    proc = fp._popen_worker(spec, [sys.executable, "-c", _WORKER_BLOCKED, "--spec-json", json.dumps(spec)])
+    try:
+        rep = fp.connect_replica(fp._await_port(proc))
+        assert rep.pid == proc.pid and rep.page_size == 8 and rep.device == "cpu" and rep.prefix_cache
+        rep.close()
+        proc.kill()
+        assert proc.stdout.read() == ""  # nothing after the PORT line
+    finally:
+        fp.kill_workers([proc])
 
 
 @pytest.fixture

@@ -1170,3 +1170,37 @@ def test_adopt_with_a_round_in_flight(cuda):
     mono = ServeEngine(GPTConfig(**GRAPH_CFG), params, max_slots=3, page_size=8, num_pages=40, decode_chunk=4,
                        cache_dtype=torch.float32, device=cuda)
     assert shipped >= 1 and inflight == settled == _serve_all(mono, trace)
+
+
+@pytest.mark.cuda
+def test_worker_process_streams_as_an_in_process_engine(cuda):
+    """A fleet worker process on the card (sampling/fleet_proc.py: GPT.init
+    at the same seed, f32, this process's TF32 switches) serves f32 streams
+    equal to an in-process engine's, bit for bit, launching the paged and
+    merge kernels in its own process (n_layer per decode step) while this
+    process launches none."""
+    import dataclasses
+
+    from midgpt_tpu_torch.sampling import fleet_proc as fp
+    from midgpt_tpu_torch.sampling.serve import ServeEngine
+
+    cfg = GPTConfig(**GRAPH_CFG)
+    engine = dict(max_slots=3, page_size=8, num_pages=40, decode_chunk=4)
+    spec = {"model": dataclasses.asdict(cfg), "seed": 0, "engine": {**engine, "cache_dtype": "float32"},
+            "device": "cuda", "torch_config": fp.parent_torch_config()}
+    want = _serve_all(ServeEngine(cfg, GPT.init(cfg, 0, device=cuda), temperature=0.0, prefix_cache=True,
+                                  cache_dtype=torch.float32, device=cuda, **engine))
+    workers = fp.spawn_workers(spec, 1)
+    try:
+        rep = fp.connect_replica(workers[0][1])
+        before = fp.process_launch_counts()
+        got = _serve_all(rep)
+        assert fp.process_launch_counts() == before
+        counts = rep.launch_counts()["launches"]
+        steps = rep.stats()["decode_steps"]
+        rep.close()
+    finally:
+        fp.kill_workers(workers)
+    assert got == want
+    assert steps >= 1 and sum(counts["paged_attention"].values()) == sum(counts["paged_attention_merge"].values()) \
+        == cfg.n_layer * steps

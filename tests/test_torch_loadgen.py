@@ -5,9 +5,9 @@ bursty) equal JAX's exactly, and so do the percentile and point
 summaries. A tiny `--device cpu` run prints one JSON line that JAX's
 `check_serve_slo_bench` passes with no problems, with no capture inside a
 timed point, the prefix cache hitting and a hot swap on every point.
-JAX's process-fleet, tensor-parallel and virtual-device options are
-refused with the ROADMAP item that brings each; `--fleet` is checked as
-JAX checks it.
+JAX's tensor-parallel and virtual-device options are refused with the
+ROADMAP item that brings them; `--fleet` is checked as JAX checks it
+(`--procs` in tests/test_torch_fleet_proc.py).
 """
 
 import importlib.util
@@ -73,8 +73,7 @@ def test_cpu_run_passes_the_serve_slo_contract(capsys):
         assert p["swap_flip_round"] >= 1 and p["prefill_tokens_saved"] >= 0
 
 
-@pytest.mark.parametrize("flag,item", [(["--procs"], "5.6"), (["--tp", "2"], "item 7"),
-                                       (["--cpu-devices", "8"], "item 7")])
+@pytest.mark.parametrize("flag,item", [(["--tp", "2"], "item 7"), (["--cpu-devices", "8"], "item 7")])
 def test_jax_only_options_are_refused(capsys, flag, item):
     with pytest.raises(SystemExit) as ei:
         loadgen.main(["--device", "cpu"] + flag)

@@ -323,8 +323,8 @@ def test_launch_supervises_and_restores_the_handlers(data_dir, tmp_path, monkeyp
     assert seen == [True]
     assert result["supervisor"]["restarts"] == 1 and result["supervisor"]["faults_fired"] == {"nan_grad": 1}
     assert signal.getsignal(signal.SIGINT) is original
-    sets["fault_plan"] = "proc_kill9@2"
-    with pytest.raises(NotImplementedError, match="proc_kill9"):
+    sets["fault_plan"] = "resume_reshard@2"
+    with pytest.raises(NotImplementedError, match="resume_reshard"):
         launch.main(args + [a for k, v in sets.items() for a in ("--set", f"{k}={v}")])
     assert signal.getsignal(signal.SIGINT) is original
 
