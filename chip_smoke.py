@@ -297,6 +297,24 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      point, then half PROC_SATURATED_RPS: TTFT, TPOT and RPC p50/p95, wire
      bytes, no failover. The workers' bf16-pool launches go to the kernels
      line's paged entries; f32 and int8 are printed by pool beside them;
+ 16. (run after phase 15) the routed MoE MLP at GPT-2 small's full width:
+     local_text_124m with `--set model_config.n_experts=8 --set
+     model_config.moe_top_k=2 --set moe_aux_coef=0.01`. a. the launcher on
+     phase 6's cuts (no run directory), flash counters zeroed just before
+     and read just after (n_layer per microstep and eval batch, single-visit
+     bodies): finite losses, the aux term of every step (>= 1), tokens/s,
+     MFU in JAX's active-expert accounting and the MFU of the executed
+     (all-expert) FLOPs, peak memory and the remat setting; then one f32
+     step (after one at lr 0), 2 layers at full width, through the flash
+     kernels against dense attention at phase 7's limits. b. the trained
+     weights served on phase 4's trace: bf16 group:4 twice (the first pass
+     captures), paged launches == n_layer x device steps and a merge per
+     template call, the passes equal, == the eager engine but at a
+     near-tie under GAP_TOL; f32 kernel == gather streams; `generate` B 8
+     (distinct prompts of phase 12's length, MOE_BATCH_NEW new) replayed ==
+     eager bit for bit, flash_fwd n_layer per prefill; decode tokens/s
+     beside the dense model's of phases 4b and 12a. Its launches join the
+     kernels line's flash (C 64), paged decode and merge entries;
  10. timings: the paged decode kernel as before (CUDA-graph replay, cold
      L2), and each flash kernel in bf16 (CUDA events over repeated
      launches) at the main path's shape and at one shape per other
@@ -328,7 +346,8 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
 The last lines are the card's name and power limit as nvidia-smi prints
 them, one JSON object with a "kernels" list (flash_fwd's launches include
 phase 12's; the paged decode, int8 and merge entries include phases 13's
-and 14's, and phase 15's launches made in its bf16 workers), phase 4b's "decode_modes" (tokens/s and busy share per
+and 14's, and phase 15's launches made in its bf16 workers; the C 64
+flash, paged decode and merge entries include phase 16's), phase 4b's "decode_modes" (tokens/s and busy share per
 overlap mode) and phase 12's "batch_decode" (replayed and eager tokens/s
 and the replayed chunk's busy share per cell), and the contract line
 {"ok": true, "device": {...}}.
@@ -349,6 +368,7 @@ import sys
 import tempfile
 import time
 import types
+import typing as tp
 from pathlib import Path
 
 import numpy as np
@@ -2087,9 +2107,10 @@ def faulted_serving(card, cfg, params32, params16, streams16):
     return launches
 
 
-def parity_run(data_dir: Path, n_layer, compute_dtype, steps, impl):
+def parity_run(data_dir: Path, n_layer, compute_dtype, steps, impl, moe=False):
     """Train steps of local_text_124m (n_layer layers, G=1, warmup 2) with
-    one attention impl; returns (losses, params before, params after)."""
+    one attention impl, with phase 16's routed MLP and aux term if `moe`;
+    returns (losses, params before, params after)."""
     import dataclasses
 
     from midgpt_tpu_torch.config import load_config
@@ -2099,7 +2120,9 @@ def parity_run(data_dir: Path, n_layer, compute_dtype, steps, impl):
     base = load_config("local_text_124m")
     cfg = base.replace(
         data_dir=str(data_dir), compute_dtype=compute_dtype, g_accum_iters=1, warmup_steps=2,
-        spec_layers=0, model_config=dataclasses.replace(base.model_config, n_layer=n_layer, attn_impl=impl),
+        spec_layers=0, moe_aux_coef=MOE_SETS["moe_aux_coef"] if moe else 0.0,
+        model_config=dataclasses.replace(base.model_config, n_layer=n_layer, attn_impl=impl,
+                                         **(MOE_MODEL if moe else {})),
     )
     params, state, opt = init_state(cfg, "cuda")
     before = {k: v.clone() for k, v in params.items()}
@@ -3785,6 +3808,269 @@ def proc_fleet(card: str):
     return launches
 
 
+# ---------------------------------------------------------------- phase 16: the routed MoE MLP
+
+
+EARLIER_SMOKE_PHASE16_S = 765.6  # this script's wall time before phase 16 was added (PERF.md, earlier slices)
+# 16: local_text_124m with the routed MLP of docs/PARALLELISM.md (8 experts, top-2; no mesh.ep: one
+# card) and Switch's load-balance coefficient, as launcher --set overrides
+MOE_SETS = {"model_config.n_experts": 8, "model_config.moe_top_k": 2, "moe_aux_coef": 0.01}
+MOE_MODEL = {"n_experts": 8, "moe_top_k": 2}
+MOE_BATCH_ROWS, MOE_BATCH_NEW = 8, 128  # 16b: the batch sampler, 8 distinct prompts of phase 12's length
+
+
+def moe_training(data_dir: Path, card: str):
+    """Phase 16a: local_text_124m with the routed MLP through the launcher
+    at full width on phase 6's cuts (no run directory: the trained weights
+    come back in the launcher's result), flash counters zeroed just before
+    and read just after, every training microstep's aux term recorded.
+    Then one f32 step through the flash kernel against the plain path.
+    Returns (the trained f32 params, the model config, flash launches by
+    kernel and variant, training tokens/s)."""
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.models.gpt import GPT
+    from midgpt_tpu_torch.training.metrics import device_peak_flops, flops_per_token
+
+    t_phase = time.perf_counter()
+    base = load_config("local_text_124m")
+    mc = dataclasses.replace(base.model_config, **MOE_MODEL)
+    print("phase 16a reduced: " + ", ".join(f"{k} {getattr(base, k)} -> {v}" for k, v in TRAIN_CUTS.items())
+          + f"; {', '.join(f'{k}={v}' for k, v in MOE_SETS.items())}; remat {base.model_config.remat} (the preset's); "
+          f"no run directory; data: seeded synthetic uint16 stream (vocab {mc.vocab_size})")
+    auxes = []
+    hidden = GPT.__dict__["hidden"]
+
+    def recording(*args, **kw):  # the training loss's aux term of each microstep, read after the run
+        out = hidden.__func__(*args, **kw)
+        if kw.get("return_moe_aux"):
+            auxes.append(out[1].detach())
+        return out
+
+    GPT.hidden = staticmethod(recording)
+    try:
+        result, losses, tok_s, mfu, peak, launches = preset_run(data_dir, "local_text_124m", TRAIN_CUTS, **MOE_SETS)
+    finally:
+        GPT.hidden = hidden
+    params = result["params"]
+    del result
+    G, steps = TRAIN_CUTS["g_accum_iters"], TRAIN_CUTS["max_steps"]
+    micro, evals = G * steps, 3 * TRAIN_CUTS["eval_steps"]
+    flash_launch_check("16a MoE", launches, mc.n_layer, micro, evals)
+    if len(auxes) != micro:
+        raise SystemExit(f"16a: {len(auxes)} aux terms recorded, want one per microstep ({micro})")
+    aux = torch.stack(auxes).float().reshape(steps, G).mean(1).tolist()
+    if not all(np.isfinite(aux)) or min(aux) < 1.0 - 1e-4:  # E * sum P_e f_e >= 1 (Cauchy-Schwarz)
+        raise SystemExit(f"16a: aux terms {aux} not finite or below 1")
+    executed = flops_per_token(dataclasses.replace(mc, moe_top_k=mc.n_experts))  # every expert runs
+    peak_flops = device_peak_flops()
+    exec_mfu = None if peak_flops is None else tok_s * executed / peak_flops
+    print(f"16a MoE local_text_124m ({mc.n_layer} x {mc.n_embd}, {mc.n_experts} experts, top-{mc.moe_top_k}, "
+          f"aux coefficient {MOE_SETS['moe_aux_coef']}): losses {[round(x, 4) for x in losses]}, aux by step "
+          f"{[round(x, 5) for x in aux]}; steps 1-{steps - 1}: {tok_s:.1f} tokens/s, MFU "
+          f"{'not known for this card' if mfu is None else f'{100 * mfu:.2f}%'} (active experts, "
+          f"{flops_per_token(mc) / 1e9:.3f} GFLOP a token), executed MFU "
+          f"{'not known' if exec_mfu is None else f'{100 * exec_mfu:.2f}%'} (all {mc.n_experts} experts, "
+          f"{executed / 1e9:.3f} GFLOP a token); peak memory {gib(peak)} ({peak:,} bytes) with remat "
+          f"{'on (' + mc.remat_policy + ')' if mc.remat else 'off'}; flash launches {launches} ({mc.n_layer} layers x "
+          f"({micro} microsteps + {evals} eval batches)) on {card}")
+    free_memory()
+    moe_parity(data_dir, mc, card)
+    print(f"phase 16a took {time.perf_counter() - t_phase:.1f} s")
+    return params, mc, launches, tok_s
+
+
+@contextlib.contextmanager
+def routing(store: list, pin: tp.Optional[list] = None):
+    """GPT._moe_gates wrapped for phase 16a's parity: every call appends
+    (its selection (..., E) bool, its router logits f32) to `store`; with
+    `pin` (another run's records, in call order) a call whose own
+    selection differs routes with the pinned one instead (gates and aux
+    recomputed from this run's logits)."""
+    from midgpt_tpu_torch.models.gpt import GPT
+
+    raw = GPT.__dict__["_moe_gates"]
+    pinned = iter(pin) if pin is not None else None
+
+    def gates_fn(config, blk, h, with_aux=True):
+        gates, aux = raw.__func__(config, blk, h, with_aux)
+        logits = (h @ blk["mlp.router"].T).float()
+        if pinned is not None:
+            sel = next(pinned)[0]
+            if not torch.equal(sel, gates > 0):
+                K, tokens = config.moe_top_k, tuple(range(logits.dim() - 1))
+                gates = torch.softmax(logits.masked_fill(~sel, float("-inf")), dim=-1).to(h.dtype)
+                if with_aux:
+                    mean_prob = torch.softmax(logits, dim=-1).mean(tokens)
+                    aux = config.n_experts * (mean_prob * sel.float().mean(tokens) / K).sum()
+        store.append(((gates > 0).detach(), logits.detach()))
+        return gates, aux
+
+    GPT._moe_gates = staticmethod(gates_fn)
+    try:
+        yield store
+    finally:
+        GPT._moe_gates = raw
+
+
+def routing_flips(a: list, b: list, n_layer: int, K: int):
+    """Tokens whose expert selection differs between two runs' routing
+    records (`routing`), as (step, layer, row, position, relative gap
+    between the K-th and K+1-th router logits of run a). A flip is primary
+    unless its row flipped at an earlier layer of the same forward at or
+    before its position (causal attention carries that change to it)."""
+    primary, downstream = [], []
+    for i, ((sa, la), (sb, _)) in enumerate(zip(a, b)):
+        step, layer = divmod(i, n_layer)
+        top = torch.topk(la, K + 1, dim=-1).values
+        for row, pos in (sa != sb).any(-1).nonzero().tolist():
+            kth, nxt = top[row, pos, K - 1].item(), top[row, pos, K].item()
+            flip = (step, layer, row, pos, (kth - nxt) / max(abs(kth), 1e-30))
+            earlier = any(f[0] == step and f[1] < layer and f[2] == row and f[3] <= pos for f in primary + downstream)
+            (downstream if earlier else primary).append(flip)
+    return primary, downstream
+
+
+def moe_parity(data_dir: Path, mc, card: str):
+    """Phase 16a's f32 parity: two steps (the first at lr 0) of the MoE
+    model, 2 layers at full width, through the flash kernels and through
+    dense attention. The losses are held at phase 7's limit. A token whose
+    top-k selection flips between the two (their attention outputs differ
+    in the last bits) changes its experts' Adam updates discretely, so
+    every primary flip must sit at a near-tie (gap < GAP_TOL) and the
+    update is held at phase 7's limit with the dense run routed as the
+    flash run routed (`routing` pin): the attention paths alone."""
+    K = mc.moe_top_k
+    flash_rec, naive_rec, pinned_rec = [], [], []
+    with routing(flash_rec):
+        kl, p0, pk = parity_run(data_dir, 2, "float32", 2, "flash", moe=True)
+    with routing(naive_rec):
+        nl, _, pn = parity_run(data_dir, 2, "float32", 2, "naive", moe=True)
+    free_memory()
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(kl, nl))
+    natural_upd = update_rel_err(pk, pn, p0)
+    del pn
+    with routing(pinned_rec, pin=flash_rec):
+        pl, _, pp = parity_run(data_dir, 2, "float32", 2, "naive", moe=True)
+    pin_loss_err = max(abs(a - b) / abs(b) for a, b in zip(kl, pl))
+    upd_err = update_rel_err(pk, pp, p0)
+    del p0, pk, pp
+    free_memory()
+    primary, downstream = routing_flips(flash_rec, naive_rec, 2, K)
+    leftover = sum(int((a[0] != b[0]).any(-1).sum()) for a, b in zip(flash_rec, pinned_rec))
+    tokens = flash_rec[0][0].shape[0] * flash_rec[0][0].shape[1]
+    print(f"16a parity f32, MoE, 2 layers at full width, 2 steps (the first at lr 0), {tokens} tokens a step: losses "
+          f"flash {kl} vs dense {nl} (max rel err {loss_err:.2e}, tol {PARITY_TOL['f32_loss']:g}); routing flips "
+          f"between them: {len(primary)} primary, {len(downstream)} downstream of one"
+          + "".join(f"; step {st} layer {ly} row {r} position {ps}: K/K+1 router logit gap {g:.3e} relative"
+                    for st, ly, r, ps, g in primary)
+          + f" (tol {GAP_TOL:g}); parameter update rel err {natural_upd:.2e} as routed, {upd_err:.2e} with the dense "
+          f"run routed as the flash run (tol {PARITY_TOL['f32_update']:g}; its losses {pl}, rel err "
+          f"{pin_loss_err:.2e}; tokens routed apart after the pin {leftover}) on {card}")
+    if loss_err > PARITY_TOL["f32_loss"] or pin_loss_err > PARITY_TOL["f32_loss"] or upd_err > PARITY_TOL["f32_update"]:
+        raise SystemExit("16a: the MoE train step through the flash kernels disagrees with dense attention")
+    if any(g >= GAP_TOL for *_, g in primary) or leftover:
+        raise SystemExit("16a: a routing flip between the attention paths is not at a near-tie, or the pin failed")
+    if not primary and natural_upd > PARITY_TOL["f32_update"]:
+        raise SystemExit("16a: the update departs with no routing flip to explain it")
+
+
+def moe_serving(card: str, mc, params32, dense_group4, dense_batch8):
+    """Phase 16b: the trained MoE weights served. bf16 group:4 (CUDA-graph
+    replays; the first pass captures): every request its budget, paged
+    launches == n_layer x device steps, a merge per template call, the
+    second pass == the first, and == the eager engine but at a near-tie;
+    f32 through the kernel == the gather lowering; `generate` at B 8 in
+    bf16, replayed == eager bit for bit, flash_fwd n_layer per prefill.
+    Decode tokens/s beside the dense model's of phases 4b and 12a. Returns
+    (paged launches by (spec, split), merge launches, flash_fwd launches)."""
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+    from midgpt_tpu_torch.kernels import flash_attention as fa
+    from midgpt_tpu_torch.sampling import engine
+    from midgpt_tpu_torch.sampling.graphs import StepGraphs
+    from midgpt_tpu_torch.utils.precision import cast_floating
+
+    t_phase = time.perf_counter()
+    params16 = cast_floating(params32, torch.bfloat16)
+    total = sum(m for _, m in trace(mc.vocab_size))
+    eng = new_engine(mc, params16, torch.bfloat16, overlap="group", round_group=4)
+    tpl.LAUNCHES.reset()
+    tpl.MERGE_LAUNCHES.reset()
+    first, wall1 = serve_trace(eng)  # captures each key's graph at its first dispatch
+    st1 = eng.stats()
+    again, wall = serve_trace(eng)  # replays only
+    st = eng.stats()
+    paged, merges = dict(tpl.LAUNCHES.by_variant), tpl.MERGE_LAUNCHES.count
+    steps, graphs = device_steps(st), st["decode_graphs"]
+    tokens, seconds = (st[k] - st1[k] for k in ("decode_tokens", "decode_seconds"))
+    tok_s = tokens / seconds
+    print(f"16b MoE bf16 group:4, second pass: decode {tok_s:.1f} tokens/s ({tokens} tokens in {seconds:.3f} s), end "
+          f"to end {total / wall:.1f} tokens/s (first pass, captures included: {total / wall1:.1f}); dense GPT-2 small "
+          f"group:4 (phase 4b, openwebtext, same trace): {dense_group4[0]:.1f} tokens/s in rounds, {dense_group4[1]:.1f} "
+          f"end to end; both passes: device steps {steps} x {mc.n_layer} layers = {mc.n_layer * steps}, template "
+          f"launches {paged}, merge launches {merges}; graphs {graphs} on {card}")
+    if sum(paged.values()) != mc.n_layer * steps or merges != sum(paged.values()):
+        raise SystemExit("16b: paged launches != n_layer x device steps, or a call bypassed the merge kernel")
+    if graphs is None or graphs["replays"] < 1 or set(graphs["captures_per_key"]) != {1}:
+        raise SystemExit(f"16b: group:4 must replay CUDA graphs, each key captured once: {graphs}")
+    compare_streams("16b MoE bf16 group:4, second pass vs first", again, first)
+    _, off16, _ = serve(mc, params16, torch.bfloat16)
+    compare_streams("16b MoE bf16 group:4 vs off (eager)", first, off16, mc, params16)
+    _, kernel32, _ = serve(mc, params32, torch.float32, attn_impl="auto")
+    _, gather32, _ = serve(mc, params32, torch.float32, attn_impl="gather")
+    compare_streams("16b MoE f32 kernel vs gather", kernel32, gather32)
+    free_memory()
+    # the batch sampler: replayed == eager bit for bit, in turns after one capturing call
+    prompts = np.random.default_rng(16).integers(0, 50257, (MOE_BATCH_ROWS, len(BATCH_IDS)))
+    graphs_b = StepGraphs(torch.device("cuda"))
+    fa.FWD_LAUNCHES.reset()
+    rates, want = {"replayed": [], "eager": []}, None
+    modes = ("capturing", "eager", "replayed", "replayed", "eager")
+    for mode in modes:
+        st_b = {}
+        kw = {"_eager": True} if mode == "eager" else {"graphs": graphs_b}
+        got = engine.generate(mc, params16, prompts, MOE_BATCH_NEW, temperature=0.0, device="cuda", stats=st_b, **kw)
+        if want is None:
+            want = got
+        elif not torch.equal(got, want):
+            raise SystemExit(f"16b: batch generate, {mode} greedy tokens differ from the capturing call's")
+        if mode != "capturing":
+            rates[mode].append(MOE_BATCH_ROWS * (MOE_BATCH_NEW - 1) / st_b["decode_s"])
+    torch.cuda.synchronize()
+    batch_fwd = fa.FWD_LAUNCHES.count
+    if graphs_b.captures != 1 or batch_fwd != mc.n_layer * len(modes):
+        raise SystemExit(f"16b: batch generate captured {graphs_b.captures} graphs, flash_fwd launched {batch_fwd} "
+                         f"times (want 1 and {mc.n_layer} x {len(modes)} prefills)")
+    print(f"16b MoE batch generate bf16 B={MOE_BATCH_ROWS}, {len(BATCH_IDS)}-token prompts, {MOE_BATCH_NEW} new: "
+          f"replayed == eager bit for bit; replayed {[round(r, 1) for r in rates['replayed']]} tokens/s, eager "
+          f"{[round(r, 1) for r in rates['eager']]} (in turns); dense local_text_124m B=8 (phase 12a, 256 new): "
+          f"replayed {[round(r, 1) for r in dense_batch8['replayed']]}, eager {[round(r, 1) for r in dense_batch8['eager']]}; "
+          f"flash_fwd {batch_fwd} = {mc.n_layer} x {len(modes)} prefills on {card}")
+    del params16
+    free_memory()
+    print(f"phase 16b took {time.perf_counter() - t_phase:.1f} s")
+    return paged, merges, batch_fwd
+
+
+def moe_path(card: str, dense_group4, dense_batch8):
+    """Phase 16 (16a, then 16b on 16a's weights). Returns (flash launches
+    by kernel, paged launches by (spec, split), merge launches)."""
+    from midgpt_tpu_torch.config import load_config
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = Path(tmp)
+        synthetic_stream(data_dir, load_config("local_text_124m").model_config.vocab_size)
+        params32, mc, train_launches, _ = moe_training(data_dir, card)
+    paged, merges, batch_fwd = moe_serving(card, mc, params32, dense_group4, dense_batch8)
+    del params32
+    free_memory()
+    flash = {n: sum(v.values()) for n, v in train_launches.items()}
+    flash["flash_fwd"] += batch_fwd
+    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s; launches: flash {flash}, paged {paged}, merge "
+          f"{merges} on {card}")
+    return flash, paged, merges
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script needs an NVIDIA GPU", file=sys.stderr)
@@ -3944,6 +4230,8 @@ def main() -> int:
     # 15. the worker-process fleet: its workers' launches, read over the wire
     for pool, n in proc_fleet(card).items():
         by_pool[pool] += n
+    # 16. the routed MoE MLP: trained through the launcher, then served (its launches join the kernels line's)
+    moe_flash, moe_paged, moe_merges = moe_path(card, overlap_rates["group:4"], batch_speeds[("12a", 8)][0])
     print("paged launches of phases 13-15 by pool (the kernels line's paged entries take the bf16 pool's): "
           + "; ".join(f"{pool}: {dict(n)}" for pool, n in by_pool.items()) + f" on {card}")
     front_launches = by_pool["bf16"]
@@ -3964,7 +4252,7 @@ def main() -> int:
                     "route": "cuda",
                     "source": "midgpt_tpu_torch/csrc/paged_attention.cu",
                     "replaces": "midgpt_tpu/kernels/attention_template.py:95",
-                    "launches": launches[s] + front_launches[("decode", s)],
+                    "launches": launches[s] + front_launches[("decode", s)] + moe_paged.get(("decode", s), 0),
                     "max_abs_err": max(errs[(dt, s)], alias_errs[(dt, s)]),
                     "ms": ms,
                     "plain_ms": plain_ms,
@@ -4033,7 +4321,7 @@ def main() -> int:
         "route": "cuda",
         "source": "midgpt_tpu_torch/csrc/paged_attention.cu",
         "replaces": "midgpt_tpu/kernels/attention_template.py:314",
-        "launches": merge_launches + front_launches[("merge", None)],
+        "launches": merge_launches + front_launches[("merge", None)] + moe_merges,
         "max_abs_err": merge_errs[torch.bfloat16],
         "ms": ms,
         "plain_ms": plain_ms,
@@ -4108,7 +4396,8 @@ def main() -> int:
             "route": "cuda",
             "source": "midgpt_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_SOURCES[kname],
-            "launches": sum(flash_launches[kname].values()) + (batch_launches64 if kname == "flash_fwd" else 0),
+            "launches": (sum(flash_launches[kname].values()) + (batch_launches64 if kname == "flash_fwd" else 0)
+                         + moe_flash[kname]),
             "max_abs_err": err_of[kname],
             "ms": main_ms[kname],
             "plain_ms": main_plain[kname],
@@ -4118,7 +4407,7 @@ def main() -> int:
         })
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s (before phase 12: {EARLIER_SMOKE_S} s, before "
           f"phase 13: {EARLIER_SMOKE_PHASE13_S} s, before phase 14: {EARLIER_SMOKE_PHASE14_S} s, before phase 15: "
-          f"{EARLIER_SMOKE_PHASE15_S} s) on {card}")
+          f"{EARLIER_SMOKE_PHASE15_S} s, before phase 16: {EARLIER_SMOKE_PHASE16_S} s) on {card}")
     print(card)  # exactly as nvidia-smi gives it: name, power limit
     decode_modes = {spec: {"decode_tokens_per_s": dec, "end_to_end_tokens_per_s": e2e,
                            "busy_share": busy.get(spec)} for spec, (dec, e2e) in overlap_rates.items()}

@@ -133,6 +133,30 @@ class ExperimentConfig:
             raise ValueError(f"unknown on_resume_mesh {self.on_resume_mesh!r} ('same' or 'any')")
         if self.preempt_grace_s < 0:
             raise ValueError(f"preempt_grace_s={self.preempt_grace_s} must be >= 0 (0 = unbounded)")
+        self._check_moe()
+
+    def _check_moe(self):
+        """JAX's MoE checks (midgpt_tpu/config.py), with its messages. The
+        port trains on one device: a valid ep > 1 mesh is carried like any
+        other mesh axis (launch.py `unused_mesh`)."""
+        mc = self.model_config
+        pp = 1 if self.mesh.pp == -1 else self.mesh.pp
+        ep = 1 if self.mesh.ep == -1 else self.mesh.ep
+        if self.moe_aux_coef != 0.0:
+            if mc.n_experts == 0:
+                raise ValueError(f"moe_aux_coef={self.moe_aux_coef} needs a routed MLP (n_experts > 0)")
+            if self.fsdp_mode != "gspmd" or pp != 1:
+                raise ValueError(
+                    "moe_aux_coef requires fsdp_mode='gspmd' and mesh.pp == 1 "
+                    "(the aux term is only folded into the implicit-GSPMD loss)"
+                )
+        if mc.n_experts > 0 and pp > 1:
+            raise ValueError("MoE (n_experts > 0) does not compose with mesh.pp > 1 yet")
+        if ep > 1:
+            if mc.n_experts == 0 or mc.n_experts % ep != 0:
+                raise ValueError(f"mesh.ep={ep} needs n_experts ({mc.n_experts}) divisible by it")
+            if self.fsdp_mode != "gspmd":
+                raise ValueError("mesh.ep > 1 requires fsdp_mode='gspmd'")
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)

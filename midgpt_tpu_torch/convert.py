@@ -5,8 +5,9 @@ The JAX `GPTParams` pytree, flattened to `{path: numpy array}` (paths as
 "wte", "blocks.attn.wqkv", ...), maps onto the port's parameter dict by
 NAME ONLY: the port keeps JAX's leaf names, layouts and stacked leading
 layer axis (models/gpt.py `param_names`: the GQA layout adds
-"blocks.attn.wkv"), so nothing is transposed or permuted. This module needs
-no JAX — the JAX side does the flattening.
+"blocks.attn.wkv", the routed MLP's "blocks.mlp.router", "experts_up" and
+"experts_down" replace "w_up" and "w_down"), so nothing is transposed or
+permuted. This module needs no JAX — the JAX side does the flattening.
 
 The optimizer state travels the same way: `opt_state_to_numpy` /
 `opt_state_from_numpy` map the port's `OptState` to `{"mu.<leaf>",
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from midgpt_tpu_torch.device import DeviceLike, resolve_device
-from midgpt_tpu_torch.models.gpt import GQA_PARAM_NAMES, PARAM_NAMES, WKV, GPTConfig, Params, param_names
+from midgpt_tpu_torch.models.gpt import ROUTER, WKV, GPTConfig, Params, layout_names, param_names
 from midgpt_tpu_torch.training.optim import OptState
 
 
@@ -52,21 +53,15 @@ def params_from_numpy(
 ) -> Params:
     """{JAX path: array} -> the port's parameter dict (optionally cast).
     The leaf set is `config`'s (`param_names`); without a config, the GQA
-    layout is read off the presence of wkv. Leaves of variants the port
-    does not compute (the MoE experts) are refused."""
+    layout is read off the presence of wkv and the routed MLP's off the
+    router's. A leaf set that fits no layout raises ValueError."""
     named = {_key(k): v for k, v in flat.items()}
     if config is not None:
         names = param_names(config)
     else:
-        names = GQA_PARAM_NAMES if WKV in named else PARAM_NAMES
+        names = layout_names(WKV in named, ROUTER in named)
     extra = sorted(set(named) - set(names))
     missing = sorted(set(names) - set(named))
-    moe = [n for n in extra if n.startswith("blocks.mlp.")]
-    if moe:
-        raise NotImplementedError(
-            f"parameters {moe} belong to the routed MoE MLP, a variant not ported "
-            "yet (ROADMAP.md port queue)"
-        )
     if extra or missing:
         raise ValueError(f"parameters do not fit the config's layout: extra {extra}, missing {missing}")
     dev = resolve_device(device)

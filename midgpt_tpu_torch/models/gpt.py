@@ -14,7 +14,10 @@ Architecture, as in the JAX package:
   * bias-free Linears, truncated-normal(±2σ)/sqrt(fan_in) init, embedding
     init N(0, 1/sqrt(D)), init-only weight tying (lm_head starts as an
     independent copy of wte)
-  * GELU (tanh approximation, like `jax.nn.gelu`) MLP with 4x expansion
+  * GELU (tanh approximation, like `jax.nn.gelu`) MLP with 4x expansion,
+    or, with `n_experts` set, the top-k routed MLP of n_experts such MLPs
+    (`GPT._moe_mlp`: JAX's masked-dense lowering, the Switch load-balance
+    term for training)
   * f32 softmax inside attention
 
 The training forward (`hidden` / `apply` with inference=False) adds the
@@ -34,7 +37,12 @@ leading layer axis kept, so converting weights is a rename
 
 and, when `n_kv_heads` is set (even to n_head, as in JAX), wqkv is the
 query projection (L, 1, D, D) and blocks.attn.wkv (L, 2, H_kv*C, D) holds
-k then v (`param_names`).
+k then v; when `n_experts` is E > 0, the MLP's two leaves give way to
+
+    blocks.mlp.router (L, E, D), blocks.mlp.experts_up (L, E, 4D, D),
+    blocks.mlp.experts_down (L, E, D, 4D)
+
+in either attention layout (`param_names`).
 
 The batch sampler (sampling/engine.py `generate`) runs `prefill` and
 `decode_step` over a contiguous `KVCache`, updated in place. The serving
@@ -60,6 +68,7 @@ from midgpt_tpu_torch.kernels.decode_attention import paged_attention, paged_ver
 from midgpt_tpu_torch.ops import remat
 from midgpt_tpu_torch.ops.attention import flash_kernel_usable, multihead_attention, visible_mask
 from midgpt_tpu_torch.ops.dropout import dropout
+from midgpt_tpu_torch.ops.moe import moe_down
 from midgpt_tpu_torch.ops.norms import head_layer_norm, rms_norm
 from midgpt_tpu_torch.ops.quant import dequantize_q8, quantize_q8
 from midgpt_tpu_torch.ops.rope import (
@@ -72,31 +81,32 @@ from midgpt_tpu_torch.ops.rope import (
 Tensor = torch.Tensor
 Params = tp.Dict[str, Tensor]
 
-PARAM_NAMES = (
-    "wte",
-    "blocks.attn.wqkv",
-    "blocks.attn.wo",
-    "blocks.attn.q_scale",
-    "blocks.attn.k_scale",
-    "blocks.mlp.w_up",
-    "blocks.mlp.w_down",
-    "lm_head",
-)
+_ATTN_NAMES = ("blocks.attn.wqkv", "blocks.attn.wo", "blocks.attn.q_scale", "blocks.attn.k_scale")
 WKV = "blocks.attn.wkv"  # the GQA layout's K/V projection (JAX AttentionParams.wkv)
-GQA_PARAM_NAMES = PARAM_NAMES[:5] + (WKV,) + PARAM_NAMES[5:]
+_DENSE_MLP_NAMES = ("blocks.mlp.w_up", "blocks.mlp.w_down")
+ROUTER = "blocks.mlp.router"  # the routed MLP's leaves (JAX MoEParams), in its order
+MOE_MLP_NAMES = (ROUTER, "blocks.mlp.experts_up", "blocks.mlp.experts_down")
+
+
+def layout_names(gqa: bool, moe: bool) -> tp.Tuple[str, ...]:
+    """The leaves of one parameter layout, in JAX's pytree order: wkv after
+    the attention's four leaves under GQA, the routed MLP's three leaves in
+    place of the dense MLP's two under MoE."""
+    return (("wte",) + _ATTN_NAMES + ((WKV,) if gqa else ())
+            + (MOE_MLP_NAMES if moe else _DENSE_MLP_NAMES) + ("lm_head",))
 
 
 def param_names(config: "GPTConfig") -> tp.Tuple[str, ...]:
     """The leaves of `config`'s parameter dict: JAX's pytree leaves, wkv
     present iff n_kv_heads is set (JAX keys the GQA layout on that, not on
-    n_kv_heads < n_head)."""
-    return PARAM_NAMES if config.n_kv_heads is None else GQA_PARAM_NAMES
+    n_kv_heads < n_head), the routed MLP's iff n_experts > 0."""
+    return layout_names(config.n_kv_heads is not None, config.n_experts > 0)
 
 
 def param_shapes(config: "GPTConfig") -> tp.Dict[str, tp.Tuple[int, ...]]:
     """The shape of each leaf `GPT.init` makes (in `param_names` order),
     without making it: a checkpoint restore's template."""
-    L, D, C, V = config.n_layer, config.n_embd, config.head_dim, config.vocab_size
+    L, D, C, V, E = config.n_layer, config.n_embd, config.head_dim, config.vocab_size, config.n_experts
     gqa = config.n_kv_heads is not None
     shapes = {
         "wte": (V, D),
@@ -107,6 +117,9 @@ def param_shapes(config: "GPTConfig") -> tp.Dict[str, tp.Tuple[int, ...]]:
         "blocks.attn.k_scale": (L, C),
         "blocks.mlp.w_up": (L, 4 * D, D),
         "blocks.mlp.w_down": (L, D, 4 * D),
+        ROUTER: (L, E, D),
+        "blocks.mlp.experts_up": (L, E, 4 * D, D),
+        "blocks.mlp.experts_down": (L, E, D, 4 * D),
         "lm_head": (V, D),
     }
     return {name: shapes[name] for name in param_names(config)}
@@ -178,13 +191,11 @@ class GPTConfig:
             raise ValueError(f"n_embd={self.n_embd} not divisible by n_head={self.n_head}")
         if self.attn_impl not in ("naive", "blockwise", "flash", "ring", "ulysses"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
-        # A variant the port does not compute yet: refuse instead of
-        # computing something else.
-        if self.n_experts > 0:
-            raise NotImplementedError(
-                "the routed MoE MLP (n_experts > 0) is not ported yet "
-                "(ROADMAP.md port queue: other modules, MoE)"
-            )
+        # the routed MLP: JAX checks these in ExperimentConfig, with these messages
+        if self.n_experts < 0:
+            raise ValueError(f"n_experts={self.n_experts} must be >= 0")
+        if self.n_experts > 0 and not (1 <= self.moe_top_k <= self.n_experts):
+            raise ValueError(f"moe_top_k={self.moe_top_k} must be in [1, n_experts={self.n_experts}]")
 
     @property
     def head_dim(self) -> int:
@@ -432,8 +443,16 @@ class GPT:
                 # iid rows: the (3, D, D) reshape of a (3D, D) init
                 params["blocks.attn.wqkv"][i].copy_(_linear_init(gen, 3 * D, D).reshape(3, D, D))
             params["blocks.attn.wo"][i].copy_(_linear_init(gen, D, D))
-            params["blocks.mlp.w_up"][i].copy_(_linear_init(gen, 4 * D, D))
-            params["blocks.mlp.w_down"][i].copy_(_linear_init(gen, D, 4 * D))
+            if ROUTER in params:
+                # the router, then each expert's up and down projections
+                params[ROUTER][i].copy_(_linear_init(gen, config.n_experts, D))
+                for e in range(config.n_experts):
+                    params["blocks.mlp.experts_up"][i, e].copy_(_linear_init(gen, 4 * D, D))
+                for e in range(config.n_experts):
+                    params["blocks.mlp.experts_down"][i, e].copy_(_linear_init(gen, D, 4 * D))
+            else:
+                params["blocks.mlp.w_up"][i].copy_(_linear_init(gen, 4 * D, D))
+                params["blocks.mlp.w_down"][i].copy_(_linear_init(gen, D, 4 * D))
         embed = torch.randn(V, D, generator=gen) / math.sqrt(D)
         params["wte"].copy_(embed)
         params["lm_head"].copy_(embed)  # init-only tying: same values, an independent tensor
@@ -501,16 +520,83 @@ class GPT:
         *,
         generator: tp.Optional[torch.Generator] = None,
         inference: bool = True,
-    ) -> Tensor:
-        """Shared tail of a block: merge heads, output projection, MLP,
-        residuals (each branch dropped out in training). att (B, T, H, C)."""
+        return_moe_aux: bool = False,
+    ) -> tp.Union[Tensor, tp.Tuple[Tensor, Tensor]]:
+        """Shared tail of a block: merge heads, output projection, MLP (the
+        routed one when n_experts > 0), residuals (each branch dropped out
+        in training). att (B, T, H, C). With return_moe_aux (routed MLP
+        only), returns (out, the block's load-balance term)."""
         B, T = att.shape[:2]
         att = att.reshape(B, T, config.n_embd) @ blk["attn.wo"].T
         x = x + dropout(att, config.dropout, generator, inference)
         h = rms_norm(x)
-        h = F.gelu(h @ blk["mlp.w_up"].T, approximate="tanh")  # jax.nn.gelu's default
-        h = h @ blk["mlp.w_down"].T
-        return x + dropout(h, config.dropout, generator, inference)
+        aux = None
+        if config.n_experts > 0:
+            h, aux = GPT._moe_mlp(config, blk, h, return_aux=return_moe_aux)
+        else:
+            h = F.gelu(h @ blk["mlp.w_up"].T, approximate="tanh")  # jax.nn.gelu's default
+            h = h @ blk["mlp.w_down"].T
+        out = x + dropout(h, config.dropout, generator, inference)
+        return (out, aux) if return_moe_aux else out
+
+    @staticmethod
+    def _moe_gates(
+        config: GPTConfig, blk: Params, h: Tensor, with_aux: bool = True
+    ) -> tp.Tuple[Tensor, tp.Optional[Tensor]]:
+        """Router -> (gates (..., E) in h.dtype, load-balance aux () f32, or
+        None without `with_aux`), as JAX's `GPT._moe_gates`.
+
+        The router product runs in h's dtype and is cast to f32. Exactly
+        K = moe_top_k experts are selected per token, ties going to the
+        lowest expert index (JAX's `jax.lax.top_k` order: a zero or
+        collapsed router keeps K experts, never turning dense): each
+        expert's rank counts the experts above it and the equal ones
+        before it, a comparison that is the same on every device (torch's
+        topk leaves the order of equal entries unspecified). The gates are
+        the softmax of the logits masked to -inf outside the selection.
+
+        aux = E * sum_e mean(P_e) * mean(assign_e) / K, with P the full f32
+        softmax: 1.0 under balanced routing; differentiable through P only
+        (the assignment is a hard count). Training asks for it behind
+        moe_aux_coef; other callers skip it."""
+        E, K = config.n_experts, config.moe_top_k
+        logits = (h @ blk["mlp.router"].T).float()
+        if K < E:
+            above = logits.unsqueeze(-2) > logits.unsqueeze(-1)  # [..., e, e']: l_e' > l_e
+            idx = torch.arange(E, device=logits.device)
+            tied_before = (logits.unsqueeze(-2) == logits.unsqueeze(-1)) & (idx[None, :] < idx[:, None])
+            assign = (above | tied_before).sum(-1) < K  # (..., E): exactly K per token
+            masked = logits.masked_fill(~assign, float("-inf"))
+        else:
+            assign, masked = torch.ones_like(logits, dtype=torch.bool), logits
+        gates = torch.softmax(masked, dim=-1).to(h.dtype)
+        if not with_aux:
+            return gates, None
+        tokens = tuple(range(logits.dim() - 1))
+        mean_prob = torch.softmax(logits, dim=-1).mean(tokens)  # (E,)
+        mean_assign = assign.float().mean(tokens) / K
+        return gates, E * (mean_prob * mean_assign).sum()
+
+    @staticmethod
+    def _moe_mlp(
+        config: GPTConfig, blk: Params, h: Tensor, return_aux: bool = False
+    ) -> tp.Tuple[Tensor, tp.Optional[Tensor]]:
+        """Top-k routed expert MLP, JAX's masked-dense lowering:
+        gelu(h . experts_up^T) for every expert, scaled by its gate (zero
+        outside the selection), then one contraction over (expert, hidden)
+        with experts_down. Every expert runs on every token (FLOPs E/top_k
+        times a dense MLP's, as in JAX); there is no token dispatch and no
+        shape that depends on the data, so a decode step stays capturable.
+        Both banks are read in place: experts_up as its (E*4D, D) view,
+        experts_down through `ops.moe.moe_down`.
+
+        Returns (out, aux | None): aux only with `return_aux`."""
+        gates, aux = GPT._moe_gates(config, blk, h, with_aux=return_aux)
+        lead, (E, D) = h.shape[:-1], (config.n_experts, config.n_embd)
+        up = F.gelu(h @ blk["mlp.experts_up"].reshape(-1, D).T, approximate="tanh")  # (..., E*4D)
+        up = up.reshape(*lead, E, -1) * gates[..., None]
+        out = moe_down(up.reshape(-1, E, up.shape[-1]), blk["mlp.experts_down"])
+        return out.reshape(*lead, D), aux
 
     @staticmethod
     def _block_apply(
@@ -523,10 +609,12 @@ class GPT:
         generator: tp.Optional[torch.Generator] = None,
         inference: bool = False,
         policy: tp.Optional[str] = None,
-    ) -> Tensor:
+        return_moe_aux: bool = False,
+    ) -> tp.Union[Tensor, tp.Tuple[Tensor, Tensor]]:
         """One block: QKV, QK-norm, RoPE, attention, output projection, MLP.
         Under a remat `policy` the tensors it keeps by name are named
-        (ops/remat.py `name`); otherwise nothing is."""
+        (ops/remat.py `name`); otherwise nothing is. With return_moe_aux,
+        returns (out, the block's load-balance term)."""
         q, k, v = GPT._project_qkv(config, blk, rms_norm(x))
         q = apply_rope_bthc(q, sin, cos, style=config.rope_style)
         k = apply_rope_bthc(k, sin, cos, style=config.rope_style)
@@ -542,7 +630,8 @@ class GPT:
         )
         if not (config.attn_impl == "flash" and flash_kernel_usable(x.shape[1], config.attn_block_size)):
             att = remat.name(att, "attn_out", policy)  # the flash op's out is kept as the op's
-        return GPT._attn_out_and_mlp(config, blk, x, att, generator=generator, inference=inference)
+        return GPT._attn_out_and_mlp(config, blk, x, att, generator=generator, inference=inference,
+                                     return_moe_aux=return_moe_aux)
 
     @staticmethod
     def hidden(
@@ -552,8 +641,14 @@ class GPT:
         *,
         generator: tp.Optional[torch.Generator] = None,
         inference: bool = False,
-    ) -> Tensor:
+        return_moe_aux: bool = False,
+    ) -> tp.Union[Tensor, tp.Tuple[Tensor, Tensor]]:
         """Backbone forward -> final-normed hidden states (B, T, D).
+
+        `return_moe_aux` (routed MLP configs only) also returns the MoE
+        load-balance term averaged over layers, a () f32 scalar the training
+        loss folds in as `moe_aux_coef * aux` (training/train.py). Off by
+        default, so no other caller computes it.
 
         Training mode (inference=False) applies dropout at config.dropout
         from `generator` (required when dropout > 0). The lm_head projection
@@ -566,26 +661,37 @@ class GPT:
         `config.remat_policy` says what the forward keeps for it besides
         the block input —
           'none': nothing;
-          'dots': the QKV, wo, w_up and w_down products (not the batched
-            products of naive or blockwise attention);
+          'dots': the QKV, wo, w_up and w_down products, or the router,
+            experts_up and combine (`midgpt::moe_down`) products of the
+            routed MLP (not the batched products of naive or blockwise
+            attention);
           'dots_attn': dots' tensors and the attention output (with flash,
             the forward kernel's out and lse, so it is not launched again);
           'flash': dots_attn's tensors and the rotated q and k, and v.
         Eval (`torch.no_grad`) and serving do not checkpoint. The dropout
         generator is set back for each block's recompute, so it draws the
         forward's masks."""
+        if return_moe_aux and config.n_experts == 0:
+            raise ValueError("return_moe_aux requires a routed MLP (n_experts > 0)")
         T = tokens.shape[1]
         checkpointed = config.remat and not inference and torch.is_grad_enabled()
         policy = config.remat_policy if checkpointed else None
         x = dropout(params["wte"][tokens], config.dropout, generator, inference)
         sin, cos = rope_table(config.head_dim, T, device=x.device)
+        auxes = []
         for i in range(config.n_layer):
             block = functools.partial(
                 GPT._block_apply, config, _block(params, i), sin=sin, cos=cos,
-                generator=generator, inference=inference, policy=policy,
+                generator=generator, inference=inference, policy=policy, return_moe_aux=return_moe_aux,
             )
-            x = remat.checkpoint_block(block, x, policy, generator) if checkpointed else block(x)
-        return rms_norm(x, eps=1e-5)
+            out = remat.checkpoint_block(block, x, policy, generator) if checkpointed else block(x)
+            if return_moe_aux:
+                x, aux = out
+                auxes.append(aux)
+            else:
+                x = out
+        x = rms_norm(x, eps=1e-5)
+        return (x, torch.stack(auxes).mean()) if return_moe_aux else x
 
     @staticmethod
     def apply(

@@ -2,7 +2,8 @@
 (counterpart of `jax.checkpoint(block_fn, policy=_remat_policy(...))`,
 midgpt_tpu/models/gpt.py:483-508,1036-1037).
 
-`checkpoint_block(fn, x, policy, generator)` runs one block `fn(x)` under
+`checkpoint_block(fn, x, policy, generator)` runs one block `fn(x)` (its
+output a tensor, or a tuple of them: the block and its MoE aux term) under
 `torch.utils.checkpoint.checkpoint(..., use_reentrant=False)`: the backward
 recomputes the block from its input, except the ops the policy keeps,
 whose outputs the recompute takes from the forward instead of running
@@ -10,9 +11,11 @@ them again. The policies keep, beside the block input:
 
   none       nothing;
   dots       the projection products, `aten.mm` / `aten.addmm` (QKV, wo,
-             w_up, w_down): JAX's dots_with_no_batch_dims_saveable. The
-             batched `bmm` of naive and blockwise attention is recomputed,
-             and so is the flash forward kernel;
+             w_up, w_down; the routed MLP's router and experts_up), and its
+             combine product `midgpt::moe_down` (ops/moe.py): JAX's
+             dots_with_no_batch_dims_saveable. The batched `bmm` of naive
+             and blockwise attention is recomputed, and so is the flash
+             forward kernel;
   dots_attn  dots, plus the attention output: the flash forward op's out
              and lse (`midgpt::flash_fwd`, so the backward never launches
              the forward kernel again), or the tensor named "attn_out" on
@@ -33,7 +36,9 @@ The kept outputs are recorded by a dispatch mode in the forward and
 replayed, in order, by another in the recompute (each replay checks it
 stands where the forward's op stood). They are held by an autograd node
 after the block (`_Keep`), so saved-tensor hooks see them as they see any
-saved activation, and they are freed with the graph.
+saved activation, and they are freed with the graph. Every output of the
+block passes through that node, so the backward reaches it, and hands it
+the kept outputs, before any gradient enters the block.
 
 Dropout draws from an explicit `torch.Generator` (ops/dropout.py), whose
 state torch.utils.checkpoint does not keep (it keeps the default
@@ -51,6 +56,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 
 from midgpt_tpu_torch.kernels.flash_attention import flash_fwd_op  # noqa: F401 (registers midgpt::flash_fwd)
+from midgpt_tpu_torch.ops.moe import moe_down  # noqa: F401 (registers midgpt::moe_down)
 
 Tensor = torch.Tensor
 
@@ -80,7 +86,8 @@ def name(t: Tensor, tag: str, policy: tp.Optional[str]) -> Tensor:
     return checkpoint_name_op(t, tag)
 
 
-_MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+# the products without a batch dimension (JAX's dots_with_no_batch_dims_saveable)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.midgpt.moe_down.default)
 _FLASH_FWD = torch.ops.midgpt.flash_fwd.default
 _NAME = torch.ops.midgpt.checkpoint_name.default
 
@@ -88,7 +95,7 @@ _NAME = torch.ops.midgpt.checkpoint_name.default
 def _keeps(policy: str, func) -> bool:
     if policy == "none":
         return False
-    if func in _MM:
+    if func in _DOTS:
         return True
     return policy != "dots" and (func is _FLASH_FWD or func is _NAME)
 
@@ -168,35 +175,35 @@ class _Replay(TorchDispatchMode):
 
 
 class _Keep(torch.autograd.Function):
-    """Identity on the block's output that holds the kept outputs as saved
-    tensors until the backward reaches the block, then hands them to its
-    recompute."""
+    """Identity on the block's `n` outputs that holds the kept outputs as
+    saved tensors until the backward reaches the block, then hands them to
+    its recompute."""
 
     @staticmethod
-    def forward(ctx, store: _Store, x: Tensor, *flat: Tensor) -> Tensor:
-        ctx.store = store
+    def forward(ctx, store: _Store, n: int, *tensors: Tensor) -> tp.Tuple[Tensor, ...]:
+        ctx.store, ctx.n = store, n
         ctx.layout = [(func, isinstance(out, tuple), len(out) if isinstance(out, tuple) else 1)
                       for func, out in store.kept]
         store.kept = []
-        ctx.save_for_backward(*flat)
-        return x.view_as(x)
+        ctx.save_for_backward(*tensors[n:])
+        return tuple(t.view_as(t) for t in tensors[:n])
 
     @staticmethod
-    def backward(ctx, g: Tensor):
+    def backward(ctx, *grads: Tensor):
         flat, kept, i = ctx.saved_tensors, [], 0
         for func, is_tuple, n in ctx.layout:
             kept.append((func, tuple(flat[i:i + n]) if is_tuple else flat[i]))
             i += n
         ctx.store.kept = kept
-        return (None, g) + (None,) * len(flat)
+        return (None, None) + grads + (None,) * len(flat)
 
 
 def checkpoint_block(
-    fn: tp.Callable[[Tensor], Tensor],
+    fn: tp.Callable[[Tensor], tp.Union[Tensor, tp.Tuple[Tensor, ...]]],
     x: Tensor,
     policy: str,
     generator: tp.Optional[torch.Generator] = None,
-) -> Tensor:
+) -> tp.Union[Tensor, tp.Tuple[Tensor, ...]]:
     """`fn(x)` with its activations rematerialized in the backward under
     `policy` (module docstring). `generator` is the dropout generator `fn`
     draws from, or None."""
@@ -209,5 +216,7 @@ def checkpoint_block(
     )
     if not store.kept:
         return out
+    outs = out if isinstance(out, tuple) else (out,)
     flat = [t for _, o in store.kept for t in (o if isinstance(o, tuple) else (o,))]
-    return _Keep.apply(store, out, *flat)
+    kept = _Keep.apply(store, len(outs), *outs, *flat)
+    return kept if isinstance(out, tuple) else kept[0]

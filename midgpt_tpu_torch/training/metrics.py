@@ -19,10 +19,16 @@ from midgpt_tpu_torch.models.gpt import GPTConfig
 def flops_per_token(cfg: GPTConfig, seq_len: tp.Optional[int] = None) -> float:
     """Training FLOPs/token: 6N for the matmuls (fwd 2N + bwd 4N) plus the
     12*L*D*T attention-scores term (PaLM appendix B accounting), the tied
-    embedding counted once."""
+    embedding counted once. A routed MLP counts its ACTIVE experts (top_k
+    expert MLPs and the router per token), as JAX does: the masked-dense
+    lowering executes all E, so MFU counts E/top_k fewer MLP FLOPs than run."""
     T = seq_len or cfg.block_size
     D, L, V = cfg.n_embd, cfg.n_layer, cfg.vocab_size
-    n_params = V * D + L * (4 * D * D + 8 * D * D + 2 * cfg.head_dim)
+    if cfg.n_experts > 0:
+        mlp = min(cfg.moe_top_k, cfg.n_experts) * 8 * D * D + cfg.n_experts * D
+    else:
+        mlp = 8 * D * D
+    n_params = V * D + L * (4 * D * D + mlp + 2 * cfg.head_dim)
     return 6.0 * n_params + 12.0 * L * D * T
 
 

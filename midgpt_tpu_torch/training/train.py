@@ -105,11 +105,18 @@ def make_train_step(
     compute_dtype = getattr(torch, config.compute_dtype)
     G = config.g_accum_iters
 
+    # the router's load-balance term (JAX's gate): CE + moe_aux_coef * aux;
+    # at a coefficient of 0 the term is never computed and the loss is CE
+    use_moe_aux = config.moe_aux_coef != 0.0 and model_cfg.n_experts > 0
+
     def loss_fn(params_c: Params, x: Tensor, y: Tensor, generator) -> Tensor:
-        h = GPT.hidden(model_cfg, params_c, x, generator=generator, inference=False)
-        return fused_linear_cross_entropy(
+        h = GPT.hidden(model_cfg, params_c, x, generator=generator, inference=False, return_moe_aux=use_moe_aux)
+        if use_moe_aux:
+            h, aux = h
+        ce = fused_linear_cross_entropy(
             h, params_c["lm_head"], y, config.loss_chunk_tokens, config.loss_remat_chunks
         )
+        return ce + config.moe_aux_coef * aux if use_moe_aux else ce
 
     def value_and_grad(params_c: Params, x, y, generator) -> tp.Tuple[Tensor, tp.List[Tensor]]:
         loss = loss_fn(params_c, x, y, generator)

@@ -20,6 +20,8 @@ Flash gradients are held relative to their largest magnitude: float32
 1e-5 and bfloat16 1e-2 of max |want| absolute, plus the same relative.
 TF32 is off so the plain version's f32 products are full f32."""
 
+import math
+
 import pytest
 import torch
 
@@ -584,10 +586,10 @@ def test_flash_kernel_refuses_other_head_dims(cuda):
 GRAPH_CFG = dict(block_size=64, vocab_size=96, n_layer=2, n_head=2, n_embd=128, rope_style="split")
 
 
-def _graph_params(dev, dtype):
+def _graph_params(dev, dtype, **extra):
     from midgpt_tpu_torch.utils.precision import cast_floating
 
-    return cast_floating(GPT.init(GPTConfig(**GRAPH_CFG), 0, device=dev), dtype)
+    return cast_floating(GPT.init(GPTConfig(**GRAPH_CFG, **extra), 0, device=dev), dtype)
 
 
 @pytest.mark.cuda
@@ -642,13 +644,14 @@ def test_decode_step_captured_in_a_cuda_graph(cuda, dtype):
     assert tpl.LAUNCHES.count - before[0] == tpl.MERGE_LAUNCHES.count - before[1] == 4 * cfg.n_layer
 
 
-def _group_engines(dev, dtype):
+def _group_engines(dev, dtype, **extra):
     """Two engines on the same weights and the same random pool: one
-    replays captured groups, the other runs the same body eagerly."""
+    replays captured groups, the other runs the same body eagerly. `extra`
+    adds GPTConfig fields (the routed MLP)."""
     from midgpt_tpu_torch.sampling.serve import ServeEngine
 
-    cfg = GPTConfig(**GRAPH_CFG)
-    params = _graph_params(dev, dtype)
+    cfg = GPTConfig(**GRAPH_CFG, **extra)
+    params = _graph_params(dev, dtype, **extra)
     engines = []
     for _ in range(2):
         eng = ServeEngine(cfg, params, max_slots=3, page_size=8, num_pages=12, decode_chunk=4,
@@ -694,7 +697,20 @@ def test_group_replay_matches_eager_and_tallies_launches(cuda, dtype):
     """The fused group replays the eager body bit for bit for two sets of
     new inputs over one captured key; the capture's warm-up launches each
     kernel n_layer times (one masked step), and each replay n_layer x T."""
-    graph_eng, eager_eng = _group_engines(cuda, dtype)
+    _check_group_replay(cuda, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_group_replay_matches_eager_and_tallies_launches(cuda, dtype):
+    """The same with the routed MLP (4 experts, top-2) in every layer: its
+    gates and masked-dense products capture, and replays equal the eager
+    body bit for bit."""
+    _check_group_replay(cuda, dtype, n_experts=4, moe_top_k=2)
+
+
+def _check_group_replay(cuda, dtype, **extra):
+    graph_eng, eager_eng = _group_engines(cuda, dtype, **extra)
     key = ("test", dtype)
     T, L = 8, graph_eng.config.n_layer
     for i, spec in enumerate((_GROUP_A, _GROUP_B)):
@@ -1204,3 +1220,72 @@ def test_worker_process_streams_as_an_in_process_engine(cuda):
     assert got == want
     assert steps >= 1 and sum(counts["paged_attention"].values()) == sum(counts["paged_attention_merge"].values()) \
         == cfg.n_layer * steps
+
+
+@pytest.mark.cuda
+def test_moe_tie_order_on_the_card_equals_the_cpus(cuda):
+    """Exactly K experts a token, ties to the lowest index, on the card as
+    on the CPU: on an all-equal (zero) router experts 0 and 1, and on an
+    integer-valued router with many ties (exact products in f32 and bf16)
+    the same selection, token for token."""
+    cfg = GPTConfig(**GRAPH_CFG, n_experts=8, moe_top_k=2)
+    g = torch.Generator().manual_seed(0)
+    h = torch.randint(-1, 2, (4, 64, 128), generator=g).float()
+    router = torch.randint(-1, 2, (8, 128), generator=g).float()
+    router[5] = router[2]  # experts 2 and 5 tie on every token
+    for rtr in (torch.zeros(8, 128), router):
+        for dtype in (torch.float32, torch.bfloat16):
+            want, _ = GPT._moe_gates(cfg, {"mlp.router": rtr.to(dtype)}, h.to(dtype))
+            got, _ = GPT._moe_gates(cfg, {"mlp.router": rtr.to(cuda, dtype)}, h.to(cuda, dtype))
+            assert torch.equal(got.cpu() > 0, want > 0)
+            assert ((want > 0).sum(-1) == 2).all()
+    zero, _ = GPT._moe_gates(cfg, {"mlp.router": torch.zeros(8, 128, device=cuda)}, h.to(cuda))
+    assert (zero[..., :2] == 0.5).all() and (zero[..., 2:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_moe_block_on_the_card_equals_the_cpus(cuda):
+    """The f32 block tail with the routed MLP (8 experts, top-2; the
+    combine product `midgpt::moe_down` and its backward) on the card
+    against the CPU on the same inputs: output, aux and every gradient at
+    1e-5 absolute and relative (summation order; TF32 off)."""
+    cfg = GPTConfig(**GRAPH_CFG, n_experts=8, moe_top_k=2)
+    params = GPT.init(cfg, 0, device="cpu")
+    blk = {k.split(".", 1)[1]: v[0] for k, v in params.items() if k.startswith(("blocks.mlp.", "blocks.attn.wo"))}
+    g = torch.Generator().manual_seed(1)
+    x, att, w = torch.randn(2, 16, 128, generator=g), torch.randn(2, 16, 2, 64, generator=g), torch.randn(2, 16, 128, generator=g)
+
+    def run(dev):
+        b = {k: v.to(dev).requires_grad_() for k, v in blk.items()}
+        out, aux = GPT._attn_out_and_mlp(cfg, b, x.to(dev), att.to(dev), return_moe_aux=True)
+        loss = (out * w.to(dev)).sum() + aux
+        return [out, aux] + list(torch.autograd.grad(loss, list(b.values())))
+
+    for got, want in zip(run(cuda), run("cpu")):
+        torch.testing.assert_close(got.detach().cpu(), want.detach(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", [8, 4096], ids=["decode", "train"])
+def test_moe_mlp_reads_the_expert_banks_in_place(cuda, tokens):
+    """The routed MLP's forward and backward at GPT-2 small's width (8
+    experts of 4 x 768) copy no expert bank: experts_up is read as its
+    (E*4D, D) view and experts_down through `midgpt::moe_down`'s batched
+    views. Activation-sized copies inside the batched products, if any,
+    are printed, not held."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = GPTConfig(block_size=1024, vocab_size=96, n_layer=1, n_head=12, n_embd=768, n_experts=8, moe_top_k=2)
+    params = GPT.init(cfg, 0, device=cuda, dtype=torch.bfloat16)
+    blk = {k.split(".", 1)[1]: v[0].requires_grad_() for k, v in params.items() if k.startswith("blocks.mlp.")}
+    h = torch.randn(1, tokens, 768, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    bank = blk["mlp.experts_up"].numel()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        out, _ = GPT._moe_mlp(cfg, blk, h)
+        out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    copies = [(e.name, e.input_shapes[0]) for e in prof.events()
+              if e.name in ("aten::copy_", "aten::clone", "aten::contiguous") and e.input_shapes and e.input_shapes[0]]
+    sizes = [(name, shape, math.prod(shape)) for name, shape in copies]
+    print(f"copies in the routed MLP at {tokens} tokens: {sizes}")
+    assert not [c for c in sizes if c[2] == bank and tokens not in c[1]], sizes  # a bank has no token axis

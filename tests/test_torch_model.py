@@ -16,7 +16,7 @@ from midgpt_tpu.models.gpt import GPT as JGPT
 from midgpt_tpu.models.gpt import GPTConfig as JConfig
 from midgpt_tpu.models.gpt import PagedKVCache as JCache
 from midgpt_tpu_torch.convert import params_from_numpy, params_to_numpy
-from midgpt_tpu_torch.models.gpt import GPT, GPTConfig, PagedKVCache
+from midgpt_tpu_torch.models.gpt import GPT, GPTConfig, PagedKVCache, param_names
 
 CPU = torch.device("cpu")
 SHAPE = dict(block_size=64, vocab_size=96, n_layer=2, n_head=2, n_embd=32)
@@ -54,16 +54,26 @@ def test_converter_round_trip():
 
 
 def test_converter_refuses_unported_leaves():
-    """The routed MoE MLP's leaves (JAX MoEParams) are refused; GQA's wkv
-    converts (tests/test_torch_variants.py)."""
+    """The routed MoE MLP's leaves (JAX MoEParams) convert, with a config
+    and without one (the router names the layout); a leaf set that fits no
+    layout, the dense MLP's and the routed one's together, is refused. GQA's
+    wkv converts too (tests/test_torch_variants.py)."""
     _, jp, _, _ = _pair()
     flat = _flatten(jp)
-    del flat[".blocks.mlp.w_up"], flat[".blocks.mlp.w_down"]
+    dense = {k: flat.pop(k) for k in (".blocks.mlp.w_up", ".blocks.mlp.w_down")}
     flat[".blocks.mlp.router"] = np.zeros((2, 4, 32), np.float32)
-    flat[".blocks.mlp.experts_up"] = np.zeros((2, 4, 128, 32), np.float32)
-    flat[".blocks.mlp.experts_down"] = np.zeros((2, 4, 32, 128), np.float32)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        params_from_numpy(flat, device=CPU)
+    flat[".blocks.mlp.experts_up"] = np.ones((2, 4, 128, 32), np.float32)
+    flat[".blocks.mlp.experts_down"] = np.ones((2, 4, 32, 128), np.float32)
+    moe_cfg = GPTConfig(**SHAPE, n_experts=4)
+    for config in (None, moe_cfg):
+        got = params_from_numpy(flat, config=config, device=CPU)
+        assert list(got) == list(param_names(moe_cfg))
+        assert got["blocks.mlp.experts_up"].shape == (2, 4, 128, 32)
+    assert set(params_to_numpy(got)) == {k.lstrip(".") for k in flat}
+    with pytest.raises(ValueError, match="layout"):
+        params_from_numpy({**flat, **dense}, device=CPU)
+    with pytest.raises(ValueError, match="layout"):
+        params_from_numpy(flat, config=GPTConfig(**SHAPE), device=CPU)
 
 
 def test_block_tail_uses_tanh_gelu_like_jax():
@@ -251,7 +261,8 @@ def _stacked_init(config, seed, dtype):
     L, D, C, V = config.n_layer, config.n_embd, config.head_dim, config.vocab_size
     KVD = config.kv_heads * C
     gqa = config.n_kv_heads is not None
-    wqkv, wkv, wo, w_up, w_down = [], [], [], [], []
+    E = config.n_experts
+    wqkv, wkv, wo, w_up, w_down, router = [], [], [], [], [], []
     for _ in range(L):
         if gqa:
             wqkv.append(_linear_init(gen, D, D).reshape(1, D, D))
@@ -259,8 +270,13 @@ def _stacked_init(config, seed, dtype):
         else:
             wqkv.append(_linear_init(gen, 3 * D, D).reshape(3, D, D))
         wo.append(_linear_init(gen, D, D))
-        w_up.append(_linear_init(gen, 4 * D, D))
-        w_down.append(_linear_init(gen, D, 4 * D))
+        if E:  # the router, then each expert's up and down projections
+            router.append(_linear_init(gen, E, D))
+            w_up.append(torch.stack([_linear_init(gen, 4 * D, D) for _ in range(E)]))
+            w_down.append(torch.stack([_linear_init(gen, D, 4 * D) for _ in range(E)]))
+        else:
+            w_up.append(_linear_init(gen, 4 * D, D))
+            w_down.append(_linear_init(gen, D, 4 * D))
     embed = torch.randn(V, D, generator=gen) / math.sqrt(D)
     params = {
         "wte": embed, "blocks.attn.wqkv": torch.stack(wqkv), "blocks.attn.wo": torch.stack(wo),
@@ -269,11 +285,14 @@ def _stacked_init(config, seed, dtype):
     }
     if gqa:
         params[WKV] = torch.stack(wkv)
+    if E:
+        params.update({"blocks.mlp.router": torch.stack(router), "blocks.mlp.experts_up": params.pop("blocks.mlp.w_up"),
+                       "blocks.mlp.experts_down": params.pop("blocks.mlp.w_down")})
     return {k: params[k].to(dtype) for k in param_names(config)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("extra", [{}, dict(n_kv_heads=1)])
+@pytest.mark.parametrize("extra", [{}, dict(n_kv_heads=1), dict(n_experts=3)])
 def test_init_fills_each_layer_with_the_stacked_draws(dtype, extra):
     """Filling preallocated leaves layer by layer in the target dtype gives
     the values of every layer's draws stacked in f32 and cast: a seed's
@@ -289,8 +308,12 @@ def test_init_fills_each_layer_with_the_stacked_draws(dtype, extra):
 
 @pytest.mark.parametrize("extra", [dict(n_experts=2)])
 def test_unported_variants_raise(extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GPTConfig(**SHAPE, **extra)
+    """The routed MLP is ported: its config constructs and GPT.init makes
+    its leaves; a top-k outside [1, n_experts] raises as JAX's check does."""
+    cfg = GPTConfig(**SHAPE, **extra)
+    assert set(GPT.init(cfg, 0, device=CPU)) == set(param_names(cfg))
+    with pytest.raises(ValueError, match=r"moe_top_k=3 must be in \[1, n_experts=2\]"):
+        GPTConfig(**SHAPE, **extra, moe_top_k=3)
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():
