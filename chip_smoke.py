@@ -315,6 +315,30 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      eager bit for bit, flash_fwd n_layer per prefill; decode tokens/s
      beside the dense model's of phases 4b and 12a. Its launches join the
      kernels line's flash (C 64), paged decode and merge entries;
+ 17. (run after phase 11c) data-parallel and FSDP training on
+     torch.distributed (parallel/): ranks started by `python -m
+     torch.distributed.run --standalone`, each this script with `--rank17`
+     running `launch --multihost` and reporting its records, flash
+     launches (checked per rank: n_layer per microstep and eval batch),
+     peak memory and state bytes; any rank's failure fails the phase.
+     a. one rank over NCCL on phase 6's run: its losses == phase 6's bit
+     for bit. b. two ranks sharing the card over gloo on CUDA tensors
+     (named explicitly: NCCL refuses two ranks of one communicator on one
+     card): the f32 pair (local_text_124m at 2 layers of full width,
+     attn_block_size 512: the tiled bodies, fsdp 2, warmed up in one step
+     so that its updates move the weights) against the same run on one
+     NCCL rank (after 17a's run, in its group), its losses and final eval
+     at PAIR_TOL and its final params, mu and nu at STATE_TOL, then
+     openwebtext_xl (fsdp 8 clamps to 2) at phase 11c's cut against 11c's
+     single-device losses at XL_DP_TOL, each rank's peak memory beside
+     11c's and its master weights and moments at most half (+1%) of the
+     whole. 17a's group runs beside 17b's. c. `chaos_train` on 2 ranks
+     over gloo, in f32 and warmed up in one step, with
+     resume_reshard at data steps 2 and 3 on phase 6's cuts one step
+     longer: mesh_history [2, 1, 2], loss_parity, each step's loss the
+     uninterrupted 2-rank run's at its f32 PARITY_RTOL and the final states
+     at STATE_TOL. The ranks' flash launches (a and b) join the kernels
+     line's flash entries by head dim;
  10. timings: the paged decode kernel as before (CUDA-graph replay, cold
      L2), and each flash kernel in bf16 (CUDA events over repeated
      launches) at the main path's shape and at one shape per other
@@ -347,7 +371,8 @@ The last lines are the card's name and power limit as nvidia-smi prints
 them, one JSON object with a "kernels" list (flash_fwd's launches include
 phase 12's; the paged decode, int8 and merge entries include phases 13's
 and 14's, and phase 15's launches made in its bf16 workers; the C 64
-flash, paged decode and merge entries include phase 16's), phase 4b's "decode_modes" (tokens/s and busy share per
+flash, paged decode and merge entries include phase 16's; the flash
+entries include phase 17's ranks'), phase 4b's "decode_modes" (tokens/s and busy share per
 overlap mode) and phase 12's "batch_decode" (replayed and eager tokens/s
 and the replayed chunk's busy share per cell), and the contract line
 {"ok": true, "device": {...}}.
@@ -2361,7 +2386,8 @@ def remat_policies(data_dir: Path, card: str):
 
 def xl_remat_pair(data_dir: Path, card: str):
     """Phase 11c: openwebtext_xl at microbatch XL_BATCH, its own remat
-    policy against remat off. Returns {label: (peak bytes, tokens/s)}."""
+    policy against remat off. Returns {label: (peak bytes, tokens/s,
+    losses)}."""
     from midgpt_tpu_torch.config import load_config
 
     base = load_config("openwebtext_xl")
@@ -2387,7 +2413,7 @@ def xl_remat_pair(data_dir: Path, card: str):
               f"({peak:,} bytes), step 1 {tok_s:.1f} tokens/s, MFU "
               f"{'not known for this card' if mfu is None else f'{100 * mfu:.2f}%'}; losses {losses}: {verdict} "
               f"on {card}")
-        out[label] = (peak, tok_s)
+        out[label] = (peak, tok_s, losses)
     return out
 
 
@@ -3891,8 +3917,8 @@ def routing(store: list, pin: tp.Optional[list] = None):
     raw = GPT.__dict__["_moe_gates"]
     pinned = iter(pin) if pin is not None else None
 
-    def gates_fn(config, blk, h, with_aux=True):
-        gates, aux = raw.__func__(config, blk, h, with_aux)
+    def gates_fn(config, blk, h, with_aux=True, aux_reduce=None):
+        gates, aux = raw.__func__(config, blk, h, with_aux, aux_reduce)
         logits = (h @ blk["mlp.router"].T).float()
         if pinned is not None:
             sel = next(pinned)[0]
@@ -4071,6 +4097,325 @@ def moe_path(card: str, dense_group4, dense_batch8):
     return flash, paged, merges
 
 
+# ---------------------------------------------------------------- phase 17: data-parallel and FSDP training
+
+EARLIER_SMOKE_PHASE17_S = 806.6  # this script's wall time before phase 17 was added (PERF.md, phase 16)
+# The f32 pair of 17b and 17c warm up in one step (warmup_steps 1: lr 0 at step 0, the preset's peak from
+# step 1), so each update after the first moves the weights by ~lr and a wrong reduction or a wrong
+# resharded restore shows in the losses and the states (under the presets' warmup, lr stays below 1e-5).
+# 17b: the f32 pair, local_text_124m at 2 layers of full width over attn_block_size 512 (the tiled flash
+# bodies), fsdp 2, on phase 6's other cuts; the 2-rank losses (each step's and the final eval's) are held
+# to the one-rank run's at PAIR_TOL relative (PARITY_TOL's f32 loss bound), and the final states at
+# STATE_TOL.
+PAIR_SETS = {"model_config.n_layer": 2, "compute_dtype": "float32", "model_config.attn_block_size": 512,
+             "mesh.fsdp": 2, "spec_layers": 0, "warmup_steps": 1}
+PAIR_TOL = PARITY_TOL["f32_loss"]
+# Final f32 states of two runs that differ only in rank count, absolute: the moments at
+# tests/test_torch_parallel.py's limits for JAX's (data=2, fsdp=2) step (a wrong reduction moves them
+# by their own size, ~1e-3 for mu); each weight within PARAM_TOL_LR x lr per update with lr > 0 (Adam
+# moves a weight by up to ~lr a step, and where a gradient is small another summation order changes
+# that step by a few % of lr; a wrong restore moves a weight by its own size, ~0.02)
+STATE_TOL = {"mu": 1e-6, "nu": 1e-8}
+PARAM_TOL_LR = 0.05
+# 17b openwebtext_xl on 2 ranks at phase 11c's cut, held to 11c's single-device losses at XL_DP_TOL
+# relative: ~10x the bf16 difference read on an H100 80GB HBM3 at 700 W (8.42e-8 in each of PR 17's
+# whole-script runs, PERF.md). Under the preset's warmup lr stays below 4e-7 over these 2 steps, so this
+# holds the forward through the gathered bf16 weights and a rank's memory, not the update: the f32 pair
+# and 17c hold the update (a single-device xl run with the one-step warmup beside it would add ~35 s to a
+# script that runs near its time limit)
+XL_DP_TOL = 1e-6
+# 17c: chaos_train on phase 6's cuts one step longer (the last 2-rank run trains a step), at 2 layers of
+# full width in f32 to keep the phase's four launches short: 2 ranks to step 2, 1 rank for step 3, 2 ranks
+# for step 4; the per-step losses held to an uninterrupted 2-rank run's at chaos_train's f32 PARITY_RTOL,
+# the final states at STATE_TOL
+CHAOS_CUTS = {**TRAIN_CUTS, "max_steps": 5, "model_config.n_layer": 2, "spec_layers": 0, "warmup_steps": 1,
+              "compute_dtype": "float32"}
+CHAOS_FAULTS = ("resume_reshard@2", "resume_reshard@3")
+
+
+def rank17_main(argv) -> int:
+    """One rank of phase 17 under torchrun: joins the process group (the
+    backend the first launch names), runs `launch.main` on each
+    `--then`-separated argument list in turn, and writes this rank's
+    report per launch (its logged records, flash launches, peak memory,
+    state bytes, host clock) to <argv[0]>.<RANK>.json for the parent."""
+    t_enter = time.time()
+    out, runs = argv[0], [[]]
+    for a in argv[1:]:
+        runs.append([]) if a == "--then" else runs[-1].append(a)
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from midgpt_tpu_torch import launch
+    from midgpt_tpu_torch.parallel import dist
+    from midgpt_tpu_torch.sampling.fleet_proc import process_launch_counts
+
+    def counts():
+        return {k: collections.Counter({v: n for v, n in pairs})
+                for k, pairs in process_launch_counts()["launches"].items() if k.startswith("flash")}
+
+    first = runs[0]
+    dist.init(None, first[first.index("--backend") + 1] if "--backend" in first else None)
+    reports = []
+    try:
+        for args in runs:
+            before = counts()
+            torch.cuda.reset_peak_memory_stats()
+            buf = io.StringIO()
+            t_launch = time.time()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    result = launch.main(args)
+            finally:
+                sys.stdout.write(buf.getvalue())
+            torch.cuda.synchronize()
+            after = counts()
+            state = [*result["params"].values(), *result["opt_state"].mu.values(), *result["opt_state"].nu.values()]
+            reports.append({
+                "records": [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith('{"step"')],
+                "launches": {k: sorted((after[k] - before[k]).items()) for k in after},
+                "peak": torch.cuda.max_memory_allocated(),
+                "state_bytes": sum(t.numel() * t.element_size() for t in state),
+                "clock": {"enter": t_enter, "launch": t_launch, "done": time.time()},
+            })
+            del result, state
+            free_memory()
+    finally:
+        dist.shutdown()
+    Path(f"{out}.{os.environ['RANK']}.json").write_text(json.dumps(reports))
+    return 0
+
+
+def torchrun(label: str, nproc: int, launches, card: str, backend: tp.Optional[str] = None, timeout: float = 600):
+    """`launch --multihost` on `nproc` ranks started by torch.distributed.run
+    --standalone, each a `chip_smoke.py --rank17` process running the
+    argument lists of `launches` in turn in one process group; any rank's
+    failure fails the phase. Returns the reports as [launch][rank]."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "report"
+        runs = [a for i, args in enumerate(launches)
+                for a in (["--then"] if i else []) + ["--multihost", *(["--backend", backend] if backend else []),
+                                                      *args]]
+        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={nproc}",
+                str(ROOT / "chip_smoke.py"), "--rank17", str(out), *runs]
+        t0 = time.time()
+        p = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+        t1 = time.time()
+        if p.returncode != 0:
+            raise SystemExit(f"phase 17 {label}: torchrun exit {p.returncode}\n{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
+        said = [line for line in p.stdout.splitlines() if " rank(s), backend " in line]
+        by_rank = [json.loads(Path(f"{out}.{r}.json").read_text()) for r in range(nproc)]
+        enter = max(reps[0]["clock"]["enter"] for reps in by_rank)
+        spans = [max(reps[i]["clock"]["done"] - reps[i]["clock"]["launch"] for reps in by_rank)
+                 for i in range(len(launches))]
+        print(f"phase 17 {label}: {nproc} rank(s) in {t1 - t0:.1f} s on {card} (host clock: start-up to the ranks' "
+              f"entry {enter - t0:.1f} s, launches {', '.join(f'{x:.1f}' for x in spans)} s, exit "
+              f"{t1 - max(reps[-1]['clock']['done'] for reps in by_rank):.1f} s); {said[0] if said else ''}")
+        return [[reps[i] for reps in by_rank] for i in range(len(launches))]
+
+
+def rank_flash(reports) -> tp.Dict[str, collections.Counter]:
+    """The ranks' flash launches summed, {kernel: Counter(variant: n)}."""
+    out = {k: collections.Counter() for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    for rep in reports:
+        for k, c in out.items():
+            c.update(dict(rep["launches"][k]))
+    return out
+
+
+def per_rank_flash_check(label, reports, n_layer, micro, evals):
+    """Each rank: n_layer backward launches per microstep, and at least
+    n_layer forward launches per microstep and eval batch (a remat policy
+    may relaunch the forward in the recompute)."""
+    for r, rep in enumerate(reports):
+        got = rank_flash([rep])
+        totals = {k: sum(c.values()) for k, c in got.items()}
+        if (totals["flash_bwd_dq"] != n_layer * micro or totals["flash_bwd_dkv"] != n_layer * micro
+                or totals["flash_fwd"] < n_layer * (micro + evals)):
+            raise SystemExit(f"phase 17 {label}: rank {r} flash launches {dict(got)}, want n_layer {n_layer} x "
+                             f"{micro} microsteps (+ {evals} eval batches for the forward)")
+
+
+def step_losses(records):
+    return [r["loss/optimized"] for r in records if "loss/optimized" in r]
+
+
+def run_losses(records):
+    """Each step's loss, then the final eval's."""
+    return step_losses(records) + [r["loss/val_final"] for r in records if "loss/val_final" in r]
+
+
+def max_rel(got, want) -> float:
+    if len(got) != len(want):
+        return float("inf")
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def restore_state(rundir: Path, step: int, cfg) -> dict:
+    from midgpt_tpu_torch.training.checkpoint import CheckpointManager
+    from midgpt_tpu_torch.training.train import state_template
+
+    return CheckpointManager(str(rundir)).restore(step, state_template(cfg), device="cuda")
+
+
+def state_errors(got: dict, want: dict, param_tol: float) -> tp.Dict[str, tp.Any]:
+    """Largest |got - want| of two checkpointed states by kind ("params",
+    "mu", "nu"), and "ok": equal step counts, the params within
+    `param_tol`, the moments within STATE_TOL."""
+    og, ow = got["opt_state"], want["opt_state"]
+    out = {"params": 0.0, "mu": 0.0, "nu": 0.0}
+    for k, p in want["params"].items():
+        for key, a, b in (("params", got["params"][k], p), ("mu", og.mu[k], ow.mu[k]), ("nu", og.nu[k], ow.nu[k])):
+            out[key] = max(out[key], (a - b).abs().max().item())
+    out["ok"] = ((og.adam_count, og.schedule_count) == (ow.adam_count, ow.schedule_count)
+                 and out["params"] <= param_tol and all(out[k] <= STATE_TOL[k] for k in STATE_TOL))
+    return out
+
+
+def param_tol(cfg) -> float:
+    """STATE_TOL's bound on the weights of a run of `cfg` warmed up in one
+    step (lr 0 at step 0)."""
+    return PARAM_TOL_LR * cfg.learning_rate * (cfg.max_steps - 1)
+
+
+def moved(a: dict, b: dict) -> float:
+    """Largest |a - b| over two states' parameters."""
+    return max((a["params"][k] - b["params"][k]).abs().max().item() for k in a["params"])
+
+
+def fmt_errors(e: dict, tol: float) -> str:
+    return (", ".join(f"{k} {e[k]:.2e}" for k in ("params", "mu", "nu"))
+            + f" (tol params {tol:.2e}, mu {STATE_TOL['mu']:g}, nu {STATE_TOL['nu']:g})")
+
+
+def data_parallel(data_dir: Path, card: str, main_losses, xl_single) -> tp.Dict[int, tp.Dict[str, collections.Counter]]:
+    """Phase 17 (run after phase 11c: it holds phase 6's and 11c's runs).
+    17a and 17c's chaos_train run beside 17b: their ranks share the card
+    and the host, which the phase's times include. Returns the ranks'
+    flash launches by head dim."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.launch import apply_overrides
+    from midgpt_tpu_torch.models.gpt import param_shapes
+    from midgpt_tpu_torch.robustness.chaos_train import PARITY_RTOL
+
+    def cut(preset, over):
+        return apply_overrides(load_config(preset), [(k, str(v)) for k, v in over.items()])
+
+    t_phase = time.perf_counter()
+    flash = {64: {}, 128: {}}
+
+    def add(C, reports):
+        for k, c in rank_flash(reports).items():
+            flash[C].setdefault(k, collections.Counter()).update(c)
+
+    mc = load_config("local_text_124m").model_config
+    micro, evals = TRAIN_CUTS["g_accum_iters"] * TRAIN_CUTS["max_steps"], 3
+    chaos_dir = Path(tempfile.mkdtemp())
+    rundir = chaos_dir / "run"
+    # 17c: the elastic resume through chaos_train, started first
+    with open(chaos_dir / "out", "w") as out, open(chaos_dir / "err", "w") as err:
+        chaos = subprocess.Popen([sys.executable, "-m", "midgpt_tpu_torch.robustness.chaos_train",
+                                  "--config=local_text_124m", f"--rundir={rundir}", "--nproc", "2", "--backend", "gloo",
+                                  *[a for f in CHAOS_FAULTS for a in ("--fault", f)],
+                                  *sets({"data_dir": data_dir, "log_interval": 1, **CHAOS_CUTS})],
+                                 cwd=ROOT, stdout=out, stderr=err)
+    try:
+        pair_sets = {"data_dir": data_dir, "log_interval": 1, **TRAIN_CUTS, **PAIR_SETS}
+        pair_cfg = cut("local_text_124m", pair_sets)
+        pair_dirs = {n: chaos_dir / f"pair{n}" for n in (1, 2)}
+        pair_args = {n: ["--config=local_text_124m", f"--rundir={d}", *sets(pair_sets)] for n, d in pair_dirs.items()}
+        xl_args = ["--config=openwebtext_xl", "--rundir=",
+                   *sets({"data_dir": data_dir, "log_interval": 1, **REMAT_CUTS, "batch_size": XL_BATCH})]
+        with ThreadPoolExecutor(1) as pool:
+            # 17a: one rank over NCCL, phase 6's run (no saves: the losses are the run's), then the f32 pair's
+            # one-rank run (fsdp clamps to 1), beside 17b
+            a_reports = pool.submit(torchrun, "17a (phase 6's run, then the f32 pair's one rank)", 1, [
+                ["--config=local_text_124m", "--rundir=", *sets({"data_dir": data_dir, "log_interval": 1, **TRAIN_CUTS})],
+                pair_args[1]], card)
+            # 17b: two ranks sharing the card over gloo (NCCL refuses two ranks of one communicator on one card)
+            print("phase 17b: backend gloo on CUDA tensors, named explicitly: NCCL refuses two ranks of one "
+                  "communicator on one card; gloo all-gathers, reduce-scatters and all-reduces the CUDA tensors as "
+                  "they are")
+            pair, xl_reports = torchrun("17b (the f32 pair, then openwebtext_xl)", 2, [pair_args[2], xl_args], card,
+                                        backend="gloo")
+            reports, one = a_reports.result()
+        losses = step_losses(reports[0]["records"])
+        print(f"phase 17a: one NCCL rank, local_text_124m on phase 6's cuts: losses {losses} vs phase 6's single-device "
+              f"{main_losses}: {'bit for bit' if losses == main_losses else 'DIFFER'} on {card}")
+        if losses != main_losses:
+            raise SystemExit("phase 17a: one rank over NCCL is not the single-device launcher bit for bit")
+        per_rank_flash_check("17a", reports, mc.n_layer, micro, evals)
+        add(64, reports)
+        one_losses, two_losses = run_losses(one[0]["records"]), run_losses(pair[0]["records"])
+        err = max_rel(two_losses, one_losses)
+        last = TRAIN_CUTS["max_steps"] - 1
+        tol = param_tol(pair_cfg)
+        want = restore_state(pair_dirs[1], last, pair_cfg)
+        errs = state_errors(restore_state(pair_dirs[2], last, pair_cfg), want, tol)
+        travel = moved(want, restore_state(pair_dirs[1], 0, pair_cfg))
+        print(f"phase 17b f32 pair (2 layers of {mc.n_embd}, fsdp 2, attn_block_size 512, warmup 1 step): losses "
+              f"(steps, final eval) 2 ranks {two_losses} vs 1 rank {one_losses}: max rel err {err:.2e} (tol "
+              f"{PAIR_TOL:g}); step {last} states, max |2 ranks - 1 rank|: {fmt_errors(errs, tol)}; the params "
+              f"moved up to {travel:.2e} since step 0 on {card}")
+        if err > PAIR_TOL or not errs["ok"]:
+            raise SystemExit("phase 17b: the f32 2-rank run disagrees with the one-rank run")
+        if travel < 10 * tol:
+            raise SystemExit("phase 17b: the f32 pair's params barely moved: its state check cannot see a wrong update")
+        per_rank_flash_check("17b f32 pair", one + pair, 2, micro, evals)
+        add(64, one + pair)
+        xl = load_config("openwebtext_xl")
+        xl_losses, xl_peak = xl_single
+        losses = step_losses(xl_reports[0]["records"])
+        err = max_rel(losses, xl_losses)
+        full_state = 3 * 4 * sum(int(np.prod(s)) for s in param_shapes(xl.model_config).values())
+        print(f"phase 17b openwebtext_xl ({xl.model_config.n_layer} x {xl.model_config.n_embd}; fsdp {xl.mesh.fsdp} "
+              f"clamps to 2), batch {XL_BATCH} over 2 ranks, bf16 over f32: losses {losses} vs phase 11c's single "
+              f"device {xl_losses}: max rel err {err:.2e} (tol {XL_DP_TOL:g}); peak memory per rank "
+              f"{[gib(rep['peak']) for rep in xl_reports]} vs the single device's {gib(xl_peak)}; master weights and "
+              f"moments per rank {[gib(rep['state_bytes']) for rep in xl_reports]} of {gib(full_state)} whole on {card}")
+        if err > XL_DP_TOL:
+            raise SystemExit("phase 17b: openwebtext_xl on 2 ranks disagrees with the single device")
+        if any(rep["state_bytes"] > 0.51 * full_state for rep in xl_reports):
+            raise SystemExit("phase 17b: a rank holds more than half of the master weights and moments")
+        per_rank_flash_check("17b openwebtext_xl", xl_reports, xl.model_config.n_layer, REMAT_CUTS["max_steps"], evals)
+        add(128, xl_reports)
+        # 17c's verdict
+        chaos.wait(timeout=900)
+        said = (chaos_dir / "out").read_text().strip().splitlines()
+        if chaos.returncode != 0 or not said:
+            raise SystemExit(f"phase 17c: chaos_train exit {chaos.returncode}\n{(chaos_dir / 'err').read_text()[-4000:]}")
+        rec = json.loads(said[-1])
+        history = [m["n_devices"] for m in rec["supervisor"]["mesh_history"]]
+        ref_dir = Path(f"{rundir}_ref")
+        (got, _), (want, _) = logged(rundir), logged(ref_dir)
+        err = max(abs(got[s] - want[s]) / abs(want[s]) for s in want)
+        chaos_cfg = cut("local_text_124m", CHAOS_CUTS)
+        last = CHAOS_CUTS["max_steps"] - 1
+        errs = state_errors(restore_state(rundir, last, chaos_cfg), restore_state(ref_dir, last, chaos_cfg),
+                            param_tol(chaos_cfg))
+        tol = PARITY_RTOL[chaos_cfg.compute_dtype]
+        print(f"phase 17c: chaos_train {' '.join(CHAOS_FAULTS)} on 2 ranks (2 layers of {mc.n_embd}, f32, warmup 1 "
+              f"step; beside 17a and 17b) in {rec['wall_s']} s: mesh_history {history}, restarts {rec['restarts']}, "
+              f"detected at {rec['detected_at_ms']} ms, loss_final {rec['loss_final']} vs the uninterrupted 2-rank "
+              f"run's {rec['loss_ref']}, loss_parity {rec['loss_parity']}; per-step losses "
+              f"{[round(got[s], 6) for s in sorted(got)]} vs {[round(want[s], 6) for s in sorted(want)]}: max rel err "
+              f"{err:.2e} (tol {tol:g}); step {last} states, max |resumed - uninterrupted|: "
+              f"{fmt_errors(errs, param_tol(chaos_cfg))} on {card}")
+        if (history != [2, 1, 2] or not rec["loss_parity"] or sorted(got) != sorted(want) or err > tol
+                or not errs["ok"]):
+            raise SystemExit(f"phase 17c: the elastic resume failed: {rec}")
+    finally:
+        if chaos.poll() is None:
+            chaos.kill()
+            chaos.wait()
+        shutil.rmtree(chaos_dir, ignore_errors=True)  # the run and its reference
+    print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s; flash launches in its ranks by head dim: "
+          + "; ".join(f"C {C}: {({k: dict(c) for k, c in v.items()})}" for C, v in flash.items()) + f" on {card}")
+    return flash
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script needs an NVIDIA GPU", file=sys.stderr)
@@ -4078,6 +4423,8 @@ def main() -> int:
     if not (ROOT / "midgpt_tpu_torch" / "csrc").is_dir():
         print(f"chip_smoke: the port's sources are not beside {Path(__file__).name}", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--rank17"]:
+        return rank17_main(sys.argv[2:])
     sys.path.insert(0, str(ROOT))
     from midgpt_tpu_torch.config import load_config
     from midgpt_tpu_torch.kernels import attention_template as tpl
@@ -4195,7 +4542,7 @@ def main() -> int:
             shutil.rmtree(rundir)  # two checkpoint steps each
         free_memory()
         # 6. the training main path: counters zeroed just before, read just after
-        flash_launches, train_tok_s, train_mfu, _ = train_main_path(data_dir, card)
+        flash_launches, train_tok_s, train_mfu, main_losses = train_main_path(data_dir, card)
         free_memory()
         # 6b. checkpoints and resume on the main path: counters zeroed just before the resumed run
         _, round_trip, straight_dir = resume_main_path(data_dir, card)
@@ -4213,8 +4560,11 @@ def main() -> int:
         t_phase = time.perf_counter()
         wide_launches, *_ = wide_main_path(data_dir, card)
         remat_policies(data_dir, card)
-        xl_remat_pair(data_dir, card)
+        xl_peak, _, xl_losses = xl_remat_pair(data_dir, card)[f"remat {load_config('openwebtext_xl').model_config.remat_policy}"]
         print(f"phase 11a-c took {time.perf_counter() - t_phase:.1f} s")
+        free_memory()
+        # 17. data-parallel and FSDP training: ranks under torchrun (their flash launches join the kernels line's)
+        dp_flash = data_parallel(data_dir, card, main_losses, (xl_losses, xl_peak))
     # 11d. llama7b_long served in bf16
     t_phase = time.perf_counter()
     llama_serving(card)
@@ -4375,7 +4725,8 @@ def main() -> int:
             "route": "cuda",
             "source": "midgpt_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_SOURCES[kname],
-            "launches": sum(wide_launches[kname].values()) + (batch_launches128 if kname == "flash_fwd" else 0),
+            "launches": (sum(wide_launches[kname].values()) + (batch_launches128 if kname == "flash_fwd" else 0)
+                         + sum(dp_flash[128][kname].values())),
             "max_abs_err": wide_err[kname],
             "ms": wide_ms[kname],
             "plain_ms": wide_plain[kname],
@@ -4397,7 +4748,7 @@ def main() -> int:
             "source": "midgpt_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_SOURCES[kname],
             "launches": (sum(flash_launches[kname].values()) + (batch_launches64 if kname == "flash_fwd" else 0)
-                         + moe_flash[kname]),
+                         + moe_flash[kname] + sum(dp_flash[64][kname].values())),
             "max_abs_err": err_of[kname],
             "ms": main_ms[kname],
             "plain_ms": main_plain[kname],
@@ -4407,7 +4758,8 @@ def main() -> int:
         })
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s (before phase 12: {EARLIER_SMOKE_S} s, before "
           f"phase 13: {EARLIER_SMOKE_PHASE13_S} s, before phase 14: {EARLIER_SMOKE_PHASE14_S} s, before phase 15: "
-          f"{EARLIER_SMOKE_PHASE15_S} s, before phase 16: {EARLIER_SMOKE_PHASE16_S} s) on {card}")
+          f"{EARLIER_SMOKE_PHASE15_S} s, before phase 16: {EARLIER_SMOKE_PHASE16_S} s, before phase 17: "
+          f"{EARLIER_SMOKE_PHASE17_S} s) on {card}")
     print(card)  # exactly as nvidia-smi gives it: name, power limit
     decode_modes = {spec: {"decode_tokens_per_s": dec, "end_to_end_tokens_per_s": e2e,
                            "busy_share": busy.get(spec)} for spec, (dec, e2e) in overlap_rates.items()}

@@ -6,9 +6,11 @@ named presets live in `midgpt_tpu_torch/configs/*.py` as modules exposing a
 module-level `config` (`load_config`); `to_json` writes the run
 directory's `config.json`, which either package reads back. Validation
 covers the fields the port reads and the checkpoint, supervisor,
-preemption, watchdog and fault knobs, as JAX checks them at the same
-place; the parallelism knobs are carried for the round trip and are inert
-until parallelism is ported (ROADMAP.md).
+preemption, watchdog, fault and FSDP knobs, as JAX checks them at the
+same place. The mesh's data and fsdp axes, `fsdp_mode`, `shard_model` and
+`fsdp_min_size` drive multi-rank training (parallel/); the sp, tp, pp and
+ep axes and the tensor-parallel and pipeline knobs are carried for the
+round trip and wait for later slices (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -23,8 +25,9 @@ from midgpt_tpu_torch.models.gpt import GPTConfig
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Logical device mesh of the JAX package (data, fsdp, sp, tp, pp, ep);
-    carried for config round trips — the port runs on one device."""
+    """Logical device mesh of the JAX package (data, fsdp, sp, tp, pp, ep).
+    The port lays its ranks out on data x fsdp (parallel/mesh.py); the
+    other axes are carried for config round trips."""
 
     data: int = -1
     fsdp: int = 8
@@ -97,6 +100,16 @@ class ExperimentConfig:
             raise ValueError(f"unknown attn_layout {mc.attn_layout!r} ('seq' or 'head')")
         if self.compute_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
+        if self.fsdp_mode not in ("gspmd", "shard_map"):
+            # a typo would silently run the GSPMD mode (train.py branches on
+            # == 'shard_map')
+            raise ValueError(f"unknown fsdp_mode {self.fsdp_mode!r} ('gspmd' or 'shard_map')")
+        tp_ = 1 if self.mesh.tp == -1 else self.mesh.tp
+        if tp_ > 1 and self.fsdp_mode == "shard_map" and (self.mesh.sp not in (1, -1) or mc.attn_impl in ("ring", "ulysses")):
+            raise ValueError(
+                "fsdp_mode='shard_map' with mesh.tp > 1 does not compose with sequence parallelism yet "
+                "(set sp=1 and a non-ring/ulysses attn_impl)"
+            )
         if not 0 <= self.spec_layers < mc.n_layer:
             raise ValueError(
                 f"spec_layers={self.spec_layers} must be in [0, n_layer={mc.n_layer})"

@@ -7,6 +7,7 @@ with an optional `meta.pkl`. Every batch is drawn from
 exactly replayable — so the port draws the same windows as the JAX package
 for the same (seed, split, step). Windows are gathered with numpy (the JAX
 package's C batcher is bit-identical to this gather and is not carried).
+`shard_by_process` cuts each stream by node, as JAX cuts it by process.
 """
 
 from __future__ import annotations
@@ -63,11 +64,9 @@ class TokenDataset:
         seed: int = 1337,
         shard_by_process: bool = False,
     ):
-        if shard_by_process:
-            raise NotImplementedError(
-                "per-process data sharding belongs to multi-host training, "
-                "not ported yet (ROADMAP.md port queue: parallelism)"
-            )
+        """shard_by_process: give this node (JAX's process,
+        parallel/dist.py) a contiguous 1/n_nodes slice of EACH split, JAX's
+        rule (midgpt_tpu/data/dataset.py:103-110)."""
         self.data_dir = data_dir
         self.seed = seed
         self.splits: tp.Dict[str, np.ndarray] = {}
@@ -84,6 +83,13 @@ class TokenDataset:
                     f"{expected[split]:,} — the bins predate the committed "
                     "tokenizer/meta. Re-run the dataset's prepare.py."
                 )
+            if shard_by_process:
+                from midgpt_tpu_torch.parallel import dist
+
+                # Equal-length contiguous slices (remainder tokens dropped) so
+                # every node samples from the same-sized pool.
+                per = len(arr) // dist.n_nodes()
+                arr = arr[dist.node() * per:(dist.node() + 1) * per].copy()
             self.splits[split] = arr
 
     def __getitem__(self, split: str) -> np.ndarray:

@@ -2,6 +2,8 @@
 
     python -m midgpt_tpu_torch.launch --config=local_text_124m [--rundir=R] \\
         [--debug] [--set key=value ...] [--device cuda|cpu]
+    torchrun --standalone --nproc_per_node N -m midgpt_tpu_torch.launch \\
+        --multihost --rundir=R [--backend nccl|gloo] ...
 
 Loads a named preset (midgpt_tpu_torch/configs), applies the dotted
 `--set` overrides in one rebuild, writes `config.json` to the run
@@ -16,10 +18,18 @@ state is checkpointed into a step directory `R/<step>/`
 newest verified step. `--debug` writes no run directory, evaluates one
 batch and traces the first step after the first with torch.profiler
 (training/metrics.py `Profiler`: a Chrome trace under
-`<tempdir>/midgpt_trace`). The port trains on one device: a preset whose
-mesh spans several (openwebtext_mh, openwebtext_xl, the llama pair) gets
-one printed line naming the mesh left unused; cut its batch with `--set
-batch_size=...`.
+`<tempdir>/midgpt_trace`).
+
+`--multihost` joins the process group of the ranks torchrun started
+(parallel/dist.py: NCCL for CUDA ranks, gloo for CPU ranks, or the
+`--backend` named; ranks that share a card name gloo) and trains every
+rank on the mesh of the config's data and fsdp axes (parallel/mesh.py):
+data-parallel rows, FSDP-sharded weights and moments, one checkpoint
+written by rank 0. Without it the run is one process on one device, and
+the mesh clamps to one rank. A multi-rank run must name its `--rundir`,
+as JAX's does. The sp, tp, pp and ep axes are later slices of the port: a
+preset that sets one above 1 (llama7b_32k's sp) gets one printed line
+naming the axes left unused.
 
 The supervisor rolls a divergence back to the newest verified step with
 the poisoned data window skipped, and restarts a hung step, up to
@@ -92,15 +102,17 @@ def apply_overrides(config, pairs):
 
 
 def unused_mesh(config) -> tp.Optional[str]:
-    """The line the launcher prints when the preset's mesh spans several
-    devices (any axis above 1; `data=-1` is "every device left", one
-    here), or None: the port trains on one device."""
-    axes = {f.name: getattr(config.mesh, f.name) for f in dataclasses.fields(config.mesh)}
-    wide = {k: v for k, v in axes.items() if v > 1}
+    """The line the launcher prints when the preset's mesh sets an axis the
+    port does not train on above 1 (sp, tp, pp, ep), or None: the data and
+    fsdp axes clamp to the ranks there are, as JAX's make_mesh clamps."""
+    from midgpt_tpu_torch.parallel.mesh import LATER_SLICES
+
+    wide = {k: getattr(config.mesh, k) for k in LATER_SLICES if getattr(config.mesh, k) > 1}
     if not wide:
         return None
-    return (f"mesh {' x '.join(f'{k}={v}' for k, v in wide.items())} spans several devices: the port trains on one "
-            "device and leaves that mesh unused (parallelism: ROADMAP.md Queue 1 item 7)")
+    return (f"mesh {' x '.join(f'{k}={v}' for k, v in wide.items())}: "
+            f"{', '.join(LATER_SLICES[k] for k in wide)} not ported yet; the run trains on the data and fsdp "
+            "axes and leaves that mesh unused (ROADMAP.md Queue 1 item 7)")
 
 
 def main(argv=None) -> dict:
@@ -111,24 +123,30 @@ def main(argv=None) -> dict:
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--rundir", type=str)
     parser.add_argument("--debug", action="store_true")
-    parser.add_argument("--multihost", action="store_true")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join torchrun's process group and train on the mesh of its ranks")
+    parser.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                        help="--multihost: the process group's backend (default: nccl for CUDA ranks, gloo for CPU)")
     parser.add_argument(
         "--set", action="append", default=[], metavar="KEY=VALUE",
         help="dotted config override, e.g. --set model_config.n_layer=4",
     )
     parser.add_argument("--device", type=str, default=None, help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(
-            "multi-host training is not ported yet (ROADMAP.md port queue: parallelism)"
-        )
+    if args.backend and not args.multihost:
+        parser.error("--backend goes with --multihost")
+    if args.multihost and args.rundir is None and not args.debug:
+        parser.error("multihost runs must prespecify --rundir")
 
     from midgpt_tpu_torch.config import load_config, to_json
     from midgpt_tpu_torch.device import resolve_device
+    from midgpt_tpu_torch.parallel import dist
+    from midgpt_tpu_torch.parallel.mesh import run_mesh
     from midgpt_tpu_torch.robustness import preempt
     from midgpt_tpu_torch.robustness.supervisor import supervise
 
-    device = resolve_device(args.device)
+    started = args.multihost and not dist.initialized()  # a group the caller started stays the caller's
+    device = dist.init(args.device, args.backend) if args.multihost else resolve_device(args.device)
     config = load_config(args.config)
     if args.set:
         config = apply_overrides(config, [kv.partition("=")[::2] for kv in args.set])
@@ -140,20 +158,29 @@ def main(argv=None) -> dict:
     if args.debug:
         config = config.replace(debug=True)
 
-    if config.rundir and not config.debug:
-        os.makedirs(config.rundir, exist_ok=True)
-        with open(os.path.join(config.rundir, "config.json"), "w") as f:
-            f.write(to_json(config))
-        print(f"Writing to {config.rundir}")
-    print(config)
-    mesh_note = unused_mesh(config)
-    if mesh_note:
-        print(mesh_note)
-    preempt.install_handlers()
     try:
-        return supervise(config, device=device)
+        mesh = run_mesh(config, device)
+        say = print if mesh.is_leader else (lambda *a, **k: None)
+        if config.rundir and not config.debug and mesh.is_leader:
+            os.makedirs(config.rundir, exist_ok=True)
+            with open(os.path.join(config.rundir, "config.json"), "w") as f:
+                f.write(to_json(config))
+            print(f"Writing to {config.rundir}")
+        mesh.barrier()
+        say(config)
+        mesh_note = unused_mesh(config)
+        if mesh_note:
+            say(mesh_note)
+        if args.multihost:
+            say(f"mesh {mesh.geometry()['axes']} over {mesh.size} rank(s), backend {dist.backend()}")
+        preempt.install_handlers()
+        try:
+            return supervise(config, device=device, mesh=mesh)
+        finally:
+            preempt.reset()
     finally:
-        preempt.reset()
+        if started:
+            dist.shutdown()
 
 
 if __name__ == "__main__":

@@ -325,9 +325,9 @@ def _swap_candidate(cfg, seed: int, dtype: torch.dtype, device: torch.device):
 
 # JAX's options the port refuses, with the ROADMAP.md item that brings each
 _REFUSED = {
-    "tp": "--tp (tensor-parallel serving) waits for ROADMAP.md Queue 1 item 7 (parallelism)",
-    "cpu_devices": "--cpu-devices (a virtual device mesh) waits for ROADMAP.md Queue 1 item 7 (parallelism); "
-                   "--device cpu runs on the CPU",
+    "tp": "--tp (tensor-parallel serving) waits for the tensor-parallel slice (ROADMAP.md Queue 1 item 7)",
+    "cpu_devices": "--cpu-devices (a virtual device mesh for tensor-parallel serving) waits for the tensor-parallel "
+                   "slice (ROADMAP.md Queue 1 item 7); --device cpu runs on the CPU",
 }
 
 

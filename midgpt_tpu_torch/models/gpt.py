@@ -521,18 +521,20 @@ class GPT:
         generator: tp.Optional[torch.Generator] = None,
         inference: bool = True,
         return_moe_aux: bool = False,
+        aux_reduce: tp.Optional[tp.Callable[[Tensor], Tensor]] = None,
     ) -> tp.Union[Tensor, tp.Tuple[Tensor, Tensor]]:
         """Shared tail of a block: merge heads, output projection, MLP (the
         routed one when n_experts > 0), residuals (each branch dropped out
         in training). att (B, T, H, C). With return_moe_aux (routed MLP
-        only), returns (out, the block's load-balance term)."""
+        only), returns (out, the block's load-balance term; `aux_reduce` as
+        in `_moe_gates`)."""
         B, T = att.shape[:2]
         att = att.reshape(B, T, config.n_embd) @ blk["attn.wo"].T
         x = x + dropout(att, config.dropout, generator, inference)
         h = rms_norm(x)
         aux = None
         if config.n_experts > 0:
-            h, aux = GPT._moe_mlp(config, blk, h, return_aux=return_moe_aux)
+            h, aux = GPT._moe_mlp(config, blk, h, return_aux=return_moe_aux, aux_reduce=aux_reduce)
         else:
             h = F.gelu(h @ blk["mlp.w_up"].T, approximate="tanh")  # jax.nn.gelu's default
             h = h @ blk["mlp.w_down"].T
@@ -541,7 +543,8 @@ class GPT:
 
     @staticmethod
     def _moe_gates(
-        config: GPTConfig, blk: Params, h: Tensor, with_aux: bool = True
+        config: GPTConfig, blk: Params, h: Tensor, with_aux: bool = True,
+        aux_reduce: tp.Optional[tp.Callable[[Tensor], Tensor]] = None,
     ) -> tp.Tuple[Tensor, tp.Optional[Tensor]]:
         """Router -> (gates (..., E) in h.dtype, load-balance aux () f32, or
         None without `with_aux`), as JAX's `GPT._moe_gates`.
@@ -558,7 +561,10 @@ class GPT:
         aux = E * sum_e mean(P_e) * mean(assign_e) / K, with P the full f32
         softmax: 1.0 under balanced routing; differentiable through P only
         (the assignment is a hard count). Training asks for it behind
-        moe_aux_coef; other callers skip it."""
+        moe_aux_coef; other callers skip it. The means are over the GLOBAL
+        batch, as in JAX: on a data-parallel mesh, `aux_reduce` (a
+        differentiable sum over the ranks, parallel/mesh.py `psum`) sums
+        the per-expert sums and the token counts before the product."""
         E, K = config.n_experts, config.moe_top_k
         logits = (h @ blk["mlp.router"].T).float()
         if K < E:
@@ -573,13 +579,19 @@ class GPT:
         if not with_aux:
             return gates, None
         tokens = tuple(range(logits.dim() - 1))
-        mean_prob = torch.softmax(logits, dim=-1).mean(tokens)  # (E,)
-        mean_assign = assign.float().mean(tokens) / K
+        if aux_reduce is None:
+            mean_prob = torch.softmax(logits, dim=-1).mean(tokens)  # (E,)
+            mean_assign = assign.float().mean(tokens) / K
+        else:
+            count = logits.new_full((1,), logits.numel() // E)
+            sums = aux_reduce(torch.cat([torch.softmax(logits, dim=-1).sum(tokens), assign.float().sum(tokens), count]))
+            mean_prob, mean_assign = sums[:E] / sums[-1], sums[E:2 * E] / sums[-1] / K
         return gates, E * (mean_prob * mean_assign).sum()
 
     @staticmethod
     def _moe_mlp(
-        config: GPTConfig, blk: Params, h: Tensor, return_aux: bool = False
+        config: GPTConfig, blk: Params, h: Tensor, return_aux: bool = False,
+        aux_reduce: tp.Optional[tp.Callable[[Tensor], Tensor]] = None,
     ) -> tp.Tuple[Tensor, tp.Optional[Tensor]]:
         """Top-k routed expert MLP, JAX's masked-dense lowering:
         gelu(h . experts_up^T) for every expert, scaled by its gate (zero
@@ -591,7 +603,7 @@ class GPT:
         experts_down through `ops.moe.moe_down`.
 
         Returns (out, aux | None): aux only with `return_aux`."""
-        gates, aux = GPT._moe_gates(config, blk, h, with_aux=return_aux)
+        gates, aux = GPT._moe_gates(config, blk, h, with_aux=return_aux, aux_reduce=aux_reduce)
         lead, (E, D) = h.shape[:-1], (config.n_experts, config.n_embd)
         up = F.gelu(h @ blk["mlp.experts_up"].reshape(-1, D).T, approximate="tanh")  # (..., E*4D)
         up = up.reshape(*lead, E, -1) * gates[..., None]
@@ -610,6 +622,7 @@ class GPT:
         inference: bool = False,
         policy: tp.Optional[str] = None,
         return_moe_aux: bool = False,
+        aux_reduce: tp.Optional[tp.Callable[[Tensor], Tensor]] = None,
     ) -> tp.Union[Tensor, tp.Tuple[Tensor, Tensor]]:
         """One block: QKV, QK-norm, RoPE, attention, output projection, MLP.
         Under a remat `policy` the tensors it keeps by name are named
@@ -631,7 +644,7 @@ class GPT:
         if not (config.attn_impl == "flash" and flash_kernel_usable(x.shape[1], config.attn_block_size)):
             att = remat.name(att, "attn_out", policy)  # the flash op's out is kept as the op's
         return GPT._attn_out_and_mlp(config, blk, x, att, generator=generator, inference=inference,
-                                     return_moe_aux=return_moe_aux)
+                                     return_moe_aux=return_moe_aux, aux_reduce=aux_reduce)
 
     @staticmethod
     def hidden(
@@ -642,13 +655,22 @@ class GPT:
         generator: tp.Optional[torch.Generator] = None,
         inference: bool = False,
         return_moe_aux: bool = False,
+        aux_reduce: tp.Optional[tp.Callable[[Tensor], Tensor]] = None,
+        layer_transform: tp.Optional[tp.Callable[[Params], Params]] = None,
     ) -> tp.Union[Tensor, tp.Tuple[Tensor, Tensor]]:
         """Backbone forward -> final-normed hidden states (B, T, D).
 
         `return_moe_aux` (routed MLP configs only) also returns the MoE
         load-balance term averaged over layers, a () f32 scalar the training
         loss folds in as `moe_aux_coef * aux` (training/train.py). Off by
-        default, so no other caller computes it.
+        default, so no other caller computes it. On a data-parallel mesh
+        `aux_reduce` makes its means global (`_moe_gates`).
+
+        `layer_transform` maps each layer's slice of the block leaves
+        before the block runs, inside the block's checkpoint, as JAX's
+        hook does (midgpt_tpu/models/gpt.py:963,1023): the ZeRO-3 schedule
+        (parallel/shard_map_fsdp.py) gathers one layer's weights there, and
+        under remat the recompute gathers them again.
 
         Training mode (inference=False) applies dropout at config.dropout
         from `generator` (required when dropout > 0). The lm_head projection
@@ -679,11 +701,14 @@ class GPT:
         x = dropout(params["wte"][tokens], config.dropout, generator, inference)
         sin, cos = rope_table(config.head_dim, T, device=x.device)
         auxes = []
+        kw = dict(sin=sin, cos=cos, generator=generator, inference=inference, policy=policy,
+                  return_moe_aux=return_moe_aux, aux_reduce=aux_reduce)
         for i in range(config.n_layer):
-            block = functools.partial(
-                GPT._block_apply, config, _block(params, i), sin=sin, cos=cos,
-                generator=generator, inference=inference, policy=policy, return_moe_aux=return_moe_aux,
-            )
+            if layer_transform is None:
+                block = functools.partial(GPT._block_apply, config, _block(params, i), **kw)
+            else:
+                def block(x, blk=_block(params, i)):
+                    return GPT._block_apply(config, layer_transform(blk), x, **kw)
             out = remat.checkpoint_block(block, x, policy, generator) if checkpointed else block(x)
             if return_moe_aux:
                 x, aux = out

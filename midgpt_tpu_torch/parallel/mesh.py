@@ -1,0 +1,202 @@
+"""The rank mesh (counterpart of midgpt_tpu/parallel/mesh.py:33-74).
+
+JAX names a 6D device mesh ('data', 'fsdp', 'sp', 'tp', 'pp', 'ep'); the
+port lays its ranks out on the same axes with JAX's arithmetic
+(`mesh_shape`: the -1 inference, the divisor clamp on fsdp, the same
+error texts), then builds a process group per `data` row and `fsdp`
+column. Only the data and fsdp axes are ported: an sp, tp, pp or ep axis
+above 1 raises and names its later slice.
+
+Ranks fill the mesh in order, fsdp fastest: rank index i sits at
+(data i // fsdp, fsdp i % fsdp), the flattened (data, fsdp) order in
+which JAX's batch_spec shards the batch rows over both axes. `make_mesh`
+takes an explicit rank list (JAX's `devices=`), so one process group can
+hold meshes of several sizes; every rank of the process group calls it,
+members or not, because creating a process group is collective.
+
+A mesh of one rank creates no group and issues no collective: training
+on it is the single-device trainer, bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import typing as tp
+
+import torch
+import torch.distributed as dist
+
+from midgpt_tpu_torch.parallel import dist as pdist
+
+AXES = ("data", "fsdp", "sp", "tp", "pp", "ep")
+LATER_SLICES = {
+    "sp": "sequence parallelism (ring_attention, ulysses)",
+    "tp": "tensor parallelism (tp, serve_tp)",
+    "pp": "the pipeline",
+    "ep": "the ep axis",
+}
+
+
+def mesh_shape(cfg, n: int) -> tp.Dict[str, int]:
+    """The axis sizes JAX's make_mesh gives `n` devices under MeshConfig
+    `cfg`, with its errors (every axis, the unported ones included)."""
+    fsdp = cfg.fsdp if cfg.fsdp != -1 else 1
+    sp = cfg.sp if cfg.sp != -1 else 1
+    tp_ = cfg.tp if cfg.tp != -1 else 1
+    pp = cfg.pp if cfg.pp != -1 else 1
+    ep = cfg.ep if cfg.ep != -1 else 1
+    rest_axes = sp * tp_ * pp * ep
+    if n % (fsdp * rest_axes) != 0:
+        # Degrade gracefully on small device counts: clamp fsdp to the
+        # largest divisor of n // (sp * tp * pp * ep).
+        if n % rest_axes != 0:
+            raise ValueError(f"{n} devices not divisible by sp={sp} * tp={tp_} * pp={pp} * ep={ep}")
+        rest = n // rest_axes
+        fsdp = max(d for d in range(1, rest + 1) if rest % d == 0 and d <= fsdp)
+    data = cfg.data if cfg.data != -1 else n // (fsdp * rest_axes)
+    if data * fsdp * rest_axes != n:
+        raise ValueError(f"mesh {data}x{fsdp}x{sp}x{tp_}x{pp}x{ep} != {n} devices")
+    return dict(zip(AXES, (data, fsdp, sp, tp_, pp, ep)))
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """psum: the sum over a group, whose transpose is the sum of the
+    incoming gradients over the same group."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        out = t.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class Mesh:
+    """Axis sizes, the member ranks in mesh order, this rank's place, and
+    the process groups: `group` (every member), `data_group` (this rank's
+    fsdp column: the ranks holding the same shards) and `fsdp_group` (its
+    data row: the ranks that together hold one copy). A group of one rank
+    is None."""
+
+    def __init__(self, shape: tp.Dict[str, int], ranks: tp.Sequence[int], device: torch.device):
+        self.shape = dict(shape)
+        self.ranks = tuple(ranks)
+        self.size = len(self.ranks)
+        self.data, self.fsdp = shape["data"], shape["fsdp"]
+        me = pdist.rank()
+        self.index = self.ranks.index(me) if me in self.ranks else None
+        self.device = device
+        self.group = self.data_group = self.fsdp_group = None
+        if self.size > 1:
+            # every rank of the process group creates every group, in one order
+            self.group = dist.new_group(self.ranks)
+            rows = [self.ranks[d * self.fsdp:(d + 1) * self.fsdp] for d in range(self.data)]
+            for row in rows:
+                g = dist.new_group(row) if self.fsdp > 1 else None
+                if me in row:
+                    self.fsdp_group = g
+            for col in zip(*rows):
+                g = dist.new_group(col) if self.data > 1 else None
+                if me in col:
+                    self.data_group = g
+        # host values travel on the backend's own device type
+        self._host_dev = device if pdist.backend() == "nccl" else torch.device("cpu")
+
+    @property
+    def member(self) -> bool:
+        return self.index is not None
+
+    @property
+    def is_leader(self) -> bool:
+        """The first member: it writes the checkpoints, the ledger and the
+        metrics (JAX's process_index() == 0)."""
+        return self.index == 0
+
+    @property
+    def data_index(self) -> int:
+        return self.index // self.fsdp
+
+    @property
+    def fsdp_index(self) -> int:
+        return self.index % self.fsdp
+
+    def geometry(self) -> tp.Dict[str, tp.Any]:
+        """What the supervisor's ledger records of the mesh."""
+        return {"n_devices": self.size, "axes": dict(self.shape)}
+
+    def all_reduce_(self, t: torch.Tensor, group) -> torch.Tensor:
+        """In-place sum over `group` (nothing for a group of one)."""
+        if group is not None:
+            dist.all_reduce(t, group=group)
+        return t
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """Differentiable sum over every member (`t` itself on one rank)."""
+        return t if self.group is None else _AllReduceSum.apply(t, self.group)
+
+    def agree(self, value: int) -> int:
+        """The leader's host integer, on every member."""
+        if self.group is None:
+            return value
+        t = torch.tensor([value], dtype=torch.int64, device=self._host_dev)
+        dist.broadcast(t, src=self.ranks[0], group=self.group)
+        return int(t.item())
+
+    def any(self, flag: bool) -> bool:
+        """True on every member when `flag` is true on any."""
+        if self.group is None:
+            return flag
+        t = torch.tensor([int(flag)], dtype=torch.int64, device=self._host_dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return bool(t.item())
+
+    def broadcast_object(self, obj: tp.Any) -> tp.Any:
+        """The leader's picklable object, on every member."""
+        if self.group is None:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=self.ranks[0], group=self.group, device=self._host_dev)
+        return box[0]
+
+    def barrier(self) -> None:
+        if self.group is not None:
+            dist.barrier(group=self.group)
+
+
+def run_mesh(config, device=None) -> Mesh:
+    """The mesh a run trains on: every rank of the process group (or this
+    process alone) laid out on the config's data and fsdp axes. The axes
+    the port does not train on (sp, tp, pp, ep) are left at 1 (the
+    launcher names them, launch.py `unused_mesh`), and under
+    on_resume_mesh="any" the data axis is re-derived for the ranks there
+    are, as JAX's launcher re-derives it for the devices (launch.py)."""
+    cfg = dataclasses.replace(config.mesh, **{ax: 1 for ax in LATER_SLICES})
+    if config.on_resume_mesh == "any":
+        cfg = dataclasses.replace(cfg, data=-1)
+    return make_mesh(cfg, device=device)
+
+
+def make_mesh(cfg=None, *, ranks: tp.Optional[tp.Sequence[int]] = None, device=None) -> Mesh:
+    """The mesh of MeshConfig `cfg` over `ranks` (default: every rank of
+    the process group, or this process alone without one). Collective:
+    every rank of the process group calls it with the same arguments.
+    `device` is this rank's device (default: `dist.rank_device`)."""
+    from midgpt_tpu_torch.config import MeshConfig
+
+    cfg = cfg or MeshConfig()
+    # sorted: a process group numbers its ranks in ascending order
+    ranks = sorted(ranks if ranks is not None else range(pdist.world()))
+    shape = mesh_shape(cfg, len(ranks))
+    for ax, what in LATER_SLICES.items():
+        if shape[ax] > 1:
+            raise NotImplementedError(
+                f"mesh {ax}={shape[ax]}: {what} is a later slice of the port (ROADMAP.md Queue 1 item 7); "
+                "the port trains on the data and fsdp axes"
+            )
+    return Mesh(shape, ranks, torch.device(device) if device is not None else pdist.rank_device())

@@ -36,6 +36,9 @@ Hooked kinds and where they strike:
   hang_step          training/train.py: the sync at data step k never lands
                      (it waits on an event nothing sets), so only the
                      watchdog (robustness/watchdog.py) ends the wait.
+  resume_reshard     training/train.py: the preemption flag is set at data
+                     step k; robustness/chaos_train.py
+                     then resumes the run on half the ranks, and back.
   kill_mid_decode    sampling/serve.py, keyed on the engine's round counter:
                      the round's decode dispatch dies; every decode-ready
                      slot is recompute-preempted.
@@ -127,7 +130,7 @@ DESCRIPTIONS: tp.Dict[str, str] = {
     "preempt": "set the preemption flag at data step k (SIGTERM mid-step)",
     "hang_step": "the step's device sync never lands; the watchdog must end it",
     "ckpt_enospc": "ENOSPC mid checkpoint write, partial bytes left behind",
-    "resume_reshard": "preempt at data step k; the run resumes on another mesh",
+    "resume_reshard": "preempt at data step k; driver restarts on another mesh",
     "kill_mid_decode": "the round's decode dispatch dies; slots recompute-preempt",
     "kill_overlapped_round": "the in-flight overlapped dispatch dies mid host phase",
     "poisoned_page": "corrupt one live slot's pool page in place (HBM damage)",
@@ -145,10 +148,9 @@ DESCRIPTIONS: tp.Dict[str, str] = {
     "wire_stall": "next RPC response misses its deadline; backoff absorbs it",
 }
 
-# The kinds the port has no hook for yet, by the ROADMAP.md item that brings it.
-UNHOOKED: tp.Dict[str, str] = {
-    "resume_reshard": "Queue 1 item 7 (parallelism)",
-}
+# The kinds the port has no hook for yet, by the ROADMAP.md item that brings
+# it: none since the data and fsdp axes are ported.
+UNHOOKED: tp.Dict[str, str] = {}
 HOOKED = tuple(k for k in KINDS if k not in UNHOOKED)
 
 # kind names may carry digits (proc_kill9); `@` still separates the step
@@ -167,6 +169,14 @@ class Fault:
 
 _active: tp.List[Fault] = []
 _lock = threading.Lock()
+# Optional firing observer, called once per consumed firing (the chaos
+# chaos tool timestamps detection latency with it, as JAX's does).
+_on_fire: tp.Optional[tp.Callable[[Fault], None]] = None
+
+
+def set_on_fire(cb: tp.Optional[tp.Callable[[Fault], None]]) -> None:
+    global _on_fire
+    _on_fire = cb
 
 
 def activate(kind: str, *, step: tp.Optional[int] = None, times: int = 1) -> Fault:
@@ -207,8 +217,10 @@ def activate_plan(plan: str) -> tp.List[Fault]:
 
 
 def clear() -> None:
+    global _on_fire
     with _lock:
         _active.clear()
+        _on_fire = None
 
 
 def active() -> tp.List[Fault]:
@@ -237,5 +249,9 @@ def should_fire(kind: str, *, step: tp.Optional[int] = None) -> bool:
                 continue
             f.times -= 1
             f.fired += 1
-            return True
-    return False
+            break
+        else:
+            return False
+    if _on_fire is not None:
+        _on_fire(f)
+    return True

@@ -13,8 +13,9 @@ thread, so the handlers are installed by the launcher, never by `train`.
 
 `install_handlers` chains: after the first signal fires, the previous
 handler is restored, so a second SIGINT still stops a wedged run.
-The port runs one process, so `any_host_requested` is the local flag
-(`launch --multihost` is refused; ROADMAP.md Queue 1 item 7).
+On a mesh of several ranks (`launch --multihost`, parallel/) a signal may
+reach one rank only: `any_host_requested(mesh)` all-reduces the flag, so
+every rank takes the save-and-exit branch at the same step boundary.
 """
 
 from __future__ import annotations
@@ -79,7 +80,9 @@ def install_handlers(
         _previous.setdefault(signum, prev)
 
 
-def any_host_requested() -> bool:
-    """True when any process of the run saw a preemption signal. The port
-    runs one process, so this is the local flag: no collective."""
-    return _requested
+def any_host_requested(mesh=None) -> bool:
+    """True when any rank of the run saw a preemption signal: the local
+    flag on one rank, one small all-reduce (MAX) over a mesh of several
+    (JAX's process_allgather; the train loop gates it behind
+    `preempt_check_interval`)."""
+    return _requested if mesh is None else mesh.any(_requested)

@@ -1,6 +1,6 @@
 """Run supervisor: restart on divergence with the data window skipped, and
 on a hung step (the port's counterpart of
-midgpt_tpu/robustness/supervisor.py, one device).
+midgpt_tpu/robustness/supervisor.py).
 
 `supervise(config)` wraps `train(config)` in a bounded restart policy:
 
@@ -37,11 +37,17 @@ quarantined to `supervisor_state.json.corrupt` with a warning and the run
 proceeds on a fresh one: a damaged sidecar must never brick a resume whose
 checkpoints are intact.
 
-Geometry: the port trains on one device, so the ledger records
-`n_devices: 1`. A ledger that recorded another count makes
-`on_resume_mesh="same"` refuse the resume; `"any"` (a resume resharded
-across a new device count) waits for parallelism (ROADMAP.md Queue 1
-item 7).
+Geometry: the ledger records the live mesh (parallel/mesh.py): its rank
+count as `n_devices` and its axes. A ledger that recorded another count
+makes `on_resume_mesh="same"` refuse the resume; `"any"` resumes through
+the new mesh's slices (the checkpoint holds whole leaves, and the batch
+order is positional, so the trajectory continues).
+
+On a mesh of several ranks every rank runs `supervise`. The leader reads
+the ledger and hands it to the others, and only the leader writes it and
+prints; every rank catches the same errors at the same step (the loss
+and the checkpoint inventory are the ranks' agreed values,
+training/train.py), so every rank takes the same restart decision.
 """
 
 from __future__ import annotations
@@ -54,11 +60,11 @@ import typing as tp
 from midgpt_tpu_torch.config import ExperimentConfig
 from midgpt_tpu_torch.device import DeviceLike
 from midgpt_tpu_torch.obs import dump_flight_recorder, flight_recorder
+from midgpt_tpu_torch.parallel.mesh import Mesh, run_mesh
 from midgpt_tpu_torch.robustness import faults
 from midgpt_tpu_torch.robustness.errors import DivergenceError, StepHangError
 
 STATE_NAME = "supervisor_state.json"
-GEOMETRY = {"n_devices": 1, "axes": {"data": 1}}
 
 
 def _state_path(rundir: str) -> tp.Optional[str]:
@@ -113,15 +119,25 @@ def supervise(
     config: ExperimentConfig,
     *,
     device: DeviceLike = None,
+    mesh: tp.Optional[Mesh] = None,
     max_restarts: tp.Optional[int] = None,
     backoff_sec: tp.Optional[float] = None,
     sleep_fn: tp.Callable[[float], None] = time.sleep,
 ) -> dict:
-    """Run `train(config, device=device)` under the restart policy (module
-    docstring). Returns train's result with a `"supervisor"` summary added.
-    `max_restarts` / `backoff_sec` default to the config's knobs; `sleep_fn`
-    is injectable so tests pay no real backoff."""
+    """Run `train(config, device=device, mesh=mesh)` under the restart
+    policy (module docstring); the mesh defaults to every rank of the
+    process group, or this process alone. Returns train's result with a
+    `"supervisor"` summary added. `max_restarts` / `backoff_sec` default to
+    the config's knobs; `sleep_fn` is injectable so tests pay no real
+    backoff."""
+    from midgpt_tpu_torch.device import resolve_device
     from midgpt_tpu_torch.training.train import train
+
+    if mesh is None:
+        mesh = run_mesh(config, resolve_device(device))
+    lead = mesh.is_leader
+    say = print if lead else (lambda *a, **k: None)
+    ledger_dir = config.rundir if lead else ""
 
     if max_restarts is None:
         max_restarts = config.max_restarts
@@ -133,50 +149,48 @@ def supervise(
     if plan:
         faults.activate_plan(plan)
 
-    persisted = _load_state(config.rundir)
+    persisted = mesh.broadcast_object(_load_state(config.rundir) if lead else None)
     offset = max(config.data_step_offset, int(persisted.get("data_step_offset", 0)))
     windows: tp.List[tp.List[int]] = [list(w) for w in persisted.get("windows_skipped", [])]
     restarts = int(persisted.get("restarts", 0))
     hung: tp.List[int] = [int(s) for s in persisted.get("hung_steps", [])]
     mesh_history: tp.List[tp.Dict[str, tp.Any]] = [dict(m) for m in persisted.get("mesh_history", [])]
 
+    geometry = mesh.geometry()
     n_prev = int(persisted["mesh"]["n_devices"]) if persisted.get("mesh") else None
-    n_now = GEOMETRY["n_devices"]
-    if n_prev is not None and n_prev != n_now:
-        if config.on_resume_mesh == "same":
-            raise RuntimeError(
-                f"supervised run in {config.rundir} previously ran on {n_prev} device(s) "
-                f"(mesh {persisted['mesh'].get('axes')}), but this resume sees {n_now}; "
-                "on_resume_mesh='same' refuses the topology change. Set on_resume_mesh='any' "
-                "to reshard-resume across meshes (the checkpoint restores through the new "
-                "mesh's shardings; the positional sampler keeps the batch order)."
-            )
-        raise NotImplementedError(
-            f"on_resume_mesh='any': resuming a run from {n_prev} device(s) on {n_now} needs "
-            "parallelism, which the port does not have yet (ROADMAP.md Queue 1 item 7)"
+    n_now = geometry["n_devices"]
+    if n_prev is not None and n_prev != n_now and config.on_resume_mesh == "same":
+        raise RuntimeError(
+            f"supervised run in {config.rundir} previously ran on {n_prev} device(s) "
+            f"(mesh {persisted['mesh'].get('axes')}), but this resume sees {n_now}; "
+            "on_resume_mesh='same' refuses the topology change. Set on_resume_mesh='any' "
+            "to reshard-resume across meshes (the checkpoint restores through the new "
+            "mesh's shardings; the positional sampler keeps the batch order)."
         )
-    if not mesh_history or mesh_history[-1] != GEOMETRY:
-        mesh_history.append(dict(GEOMETRY))
+    if not mesh_history or mesh_history[-1] != geometry:
+        mesh_history.append(geometry)
 
     def _persist() -> None:
         # Re-load first, so notes train appended mid-attempt survive.
-        state = _load_state(config.rundir)
+        if not ledger_dir:
+            return
+        state = _load_state(ledger_dir)
         state.update({
             "data_step_offset": offset,
             "windows_skipped": windows,
             "restarts": restarts,
             "hung_steps": hung,
-            "mesh": GEOMETRY,
+            "mesh": geometry,
             "mesh_history": mesh_history,
         })
-        _save_state(config.rundir, state)
+        _save_state(ledger_dir, state)
 
     _persist()  # record this attempt's geometry before training starts
 
     while True:
         cfg = config if offset == config.data_step_offset else config.replace(data_step_offset=offset)
         try:
-            result = train(cfg, device=device)
+            result = train(cfg, device=device, mesh=mesh)
             result["supervisor"] = {
                 "restarts": restarts,
                 "windows_skipped": windows,
@@ -204,15 +218,15 @@ def supervise(
                 args={"step": e.step, "waited_s": e.waited_s, "restart": restarts},
             )
             _persist()
-            print(
+            say(
                 f"supervisor: step {e.step} HUNG after {e.waited_s:.1f}s; restarting from the "
                 f"last verified checkpoint (restart {restarts}/{max_restarts})"
             )
             sleep_fn(backoff_sec * (2 ** (restarts - 1)))
         except DivergenceError as e:
             # The postmortem artifact first, before any re-raise path.
-            if config.rundir:
-                dump_flight_recorder(config.rundir)
+            if ledger_dir:
+                dump_flight_recorder(ledger_dir)
             if e.last_good_step is None:
                 raise RuntimeError(
                     f"training diverged at step {e.step} with NO verified checkpoint to roll "
@@ -239,7 +253,7 @@ def supervise(
                       "window": [lo, hi], "restart": restarts},
             )
             _persist()
-            print(
+            say(
                 f"supervisor: divergence at step {e.step}; rolling back to verified step "
                 f"{e.last_good_step}, skipping data window [{lo}, {hi}] "
                 f"(restart {restarts}/{max_restarts})"

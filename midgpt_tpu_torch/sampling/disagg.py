@@ -262,8 +262,8 @@ class DisaggServe:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "DisaggServe(mesh=...) (roles on the rows of a serving mesh) is not ported yet "
-                "(ROADMAP.md Queue 1 item 7: parallelism)"
+                "DisaggServe(mesh=...) (roles on the rows of a serving mesh) is not ported yet: tensor-parallel "
+                "serving is the next slice of parallelism (ROADMAP.md Queue 1 item 7)"
             )
         if engine_kw.get("temperature", 0.0) != 0.0:
             raise ValueError("DisaggServe is greedy-only (module docstring)")

@@ -532,7 +532,8 @@ class ServeEngine:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "ServeEngine(mesh=...) is not ported yet (ROADMAP.md Queue 1 item 7: parallelism)"
+                "ServeEngine(mesh=...) is not ported yet: tensor-parallel serving is the next slice of "
+                "parallelism (ROADMAP.md Queue 1 item 7)"
             )
         if decode_chunk < 1 or decode_chunk & (decode_chunk - 1):
             raise ValueError(f"decode_chunk={decode_chunk} must be a power of two")

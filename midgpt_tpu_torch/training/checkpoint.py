@@ -44,6 +44,18 @@ restore.
     (a BaseException: no retry absorbs it, and the next barrier re-raises
     it); `truncate_ckpt_item` truncates an item after the manifest, so the
     barrier's check finds the step unverified and keeps the older ones.
+  * **A mesh of ranks** (training on parallel/; the counterpart of JAX's
+    process_index() == 0 writes, midgpt_tpu/training/checkpoint.py:406).
+    The format does not change: `save` gathers each sharded leaf whole to
+    the mesh's leader, in the main thread, before the pinned host copy
+    (a collective never runs in the writer thread), and only the leader
+    writes, commits and garbage-collects; the others wait for its verdict
+    at the next barrier and raise what it raised. The leader's reading of
+    the step inventory (`latest_verified_step`, `restore`'s verification)
+    is broadcast, so every rank takes the same decision; `should_save`
+    reads the run directory, which every rank must see. `restore` has
+    every rank read the step and keep its own slice (`select`), whatever
+    rank count saved it.
 """
 
 from __future__ import annotations
@@ -63,6 +75,7 @@ import numpy as np
 import torch
 
 from midgpt_tpu_torch.obs import flight_recorder
+from midgpt_tpu_torch.parallel import fsdp
 from midgpt_tpu_torch.robustness import faults
 from midgpt_tpu_torch.robustness.backoff import retry_with_backoff
 from midgpt_tpu_torch.robustness.errors import (
@@ -229,8 +242,12 @@ def flatten_item(value: tp.Any) -> tp.Dict[str, Leaf]:
     return dict(value)
 
 
+Select = tp.Callable[[str, torch.Tensor], torch.Tensor]
+
+
 def _tensors_like(
-    flat: tp.Mapping[str, np.ndarray], template: tp.Mapping[str, torch.Tensor], device, what: str
+    flat: tp.Mapping[str, np.ndarray], template: tp.Mapping[str, torch.Tensor], device, what: str,
+    select: tp.Optional[Select] = None,
 ) -> tp.Dict[str, torch.Tensor]:
     extra, missing = sorted(set(flat) - set(template)), sorted(set(template) - set(flat))
     if extra or missing:
@@ -243,23 +260,28 @@ def _tensors_like(
         dev = torch.device(device) if device is not None else like.device
         if dev.type == "meta":
             raise ValueError(f"{what} {name}: a meta template needs restore(..., device=)")
-        out[name] = torch.from_numpy(a).to(device=dev, dtype=like.dtype)  # np.load's own array
+        t = torch.from_numpy(a)  # np.load's own array
+        out[name] = (select(name, t) if select is not None else t).to(device=dev, dtype=like.dtype)
     return out
 
 
-def unflatten_item(flat: tp.Mapping[str, np.ndarray], template: tp.Any, device=None) -> tp.Any:
+def unflatten_item(
+    flat: tp.Mapping[str, np.ndarray], template: tp.Any, device=None, select: tp.Optional[Select] = None
+) -> tp.Any:
     """Inverse of `flatten_item`, into the template's structure, shapes and
-    dtypes (and its device, unless `device` is given)."""
+    dtypes (and its device, unless `device` is given). `select(leaf, t)`
+    cuts each whole leaf (a moment by its parameter's name) to the part
+    this rank keeps."""
     if isinstance(template, OptState):
         moments = {
             m: _tensors_like(
                 {k[3:]: v for k, v in flat.items() if k.startswith(m + ".")}, getattr(template, m), device,
-                f"opt_state.{m}",
+                f"opt_state.{m}", select,
             )
             for m in ("mu", "nu")
         }
         return OptState(int(flat["adam_count"]), moments["mu"], moments["nu"], int(flat["schedule_count"]))
-    return _tensors_like(flat, template, device, "params")
+    return _tensors_like(flat, template, device, "params", select)
 
 
 class CheckpointManager:
@@ -271,8 +293,15 @@ class CheckpointManager:
         save_interval_steps: int = 1000,
         write_retries: int = 3,
         retry_backoff_sec: float = 0.5,
+        mesh=None,
+        specs: tp.Optional[tp.Mapping[str, fsdp.Spec]] = None,
     ):
+        """`mesh` and `specs` (each leaf's sharded axis, parallel/fsdp.py):
+        the state is a mesh's shards (module docstring)."""
         self._dir = os.path.abspath(directory)
+        self._mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._specs = dict(specs or {})
+        self._leads = self._mesh is None or self._mesh.is_leader
         self.max_to_keep = max_to_keep
         self.save_interval_steps = save_interval_steps
         self.write_retries = max(1, write_retries)
@@ -362,11 +391,19 @@ class CheckpointManager:
             digest = hashlib.sha256(fh.read()).hexdigest()
         return f"{step}:{digest[:12]}"
 
+    def _agree(self, value: tp.Optional[int]) -> tp.Optional[int]:
+        """The leader's value (an int >= 0 or None) on every rank."""
+        if self._mesh is None:
+            return value
+        got = self._mesh.agree(-1 if value is None else int(value))
+        return None if got < 0 else got
+
     def latest_verified_step(self) -> tp.Optional[int]:
-        """Newest step whose manifest verifies — the only safe resume point."""
+        """Newest step whose manifest verifies — the only safe resume point
+        (the leader's reading, on a mesh)."""
         self.wait()
-        newest = self._newest_verified(1)
-        return newest[0] if newest else None
+        newest = self._newest_verified(1) if self._leads else []
+        return self._agree(newest[0] if newest else None)
 
     # -- save -----------------------------------------------------------
 
@@ -390,19 +427,21 @@ class CheckpointManager:
             return False
         t0 = time.perf_counter()
         self._finalize_pending()
-        if self.is_verified(step):
+        if self._agree(int(self._leads and self.is_verified(step))):
             raise ValueError(f"step {step} already has a verified checkpoint under {self._dir}")
-        # A leftover of a killed or failed attempt at this step is garbage.
-        shutil.rmtree(self._step_dir(step), ignore_errors=True)
+        if self._leads:
+            # A leftover of a killed or failed attempt at this step is garbage.
+            shutil.rmtree(self._step_dir(step), ignore_errors=True)
         with flight_recorder().tracer.span("ckpt.save_queue", "ckpt", "train"):
             items = self._snapshot(state)
         record = {"step": step, "stall_s": time.perf_counter() - t0}
         self.history.append(record)
         self._pending = step
-        self._writer = threading.Thread(
-            target=self._write, args=(step, items, record), name=f"ckpt-writer-{step}"
-        )
-        self._writer.start()
+        if self._leads:
+            self._writer = threading.Thread(
+                target=self._write, args=(step, items, record), name=f"ckpt-writer-{step}"
+            )
+            self._writer.start()
         return True
 
     def _host_buffer(self, key: tp.Tuple[str, str], t: torch.Tensor) -> torch.Tensor:
@@ -412,16 +451,29 @@ class CheckpointManager:
             self._host[key] = buf
         return buf
 
+    def _whole(self, key: str, leaf: torch.Tensor) -> torch.Tensor:
+        """A mesh's leaf whole on its leader: a sharded leaf is gathered
+        over the leader's fsdp row (the other rows take no part)."""
+        axis = self._specs.get(key.split(".", 1)[1] if key.startswith(("mu.", "nu.")) else key)
+        mesh = self._mesh
+        if mesh is None or axis is None or mesh.fsdp == 1 or mesh.data_index != 0:
+            return leaf
+        return fsdp.gather(leaf.detach(), axis, mesh)
+
     def _snapshot(self, state: tp.Mapping[str, tp.Any]) -> tp.Dict[str, tp.Dict[str, Leaf]]:
         """Every leaf copied to host memory, complete on return: CUDA
         leaves as asynchronous copies into pinned buffers, then one
-        synchronize per device."""
+        synchronize per device. On a mesh, whole leaves on the leader;
+        nothing is kept on the other ranks."""
         items: tp.Dict[str, tp.Dict[str, Leaf]] = {}
         devices = set()
         for name, value in state.items():
             host: tp.Dict[str, Leaf] = {}
             for key, leaf in flatten_item(value).items():
                 if isinstance(leaf, torch.Tensor):
+                    leaf = self._whole(key, leaf)
+                    if not self._leads:
+                        continue
                     buf = self._host_buffer((name, key), leaf)
                     buf.copy_(leaf.detach(), non_blocking=leaf.is_cuda)
                     if leaf.is_cuda:
@@ -494,9 +546,18 @@ class CheckpointManager:
 
     def _finalize_pending(self) -> None:
         """Barrier on the in-flight save: join the writer, raise what it
-        raised, then (only on success) garbage-collect older steps."""
+        raised, then (only on success) garbage-collect older steps. On a
+        mesh the leader's verdict reaches every rank (0: committed, 1: a
+        simulated kill, 2: a failed write), and each raises on a failure."""
         step, self._pending = self._pending, None
         if step is None:
+            return
+        if not self._leads:
+            verdict = self._mesh.agree(0)
+            if verdict == 1:
+                raise SimulatedPreemption(f"simulated kill mid-save at step {step} (on the leader rank)")
+            if verdict:
+                raise RuntimeError(f"checkpoint save at step {step} under {self._dir} failed on the leader rank")
             return
         writer, self._writer = self._writer, None
         tr = flight_recorder().tracer
@@ -504,10 +565,12 @@ class CheckpointManager:
             writer.join()
         error, self._error = self._error, None
         written, self._written_key = self._written_key, None
+        if error is None and not self._has_manifest(step):
+            error = RuntimeError(f"the writer of checkpoint step {step} ended without committing its manifest")
+        if self._mesh is not None:
+            self._mesh.agree(0 if error is None else 1 if isinstance(error, SimulatedPreemption) else 2)
         if error is not None:
             raise error
-        if not self._has_manifest(step):
-            raise RuntimeError(f"the writer of checkpoint step {step} ended without committing its manifest")
         # The writer hashed the files back from disk into the manifest; a
         # file changed since then is re-checked.
         problems = [] if self._stat_key(step) == written else self.verify(step)
@@ -536,14 +599,17 @@ class CheckpointManager:
 
     # -- restore --------------------------------------------------------
 
-    def restore(self, step: int, like: tp.Mapping[str, tp.Any], *, device=None) -> tp.Dict[str, tp.Any]:
+    def restore(
+        self, step: int, like: tp.Mapping[str, tp.Any], *, device=None, select: tp.Optional[Select] = None
+    ) -> tp.Dict[str, tp.Any]:
         """Restore named items into the structure, shapes and dtypes of
         `like` (a parameter dict or an OptState of tensors per item; tensors
         on the `meta` device are templates of shape and dtype only). Each
         tensor lands on its template's device, or on `device` when given.
         Restoring a SUBSET of the saved items is supported (the sampler
-        restores only "params"). Verifies the manifest, then the format
-        marker, then reads."""
+        restores only "params"). Verifies the manifest (the leader, on a
+        mesh), then the format marker, then reads; `select(leaf, t)` cuts
+        each whole leaf to what this rank keeps."""
         self._finalize_pending()
         available = self.all_steps()
         if step not in available:
@@ -551,7 +617,9 @@ class CheckpointManager:
                 f"no checkpoint for step {step} under {self._dir}; available steps: "
                 f"{available or 'none'} (verified: {self.verified_steps() or 'none'})"
             )
-        problems = self.verify(step)
+        problems = self.verify(step) if self._leads else []
+        if self._agree(int(bool(problems))) and not problems:
+            problems = ["the leader rank's verification failed"]
         if problems:
             raise CheckpointCorruptError(
                 f"checkpoint step {step} under {self._dir} fails integrity verification — refusing "
@@ -582,7 +650,7 @@ class CheckpointManager:
         def read(name: str) -> tp.Any:
             with np.load(os.path.join(d, f"{name}.npz")) as f:
                 flat = {k: f[k] for k in f.files}
-            return unflatten_item(flat, like[name], device)
+            return unflatten_item(flat, like[name], device, select)
 
         return dict(zip(like, _each(read, list(like))))
 

@@ -50,25 +50,31 @@ def device_peak_flops(device: tp.Optional[torch.device] = None) -> tp.Optional[f
 
 
 def mfu(
-    tokens_per_sec: float, cfg: GPTConfig, device: tp.Optional[torch.device] = None
+    tokens_per_sec: float, cfg: GPTConfig, device: tp.Optional[torch.device] = None, n_devices: int = 1
 ) -> tp.Optional[float]:
+    """Model FLOPs utilization of `n_devices` such cards at a global
+    `tokens_per_sec` (JAX's mfu over jax.device_count())."""
     peak = device_peak_flops(device)
     if peak is None:
         return None
-    return tokens_per_sec * flops_per_token(cfg) / peak
+    return tokens_per_sec * flops_per_token(cfg) / (peak * n_devices)
 
 
 class MetricLogger:
     """One json line per log call to `rundir/metrics.jsonl` (when the run
-    has a directory) and to stdout."""
+    has a directory) and to stdout; nothing at all unless `enabled` (a
+    mesh's other ranks: only its leader logs, as JAX's process 0 does)."""
 
-    def __init__(self, rundir: str = ""):
+    def __init__(self, rundir: str = "", enabled: bool = True):
         self._file = None
-        if rundir:
+        self.enabled = enabled
+        if rundir and enabled:
             os.makedirs(rundir, exist_ok=True)
             self._file = open(os.path.join(rundir, "metrics.jsonl"), "a")
 
     def log(self, step: int, metrics: tp.Dict[str, float]) -> None:
+        if not self.enabled:
+            return
         line = json.dumps({"step": step, "time": time.time(), **metrics})
         if self._file is not None:
             self._file.write(line + "\n")

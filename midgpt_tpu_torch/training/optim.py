@@ -8,7 +8,7 @@ optax chain of midgpt_tpu/training/optim.py written out in PyTorch
 
 What optax does, kept here:
   * clipping is `where(norm < 1, g, g / norm)` with the global norm over
-    every leaf;
+    every leaf (over FSDP shards: `global_norm`, one all-reduce);
   * Adam's moments are updated, then bias-corrected with the INCREMENTED
     count (count + 1), `m_hat / (sqrt(v_hat) + eps)`;
   * the schedule is read at the schedule state's count BEFORE it is
@@ -64,6 +64,20 @@ class OptState:
     schedule_count: int
 
 
+def global_norm(grads: Params, specs=None, mesh=None) -> Tensor:
+    """optax.global_norm: the f32 square root of the sum of every leaf's
+    squares. Over FSDP shards (`specs` {leaf: sharded axis or None} on
+    `mesh`, parallel/fsdp.py) the sharded leaves' sum is all-reduced over
+    the fsdp row, and a replicated leaf counts once, so each rank gets the
+    norm of the whole gradient."""
+    sq = lambda g: (g.float() ** 2).sum()  # noqa: E731
+    if mesh is None or mesh.fsdp == 1 or all(specs[k] is None for k in grads):
+        return torch.sqrt(sum(sq(g) for g in grads.values()))
+    sharded = sum(sq(g) for k, g in grads.items() if specs[k] is not None)
+    mesh.all_reduce_(sharded, mesh.fsdp_group)
+    return torch.sqrt(sharded + sum(sq(g) for k, g in grads.items() if specs[k] is None))
+
+
 class Optimizer:
     """The chain as one object: `init(params)` and an in-place
     `update(grads, state, params)` that applies the step to `params`."""
@@ -78,10 +92,13 @@ class Optimizer:
         return OptState(adam_count=0, mu=zeros(), nu=zeros(), schedule_count=0)
 
     @torch.no_grad()
-    def update(self, grads: Params, state: OptState, params: Params) -> OptState:
+    def update(self, grads: Params, state: OptState, params: Params, norm: tp.Optional[Tensor] = None) -> OptState:
         """One step of the chain; `params` and the state's moments are
-        updated in place. Returns the new state."""
-        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
+        updated in place. Returns the new state. `norm` is the gradients'
+        global norm when they are shards (`global_norm`); by default it is
+        taken over `grads`."""
+        if norm is None:
+            norm = global_norm(grads)
         keep = norm < 1.0
         count = state.adam_count + 1
         bc1, bc2 = 1.0 - self.b1**count, 1.0 - self.b2**count

@@ -1,5 +1,6 @@
 """Training runtime: the train step and the host-side experiment loop
-(counterpart of midgpt_tpu/training/train.py, single device).
+(counterpart of midgpt_tpu/training/train.py), on one device or on a mesh
+of ranks (parallel/).
 
 Step semantics follow the JAX step (reference train.py:69-97):
   * f32 master parameters, cast to the compute dtype (bf16) once per step;
@@ -24,6 +25,35 @@ sticky loss, and force-saves the final step. Data and dropout are
 positional (`data_step_offset`, `_generators`), so a resumed run continues
 the straight run's trajectory.
 
+On a mesh (parallel/mesh.py; the data and fsdp axes, one rank per
+device) every rank runs this loop, as every JAX process runs its own:
+
+  * the master weights and Adam moments are this rank's FSDP shards
+    (parallel/fsdp.py: JAX's leaf rule), cut from a dense init from the
+    seed (`init_state`) or from the full arrays of a checkpoint;
+  * the step gathers the compute-dtype copy. Under fsdp_mode="gspmd" it
+    gathers every leaf once per step; under "shard_map" the ZeRO-3
+    schedule gathers per layer (parallel/shard_map_fsdp.py). Each rank
+    takes its rows of the global batch (parallel/data.py) and
+    backpropagates its mean loss over W ranks; in every microstep the
+    gather's backward reduce-scatters the gradients over the fsdp row
+    and `fsdp.reduce_grads` sums them over the data column, so each rank
+    holds its shard of the global batch's gradient, as JAX constrains it
+    (train.py:217,234). The global norm is all-reduced over the fsdp row
+    (training/optim.py `global_norm`); the optimizer updates the shards;
+  * the reported loss and the health flag are reduced over the ranks in
+    one all-reduce, so every rank reports the same loss and takes the
+    same rollback decision; eval sums each rank's rows in one all-reduce;
+  * the checkpoint is JAX's format, whole leaves gathered to the leader
+    (training/checkpoint.py); only the leader writes metrics, traces,
+    the flight recorder and the supervisor's ledger;
+  * dropout draws from generators seeded by rank as well as by step and
+    microstep, so the ranks' masks differ (parity with JAX in
+    distribution only).
+A mesh of one rank issues no collective: the trainer is then the
+single-device one, bit for bit. The sp, tp, pp and ep axes of the
+config's mesh are left unused (launch.py names them).
+
 The robustness hooks sit where JAX puts them (train.py:581-816), and
 `robustness/supervisor.py` runs `train` under its restart policy:
 
@@ -35,19 +65,26 @@ The robustness hooks sit where JAX puts them (train.py:581-816), and
   * both loss syncs (the log interval's and the check before a save) go
     through `_sync`, which the hung-step watchdog bounds when
     `watchdog_deadline_s > 0` (robustness/watchdog.py);
-  * the `nan_grad`, `preempt` and `hang_step` faults (robustness/faults.py)
-    strike at their data step;
+  * the `nan_grad`, `preempt`, `resume_reshard` and `hang_step` faults
+    (robustness/faults.py) strike at their data step. `nan_grad` poisons
+    the health carrier that goes INTO the step, so on a mesh the step's
+    reduction carries it to every rank (JAX poisons the carrier the step
+    returns: the reported loss is NaN at the same step either way);
+    `resume_reshard` ends the run like a preemption, and
+    robustness/chaos_train.py resumes it on another rank count;
   * a divergence records a `train.divergence` instant, then raises
     DivergenceError naming the newest verified step;
   * every `preempt_check_interval` steps a requested preemption (SIGTERM,
     SIGINT, the `preempt` fault) makes one emergency save at this step
     boundary — unless the `preempt_grace_s` budget is already spent, when
     the save is skipped loudly — then the loop ends: no final eval, no
-    final save, `metrics["preempted"] = True`.
+    final save, `metrics["preempted"] = True`. On a mesh the request is
+    any rank's (robustness/preempt.py), and so is a spent budget.
 """
 
 from __future__ import annotations
 
+import math
 import threading
 import time
 import typing as tp
@@ -61,56 +98,80 @@ from midgpt_tpu_torch.device import DeviceLike, resolve_device
 from midgpt_tpu_torch.models.gpt import GPT, Params, param_shapes
 from midgpt_tpu_torch.obs import dump_flight_recorder, flight_recorder
 from midgpt_tpu_torch.ops.loss import fused_linear_cross_entropy
+from midgpt_tpu_torch.parallel import dist as pdist
+from midgpt_tpu_torch.parallel import fsdp
+from midgpt_tpu_torch.parallel.data import node_batch_size, rank_rows
+from midgpt_tpu_torch.parallel.mesh import Mesh, run_mesh
 from midgpt_tpu_torch.robustness import faults, preempt
 from midgpt_tpu_torch.robustness.errors import DivergenceError
 from midgpt_tpu_torch.robustness.watchdog import StepWatchdog
 from midgpt_tpu_torch.training.checkpoint import CheckpointManager
 from midgpt_tpu_torch.training.metrics import MetricLogger, Profiler, mfu
-from midgpt_tpu_torch.training.optim import Optimizer, OptState, make_optimizer
+from midgpt_tpu_torch.training.optim import Optimizer, OptState, global_norm, make_optimizer
 
 Tensor = torch.Tensor
 
 
-def health_flag(grads: Params, loss: Tensor, prev_loss: Tensor) -> Tensor:
+def health_flag(grads: Params, loss: Tensor, prev_loss: Tensor, mesh: tp.Optional[Mesh] = None) -> Tensor:
     """Sticky post-update health, folded into the reported loss: `loss`
     when this step's gradient leaves and loss AND the previous reported
     loss are finite, else NaN. Leaf-wise finiteness (not the global norm,
     which overflows for large finite gradients that clipping handles);
     sticky because the caller threads the previous reported loss back in.
-    Stays on the device: no host sync."""
+    Stays on the device: no host sync. On a mesh of several ranks `loss`
+    is this rank's and the result is the ranks' mean, NaN on every rank
+    when any rank saw a non-finite shard, loss or carrier: one all-reduce."""
     grads_ok = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
-    healthy = grads_ok & torch.isfinite(loss) & torch.isfinite(prev_loss)
-    return torch.where(healthy, loss, torch.full_like(loss, float("nan")))
+    if mesh is None or mesh.size == 1:
+        healthy = grads_ok & torch.isfinite(loss) & torch.isfinite(prev_loss)
+        return torch.where(healthy, loss, torch.full_like(loss, float("nan")))
+    sick = ~(grads_ok & torch.isfinite(loss) & torch.isfinite(prev_loss))
+    both = mesh.all_reduce_(torch.stack([loss, sick.float()]), mesh.group)
+    mean = both[0] / mesh.size
+    return torch.where(both[1] == 0, mean, torch.full_like(mean, float("nan")))
 
 
-def _generators(config: ExperimentConfig, data_step: int, n: int, device) -> tp.List[tp.Optional[torch.Generator]]:
+def _generators(
+    config: ExperimentConfig, data_step: int, n: int, device, rank: int = 0
+) -> tp.List[tp.Optional[torch.Generator]]:
     """One dropout generator per microstep, a function of (seed, data step,
-    microstep) so a replayed step draws the same masks; none without
-    dropout."""
+    microstep, mesh rank) so a replayed step draws the same masks and the
+    ranks draw different ones; none without dropout."""
     if config.model_config.dropout == 0.0:
         return [None] * n
-    seed = (config.seed * 1_000_003 + data_step) * 64
+    seed = (config.seed * 1_000_003 + data_step) * 64 + (rank << 40)
     return [torch.Generator(device=device).manual_seed(seed + g) for g in range(n)]
 
 
 def make_train_step(
-    config: ExperimentConfig, optimizer: Optimizer
+    config: ExperimentConfig,
+    optimizer: Optimizer,
+    mesh: tp.Optional[Mesh] = None,
+    specs: tp.Optional[tp.Mapping[str, fsdp.Spec]] = None,
 ) -> tp.Tuple[tp.Callable, tp.Callable]:
     """(step, eval_loss_many).
 
     step(params, opt_state, x_GBT, y_GBT, generators=None, prev_loss=0.0)
     -> (params, opt_state, loss): one optimizer step over G microbatches of
-    int token tensors on the params' device; params are updated in place."""
+    int token tensors on the params' device; params are updated in place.
+    On a `mesh`, params and opt_state are this rank's shards under `specs`
+    (`state_specs`), the tokens are this rank's rows, and the loss is the
+    global batch's (module docstring)."""
     model_cfg = config.model_config
     compute_dtype = getattr(torch, config.compute_dtype)
     G = config.g_accum_iters
+    W = mesh.size if mesh is not None else 1
+    specs = specs or {}
+    sharded = W > 1 and mesh.fsdp > 1
 
     # the router's load-balance term (JAX's gate): CE + moe_aux_coef * aux;
     # at a coefficient of 0 the term is never computed and the loss is CE
     use_moe_aux = config.moe_aux_coef != 0.0 and model_cfg.n_experts > 0
+    aux_reduce = mesh.psum if use_moe_aux and W > 1 else None
 
     def loss_fn(params_c: Params, x: Tensor, y: Tensor, generator) -> Tensor:
-        h = GPT.hidden(model_cfg, params_c, x, generator=generator, inference=False, return_moe_aux=use_moe_aux)
+        h = GPT.hidden(model_cfg, params_c, x, generator=generator, inference=False, return_moe_aux=use_moe_aux,
+                       aux_reduce=aux_reduce)
         if use_moe_aux:
             h, aux = h
         ce = fused_linear_cross_entropy(
@@ -118,9 +179,20 @@ def make_train_step(
         )
         return ce + config.moe_aux_coef * aux if use_moe_aux else ce
 
-    def value_and_grad(params_c: Params, x, y, generator) -> tp.Tuple[Tensor, tp.List[Tensor]]:
-        loss = loss_fn(params_c, x, y, generator)
-        return loss.detach(), torch.autograd.grad(loss, list(params_c.values()))
+    if config.fsdp_mode == "shard_map" and W > 1:
+        from midgpt_tpu_torch.parallel.shard_map_fsdp import make_shard_map_loss
+
+        loss_fn = make_shard_map_loss(config, mesh, specs)  # noqa: F811 (takes the shards)
+
+    def value_and_grad(inputs: Params, leaves: Params, x, y, generator) -> tp.Tuple[Tensor, tp.List[Tensor]]:
+        """This rank's loss on `inputs` (the gathered copy, or the shards
+        under shard_map) and the gradient of the global mean with respect
+        to `leaves` (the shards), summed over the mesh."""
+        loss = loss_fn(inputs, x, y, generator)
+        grads = torch.autograd.grad(loss / W if W > 1 else loss, list(leaves.values()))
+        if W > 1:
+            fsdp.reduce_grads(dict(zip(leaves, grads)), specs, mesh)
+        return loss.detach(), grads
 
     def step(params: Params, opt_state: OptState, x_GBT: Tensor, y_GBT: Tensor,
              generators=None, prev_loss=0.0):
@@ -129,26 +201,30 @@ def make_train_step(
         # the compute-dtype copy: a new leaf (an alias of the master when
         # the compute dtype is the master's own)
         params_c = {k: v.detach().to(compute_dtype).requires_grad_() for k, v in params.items()}
+        # GSPMD mode: every leaf gathered once per step, differentiably
+        inputs = params_c
+        if sharded and config.fsdp_mode != "shard_map":
+            inputs = {k: fsdp.gather(v, specs[k], mesh) for k, v in params_c.items()}
         if G == 1:
-            loss, grads = value_and_grad(params_c, x_GBT[0], y_GBT[0], generators[0])
+            loss, grads = value_and_grad(inputs, params_c, x_GBT[0], y_GBT[0], generators[0])
             grad = {k: g.to(params[k].dtype) for k, g in zip(names, grads)}
         else:
             inv_G = 1.0 / G
             grad = {k: torch.zeros_like(v) for k, v in params.items()}
             losses = []
             for g in range(G):
-                loss_g, grads = value_and_grad(params_c, x_GBT[g], y_GBT[g], generators[g])
+                loss_g, grads = value_and_grad(inputs, params_c, x_GBT[g], y_GBT[g], generators[g])
                 for k, gr in zip(names, grads):
                     grad[k].add_(gr.to(grad[k].dtype) * inv_G)
                 losses.append(loss_g)
             loss = torch.stack(losses).mean()
-        opt_state = optimizer.update(grad, opt_state, params)
+        norm = global_norm(grad, specs, mesh) if W > 1 else None
+        opt_state = optimizer.update(grad, opt_state, params, norm=norm)
         prev = torch.as_tensor(prev_loss, dtype=torch.float32, device=loss.device)
-        return params, opt_state, health_flag(grad, loss, prev)
+        return params, opt_state, health_flag(grad, loss, prev, mesh)
 
     @torch.no_grad()
-    def eval_loss(params: Params, x: Tensor, y: Tensor) -> Tensor:
-        params_c = {k: v.to(compute_dtype) for k, v in params.items()}
+    def eval_loss(params_c: Params, x: Tensor, y: Tensor) -> Tensor:
         h = GPT.hidden(model_cfg, params_c, x, inference=True)
         return fused_linear_cross_entropy(
             h, params_c["lm_head"], y, config.loss_chunk_tokens, config.loss_remat_chunks
@@ -157,24 +233,41 @@ def make_train_step(
     @torch.no_grad()
     def eval_loss_many(params: Params, x_NBT: Tensor, y_NBT: Tensor) -> Tensor:
         """SUMMED loss over a stacked (N, B, T) eval set (one division at the
-        end of `evaluate`, as in JAX)."""
+        end of `evaluate`, as in JAX); on a mesh, of the global rows: the
+        leaves gathered once, each rank's rows, one all-reduce."""
+        params_c = {k: v.to(compute_dtype) for k, v in params.items()}
+        if sharded:
+            params_c = fsdp.gather_tree(params_c, specs, mesh)
         total = torch.zeros((), dtype=torch.float32, device=x_NBT.device)
         for x, y in zip(x_NBT, y_NBT):
-            total = total + eval_loss(params, x, y)
+            total = total + eval_loss(params_c, x, y)
+        if W > 1:
+            total = mesh.all_reduce_(total, mesh.group) / W
         return total
 
     return step, eval_loss_many
 
 
+def state_specs(config: ExperimentConfig, mesh: tp.Optional[Mesh]) -> tp.Dict[str, fsdp.Spec]:
+    """Each leaf's sharded axis on `mesh` (None: replicated), JAX's rule at
+    the config's shard_model and fsdp_min_size."""
+    n = mesh.fsdp if mesh is not None else 1
+    return fsdp.param_specs(param_shapes(config.model_config), n, config.shard_model, config.fsdp_min_size)
+
+
 def init_state(
-    config: ExperimentConfig, device: DeviceLike = None
+    config: ExperimentConfig, device: DeviceLike = None, mesh: tp.Optional[Mesh] = None
 ) -> tp.Tuple[Params, OptState, Optimizer]:
     """Master parameters (GPT.init from config.seed, in param_dtype) and the
-    optimizer's zero state. Returns (params, opt_state, optimizer)."""
+    optimizer's zero state, on a `mesh` this rank's shards of them (the
+    dense init is transient: every rank draws the same weights from the
+    seed and keeps its slice). Returns (params, opt_state, optimizer)."""
     dev = resolve_device(device)
     optimizer, _ = make_optimizer(config)
     params = GPT.init(config.model_config, config.seed, device=dev,
                       dtype=getattr(torch, config.param_dtype))
+    if mesh is not None:
+        params = fsdp.shard_tree(params, state_specs(config, mesh), mesh)
     return params, optimizer.init(params), optimizer
 
 
@@ -189,10 +282,12 @@ def evaluate(
     dataset: TokenDataset,
     split: str,
     step_idx: int,
+    mesh: tp.Optional[Mesh] = None,
 ) -> float:
     """Mean eval loss over `eval_steps` batches (1 under debug), drawn in
     chunks of `eval_host_chunk` batches from the same windows a monolithic
-    draw would give; one host sync at the end."""
+    draw would give; one host sync at the end. On a mesh each rank draws
+    its node's batch and evaluates its rows."""
     device = next(iter(params.values())).device
     n = 1 if config.debug else config.eval_steps
     chunk = max(1, min(n, config.eval_host_chunk))
@@ -203,10 +298,12 @@ def evaluate(
             split,
             1_000_000_000 + step_idx,  # decorrelated from train batches
             config.model_config.block_size,
-            config.batch_size,
+            config.batch_size if mesh is None else node_batch_size(config.batch_size, mesh),
             g_accum_iters=n,
             accum_slice=(lo, m),
         )
+        if mesh is not None:
+            x, y = rank_rows(x, mesh), rank_rows(y, mesh)
         part = eval_loss_many(params, _tokens(x, device), _tokens(y, device))
         total = part if total is None else total + part
     return float(total) / n
@@ -221,21 +318,32 @@ def state_template(config: ExperimentConfig) -> tp.Dict[str, tp.Any]:
     return {"params": like, "opt_state": OptState(0, like, like, 0)}
 
 
-def _all_finite(params: Params, opt_state: OptState) -> bool:
-    """One device-side finiteness sweep of params and moments, one sync."""
+def _all_finite(params: Params, opt_state: OptState, mesh: tp.Optional[Mesh] = None) -> bool:
+    """One device-side finiteness sweep of params and moments, one sync
+    (every rank's shards, on a mesh)."""
     leaves = [*params.values(), *opt_state.mu.values(), *opt_state.nu.values()]
-    return bool(torch.stack([torch.isfinite(t).all() for t in leaves]).all())
+    ok = bool(torch.stack([torch.isfinite(t).all() for t in leaves]).all())
+    return ok if mesh is None else not mesh.any(not ok)
 
 
-def train(config: ExperimentConfig, *, device: DeviceLike = None) -> dict:
-    """Run the experiment on one device (CUDA unless told otherwise);
-    returns {"params", "opt_state", "metrics", "resumed_from", "restore_s",
-    "checkpoints"} (the resume step or None, the restore's seconds, one
-    record per save: CheckpointManager.history)."""
+def train(config: ExperimentConfig, *, device: DeviceLike = None, mesh: tp.Optional[Mesh] = None) -> dict:
+    """Run the experiment on one device (CUDA unless told otherwise) or, on
+    a `mesh` (default: every rank of the process group, if there is one),
+    as one of its ranks; returns {"params", "opt_state", "metrics",
+    "resumed_from", "restore_s", "checkpoints"} (this rank's shards; the
+    resume step or None, the restore's seconds, one record per save:
+    CheckpointManager.history)."""
     dev = resolve_device(device)
-    dataset = TokenDataset(config.data_dir, seed=config.data_seed)
+    if mesh is None:
+        mesh = run_mesh(config, dev)
+    lead = mesh.is_leader
+    specs = state_specs(config, mesh)
+    # each node its slice of the stream, as JAX's trainer gives each process
+    dataset = TokenDataset(config.data_dir, seed=config.data_seed, shard_by_process=pdist.n_nodes() > 1)
     optimizer, schedule = make_optimizer(config)
-    step, eval_loss_many = make_train_step(config, optimizer)
+    step, eval_loss_many = make_train_step(config, optimizer, mesh, specs)
+    node_bs = node_batch_size(config.batch_size, mesh)
+    say = print if lead else (lambda *a, **k: None)
 
     mngr = None
     first_step, resume_step, restore_s = 0, None, None
@@ -247,36 +355,41 @@ def train(config: ExperimentConfig, *, device: DeviceLike = None) -> dict:
             save_interval_steps=config.eval_interval,
             write_retries=config.ckpt_write_retries,
             retry_backoff_sec=config.ckpt_retry_backoff_sec,
+            mesh=mesh,
+            specs=specs,
         )
         resume_step = mngr.latest_verified_step()
         if resume_step is not None:
             t0 = time.perf_counter()
-            state = mngr.restore(resume_step, state_template(config), device=dev)
+            state = mngr.restore(resume_step, state_template(config), device=dev,
+                                 select=lambda k, t: fsdp.shard(t, specs[k], mesh))
             params, opt_state = state["params"], state["opt_state"]
             restore_s = time.perf_counter() - t0
             # The manifest guards the bytes; this guards the VALUES (a state
             # saved non-finite by other code): once, at resume.
-            if not _all_finite(params, opt_state):
+            if not _all_finite(params, opt_state, mesh):
                 raise FloatingPointError(
                     f"checkpoint step {resume_step} in {config.rundir} restored non-finite "
                     "values — it is corrupt; do not resume from it."
                 )
             first_step = resume_step + 1
-            print(f"resumed from checkpoint step {resume_step} in {config.rundir} "
-                  f"(restored in {restore_s:.2f} s); training from step {first_step}")
+            say(f"resumed from checkpoint step {resume_step} in {config.rundir} "
+                f"(restored in {restore_s:.2f} s); training from step {first_step}")
     if params is None:
-        params, opt_state, _ = init_state(config, dev)
-    print(f"Model has {GPT.count_params(params):,} parameters.")
+        params, opt_state, _ = init_state(config, dev, mesh)
+    n_params = sum(math.prod(s) for s in param_shapes(config.model_config).values())
+    say(f"Model has {n_params - config.model_config.vocab_size * config.model_config.n_embd:,} parameters.")
 
-    logger = MetricLogger("" if config.debug else config.rundir)
-    profiler = Profiler(config.rundir, enabled=config.debug)
+    logger = MetricLogger("" if config.debug else config.rundir, enabled=lead)
+    profiler = Profiler(config.rundir, enabled=config.debug and lead)
     T, G = config.model_config.block_size, config.g_accum_iters
     metrics: tp.Dict[str, tp.Any] = {}
     loss = torch.zeros((), dtype=torch.float32, device=dev)  # sticky health carrier
     t_last, tokens_since = time.time(), 0
     tr = flight_recorder().tracer
     wd = (
-        StepWatchdog(config.watchdog_deadline_s, escalate=config.watchdog_escalate, rundir=config.rundir)
+        StepWatchdog(config.watchdog_deadline_s, escalate=config.watchdog_escalate,
+                     rundir=config.rundir if lead else "")
         if config.watchdog_deadline_s > 0
         else None
     )
@@ -284,7 +397,8 @@ def train(config: ExperimentConfig, *, device: DeviceLike = None) -> dict:
     def _sync(t: Tensor, itr: int, data_itr: int) -> float:
         """The loop's host<->device force, watchdog-bounded when armed. The
         `hang_step` fault wedges the force itself (an event nothing sets),
-        so only the watchdog's worker-thread inversion ends the wait."""
+        so only the watchdog's worker-thread inversion ends the wait. The
+        force issues no collective: the loss is already the ranks'."""
         hang = faults.should_fire("hang_step", step=data_itr)
 
         def force() -> float:
@@ -301,29 +415,36 @@ def train(config: ExperimentConfig, *, device: DeviceLike = None) -> dict:
         tr.instant("train.divergence", "train", "train", args={"step": itr, "last_good": last_good})
         return last_good
 
+    def _draw(split: str, data_itr: int):
+        x, y = dataset.batch(split, data_itr, T, node_bs, G)
+        return _tokens(rank_rows(x, mesh), dev), _tokens(rank_rows(y, mesh), dev)
+
     saved_at = None  # the step of the newest save this run started
     try:
         for itr in range(first_step, config.max_steps):
             if itr % config.eval_interval == 0:
                 with tr.span("train.eval", "train", "train"):
-                    metrics["loss/train"] = evaluate(config, eval_loss_many, params, dataset, "train", itr)
-                    metrics["loss/val"] = evaluate(config, eval_loss_many, params, dataset, "val", itr)
+                    metrics["loss/train"] = evaluate(config, eval_loss_many, params, dataset, "train", itr, mesh)
+                    metrics["loss/val"] = evaluate(config, eval_loss_many, params, dataset, "val", itr, mesh)
                 logger.log(itr, {k: metrics[k] for k in ("loss/train", "loss/val")})
                 t_last, tokens_since = time.time(), 0  # eval pauses don't count
 
             data_itr = itr + config.data_step_offset
-            x, y = dataset.batch("train", data_itr, T, config.batch_size, G)
-            profiler.maybe_start(itr, at_step=first_step + 1)
-            with tr.span("train.step", "train", "train"):
-                params, opt_state, loss = step(
-                    params, opt_state, _tokens(x, dev), _tokens(y, dev),
-                    _generators(config, data_itr, G, dev), loss,
-                )
-            profiler.maybe_stop(wait_for=loss)
+            x, y = _draw("train", data_itr)
             if faults.should_fire("nan_grad", step=data_itr):
                 # poison the carrier as a NaN gradient would; no sync
                 loss = torch.full((), float("nan"), dtype=torch.float32, device=dev)
+            profiler.maybe_start(itr, at_step=first_step + 1)
+            with tr.span("train.step", "train", "train"):
+                params, opt_state, loss = step(
+                    params, opt_state, x, y, _generators(config, data_itr, G, dev, mesh.index), loss,
+                )
+            profiler.maybe_stop(wait_for=loss)
             if faults.should_fire("preempt", step=data_itr):
+                preempt.request()
+            if faults.should_fire("resume_reshard", step=data_itr):
+                # ends the run like a preemption; chaos_train
+                # (robustness/chaos_train.py) resumes it on another rank count
                 preempt.request()
             tokens_since += config.batch_size * G * T
             if itr % config.log_interval == 0:
@@ -348,7 +469,7 @@ def train(config: ExperimentConfig, *, device: DeviceLike = None) -> dict:
                     "lr": schedule(itr),
                     "throughput/tokens_per_sec": tok_s,
                 })
-                m = mfu(tok_s, config.model_config, dev)
+                m = mfu(tok_s, config.model_config, dev, n_devices=mesh.size)
                 if m is not None:
                     metrics["throughput/mfu"] = m
                 logger.log(itr, dict(metrics))
@@ -367,39 +488,42 @@ def train(config: ExperimentConfig, *, device: DeviceLike = None) -> dict:
                     )
                 mngr.save(itr, {"params": params, "opt_state": opt_state})
                 saved_at = itr
-            if itr % config.preempt_check_interval == 0 and preempt.any_host_requested():
+            if itr % config.preempt_check_interval == 0 and preempt.any_host_requested(mesh):
                 grace = config.preempt_grace_s
                 req_at = preempt.requested_at()
-                save_late = bool(grace > 0 and req_at is not None and time.monotonic() - req_at > grace)
+                # every rank skips, or none does: the save is collective
+                save_late = mesh.any(bool(grace > 0 and req_at is not None and time.monotonic() - req_at > grace))
                 if save_late:
                     # The grace budget was spent before the save could START:
                     # a multi-second write now risks a kill mid-write. Skip
                     # it loudly; resume falls back to the newest verified step.
                     tr.instant("train.preempt_save_skipped", "train", "train",
                                args={"step": itr, "grace_s": grace})
-                    if config.rundir:
+                    if config.rundir and lead:
                         from midgpt_tpu_torch.robustness import supervisor
 
                         supervisor.append_note(
                             config.rundir, {"event": "preempt_save_skipped", "step": itr, "grace_s": grace}
                         )
-                    print(f"preemption: grace budget ({grace:g}s) already spent at step {itr} — skipping "
-                          "the emergency save; resume falls back to the last verified checkpoint")
+                    say(f"preemption: grace budget ({grace:g}s) already spent at step {itr} — skipping "
+                        "the emergency save; resume falls back to the last verified checkpoint")
                 elif mngr is not None and saved_at != itr and np.isfinite(_sync(loss, itr, data_itr)):
                     mngr.save(itr, {"params": params, "opt_state": opt_state}, force=True)
                 if mngr is not None and not save_late:
                     mngr.wait()  # barrier + manifest: verified before the process exits
                 metrics["preempted"] = True
                 tr.instant("train.preempt", "train", "train", args={"step": itr})
-                if config.rundir:
+                if config.rundir and lead:
                     dump_flight_recorder(config.rundir)
                 if not save_late:
-                    print(f"preemption: emergency checkpoint at step {itr} in "
-                          f"{config.rundir or '(no rundir)'}; exiting")
+                    say(f"preemption: emergency checkpoint at step {itr} in "
+                        f"{config.rundir or '(no rundir)'}; exiting")
                 break
 
         if not metrics.get("preempted"):
-            metrics["loss/final"] = evaluate(config, eval_loss_many, params, dataset, "val", config.max_steps)
+            metrics["loss/final"] = evaluate(
+                config, eval_loss_many, params, dataset, "val", config.max_steps, mesh
+            )
             logger.log(config.max_steps, {"loss/val_final": metrics["loss/final"]})
             if mngr is not None and first_step < config.max_steps:
                 # Force-persist the final state unless the loop's save did, and

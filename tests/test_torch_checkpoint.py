@@ -471,9 +471,9 @@ def test_divergence_names_the_last_good_checkpoint(data_dir, tmp_path, monkeypat
 
     calls, real = [], train_mod.health_flag
 
-    def poisoned(grads, loss, prev_loss):
+    def poisoned(grads, loss, prev_loss, mesh=None):
         calls.append(None)
-        out = real(grads, loss, prev_loss)
+        out = real(grads, loss, prev_loss, mesh)
         return out * float("nan") if len(calls) > 5 else out
 
     monkeypatch.setattr(train_mod, "health_flag", poisoned)

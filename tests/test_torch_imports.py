@@ -48,7 +48,7 @@ for m in mods:
     __import__(m)
 import chip_smoke
 assert not any(k.split(".")[0] in ("jax", "midgpt_tpu") for k in sys.modules)
-print(len(mods))
+print(" ".join(mods))
 """
 
 
@@ -62,7 +62,10 @@ def _run(args, cwd=ROOT, timeout=120):
 def test_port_imports_with_jax_blocked():
     r = _run(["-c", _BLOCKER])
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 29  # every module of the port was imported, the fleet's worker modules too
+    mods = set(r.stdout.split())
+    assert len(mods) >= 36  # every module of the port was imported, the fleet's worker modules too
+    assert {f"midgpt_tpu_torch.parallel.{m}" for m in ("dist", "mesh", "fsdp", "data", "shard_map_fsdp")} <= mods
+    assert "midgpt_tpu_torch.robustness.chaos_train" in mods
 
 
 _WORKER_BLOCKED = """

@@ -1289,3 +1289,56 @@ def test_moe_mlp_reads_the_expert_banks_in_place(cuda, tokens):
     sizes = [(name, shape, math.prod(shape)) for name, shape in copies]
     print(f"copies in the routed MLP at {tokens} tokens: {sizes}")
     assert not [c for c in sizes if c[2] == bank and tokens not in c[1]], sizes  # a bank has no token axis
+
+
+_ONE_RANK = """
+import sys
+from midgpt_tpu_torch import launch
+launch.main(sys.argv[1:])
+"""
+
+
+@pytest.mark.cuda
+def test_one_nccl_rank_trains_as_the_single_device_trainer(cuda, tmp_path, monkeypatch):
+    """`launch --multihost` as the one rank of an NCCL group (a single-GPU
+    node's path) gives the single-device launcher's losses and checkpoint
+    bytes; more ranks on a node than cards is refused for NCCL, naming
+    gloo."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from midgpt_tpu_torch import launch
+    from midgpt_tpu_torch.parallel import dist
+
+    r = np.random.default_rng(0)
+    stream = np.where(r.random(20000) < 0.1, r.integers(0, 64, 20000), np.arange(20000) % 17).astype(np.uint16)
+    stream.tofile(tmp_path / "train.bin")
+    stream[:4000].tofile(tmp_path / "val.bin")
+    sets = {"data_dir": tmp_path, "max_steps": 3, "eval_interval": 2, "eval_steps": 1, "batch_size": 4,
+            "g_accum_iters": 2, "log_interval": 1, "spec_layers": 0, "warmup_steps": 1, "lr_decay_steps": 3,
+            "model_config.block_size": 64, "model_config.n_layer": 2, "model_config.n_embd": 128,
+            "model_config.n_head": 2, "model_config.vocab_size": 64, "model_config.attn_block_size": 64}
+    args = ["--config=local_text_124m", *[a for k, v in sets.items() for a in ("--set", f"{k}={v}")]]
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+               MIDGPT_DIST_FILE=str(tmp_path / "store"))
+    p = subprocess.run([sys.executable, "-c", _ONE_RANK, "--multihost", f"--rundir={tmp_path / 'rank'}", *args],
+                       env=env, capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, p.stderr[-3000:]
+    assert "over 1 rank(s), backend nccl" in p.stdout
+    launch.main([f"--rundir={tmp_path / 'single'}", *args])
+
+    def losses(d):
+        recs = [json.loads(line) for line in (tmp_path / d / "metrics.jsonl").read_text().splitlines()]
+        return [{k: v for k, v in rec.items() if k.startswith("loss")} for rec in recs]
+
+    assert losses("rank") == losses("single")
+    for name in ("params.npz", "opt_state.npz"):
+        assert (tmp_path / "rank" / "2" / name).read_bytes() == (tmp_path / "single" / "2" / name).read_bytes()
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", str(torch.cuda.device_count() + 1))
+    with pytest.raises(ValueError, match="NCCL takes one card per rank.*gloo"):
+        dist.init()
+    assert not dist.initialized()

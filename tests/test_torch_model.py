@@ -238,14 +238,15 @@ def test_every_jax_preset_has_a_port_preset():
 
 @pytest.mark.parametrize("name", PRESETS)
 def test_launcher_names_a_mesh_it_leaves_unused(name):
-    """The presets whose mesh spans several devices (an axis above 1) get
-    the launcher's one line; the single-device ones none."""
+    """The presets whose mesh sets an axis the port does not train on (sp,
+    tp, pp, ep above 1: llama7b_32k's sp) get the launcher's one line; the
+    data and fsdp axes clamp to the ranks there are, silently, as in JAX."""
     from midgpt_tpu_torch.config import load_config
     from midgpt_tpu_torch.launch import unused_mesh
 
     note = unused_mesh(load_config(name))
-    if name in ("openwebtext_xl", "openwebtext_mh", "llama7b_long", "llama7b_32k"):
-        assert "fsdp=" in note and "Queue 1 item 7" in note
+    if name == "llama7b_32k":
+        assert "sp=8" in note and "fsdp=" not in note and "Queue 1 item 7" in note
     else:
         assert note is None
 

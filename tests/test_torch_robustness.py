@@ -37,6 +37,7 @@ from midgpt_tpu_torch import launch
 from midgpt_tpu_torch.config import ExperimentConfig, MeshConfig
 from midgpt_tpu_torch.convert import params_from_numpy
 from midgpt_tpu_torch.models.gpt import GPTConfig
+from midgpt_tpu_torch.parallel.mesh import AXES as MESH_AXES
 from midgpt_tpu_torch.robustness import faults, preempt
 from midgpt_tpu_torch.robustness import supervisor as sup_mod
 from midgpt_tpu_torch.robustness import watchdog as wd_mod
@@ -146,7 +147,7 @@ def jax_init(jax_runs, monkeypatch):
     flat = jax_runs[1]
     real = train_mod.init_state
 
-    def init_state(config, device=None):
+    def init_state(config, device=None, mesh=None):
         params, _, optimizer = real(config, device)
         params = params_from_numpy(flat, device=CPU)
         return params, optimizer.init(params), optimizer
@@ -177,7 +178,7 @@ def test_supervisor_rollback_matches_jax(data_dir, jax_runs, jax_init, tmp_path)
     ledger, j_ledger = _ledger(tmp_path), _ledger(j_dir)
     for key in ("data_step_offset", "windows_skipped", "restarts", "hung_steps"):
         assert ledger[key] == j_ledger[key], key
-    assert ledger["mesh"] == {"n_devices": 1, "axes": {"data": 1}}
+    assert ledger["mesh"] == j_ledger["mesh"] == {"n_devices": 1, "axes": dict.fromkeys(MESH_AXES, 1)}
     got, want = _logged(tmp_path), _logged(j_dir)
     assert sorted(got) == sorted(want) == list(range(12))
     np.testing.assert_allclose([got[s] for s in range(12)], [want[s] for s in range(12)], rtol=1e-5)
@@ -231,11 +232,16 @@ def test_divergence_error_carries_structure(data_dir, tmp_path):
 
 
 def test_on_resume_mesh_refuses_another_device_count(data_dir, tmp_path):
-    sup_mod._save_state(str(tmp_path), {"mesh": {"n_devices": 4, "axes": {"data": 1, "fsdp": 4}}})
+    """A ledger from 4 devices: "same" refuses the 1-rank resume, "any"
+    trains on it and records both meshes (tests/test_torch_parallel.py
+    resumes across rank counts)."""
+    four = {"n_devices": 4, "axes": {"data": 1, "fsdp": 4}}
+    sup_mod._save_state(str(tmp_path), {"mesh": four, "mesh_history": [four]})
     with pytest.raises(RuntimeError, match="on_resume_mesh='same' refuses"):
         supervise(_config(data_dir, rundir=str(tmp_path)), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        supervise(_config(data_dir, rundir=str(tmp_path), on_resume_mesh="any"), device=CPU)
+    result = supervise(_config(data_dir, rundir=str(tmp_path), on_resume_mesh="any"), device=CPU)
+    assert [m["n_devices"] for m in result["supervisor"]["mesh_history"]] == [4, 1]
+    assert _ledger(tmp_path)["mesh"]["n_devices"] == 1
 
 
 def test_corrupt_ledger_quarantined(tmp_path, capsys):
@@ -305,7 +311,8 @@ def test_sigterm_handler_sets_flag_one_shot():
 def test_launch_supervises_and_restores_the_handlers(data_dir, tmp_path, monkeypatch):
     """The launcher runs under the supervisor (the fault plan takes effect)
     with the handlers installed, and restores the caller's on return; a
-    plan naming an unhooked kind is refused before training."""
+    resume_reshard plan ends the run like a preemption at its step (the
+    chaos tool resumes it on another rank count)."""
     original = signal.getsignal(signal.SIGINT)
     seen, real = [], sup_mod.supervise
 
@@ -324,8 +331,12 @@ def test_launch_supervises_and_restores_the_handlers(data_dir, tmp_path, monkeyp
     assert result["supervisor"]["restarts"] == 1 and result["supervisor"]["faults_fired"] == {"nan_grad": 1}
     assert signal.getsignal(signal.SIGINT) is original
     sets["fault_plan"] = "resume_reshard@2"
-    with pytest.raises(NotImplementedError, match="resume_reshard"):
-        launch.main(args + [a for k, v in sets.items() for a in ("--set", f"{k}={v}")])
+    args[-1] = f"--rundir={tmp_path / 'reshard'}"
+    faults.clear()
+    result = launch.main(args + [a for k, v in sets.items() for a in ("--set", f"{k}={v}")])
+    assert result["metrics"].get("preempted") is True
+    assert result["supervisor"]["faults_fired"] == {"resume_reshard": 1}
+    assert CheckpointManager(str(tmp_path / "reshard")).latest_verified_step() == 2
     assert signal.getsignal(signal.SIGINT) is original
 
 
@@ -475,14 +486,12 @@ def test_registry_matches_jax_and_fires_as_jax_does():
         faults.activate("no_such_kind")
 
 
-@pytest.mark.parametrize("kind", sorted(faults.UNHOOKED))
-def test_unhooked_kind_raises_on_activation(kind):
-    with pytest.raises(NotImplementedError, match=rf"{kind}.*ROADMAP.md"):
-        faults.activate(kind)
-    with pytest.raises(NotImplementedError):
-        faults.activate_plan(f"nan_grad@3,{kind}@2")
-    assert faults.active() == []  # nothing of the plan was activated
-    assert kind not in faults.HOOKED and set(faults.HOOKED) | set(faults.UNHOOKED) == set(faults.KINDS)
+def test_every_kind_is_hooked():
+    """Since the data and fsdp axes, every kind has its hook: none is
+    refused at activation, and the plan of every kind activates whole."""
+    assert faults.UNHOOKED == {} and faults.HOOKED == faults.KINDS
+    armed = faults.activate_plan(",".join(f"{k}@3" for k in faults.KINDS))
+    assert [f.kind for f in armed] == list(faults.KINDS) == [f.kind for f in faults.active()]
 
 
 @pytest.fixture
