@@ -189,7 +189,7 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
         own remat policy ('dots') against remat off: peak memory, tokens/s,
         equal losses;
      d. `llama7b_long` served in bf16 at full width, its depth cut to
-        LLAMA_LAYERS (8 of 32, the script's time), through
+        LLAMA_LAYERS (4 of 32, the script's time), through
         `sample.main --config=llama7b_long --start_ids=...`: 4 greedy
         requests of one prompt (identical streams, each its budget), the
         weights' and the paged pool's bytes, init seconds, peak memory,
@@ -339,6 +339,31 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      uninterrupted 2-rank run's at its f32 PARITY_RTOL and the final states
      at STATE_TOL. The ranks' flash launches (a and b) join the kernels
      line's flash entries by head dim;
+ 18. (started before phase 17 and run beside it) tensor-parallel serving
+     (parallel/serve_tp.py, ServeEngine(mesh=)): 4 ranks started by `python
+     -m torch.distributed.run --standalone`, each this script with
+     `--rank18`, sharing the card over gloo on CUDA tensors (NCCL refuses
+     two ranks of one communicator on one card; each all-reduce stages
+     through the host, so no time here is a speed of tensor parallelism).
+     a. openwebtext at full width and depth (12 heads, 6 a rank), tp 2 on
+     ranks 0-1, f32 on phase 4's trace: both ranks' streams == phase 5's
+     single-device f32 streams but at a near-tie under GAP_TOL; the paged
+     kernel == the gather on each rank's shard (its pool's 6 heads, split
+     1 and 2); each rank's prefill logits against the whole weights at
+     TP_LOGIT_RTOL; paged (and merge) launches per rank == n_layer x
+     decode steps. b. (ranks 2-3, beside a) the bf16 pool (== phase 4b's
+     bf16 off streams but at a near-tie under GAP_TOL_BF16_RECHUNK), a
+     bf16 self-draft round (== the tp plain streams the same way; verify
+     launches n_layer per round, draft launches 4 per draft step), the
+     int8 pool (== a single-device int8 engine's the same way). c. DisaggServe on a (data 2, tp 2) mesh over
+     the 4 ranks, f32: == phase 5's streams but at a near-tie, pages
+     crossed from each prefill shard to its decode shard, no re-prefill,
+     the decode row's launches == n_layer x its decode steps, the prefill
+     row's none. d. `loadgen --tp 2 --backend gloo` at one low rate
+     (TP_LOADGEN_ARGS: 2 layers of full width): the serve_slo line carries
+     mesh {"data": 1, "tp": 2}, every request completes. Each rank's peak
+     memory and per-shard pool bytes are printed; b's and d's launches
+     join the kernels line's bf16 paged entries;
  10. timings: the paged decode kernel as before (CUDA-graph replay, cold
      L2), and each flash kernel in bf16 (CUDA events over repeated
      launches) at the main path's shape and at one shape per other
@@ -372,7 +397,8 @@ them, one JSON object with a "kernels" list (flash_fwd's launches include
 phase 12's; the paged decode, int8 and merge entries include phases 13's
 and 14's, and phase 15's launches made in its bf16 workers; the C 64
 flash, paged decode and merge entries include phase 16's; the flash
-entries include phase 17's ranks'), phase 4b's "decode_modes" (tokens/s and busy share per
+entries include phase 17's ranks'; the bf16 paged decode, verify, int8
+decode and merge entries include phase 18's ranks'), phase 4b's "decode_modes" (tokens/s and busy share per
 overlap mode) and phase 12's "batch_decode" (replayed and eager tokens/s
 and the replayed chunk's busy share per cell), and the contract line
 {"ok": true, "device": {...}}.
@@ -472,9 +498,10 @@ REMAT_POLICIES = (None, "none", "dots", "dots_attn", "flash")  # None: remat off
 XL_BATCH = 8  # openwebtext_xl's microbatch (preset 1024) that fits with remat off and on
 LLAMA_PROMPT = 64  # llama7b_long's prompt length; 4 requests of 32 new tokens
 # phase 11d: llama7b_long's depth, cut from 32 layers to keep the script
-# near its time budget once phase 15 was added (PERF.md, phase 11d); the width,
-# heads, vocab and context are the preset's
-LLAMA_LAYERS = 8
+# near its time budget once phase 15 was added (PERF.md, phase 11d), to 8,
+# and to 4 once phase 18 was (PERF.md, section 4); the width, heads, vocab
+# and context are the preset's
+LLAMA_LAYERS = 4
 # phase 3d: (slots, query heads, K/V heads, head_dim, bucket, counts) of the
 # serving main path's GQA variant and of llama7b_long's attention
 GQA_GEOMETRIES = {
@@ -2652,17 +2679,19 @@ def batch_main(preset: str, rows: int, new: int, prompt_args, label: str):
 
 def batch_decode_rates(label: str, mc, params, rows: int, new: int, want_streams):
     """Decode tokens/s of `generate` with the step replayed and eager (the
-    same loop, its private hook), in turns (eager, replayed, replayed,
-    eager) after one capturing call; every call's greedy tokens must equal
-    `want_streams` (sample.main's on the same weights) bit for bit.
-    Returns {mode: [tokens/s, ...]} with the capturing call's beside."""
+    same loop, its private hook), in turns (replayed, eager, replayed)
+    after one capturing call (one eager call: a second took ~13 s of the
+    script and added a repeat, not a check); every call's
+    greedy tokens must equal `want_streams` (sample.main's on the same
+    weights) bit for bit. Returns {mode: [tokens/s, ...]} with the
+    capturing call's beside."""
     from midgpt_tpu_torch.sampling import engine
     from midgpt_tpu_torch.sampling.graphs import StepGraphs
 
     prompt = np.tile(np.asarray(BATCH_IDS, np.int64), (rows, 1))
     graphs = StepGraphs(torch.device("cuda"))
     rates = {"capturing": [], "replayed": [], "eager": []}
-    for mode in ("capturing", "eager", "replayed", "replayed", "eager"):
+    for mode in ("capturing", "replayed", "eager", "replayed"):
         st = {}
         kw = {"_eager": True} if mode == "eager" else {"graphs": graphs}
         got = engine.generate(mc, params, prompt, new, temperature=0.0, device="cuda", stats=st, **kw)
@@ -4416,6 +4445,299 @@ def data_parallel(data_dir: Path, card: str, main_losses, xl_single) -> tp.Dict[
     return flash
 
 
+# ---------------------------------------------------------------- phase 18: tensor-parallel serving
+
+EARLIER_SMOKE_PHASE18_S = 1101.7  # this script's wall time before phase 18 was added (PERF.md, section 6)
+TP = 2
+# each collective of phase 18's meshes: a rank that stops answering raises there (ranks 2 and 3 wait in
+# 18c's first broadcast while 18a and 18b run on ranks 0 and 1)
+TP_TIMEOUT_S = 600
+# f32 logits through a rank's shard against the whole weights on the same card, max |diff| / max |logit|
+TP_LOGIT_RTOL = 1e-5
+# 18d: loadgen --tp 2's entry point at GPT-2 small's width, its depth cut to 2 layers and its context to 256
+# (the warm-up serves a solo request per page bucket and decode tail), one low rate
+TP_LOADGEN_ARGS = ["--tp=2", "--backend=gloo", "--process=poisson", "--n-requests=4", "--rates=2",
+                   "--max-slots=4", "--num-pages=129", "--page-size=8", "--prefill-chunk=64", "--decode-chunk=8",
+                   "--block-size=256", "--vocab-size=50304", "--n-layer=2", "--n-head=12", "--n-embd=768", "--seed=0"]
+
+
+def rank18_main(argv) -> int:
+    """One rank of phase 18 under torchrun (4 ranks sharing the card over
+    gloo): runs 18a-18d and writes this rank's report to
+    <argv[0]>.<RANK>.json for the parent."""
+    t_enter = time.time()
+    # these ranks run beside phase 17, whose chain of launches is the script's critical path there: they yield
+    # the host's cores to it (this process's own priority; its time is not a measurement)
+    os.nice(10)
+    out = argv[0]
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from midgpt_tpu_torch.parallel import dist
+
+    dev = dist.init(None, "gloo")  # NCCL refuses two ranks of one communicator on one card
+    report: tp.Dict[str, tp.Any] = {}
+    try:
+        tp_rank_jobs(dev, report)
+        torch.distributed.barrier()
+    finally:
+        report["clock"] = {"enter": t_enter, "done": time.time()}
+        Path(f"{out}.{os.environ['RANK']}.json").write_text(json.dumps(report))
+        dist.shutdown()
+    return 0
+
+
+def tp_rank_jobs(dev, report) -> None:
+    """18a-18d on this rank (rank18_main): 18a on ranks 0-1 beside 18b on
+    ranks 2-3, then 18c on all 4, then 18d on ranks 0-1. Every paged run's
+    counts are zeroed just before it and read just after, in this process."""
+    from midgpt_tpu_torch import loadgen
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.kernels import attention_template as tpl
+    from midgpt_tpu_torch.kernels.decode_attention import paged_attention
+    from midgpt_tpu_torch.models.gpt import GPT, PagedKVCache
+    from midgpt_tpu_torch.parallel.serve_tp import make_serve_mesh
+    from midgpt_tpu_torch.sampling.disagg import DisaggServe
+    from midgpt_tpu_torch.sampling.serve import ServeEngine
+    from midgpt_tpu_torch.utils.precision import cast_floating
+
+    cfg = load_config("openwebtext").model_config
+    L = cfg.n_layer
+    # every rank of the process group builds every mesh (collective): two rows of 2, then both as one mesh
+    row_a = make_serve_mesh(TP, device=dev, timeout_s=TP_TIMEOUT_S)
+    row_b = make_serve_mesh(TP, ranks=[2, 3], device=dev, timeout_s=TP_TIMEOUT_S)
+    mesh4 = make_serve_mesh(TP, data=2, device=dev, timeout_s=TP_TIMEOUT_S)
+    params32 = GPT.init(cfg, 0, device=dev)  # the whole weights on every rank; an engine keeps its shard
+    params16 = cast_floating(params32, torch.bfloat16)
+    reqs = trace(cfg.vocab_size)
+    engine_kw = dict(max_slots=4, page_size=PAGE, prefill_chunk=256, decode_chunk=8, temperature=0.0, device=dev)
+
+    def counted():
+        return collections.Counter(tpl.LAUNCHES.by_variant), tpl.MERGE_LAUNCHES.count
+
+    def tp_run(label, mesh, params, dtype, **kw):
+        """The trace on a tp engine over `mesh`: the leader serves, the
+        follower follows; each rank's launches, pool and memory."""
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        eng = ServeEngine(cfg, params, cache_dtype=dtype, mesh=mesh, **engine_kw, **kw)
+        t0 = time.perf_counter()
+        if mesh.is_leader:
+            streams, _ = serve_trace(eng)
+            eng.stop_followers()
+        else:
+            done = eng.follow()
+            streams = [done[u].tokens for u in sorted(done)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, merges = counted()
+        st = eng.stats()
+        if eng.allocator.free_count != eng.allocator.num_pages - 1:
+            raise SystemExit(f"{label}: rank {mesh.index}'s pages did not drain back to its free list")
+        if st["spec"] is None:
+            check_launches(f"{label} rank {mesh.index}", L, st["decode_steps"])
+        else:
+            spec_launches(f"{label} rank {mesh.index}", st, launches, L, eng.cache.quantized)
+        report[label] = {"streams": [s.tolist() for s in streams], "wall": wall, "merges": merges,
+                         "launches": [[list(k), n] for k, n in launches.items()], "decode_steps": st["decode_steps"],
+                         "spec": st["spec"], "mesh": st["mesh"], "per_shard": st["cache_hbm_bytes_per_shard"],
+                         "total": st["cache_hbm_bytes"], "pool": list(eng.cache.k.shape),
+                         "peak": torch.cuda.max_memory_allocated()}
+        return eng
+
+    if row_a.member:
+        # 18a: f32 at full width and depth, the paged kernel on each rank's 6 heads
+        eng = tp_run("18a f32", row_a, params32, torch.float32)
+        # f32 kernel == gather on this rank's shard: a decode call over its pool's layer 0 (6 heads)
+        g = torch.Generator().manual_seed(18 + row_a.index)
+        kp, vp = eng.cache.k[0], eng.cache.v[0]
+        pages = (torch.randperm(kp.shape[1] - 2, generator=g)[:64] + 1).to(torch.int32).reshape(4, 16).to(dev)
+        q = torch.randn(4, kp.shape[0], cfg.head_dim, generator=g).to(dev)
+        counts = torch.tensor([128, 100, 37, 1], dtype=torch.int32, device=dev)
+        errs = {}
+        for s in (1, 2):
+            got = paged_attention(q, kp, vp, pages, counts, impl="kernel", split_k=s)
+            want = paged_attention(q, kp, vp, pages, counts, impl="gather", split_k=s)
+            errs[s] = (got - want).abs().max().item()
+            if not torch.allclose(got, want, atol=TOL[torch.float32], rtol=TOL[torch.float32]):
+                raise SystemExit(f"18a: rank {row_a.index}'s f32 kernel disagrees with the gather on its shard "
+                                 f"(split {s}: {errs[s]:.3e})")
+        report["18a kernel_vs_gather"] = {"err": errs, "heads": kp.shape[0]}
+        # the prefill logits of the first request through this rank's shard against the whole weights
+        tok = torch.as_tensor(reqs[0][0][None], device=dev).long()
+        table = torch.arange(1, 5, dtype=torch.int32, device=dev)[None]
+        shard_pool = PagedKVCache.init(cfg, 5, PAGE, torch.float32, device=dev, tp_size=TP)
+        whole_pool = PagedKVCache.init(cfg, 5, PAGE, torch.float32, device=dev)
+        n = tok.shape[1]
+        got, _ = GPT.prefill_paged_chunk(cfg, eng.params, tok, 0, n, shard_pool, table, tp_shard=eng._tp)
+        want, _ = GPT.prefill_paged_chunk(cfg, params32, tok, 0, n, whole_pool, table)
+        report["18a logit_err"] = ((got - want).abs().max() / want.abs().max()).item()
+        del eng, shard_pool, whole_pool
+    else:
+        # 18b, beside 18a: the bf16 pool, a self-draft round, the int8 pool (bf16 queries: the kernels line's specs)
+        tp_run("18b bf16", row_b, params16, torch.bfloat16)
+        tp_run("18b bf16 self-draft", row_b, params16, torch.bfloat16, **spec_engine_kw(cfg, params16))
+        tp_run("18b int8", row_b, params16, torch.int8)
+        if row_b.is_leader:  # the single-device int8 engine on the same card (the follower waits in 18c's mesh)
+            ref = ServeEngine(cfg, params16, cache_dtype=torch.int8, **engine_kw)
+            report["18b int8 single device"] = [s.tolist() for s in serve_trace(ref)[0]]
+            del ref
+    free_memory()
+
+    # 18c: DisaggServe on (data 2, tp 2) over the 4 ranks: row 0 prefills, row 1 decodes
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    dis = DisaggServe(cfg, params32, mesh=mesh4, cache_dtype=torch.float32, **engine_kw)
+    if mesh4.is_leader:
+        uids = [dis.submit(p, m) for p, m in reqs]
+        done = dis.run()
+        dis.stop_followers()
+        st = dis.stats()
+        report["18c"] = {"streams": [done[u].tokens.tolist() for u in uids], "queue": st["queue"],
+                         "fallback": st["fallback_reprefills"], "meshes": [st["prefill"]["mesh"], st["decode"]["mesh"]],
+                         "statuses": [done[u].status for u in uids]}
+    else:
+        dis.follow()
+    torch.cuda.synchronize()
+    role = dis.prefill if dis.prefill is not None else dis.decode
+    launches, merges = counted()
+    report["18c launches"] = {"role": "prefill" if dis.prefill is not None else "decode",
+                              "launches": [[list(k), n] for k, n in launches.items()], "merges": merges,
+                              "decode_steps": role.stats()["decode_steps"], "per_shard": role.cache_hbm_bytes_per_shard(), "peak": torch.cuda.max_memory_allocated()}
+    del dis, role
+    free_memory()
+
+    # 18d: loadgen --tp 2 on every rank (ranks 2 and 3 are outside its mesh and return at once)
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = loadgen.main(TP_LOADGEN_ARGS)
+    launches, merges = counted()
+    report["18d"] = {"rc": rc, "stdout": buf.getvalue(), "wall": time.perf_counter() - t0,
+                     "launches": [[list(k), n] for k, n in launches.items()], "merges": merges}
+
+
+def start_tp_ranks(tmp: Path) -> tp.Tuple[subprocess.Popen, Path]:
+    """Phase 18's 4 ranks under torch.distributed.run, started in the
+    background (they run beside phase 17's); returns the process and the
+    reports' stem (the host clock at the start is the stem's parent's
+    `started` file)."""
+    (tmp / "started").write_text(repr(time.time()))
+    out = tmp / "tp_report"
+    log = open(tmp / "tp_log", "w")
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=4",
+            str(ROOT / "chip_smoke.py"), "--rank18", str(out)]
+    return subprocess.Popen(argv, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, text=True), out
+
+
+def tp_serving(card: str, proc: subprocess.Popen, out: Path, ref32, ref16):
+    """Phase 18's verdicts from its ranks' reports (the parent's f32 and
+    bf16 references are phase 5's and phase 4b's single-device streams on
+    phase 4's trace). Returns the ranks' paged launches that join the
+    kernels line: {(spec, split): n} over bf16 queries, merges under
+    ("merge", None)."""
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.models.gpt import GPT
+    from midgpt_tpu_torch.utils.precision import cast_floating
+
+    try:
+        proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    t0 = float((out.parent / "started").read_text())
+    log = (out.parent / "tp_log").read_text()
+    if proc.returncode != 0:
+        raise SystemExit(f"phase 18: torchrun exit {proc.returncode}\n{log[-6000:]}")
+    ranks = [json.loads(Path(f"{out}.{r}.json").read_text()) for r in range(4)]
+    enter = max(r["clock"]["enter"] for r in ranks) - t0
+    done = max(r["clock"]["done"] for r in ranks) - t0
+    cfg = load_config("openwebtext").model_config
+    L = cfg.n_layer
+    params32 = GPT.init(cfg, 0, device="cuda")  # for the top-2 gaps of a departure
+    params16 = cast_floating(params32, torch.bfloat16)
+    print(f"phase 18: tensor-parallel serving, openwebtext ({L} x {cfg.n_embd}, {cfg.n_head} heads -> "
+          f"{cfg.n_head // TP} a rank), tp {TP} over gloo ranks sharing the card (NCCL refuses two ranks of one "
+          f"communicator on one card; each all-reduce stages through the host, so no time here is a speed of "
+          f"tensor parallelism); 18a on ranks 0-1 beside 18b on ranks 2-3; the 4 ranks entered {enter:.1f} s and finished "
+          f"{done:.1f} s after their start (host clock), beside phase 17, on {card}")
+    joined = collections.Counter()
+    for label, row, ref, params, gap in (
+            ("18a f32", (0, 1), ref32, params32, GAP_TOL),
+            ("18b bf16", (2, 3), ref16, params16, GAP_TOL_BF16_RECHUNK),
+            ("18b bf16 self-draft", (2, 3), ranks[2]["18b bf16"]["streams"], params16, GAP_TOL_BF16_RECHUNK),
+            ("18b int8", (2, 3), ranks[2]["18b int8 single device"], params16, GAP_TOL_BF16_RECHUNK)):
+        lead, follow = ranks[row[0]][label], ranks[row[1]][label]
+        if lead["streams"] != follow["streams"]:
+            raise SystemExit(f"phase {label}: the two ranks' streams differ")
+        got = [np.asarray(s) for s in lead["streams"]]
+        compare_streams(f"phase {label} tp {TP} vs one device", got, [np.asarray(s) for s in ref], cfg, params, gap)
+        for r, rec in zip(row, (lead, follow)):
+            launches = {tuple(k): n for k, n in rec["launches"]}
+            print(f"phase {label} rank {r}: paged launches {launches}, merges {rec['merges']} ({L} layers x "
+                  f"{rec['decode_steps']} decode steps{'' if rec['spec'] is None else ', plus the speculative rounds'}"
+                  f"); pool {rec['pool']} (K/V heads {rec['pool'][1]} of {cfg.kv_heads}), per-shard pool bytes "
+                  f"{rec['per_shard']:,} x {TP} == {rec['total']:,}, peak memory {gib(rec['peak'])}, {rec['wall']:.1f} "
+                  f"s, mesh {rec['mesh']}")
+            if rec["pool"][1] != cfg.kv_heads // TP or rec["per_shard"] * TP != rec["total"] or rec["mesh"] != {
+                    "data": 1, "tp": TP}:
+                raise SystemExit(f"phase {label}: rank {r}'s pool is not its shard of the heads")
+            if label.startswith("18b"):
+                for (spec, s), n in launches.items():
+                    joined[(spec, s)] += n
+                joined[("merge", None)] += rec["merges"]
+    for r in (0, 1):
+        kg = ranks[r]["18a kernel_vs_gather"]
+        print(f"phase 18a rank {r}: f32 paged kernel == gather on its shard ({kg['heads']} heads): max_abs_err "
+              + ", ".join(f"split {s} {e:.3e}" for s, e in kg["err"].items()) + f" (tol {TOL[torch.float32]:g})")
+        err = ranks[r]["18a logit_err"]
+        print(f"phase 18a rank {r}: f32 prefill logits through its shard vs the whole weights: max |diff| / max "
+              f"|logit| {err:.3e} (tol {TP_LOGIT_RTOL:g}) on {card}")
+        if err > TP_LOGIT_RTOL:
+            raise SystemExit(f"phase 18a: rank {r}'s tp logits depart from the whole weights' by {err:.3e}")
+    # 18c
+    rec = ranks[0]["18c"]
+    compare_streams("phase 18c disagg (data 2, tp 2) vs one device", [np.asarray(s) for s in rec["streams"]],
+                    [np.asarray(s) for s in ref32], cfg, params32, GAP_TOL)
+    print(f"phase 18c: DisaggServe on (data 2, tp 2): handoff {rec['queue']}, fallback re-prefills "
+          f"{rec['fallback']}, role meshes {rec['meshes']}, statuses {sorted(set(rec['statuses']))}")
+    if rec["queue"]["pages_copied"] < 1 or rec["fallback"] or rec["meshes"] != [{"data": 1, "tp": TP}] * 2:
+        raise SystemExit("phase 18c: no page crossed between the rows, or a handoff re-prefilled")
+    for r in range(4):
+        c = ranks[r]["18c launches"]
+        launches = {tuple(k): n for k, n in c["launches"]}
+        want = L * c["decode_steps"]
+        print(f"phase 18c rank {r} ({c['role']} row): paged launches {launches}, merges {c['merges']} == {L} "
+              f"layers x {c['decode_steps']} decode steps; per-shard pool bytes {c['per_shard']:,}, peak memory "
+              f"{gib(c['peak'])}")
+        if sum(launches.values()) != want or c["merges"] != want or (c["role"] == "decode" and want < 1):
+            raise SystemExit(f"phase 18c: rank {r}'s paged launches != n_layer x its decode steps")
+    # 18d
+    d = ranks[0]["18d"]
+    line = json.loads(d["stdout"].strip().splitlines()[-1])
+    steps = line["decode_steps"]
+    for r in (0, 1):
+        launches = {tuple(k): n for k, n in ranks[r]["18d"]["launches"]}
+        if sum(launches.values()) != 2 * steps or ranks[r]["18d"]["merges"] != 2 * steps:
+            raise SystemExit(f"phase 18d: rank {r}'s paged launches {launches} != 2 layers x {steps} decode steps")
+        for k, n in launches.items():
+            joined[k] += n
+        joined[("merge", None)] += ranks[r]["18d"]["merges"]
+    p = line["points"][0]
+    print(f"phase 18d loadgen {' '.join(TP_LOADGEN_ARGS)} ({d['wall']:.1f} s): serve_slo tp {line['tp']}, mesh "
+          f"{line['mesh']}, {p['completed']}/{p['n_offered']} completed at {p['offered_rps']:g} req/s, TTFT p50 "
+          f"{p['ttft_p50_ms']} ms, TPOT p50 {p['tpot_p50_ms']} ms (gloo staging, not a speed of tp); paged launches "
+          f"per rank == 2 layers x {steps} decode steps; ranks 2-3 printed {[ranks[r]['18d']['stdout'] for r in (2, 3)]}"
+          f" on {card}")
+    if line["mesh"] != {"data": 1, "tp": TP} or line["tp"] != TP or p["completed"] != p["n_offered"]:
+        raise SystemExit(f"phase 18d: the serve_slo line {line}")
+    print(f"phase 18 paged launches of its bf16-query runs (18b, 18d; they join the kernels line): {dict(joined)} on "
+          f"{card}")
+    return joined
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script needs an NVIDIA GPU", file=sys.stderr)
@@ -4425,6 +4747,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--rank17"]:
         return rank17_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--rank18"]:
+        return rank18_main(sys.argv[2:])
     sys.path.insert(0, str(ROOT))
     from midgpt_tpu_torch.config import load_config
     from midgpt_tpu_torch.kernels import attention_template as tpl
@@ -4563,8 +4887,20 @@ def main() -> int:
         xl_peak, _, xl_losses = xl_remat_pair(data_dir, card)[f"remat {load_config('openwebtext_xl').model_config.remat_policy}"]
         print(f"phase 11a-c took {time.perf_counter() - t_phase:.1f} s")
         free_memory()
-        # 17. data-parallel and FSDP training: ranks under torchrun (their flash launches join the kernels line's)
-        dp_flash = data_parallel(data_dir, card, main_losses, (xl_losses, xl_peak))
+        # 18. tensor-parallel serving: 4 ranks under torchrun, started here to run beside phase 17
+        tp_dir = Path(tempfile.mkdtemp())
+        tp_proc, tp_out = start_tp_ranks(tp_dir)
+        try:
+            # 17. data-parallel and FSDP training: ranks under torchrun (their flash launches join the kernels
+            # line's)
+            dp_flash = data_parallel(data_dir, card, main_losses, (xl_losses, xl_peak))
+            # 18's verdicts: its ranks' paged launches of bf16 queries join the kernels line's
+            tp_joined = tp_serving(card, tp_proc, tp_out, kernel_streams, streams16["off"])
+        finally:
+            if tp_proc.poll() is None:
+                tp_proc.kill()
+                tp_proc.wait()
+            shutil.rmtree(tp_dir, ignore_errors=True)
     # 11d. llama7b_long served in bf16
     t_phase = time.perf_counter()
     llama_serving(card)
@@ -4602,7 +4938,8 @@ def main() -> int:
                     "route": "cuda",
                     "source": "midgpt_tpu_torch/csrc/paged_attention.cu",
                     "replaces": "midgpt_tpu/kernels/attention_template.py:95",
-                    "launches": launches[s] + front_launches[("decode", s)] + moe_paged.get(("decode", s), 0),
+                    "launches": (launches[s] + front_launches[("decode", s)] + moe_paged.get(("decode", s), 0)
+                                 + tp_joined[("decode", s)]),
                     "max_abs_err": max(errs[(dt, s)], alias_errs[(dt, s)]),
                     "ms": ms,
                     "plain_ms": plain_ms,
@@ -4625,7 +4962,7 @@ def main() -> int:
                 "route": "cuda",
                 "source": "midgpt_tpu_torch/csrc/paged_attention.cu",
                 "replaces": "midgpt_tpu/kernels/attention_template.py:95",
-                "launches": spec_launches_by_run[run].get((spec, s), 0),
+                "launches": spec_launches_by_run[run].get((spec, s), 0) + tp_joined[(spec, s)],
                 "max_abs_err": spec_errs[(torch.bfloat16, R, int8, s)],
                 "ms": ms,
                 "plain_ms": plain_ms,
@@ -4671,7 +5008,7 @@ def main() -> int:
         "route": "cuda",
         "source": "midgpt_tpu_torch/csrc/paged_attention.cu",
         "replaces": "midgpt_tpu/kernels/attention_template.py:314",
-        "launches": merge_launches + front_launches[("merge", None)] + moe_merges,
+        "launches": merge_launches + front_launches[("merge", None)] + moe_merges + tp_joined[("merge", None)],
         "max_abs_err": merge_errs[torch.bfloat16],
         "ms": ms,
         "plain_ms": plain_ms,
@@ -4759,7 +5096,7 @@ def main() -> int:
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s (before phase 12: {EARLIER_SMOKE_S} s, before "
           f"phase 13: {EARLIER_SMOKE_PHASE13_S} s, before phase 14: {EARLIER_SMOKE_PHASE14_S} s, before phase 15: "
           f"{EARLIER_SMOKE_PHASE15_S} s, before phase 16: {EARLIER_SMOKE_PHASE16_S} s, before phase 17: "
-          f"{EARLIER_SMOKE_PHASE17_S} s) on {card}")
+          f"{EARLIER_SMOKE_PHASE17_S} s, before phase 18: {EARLIER_SMOKE_PHASE18_S} s) on {card}")
     print(card)  # exactly as nvidia-smi gives it: name, power limit
     decode_modes = {spec: {"decode_tokens_per_s": dec, "end_to_end_tokens_per_s": e2e,
                            "busy_share": busy.get(spec)} for spec, (dec, e2e) in overlap_rates.items()}

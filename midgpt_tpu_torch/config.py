@@ -8,9 +8,12 @@ directory's `config.json`, which either package reads back. Validation
 covers the fields the port reads and the checkpoint, supervisor,
 preemption, watchdog, fault and FSDP knobs, as JAX checks them at the
 same place. The mesh's data and fsdp axes, `fsdp_mode`, `shard_model` and
-`fsdp_min_size` drive multi-rank training (parallel/); the sp, tp, pp and
-ep axes and the tensor-parallel and pipeline knobs are carried for the
-round trip and wait for later slices (ROADMAP.md Queue 1 item 7).
+`fsdp_min_size` drive multi-rank training (parallel/). JAX's tp checks
+hold here too (whole heads, K/V heads and MLP columns a shard; the vocab
+under `tp_vocab`), though the port serves on tp (parallel/serve_tp.py)
+and does not train on it yet; the sp, tp, pp and ep axes of training and
+the pipeline knobs are carried for the round trip and wait for later
+slices (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -105,6 +108,20 @@ class ExperimentConfig:
             # == 'shard_map')
             raise ValueError(f"unknown fsdp_mode {self.fsdp_mode!r} ('gspmd' or 'shard_map')")
         tp_ = 1 if self.mesh.tp == -1 else self.mesh.tp
+        if tp_ < 1:
+            raise ValueError(f"mesh.tp={tp_} must be >= 1 (or -1 to infer)")
+        if tp_ > 1:
+            # JAX's tp checks (Megatron shards whole heads and MLP columns), with its messages
+            if mc.n_head % tp_ != 0:
+                raise ValueError(f"n_head={mc.n_head} not divisible by mesh.tp={tp_}")
+            if mc.kv_heads % tp_ != 0:
+                raise ValueError(f"n_kv_heads={mc.kv_heads} not divisible by mesh.tp={tp_} — tp shards whole KV heads")
+            if (4 * mc.n_embd) % tp_ != 0:
+                raise ValueError(f"4*n_embd={4 * mc.n_embd} not divisible by mesh.tp={tp_}")
+            if self.tp_vocab and mc.vocab_size % tp_ != 0 and self.mesh.pp in (1, -1):
+                raise ValueError(
+                    f"vocab_size={mc.vocab_size} not divisible by mesh.tp={tp_} (set tp_vocab=False or pad the vocab)"
+                )
         if tp_ > 1 and self.fsdp_mode == "shard_map" and (self.mesh.sp not in (1, -1) or mc.attn_impl in ("ring", "ulysses")):
             raise ValueError(
                 "fsdp_mode='shard_map' with mesh.tp > 1 does not compose with sequence parallelism yet "

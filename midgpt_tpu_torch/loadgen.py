@@ -13,6 +13,8 @@ the shed and timeout fractions, and whether the point met its SLO:
         [--device cpu] [--prefix-cache --template-frac 0.5] [--overlap group:4] \\
         [--scheduler slo] [--ttl-s 2.0] [--slo-ttft-ms 500 --slo-tpot-ms 50] \\
         [--hot-swap] [--fleet N [--procs]] [--trace-out DIR]
+    python -m torch.distributed.run --standalone --nproc_per_node 2 -m midgpt_tpu_torch.loadgen \\
+        --tp 2 [--device cpu] [--backend gloo] ...
 
 It runs on CUDA unless `--device cpu` is given. The pool is bf16 on CUDA
 and f32 on the CPU, as JAX's harness has it (bf16 on the TPU); the random
@@ -62,8 +64,18 @@ and an unbounded backlog; points and the line add `rpc_p50_ms`,
 `rpc_p95_ms` and `wire_bytes` (the hottest point's), and the point's
 `prefix_hit_rate` is over its own drive.
 
-JAX's `--tp` and `--cpu-devices` are refused: the port has no
-tensor-parallel serving yet.
+With `--tp N` (N >= 2, under torchrun with at least N ranks) every
+engine is tensor-parallel over the first N ranks, a (data 1, tp N) serving
+mesh (parallel/serve_tp.py): the weights sharded by the Megatron rules,
+the pool on its head axis. Rank 0 runs the points and prints the line,
+which carries `tp` and `mesh`; the other ranks of the mesh follow its
+engine (`ServeEngine.follow`). NCCL takes one rank per card; ranks that
+share a card name `--backend gloo`; `--device cpu` runs the ranks on the
+CPU over gloo. As in JAX, `--tp` needs `2 <= tp <= ranks` and `tp`
+dividing `--n-head`, and `--fleet` refuses it; the engines run
+`--overlap off` (a captured overlap mode is refused under tp). JAX's
+`--cpu-devices` (a virtual device mesh in one process) is refused: the
+port's ranks are processes (`torchrun ... --tp N --device cpu`).
 """
 
 from __future__ import annotations
@@ -323,11 +335,11 @@ def _swap_candidate(cfg, seed: int, dtype: torch.dtype, device: torch.device):
     return params, version
 
 
-# JAX's options the port refuses, with the ROADMAP.md item that brings each
+# JAX's options the port refuses, with what takes their place
 _REFUSED = {
-    "tp": "--tp (tensor-parallel serving) waits for the tensor-parallel slice (ROADMAP.md Queue 1 item 7)",
-    "cpu_devices": "--cpu-devices (a virtual device mesh for tensor-parallel serving) waits for the tensor-parallel "
-                   "slice (ROADMAP.md Queue 1 item 7); --device cpu runs on the CPU",
+    "cpu_devices": "--cpu-devices (a virtual device mesh in one process) has no counterpart: the port's tp ranks are "
+                   "processes; run `python -m torch.distributed.run --standalone --nproc_per_node N -m "
+                   "midgpt_tpu_torch.loadgen --tp N --device cpu` (module docstring)",
 }
 
 
@@ -380,8 +392,13 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
                     help="N >= 2: serve through N in-process replicas behind a FleetRouter (prefix cache on)")
     ap.add_argument("--procs", action="store_true",
                     help="with --fleet: the replicas are worker processes behind the socket transport")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="> 0 runs every engine tensor-parallel on a (data=1, tp=N) serving mesh of ranks under "
+                         "torchrun (module docstring); the line carries tp and mesh")
+    ap.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                    help="--tp: the ranks' collective backend (default: NCCL on CUDA, gloo on the CPU; ranks that "
+                         "share a card need gloo)")
     # refused (module docstring)
-    ap.add_argument("--tp", type=int, default=0, help="refused: " + _REFUSED["tp"])
     ap.add_argument("--cpu-devices", type=int, default=0, help="refused: " + _REFUSED["cpu_devices"])
     args = ap.parse_args(argv)
     for name, why in _REFUSED.items():
@@ -390,8 +407,8 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
     if args.fleet:
         if args.fleet < 2:
             ap.error("--fleet needs >= 2 replicas (one cannot fail over)")
-        if args.hot_swap:
-            ap.error("--fleet is incompatible with --hot-swap")
+        if args.hot_swap or args.tp:
+            ap.error("--fleet is incompatible with --hot-swap and --tp")
         args.prefix_cache = True  # the router's affinity target
     if args.procs:
         if not args.fleet:
@@ -406,6 +423,9 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
         pages_per_slot = -(-args.block_size // args.page_size)
         args.num_pages = 27 if args.block_size < 2048 else 1 + args.max_slots * pages_per_slot
     workers: tp.List[tp.Any] = []  # --procs: (Popen, port) of every worker spawned
+    from midgpt_tpu_torch.parallel import dist
+
+    joined = bool(args.tp) and not dist.initialized()  # --tp joins the process group unless the caller did
     try:
         return _run(args, workers)
     finally:
@@ -413,6 +433,8 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
             from midgpt_tpu_torch.sampling.fleet_proc import kill_workers
 
             kill_workers(workers)
+        if joined:
+            dist.shutdown()
 
 
 def _run(args, workers: tp.List[tp.Any]) -> int:
@@ -429,6 +451,20 @@ def _run(args, workers: tp.List[tp.Any]) -> int:
 
     dev = resolve_device(args.device)
     overlap_mode, overlap_group = parse_overlap(args.overlap)
+    mesh = None
+    if args.tp:
+        from midgpt_tpu_torch.parallel import dist
+        from midgpt_tpu_torch.parallel.serve_tp import make_serve_mesh
+
+        ranks = dist.world() if dist.initialized() else int(os.environ.get("WORLD_SIZE", 1))
+        if args.tp < 2 or args.tp > ranks:
+            raise SystemExit(f"--tp {args.tp} needs 2 <= tp <= {ranks} ranks")
+        if args.n_head % args.tp:
+            raise SystemExit(f"--tp {args.tp} must divide n_head {args.n_head}")
+        dev = dist.init(args.device, args.backend)
+        mesh = make_serve_mesh(tp_size=args.tp, device=dev)
+        if not mesh.member:
+            return 0
     cfg = GPTConfig(
         block_size=args.block_size,
         vocab_size=args.vocab_size,
@@ -480,6 +516,7 @@ def _run(args, workers: tp.List[tp.Any]) -> int:
             round_group=overlap_group,
             obs_tid=obs_tid,
             device=dev,
+            mesh=mesh,
         )
 
     if args.procs:
@@ -487,6 +524,9 @@ def _run(args, workers: tp.List[tp.Any]) -> int:
     else:
         engines = [make_engine(f"replica{k}") for k in range(args.fleet)] if args.fleet else [make_engine()]
     engine = engines[0]
+    if mesh is not None and not mesh.is_leader:
+        engine.follow()  # every call the leader's points make, until it stops us
+        return 0
     # Capture every decode-group graph the workload can reach, on every
     # engine the points run on (module docstring); a worker is warmed over
     # the wire, so the first point's percentiles time no first-use work.
@@ -599,6 +639,8 @@ def _run(args, workers: tp.List[tp.Any]) -> int:
             obs.dump(args.trace_out, filename=f"loadgen_point{pi}_r{rate:g}.json")
         points.append(stats)
 
+    if mesh is not None:
+        engine.stop_followers()  # the tp leader's last edge: its followers return
     worst = points[-1]  # rates ascending by convention: report the hottest
     worker_stats = [eng.stats() for eng in engines]
     graphs = [st["decode_graphs"] for st in worker_stats]
@@ -635,8 +677,8 @@ def _run(args, workers: tp.List[tp.Any]) -> int:
         "max_slots": args.max_slots,
         "num_pages": args.num_pages,
         "cache_dtype": str(dtype).replace("torch.", ""),
-        "tp": None,
-        "mesh": None,
+        "tp": args.tp or None,
+        "mesh": None if mesh is None else engine.mesh_shape(),
         "max_backlog_pages": args.max_backlog_pages or None,
         "warm_captures": warm_captures,
         # the device's decode steps: dispatched (a fused group's masked

@@ -277,15 +277,21 @@ class PagedKVCache:
         dtype: torch.dtype = torch.bfloat16,
         *,
         device: DeviceLike = None,
+        tp_size: int = 1,
     ) -> "PagedKVCache":
+        """A zeroed pool; with `tp_size` > 1, one tensor-parallel rank's
+        shard of it: kv_heads / tp_size heads (parallel/serve_tp.py)."""
         if dtype not in (torch.bfloat16, torch.float32, torch.int8):
             raise NotImplementedError(f"paged cache dtype {dtype}: bf16, f32 and int8 are ported")
+        if config.kv_heads % tp_size:
+            raise ValueError(f"n_kv_heads={config.kv_heads} not divisible by tp={tp_size}")
+        heads = config.kv_heads // tp_size
         # num_pages + 1: the allocator's pages 0..num_pages-1 and the spare
-        shape = (config.n_layer, config.kv_heads, num_pages + 1, page_size, config.head_dim)
+        shape = (config.n_layer, heads, num_pages + 1, page_size, config.head_dim)
         dev = resolve_device(device)
         scales = {}
         if dtype == torch.int8:
-            sshape = (config.n_layer, num_pages + 1, config.kv_heads, page_size)
+            sshape = (config.n_layer, num_pages + 1, heads, page_size)
             scales = {n: torch.zeros(sshape, dtype=torch.float32, device=dev) for n in ("k_scale", "v_scale")}
         return PagedKVCache(
             k=torch.zeros(shape, dtype=dtype, device=dev),
@@ -470,19 +476,22 @@ class GPT:
         out with interleaved pair (2i, 2i+1) at (i, i + C/2) and RoPE can use
         rotate-half. Under GQA the q rows of wqkv permute per query head and
         the k rows of wkv[0] per K/V head; wkv[1] (v) is untouched. Stored
-        weights stay in the reference convention."""
+        weights stay in the reference convention. The head counts are read
+        from the weights, so a tensor-parallel shard (whole heads of each of
+        q, k and v: parallel/serve_tp.py) permutes its own heads."""
         wqkv, wkv = blk["attn.wqkv"], blk.get("attn.wkv")
         q_scale, k_scale = blk["attn.q_scale"], blk["attn.k_scale"]
         if config.rope_style == "split":
-            D, H, C = config.n_embd, config.n_head, config.head_dim
+            C = config.head_dim
+            DQ, D = wqkv.shape[-2:]  # DQ = the (shard's) query heads x C
             perm = _split_perm(C, wqkv.device)
             if wkv is None:
-                wqk = wqkv[:2].reshape(2, H, C, D)[:, :, perm, :].reshape(2, D, D)
+                wqk = wqkv[:2].reshape(2, DQ // C, C, D)[:, :, perm, :].reshape(2, DQ, D)
                 wqkv = torch.cat((wqk, wqkv[2:]), dim=0)
             else:
-                HK, KVD = config.kv_heads, config.kv_heads * C
-                wqkv = wqkv.reshape(H, C, D)[:, perm, :].reshape(1, D, D)
-                wk = wkv[:1].reshape(HK, C, D)[:, perm, :].reshape(1, KVD, D)
+                KVD = wkv.shape[-2]
+                wqkv = wqkv.reshape(DQ // C, C, D)[:, perm, :].reshape(1, DQ, D)
+                wk = wkv[:1].reshape(KVD // C, C, D)[:, perm, :].reshape(1, KVD, D)
                 wkv = torch.cat((wk, wkv[1:]), dim=0)
             q_scale, k_scale = q_scale[perm], k_scale[perm]
         return wqkv, wkv, q_scale, k_scale
@@ -496,20 +505,22 @@ class GPT:
         (3D, D) for MHA, with the q rows of wqkv and the k/v rows of wkv
         concatenated, (D + 2 H_kv C, D), for GQA. K/V come out at the K/V
         head count: paged writes store them as they are, the training
-        attention repeats them (_repeat_kv)."""
+        attention repeats them (_repeat_kv). On a tensor-parallel shard the
+        widths are the shard's: H/tp query and H_kv/tp K/V heads."""
         B, T, D = h.shape
-        H, HK, C = config.n_head, config.kv_heads, config.head_dim
+        C = config.head_dim
         wqkv, wkv, q_scale, k_scale = GPT._qkv_weights(config, blk)
+        DQ = wqkv.shape[-2]
         if wkv is None:
-            qkv = h @ wqkv.reshape(3 * D, D).T
-            q, k, v = torch.split(qkv, D, dim=-1)
+            qkv = h @ wqkv.reshape(3 * DQ, D).T
+            q, k, v = torch.split(qkv, DQ, dim=-1)
         else:
-            KVD = HK * C
-            qkv = h @ torch.cat((wqkv.reshape(D, D), wkv.reshape(2 * KVD, D)), dim=0).T
-            q, k, v = torch.split(qkv, [D, KVD, KVD], dim=-1)
-        q = head_layer_norm(q.reshape(B, T, H, C), q_scale)
-        k = head_layer_norm(k.reshape(B, T, HK, C), k_scale)
-        return q, k, v.reshape(B, T, HK, C)
+            KVD = wkv.shape[-2]
+            qkv = h @ torch.cat((wqkv.reshape(DQ, D), wkv.reshape(2 * KVD, D)), dim=0).T
+            q, k, v = torch.split(qkv, [DQ, KVD, KVD], dim=-1)
+        q = head_layer_norm(q.reshape(B, T, -1, C), q_scale)
+        k = head_layer_norm(k.reshape(B, T, -1, C), k_scale)
+        return q, k, v.reshape(B, T, -1, C)
 
     @staticmethod
     def _attn_out_and_mlp(
@@ -522,14 +533,24 @@ class GPT:
         inference: bool = True,
         return_moe_aux: bool = False,
         aux_reduce: tp.Optional[tp.Callable[[Tensor], Tensor]] = None,
+        tp_shard=None,
     ) -> tp.Union[Tensor, tp.Tuple[Tensor, Tensor]]:
         """Shared tail of a block: merge heads, output projection, MLP (the
         routed one when n_experts > 0), residuals (each branch dropped out
         in training). att (B, T, H, C). With return_moe_aux (routed MLP
         only), returns (out, the block's load-balance term; `aux_reduce` as
-        in `_moe_gates`)."""
+        in `_moe_gates`).
+
+        `tp_shard` (parallel/serve_tp.py TPShard; the serving paths only):
+        att holds the shard's heads, and the products of the row-parallel
+        leaves its specs shard (wo, w_down) are partial sums, all-reduced
+        over the tp row before their residual add: Megatron's two
+        collectives a block. The routed MLP's banks are replicated, so its
+        output is whole and is not summed."""
         B, T = att.shape[:2]
-        att = att.reshape(B, T, config.n_embd) @ blk["attn.wo"].T
+        att = att.reshape(B, T, -1) @ blk["attn.wo"].T
+        if tp_shard is not None:
+            tp_shard.reduce_("blocks.attn.wo", att)
         x = x + dropout(att, config.dropout, generator, inference)
         h = rms_norm(x)
         aux = None
@@ -538,6 +559,8 @@ class GPT:
         else:
             h = F.gelu(h @ blk["mlp.w_up"].T, approximate="tanh")  # jax.nn.gelu's default
             h = h @ blk["mlp.w_down"].T
+            if tp_shard is not None:
+                tp_shard.reduce_("blocks.mlp.w_down", h)
         out = x + dropout(h, config.dropout, generator, inference)
         return (out, aux) if return_moe_aux else out
 
@@ -838,6 +861,7 @@ class GPT:
         active: Tensor,  # (B,) bool — False: slot is empty / mid-prefill
         attn_impl: str = "auto",
         split_k: int = 1,  # key-sequence partitions per slot
+        tp_shard=None,  # parallel/serve_tp.py TPShard: params and pool are this rank's shard
     ) -> tp.Tuple[Tensor, PagedKVCache]:
         """One decode step for B independent requests at B positions.
 
@@ -851,6 +875,12 @@ class GPT:
         in place. A layer-prefix self-draft (sampling/spec.py) runs this
         with its n_layer-layer config against the target's whole pool: layer
         i of the draft is layer i of the pool.
+
+        Under tensor parallelism (`tp_shard`) the params and the pool are
+        this rank's shard: the step attends over its H/tp query and
+        H_kv/tp pool heads and all-reduces the two row-parallel products of
+        each block (`_attn_out_and_mlp`), so the residual stream and the
+        logits are whole on every rank.
 
         Returns (logits (B, V), cache)."""
         C, ps = config.head_dim, cache.page_size
@@ -876,7 +906,7 @@ class GPT:
                 k_scale=ksp, v_scale=vsp, split_k=split_k,
                 sliding_window=config.sliding_window, attn_sinks=config.attn_sinks,
             )  # (B, H, C)
-            x = GPT._attn_out_and_mlp(config, blk, x, att[:, None].to(x.dtype))
+            x = GPT._attn_out_and_mlp(config, blk, x, att[:, None].to(x.dtype), tp_shard=tp_shard)
         x = rms_norm(x, eps=1e-5)
         return (x @ params["lm_head"].T)[:, 0], cache
 
@@ -891,6 +921,7 @@ class GPT:
         active: Tensor,  # (B,) bool
         attn_impl: str = "auto",
         split_k: int = 1,  # key-sequence partitions per slot
+        tp_shard=None,  # as decode_step_paged's
     ) -> tp.Tuple[Tensor, PagedKVCache]:
         """Score K1 = k+1 candidate tokens per slot in ONE batched paged
         forward — the target side of speculative decoding (sampling/spec.py).
@@ -935,7 +966,7 @@ class GPT:
                 k_scale=ksp, v_scale=vsp, split_k=split_k,
                 sliding_window=config.sliding_window, attn_sinks=config.attn_sinks,
             )  # (B, K1, H, C)
-            x = GPT._attn_out_and_mlp(config, blk, x, att.to(x.dtype))
+            x = GPT._attn_out_and_mlp(config, blk, x, att.to(x.dtype), tp_shard=tp_shard)
         x = rms_norm(x, eps=1e-5)
         return x @ params["lm_head"].T, cache
 
@@ -948,6 +979,7 @@ class GPT:
         n_valid: int,  # real tokens in this chunk (the rest is pad)
         cache: PagedKVCache,
         page_table: Tensor,  # (1, max_pages) int32
+        tp_shard=None,  # as decode_step_paged's
     ) -> tp.Tuple[Tensor, PagedKVCache]:
         """Prefill ONE request's prompt chunk [start, start + n_valid) into
         its pages, attending causally to the chunk itself plus everything
@@ -989,6 +1021,6 @@ class GPT:
             scores = scores.masked_fill(~ok, float("-inf"))
             probs = torch.softmax(scores.float() / math.sqrt(C), dim=-1).to(kg.dtype)
             att = torch.einsum("hts,hsc->thc", probs, vg)  # (T_c, H, C)
-            x = GPT._attn_out_and_mlp(config, blk, x, att[None].to(x.dtype))
+            x = GPT._attn_out_and_mlp(config, blk, x, att[None].to(x.dtype), tp_shard=tp_shard)
         x = rms_norm(x, eps=1e-5)
         return x @ params["lm_head"].T, cache

@@ -4,15 +4,20 @@ JAX names a 6D device mesh ('data', 'fsdp', 'sp', 'tp', 'pp', 'ep'); the
 port lays its ranks out on the same axes with JAX's arithmetic
 (`mesh_shape`: the -1 inference, the divisor clamp on fsdp, the same
 error texts), then builds a process group per `data` row and `fsdp`
-column. Only the data and fsdp axes are ported: an sp, tp, pp or ep axis
-above 1 raises and names its later slice.
+column. Training runs on the data and fsdp axes: a training mesh
+(`make_mesh`) with an sp, tp, pp or ep axis above 1 raises and names its
+later slice. Serving meshes (parallel/serve_tp.py `make_serve_mesh`)
+carry a (data, tp) layout instead: one process group per tp row, over
+which the serving engine sums its row-parallel products (`psum_tp`).
 
-Ranks fill the mesh in order, fsdp fastest: rank index i sits at
-(data i // fsdp, fsdp i % fsdp), the flattened (data, fsdp) order in
-which JAX's batch_spec shards the batch rows over both axes. `make_mesh`
+Ranks fill the mesh in order, the last axis fastest: rank index i sits
+at (data i // fsdp, fsdp i % fsdp) on a training mesh, the flattened
+(data, fsdp) order in which JAX's batch_spec shards the batch rows over
+both axes, and at (data i // tp, tp i % tp) on a serving mesh. A mesh
 takes an explicit rank list (JAX's `devices=`), so one process group can
-hold meshes of several sizes; every rank of the process group calls it,
-members or not, because creating a process group is collective.
+hold meshes of several sizes; every rank of the process group builds
+every mesh, members or not, because creating a process group is
+collective.
 
 A mesh of one rank creates no group and issues no collective: training
 on it is the single-device trainer, bit for bit.
@@ -21,6 +26,7 @@ on it is the single-device trainer, bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import typing as tp
 
 import torch
@@ -31,7 +37,7 @@ from midgpt_tpu_torch.parallel import dist as pdist
 AXES = ("data", "fsdp", "sp", "tp", "pp", "ep")
 LATER_SLICES = {
     "sp": "sequence parallelism (ring_attention, ulysses)",
-    "tp": "tensor parallelism (tp, serve_tp)",
+    "tp": "tensor-parallel training (the vocab-parallel embedding and CE, the column and row collectives)",
     "pp": "the pipeline",
     "ep": "the ep axis",
 }
@@ -80,33 +86,65 @@ class _AllReduceSum(torch.autograd.Function):
 class Mesh:
     """Axis sizes, the member ranks in mesh order, this rank's place, and
     the process groups: `group` (every member), `data_group` (this rank's
-    fsdp column: the ranks holding the same shards) and `fsdp_group` (its
-    data row: the ranks that together hold one copy). A group of one rank
-    is None."""
+    fsdp column: the ranks holding the same shards), `fsdp_group` (its
+    data row: the ranks that together hold one copy) and, on a serving
+    mesh, `tp_group` (its tp row: the ranks that together hold one copy of
+    the weights and the pool). A group of one rank is None. `timeout`
+    bounds every collective over the mesh's groups (default: the process
+    group's, parallel/dist.py)."""
 
-    def __init__(self, shape: tp.Dict[str, int], ranks: tp.Sequence[int], device: torch.device):
+    def __init__(self, shape: tp.Dict[str, int], ranks: tp.Sequence[int], device: torch.device,
+                 timeout: tp.Optional[datetime.timedelta] = None):
         self.shape = dict(shape)
         self.ranks = tuple(ranks)
         self.size = len(self.ranks)
-        self.data, self.fsdp = shape["data"], shape["fsdp"]
+        self.data, self.fsdp, self.tp = shape["data"], shape["fsdp"], shape["tp"]
+        if self.tp > 1 and self.fsdp > 1:
+            raise NotImplementedError(f"mesh fsdp={self.fsdp} x tp={self.tp}: {LATER_SLICES['tp']} is a later "
+                                      "slice of the port (ROADMAP.md Queue 1 item 7)")
         me = pdist.rank()
         self.index = self.ranks.index(me) if me in self.ranks else None
         self.device = device
-        self.group = self.data_group = self.fsdp_group = None
+        self.group = self.data_group = self.fsdp_group = self.tp_group = None
+        self.row_groups: tp.List[tp.Any] = []  # serving meshes: each tp row's group, row by row
+        kw = {} if timeout is None else {"timeout": timeout}
         if self.size > 1:
             # every rank of the process group creates every group, in one order
-            self.group = dist.new_group(self.ranks)
-            rows = [self.ranks[d * self.fsdp:(d + 1) * self.fsdp] for d in range(self.data)]
-            for row in rows:
-                g = dist.new_group(row) if self.fsdp > 1 else None
-                if me in row:
-                    self.fsdp_group = g
-            for col in zip(*rows):
-                g = dist.new_group(col) if self.data > 1 else None
-                if me in col:
-                    self.data_group = g
+            self.group = dist.new_group(self.ranks, **kw)
+            if self.tp > 1:
+                for d in range(self.data):
+                    row = self.ranks[d * self.tp:(d + 1) * self.tp]
+                    self.row_groups.append(self.group if self.data == 1 else dist.new_group(row, **kw))
+                    if me in row:
+                        self.tp_group = self.row_groups[-1]
+            else:
+                rows = [self.ranks[d * self.fsdp:(d + 1) * self.fsdp] for d in range(self.data)]
+                for row in rows:
+                    g = dist.new_group(row, **kw) if self.fsdp > 1 else None
+                    if me in row:
+                        self.fsdp_group = g
+                for col in zip(*rows):
+                    g = dist.new_group(col, **kw) if self.data > 1 else None
+                    if me in col:
+                        self.data_group = g
         # host values travel on the backend's own device type
         self._host_dev = device if pdist.backend() == "nccl" else torch.device("cpu")
+
+    def row(self, r: int) -> "Mesh":
+        """Tp row `r` of a serving mesh as a (data 1, tp) mesh of its own,
+        over the group this mesh already holds (no collective)."""
+        view = object.__new__(Mesh)
+        view.__dict__.update(self.__dict__)
+        view.shape = {**self.shape, "data": 1}
+        view.data = 1
+        view.ranks = self.ranks[r * self.tp:(r + 1) * self.tp]
+        view.size = len(view.ranks)
+        me = pdist.rank()
+        view.index = view.ranks.index(me) if me in view.ranks else None
+        g = self.row_groups[r] if self.row_groups else None
+        view.group = view.tp_group = g
+        view.row_groups = [g] if g is not None else []
+        return view
 
     @property
     def member(self) -> bool:
@@ -120,7 +158,12 @@ class Mesh:
 
     @property
     def data_index(self) -> int:
-        return self.index // self.fsdp
+        return self.index // (self.fsdp * self.tp)
+
+    @property
+    def tp_index(self) -> int:
+        """This rank's place in its tp row (its shard of the weights)."""
+        return self.index % self.tp
 
     @property
     def fsdp_index(self) -> int:
@@ -140,6 +183,23 @@ class Mesh:
         """Differentiable sum over every member (`t` itself on one rank)."""
         return t if self.group is None else _AllReduceSum.apply(t, self.group)
 
+    def psum_tp(self, t: torch.Tensor) -> torch.Tensor:
+        """In-place sum over this rank's tp row (nothing for a row of one):
+        Megatron's all-reduce after a row-parallel product."""
+        if self.tp_group is not None:
+            dist.all_reduce(t, group=self.tp_group)
+        return t
+
+    def all_same(self, value: int) -> bool:
+        """Whether every member holds the same host integer (collective;
+        the same answer on every member)."""
+        if self.group is None:
+            return True
+        t = torch.tensor([value], dtype=torch.int64, device=self._host_dev)
+        out = torch.empty(self.size, dtype=torch.int64, device=self._host_dev)
+        dist.all_gather_into_tensor(out, t, group=self.group)
+        return bool((out == out[0]).all().item())
+
     def agree(self, value: int) -> int:
         """The leader's host integer, on every member."""
         if self.group is None:
@@ -156,12 +216,23 @@ class Mesh:
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return bool(t.item())
 
-    def broadcast_object(self, obj: tp.Any) -> tp.Any:
-        """The leader's picklable object, on every member."""
+    def broadcast_object(self, obj: tp.Any, src: tp.Optional[int] = None) -> tp.Any:
+        """The leader's picklable object (or member rank `src`'s), on every
+        member."""
         if self.group is None:
             return obj
         box = [obj]
-        dist.broadcast_object_list(box, src=self.ranks[0], group=self.group, device=self._host_dev)
+        dist.broadcast_object_list(box, src=self.ranks[0] if src is None else src, group=self.group,
+                                   device=self._host_dev)
+        return box[0]
+
+    def send_object(self, obj: tp.Any, dst: int) -> None:
+        """A picklable object to rank `dst` (point to point)."""
+        dist.send_object_list([obj], dst=dst, device=self._host_dev)
+
+    def recv_object(self, src: int) -> tp.Any:
+        box = [None]
+        dist.recv_object_list(box, src=src, device=self._host_dev)
         return box[0]
 
     def barrier(self) -> None:

@@ -35,6 +35,22 @@ after the prefill that wrote a page and before the replay that reads it,
 also when the decode role has an overlapped round in flight. A host copy
 (`.cpu()`, or an upload from pageable memory) waits for that stream.
 
+On a serving mesh (`mesh=`, data >= 2 rows of tp ranks, JAX's layout:
+parallel/serve_tp.py `role_submeshes`) row 0 is the prefill role and
+row 1 the decode role, each engine tensor-parallel across its row, and
+each rank builds its own role's engine only. JAX drives both roles from
+one controller and moves a page within one array; the port's ranks run
+the pipeline in lockstep, every rank of the mesh one tick at a time
+(`step` on the mesh's first rank, the leader, which takes the
+submissions; `follow()` on the others). Each tick the leader broadcasts
+its submissions and the tick's clock; the prefill row steps and hands
+off, and its first rank broadcasts the handoff records and finishes;
+shard i of the prefill row sends its blocks of the handed-off pages to
+shard i of the decode row (point to point); the decode row adopts,
+steps and collects, and its first rank broadcasts its finishes. So the
+pipeline's host state is the same on every rank, and each engine's
+(sampling/serve.py, lockstep mode) the same on both ranks of its row.
+
 Greedy parity: the decode role's prompt is `prompt + [first_token]`; its
 prefill recomputes the positions the handoff did not ship and its first
 argmax is the monolithic engine's second token, so a disaggregated greedy
@@ -240,13 +256,15 @@ class PageHandoffQueue:
 
 class DisaggServe:
     """A prefill-role ServeEngine and a decode-role ServeEngine joined by a
-    PageHandoffQueue (module docstring). Both roles run unsharded side by
-    side on one device; `engine_kw` is shared, `prefill_kw`/`decode_kw`
-    override per role (e.g. a long prefill_chunk on the prefill role, more
-    slots and an overlap mode on the decode role). Greedy only: the handoff
-    carries no RNG stream, and parity with a monolithic engine is the
-    contract. One shared Observability gives both roles' spans lanes of
-    their own ("prefill", "decode") and the handoff spans a "disagg" lane."""
+    PageHandoffQueue (module docstring). Without `mesh` both roles run
+    unsharded side by side on one device; with it, each on its row of the
+    mesh (module docstring: row 0 prefill, row 1 decode, data >= 2).
+    `engine_kw` is shared, `prefill_kw`/`decode_kw` override per role (e.g.
+    a long prefill_chunk on the prefill role, more slots and an overlap
+    mode on the decode role). Greedy only: the handoff carries no RNG
+    stream, and parity with a monolithic engine is the contract. One
+    shared Observability gives both roles' spans lanes of their own
+    ("prefill", "decode") and the handoff spans a "disagg" lane."""
 
     def __init__(
         self,
@@ -260,26 +278,53 @@ class DisaggServe:
         obs=None,
         **engine_kw,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "DisaggServe(mesh=...) (roles on the rows of a serving mesh) is not ported yet: tensor-parallel "
-                "serving is the next slice of parallelism (ROADMAP.md Queue 1 item 7)"
-            )
         if engine_kw.get("temperature", 0.0) != 0.0:
             raise ValueError("DisaggServe is greedy-only (module docstring)")
         if engine_kw.pop("prefix_cache", True) is not True:
             raise ValueError("DisaggServe requires the prefix cache: the trie IS the handoff's page-ownership ledger")
+        self.mesh = mesh
+        self._role: tp.Optional[int] = None  # on a mesh: 0 (a prefill rank) or 1 (a decode rank)
+        roles: tp.List[tp.Any] = [None, None]
+        if mesh is not None:
+            from midgpt_tpu_torch.parallel.serve_tp import role_submeshes
+
+            roles = role_submeshes(mesh)
+            if len(roles) < 2:
+                raise ValueError(f"disaggregation needs a mesh with data >= 2 (one row per role); got data={mesh.data}")
+            self._role = next((r for r in (0, 1) if roles[r].member), None)
+            if self._role is None:
+                raise ValueError("this rank is in neither role's row of the mesh")
+            # shard i of one role's row trades pages with shard i of the other's
+            me = roles[self._role].index
+            self._peer = roles[1 - self._role].ranks[me]
+            self._leads = (roles[0].ranks[0], roles[1].ranks[0])
+            obs = obs if mesh.is_leader else None
         self._clock = clock
         self.obs = obs
         self._trace = obs.tracer if obs is not None else NULL_TRACER
-        self.prefill = ServeEngine(config, params, prefix_cache=True, clock=clock, obs=obs, obs_tid="prefill",
-                                   **{**engine_kw, **(prefill_kw or {})})
-        self.decode = ServeEngine(config, params, prefix_cache=True, clock=clock, obs=obs, obs_tid="decode",
-                                  **{**engine_kw, **(decode_kw or {})})
+        self.prefill = self.decode = None
+        if self._role in (None, 0):
+            self.prefill = ServeEngine(config, params, prefix_cache=True, clock=clock, obs=obs, obs_tid="prefill",
+                                       mesh=roles[0], **{**engine_kw, **(prefill_kw or {})})
+        if self._role in (None, 1):
+            self.decode = ServeEngine(config, params, prefix_cache=True, clock=clock, obs=obs, obs_tid="decode",
+                                      mesh=roles[1], **{**engine_kw, **(decode_kw or {})})
+        for eng in (self.prefill, self.decode):
+            if eng is not None and mesh is not None:
+                eng._lockstep = True  # the pipeline makes the same calls on every rank of the row
         # Bounded transport: a decode role that refuses the same item 512
         # ticks in a row is wedged; the exhaustion turns the stream into a
-        # terminal shed (base_s=0: the pipeline tick is the pacing).
-        self.queue = PageHandoffQueue(retries=512, base_s=0.0, clock=clock)
+        # terminal shed (base_s=0: the pipeline tick is the pacing). On a
+        # mesh it reads the tick's clock, the same on every rank.
+        self._tick_now = 0.0
+        self.queue = PageHandoffQueue(retries=512, base_s=0.0, clock=clock if mesh is None else self._now)
+        # On a mesh: the leader's submissions since the last tick, the
+        # tick's finishes (broadcast by the role that made them), and the
+        # other role's state as its row last reported it.
+        self._journal: tp.List[tp.Tuple[tp.Any, ...]] = []
+        self._tick_done: tp.List[FinishedRequest] = []
+        self._remote: tp.Dict[str, tp.Any] = {"prefill_idle": True, "decode_idle": True, "queue": self.queue.stats(),
+                                              "decode_stats": None, "prefill_stats": None}
         self.finished: tp.Dict[int, FinishedRequest] = {}
         # prefill-role uid -> (uid, prompt, max_new, eos, deadline)
         self._pf_pending: tp.Dict[int, tp.Tuple[int, np.ndarray, int, tp.Optional[int], tp.Optional[float]]] = {}
@@ -295,10 +340,26 @@ class DisaggServe:
     def submit(self, prompt: tp.Sequence[int], max_new_tokens: int, eos_id: tp.Optional[int] = None,
                ttl_s: tp.Optional[float] = None) -> int:
         """Queue a request on the PREFILL role (budget 1: prefill + first
-        token is a complete request there). Backpressure propagates."""
+        token is a complete request there). Backpressure propagates. On a
+        mesh only the leader takes submissions; they reach the other ranks
+        at the next tick."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
-        deadline = None if ttl_s is None else self._clock() + ttl_s
-        pf_uid = self.prefill.submit(prompt, 1, eos_id=None, ttl_s=ttl_s)
+        if self.mesh is None:
+            deadline = None if ttl_s is None else self._clock() + ttl_s
+            pf_uid = self.prefill.submit(prompt, 1, eos_id=None, ttl_s=ttl_s)
+            return self._pending(pf_uid, prompt, max_new_tokens, eos_id, deadline)
+        if not self.mesh.is_leader:
+            raise RuntimeError("submit() on a mesh goes to its leader; the other ranks follow()")
+        now = self._clock()
+        try:
+            pf_uid = self.prefill._op_submit(prompt, 1, None, ttl_s, now)
+        except Exception as e:
+            self._journal.append((prompt, max_new_tokens, eos_id, ttl_s, now, ("raise", type(e).__name__)))
+            raise
+        self._journal.append((prompt, max_new_tokens, eos_id, ttl_s, now, ("ok", pf_uid)))
+        return self._pending(pf_uid, prompt, max_new_tokens, eos_id, None if ttl_s is None else now + ttl_s)
+
+    def _pending(self, pf_uid, prompt, max_new_tokens, eos_id, deadline) -> int:
         uid = self._uid
         self._uid += 1
         self._pf_pending[pf_uid] = (uid, prompt, max_new_tokens, eos_id, deadline)
@@ -306,6 +367,8 @@ class DisaggServe:
 
     @property
     def idle(self) -> bool:
+        if self.mesh is not None:
+            return not self._pf_pending and self._remote["prefill_idle"] and self._remote["decode_idle"]
         return (not self._pf_pending and not self._dec_pending and not len(self.queue)
                 and self.prefill.idle and self.decode.idle)
 
@@ -317,7 +380,15 @@ class DisaggServe:
     def step(self) -> None:
         """One pipeline tick: advance prefill, hand its finishes to the
         queue, adopt queued handoffs into the decode role, advance decode,
-        collect its finishes."""
+        collect its finishes. On a mesh the leader's tick, which every
+        other rank takes in `follow()` (module docstring)."""
+        if self.mesh is not None:
+            if not self.mesh.is_leader:
+                raise RuntimeError("a follower rank of a disaggregated mesh ticks in follow()")
+            packet = {"kind": "tick", "submits": self._journal, "now": self._clock()}
+            self._journal = []
+            self._tick(self.mesh.broadcast_object(packet))
+            return
         if not self.prefill.idle:
             self.prefill.step()
         self._drain_prefill()
@@ -326,7 +397,100 @@ class DisaggServe:
             self.decode.step()
         self._drain_decode()
 
+    def follow(self) -> None:
+        """A follower rank's loop: take each tick the leader broadcasts,
+        until its `stop_followers()`."""
+        if self.mesh is None or self.mesh.is_leader:
+            raise RuntimeError("follow() runs on the follower ranks of a disaggregated mesh")
+        while True:
+            packet = self.mesh.broadcast_object(None)
+            if packet["kind"] == "stop":
+                self._apply_submits(packet["submits"])
+                return
+            self._tick(packet)
+
+    def stop_followers(self) -> None:
+        """The leader's last broadcast: `follow()` returns on every other
+        rank. Nothing without a mesh."""
+        if self.mesh is not None and self.mesh.is_leader:
+            self.mesh.broadcast_object({"kind": "stop", "submits": self._journal})
+            self._journal = []
+
+    def _now(self) -> float:
+        return self._tick_now
+
+    def _apply_submits(self, submits) -> None:
+        """A follower's copy of the leader's submissions, in order: the
+        prefill row submits them to its engine at the leader's clock (and
+        must reach the leader's outcome), every rank records the pending
+        request."""
+        for prompt, max_new, eos_id, ttl_s, now, want in submits:
+            if self._role == 0:
+                try:
+                    got = ("ok", self.prefill._op_submit(prompt, 1, None, ttl_s, now))
+                except Exception as e:  # the leader's submit may have raised too: compared below
+                    got = ("raise", type(e).__name__)
+                if got != want:
+                    self.prefill._diverged = f"disagg submit: the leader's outcome {want}, this rank's {got}"
+            if want[0] == "ok":
+                self._pending(want[1], prompt, max_new, eos_id, None if ttl_s is None else now + ttl_s)
+
+    def _tick(self, packet) -> None:
+        """One lockstep tick of a mesh rank (module docstring)."""
+        self._tick_now = packet["now"]
+        if not self.mesh.is_leader:
+            self._apply_submits(packet["submits"])
+        news, blocks, decode_news = None, [], None
+        self._tick_done = []
+        if self._role == 0:
+            if not self.prefill.idle:
+                self.prefill.step()
+            items = self._handoffs()
+            blocks = [it.blocks for it in items]  # this rank's shard of each item's pages
+            news = {"items": [dataclasses.replace(it, blocks={}) for it in items], "done": self._tick_done,
+                    "idle": self.prefill.idle, "stats": self.prefill.stats() if self.mesh.is_leader else None}
+        news = self.mesh.broadcast_object(news, src=self._leads[0])
+        if any(it.n_pages for it in news["items"]):
+            if self._role == 0:
+                self.mesh.send_object(blocks, self._peer)
+            else:
+                blocks = self.mesh.recv_object(self._peer)
+        elif self._role == 1:
+            blocks = [{} for _ in news["items"]]  # no item holds a complete page
+        if self._role == 1:
+            for fr in news["done"]:
+                self.finished[fr.uid] = fr
+            self._tick_done = []
+            for it, b in zip(news["items"], blocks):
+                self.queue.push(dataclasses.replace(it, blocks=b))
+            self._drain_queue()
+            if not self.decode.idle:
+                self.decode.step()
+            self._drain_decode()
+            decode_news = {"done": self._tick_done, "fallback": self.fallback_reprefills, "queue": self.queue.stats(),
+                           "idle": not self._dec_pending and not len(self.queue) and self.decode.idle,
+                           "stats": self.decode.stats() if self.decode.mesh.is_leader else None}
+        decode_news = self.mesh.broadcast_object(decode_news, src=self._leads[1])
+        if self._role == 0:
+            for fr in decode_news["done"]:
+                self.finished[fr.uid] = fr
+        self.fallback_reprefills = decode_news["fallback"]
+        self._remote = {"prefill_idle": news["idle"], "decode_idle": decode_news["idle"],
+                        "queue": decode_news["queue"], "prefill_stats": news["stats"],
+                        "decode_stats": decode_news["stats"]}
+
     def stats(self) -> tp.Dict[str, tp.Any]:
+        """The pipeline's counters and each role's stats (on a mesh: the
+        queue and the decode role's as its row last reported them)."""
+        if self.mesh is not None:
+            return {
+                "queue": self._remote["queue"],
+                "fallback_reprefills": self.fallback_reprefills,
+                "re_roles": self.re_roles,
+                "prefill": self.prefill.stats() if self.prefill is not None else self._remote["prefill_stats"],
+                "decode": self.decode.stats() if self.decode is not None else self._remote["decode_stats"],
+                "obs": DISABLED_SNAPSHOT if self.obs is None else self.obs.snapshot(),
+            }
         return {
             "queue": self.queue.stats(),
             "fallback_reprefills": self.fallback_reprefills,
@@ -347,6 +511,9 @@ class DisaggServe:
             raise ValueError(f"rebalance src/dst must be distinct roles from {sorted(roles)}, got {src!r}->{dst!r}")
         if n_pages < 1:
             raise ValueError(f"n_pages must be >= 1, got {n_pages}")
+        if self.mesh is not None:
+            raise NotImplementedError("rebalance on a mesh resizes both rows' engines in one tick: not ported yet "
+                                      "(ROADMAP.md Queue 1 item 7, re-roling and the spill tier under tp)")
         shrink = roles[src].resize(roles[src].allocator.num_pages - n_pages)
         grow = roles[dst].resize(roles[dst].allocator.num_pages + n_pages)
         self.re_roles += 1
@@ -357,8 +524,17 @@ class DisaggServe:
 
     def _finish(self, fr: FinishedRequest) -> None:
         self.finished[fr.uid] = fr
+        if self.mesh is not None:
+            self._tick_done.append(fr)  # its role's first rank broadcasts the tick's finishes
 
     def _drain_prefill(self) -> None:
+        for item in self._handoffs():
+            self.queue.push(item)
+
+    def _handoffs(self) -> tp.List[HandoffItem]:
+        """Finish the prefill role's completed requests that end there, and
+        gather the others' pages: their handoff items, in order."""
+        items = []
         for pf_uid in [u for u in self._pf_pending if u in self.prefill.finished]:
             uid, prompt, max_new, eos_id, deadline = self._pf_pending.pop(pf_uid)
             fr = self.prefill.finished[pf_uid]
@@ -371,9 +547,10 @@ class DisaggServe:
                 self._finish(FinishedRequest(uid, np.append(prompt, np.int32(first)), [first_time], "ok"))
                 continue
             item = self._gather_pages(uid, prompt, first, first_time, max_new, eos_id, deadline)
-            self.queue.push(item)
+            items.append(item)
             self._trace.instant("handoff.push", "disagg", "disagg",
                                 args={"uid": uid, "n_pages": item.n_pages, "bytes": sum(b.nbytes for b in item.blocks.values())})
+        return items
 
     def _gather_pages(self, uid, prompt, first, first_time, max_new, eos_id, deadline) -> HandoffItem:
         """Reference the request's complete prompt pages in the prefill
@@ -402,12 +579,16 @@ class DisaggServe:
             head = np.append(item.prompt, np.int32(item.first_token))
             remaining = None
             if item.deadline is not None:
-                remaining = item.deadline - self._clock()
+                remaining = item.deadline - (self._clock() if self.mesh is None else self._tick_now)
                 if remaining <= 0:
                     self._finish(FinishedRequest(item.uid, head, [item.first_time], "timeout"))
                     continue
             try:
-                dec_uid = self.decode.submit(head, item.max_new_tokens - 1, item.eos_id, ttl_s=remaining)
+                if self.mesh is None:
+                    dec_uid = self.decode.submit(head, item.max_new_tokens - 1, item.eos_id, ttl_s=remaining)
+                else:  # both ranks of the decode row, at the tick's clock
+                    dec_uid = self.decode._op_submit(head, item.max_new_tokens - 1, item.eos_id, remaining,
+                                                     self._tick_now)
             except BackpressureError:
                 try:
                     self.queue.requeue(item)

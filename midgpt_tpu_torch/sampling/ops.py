@@ -4,7 +4,9 @@ counterpart of midgpt_tpu/sampling/ops.py).
 
   * **Hot swap** (`stage_hot_swap` / `maybe_flip_swap`) is blue/green at
     round granularity: the new params are checked against the live ones
-    (keys, shapes, dtypes, config) and staged on the engine's device. While
+    (keys, shapes, dtypes, config) and staged on the engine's device (on a
+    tp rank: the whole candidate is checked, then cut to the rank's shard
+    before the flip). While
     a swap is staged, admissions pause; in-flight streams finish on the old
     weights; the flip happens at the first round boundary with no live
     slot. JAX's flip is a pointer exchange that compiles nothing, because
@@ -29,7 +31,8 @@ counterpart of midgpt_tpu/sampling/ops.py).
     Every captured graph read the old pool, so all are dropped (counted in
     `engine.dropped_graphs`) and recaptured at their next dispatch
     (sampling/graphs.py `DecodeGraphs.drop`): a replay against a freed pool
-    would read freed memory. Page conservation
+    would read freed memory. On a tp rank the new pool holds the rank's
+    heads, as JAX's resize places its pool on the mesh. Page conservation
     (free + trie + live-only == num_pages - 1) is asserted on both sides.
   * **ModelOps** is a clock-injected controller over the signals the
     engine already surfaces — free-page fraction, backlog pages, shed
@@ -180,6 +183,10 @@ def stage_hot_swap(engine: ServeEngine, params, *, draft_params=None, version: s
             expected=engine.config,
             got=config,
         )
+    if engine._tp is not None:
+        # a tp rank checks the whole candidate, then stages its own shard
+        _validate_swap_tree(engine._tp.whole(engine.params), params, what="params")
+        params = engine._tp.shard(params)
     _validate_swap_tree(engine.params, params, what="params")
     if draft_params is not None and engine.draft_params is None:
         raise HotSwapError(
@@ -189,6 +196,9 @@ def stage_hot_swap(engine: ServeEngine, params, *, draft_params=None, version: s
     # A target-only swap on a speculative engine is legal: the draft only
     # proposes, and the rejection sampler commits the (new) target's tokens.
     if draft_params is not None:
+        if engine._draft_tp is not None:
+            _validate_swap_tree(engine._draft_tp.whole(engine.draft_params), draft_params, what="draft_params")
+            draft_params = engine._draft_tp.shard(draft_params)
         _validate_swap_tree(engine.draft_params, draft_params, what="draft_params")
     engine._staged_swap = {
         "params": _stage(engine.params, params),
@@ -292,7 +302,7 @@ def _migrate_cache(engine: ServeEngine, cache: PagedKVCache, old_ids, new_ids, n
     from midgpt_tpu_torch.sampling.disagg import adopt_pages
 
     new = PagedKVCache.init(config, num_pages=num_pages, page_size=engine.page_size, dtype=engine.cache_dtype,
-                            device=engine.device)
+                            device=engine.device, tp_size=engine.tp_size)  # a tp rank's pool: its heads
     if old_ids:
         src = torch.as_tensor(old_ids, device=engine.device)
         blocks = {"k": cache.k[:, :, src], "v": cache.v[:, :, src]}

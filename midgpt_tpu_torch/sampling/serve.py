@@ -95,8 +95,29 @@ front door, sampling/server.py, streams through them). Zero-downtime ops
 (sampling/ops.py): `hot_swap` stages new weights that flip in place at
 the first round boundary with no live slot (`weights_version` names the
 weights serving), and `resize` migrates the resident pages into a pool of
-another size. Mesh-sharded serving is not ported (ROADMAP.md); `mesh=`
-raises NotImplementedError.
+another size.
+
+Tensor-parallel serving (`mesh=`, a (data 1, tp) row of ranks from
+parallel/serve_tp.py `make_serve_mesh`, as JAX's `mesh=`): every rank of
+the row builds the engine from the same config and whole weights and
+keeps its shard (Megatron's layout: whole heads of q, k and v, the MLP's
+columns, wo's and w_down's rows; the pool at n_kv_heads / tp heads), and
+the paged forwards all-reduce the two row-parallel products of each
+block (models/gpt.py). The host state is replicated: the row's first
+rank (the leader) takes every submission, cancellation, reset, swap,
+resize and flush, applies it, and journals it; at each step edge it
+broadcasts the journal with the clock value the round's decisions read
+(expiry, admission, preemption) and the faults that fire this round, and
+the other ranks (`follow()`) apply the same calls and take the same
+step, so the trie, the allocator and the scheduler decide alike on every
+rank, as JAX's single controller does. Logits are whole on every rank and
+the sampler's generator has one seed, so the streams agree at any
+temperature. Each round every rank folds its host decisions into a
+digest (slots, their pages and tokens, the queue, the free list) and the
+row compares them: a divergence raises TPDivergenceError on every rank
+in that round, and a rank that stops answering raises at its row's
+collective timeout. Token timestamps stay local. The captured overlap
+modes are refused under tp (a gloo collective cannot join a CUDA graph).
 
 Every device operation runs on the stream that was current when the
 engine was built (`_on_stream`): the current stream is thread-local, and
@@ -112,6 +133,7 @@ import dataclasses
 import time
 import typing as tp
 import weakref
+import zlib
 
 import numpy as np
 import torch
@@ -161,6 +183,7 @@ def _serve_decode_chunk(
     attn_impl: str,
     generator: tp.Optional[torch.Generator] = None,
     split_k: int = 1,
+    tp_shard=None,  # parallel/serve_tp.py TPShard on a tensor-parallel rank
 ) -> tp.Tuple[PagedKVCache, Tensor]:
     """n_steps decode+sample steps for the whole slot batch, on the device
     with no host sync between steps. Inactive slots hold their token and
@@ -169,7 +192,7 @@ def _serve_decode_chunk(
     for _ in range(n_steps):
         logits, cache = GPT.decode_step_paged(
             config, params, token, cache, page_table, lengths, active,
-            attn_impl=attn_impl, split_k=split_k,
+            attn_impl=attn_impl, split_k=split_k, tp_shard=tp_shard,
         )
         if temperature == 0.0:
             nxt = torch.argmax(logits.float(), dim=-1)
@@ -307,6 +330,7 @@ def _spec_draft_chunk(
     attn_impl: str,
     generator: tp.Optional[torch.Generator] = None,
     split_k: int = 1,
+    tp_shard=None,
 ) -> tp.Tuple[Tensor, tp.Optional[Tensor]]:
     """k_steps autoregressive draft proposals for the whole slot batch,
     writing the draft pool in place, with no host sync between steps.
@@ -318,7 +342,7 @@ def _spec_draft_chunk(
     for _ in range(k_steps):
         logits, cache = GPT.decode_step_paged(
             config, params, token, cache, page_table, lengths, active,
-            attn_impl=attn_impl, split_k=split_k,
+            attn_impl=attn_impl, split_k=split_k, tp_shard=tp_shard,
         )
         lf = logits.float()
         if temperature == 0.0:
@@ -349,6 +373,7 @@ def _spec_verify_chunk(
     attn_impl: str,
     generator: tp.Optional[torch.Generator] = None,
     split_k: int = 1,
+    tp_shard=None,
 ) -> tp.Tuple[PagedKVCache, Tensor, Tensor]:
     """One batched paged verify forward over [pending, d_1..d_k] plus the
     rejection sampler (sampling/spec.py): returns (cache, n_accept (B,),
@@ -357,13 +382,43 @@ def _spec_verify_chunk(
     tokens = torch.cat([token[:, None], drafts.T.to(token.dtype)], dim=1)  # (B, k+1)
     logits, cache = GPT.verify_step_paged(
         config, params, tokens, cache, page_table, lengths, active,
-        attn_impl=attn_impl, split_k=split_k,
+        attn_impl=attn_impl, split_k=split_k, tp_shard=tp_shard,
     )
     n_accept, out = speculative_accept(
         logits, None if draft_probs is None else draft_probs.transpose(0, 1),
         drafts.T, generator, temperature, top_k, top_p,
     )
     return cache, torch.where(active, n_accept, 0), out
+
+
+def _outcome(out) -> tp.Tuple[str, tp.Any]:
+    """What a journaled call's return says of the host state: a uid, a
+    flag or a page count as it is, anything else only that it returned."""
+    return ("ok", out if isinstance(out, (bool, int)) else None)
+
+
+def _check_mesh(mesh, config: GPTConfig, draft_config: tp.Optional[GPTConfig], overlap: str) -> None:
+    """JAX's checks of a serving mesh (its messages), and the port's
+    refusals: an engine lives on one tp row of ranks it belongs to, and
+    the captured overlap modes wait for NCCL between cards."""
+    n_tp = mesh.tp
+    if mesh.data != 1:
+        raise ValueError(f"an engine runs on one tp row (data=1); got data={mesh.data}: "
+                         "parallel/serve_tp.py role_submeshes cuts a row per role")
+    if not mesh.member:
+        raise ValueError("this rank is not a member of the engine's serving mesh")
+    for nm, c in (("target", config), ("draft", draft_config)):
+        if c is not None and c.n_head % n_tp:
+            raise ValueError(f"{nm} n_head={c.n_head} not divisible by mesh tp={n_tp} — the pool shards whole heads")
+        if c is not None and c.kv_heads % n_tp:
+            raise ValueError(f"{nm} n_kv_heads={c.kv_heads} not divisible by mesh tp={n_tp} — the pool shards whole "
+                             "KV heads")
+    if n_tp > 1 and overlap != "off":
+        raise NotImplementedError(
+            f"overlap={overlap!r} on a tp mesh: its rounds replay captured CUDA graphs, and a gloo collective "
+            "cannot join a capture; the captured overlap modes under tp come with NCCL between cards (ROADMAP.md "
+            "Queue 1 item 7, the captured overlap modes under tp)"
+        )
 
 
 class PageAllocator:
@@ -528,13 +583,10 @@ class ServeEngine:
         on_token: tp.Optional[tp.Callable[[int, int, float], None]] = None,
         on_finish: tp.Optional[tp.Callable[["FinishedRequest"], None]] = None,
         weights_version: str = "inline",  # "<step>:<sha12>" of a verified checkpoint, or "inline"
-        mesh=None,  # not ported: raises
+        mesh=None,  # a (data 1, tp) serving mesh (parallel/serve_tp.py): tensor-parallel serving
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "ServeEngine(mesh=...) is not ported yet: tensor-parallel serving is the next slice of "
-                "parallelism (ROADMAP.md Queue 1 item 7)"
-            )
+            _check_mesh(mesh, config, draft_config, overlap)
         if decode_chunk < 1 or decode_chunk & (decode_chunk - 1):
             raise ValueError(f"decode_chunk={decode_chunk} must be a power of two")
         if split_k != "auto" and (not isinstance(split_k, int) or split_k < 1):
@@ -574,6 +626,32 @@ class ServeEngine:
         # the captured graphs read them by address.
         self._stream = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
         self.config = config
+        # Tensor parallelism (module docstring): this rank's shard of the
+        # weights and the row's all-reduce, placed by JAX's serving specs.
+        self.mesh = mesh
+        self.tp_size = 1 if mesh is None else mesh.tp
+        self._tp = self._draft_tp = None
+        if mesh is not None and mesh.size > 1:
+            from midgpt_tpu_torch.parallel import serve_tp
+
+            specs = serve_tp.serve_param_specs({k: tuple(v.shape) for k, v in params.items()}, mesh.tp)
+            self._tp = serve_tp.TPShard(mesh, specs)
+            params = serve_tp.shard_params(params, mesh.tp, mesh.tp_index, specs)
+            if draft_params is not None:
+                dspecs = serve_tp.serve_param_specs({k: tuple(v.shape) for k, v in draft_params.items()}, mesh.tp)
+                self._draft_tp = serve_tp.TPShard(mesh, dspecs)
+                draft_params = serve_tp.shard_params(draft_params, mesh.tp, mesh.tp_index, dspecs)
+        # the leader's calls since the last step edge, the packet of the
+        # round in progress, and the depth of engine code running (a call
+        # made from inside a step or another call is not journaled)
+        self._journal: tp.List[tp.Tuple[str, tuple, tuple]] = []
+        self._edge: tp.Optional[tp.Dict[str, tp.Any]] = None
+        self._nested = 0
+        self._diverged: tp.Optional[str] = None
+        # Set by a driver that makes the same calls on every rank of the row
+        # itself (sampling/disagg.py on a mesh): nothing is journaled, and
+        # every rank calls step().
+        self._lockstep = False
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.scheduler = scheduler if scheduler is not None else FCFSScheduler()
         self._clock = clock
@@ -618,7 +696,7 @@ class ServeEngine:
         self.prefix_cache = PrefixCache(page_size) if prefix_cache else None
         self.cache = PagedKVCache.init(
             config, num_pages=num_pages, page_size=page_size,
-            dtype=self.cache_dtype, device=self.device,
+            dtype=self.cache_dtype, device=self.device, tp_size=self.tp_size,
         )
         self.draft_config = draft_config
         self.draft_params = (
@@ -637,7 +715,7 @@ class ServeEngine:
             if draft_config is None or draft_shares_cache
             else PagedKVCache.init(
                 draft_config, num_pages=num_pages, page_size=page_size,
-                dtype=self.cache_dtype, device=self.device,
+                dtype=self.cache_dtype, device=self.device, tp_size=self.tp_size,
             )
         )
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -743,7 +821,11 @@ class ServeEngine:
         streaming hooks are removed. A capture belongs to its engine's pool
         and weights, so loadgen (midgpt_tpu_torch/loadgen.py) serves every
         offered-load point on one engine reset this way, and no point's
-        timing includes a capture."""
+        timing includes a capture. A tp leader's followers reset without an
+        Observability (it changes no decision)."""
+        self._host_op("reset", (obs,), (None,))
+
+    def _op_reset(self, obs) -> None:
         if not self.idle:
             raise RuntimeError("reset() needs an idle engine (no queued, running or staged work)")
         # a new engine has no spill tier, and the flush must not spill
@@ -768,6 +850,12 @@ class ServeEngine:
         """Queue a request. `ttl_s` bounds its total residence time. Raises
         BackpressureError when the scheduler policy sheds the request."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
+        # a tp leader reads the clock here: its followers decide on the same value
+        now = self._clock() if self._journaling() else None
+        return self._host_op("submit", (prompt, max_new_tokens, eos_id, ttl_s, now))
+
+    def _op_submit(self, prompt: np.ndarray, max_new_tokens: int, eos_id: tp.Optional[int],
+                   ttl_s: tp.Optional[float], now: tp.Optional[float]) -> int:
         S = self.config.block_size
         if len(prompt) + max_new_tokens > S:
             raise ValueError(
@@ -780,7 +868,8 @@ class ServeEngine:
                 f"request needs {need} pages but the pool only has "
                 f"{self.allocator.num_pages - 1} allocatable"
             )
-        now = self._clock()
+        if now is None:
+            now = self._clock()
         deadline = None if ttl_s is None else now + ttl_s
         shed = self.scheduler.shed_reason(need, deadline, self, now)
         if shed is not None:
@@ -842,6 +931,9 @@ class ServeEngine:
         """Finish a queued or running request NOW: its pages return to the
         pool and its partial tokens are recorded under `status`; no other
         slot is touched. False if `uid` is unknown or already finished."""
+        return self._host_op("cancel", (uid, status))
+
+    def _op_cancel(self, uid: int, status: str) -> bool:
         with self._on_stream():
             return self._cancel(uid, status)
 
@@ -875,7 +967,16 @@ class ServeEngine:
         stays valid and none is added. Those tensors are the ones passed to
         the constructor when they were already on the engine's device. A
         mismatch raises HotSwapError before anything changes
-        (sampling/ops.py)."""
+        (sampling/ops.py). Under tp each rank stages its shard of the
+        whole weights given."""
+        host = None
+        if self._journaling():  # the followers' copy, on the host
+            host = ({k: v.detach().cpu() for k, v in params.items()},
+                    None if draft_params is None else {k: v.detach().cpu() for k, v in draft_params.items()},
+                    version, config)
+        return self._host_op("hot_swap", (params, draft_params, version, config), host)
+
+    def _op_hot_swap(self, params, draft_params, version, config) -> tp.Dict[str, tp.Any]:
         from midgpt_tpu_torch.sampling import ops
 
         with self._on_stream():
@@ -886,6 +987,9 @@ class ServeEngine:
         `num_pages` (int8 scales with them), remap slots and trie, install a
         new allocator, and drop the captures of the old pool. A shrink below
         the resident working set raises PoolResizeError (sampling/ops.py)."""
+        return self._host_op("resize", (num_pages, max_slots))
+
+    def _op_resize(self, num_pages, max_slots) -> tp.Dict[str, tp.Any]:
         from midgpt_tpu_torch.sampling import ops
 
         with self._on_stream():
@@ -904,6 +1008,11 @@ class ServeEngine:
         anchor."""
         if self.prefix_cache is None:
             raise ValueError("attach_spill requires prefix_cache=True")
+        if self._tp is not None:
+            raise NotImplementedError(
+                "attach_spill on a tensor-parallel engine: a spilled page holds one rank's heads, so the tier would "
+                "need every rank's; not ported yet (ROADMAP.md Queue 1 item 7, re-roling and the spill tier under tp)"
+            )
         tier.set_page_size(self.page_size)
         self.spill_tier = tier
         # a weak reference: the engine owns its trie, and a hook holding the
@@ -973,6 +1082,9 @@ class ServeEngine:
         """Reclaim every unreferenced trie page at once (an operator flush;
         the `evict_shared_prefix` fault strikes through it). Referenced
         pages stay. Returns the pages freed."""
+        return self._host_op("flush_prefix_cache", ())
+
+    def _op_flush_prefix_cache(self) -> int:
         if self.prefix_cache is None:
             return 0
         with self._on_stream():
@@ -987,13 +1099,28 @@ class ServeEngine:
 
     def cache_hbm_bytes(self) -> int:
         """Device bytes of the paged pools (K and V, int8 scales included,
-        and a separate draft's pool)."""
+        and a separate draft's pool): over the whole tp row, every rank of
+        which holds the same bytes of it."""
+        return self.cache_hbm_bytes_per_shard() * self.tp_size
+
+    def cache_hbm_bytes_per_shard(self) -> int:
+        """Device bytes of this rank's shard of the pools: the whole over
+        tp, since every pool tensor shards its head axis (the number a
+        card's memory budget is judged against)."""
         return self.cache.nbytes + (0 if self.draft_cache is None else self.draft_cache.nbytes)
+
+    def mesh_shape(self) -> tp.Optional[tp.Dict[str, int]]:
+        """{'data': d, 'tp': t} on a serving mesh, None on one device."""
+        from midgpt_tpu_torch.parallel.serve_tp import mesh_shape
+
+        return mesh_shape(self.mesh)
 
     def stats(self) -> tp.Dict[str, tp.Any]:
         """Deployment-shape + counter snapshot."""
         return {
             "device": str(self.device),
+            "mesh": self.mesh_shape(),
+            "cache_hbm_bytes_per_shard": self.cache_hbm_bytes_per_shard(),
             "cache_dtype": str(self.cache_dtype).replace("torch.", ""),
             "cache_hbm_bytes": self.cache_hbm_bytes(),
             "num_pages": self.allocator.num_pages,
@@ -1069,23 +1196,164 @@ class ServeEngine:
 
         The serving faults fire here, keyed on the round counter, so a
         seeded trace makes every firing deterministic (`kill_mid_decode@7`
-        strikes round 7)."""
-        with self._on_stream():
-            if self.overlap == "double" and self.draft_config is None:
-                self._step_overlapped()
-            else:
+        strikes round 7).
+
+        On a tp row the leader broadcasts the step edge (module docstring)
+        and the followers take the step in `follow()`; under a lockstep
+        driver every rank calls step()."""
+        if self._tp is None:
+            with self._on_stream():
+                if self.overlap == "double" and self.draft_config is None:
+                    self._step_overlapped()
+                else:
+                    self._step_classic()
+            return
+        if self.mesh.is_leader:
+            packet = self._edge_packet("step")
+            self.mesh.broadcast_object(packet)
+        elif self._lockstep:
+            packet = self.mesh.broadcast_object(None)
+            self._replay(packet["ops"])
+        else:
+            raise RuntimeError("a tp follower's engine steps in follow(), as its leader's step edges arrive")
+        self._step_shard(packet)
+
+    # -- tensor parallelism: the replicated host state ------------------
+
+    # the faults a classic round consults, in its order (the leader draws
+    # them at the edge, for the whole row)
+    _ROUND_FAULTS = ("poisoned_page", "evict_shared_prefix", "hot_swap_mid_decode", "pool_resize", "kill_mid_decode")
+
+    def _journaling(self) -> bool:
+        """A tp leader's call from outside the engine: applied here, and
+        journaled for the followers."""
+        return self._tp is not None and self.mesh.is_leader and not self._lockstep and self._nested == 0
+
+    def _host_op(self, name: str, args: tuple, follower_args: tp.Optional[tuple] = None):
+        """Run `_op_<name>(*args)`; on a journaling tp leader record it
+        (with `follower_args` in place of args when given) and its outcome."""
+        fn = getattr(self, "_op_" + name)
+        if self._tp is not None and not self.mesh.is_leader and not self._lockstep and self._nested == 0:
+            raise RuntimeError(f"{name}() on a tp follower: the leader takes every call and its followers "
+                               "follow() (module docstring)")
+        if not self._journaling():
+            return fn(*args)
+        self._nested += 1
+        try:
+            out = fn(*args)
+        except Exception as e:
+            self._journal.append((name, follower_args or args, ("raise", type(e).__name__)))
+            raise
+        finally:
+            self._nested -= 1
+        self._journal.append((name, follower_args or args, _outcome(out)))
+        return out
+
+    def _replay(self, ops) -> None:
+        """Apply the leader's journaled calls in order; an outcome other
+        than the leader's marks this rank diverged (its digest then differs
+        and the row raises together)."""
+        for name, args, want in ops:
+            self._nested += 1
+            try:
+                got = _outcome(getattr(self, "_op_" + name)(*args))
+            except Exception as e:  # the leader's call may have raised too: compared below
+                got = ("raise", type(e).__name__)
+            finally:
+                self._nested -= 1
+            if got != want and self._diverged is None:
+                self._diverged = f"{name}: the leader's outcome {want}, this rank's {got}"
+
+    def _edge_packet(self, kind: str) -> tp.Dict[str, tp.Any]:
+        """The leader's step edge: the journal, and for a step the clock
+        value the round decides on and the faults that fire in it (with
+        the swap payload and the resize target they act on)."""
+        ops, self._journal = self._journal, []
+        packet: tp.Dict[str, tp.Any] = {"kind": kind, "ops": ops}
+        if kind == "step":
+            fires = [k for k in self._ROUND_FAULTS if faults.should_fire(k, step=self.rounds + 1)]
+            swap = None
+            if "hot_swap_mid_decode" in fires and self.swap_source is not None:
+                swap = {k: ({n: t.detach().cpu() for n, t in v.items()} if isinstance(v, dict) else v)
+                        for k, v in self.swap_source().items()}
+            resize = self.resize_plan.pop(0) if "pool_resize" in fires and self.resize_plan else None
+            packet.update(now=self._clock(), fires=fires, swap=swap, resize=resize)
+        return packet
+
+    def _step_shard(self, packet: tp.Dict[str, tp.Any]) -> None:
+        """One round of a tp rank from the edge's packet, then the row's
+        digest check."""
+        self._edge = packet
+        self._nested += 1
+        try:
+            with self._on_stream():
                 self._step_classic()
+        finally:
+            self._nested -= 1
+            self._edge = None
+        self._check_digest()
+
+    def _check_digest(self) -> None:
+        state = (
+            self.rounds,
+            self._diverged,
+            tuple(None if s is None else (s.request.uid, s.length, s.prompt_pos, tuple(s.pages), tuple(s.generated))
+                  for s in self.slots),
+            tuple(r.uid for r in self.queue),
+            len(self.finished),
+            self.allocator.free_count,
+        )
+        digest = zlib.crc32(repr(state).encode())
+        if not self.mesh.all_same(digest):
+            from midgpt_tpu_torch.parallel.serve_tp import TPDivergenceError
+
+            raise TPDivergenceError(
+                f"round {self.rounds}: the ranks of the tp row {list(self.mesh.ranks)} took different host decisions"
+                + (f" ({self._diverged})" if self._diverged else "")
+            )
+
+    def follow(self) -> tp.Dict[int, "FinishedRequest"]:
+        """A follower rank's loop: apply each step edge its leader
+        broadcasts and take the same step, until the leader's
+        `stop_followers()`. Returns this rank's finished requests (the
+        leader's, token for token)."""
+        if self._tp is None or self.mesh.is_leader or self._lockstep:
+            raise RuntimeError("follow() runs on the follower ranks of a tp row")
+        while True:
+            packet = self.mesh.broadcast_object(None)
+            self._replay(packet["ops"])
+            if packet["kind"] == "stop":
+                return self.finished
+            self._step_shard(packet)
+
+    def stop_followers(self) -> None:
+        """The leader's last edge: the calls journaled since the last step,
+        then `follow()` returns on every follower. Nothing on one device."""
+        if self._tp is not None and self.mesh.is_leader and not self._lockstep:
+            self.mesh.broadcast_object(self._edge_packet("stop"))
+
+    def _now(self) -> float:
+        """The clock value a scheduling decision reads: the step edge's on
+        a tp row (the same on every rank), else the engine's clock."""
+        return self._clock() if self._edge is None else self._edge["now"]
+
+    def _fires(self, kind: str) -> bool:
+        """Whether fault `kind` strikes this round: the edge's draw on a tp
+        row, else the registry's."""
+        if self._edge is not None:
+            return kind in self._edge["fires"]
+        return faults.should_fire(kind, step=self.rounds)
 
     def _step_classic(self) -> None:
         self.rounds += 1
         tr = self._trace
         t_round = 0.0 if self.obs is None else self._clock()
-        if faults.should_fire("poisoned_page", step=self.rounds):
+        if self._fires("poisoned_page"):
             tr.instant("fault.poisoned_page", "fault", self._obs_tid)
             self._poison_page()
         self._pool_faults()
         self._host_phases()
-        if faults.should_fire("kill_mid_decode", step=self.rounds):
+        if self._fires("kill_mid_decode"):
             tr.instant("fault.kill_mid_decode", "fault", self._obs_tid)
             self._kill_decode_round()
         elif self.draft_config is not None:
@@ -1136,18 +1404,25 @@ class ServeEngine:
     def _pool_faults(self) -> None:
         """The faults that act on the pool or the weights, in JAX's order."""
         tr = self._trace
-        if faults.should_fire("evict_shared_prefix", step=self.rounds):
+        if self._fires("evict_shared_prefix"):
             tr.instant("fault.evict_shared_prefix", "fault", self._obs_tid)
             self.flush_prefix_cache()
-        if faults.should_fire("hot_swap_mid_decode", step=self.rounds):
+        if self._fires("hot_swap_mid_decode"):
             tr.instant("fault.hot_swap_mid_decode", "fault", self._obs_tid)
-            if self.swap_source is not None:
-                payload = dict(self.swap_source())
+            if self._edge is not None:  # a tp row: the payload the leader drew at the edge
+                payload = None if self._edge["swap"] is None else dict(self._edge["swap"])
+            else:
+                payload = None if self.swap_source is None else dict(self.swap_source())
+            if payload is not None:
                 self.hot_swap(payload.pop("params"), **payload)
-        if faults.should_fire("pool_resize", step=self.rounds):
+        if self._fires("pool_resize"):
             tr.instant("fault.pool_resize", "fault", self._obs_tid)
-            if self.resize_plan:
-                self.resize(self.resize_plan.pop(0))
+            if self._edge is not None:
+                target = self._edge["resize"]
+            else:
+                target = self.resize_plan.pop(0) if self.resize_plan else None
+            if target is not None:
+                self.resize(target)
 
     def _host_phases(self) -> None:
         tr = self._trace
@@ -1261,7 +1536,7 @@ class ServeEngine:
         """Finish every deadline-expired request with a `timeout` status:
         queued ones leave the queue, running ones free their pages now.
         Tokens generated before the deadline are returned."""
-        now = self._clock()
+        now = self._now()
 
         def expired(req: Request) -> bool:
             return req.deadline is not None and now > req.deadline
@@ -1282,7 +1557,7 @@ class ServeEngine:
                 self.slots[i] = None
 
     def _admit(self) -> None:
-        now = self._clock()
+        now = self._now()
         for i, s in enumerate(self.slots):
             if s is None and self.queue:
                 if self._staged_swap is not None:
@@ -1349,7 +1624,7 @@ class ServeEngine:
             ]
             if not candidates:
                 return False
-            victim = self.scheduler.select_victim(slot, candidates, self._clock())
+            victim = self.scheduler.select_victim(slot, candidates, self._now())
             if victim is None:
                 return False
             if not any(victim is c for c in candidates):
@@ -1510,7 +1785,7 @@ class ServeEngine:
         # the span covers the enqueue only: nothing here waits for the device
         with self._trace.span("prefill.chunk", "prefill", self._obs_tid):
             logits, self.cache = GPT.prefill_paged_chunk(
-                self.config, self.params, chunk_t, slot.prompt_pos, n_valid, self.cache, row,
+                self.config, self.params, chunk_t, slot.prompt_pos, n_valid, self.cache, row, tp_shard=self._tp,
             )
             if self.draft_cache is not None:
                 # A separate draft's pool must hold the same positions as the
@@ -1518,7 +1793,7 @@ class ServeEngine:
                 # target's). A self-draft's layers were just filled above.
                 _, self.draft_cache = GPT.prefill_paged_chunk(
                     self.draft_config, self.draft_params, chunk_t, slot.prompt_pos, n_valid,
-                    self.draft_cache, row,
+                    self.draft_cache, row, tp_shard=self._draft_tp,
                 )
         slot.prompt_pos += n_valid
         slot.length = slot.prompt_pos
@@ -1616,6 +1891,7 @@ class ServeEngine:
             self.attn_impl,
             self._gen,
             split,
+            self._tp,
         )
         t1 = 0.0 if self.obs is None else self._clock()
         self.dispatch_log.append((self.rounds, tuple(self.slots[i].request.uid for i in active_idx)))
@@ -1830,12 +2106,13 @@ class ServeEngine:
         drafts, draft_probs = _spec_draft_chunk(
             self.draft_config, self.draft_params, token_t, draft_cache, table, lengths_t,
             active_t, k, self.temperature, self.top_k, self.top_p, self.attn_impl, self._gen, split,
+            self._draft_tp,
         )
         t_draft = 0.0 if self.obs is None else self._clock()
         self.cache, n_accept, out = _spec_verify_chunk(
             self.config, self.params, token_t, drafts, draft_probs, self.cache, table,
             lengths_t, active_t, self.temperature, self.top_k, self.top_p, self.attn_impl,
-            self._gen, split,
+            self._gen, split, self._tp,
         )
         t1 = 0.0 if self.obs is None else self._clock()
         n_accept = n_accept.cpu().numpy()  # the round's device sync

@@ -60,6 +60,13 @@ token the engine could still discard (an in-flight round killed by
 anything already streamed was settled and stays bit-final). The driver
 loop's `engine.idle` check also covers the in-flight handle, so drain
 waits for the last overlapped round to settle before `run()` returns.
+
+On a tensor-parallel row (`ServeEngine(mesh=...)`) the server runs on the
+row's leader rank, whose engine journals every call the driver applies
+and broadcasts it at the next step edge; the other ranks of the row run
+the follower loop, `engine.follow()`, and the leader's
+`engine.stop_followers()` ends it once the server has drained
+(midgpt_tpu_torch/loadgen.py `--tp`). `stats()["mesh"]` names the row.
 """
 
 from __future__ import annotations
@@ -312,7 +319,7 @@ class AsyncServeServer:
             "prefilled_tokens": eng.prefilled_tokens,
             "free_pages": eng.allocator.free_count,
             "prefix": eng.prefix_stats(),
-            "mesh": None,  # mesh-sharded serving is not ported
+            "mesh": eng.mesh_shape(),
             "weights_version": eng.weights_version,
             "hot_swaps": eng.hot_swaps,
             "resizes": eng.resizes,

@@ -180,7 +180,10 @@ def test_adopt_writes_in_place_and_never_the_spare_page():
         for bad in ([6], [0], [3, 3]):
             with pytest.raises(ValueError):
                 disagg.adopt_pages(cache, bad, disagg.gather_pages(src, [1] * len(bad)))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        disagg.DisaggServe(cfg, {}, mesh=object())
+    # JAX's refusal: roles need a mesh of two data rows
+    from midgpt_tpu_torch.parallel.serve_tp import make_serve_mesh
+
+    with pytest.raises(ValueError, match="data >= 2"):
+        disagg.DisaggServe(cfg, {}, mesh=make_serve_mesh(1, device=CPU))
     with pytest.raises(ValueError, match="greedy"):
         disagg.DisaggServe(cfg, {}, temperature=0.8)

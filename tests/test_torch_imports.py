@@ -64,7 +64,8 @@ def test_port_imports_with_jax_blocked():
     assert r.returncode == 0, r.stderr
     mods = set(r.stdout.split())
     assert len(mods) >= 36  # every module of the port was imported, the fleet's worker modules too
-    assert {f"midgpt_tpu_torch.parallel.{m}" for m in ("dist", "mesh", "fsdp", "data", "shard_map_fsdp")} <= mods
+    assert {f"midgpt_tpu_torch.parallel.{m}"
+            for m in ("dist", "mesh", "fsdp", "data", "shard_map_fsdp", "tp", "serve_tp")} <= mods
     assert "midgpt_tpu_torch.robustness.chaos_train" in mods
 
 

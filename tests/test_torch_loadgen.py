@@ -73,13 +73,26 @@ def test_cpu_run_passes_the_serve_slo_contract(capsys):
         assert p["swap_flip_round"] >= 1 and p["prefill_tokens_saved"] >= 0
 
 
-@pytest.mark.parametrize("flag,item", [(["--tp", "2"], "item 7"), (["--cpu-devices", "8"], "item 7")])
+@pytest.mark.parametrize("flag,item", [(["--tp", "2", "--fleet", "2"], "--fleet is incompatible with --hot-swap and --tp"),
+                                       (["--cpu-devices", "8"], "--tp N --device cpu")])
 def test_jax_only_options_are_refused(capsys, flag, item):
+    """JAX's refusal of --fleet with --tp, and --cpu-devices, whose message
+    names the port's ranks under torchrun in its place."""
     with pytest.raises(SystemExit) as ei:
         loadgen.main(["--device", "cpu"] + flag)
     assert ei.value.code == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and item in err
+    assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag,world,why", [(["--tp", "1"], 1, "needs 2 <= tp <= 1 ranks"),
+                                            (["--tp", "2"], 1, "needs 2 <= tp <= 1 ranks"),
+                                            (["--tp", "2", "--n-head", "3", "--n-embd", "48"], 2, "must divide n_head 3")])
+def test_tp_needs_enough_ranks(monkeypatch, flag, world, why):
+    """JAX's --tp checks (2 <= tp <= the ranks torchrun started, tp
+    divides n_head), before any process group is joined."""
+    monkeypatch.setenv("WORLD_SIZE", str(world))
+    with pytest.raises(SystemExit, match=why):
+        loadgen.main(["--device", "cpu"] + flag)
 
 
 @pytest.mark.parametrize("flag,why", [(["--fleet", "1"], ">= 2 replicas"), (["--fleet", "2", "--hot-swap"], "hot-swap")])
