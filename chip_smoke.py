@@ -3,8 +3,15 @@
 
     python3 chip_smoke.py
 
-The quickest proof that the port still starts on the card. Phases, in
-order; any failure ends the run with a non-zero exit (nothing is caught):
+The quickest proof that the port still starts on the card. Phases as
+numbered below; any failure ends the run with a non-zero exit (nothing is
+caught). They run in this order: 1-4 and 6 alone; then 5c-11c beside the
+"serving" lane (11d, 12-15); then 17-19 beside the "decode" lane (5, 4b,
+5b, 6c(e)); then 16, and 10 alone. A lane is a process of its own
+(`chip_smoke.py --lane NAME OUT`): serving holds the host most of the
+time, training waits on the card, so the two share it; each phase's wall
+seconds are printed, and every number a lane prints is taken beside the
+training phases it ran with:
 
   1. require CUDA and the port's sources beside this script; print the
      card's name and power limit (nvidia-smi);
@@ -136,15 +143,16 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      save. Every run directory but the straight run's is deleted;
   6c. the supervised trainer (robustness/), on 6b's cuts, each run held to
      6b's straight run, the launcher's flash launches counted per run:
-     (d) an armed 60 s watchdog: losses and the final checkpoint bit for
-     bit, tokens/s of steps 2-3 beside the unarmed run, the guarded syncs
-     timed; (a) `fault_plan=nan_grad@3`: one rollback to step 2, window
+     (a) `fault_plan=nan_grad@3` under an armed 60 s watchdog (its guarded
+     syncs timed, step 2's tokens/s beside the unarmed run's; the armed
+     run of its own, (d), was cut: (b) holds an armed run bit for bit to
+     the straight one): one rollback to step 2, window
      [3, 3] skipped, offset 1 (JAX's formula), a finite final loss, the
      ledger on disk, the rollback's seconds (the flight recorder's
      divergence instant to the next attempt's first step) and
      torch.cuda.memory_allocated before and after (the failed attempt's
      state must not outlive the run); (b) `hang_step@3` under a watchdog
-     three times the longest sync of (d) (at least 2 s): hung_steps [3],
+     three times the longest sync of (a) (at least 2 s): hung_steps [3],
      offset 0, the flight recorder dumped, the replay bit for bit the
      straight run; (c) a launcher subprocess (saves at step 0 only,
      preempt_grace_s 30) sent SIGTERM once step 2 is logged: exit code 0,
@@ -155,9 +163,8 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      on phase 4's weights and trace: `kill_mid_decode@3` ("off"),
      `kill_overlapped_round@3` ("double") and `poisoned_page@3` ("off"), in
      f32 (streams == the unfaulted run's but the poisoned slot's, a
-     departure allowed only at a near-tie) and in bf16 (printed only: the
-     re-prefill rounds its products otherwise than decode did); each fault
-     fires once, pages conserved, launches == n_layer x device steps;
+     departure allowed only at a near-tie) and on the bf16 pool; each
+     fault fires once, pages conserved, launches == n_layer x device steps;
      `obs=Observability()` under group:4 (streams == phase 4b's, the round
      decomposition and tokens/s beside obs off); an armed 60 s watchdog
      under "double" (streams == phase 4b's, no expiry);
@@ -188,7 +195,8 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      c. `openwebtext_xl` (24 x 2048) at microbatch XL_BATCH, 2 steps, its
         own remat policy ('dots') against remat off: peak memory, tokens/s,
         equal losses;
-     d. `llama7b_long` served in bf16 at full width, its depth cut to
+     d. (in the serving lane, first) `llama7b_long` served in bf16 at
+        full width, its depth cut to
         LLAMA_LAYERS (4 of 32, the script's time), through
         `sample.main --config=llama7b_long --start_ids=...`: 4 greedy
         requests of one prompt (identical streams, each its budget), the
@@ -197,7 +205,7 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
         decode steps;
      Every `sample.main` call of phases 5b, 5c, 6b and 11d passes
      `--engine=continuous` (the batch engine is the default, as in JAX);
- 12. (run after phase 11) the batch sampler (`sample --engine batch`,
+ 12. (in the serving lane, after 11d) the batch sampler (`sample --engine batch`,
      sampling/engine.py `generate`): the prompt is a 37-token text through
      data/local_text's HF BPE codec where `tokenizers` imports, else its
      ids (printed). a. `sample.main --config=local_text_124m --engine=batch
@@ -208,29 +216,31 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      overflow tokens), all single-visit; chunks == JAX's rule; one capture
      and a replay per decoded step; every row its budget, rows identical.
      Then on the same weights, decode tokens/s with the step replayed and
-     eager (one `generate` call each, in turns; tokens bit for bit
-     sample.main's), the device busy share of a replayed chunk of 64 steps
-     (torch.profiler), and the step's byte bound (weights and the whole
+     eager (one `generate` call each, in turns, the eager one of
+     EAGER_NEW tokens; tokens bit for bit sample.main's), the device
+     busy share of a replayed chunk of 64 steps (torch.profiler), and the step's byte bound (weights and the whole
      cache over 3.35 TB/s); b. the same for wide610m (C 128), B 8, 128 new
      tokens; c. f32 on local_text_124m's weights: batch greedy streams of
      4 prompts == the continuous engine's (a departure only at a near-tie,
      as 5b), replayed == eager bit for bit, and the flash forward at each
      of the phase's prompt lengths (37, 1000, 1024) in bf16 and f32 ==
-     its plain version, then timed in bf16 beside its bound, its plain
-     version and SDPA's forward;
- 13. (run after phase 12) the serving front door at GPT-2 small's full width
+     its plain version (timed in phase 10, beside its bound, its plain
+     version and SDPA's forward);
+ 13. (in the serving lane, after 12) the serving front door at GPT-2 small's full width
      (openwebtext's model, random weights from seed 0): a. the paged kernel
      on page tables that alias physical pages across slots, as prefix-cache
      hits make them, bf16 and f32, split 1 and 2, against its plain version;
      b. `loadgen.main` in process (Poisson, 24 requests at two offered
      loads, half of them template-headed, group:4, 4 slots, 513 pages of
-     8, bf16 pool) with the prefix cache off and on: TTFT and TPOT p50/p95,
-     shed and timeout fractions, prefix_hit_rate and the prefill tokens the
-     trie saved per point, no capture inside a timed point, paged launches
-     == n_layer x decode steps; then a template trace served directly with
+     8, bf16 pool) with the prefix cache off (c's run is the cache on):
+     TTFT and TPOT p50/p95, shed and timeout fractions, no capture inside a
+     timed point, paged launches == n_layer x decode steps; then a template
+     trace served directly with
      the cache on and off, f32 streams identical, bf16 ones identical or
-     departing at a near-tie; c. the same loadgen trace with --hot-swap
-     (each point flips once, with no capture), then in f32 two requests
+     departing at a near-tie; c. the same loadgen trace with the prefix
+     cache on and --hot-swap (prefix_hit_rate and the prefill tokens the
+     trie saved per point, TTFT beside b's; each point flips once, with no
+     capture), then in f32 two requests
      admitted after a flip under load == a fresh engine's on the new
      weights, bit for bit, with no capture after the flip; d. phase 4's
      trace under group:1 in f32 and on an int8 pool, grown at round 3 and shrunk at
@@ -239,7 +249,7 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      after the shrink within the new pool's size of the value before the
      grow; e. pool_hbm_bytes = 1 GiB gives JAX's num_pages for bf16, int8
      and GQA (3 K/V heads) pools;
- 14. (run after phase 13) serving chaos, the fleet and disagg at GPT-2
+ 14. (in the serving lane, after 13) serving chaos, the fleet and disagg at GPT-2
      small's full width (random weights from seed 0; phase 13's template
      trace at seed 14, whose two heads hash to different replicas): a. two
      replicas behind a FleetRouter with the prefix cache on, group:4, f32
@@ -269,7 +279,7 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      summed over the engines each scenario builds); the kernels line's
      paged entries take phases 13-14's bf16-pool launches only, and the
      f32, int8 and tiny-model ones are printed by pool beside it;
- 15. (run after phase 14) the worker-process fleet (sampling/fleet_proc.py)
+ 15. (in the serving lane, after 14) the worker-process fleet (sampling/fleet_proc.py)
      at GPT-2 small's full width (random weights from seed 0 in every
      worker; phase 14's template trace at seed 14): eight workers spawned
      together (`python -m midgpt_tpu_torch.sampling.fleet_worker`, JAX's
@@ -291,13 +301,14 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      serves the trace, flushes its trie into its tier, the pages move to
      the second over the wire (wire bytes and ms a page each way), both
      ledgers close, and the second's streams on re-adopted pages equal the
-     first's; f. chaos_serve's four worker-process scenarios (tiny model,
-     four subprocesses side by side): each line "status": "ok"; g.
+     first's; f. chaos_serve's proc_kill9 worker-process scenario (tiny
+     model, a subprocess started with the phase, beside a-e): its line
+     "status": "ok"; g.
      `loadgen --procs --fleet 2` (bf16 workers, overlap off): a saturating
      point, then half PROC_SATURATED_RPS: TTFT, TPOT and RPC p50/p95, wire
      bytes, no failover. The workers' bf16-pool launches go to the kernels
      line's paged entries; f32 and int8 are printed by pool beside them;
- 16. (run after phase 15) the routed MoE MLP at GPT-2 small's full width:
+ 16. (run after phases 15 and 17-19) the routed MoE MLP at GPT-2 small's full width:
      local_text_124m with `--set model_config.n_experts=8 --set
      model_config.moe_top_k=2 --set moe_aux_coef=0.01`. a. the launcher on
      phase 6's cuts (no run directory), flash counters zeroed just before
@@ -311,11 +322,12 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      captures), paged launches == n_layer x device steps and a merge per
      template call, the passes equal, == the eager engine but at a
      near-tie under GAP_TOL; f32 kernel == gather streams; `generate` B 8
-     (distinct prompts of phase 12's length, MOE_BATCH_NEW new) replayed ==
-     eager bit for bit, flash_fwd n_layer per prefill; decode tokens/s
-     beside the dense model's of phases 4b and 12a. Its launches join the
+     (distinct prompts of phase 12's length, MOE_BATCH_NEW new; the eager
+     calls EAGER_NEW) replayed == eager bit for bit, flash_fwd n_layer per
+     prefill; decode tokens/s beside the dense model's of phases 4b and 12a. Its launches join the
      kernels line's flash (C 64), paged decode and merge entries;
- 17. (run after phase 11c) data-parallel and FSDP training on
+ 17. (run after phase 11c and the serving lane) data-parallel and FSDP
+     training on
      torch.distributed (parallel/): ranks started by `python -m
      torch.distributed.run --standalone`, each this script with `--rank17`
      running `launch --multihost` and reporting its records, flash
@@ -334,11 +346,12 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      11c's and its master weights and moments at most half (+1%) of the
      whole. 17a's group runs beside 17b's. c. `chaos_train` on 2 ranks
      over gloo, in f32 and warmed up in one step, with
-     resume_reshard at data steps 2 and 3 on phase 6's cuts one step
-     longer: mesh_history [2, 1, 2], loss_parity, each step's loss the
-     uninterrupted 2-rank run's at its f32 PARITY_RTOL and the final states
-     at STATE_TOL. The ranks' flash launches (a and b) join the kernels
-     line's flash entries by head dim;
+     resume_reshard at data step 2 on phase 6's cuts (the restore onto
+     more ranks is 19c's): mesh_history [2, 1],
+     loss_parity, each step's loss the uninterrupted run's (on the final
+     rank count) at its f32 PARITY_RTOL and the final states at STATE_TOL.
+     The ranks' flash launches (a and b) join the kernels line's flash
+     entries by head dim;
  18. (started before phase 17 and run beside it) tensor-parallel serving
      (parallel/serve_tp.py, ServeEngine(mesh=)): 4 ranks started by `python
      -m torch.distributed.run --standalone`, each this script with
@@ -364,6 +377,24 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      mesh {"data": 1, "tp": 2}, every request completes. Each rank's peak
      memory and per-shard pool bytes are printed; b's and d's launches
      join the kernels line's bf16 paged entries;
+ 19. (started when phase 18's ranks exit, beside phase 17) tensor-parallel
+     training (parallel/tp.py TPTrain, the 2D specs of parallel/fsdp.py):
+     `launch --multihost --set mesh.tp=2` on gloo ranks sharing the card
+     (no time here is a speed of tensor parallelism), three groups side by
+     side. a. 17b's f32 pair on (data 1, tp 2), tp_vocab on and off, held
+     to 17a's one-rank run of it (losses at PAIR_TOL, final states at
+     STATE_TOL). c. the pair on 4 ranks: (fsdp 2, tp 2) under gspmd, held
+     the same way; and steps 0-2 on (data 2, tp 2), their checkpoint
+     restored into (fsdp 2, tp 2) shards under shard_map for step 3 and
+     the final eval, in the same group, held the same way. b.
+     local_text_124m at full width and depth, bf16, tp 2, phase 6's cuts
+     one step short: losses at TP_MAIN_TOL of phase 6's, each rank's peak
+     memory and state bytes (at most half + 1%); its checkpoint restored
+     on one device trains phase 6's last step, whose loss is held at
+     TP_MAIN_TOL and whose moments leaf by leaf at TP_MOMENT_RTOL to phase
+     6's. Flash launches per rank and launch == n_layer x (microsteps +
+     eval batches) forward, n_layer x microsteps of each backward; they
+     join the kernels line's flash entries;
  10. timings: the paged decode kernel as before (CUDA-graph replay, cold
      L2), and each flash kernel in bf16 (CUDA events over repeated
      launches) at the main path's shape and at one shape per other
@@ -388,17 +419,19 @@ order; any failure ends the run with a non-zero exit (nothing is caught):
      Then the merge kernel alone at the decode shape (graph replay, cold
      L2), beside its plain version and its bound (the partials' bytes over
      3.35 TB/s). The flash kernels also at wide610m's shape (B 12, H 16,
-     T 1024, C 128), beside their bounds and SDPA. The "kernels" line
-     carries the main paths' numbers, and phase 11a's flash launches
-     under the C 128 entries.
+     T 1024, C 128), beside their bounds and SDPA, and the flash forward
+     at phase 12's first five prefill shapes, beside its bound, its plain
+     version and SDPA's forward. The "kernels" line carries the main
+     paths' numbers, and phase 11a's flash launches under the C 128
+     entries.
 
 The last lines are the card's name and power limit as nvidia-smi prints
 them, one JSON object with a "kernels" list (flash_fwd's launches include
 phase 12's; the paged decode, int8 and merge entries include phases 13's
 and 14's, and phase 15's launches made in its bf16 workers; the C 64
 flash, paged decode and merge entries include phase 16's; the flash
-entries include phase 17's ranks'; the bf16 paged decode, verify, int8
-decode and merge entries include phase 18's ranks'), phase 4b's "decode_modes" (tokens/s and busy share per
+entries include phase 17's and 19's ranks'; the bf16 paged decode,
+verify, int8 decode and merge entries include phase 18's ranks'), phase 4b's "decode_modes" (tokens/s and busy share per
 overlap mode) and phase 12's "batch_decode" (replayed and eager tokens/s
 and the replayed chunk's busy share per cell), and the contract line
 {"ok": true, "device": {...}}.
@@ -410,6 +443,7 @@ import collections
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import os
 import shutil
@@ -516,6 +550,22 @@ GQA_VARIANTS = {
     "gqa_window": {"model_config.n_kv_heads": 3, "model_config.sliding_window": WINDOW,
                    "model_config.attn_sinks": SINKS, "model_config.attn_impl": "blockwise"},
 }
+
+
+class PhaseClock:
+    """The wall seconds of each phase of `main`, in order: each mark closes
+    the phase since the one before."""
+
+    def __init__(self):
+        self.t, self.spans = time.perf_counter(), []
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.spans.append((name, now - self.t))
+        self.t = now
+
+    def line(self) -> str:
+        return "; ".join(f"{name} {secs:.1f} s" for name, secs in self.spans)
 
 
 def card_line() -> str:
@@ -1556,10 +1606,11 @@ def sets(d: dict):
     return [a for k, v in d.items() for a in ("--set", f"{k}={v}")]
 
 
-def train_main_path(data_dir: Path, card: str):
+def train_main_path(data_dir: Path, card: str, rundir: Path):
     """Phase 6: the launcher at local_text_124m's full width, cut only in
-    steps, accumulation and eval. Returns (launches by kernel, tokens/s,
-    mfu, loss records)."""
+    steps, accumulation and eval, into `rundir` (kept: phase 19b holds its
+    final state). Returns (launches by kernel, tokens/s, mfu, loss
+    records)."""
     from midgpt_tpu_torch import launch
     from midgpt_tpu_torch.config import load_config
 
@@ -1568,15 +1619,14 @@ def train_main_path(data_dir: Path, card: str):
     print("reduced: " + ", ".join(f"{k} {getattr(base, k)} -> {v}" for k, v in TRAIN_CUTS.items())
           + f"; data: seeded synthetic uint16 stream (vocab {mc.vocab_size}) in a temporary directory")
     counters = flash_counters()
-    with tempfile.TemporaryDirectory() as rundir:
-        for c in counters.values():
-            c.reset()
-        launch.main(["--config=local_text_124m", f"--rundir={rundir}",
-                     *sets({"data_dir": data_dir, "log_interval": 1, **TRAIN_CUTS})])
-        torch.cuda.synchronize()
-        launches = {n: dict(c.by_variant) for n, c in counters.items()}
-        records = [json.loads(line) for line in Path(rundir, "metrics.jsonl").read_text().splitlines()]
-        final_step_dir(Path(rundir), TRAIN_CUTS["max_steps"])
+    for c in counters.values():
+        c.reset()
+    launch.main(["--config=local_text_124m", f"--rundir={rundir}",
+                 *sets({"data_dir": data_dir, "log_interval": 1, **TRAIN_CUTS})])
+    torch.cuda.synchronize()
+    launches = {n: dict(c.by_variant) for n, c in counters.items()}
+    records = [json.loads(line) for line in Path(rundir, "metrics.jsonl").read_text().splitlines()]
+    final_step_dir(Path(rundir), TRAIN_CUTS["max_steps"])
     G, steps = TRAIN_CUTS["g_accum_iters"], TRAIN_CUTS["max_steps"]
     micro = G * steps
     evals = 3 * TRAIN_CUTS["eval_steps"]  # train + val at step 0, val at the end
@@ -1950,27 +2000,18 @@ def supervised_main_path(data_dir: Path, straight_dir: Path, save_cost: dict, ca
             rec = json.loads(line)
             if "throughput/tokens_per_sec" in rec:
                 recs[rec["step"]] = rec["throughput/tokens_per_sec"]
-        return [recs[2], recs[3]]
+        return recs[2]
 
-    # (d) an armed 60 s watchdog: bit for bit the unarmed straight run
-    armed_dir = root / "armed"
-    n_syncs = len(recorded("train.sync"))
-    run("armed watchdog", armed_dir, watchdog_deadline_s=60)
-    syncs = [dur for _, dur, _ in recorded("train.sync")[n_syncs:]]
-    same_run("(d) armed watchdog (60 s)", straight_dir, armed_dir, range(steps))
-    unarmed, armed = tok_s(straight_dir), tok_s(armed_dir)
-    print(f"(d) tokens/s of steps 2-3: unarmed {[round(x, 1) for x in unarmed]} (phase 6b's straight run), armed "
-          f"{[round(x, 1) for x in armed]}; {len(syncs)} guarded syncs, the longest {max(syncs):.3f} s, on {card}")
-    if launches["armed watchdog"] != flash_want([(0, steps, 1)], layers):
-        raise SystemExit(f"(d) flash launches {launches['armed watchdog']} != n_layer x (microsteps + evals)")
-    shutil.rmtree(armed_dir)
-
-    # (a) divergence at step k: rolled back to step 2 with the data window skipped
+    # (a) divergence at step k, with the watchdog armed (60 s): rolled back to step 2 with the data window
+    # skipped. The armed run that (d) held bit for bit to the straight run was cut (PERF.md, section 4):
+    # (b)'s run is armed too and held so, and this run gives (b) its guarded syncs
     div_dir = root / "diverged"
     free_memory()
     before = torch.cuda.memory_allocated()
     n_events = len(recorded("train.step"))
-    result = run("divergence", div_dir, fault_plan=f"nan_grad@{k}")
+    n_syncs = len(recorded("train.sync"))
+    result = run("divergence", div_dir, fault_plan=f"nan_grad@{k}", watchdog_deadline_s=60)
+    syncs = [dur for _, dur, _ in recorded("train.sync")[n_syncs:]]
     after = torch.cuda.memory_allocated()
     sup = result["supervisor"]
     loss_final = result["metrics"]["loss/final"]
@@ -1987,6 +2028,8 @@ def supervised_main_path(data_dir: Path, straight_dir: Path, save_cost: dict, ca
     print(f"(a) nan_grad@{k}: supervisor {got}, ledger offset {ledger['data_step_offset']} windows "
           f"{ledger['windows_skipped']}; final loss {loss_final:.4f}; rollback {first_after - raised:.3f} s "
           f"from the raise to the next attempt's first step (restore included, backoff 0) on {card}")
+    print(f"(a) armed watchdog (60 s): {len(syncs)} guarded syncs, the longest {max(syncs):.3f} s; step 2's tokens/s "
+          f"{tok_s(div_dir):.1f} armed vs {tok_s(straight_dir):.1f} unarmed (phase 6b's straight run) on {card}")
     print(f"(a) torch.cuda.memory_allocated: {before} bytes before the supervised run, {after} after it returned "
           f"(its result holds the final state), {released} once the result was released "
           f"({released - before:+d} bytes against before) on {card}")
@@ -2011,7 +2054,7 @@ def supervised_main_path(data_dir: Path, straight_dir: Path, save_cost: dict, ca
     waited = recorded("supervisor.hung_restart")[-1][2]["waited_s"]
     print(f"(b) hang_step@{k}: hung_steps {sup['hung_steps']}, offset {sup['data_step_offset']}, restarts "
           f"{sup['restarts']}; waited {waited:.3f} s at expiry against a {deadline:g} s deadline (3x the longest "
-          f"guarded sync of (d), at least 2 s) on {card}")
+          f"guarded sync of (a), at least 2 s) on {card}")
     if (sup["hung_steps"], sup["data_step_offset"], sup["restarts"]) != ([k], 0, 1):
         raise SystemExit("(b) the hang restart must mark the step hung and keep the offset")
     if not all((hang_dir / f"flight_recorder.{ext}").exists() for ext in ("json", "prom")):
@@ -2103,31 +2146,29 @@ def faulted_serving(card, cfg, params32, params16, streams16):
         return st, streams, wall
 
     # The faults recompute-preempt (re-prefill) their slots: in f32 that
-    # regenerates each stream (a departure only at a near-tie); bf16 rounds
-    # the prefill's products otherwise than the decode's, so its streams are
-    # printed, not held.
-    for precision, params, dtype in (("f32", params32, torch.float32), ("bf16", params16, torch.bfloat16)):
-        want = {}
-        for spec in ("off", "double"):
-            want[spec] = counted(f"{precision} {spec} unfaulted", params, dtype, spec)[1]
-        for spec, plan in (("off", "kill_mid_decode@3"), ("double", "kill_overlapped_round@3"),
-                           ("off", "poisoned_page@3")):
-            label = f"{precision} {spec} {plan}"
-            st, got, _ = counted(label, params, dtype, spec, plan)
-            keep = [i for i in range(len(got)) if i not in st["poisoned_uids"]]
-            print(f"{label}: preemptions {st['preemptions']}, decode_kills {st['decode_kills']}, overlap_kills "
-                  f"{st['overlap_kills']}, poisoned uids {st['poisoned_uids']}, paged launches {launches[label]}, "
-                  "every page back in the pool")
-            if precision == "f32":
-                compare_streams(f"{label} vs unfaulted", [got[i] for i in keep], [want[spec][i] for i in keep],
-                                cfg, params)
-            else:
-                same = sum(np.array_equal(got[i], want[spec][i]) for i in keep)
-                print(f"{label}: {same} of {len(keep)} streams equal the unfaulted bf16 run's (not held)")
-            if "poisoned" in plan and len(st["poisoned_uids"]) != 1:
-                raise SystemExit(f"{label}: one slot must be poisoned")
-            if "poisoned" not in plan and st["preemptions"] < 1:
-                raise SystemExit(f"{label}: the fault must recompute-preempt")
+    # regenerates each stream (a departure only at a near-tie), so the f32
+    # streams are held against unfaulted runs; the bf16 pool's fault runs
+    # hold the same checks but not their streams (bf16 rounds the prefill's
+    # products otherwise than the decode's), so they need no unfaulted run.
+    want = {}
+    for spec in ("off", "double"):
+        want[spec] = counted(f"f32 {spec} unfaulted", params32, torch.float32, spec)[1]
+    for (name, params, dtype), (spec, plan) in itertools.product(
+            (("f32", params32, torch.float32), ("bf16", params16, torch.bfloat16)),
+            (("off", "kill_mid_decode@3"), ("double", "kill_overlapped_round@3"), ("off", "poisoned_page@3"))):
+        label = f"{name} {spec} {plan}"
+        st, got, _ = counted(label, params, dtype, spec, plan)
+        keep = [i for i in range(len(got)) if i not in st["poisoned_uids"]]
+        print(f"{label}: preemptions {st['preemptions']}, decode_kills {st['decode_kills']}, overlap_kills "
+              f"{st['overlap_kills']}, poisoned uids {st['poisoned_uids']}, paged launches {launches[label]}, "
+              "every page back in the pool")
+        if name == "f32":
+            compare_streams(f"{label} vs unfaulted", [got[i] for i in keep], [want[spec][i] for i in keep], cfg,
+                            params32)
+        if "poisoned" in plan and len(st["poisoned_uids"]) != 1:
+            raise SystemExit(f"{label}: one slot must be poisoned")
+        if "poisoned" not in plan and st["preemptions"] < 1:
+            raise SystemExit(f"{label}: the fault must recompute-preempt")
 
     # obs under group:4, bf16: identical streams; the decomposition and tokens/s beside obs off
     total = sum(m for _, m in trace(cfg.vocab_size))
@@ -2593,9 +2634,19 @@ BATCH_IDS = (35545, 13946, 279, 1023, 12, 302, 279, 24270, 338, 13650, 637, 561,
              266, 12, 2833, 1679, 1774, 396, 3759, 12994, 27972, 22025, 301, 42183, 5062, 12994, 302, 367, 3132, 466,
              8901)
 BATCH_ROWS, BATCH_NEW = (1, 8), 256  # 12a: local_text_124m
+# An eager generate call's new tokens (12a-b, 16b): a decode step does the same work whatever the call's length
+# (the cache is block_size long), so its greedy tokens are a longer call's first EAGER_NEW, and its tokens/s
+# the same host-bound rate; 64 instead of 256 (or 128) took ~15 s off the script (PERF.md, section 4)
+EAGER_NEW = 64
 OVERFLOW_PROMPT, OVERFLOW_NEW = 1000, 40  # 12a: 24 tokens decoded in the cache, 15 by windowed forwards
 WIDE_ROWS, WIDE_NEW = 8, 128  # 12b: wide610m
 PARITY_ROWS, PARITY_NEW = 4, 64  # 12c: f32 parity, distinct 37-token prompts
+# the flash forward at each of the batch path's prompt lengths: checked in phase 12c, the first five timed in
+# phase 10 (alone on the card: phase 12 runs beside the training phases)
+PREFILL_SHAPES = [("12a prefill", 1, 12, len(BATCH_IDS), 64), ("12a prefill", 8, 12, len(BATCH_IDS), 64),
+                  ("12a overflow prefill", 1, 12, OVERFLOW_PROMPT, 64), ("12a overflow window", 1, 12, 1024, 64),
+                  ("12b prefill", WIDE_ROWS, 16, len(BATCH_IDS), 128),
+                  ("12c prefill", PARITY_ROWS, 12, len(BATCH_IDS), 64)]
 EARLIER_SMOKE_S = 499.9  # this script's wall time before phase 12 was added (PERF.md, earlier slices)
 
 
@@ -2680,11 +2731,11 @@ def batch_main(preset: str, rows: int, new: int, prompt_args, label: str):
 def batch_decode_rates(label: str, mc, params, rows: int, new: int, want_streams):
     """Decode tokens/s of `generate` with the step replayed and eager (the
     same loop, its private hook), in turns (replayed, eager, replayed)
-    after one capturing call (one eager call: a second took ~13 s of the
-    script and added a repeat, not a check); every call's
-    greedy tokens must equal `want_streams` (sample.main's on the same
-    weights) bit for bit. Returns {mode: [tokens/s, ...]} with the
-    capturing call's beside."""
+    after one capturing call (one eager call of EAGER_NEW tokens: a second
+    took ~13 s of the script and added a repeat, not a check); every
+    call's greedy tokens must equal `want_streams` (sample.main's on the
+    same weights) bit for bit, the eager call's their first EAGER_NEW.
+    Returns {mode: [tokens/s, ...]} with the capturing call's beside."""
     from midgpt_tpu_torch.sampling import engine
     from midgpt_tpu_torch.sampling.graphs import StepGraphs
 
@@ -2694,10 +2745,11 @@ def batch_decode_rates(label: str, mc, params, rows: int, new: int, want_streams
     for mode in ("capturing", "replayed", "eager", "replayed"):
         st = {}
         kw = {"_eager": True} if mode == "eager" else {"graphs": graphs}
-        got = engine.generate(mc, params, prompt, new, temperature=0.0, device="cuda", stats=st, **kw)
-        if not np.array_equal(got.numpy(), np.stack(want_streams)):
+        n = min(new, EAGER_NEW) if mode == "eager" else new
+        got = engine.generate(mc, params, prompt, n, temperature=0.0, device="cuda", stats=st, **kw)
+        if not np.array_equal(got.numpy(), np.stack(want_streams)[:, :prompt.shape[1] + n]):
             raise SystemExit(f"{label}: {mode} greedy tokens differ from sample.main's")
-        rates[mode].append(rows * (new - 1) / st["decode_s"])
+        rates[mode].append(rows * (n - 1) / st["decode_s"])
     if graphs.captures != 1:
         raise SystemExit(f"{label}: {graphs.captures} captures for one key")
     return rates
@@ -2757,7 +2809,8 @@ def batch_speed(card: str, label: str, preset: str, rows: int, new: int, want_st
     rates = batch_decode_rates(label, mc, params, rows, new, want_streams)
     b_ms, w_bytes, c_bytes = decode_bound_ms(mc, params, rows)
     print(f"{label} decode, bf16 B={rows}, {new} new tokens: replayed {[round(r, 1) for r in rates['replayed']]} "
-          f"tokens/s, eager {[round(r, 1) for r in rates['eager']]} tokens/s (one call each, in turns), capturing "
+          f"tokens/s, eager {[round(r, 1) for r in rates['eager']]} tokens/s (one call each, in turns, the eager one "
+          f"of {min(new, EAGER_NEW)} new), capturing "
           f"call {rates['capturing'][0]:.1f}; replayed / eager {np.mean(rates['replayed']) / np.mean(rates['eager']):.2f}x; "
           f"replayed step {1e3 * rows / np.mean(rates['replayed']):.4f} ms vs bound {b_ms:.4f} ms by bytes "
           f"(weights {w_bytes:,} + cache {c_bytes:,} bytes over 3.35 TB/s) on {card}")
@@ -2864,17 +2917,9 @@ def batch_sampler(card: str):
     print(f"12a-b took {time.perf_counter() - t_phase:.1f} s")
     # 12c. parity: f32 batch vs continuous, replayed vs eager; the flash forward at each prompt length
     batch_parity(card)
-    shapes = [("12a prefill", 1, 12, len(BATCH_IDS), 64), ("12a prefill", 8, 12, len(BATCH_IDS), 64),
-              ("12a overflow prefill", 1, 12, OVERFLOW_PROMPT, 64), ("12a overflow window", 1, 12, 1024, 64),
-              ("12b prefill", WIDE_ROWS, 16, len(BATCH_IDS), 128), ("12c prefill", PARITY_ROWS, 12, len(BATCH_IDS), 64)]
-    for label, B, H, T, C in shapes:
+    for label, B, H, T, C in PREFILL_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             check_flash_forward(label, B, H, T, C, dtype)
-    free_memory()
-    for label, B, H, T, C in shapes[:5]:
-        ms, plain, sdpa, (b_ms, b_by) = time_flash_forward(B, H, T, C)
-        print(f"flash_fwd [single] {label} bf16 B={B} H={H} T={T} C={C}: {ms:.4f} ms device, bound {b_ms:.5f} ms by "
-              f"{b_by} ({ms / b_ms:.1f}x), plain {plain:.3f} ms, sdpa forward {sdpa:.4f} ms on {card}")
     free_memory()
     took = time.perf_counter() - t_phase
     print(f"phase 12 took {took:.1f} s on {card}")
@@ -3053,17 +3098,10 @@ def front_door(card: str):
     alias_errs = {(dt, s): check_aliased_kernel(dt, s) for dt in (torch.bfloat16, torch.float32) for s in (1, 2)}
     cfg = load_config("openwebtext").model_config
     L = cfg.n_layer
-    # 13b. loadgen, prefix cache off and on
-    recs = {}
-    for label, extra in (("13b off", []), ("13b on", ["--prefix-cache"])):
-        recs[label], n = run_loadgen(label, extra, card, L)
-        launches["bf16"] += n
-        free_memory()
-    print("13b TTFT p95 ms by offered load, cache off vs on: " + "; ".join(
-        f"{a['offered_rps']:g} req/s {a['ttft_p95_ms']} vs {b['ttft_p95_ms']} (TPOT p95 {a['tpot_p95_ms']} vs "
-        f"{b['tpot_p95_ms']})" for a, b in zip(recs["13b off"]["points"], recs["13b on"]["points"])) + f" on {card}")
-    if not all(p["prefix_hit_rate"] > 0 for p in recs["13b on"]["points"]):
-        raise SystemExit("13b: template traffic never hit the prefix cache")
+    # 13b. loadgen, prefix cache off (13c's run, with the cache on, is the other side)
+    off, n = run_loadgen("13b off", [], card, L)
+    launches["bf16"] += n
+    free_memory()
     # The cache is page-table indirection only: f32 streams equal with it on
     # and off, bf16 ones equal or part at a near-tie (the tail's prefill
     # chunks start at a page boundary instead of 0).
@@ -3090,6 +3128,11 @@ def front_door(card: str):
     # 13c. hot swap under load
     rec, n = run_loadgen("13c", ["--prefix-cache", "--hot-swap"], card, L)
     launches["bf16"] += n
+    print("13b-c TTFT p95 ms by offered load, cache off (13b) vs on (13c, one hot swap inside each point): " + "; ".join(
+        f"{a['offered_rps']:g} req/s {a['ttft_p95_ms']} vs {b['ttft_p95_ms']} (TPOT p95 {a['tpot_p95_ms']} vs "
+        f"{b['tpot_p95_ms']})" for a, b in zip(off["points"], rec["points"])) + f" on {card}")
+    if not all(p["prefix_hit_rate"] > 0 for p in rec["points"]):
+        raise SystemExit("13c: template traffic never hit the prefix cache")
     versions = [p["weights_version"] for p in rec["points"]]
     print(f"13c weights_version inline -> {versions} (flip rounds {[p['swap_flip_round'] for p in rec['points']]}); "
           f"captures inside each point, the flip included: {[p['captures'] for p in rec['points']]} on {card}")
@@ -3581,8 +3624,9 @@ WIRE_ROUND = 3
 # the workers' engine: phase 14's geometry with JAX's worker defaults
 # (overlap off, fcfs, an unbounded backlog)
 PROC_ENGINE = {"max_slots": 4, "page_size": PAGE, "prefill_chunk": 256, "decode_chunk": 8}
-# 15f: chaos_serve's four worker-process scenarios (JAX's tests/test_fleet_proc.py plans)
-PROC_PLANS = ("proc_kill9@6", "conn_drop@5", "wire_corrupt@5", "wire_stall@5")
+# 15f: chaos_serve's worker-process scenario (the first of JAX's tests/test_fleet_proc.py plans; the other
+# three kinds, run here side by side before, are 15c's, so they were cut to keep the script in its time limit)
+PROC_PLANS = ("proc_kill9@6",)
 # 15g: loadgen --procs --fleet 2 at GPT-2 small's full width, bf16 workers,
 # template-headed mixture: a saturating point (every request at once), then
 # the timed point at half the rate a saturating pass sustained
@@ -3632,6 +3676,13 @@ def proc_fleet(card: str):
     roles = {"ref32": ("float32", "float32"), "f32a": ("float32", "float32"), "f32b": ("float32", "float32"),
              "ref16": ("bfloat16", "bfloat16"), "b16a": ("bfloat16", "bfloat16"), "b16b": ("bfloat16", "bfloat16"),
              "i8a": ("int8", "float32"), "i8b": ("int8", "float32")}
+    # 15f, started first: chaos_serve's worker-process scenario (its own tiny workers) runs beside 15a-e, which
+    # its ~25 s of mostly start-up slow little (PERF.md, section 4); read after 15e
+    t_chaos = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    chaos_runs = [subprocess.Popen([sys.executable, "-m", "midgpt_tpu_torch.robustness.chaos_serve", "--fault", plan,
+                                    "--n-requests=4"], cwd=ROOT, env=env, stdout=subprocess.PIPE, text=True)
+                  for plan in PROC_PLANS]
     procs = []
     try:
         t0 = time.perf_counter()
@@ -3819,24 +3870,23 @@ def proc_fleet(card: str):
                 r.close()
     finally:
         fp.kill_workers(procs)
+        if sys.exc_info()[0] is not None:
+            for p in chaos_runs:
+                p.kill()
 
-    # 15f. chaos_serve's four worker-process scenarios, side by side
-    t0 = time.perf_counter()
-    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    runs = [subprocess.Popen([sys.executable, "-m", "midgpt_tpu_torch.robustness.chaos_serve", "--fault", plan,
-                              "--n-requests=4"], cwd=ROOT, env=env, stdout=subprocess.PIPE, text=True)
-            for plan in PROC_PLANS]
+    # 15f. chaos_serve's worker-process scenario, started with the phase
     try:
-        outs = [p.communicate(timeout=300)[0] for p in runs]
+        outs = [p.communicate(timeout=300)[0] for p in chaos_runs]
     finally:
-        for p in runs:
+        for p in chaos_runs:
             p.kill()
-    for plan, p, out in zip(PROC_PLANS, runs, outs):
+    for plan, p, out in zip(PROC_PLANS, chaos_runs, outs):
         line = out.strip().splitlines()[-1] if out.strip() else "{}"
         print(f"15f {line}")
         if p.returncode != 0 or json.loads(line).get("status") != "ok":
             raise SystemExit(f"15f: chaos scenario {plan} failed (rc {p.returncode})")
-    print(f"15f four scenarios side by side in {time.perf_counter() - t0:.1f} s on {card}")
+    print(f"15f {len(PROC_PLANS)} scenario(s) read {time.perf_counter() - t_chaos:.1f} s after their start, beside "
+          f"15a-e, on {card}")
 
     # 15g. loadgen --procs --fleet 2: a saturating point, then half the saturating rate
     from midgpt_tpu_torch import loadgen
@@ -4083,21 +4133,23 @@ def moe_serving(card: str, mc, params32, dense_group4, dense_batch8):
     for mode in modes:
         st_b = {}
         kw = {"_eager": True} if mode == "eager" else {"graphs": graphs_b}
-        got = engine.generate(mc, params16, prompts, MOE_BATCH_NEW, temperature=0.0, device="cuda", stats=st_b, **kw)
+        n = EAGER_NEW if mode == "eager" else MOE_BATCH_NEW
+        got = engine.generate(mc, params16, prompts, n, temperature=0.0, device="cuda", stats=st_b, **kw)
         if want is None:
             want = got
-        elif not torch.equal(got, want):
+        elif not torch.equal(got, want[:, :prompts.shape[1] + n]):
             raise SystemExit(f"16b: batch generate, {mode} greedy tokens differ from the capturing call's")
         if mode != "capturing":
-            rates[mode].append(MOE_BATCH_ROWS * (MOE_BATCH_NEW - 1) / st_b["decode_s"])
+            rates[mode].append(MOE_BATCH_ROWS * (n - 1) / st_b["decode_s"])
     torch.cuda.synchronize()
     batch_fwd = fa.FWD_LAUNCHES.count
     if graphs_b.captures != 1 or batch_fwd != mc.n_layer * len(modes):
         raise SystemExit(f"16b: batch generate captured {graphs_b.captures} graphs, flash_fwd launched {batch_fwd} "
                          f"times (want 1 and {mc.n_layer} x {len(modes)} prefills)")
-    print(f"16b MoE batch generate bf16 B={MOE_BATCH_ROWS}, {len(BATCH_IDS)}-token prompts, {MOE_BATCH_NEW} new: "
-          f"replayed == eager bit for bit; replayed {[round(r, 1) for r in rates['replayed']]} tokens/s, eager "
-          f"{[round(r, 1) for r in rates['eager']]} (in turns); dense local_text_124m B=8 (phase 12a, 256 new): "
+    print(f"16b MoE batch generate bf16 B={MOE_BATCH_ROWS}, {len(BATCH_IDS)}-token prompts, {MOE_BATCH_NEW} new "
+          f"(the eager calls {EAGER_NEW}): replayed == eager bit for bit; replayed "
+          f"{[round(r, 1) for r in rates['replayed']]} tokens/s, eager {[round(r, 1) for r in rates['eager']]} (in "
+          f"turns); dense local_text_124m B=8 (phase 12a, {BATCH_NEW} new, eager {EAGER_NEW}): "
           f"replayed {[round(r, 1) for r in dense_batch8['replayed']]}, eager {[round(r, 1) for r in dense_batch8['eager']]}; "
           f"flash_fwd {batch_fwd} = {mc.n_layer} x {len(modes)} prefills on {card}")
     del params16
@@ -4153,13 +4205,13 @@ PARAM_TOL_LR = 0.05
 # and 17c hold the update (a single-device xl run with the one-step warmup beside it would add ~35 s to a
 # script that runs near its time limit)
 XL_DP_TOL = 1e-6
-# 17c: chaos_train on phase 6's cuts one step longer (the last 2-rank run trains a step), at 2 layers of
-# full width in f32 to keep the phase's four launches short: 2 ranks to step 2, 1 rank for step 3, 2 ranks
-# for step 4; the per-step losses held to an uninterrupted 2-rank run's at chaos_train's f32 PARITY_RTOL,
-# the final states at STATE_TOL
-CHAOS_CUTS = {**TRAIN_CUTS, "max_steps": 5, "model_config.n_layer": 2, "spec_layers": 0, "warmup_steps": 1,
+# 17c: chaos_train on phase 6's cuts at 2 layers of full width in f32, to keep the phase's three launches
+# short: 2 ranks to step 2, 1 rank for step 3 (the restore onto more ranks, a second reshard here before,
+# is 19c's: PERF.md, section 4); the per-step losses held to an uninterrupted 1-rank run's at chaos_train's
+# f32 PARITY_RTOL, the final states at STATE_TOL
+CHAOS_CUTS = {**TRAIN_CUTS, "model_config.n_layer": 2, "spec_layers": 0, "warmup_steps": 1,
               "compute_dtype": "float32"}
-CHAOS_FAULTS = ("resume_reshard@2", "resume_reshard@3")
+CHAOS_FAULTS = ("resume_reshard@2",)
 
 
 def rank17_main(argv) -> int:
@@ -4215,11 +4267,13 @@ def rank17_main(argv) -> int:
     return 0
 
 
-def torchrun(label: str, nproc: int, launches, card: str, backend: tp.Optional[str] = None, timeout: float = 600):
+def torchrun(label: str, nproc: int, launches, card: str, backend: tp.Optional[str] = None, timeout: float = 600,
+             nice: int = 0):
     """`launch --multihost` on `nproc` ranks started by torch.distributed.run
-    --standalone, each a `chip_smoke.py --rank17` process running the
-    argument lists of `launches` in turn in one process group; any rank's
-    failure fails the phase. Returns the reports as [launch][rank]."""
+    --standalone (at `nice`), each a `chip_smoke.py --rank17` process
+    running the argument lists of `launches` in turn in one process group;
+    any rank's failure fails the phase (`label` names it: "17a ...").
+    Returns the reports as [launch][rank]."""
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "report"
         runs = [a for i, args in enumerate(launches)
@@ -4228,16 +4282,17 @@ def torchrun(label: str, nproc: int, launches, card: str, backend: tp.Optional[s
         argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={nproc}",
                 str(ROOT / "chip_smoke.py"), "--rank17", str(out), *runs]
         t0 = time.time()
-        p = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+        p = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+                           preexec_fn=(lambda: os.nice(nice)) if nice else None)
         t1 = time.time()
         if p.returncode != 0:
-            raise SystemExit(f"phase 17 {label}: torchrun exit {p.returncode}\n{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
+            raise SystemExit(f"phase {label}: torchrun exit {p.returncode}\n{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
         said = [line for line in p.stdout.splitlines() if " rank(s), backend " in line]
         by_rank = [json.loads(Path(f"{out}.{r}.json").read_text()) for r in range(nproc)]
         enter = max(reps[0]["clock"]["enter"] for reps in by_rank)
         spans = [max(reps[i]["clock"]["done"] - reps[i]["clock"]["launch"] for reps in by_rank)
                  for i in range(len(launches))]
-        print(f"phase 17 {label}: {nproc} rank(s) in {t1 - t0:.1f} s on {card} (host clock: start-up to the ranks' "
+        print(f"phase {label}: {nproc} rank(s) in {t1 - t0:.1f} s on {card} (host clock: start-up to the ranks' "
               f"entry {enter - t0:.1f} s, launches {', '.join(f'{x:.1f}' for x in spans)} s, exit "
               f"{t1 - max(reps[-1]['clock']['done'] for reps in by_rank):.1f} s); {said[0] if said else ''}")
         return [[reps[i] for reps in by_rank] for i in range(len(launches))]
@@ -4252,16 +4307,18 @@ def rank_flash(reports) -> tp.Dict[str, collections.Counter]:
     return out
 
 
-def per_rank_flash_check(label, reports, n_layer, micro, evals):
+def per_rank_flash_check(label, reports, n_layer, micro, evals, exact=False):
     """Each rank: n_layer backward launches per microstep, and at least
     n_layer forward launches per microstep and eval batch (a remat policy
-    may relaunch the forward in the recompute)."""
+    may relaunch the forward in the recompute; `exact`: no more). `label`
+    names the phase ("17a ...")."""
     for r, rep in enumerate(reports):
         got = rank_flash([rep])
         totals = {k: sum(c.values()) for k, c in got.items()}
+        fwd = n_layer * (micro + evals)
         if (totals["flash_bwd_dq"] != n_layer * micro or totals["flash_bwd_dkv"] != n_layer * micro
-                or totals["flash_fwd"] < n_layer * (micro + evals)):
-            raise SystemExit(f"phase 17 {label}: rank {r} flash launches {dict(got)}, want n_layer {n_layer} x "
+                or totals["flash_fwd"] < fwd or (exact and totals["flash_fwd"] != fwd)):
+            raise SystemExit(f"phase {label}: rank {r} flash launches {dict(got)}, want n_layer {n_layer} x "
                              f"{micro} microsteps (+ {evals} eval batches for the forward)")
 
 
@@ -4281,10 +4338,17 @@ def max_rel(got, want) -> float:
 
 
 def restore_state(rundir: Path, step: int, cfg) -> dict:
-    from midgpt_tpu_torch.training.checkpoint import CheckpointManager
+    """A run's checkpointed state at `step`, read into `cfg`'s template on
+    the card without re-hashing it: the run verified its save (the
+    restores the launcher makes verify theirs)."""
+    from midgpt_tpu_torch.training.checkpoint import unflatten_item
     from midgpt_tpu_torch.training.train import state_template
 
-    return CheckpointManager(str(rundir)).restore(step, state_template(cfg), device="cuda")
+    out = {}
+    for name, like in state_template(cfg).items():
+        with np.load(Path(rundir, str(step), f"{name}.npz")) as f:
+            out[name] = unflatten_item({k: f[k] for k in f.files}, like, "cuda", None)
+    return out
 
 
 def state_errors(got: dict, want: dict, param_tol: float) -> tp.Dict[str, tp.Any]:
@@ -4317,11 +4381,13 @@ def fmt_errors(e: dict, tol: float) -> str:
             + f" (tol params {tol:.2e}, mu {STATE_TOL['mu']:g}, nu {STATE_TOL['nu']:g})")
 
 
-def data_parallel(data_dir: Path, card: str, main_losses, xl_single) -> tp.Dict[int, tp.Dict[str, collections.Counter]]:
+def data_parallel(data_dir: Path, card: str, main_losses, xl_single, keep: Path):
     """Phase 17 (run after phase 11c: it holds phase 6's and 11c's runs).
     17a and 17c's chaos_train run beside 17b: their ranks share the card
     and the host, which the phase's times include. Returns the ranks'
-    flash launches by head dim."""
+    flash launches by head dim, and the f32 pair's one-rank run (its
+    losses, and its run directory, moved to `keep`: phase 19 holds its
+    tensor-parallel runs to it)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from midgpt_tpu_torch.config import load_config
@@ -4392,6 +4458,7 @@ def data_parallel(data_dir: Path, card: str, main_losses, xl_single) -> tp.Dict[
             raise SystemExit("phase 17b: the f32 2-rank run disagrees with the one-rank run")
         if travel < 10 * tol:
             raise SystemExit("phase 17b: the f32 pair's params barely moved: its state check cannot see a wrong update")
+        shutil.move(str(pair_dirs[1]), str(keep))
         per_rank_flash_check("17b f32 pair", one + pair, 2, micro, evals)
         add(64, one + pair)
         xl = load_config("openwebtext_xl")
@@ -4427,12 +4494,12 @@ def data_parallel(data_dir: Path, card: str, main_losses, xl_single) -> tp.Dict[
         tol = PARITY_RTOL[chaos_cfg.compute_dtype]
         print(f"phase 17c: chaos_train {' '.join(CHAOS_FAULTS)} on 2 ranks (2 layers of {mc.n_embd}, f32, warmup 1 "
               f"step; beside 17a and 17b) in {rec['wall_s']} s: mesh_history {history}, restarts {rec['restarts']}, "
-              f"detected at {rec['detected_at_ms']} ms, loss_final {rec['loss_final']} vs the uninterrupted 2-rank "
+              f"detected at {rec['detected_at_ms']} ms, loss_final {rec['loss_final']} vs the uninterrupted 1-rank "
               f"run's {rec['loss_ref']}, loss_parity {rec['loss_parity']}; per-step losses "
               f"{[round(got[s], 6) for s in sorted(got)]} vs {[round(want[s], 6) for s in sorted(want)]}: max rel err "
               f"{err:.2e} (tol {tol:g}); step {last} states, max |resumed - uninterrupted|: "
               f"{fmt_errors(errs, param_tol(chaos_cfg))} on {card}")
-        if (history != [2, 1, 2] or not rec["loss_parity"] or sorted(got) != sorted(want) or err > tol
+        if (history != [2, 1] or not rec["loss_parity"] or sorted(got) != sorted(want) or err > tol
                 or not errs["ok"]):
             raise SystemExit(f"phase 17c: the elastic resume failed: {rec}")
     finally:
@@ -4442,7 +4509,7 @@ def data_parallel(data_dir: Path, card: str, main_losses, xl_single) -> tp.Dict[
         shutil.rmtree(chaos_dir, ignore_errors=True)  # the run and its reference
     print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s; flash launches in its ranks by head dim: "
           + "; ".join(f"C {C}: {({k: dict(c) for k, c in v.items()})}" for C, v in flash.items()) + f" on {card}")
-    return flash
+    return flash, one_losses
 
 
 # ---------------------------------------------------------------- phase 18: tensor-parallel serving
@@ -4738,6 +4805,302 @@ def tp_serving(card: str, proc: subprocess.Popen, out: Path, ref32, ref16):
     return joined
 
 
+# ---------------------------------------------------------------- phase 19: tensor-parallel training
+
+EARLIER_SMOKE_PHASE19_S = 1027.9  # this script's wall time before phase 19 was added (PERF.md, section 6)
+# 19a: 17b's f32 pair (2 layers of full width over attn_block_size 512, warmed up in one step, phase 6's other
+# cuts) on a (data 1, tp 2) row: 6 heads and 25,152 vocab rows a rank, tp_vocab on and off; held to 17a's
+# one-rank run of the pair at PAIR_TOL (losses) and STATE_TOL / PARAM_TOL_LR (the final states)
+TP_PAIR_SETS = {**PAIR_SETS, "mesh.fsdp": 1, "mesh.tp": 2}
+# 19c: the pair on (fsdp 2, tp 2) over 4 ranks, shard_model on, in both fsdp_modes; held to the same run.
+# The gspmd run is straight. The shard_map run is resharded: steps 0-2 on (data 2, tp 2) (gspmd: with fsdp 1
+# the modes are one), its final checkpoint (whole leaves) restored into the 2D (fsdp 2, tp 2) shards under
+# shard_map for step 3 and the final eval, in the same process group: the one multi-rank restore on the card
+# (the leader verifies, the verdict goes out through `agree`, each rank cuts its shard of every leaf)
+TP_FSDP_SETS = {**PAIR_SETS, "mesh.fsdp": 2, "mesh.tp": 2, "shard_model": True}
+TP_RESHARD_FIRST = {**TP_FSDP_SETS, "mesh.fsdp": 1, "fsdp_mode": "gspmd", "max_steps": TRAIN_CUTS["max_steps"] - 1}
+# 19b: local_text_124m at full width and depth, bf16 over f32, microbatch 16, tp 2, on phase 6's cuts one
+# step short, its final checkpoint (step 2) restored on one device, which trains phase 6's last step. Under
+# the preset's warmup lr stays below 1e-5 over these steps, so the losses hold the forward: they and the
+# restored run's next loss are held to phase 6's at TP_MAIN_TOL relative, ~10x the readings on an H100 80GB
+# HBM3 at 700 W (8.34e-6 and 5.90e-7, PERF.md section 6). The backward shows in the moments: the restored
+# run's step 3 mu and nu (0.9 x and 0.95 x what the tp steps accumulated) are held leaf by leaf to phase
+# 6's at TP_MOMENT_RTOL of the leaf's norm, ~5x the readings (2.03e-2 and 1.57e-2, the same card); a
+# doubled or a halved gradient in the tp steps moves them by ~0.3-0.7
+TP_MAIN_CUTS = {**TRAIN_CUTS, "max_steps": TRAIN_CUTS["max_steps"] - 1, "mesh.fsdp": 1, "mesh.tp": 2}
+TP_MAIN_TOL = 1e-4
+TP_MOMENT_RTOL = 0.1
+
+
+def tp_training_ranks(data_dir: Path, root: Path, card: str, after: subprocess.Popen):
+    """Phase 19's ranks, started once phase 18's have exited (beside phase
+    17, at nice 10), in three gloo groups side by side: 2 ranks run 19a's two
+    runs, 2 more 19b's, 4 more 19c's gspmd run and its resharded run's two
+    legs. Returns ({"a": [run][rank], "b":
+    [rank], "c": [run][rank]} reports, the wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    after.wait(timeout=900)
+    t0 = time.perf_counter()
+
+    def args(name, over):
+        return ["--config=local_text_124m", f"--rundir={root / name}",
+                *sets({"data_dir": data_dir, "log_interval": 1, **over})]
+
+    pair = {**TRAIN_CUTS, **TP_PAIR_SETS}
+    a_runs = [args("a_tp_vocab", pair), args("a_tp_vocab_off", {**pair, "tp_vocab": False})]
+    c_runs = [args("c_gspmd", {**TRAIN_CUTS, **TP_FSDP_SETS, "fsdp_mode": "gspmd"}),
+              args("c_shard_map", {**TRAIN_CUTS, **TP_RESHARD_FIRST}),
+              args("c_shard_map", {**TRAIN_CUTS, **TP_FSDP_SETS, "fsdp_mode": "shard_map"})]
+    with ThreadPoolExecutor(2) as pool:
+        c = pool.submit(torchrun, "19c (fsdp 2 x tp 2: gspmd; (data 2, tp 2) resharded into shard_map)", 4, c_runs,
+                        card, "gloo", 600, 10)
+        b = pool.submit(torchrun, "19b (tp 2: the main path)", 2, [args("b", TP_MAIN_CUTS)], card, "gloo", 600, 10)
+        a = torchrun("19a (tp 2: the f32 pair, tp_vocab on and off)", 2, a_runs, card, "gloo", 600, 10)
+        b, c = b.result()[0], c.result()
+    return {"a": a, "b": b, "c": c}, time.perf_counter() - t0
+
+
+def n_evals(records) -> int:
+    """The eval batches of a launch's logged records: the eval records'
+    losses (a step's record repeats the last eval's)."""
+    return sum(k in r for r in records if "loss/optimized" not in r
+               for k in ("loss/train", "loss/val", "loss/val_final")) * TRAIN_CUTS["eval_steps"]
+
+
+def moment_errors(got: dict, want: dict) -> tp.Dict[str, float]:
+    """Largest ||got - want|| / ||want|| over the leaves of two
+    checkpointed states' moments, by kind ("mu", "nu")."""
+    og, ow = got["opt_state"], want["opt_state"]
+    return {key: max(((getattr(og, key)[k] - b).norm() / b.norm().clamp_min(1e-30)).item()
+                     for k, b in getattr(ow, key).items()) for key in ("mu", "nu")}
+
+
+def tp_training(card: str, ranks, root: Path, pair_losses, main_losses, main_dir: Path):
+    """Phase 19's verdicts from its ranks' reports (`ranks`:
+    `tp_training_ranks`), then 19b's checkpoint restored on one device.
+    `pair_losses` are 17a's one-rank run of the f32 pair (its directory
+    root / "pair1"), `main_losses` phase 6's (its directory `main_dir`).
+    Returns the ranks' flash launches, {kernel: Counter(variant: n)}."""
+    from midgpt_tpu_torch import launch
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.launch import apply_overrides
+    from midgpt_tpu_torch.models.gpt import param_shapes
+
+    reports, wall = ranks
+    t_phase = time.perf_counter()
+    print("phase 19: tensor-parallel training on gloo ranks sharing the card (NCCL refuses two ranks of one "
+          "communicator on one card): every all-reduce stages through the host, so no time here is a speed of "
+          "tensor parallelism")
+    mc = load_config("local_text_124m").model_config
+    micro, evals = TRAIN_CUTS["g_accum_iters"] * TRAIN_CUTS["max_steps"], 3
+    last = TRAIN_CUTS["max_steps"] - 1
+    flash = {k: collections.Counter() for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+    def add(reps):
+        for k, c in rank_flash(reps).items():
+            flash[k].update(c)
+
+    pair_cfg = apply_overrides(load_config("local_text_124m"),
+                               [(k, str(v)) for k, v in {**TRAIN_CUTS, **PAIR_SETS}.items()])
+    tol = param_tol(pair_cfg)
+    want = restore_state(root / "pair1", last, pair_cfg)
+    reshard = "19c (data 2, tp 2) gspmd steps 0-2, resharded into (fsdp 2, tp 2) shard_map"
+    runs = [("19a tp_vocab on", "a_tp_vocab", [reports["a"][0]]),
+            ("19a tp_vocab off", "a_tp_vocab_off", [reports["a"][1]]),
+            ("19c gspmd", "c_gspmd", [reports["c"][0]]), (reshard, "c_shard_map", reports["c"][1:])]
+    for label, name, legs in runs:
+        losses = [x for leg in legs[:-1] for x in step_losses(leg[0]["records"])] + run_losses(legs[-1][0]["records"])
+        err = max_rel(losses, pair_losses)
+        errs = state_errors(restore_state(root / name, last, pair_cfg), want, tol)
+        resumed = [r["step"] for r in legs[-1][0]["records"] if "loss/optimized" in r] if len(legs) > 1 else None
+        print(f"phase {label} ({len(legs[-1])} ranks, 2 layers of {mc.n_embd}, f32, warmup 1 step): losses (steps, "
+              f"final eval) {losses} vs 17a's one rank {pair_losses}: max rel err {err:.2e} (tol {PAIR_TOL:g}); "
+              + ("" if resumed is None else f"the resumed leg trained steps {resumed}; ")
+              + f"step {last} states, max |tp - one rank|: {fmt_errors(errs, tol)}; peak memory per rank "
+              f"{[gib(rep['peak']) for rep in legs[-1]]} on {card}")
+        if err > PAIR_TOL or not errs["ok"] or resumed not in (None, [last]):
+            raise SystemExit(f"phase {label}: the tensor-parallel run disagrees with the one-rank run")
+        for i, leg in enumerate(legs):
+            steps_i = sum("loss/optimized" in r for r in leg[0]["records"])
+            per_rank_flash_check(f"{label} (launch {i + 1})", leg, 2, TRAIN_CUTS["g_accum_iters"] * steps_i,
+                                 n_evals(leg[0]["records"]), exact=True)
+            add(leg)
+        shutil.rmtree(root / name)
+    # 19b: the main path at full width and depth
+    b = reports["b"]
+    steps = TP_MAIN_CUTS["max_steps"]
+    losses = step_losses(b[0]["records"])
+    err = max_rel(losses, main_losses[:steps])
+    full = 3 * 4 * sum(int(np.prod(sh)) for sh in param_shapes(mc).values())
+    print(f"phase 19b local_text_124m ({mc.n_layer} x {mc.n_embd}, {mc.n_head // 2} heads and "
+          f"{mc.vocab_size // 2:,} vocab rows a rank), bf16 over f32, microbatch 16, tp 2: losses {losses} vs phase "
+          f"6's single device {main_losses[:steps]}: max rel err {err:.2e} (tol {TP_MAIN_TOL:g}); peak "
+          f"memory per rank {[gib(rep['peak']) for rep in b]}; master weights and moments per rank "
+          f"{[gib(rep['state_bytes']) for rep in b]} of {gib(full)} whole on {card}")
+    if len(losses) != steps or not all(np.isfinite(losses)) or err > TP_MAIN_TOL:
+        raise SystemExit("phase 19b: the tensor-parallel main path disagrees with phase 6's single device")
+    if any(rep["state_bytes"] > 0.51 * full for rep in b):
+        raise SystemExit("phase 19b: a rank holds more than half of the master weights and moments")
+    per_rank_flash_check("19b", b, mc.n_layer, TRAIN_CUTS["g_accum_iters"] * steps, evals, exact=True)
+    add(b)
+    # its final checkpoint (whole leaves) restores on one device, which trains phase 6's last step
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        launch.main(["--config=local_text_124m", f"--rundir={root / 'b'}",
+                     *sets({"data_dir": root.parent, "log_interval": 1, **TRAIN_CUTS, "on_resume_mesh": "any"})])
+    resumed = [line for line in buf.getvalue().splitlines() if line.startswith("resumed from checkpoint step")]
+    records, _ = logged(root / "b")
+    nxt = records.get(last)
+    if not resumed or f"step {steps - 1} " not in resumed[0] or nxt is None:
+        raise SystemExit(f"phase 19b: the tp checkpoint did not restore on one device ({resumed}, step {last}'s "
+                         f"loss {nxt})")
+    main_cfg = apply_overrides(load_config("local_text_124m"), [(k, str(v)) for k, v in TRAIN_CUTS.items()])
+    got, ref = restore_state(root / "b", last, main_cfg), restore_state(main_dir, last, main_cfg)
+    merr = moment_errors(got, ref)
+    counts = (got["opt_state"].adam_count, got["opt_state"].schedule_count)
+    same_counts = counts == (ref["opt_state"].adam_count, ref["opt_state"].schedule_count)
+    del got, ref
+    rel = abs(nxt - main_losses[last]) / main_losses[last]
+    print(f"phase 19b restore on one device: {resumed[0]}; step {last}'s loss {nxt} vs phase 6's {main_losses[last]} "
+          f"(rel err {rel:.2e}, tol {TP_MAIN_TOL:g}); step {last} moments, max over leaves ||restored - phase 6|| / "
+          f"||phase 6||: mu {merr['mu']:.2e}, nu {merr['nu']:.2e} (tol {TP_MOMENT_RTOL:g}), step counts {counts} on "
+          f"{card}")
+    if rel > TP_MAIN_TOL or max(merr.values()) > TP_MOMENT_RTOL or not same_counts:
+        raise SystemExit("phase 19b: the tp checkpoint did not restore on one device into phase 6's trajectory")
+    shutil.rmtree(main_dir)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 19 took {wall:.1f} s in its ranks (beside phase 17) and {time.perf_counter() - t_phase:.1f} s of "
+          f"verdicts and 19b's restore; flash launches in its ranks: "
+          f"{({k: dict(c) for k, c in flash.items()})} on {card}")
+    return flash
+
+
+# ---------------------------------------------------------------- the lanes: serving beside training
+
+# Serving phases hold the host most of the time (a decode round is 3-54% busy on the card, PERF.md section 5);
+# training phases wait on the card, or on their ranks' host-staged collectives. So two serving lanes, each a
+# process of its own (`chip_smoke.py --lane NAME OUT`), run beside training in `main`:
+#   "decode"  phases 5, 4b, 5b and 6c(e), beside phases 17-19 (joined before phase 18's verdicts, which hold
+#             its streams);
+#   "serving" phases 11d and 12-15, beside phases 5c-11c (joined before phase 17, whose ranks need the card's
+#             memory: this lane holds up to ~16 GB in phase 15, the other ~3 GB).
+# The serving main path (phase 4), the training main path (phase 6) and the timings (phase 10) run alone. A
+# lane's launch counters are zeroed and read in its own process, as its phases always did; its results come
+# back in OUT as JSON, its output is printed when it is joined.
+LANE_TIMEOUT_S = 900
+LANE_PHASES = {"decode": "5, 4b, 5b, 6c(e)", "serving": "11d, 12-15"}
+
+
+def decode_lane(card: str) -> dict:
+    """Phases 5, 4b, 5b and 6c(e) on phase 4's model (openwebtext, seed 0)."""
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.models.gpt import GPT
+    from midgpt_tpu_torch.utils.precision import cast_floating
+
+    clock = PhaseClock()
+    cfg = load_config("openwebtext").model_config
+    params32 = GPT.init(cfg, 0, device="cuda")
+    params16 = cast_floating(params32, torch.bfloat16)
+    # 5. f32: kernel and gather streams identical; decode busy share
+    _, kernel_streams, _ = serve(cfg, params32, torch.float32, attn_impl="auto")
+    _, gather_streams, _ = serve(cfg, params32, torch.float32, attn_impl="gather")
+    for i, (a, b) in enumerate(zip(kernel_streams, gather_streams)):
+        if not np.array_equal(a, b):
+            first = int(np.argmax(a != b))
+            raise SystemExit(f"f32 request {i}: kernel and gather streams differ from token {first}")
+    print(f"f32 greedy streams identical, kernel vs gather: {len(kernel_streams)} requests")
+    wall_us, by_name = profile_decode(cfg, params16)
+    busy = {"off": print_busy("decode rounds", wall_us, by_name, card)}
+    clock.mark("5 f32 streams, busy share")
+    # 4b. the overlap modes as CUDA-graph replays (after phase 5: its f32 streams are the reference)
+    overlap_rates, streams16 = overlap_serving(card, cfg, params32, params16, kernel_streams, gather_streams)
+    wall_us, by_name = profile_decode(cfg, params16, warm=3, overlap="group", round_group=4)
+    busy["group:4"] = print_busy("group:4 decode rounds (CUDA-graph replays)", wall_us, by_name, card)
+    print("decode by overlap mode, bf16 (" + card + "): " + "; ".join(
+        f"{spec} {dec:.1f} tokens/s in rounds, {e2e:.1f} tokens/s end to end" for spec, (dec, e2e)
+        in overlap_rates.items()) + "; device busy " + ", ".join(
+        f"{spec} {'not measured' if b is None else f'{100 * b:.1f}%'}" for spec, b in busy.items()))
+    clock.mark("4b overlap modes")
+    # 5b. speculative serving, bf16 and int8: counters zeroed just before each run, read just after
+    spec_launches_by_run = spec_serving(card, params32, params16, kernel_streams)
+    clock.mark("5b speculative")
+    # 6c(e). the serving faults, obs and the engine's watchdog on phase 4's trace
+    faulted_serving(card, cfg, params32, params16, streams16)
+    clock.mark("6c(e) serving faults")
+    print(f"decode lane phase wall seconds on {card}: {clock.line()}")
+    return {"kernel_streams": [np.asarray(t).tolist() for t in kernel_streams],
+            "bf16_off_streams": [np.asarray(t).tolist() for t in streams16["off"]],
+            "overlap_rates": overlap_rates, "busy": busy,
+            "spec_launches": {run: [[list(key), n] for key, n in c.items()] for run, c in spec_launches_by_run.items()}}
+
+
+def serving_lane(card: str) -> dict:
+    """Phases 11d and 12-15."""
+    clock = PhaseClock()
+    llama_serving(card)
+    free_memory()
+    clock.mark("11d llama7b_long")
+    launches64, launches128, speeds = batch_sampler(card)
+    clock.mark("12 batch sampler")
+    by_pool, alias_errs = front_door(card)
+    clock.mark("13 front door")
+    for pool, n in fleet_chaos(card).items():
+        by_pool[pool] += n
+    clock.mark("14 chaos, fleet, disagg")
+    for pool, n in proc_fleet(card).items():
+        by_pool[pool] += n
+    clock.mark("15 process fleet")
+    print(f"serving lane phase wall seconds on {card}: {clock.line()}")
+    return {"batch_launches": [launches64, launches128],
+            "batch_speeds": [[phase, rows, rates, busy] for (phase, rows), (rates, busy) in speeds.items()],
+            "by_pool": {pool: [[list(key), n] for key, n in c.items()] for pool, c in by_pool.items()},
+            "alias_errs": [[str(dt).removeprefix("torch."), s, err] for (dt, s), err in alias_errs.items()]}
+
+
+def lane_main(argv) -> int:
+    """`chip_smoke.py --lane NAME OUT`: lane NAME's phases, their results to
+    OUT as JSON."""
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name, out = argv
+    result = {"decode": decode_lane, "serving": serving_lane}[name](card_line())
+    Path(out).write_text(json.dumps(result, default=lambda x: x.item()))  # numpy scalars as numbers
+    return 0
+
+
+def start_lane(name: str, tmp: Path) -> subprocess.Popen:
+    """Lane `name` in the background, its output to tmp/<name>.log."""
+    with open(tmp / f"{name}.log", "w") as log:
+        return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--lane", name,
+                                 str(tmp / f"{name}.json")], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+
+
+def join_lane(name: str, proc: subprocess.Popen, tmp: Path, beside: str) -> dict:
+    """Waits for lane `name` (run beside phases `beside`), prints its
+    output, fails if it failed; returns its results."""
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=LANE_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(f"--- the {name} lane (phases {LANE_PHASES[name]}; beside phases {beside}; joined after a wait of "
+          f"{time.perf_counter() - t0:.1f} s) ---")
+    print((tmp / f"{name}.log").read_text(), end="")
+    print(f"--- end of the {name} lane ---")
+    if proc.returncode != 0:
+        raise SystemExit(f"the {name} lane (phases {LANE_PHASES[name]}) failed with exit {proc.returncode}")
+    return json.loads((tmp / f"{name}.json").read_text())
+
+
+def counters_of(rows) -> collections.Counter:
+    """A lane's [[key, n], ...] back into Counter({tuple(key): n})."""
+    return collections.Counter({tuple(key): n for key, n in rows})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script needs an NVIDIA GPU", file=sys.stderr)
@@ -4749,6 +5112,8 @@ def main() -> int:
         return rank17_main(sys.argv[2:])
     if sys.argv[1:2] == ["--rank18"]:
         return rank18_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--lane"]:
+        return lane_main(sys.argv[2:])
     sys.path.insert(0, str(ROOT))
     from midgpt_tpu_torch.config import load_config
     from midgpt_tpu_torch.kernels import attention_template as tpl
@@ -4762,6 +5127,7 @@ def main() -> int:
     card = card_line()
     name = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
+    clock = PhaseClock()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
@@ -4779,6 +5145,7 @@ def main() -> int:
                if "spill stores" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill")]
     print(f"ptxas: {len(spilled)} kernel instantiation(s) spill" + "".join(f"\n  {line}" for line in spilled))
 
+    clock.mark("2 build")
     # 3. kernels vs plain
     errs = {(dt, s): check_kernel(dt, s) for dt in (torch.bfloat16, torch.float32) for s in (1, 2)}
     for s in (1, 2):
@@ -4805,6 +5172,7 @@ def main() -> int:
         check_flash_repeat(label, B, H, T, C, bq, bk)
     free_memory()
 
+    clock.mark("3 kernels vs plain")
     # 4. the serving main path, bf16: counters zeroed just before, read just after
     cfg = load_config("openwebtext").model_config
     params32 = GPT.init(cfg, 0, device="cuda")
@@ -4828,100 +5196,110 @@ def main() -> int:
     print(f"decode throughput bf16: {tok_s:.1f} tokens/s over {stats16['decode_tokens']} tokens "
           f"({stats16['decode_seconds']:.3f} s in decode rounds) on {card}")
 
-    # 5. f32: kernel and gather streams identical; decode busy share
-    _, kernel_streams, _ = serve(cfg, params32, torch.float32, attn_impl="auto")
-    _, gather_streams, _ = serve(cfg, params32, torch.float32, attn_impl="gather")
-    for i, (a, b) in enumerate(zip(kernel_streams, gather_streams)):
-        if not np.array_equal(a, b):
-            first = int(np.argmax(a != b))
-            raise SystemExit(f"f32 request {i}: kernel and gather streams differ from token {first}")
-    print(f"f32 greedy streams identical, kernel vs gather: {len(kernel_streams)} requests")
-    wall_us, by_name = profile_decode(cfg, params16)
-    busy = {"off": print_busy("decode rounds", wall_us, by_name, card)}
-    # 4b. the overlap modes as CUDA-graph replays (after phase 5: its f32 streams are the reference)
-    overlap_rates, streams16 = overlap_serving(card, cfg, params32, params16, kernel_streams, gather_streams)
-    wall_us, by_name = profile_decode(cfg, params16, warm=3, overlap="group", round_group=4)
-    busy["group:4"] = print_busy("group:4 decode rounds (CUDA-graph replays)", wall_us, by_name, card)
-    print("decode by overlap mode, bf16 (" + card + "): " + "; ".join(
-        f"{spec} {dec:.1f} tokens/s in rounds, {e2e:.1f} tokens/s end to end" for spec, (dec, e2e)
-        in overlap_rates.items()) + "; device busy " + ", ".join(
-        f"{spec} {'not measured' if b is None else f'{100 * b:.1f}%'}" for spec, b in busy.items()))
-    # 5b. speculative serving, bf16 and int8: counters zeroed just before each run, read just after
-    spec_launches_by_run = spec_serving(card, params32, params16, kernel_streams)
-    # 6c(e). the serving faults, obs and the engine's watchdog on phase 4's trace
-    faulted_serving(card, cfg, params32, params16, streams16)
     del params32, params16
     free_memory()
+    clock.mark("4 serving bf16")
 
-    with tempfile.TemporaryDirectory() as tmp:
-        data_dir = Path(tmp)
-        synthetic_stream(data_dir, load_config("local_text_124m").model_config.vocab_size)
-        # 5c. the GQA and window slice: train both variants, serve what they wrote
-        rundirs = {variant: data_dir / variant for variant in GQA_VARIANTS}
-        for variant, rundir in rundirs.items():
-            train_variant(data_dir, rundir, variant, card)
+    lanes_dir = Path(tempfile.mkdtemp())
+    lanes = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            data_dir = Path(tmp)
+            synthetic_stream(data_dir, load_config("local_text_124m").model_config.vocab_size)
+            # 6. the training main path, alone on the card: counters zeroed just before, read just after
+            main_dir = data_dir / "main"
+            main_dir.mkdir()
+            flash_launches, train_tok_s, train_mfu, main_losses = train_main_path(data_dir, card, main_dir)
             free_memory()
-        gqa_launches, window_launches = gqa_serving(card, rundirs)
-        for rundir in rundirs.values():
-            shutil.rmtree(rundir)  # two checkpoint steps each
-        free_memory()
-        # 6. the training main path: counters zeroed just before, read just after
-        flash_launches, train_tok_s, train_mfu, main_losses = train_main_path(data_dir, card)
-        free_memory()
-        # 6b. checkpoints and resume on the main path: counters zeroed just before the resumed run
-        _, round_trip, straight_dir = resume_main_path(data_dir, card)
-        free_memory()
-        # 6c(a-d). the supervised trainer: rollback, hang restart, SIGTERM, the armed watchdog
-        supervised_main_path(data_dir, straight_dir, round_trip, card)
-        free_memory()
-        # 7-9. parity, the tiled dispatch, where a training step's time goes
-        train_parity(data_dir, card)
-        train_tiled(data_dir)
-        free_memory()
-        profile_train(data_dir, card)
-        free_memory()
-        # 11. the six presets' slice: wide610m, the remat policies, openwebtext_xl
-        t_phase = time.perf_counter()
-        wide_launches, *_ = wide_main_path(data_dir, card)
-        remat_policies(data_dir, card)
-        xl_peak, _, xl_losses = xl_remat_pair(data_dir, card)[f"remat {load_config('openwebtext_xl').model_config.remat_policy}"]
-        print(f"phase 11a-c took {time.perf_counter() - t_phase:.1f} s")
-        free_memory()
-        # 18. tensor-parallel serving: 4 ranks under torchrun, started here to run beside phase 17
-        tp_dir = Path(tempfile.mkdtemp())
-        tp_proc, tp_out = start_tp_ranks(tp_dir)
-        try:
-            # 17. data-parallel and FSDP training: ranks under torchrun (their flash launches join the kernels
-            # line's)
-            dp_flash = data_parallel(data_dir, card, main_losses, (xl_losses, xl_peak))
-            # 18's verdicts: its ranks' paged launches of bf16 queries join the kernels line's
-            tp_joined = tp_serving(card, tp_proc, tp_out, kernel_streams, streams16["off"])
-        finally:
-            if tp_proc.poll() is None:
-                tp_proc.kill()
-                tp_proc.wait()
-            shutil.rmtree(tp_dir, ignore_errors=True)
-    # 11d. llama7b_long served in bf16
-    t_phase = time.perf_counter()
-    llama_serving(card)
-    free_memory()
-    print(f"phase 11d took {time.perf_counter() - t_phase:.1f} s")
-    # 12. the batch sampler: sample --engine batch, replayed decode chunks, parity
-    batch_launches64, batch_launches128, batch_speeds = batch_sampler(card)
-    # 13. the serving front door: aliased page tables, loadgen, hot swap, resize, the byte budget
-    by_pool, alias_errs = front_door(card)
-    # 14. serving chaos, the fleet with its spill tier, disagg, loadgen --fleet
-    for pool, n in fleet_chaos(card).items():
-        by_pool[pool] += n
-    # 15. the worker-process fleet: its workers' launches, read over the wire
-    for pool, n in proc_fleet(card).items():
-        by_pool[pool] += n
+            clock.mark("6 training")
+            # 11d and 12-15: the serving lane, beside phases 5c-11c
+            lanes["serving"] = start_lane("serving", lanes_dir)
+            # 5c. the GQA and window slice: train both variants, serve what they wrote
+            rundirs = {variant: data_dir / variant for variant in GQA_VARIANTS}
+            for variant, rundir in rundirs.items():
+                train_variant(data_dir, rundir, variant, card)
+                free_memory()
+            gqa_launches, window_launches = gqa_serving(card, rundirs)
+            for rundir in rundirs.values():
+                shutil.rmtree(rundir)  # two checkpoint steps each
+            free_memory()
+            clock.mark("5c GQA and window")
+            # 6b. checkpoints and resume on the main path: counters zeroed just before the resumed run
+            _, round_trip, straight_dir = resume_main_path(data_dir, card)
+            free_memory()
+            clock.mark("6b checkpoints")
+            # 6c(a-d). the supervised trainer: rollback, hang restart, SIGTERM, the armed watchdog
+            supervised_main_path(data_dir, straight_dir, round_trip, card)
+            free_memory()
+            clock.mark("6c(a-d) supervised trainer")
+            # 7-9. parity, the tiled dispatch, where a training step's time goes
+            train_parity(data_dir, card)
+            train_tiled(data_dir)
+            free_memory()
+            profile_train(data_dir, card)
+            free_memory()
+            clock.mark("7-9 parity, tiled, profile")
+            # 11. the six presets' slice: wide610m, the remat policies, openwebtext_xl
+            t_phase = time.perf_counter()
+            wide_launches, *_ = wide_main_path(data_dir, card)
+            remat_policies(data_dir, card)
+            xl_peak, _, xl_losses = xl_remat_pair(data_dir, card)[
+                f"remat {load_config('openwebtext_xl').model_config.remat_policy}"]
+            print(f"phase 11a-c took {time.perf_counter() - t_phase:.1f} s")
+            free_memory()
+            clock.mark("11a-c presets")
+            lane = join_lane("serving", lanes["serving"], lanes_dir, "5c-11c")
+            batch_launches64, batch_launches128 = lane["batch_launches"]
+            batch_speeds = {(phase, rows): (rates, busy) for phase, rows, rates, busy in lane["batch_speeds"]}
+            by_pool = collections.defaultdict(collections.Counter,
+                                              {pool: counters_of(rows) for pool, rows in lane["by_pool"].items()})
+            alias_errs = {(getattr(torch, dt), s): err for dt, s, err in lane["alias_errs"]}
+            clock.mark("the serving lane's rest (11d, 12-15)")
+            # 5, 4b, 5b and 6c(e): the decode lane, beside phases 17-19
+            lanes["decode"] = start_lane("decode", lanes_dir)
+            # 18. tensor-parallel serving: 4 ranks under torchrun, started here to run beside phase 17
+            tp_dir = Path(tempfile.mkdtemp())
+            tp_proc, tp_out = start_tp_ranks(tp_dir)
+            # 19. tensor-parallel training: its ranks start once 18's have exited, beside phase 17
+            tt_root = data_dir / "tp_train"
+            tt_root.mkdir()
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(1) as pool19:
+                tt_ranks = pool19.submit(tp_training_ranks, data_dir, tt_root, card, tp_proc)
+                try:
+                    # 17. data-parallel and FSDP training: ranks under torchrun (their flash launches join the
+                    # kernels line's)
+                    dp_flash, pair_losses = data_parallel(data_dir, card, main_losses, (xl_losses, xl_peak),
+                                                          tt_root / "pair1")
+                    lane = join_lane("decode", lanes["decode"], lanes_dir, "17-19")
+                    overlap_rates = {spec: tuple(r) for spec, r in lane["overlap_rates"].items()}
+                    busy = lane["busy"]
+                    spec_launches_by_run = {run: counters_of(rows) for run, rows in lane["spec_launches"].items()}
+                    # 18's verdicts, on phase 5's f32 and 4b's bf16 streams: its ranks' paged launches of bf16
+                    # queries join the kernels line's
+                    tp_joined = tp_serving(card, tp_proc, tp_out, lane["kernel_streams"], lane["bf16_off_streams"])
+                    # 19's verdicts: its ranks' flash launches join the kernels line's
+                    tt_flash = tp_training(card, tt_ranks.result(), tt_root, pair_losses, main_losses, main_dir)
+                finally:
+                    if tp_proc.poll() is None:
+                        tp_proc.kill()
+                        tp_proc.wait()
+                    shutil.rmtree(tp_dir, ignore_errors=True)
+    finally:
+        for proc in lanes.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(lanes_dir, ignore_errors=True)
+    clock.mark("17-19 ranks (18 and 19 beside 17), the decode lane beside them")
     # 16. the routed MoE MLP: trained through the launcher, then served (its launches join the kernels line's)
     moe_flash, moe_paged, moe_merges = moe_path(card, overlap_rates["group:4"], batch_speeds[("12a", 8)][0])
     print("paged launches of phases 13-15 by pool (the kernels line's paged entries take the bf16 pool's): "
           + "; ".join(f"{pool}: {dict(n)}" for pool, n in by_pool.items()) + f" on {card}")
     front_launches = by_pool["bf16"]
 
+    clock.mark("16 MoE")
     # 10. timings
     kernels = []
     for dt in (torch.bfloat16, torch.float32):
@@ -5071,6 +5449,11 @@ def main() -> int:
             "bound_by": b_by,
             "library_ms": wide_lib[kname],
         })
+    for label, B, H, T, C in PREFILL_SHAPES[:5]:  # the batch path's prefills (phase 12)
+        ms, plain, sdpa, (b_ms, b_by) = time_flash_forward(B, H, T, C)
+        print(f"flash_fwd [single] {label} bf16 B={B} H={H} T={T} C={C}: {ms:.4f} ms device, bound {b_ms:.5f} ms by "
+              f"{b_by} ({ms / b_ms:.1f}x), plain {plain:.3f} ms, sdpa forward {sdpa:.4f} ms on {card}")
+    free_memory()
     _, B, H, T, C, bq, bk = FLASH_MAIN
     print(f"main path: {cfg.n_layer} launches of each flash kernel per microstep, {cfg.n_layer * 16} per "
           f"local_text_124m step (G=16), plus {cfg.n_layer} forward launches per eval batch")
@@ -5085,7 +5468,7 @@ def main() -> int:
             "source": "midgpt_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_SOURCES[kname],
             "launches": (sum(flash_launches[kname].values()) + (batch_launches64 if kname == "flash_fwd" else 0)
-                         + moe_flash[kname] + sum(dp_flash[64][kname].values())),
+                         + moe_flash[kname] + sum(dp_flash[64][kname].values()) + sum(tt_flash[kname].values())),
             "max_abs_err": err_of[kname],
             "ms": main_ms[kname],
             "plain_ms": main_plain[kname],
@@ -5093,10 +5476,13 @@ def main() -> int:
             "bound_by": b_by,
             "library_ms": main_lib[kname],
         })
+    clock.mark("10 timings")
+    print(f"phase wall seconds on {card}: {clock.line()}")
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s (before phase 12: {EARLIER_SMOKE_S} s, before "
           f"phase 13: {EARLIER_SMOKE_PHASE13_S} s, before phase 14: {EARLIER_SMOKE_PHASE14_S} s, before phase 15: "
           f"{EARLIER_SMOKE_PHASE15_S} s, before phase 16: {EARLIER_SMOKE_PHASE16_S} s, before phase 17: "
-          f"{EARLIER_SMOKE_PHASE17_S} s, before phase 18: {EARLIER_SMOKE_PHASE18_S} s) on {card}")
+          f"{EARLIER_SMOKE_PHASE17_S} s, before phase 18: {EARLIER_SMOKE_PHASE18_S} s, before phase 19: "
+          f"{EARLIER_SMOKE_PHASE19_S} s) on {card}")
     print(card)  # exactly as nvidia-smi gives it: name, power limit
     decode_modes = {spec: {"decode_tokens_per_s": dec, "end_to_end_tokens_per_s": e2e,
                            "busy_share": busy.get(spec)} for spec, (dec, e2e) in overlap_rates.items()}

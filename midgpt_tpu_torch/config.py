@@ -7,13 +7,12 @@ module-level `config` (`load_config`); `to_json` writes the run
 directory's `config.json`, which either package reads back. Validation
 covers the fields the port reads and the checkpoint, supervisor,
 preemption, watchdog, fault and FSDP knobs, as JAX checks them at the
-same place. The mesh's data and fsdp axes, `fsdp_mode`, `shard_model` and
-`fsdp_min_size` drive multi-rank training (parallel/). JAX's tp checks
-hold here too (whole heads, K/V heads and MLP columns a shard; the vocab
-under `tp_vocab`), though the port serves on tp (parallel/serve_tp.py)
-and does not train on it yet; the sp, tp, pp and ep axes of training and
-the pipeline knobs are carried for the round trip and wait for later
-slices (ROADMAP.md Queue 1 item 7).
+same place. The mesh's data, fsdp and tp axes, `fsdp_mode`, `shard_model`,
+`fsdp_min_size` and `tp_vocab` drive multi-rank training (parallel/).
+JAX's tp checks hold here too (whole heads, K/V heads and MLP columns a
+shard; the vocab under `tp_vocab`: GPT-2 XL's 25 heads refuse tp 2); the
+sp, pp and ep axes of training and the pipeline knobs are carried for the
+round trip and wait for later slices (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -29,7 +28,7 @@ from midgpt_tpu_torch.models.gpt import GPTConfig
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Logical device mesh of the JAX package (data, fsdp, sp, tp, pp, ep).
-    The port lays its ranks out on data x fsdp (parallel/mesh.py); the
+    The port lays its ranks out on data x fsdp x tp (parallel/mesh.py); the
     other axes are carried for config round trips."""
 
     data: int = -1

@@ -533,7 +533,7 @@ class GPT:
         inference: bool = True,
         return_moe_aux: bool = False,
         aux_reduce: tp.Optional[tp.Callable[[Tensor], Tensor]] = None,
-        tp_shard=None,
+        tp_row=None,
     ) -> tp.Union[Tensor, tp.Tuple[Tensor, Tensor]]:
         """Shared tail of a block: merge heads, output projection, MLP (the
         routed one when n_experts > 0), residuals (each branch dropped out
@@ -541,26 +541,30 @@ class GPT:
         only), returns (out, the block's load-balance term; `aux_reduce` as
         in `_moe_gates`).
 
-        `tp_shard` (parallel/serve_tp.py TPShard; the serving paths only):
-        att holds the shard's heads, and the products of the row-parallel
-        leaves its specs shard (wo, w_down) are partial sums, all-reduced
-        over the tp row before their residual add: Megatron's two
-        collectives a block. The routed MLP's banks are replicated, so its
-        output is whole and is not summed."""
+        `tp_row`: a tp row's collectives, parallel/serve_tp.py TPShard on
+        the serving paths or parallel/tp.py TPTrain in training. att holds
+        the shard's heads, and the products of the row-parallel leaves
+        (wo, w_down) are partial sums, summed over the row before their
+        residual add (`reduce`, Megatron's g; TPShard sums only the leaves
+        its specs shard). `copy` (Megatron's f, the identity when serving)
+        goes before the w_up product. The routed MLP's banks are
+        replicated, so its output is whole and is not summed."""
         B, T = att.shape[:2]
         att = att.reshape(B, T, -1) @ blk["attn.wo"].T
-        if tp_shard is not None:
-            tp_shard.reduce_("blocks.attn.wo", att)
+        if tp_row is not None:
+            att = tp_row.reduce("blocks.attn.wo", att)
         x = x + dropout(att, config.dropout, generator, inference)
         h = rms_norm(x)
         aux = None
         if config.n_experts > 0:
             h, aux = GPT._moe_mlp(config, blk, h, return_aux=return_moe_aux, aux_reduce=aux_reduce)
         else:
+            if tp_row is not None:
+                h = tp_row.copy(h)
             h = F.gelu(h @ blk["mlp.w_up"].T, approximate="tanh")  # jax.nn.gelu's default
             h = h @ blk["mlp.w_down"].T
-            if tp_shard is not None:
-                tp_shard.reduce_("blocks.mlp.w_down", h)
+            if tp_row is not None:
+                h = tp_row.reduce("blocks.mlp.w_down", h)
         out = x + dropout(h, config.dropout, generator, inference)
         return (out, aux) if return_moe_aux else out
 
@@ -646,12 +650,17 @@ class GPT:
         policy: tp.Optional[str] = None,
         return_moe_aux: bool = False,
         aux_reduce: tp.Optional[tp.Callable[[Tensor], Tensor]] = None,
+        tp_train=None,
     ) -> tp.Union[Tensor, tp.Tuple[Tensor, Tensor]]:
         """One block: QKV, QK-norm, RoPE, attention, output projection, MLP.
         Under a remat `policy` the tensors it keeps by name are named
         (ops/remat.py `name`); otherwise nothing is. With return_moe_aux,
-        returns (out, the block's load-balance term)."""
-        q, k, v = GPT._project_qkv(config, blk, rms_norm(x))
+        returns (out, the block's load-balance term). `tp_train`: `blk` is
+        a tp rank's shard (whole heads of q, k and v; `hidden`)."""
+        h = rms_norm(x)
+        if tp_train is not None:
+            h = tp_train.copy(h)
+        q, k, v = GPT._project_qkv(config, blk, h)
         q = apply_rope_bthc(q, sin, cos, style=config.rope_style)
         k = apply_rope_bthc(k, sin, cos, style=config.rope_style)
         # GQA: the training attention takes equal head counts — K/V
@@ -663,11 +672,12 @@ class GPT:
             generator=generator, inference=inference,
             block_size=config.attn_block_size, layout="bthc",
             sliding_window=config.sliding_window, attn_sinks=config.attn_sinks,
+            head_shard=None if tp_train is None else tp_train.heads,
         )
         if not (config.attn_impl == "flash" and flash_kernel_usable(x.shape[1], config.attn_block_size)):
             att = remat.name(att, "attn_out", policy)  # the flash op's out is kept as the op's
         return GPT._attn_out_and_mlp(config, blk, x, att, generator=generator, inference=inference,
-                                     return_moe_aux=return_moe_aux, aux_reduce=aux_reduce)
+                                     return_moe_aux=return_moe_aux, aux_reduce=aux_reduce, tp_row=tp_train)
 
     @staticmethod
     def hidden(
@@ -680,6 +690,7 @@ class GPT:
         return_moe_aux: bool = False,
         aux_reduce: tp.Optional[tp.Callable[[Tensor], Tensor]] = None,
         layer_transform: tp.Optional[tp.Callable[[Params], Params]] = None,
+        tp_train=None,
     ) -> tp.Union[Tensor, tp.Tuple[Tensor, Tensor]]:
         """Backbone forward -> final-normed hidden states (B, T, D).
 
@@ -694,6 +705,15 @@ class GPT:
         hook does (midgpt_tpu/models/gpt.py:963,1023): the ZeRO-3 schedule
         (parallel/shard_map_fsdp.py) gathers one layer's weights there, and
         under remat the recompute gathers them again.
+
+        `tp_train` (parallel/tp.py TPTrain): `params` are a tp rank's
+        shards of the Megatron leaves (the four block products, and wte
+        under tp_vocab), and the forward places the row's collectives:
+        Megatron's f before the QKV and w_up products, g after the wo and
+        w_down products, the vocab-parallel lookup for wte. Head counts come
+        from the shards' shapes, so RoPE, QK-norm and the GQA fold run on
+        the rank's heads as they are; the routed MLP runs whole. Every rank
+        of the row returns the same hidden states.
 
         Training mode (inference=False) applies dropout at config.dropout
         from `generator` (required when dropout > 0). The lm_head projection
@@ -721,11 +741,13 @@ class GPT:
         T = tokens.shape[1]
         checkpointed = config.remat and not inference and torch.is_grad_enabled()
         policy = config.remat_policy if checkpointed else None
-        x = dropout(params["wte"][tokens], config.dropout, generator, inference)
+        vocab_sharded = tp_train is not None and tp_train.vocab
+        x = tp_train.embed(params["wte"], tokens) if vocab_sharded else params["wte"][tokens]
+        x = dropout(x, config.dropout, generator, inference)
         sin, cos = rope_table(config.head_dim, T, device=x.device)
         auxes = []
         kw = dict(sin=sin, cos=cos, generator=generator, inference=inference, policy=policy,
-                  return_moe_aux=return_moe_aux, aux_reduce=aux_reduce)
+                  return_moe_aux=return_moe_aux, aux_reduce=aux_reduce, tp_train=tp_train)
         for i in range(config.n_layer):
             if layer_transform is None:
                 block = functools.partial(GPT._block_apply, config, _block(params, i), **kw)
@@ -906,7 +928,7 @@ class GPT:
                 k_scale=ksp, v_scale=vsp, split_k=split_k,
                 sliding_window=config.sliding_window, attn_sinks=config.attn_sinks,
             )  # (B, H, C)
-            x = GPT._attn_out_and_mlp(config, blk, x, att[:, None].to(x.dtype), tp_shard=tp_shard)
+            x = GPT._attn_out_and_mlp(config, blk, x, att[:, None].to(x.dtype), tp_row=tp_shard)
         x = rms_norm(x, eps=1e-5)
         return (x @ params["lm_head"].T)[:, 0], cache
 
@@ -966,7 +988,7 @@ class GPT:
                 k_scale=ksp, v_scale=vsp, split_k=split_k,
                 sliding_window=config.sliding_window, attn_sinks=config.attn_sinks,
             )  # (B, K1, H, C)
-            x = GPT._attn_out_and_mlp(config, blk, x, att.to(x.dtype), tp_shard=tp_shard)
+            x = GPT._attn_out_and_mlp(config, blk, x, att.to(x.dtype), tp_row=tp_shard)
         x = rms_norm(x, eps=1e-5)
         return x @ params["lm_head"].T, cache
 
@@ -1021,6 +1043,6 @@ class GPT:
             scores = scores.masked_fill(~ok, float("-inf"))
             probs = torch.softmax(scores.float() / math.sqrt(C), dim=-1).to(kg.dtype)
             att = torch.einsum("hts,hsc->thc", probs, vg)  # (T_c, H, C)
-            x = GPT._attn_out_and_mlp(config, blk, x, att[None].to(x.dtype), tp_shard=tp_shard)
+            x = GPT._attn_out_and_mlp(config, blk, x, att[None].to(x.dtype), tp_row=tp_shard)
         x = rms_norm(x, eps=1e-5)
         return x @ params["lm_head"].T, cache

@@ -57,10 +57,13 @@ def naive_causal_attention(
     inference: bool = True,
     sliding_window: int = 0,
     attn_sinks: int = 0,
+    head_shard: tp.Optional[tp.Tuple[int, int]] = None,
 ) -> Tensor:
     """Materialized-scores causal attention (optionally windowed), f32
     softmax, optional attention-probability dropout. (B, T, H, C) ->
-    (B, T, H, C) — the sequence-major layout the fused projection produces."""
+    (B, T, H, C) — the sequence-major layout the fused projection produces.
+    `head_shard` (i, n): the heads are shard i of n (tensor parallelism),
+    and the dropout mask is that shard's of the whole heads' mask."""
     T, C = q.shape[1], q.shape[-1]
     rows = torch.arange(T, device=q.device)[:, None]
     cols = torch.arange(T, device=q.device)[None, :]
@@ -68,7 +71,8 @@ def naive_causal_attention(
     scores = torch.einsum("bqhc,bkhc->bhqk", q, k)
     scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores.float() / math.sqrt(C), dim=-1).to(q.dtype)
-    probs = dropout(probs, dropout_rate, generator, inference)
+    probs = dropout(probs, dropout_rate, generator, inference,
+                    shard=None if head_shard is None else (1, *head_shard))
     return torch.einsum("bhqk,bkhc->bqhc", probs, v)
 
 
@@ -150,13 +154,15 @@ def multihead_attention(
     layout: str = "bhtc",
     sliding_window: int = 0,
     attn_sinks: int = 0,
+    head_shard: tp.Optional[tp.Tuple[int, int]] = None,
 ) -> Tensor:
     """Dispatch causal attention; the output layout matches the input's.
 
     impl: 'naive' (materialized T x T), 'blockwise' (O(T) online softmax),
     'flash' (kernels/flash_attention.py); 'ring' and 'ulysses' are
     mesh-bound in JAX and, with no mesh bound, compute the blockwise math
-    — as here. Attention-probability dropout needs impl='naive'."""
+    — as here. Attention-probability dropout needs impl='naive';
+    `head_shard` is `naive_causal_attention`'s."""
     if layout not in ("bhtc", "bthc"):
         raise ValueError(f"unknown attention layout {layout!r}")
     if impl not in ("naive", "blockwise", "flash", "ring", "ulysses"):
@@ -185,7 +191,7 @@ def multihead_attention(
             q, k, v = (a.transpose(1, 2) for a in (q, k, v))
         out = naive_causal_attention(
             q, k, v, dropout_rate=dropout_rate, generator=generator, inference=inference,
-            sliding_window=sliding_window, attn_sinks=attn_sinks,
+            sliding_window=sliding_window, attn_sinks=attn_sinks, head_shard=head_shard,
         )
         return out.transpose(1, 2) if layout == "bhtc" else out
     if layout == "bthc":

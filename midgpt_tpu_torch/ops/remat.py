@@ -40,6 +40,13 @@ saved activation, and they are freed with the graph. Every output of the
 block passes through that node, so the backward reaches it, and hands it
 the kept outputs, before any gradient enters the block.
 
+Under tensor parallelism (parallel/tp.py) the block's collectives are
+ordinary ops to these modes: the recompute runs Megatron's g (an
+all-reduce forward) again, on every rank of the row at the same point of
+the backward, and f's all-reduce stays in the backward. `dots` keeps the
+row-parallel products (wo, w_down) before g, as `aten.mm` outputs: the
+partial sums, which the recompute's g sums over the row again.
+
 Dropout draws from an explicit `torch.Generator` (ops/dropout.py), whose
 state torch.utils.checkpoint does not keep (it keeps the default
 generators'): the forward mode records the generator's state at the

@@ -8,13 +8,20 @@ never shards its leading layer axis while another qualifies. The port's
 leaves have JAX's shapes (convert.py is a rename), so each leaf shards
 on JAX's axis.
 
-A spec here is the sharded axis, or None for a replicated leaf.
-`shard` keeps this rank's contiguous slice; `gather` all-gathers it back
-along that axis inside autograd, with the reduce-scatter of the gradient
-as its backward: the port's form of "the transpose of all_gather is
-psum_scatter" (shard_map_fsdp.py:16-19). `reduce_grads` then sums the
-gradients over the rest of the mesh: a sharded leaf's over its data
-column, a replicated leaf's over every rank.
+A spec here is the sharded axis or None (`param_specs`, the FSDP rule
+alone), or a tuple with one entry per axis of the leaf, 'fsdp', 'tp' or
+None (the training state's 2D specs, parallel/tp.py `tp_leaf_spec`: a
+leaf may carry tp on one axis and fsdp on another, as wqkv's (None, None,
+'tp', 'fsdp')). `shard` keeps this rank's contiguous slice on both axes;
+`gather` all-gathers the fsdp axis back inside autograd, with the
+reduce-scatter of the gradient as its backward: the port's form of "the
+transpose of all_gather is psum_scatter" (shard_map_fsdp.py:16-19). The
+tp shard stays on its rank through the step (the model's forward is
+written for it); `gather_tp` gathers it (`whole_tree`: both axes), for
+checkpoints and tests.
+`reduce_grads` then sums each gradient over the ranks that saw other
+batch rows (and, for the leaves a tp row applies to its own heads only,
+over the row).
 
 The collectives are torch.distributed's; none of them stands for a TPU
 kernel.
@@ -31,7 +38,19 @@ import torch.distributed as dist
 from midgpt_tpu_torch.parallel.mesh import Mesh
 
 Tensor = torch.Tensor
-Spec = tp.Optional[int]
+Spec = tp.Union[None, int, tp.Tuple[tp.Optional[str], ...]]
+
+
+def fsdp_axis(spec: Spec) -> tp.Optional[int]:
+    """The axis a spec shards over fsdp, or None."""
+    if isinstance(spec, tuple):
+        return spec.index("fsdp") if "fsdp" in spec else None
+    return spec
+
+
+def tp_axis(spec: Spec) -> tp.Optional[int]:
+    """The axis a spec shards over tp, or None."""
+    return spec.index("tp") if isinstance(spec, tuple) and "tp" in spec else None
 
 
 def _choose_axis(shape: tp.Tuple[int, ...], n_shards: int, skip_leading: bool) -> tp.Optional[int]:
@@ -78,21 +97,22 @@ def param_specs(
     return out
 
 
-def shard(t: Tensor, axis: Spec, mesh: Mesh) -> Tensor:
-    """This rank's contiguous slice of the full leaf `t` (a copy), or `t`
-    itself when the leaf is replicated."""
-    if axis is None or mesh.fsdp == 1:
-        return t
-    return t.chunk(mesh.fsdp, dim=axis)[mesh.fsdp_index].clone()
+def shard(t: Tensor, spec: Spec, mesh: Mesh) -> Tensor:
+    """This rank's contiguous slice of the full leaf `t` on its tp and
+    fsdp axes (a copy), or `t` itself when the leaf is replicated."""
+    cut = t
+    for ax, n, i in ((tp_axis(spec), mesh.tp, mesh.tp_index), (fsdp_axis(spec), mesh.fsdp, mesh.fsdp_index)):
+        if ax is not None and n > 1:
+            cut = cut.chunk(n, dim=ax)[i]
+    return t if cut is t else cut.clone()
 
 
-def _all_gather(t: Tensor, axis: int, mesh: Mesh) -> Tensor:
-    """The fsdp row's shards of `t`, concatenated along `axis`."""
-    n = mesh.fsdp
+def _all_gather(t: Tensor, axis: int, n: int, group) -> Tensor:
+    """The `n` shards of `t` over `group`, concatenated along `axis`."""
     # the shards stacked along a new leading axis, passed flat along dim 0
     # (the layout every backend takes)
     out = torch.empty((n * t.shape[0], *t.shape[1:]), dtype=t.dtype, device=t.device)
-    dist.all_gather_into_tensor(out, t.contiguous(), group=mesh.fsdp_group)
+    dist.all_gather_into_tensor(out, t.contiguous(), group=group)
     full = list(t.shape)
     full[axis] *= n
     return out.view(n, *t.shape).movedim(0, axis).reshape(full)
@@ -113,29 +133,52 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t: Tensor, axis: int, mesh: Mesh) -> Tensor:
         ctx.axis, ctx.mesh = axis, mesh
-        return _all_gather(t, axis, mesh)
+        return _all_gather(t, axis, mesh.fsdp, mesh.fsdp_group)
 
     @staticmethod
     def backward(ctx, g: Tensor):
         return _reduce_scatter(g, ctx.axis, ctx.mesh), None, None
 
 
-def gather(t: Tensor, axis: Spec, mesh: Mesh) -> Tensor:
-    """The full leaf from this rank's shard, differentiable: the backward
-    reduce-scatters the full gradient (sum over the fsdp row) into the
-    shard's. A replicated leaf passes through."""
+def gather(t: Tensor, spec: Spec, mesh: Mesh) -> Tensor:
+    """The leaf whole on its fsdp axis from this rank's shard (its tp
+    shard, under tp), differentiable: the backward reduce-scatters the
+    gradient (sum over the fsdp row) into the shard's. A leaf not sharded
+    over fsdp passes through."""
+    axis = fsdp_axis(spec)
     if axis is None or mesh.fsdp == 1:
         return t
     return _Gather.apply(t, axis, mesh)
 
 
-def reduce_grads(grads: tp.Mapping[str, Tensor], specs: tp.Mapping[str, Spec], mesh: Mesh) -> None:
-    """In place: a sharded leaf's gradient (already summed over its fsdp
-    row by `gather`'s backward) summed over its data column; a replicated
-    leaf's summed over every rank."""
+@torch.no_grad()
+def gather_tp(t: Tensor, spec: Spec, mesh: Mesh) -> Tensor:
+    """The leaf whole on its tp axis from the tp row's shards (collective
+    over the row); a leaf not sharded over tp passes through."""
+    axis = tp_axis(spec)
+    if axis is None or mesh.tp == 1:
+        return t
+    return _all_gather(t, axis, mesh.tp, mesh.tp_group)
+
+
+def reduce_grads(grads: tp.Mapping[str, Tensor], specs: tp.Mapping[str, Spec], mesh: Mesh,
+                 tp_partial: tp.Collection[str] = ()) -> None:
+    """In place, each gradient summed over the ranks whose batch rows it
+    has not seen: a leaf sharded over fsdp (its gradient already summed
+    over the fsdp row by `gather`'s backward) over its data column, any
+    other leaf over the batch group (the ranks of its tp index; a leaf the
+    tp row holds whole has its whole gradient on every rank of the row,
+    which must not be summed again). A leaf of `tp_partial` holds only its
+    rank's heads' share, so it is summed over the tp row as well."""
     for name, g in grads.items():
-        sharded = specs[name] is not None and mesh.fsdp > 1
-        mesh.all_reduce_(g, mesh.data_group if sharded else mesh.group)
+        on_fsdp = fsdp_axis(specs[name]) is not None and mesh.fsdp > 1
+        partial = name in tp_partial and mesh.tp > 1
+        if partial and not on_fsdp:
+            mesh.all_reduce_(g, mesh.group)
+            continue
+        mesh.all_reduce_(g, mesh.data_group if on_fsdp else mesh.batch_group)
+        if partial:
+            mesh.all_reduce_(g, mesh.tp_group)
 
 
 def shard_tree(tree: tp.Mapping[str, Tensor], specs: tp.Mapping[str, Spec], mesh: Mesh) -> tp.Dict[str, Tensor]:
@@ -145,5 +188,13 @@ def shard_tree(tree: tp.Mapping[str, Tensor], specs: tp.Mapping[str, Spec], mesh
 
 @torch.no_grad()
 def gather_tree(tree: tp.Mapping[str, Tensor], specs: tp.Mapping[str, Spec], mesh: Mesh) -> tp.Dict[str, Tensor]:
-    """Every leaf of `tree` whole again (collective over the fsdp row)."""
+    """Every leaf of `tree` whole on its fsdp axis (collective over the
+    fsdp row): the tp shards, under tp."""
     return {k: gather(v, specs[k], mesh) for k, v in tree.items()}
+
+
+@torch.no_grad()
+def whole_tree(tree: tp.Mapping[str, Tensor], specs: tp.Mapping[str, Spec], mesh: Mesh) -> tp.Dict[str, Tensor]:
+    """Every leaf of `tree` whole (collective over the fsdp row, then the
+    tp row)."""
+    return {k: gather_tp(gather(v, specs[k], mesh), specs[k], mesh) for k, v in tree.items()}

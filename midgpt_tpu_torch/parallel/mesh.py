@@ -3,21 +3,31 @@
 JAX names a 6D device mesh ('data', 'fsdp', 'sp', 'tp', 'pp', 'ep'); the
 port lays its ranks out on the same axes with JAX's arithmetic
 (`mesh_shape`: the -1 inference, the divisor clamp on fsdp, the same
-error texts), then builds a process group per `data` row and `fsdp`
-column. Training runs on the data and fsdp axes: a training mesh
-(`make_mesh`) with an sp, tp, pp or ep axis above 1 raises and names its
-later slice. Serving meshes (parallel/serve_tp.py `make_serve_mesh`)
-carry a (data, tp) layout instead: one process group per tp row, over
-which the serving engine sums its row-parallel products (`psum_tp`).
+error texts). Training runs on the data, fsdp and tp axes: a training
+mesh (`make_mesh`) with an sp, pp or ep axis above 1 raises and names its
+later slice. Serving meshes (parallel/serve_tp.py `make_serve_mesh`) are
+(data, tp) meshes of the same class.
 
-Ranks fill the mesh in order, the last axis fastest: rank index i sits
-at (data i // fsdp, fsdp i % fsdp) on a training mesh, the flattened
-(data, fsdp) order in which JAX's batch_spec shards the batch rows over
-both axes, and at (data i // tp, tp i % tp) on a serving mesh. A mesh
-takes an explicit rank list (JAX's `devices=`), so one process group can
-hold meshes of several sizes; every rank of the process group builds
-every mesh, members or not, because creating a process group is
-collective.
+Ranks fill (data, fsdp, tp) in JAX's axis order, the last axis fastest:
+rank index i sits at data i // (fsdp * tp), fsdp (i // tp) % fsdp, tp
+i % tp. A tp row is then consecutive ranks (on one node under torchrun),
+and i // tp is the rank's *batch position*: the flattened (data, fsdp)
+order in which JAX's batch_spec shards the batch rows over both axes
+(the ranks of a tp row read the same rows). The process groups:
+
+  tp_group    the tp row (same data and fsdp index): the ranks that
+              together hold one copy of the tp-sharded leaves;
+  fsdp_group  the ranks with the same data and tp index;
+  data_group  the ranks with the same fsdp and tp index;
+  batch_group the ranks with this rank's tp index: one per batch
+              position, over which losses and the gradients of leaves
+              the tp row holds whole are summed (every member, at tp 1);
+  group       every member.
+
+A mesh takes an explicit rank list (JAX's `devices=`), so one process
+group can hold meshes of several sizes; every rank of the process group
+builds every mesh, members or not, because creating a process group is
+collective. A group of one rank is None.
 
 A mesh of one rank creates no group and issues no collective: training
 on it is the single-device trainer, bit for bit.
@@ -37,7 +47,6 @@ from midgpt_tpu_torch.parallel import dist as pdist
 AXES = ("data", "fsdp", "sp", "tp", "pp", "ep")
 LATER_SLICES = {
     "sp": "sequence parallelism (ring_attention, ulysses)",
-    "tp": "tensor-parallel training (the vocab-parallel embedding and CE, the column and row collectives)",
     "pp": "the pipeline",
     "ep": "the ep axis",
 }
@@ -85,13 +94,10 @@ class _AllReduceSum(torch.autograd.Function):
 
 class Mesh:
     """Axis sizes, the member ranks in mesh order, this rank's place, and
-    the process groups: `group` (every member), `data_group` (this rank's
-    fsdp column: the ranks holding the same shards), `fsdp_group` (its
-    data row: the ranks that together hold one copy) and, on a serving
-    mesh, `tp_group` (its tp row: the ranks that together hold one copy of
-    the weights and the pool). A group of one rank is None. `timeout`
-    bounds every collective over the mesh's groups (default: the process
-    group's, parallel/dist.py)."""
+    the process groups of the module docstring. `row_groups` holds every
+    tp row's group, row by row (a serving mesh's roles). `timeout` bounds
+    every collective over the mesh's groups (default: the process group's,
+    parallel/dist.py)."""
 
     def __init__(self, shape: tp.Dict[str, int], ranks: tp.Sequence[int], device: torch.device,
                  timeout: tp.Optional[datetime.timedelta] = None):
@@ -99,40 +105,41 @@ class Mesh:
         self.ranks = tuple(ranks)
         self.size = len(self.ranks)
         self.data, self.fsdp, self.tp = shape["data"], shape["fsdp"], shape["tp"]
-        if self.tp > 1 and self.fsdp > 1:
-            raise NotImplementedError(f"mesh fsdp={self.fsdp} x tp={self.tp}: {LATER_SLICES['tp']} is a later "
-                                      "slice of the port (ROADMAP.md Queue 1 item 7)")
         me = pdist.rank()
         self.index = self.ranks.index(me) if me in self.ranks else None
         self.device = device
-        self.group = self.data_group = self.fsdp_group = self.tp_group = None
-        self.row_groups: tp.List[tp.Any] = []  # serving meshes: each tp row's group, row by row
+        self.group = self.data_group = self.fsdp_group = self.tp_group = self.batch_group = None
+        self.row_groups: tp.List[tp.Any] = []
         kw = {} if timeout is None else {"timeout": timeout}
         if self.size > 1:
             # every rank of the process group creates every group, in one order
             self.group = dist.new_group(self.ranks, **kw)
-            if self.tp > 1:
-                for d in range(self.data):
-                    row = self.ranks[d * self.tp:(d + 1) * self.tp]
-                    self.row_groups.append(self.group if self.data == 1 else dist.new_group(row, **kw))
-                    if me in row:
-                        self.tp_group = self.row_groups[-1]
-            else:
-                rows = [self.ranks[d * self.fsdp:(d + 1) * self.fsdp] for d in range(self.data)]
-                for row in rows:
-                    g = dist.new_group(row, **kw) if self.fsdp > 1 else None
-                    if me in row:
-                        self.fsdp_group = g
-                for col in zip(*rows):
-                    g = dist.new_group(col, **kw) if self.data > 1 else None
-                    if me in col:
-                        self.data_group = g
+            D, F, T = self.data, self.fsdp, self.tp
+            at = lambda d, f, t: self.ranks[(d * F + f) * T + t]  # noqa: E731
+
+            def make(members: tp.List[tp.List[int]]) -> tp.Tuple[tp.List[tp.Any], tp.Any]:
+                """A group per member list (the whole group when there is
+                one list) and this rank's, or None outside them all."""
+                made = [self.group if len(members) == 1 else dist.new_group(m, **kw) for m in members]
+                return made, next((g for m, g in zip(members, made) if me in m), None)
+
+            rows = [[at(d, f, t) for t in range(T)] for d in range(D) for f in range(F)]
+            if T > 1:
+                self.row_groups, self.tp_group = make(rows)
+            if F > 1:
+                self.fsdp_group = make([[at(d, f, t) for f in range(F)] for d in range(D) for t in range(T)])[1]
+            if D > 1:
+                self.data_group = make([[at(d, f, t) for d in range(D)] for f in range(F) for t in range(T)])[1]
+            if T == 1:
+                self.batch_group = self.group
+            elif D * F > 1:
+                self.batch_group = make([[row[t] for row in rows] for t in range(T)])[1]
         # host values travel on the backend's own device type
         self._host_dev = device if pdist.backend() == "nccl" else torch.device("cpu")
 
     def row(self, r: int) -> "Mesh":
-        """Tp row `r` of a serving mesh as a (data 1, tp) mesh of its own,
-        over the group this mesh already holds (no collective)."""
+        """Tp row `r` of a serving mesh (fsdp 1) as a (data 1, tp) mesh of
+        its own, over the group this mesh already holds (no collective)."""
         view = object.__new__(Mesh)
         view.__dict__.update(self.__dict__)
         view.shape = {**self.shape, "data": 1}
@@ -143,6 +150,7 @@ class Mesh:
         view.index = view.ranks.index(me) if me in view.ranks else None
         g = self.row_groups[r] if self.row_groups else None
         view.group = view.tp_group = g
+        view.data_group = view.fsdp_group = view.batch_group = None
         view.row_groups = [g] if g is not None else []
         return view
 
@@ -162,12 +170,24 @@ class Mesh:
 
     @property
     def tp_index(self) -> int:
-        """This rank's place in its tp row (its shard of the weights)."""
+        """This rank's place in its tp row (its shard of the tp leaves)."""
         return self.index % self.tp
 
     @property
     def fsdp_index(self) -> int:
-        return self.index % self.fsdp
+        return (self.index // self.tp) % self.fsdp
+
+    @property
+    def batch_index(self) -> int:
+        """This rank's batch position: its place in the flattened (data,
+        fsdp) order, shared by the ranks of its tp row."""
+        return self.index // self.tp
+
+    @property
+    def batch_size(self) -> int:
+        """The batch positions: data x fsdp (the ranks over which a loss is
+        a mean)."""
+        return self.data * self.fsdp
 
     def geometry(self) -> tp.Dict[str, tp.Any]:
         """What the supervisor's ledger records of the mesh."""
@@ -183,9 +203,16 @@ class Mesh:
         """Differentiable sum over every member (`t` itself on one rank)."""
         return t if self.group is None else _AllReduceSum.apply(t, self.group)
 
+    def psum_batch(self, t: torch.Tensor) -> torch.Tensor:
+        """Differentiable sum over the batch group: one term per batch
+        position (`psum` at tp 1)."""
+        return t if self.batch_group is None else _AllReduceSum.apply(t, self.batch_group)
+
     def psum_tp(self, t: torch.Tensor) -> torch.Tensor:
         """In-place sum over this rank's tp row (nothing for a row of one):
-        Megatron's all-reduce after a row-parallel product."""
+        Megatron's all-reduce after a row-parallel product in the serving
+        forwards, which record no gradient (training takes the out-of-place
+        pair of parallel/tp.py)."""
         if self.tp_group is not None:
             dist.all_reduce(t, group=self.tp_group)
         return t
@@ -242,11 +269,12 @@ class Mesh:
 
 def run_mesh(config, device=None) -> Mesh:
     """The mesh a run trains on: every rank of the process group (or this
-    process alone) laid out on the config's data and fsdp axes. The axes
-    the port does not train on (sp, tp, pp, ep) are left at 1 (the
+    process alone) laid out on the config's data, fsdp and tp axes. The
+    axes the port does not train on (sp, pp, ep) are left at 1 (the
     launcher names them, launch.py `unused_mesh`), and under
-    on_resume_mesh="any" the data axis is re-derived for the ranks there
-    are, as JAX's launcher re-derives it for the devices (launch.py)."""
+    on_resume_mesh="any" only the data axis is re-derived for the ranks
+    there are, as JAX's launcher re-derives it for the devices (launch.py):
+    tp stays the config's."""
     cfg = dataclasses.replace(config.mesh, **{ax: 1 for ax in LATER_SLICES})
     if config.on_resume_mesh == "any":
         cfg = dataclasses.replace(cfg, data=-1)
@@ -268,6 +296,6 @@ def make_mesh(cfg=None, *, ranks: tp.Optional[tp.Sequence[int]] = None, device=N
         if shape[ax] > 1:
             raise NotImplementedError(
                 f"mesh {ax}={shape[ax]}: {what} is a later slice of the port (ROADMAP.md Queue 1 item 7); "
-                "the port trains on the data and fsdp axes"
+                "the port trains on the data, fsdp and tp axes"
             )
     return Mesh(shape, ranks, torch.device(device) if device is not None else pdist.rank_device())

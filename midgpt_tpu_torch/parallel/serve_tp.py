@@ -146,9 +146,16 @@ class TPShard:
                     raise ValueError(f"tp layout: {col} and {row} must shard together (specs {specs[col]}, "
                                      f"{specs[row]})")
 
-    def reduce_(self, name: str, t: Tensor) -> Tensor:
-        """Sum the partial product of leaf `name` over the row, in place,
-        when the leaf is row-parallel; else `t` as it is."""
+    def copy(self, x: Tensor) -> Tensor:
+        """Megatron's f before a column-parallel product: the identity,
+        since the serving forwards record no gradient (the interface of
+        parallel/tp.py TPTrain, so that a block takes either)."""
+        return x
+
+    def reduce(self, name: str, t: Tensor) -> Tensor:
+        """Sum the partial product of leaf `name` over the row, in place
+        (nothing saves it for a backward), when the leaf is row-parallel;
+        else `t` as it is."""
         return self.mesh.psum_tp(t) if name in self.reduced else t
 
     def shard(self, params: tp.Mapping[str, tp.Union[Tensor, np.ndarray]]) -> tp.Dict[str, Tensor]:

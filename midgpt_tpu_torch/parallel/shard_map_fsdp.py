@@ -14,6 +14,12 @@ instead of left to the step.
     them over the data column and takes the loss's mean over (data,
     fsdp), as for the GSPMD mode (training/train.py).
 
+Under tensor parallelism the shards are 2D (parallel/tp.py): each gather
+takes the leaf's fsdp axis and leaves its tp axis on the rank, and the
+tp row's collectives ride inside the same layer loop (GPT.hidden's
+`tp_train`), as JAX composes its r5 schedule with 'tp' as a GSPMD axis
+inside the shard_map body (midgpt_tpu/parallel/shard_map_fsdp.py:153-165).
+
 The routed MLP's aux term is not folded in here (config.py refuses
 moe_aux_coef with this mode, as JAX's does).
 """
@@ -32,11 +38,13 @@ from midgpt_tpu_torch.parallel.mesh import Mesh
 Tensor = torch.Tensor
 
 
-def make_shard_map_loss(config, mesh: Mesh, specs: tp.Mapping[str, fsdp.Spec]) -> tp.Callable:
+def make_shard_map_loss(config, mesh: Mesh, specs: tp.Mapping[str, fsdp.Spec], tp_train=None) -> tp.Callable:
     """loss_fn(shards, x, y, generator) -> this rank's mean loss over its
-    rows, differentiable with respect to the shards."""
+    rows, differentiable with respect to the shards; `tp_train` is the tp
+    row's (parallel/tp.py TPTrain) under tensor parallelism."""
     block_specs = {}
-    for name, ax in specs.items():
+    for name, spec in specs.items():
+        ax = fsdp.fsdp_axis(spec)
         if name.startswith("blocks."):
             if ax == 0 and mesh.fsdp > 1:
                 raise NotImplementedError(
@@ -44,6 +52,7 @@ def make_shard_map_loss(config, mesh: Mesh, specs: tp.Mapping[str, fsdp.Spec]) -
                     "gather needs each layer's slice on every rank: use fsdp_mode='gspmd'"
                 )
             block_specs[name.split(".", 1)[1]] = None if ax is None else ax - 1
+    vocab_row = tp_train.vocab_row if tp_train is not None else (None, 0)
 
     def gather_block(blk: Params) -> Params:
         return {k: fsdp.gather(t, block_specs[k], mesh) for k, t in blk.items()}
@@ -52,7 +61,8 @@ def make_shard_map_loss(config, mesh: Mesh, specs: tp.Mapping[str, fsdp.Spec]) -
         head = fsdp.gather(shards["lm_head"], specs["lm_head"], mesh)
         gathered = {**shards, "wte": fsdp.gather(shards["wte"], specs["wte"], mesh), "lm_head": head}
         h = GPT.hidden(config.model_config, gathered, x, generator=generator, inference=False,
-                       layer_transform=gather_block)
-        return fused_linear_cross_entropy(h, head, y, config.loss_chunk_tokens, config.loss_remat_chunks)
+                       layer_transform=gather_block, tp_train=tp_train)
+        return fused_linear_cross_entropy(h, head, y, config.loss_chunk_tokens, config.loss_remat_chunks,
+                                          *vocab_row)
 
     return loss_fn

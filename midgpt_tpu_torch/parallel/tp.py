@@ -23,7 +23,30 @@ A spec here is a tuple with one entry per axis of the leaf: 'tp',
 rank). The serving engine reads which leaves are row-parallel to place
 its two all-reduces per block (models/gpt.py); the specs are keyed by the
 port's flat leaf names (models/gpt.py `param_names`), whose last
-component is JAX's field name.
+component is JAX's field name. The training state's specs are this rule
+at the config's shard_model, fsdp_min_size and tp_vocab
+(training/train.py `state_specs`).
+
+Training (`TPTrain`) writes down the collectives GSPMD places for JAX.
+Megatron's pair, both out of place so that autograd can save what they
+return:
+
+  f (`copy`)    identity forward, all-reduce of the gradient over the tp
+                row backward: before each column-parallel product (the
+                QKV and w_up products read the replicated stream);
+  g (`reduce`)  all-reduce forward, identity backward: after each
+                row-parallel product (wo, w_down), whose outputs are
+                partial sums.
+
+With tp_vocab the embedding is a masked local gather of the rank's V/tp
+rows followed by g (`embed`: each token's row is on one rank, the others
+add zeros), and the loss is the vocab-parallel fused CE
+(ops/loss.py `fused_linear_cross_entropy` on the row's group). Every tp rank then holds the
+residual stream whole and identical; the routed MLP's banks are not tp
+leaves and run whole on every rank. The gradient of a leaf the row holds
+whole is whole on every rank, except for the QK-norm scales
+(`HEAD_REGION_LEAVES`), which act on the rank's heads only: their
+gradients are summed over the row (parallel/fsdp.py `reduce_grads`).
 """
 
 from __future__ import annotations
@@ -31,7 +54,10 @@ from __future__ import annotations
 import math
 import typing as tp
 
-from midgpt_tpu_torch.parallel.fsdp import fsdp_leaf_spec
+import torch
+import torch.distributed as dist
+
+from midgpt_tpu_torch.parallel.fsdp import fsdp_leaf_spec, tp_axis
 
 Spec = tp.Tuple[tp.Optional[str], ...]
 
@@ -41,6 +67,12 @@ _ROW_PARALLEL = {"wo": 1, "w_down": 1}  # input features = axis -1
 _VOCAB_PARALLEL = {"wte": 2, "lm_head": 2}  # vocab axis = axis -2 of (V, D)
 # the routed MLP's banks: the E axis after the stacked layer axis, over 'ep'
 _EXPERT_PARALLEL = ("experts_up", "experts_down")
+# leaves a tp row holds whole but applies to its own heads only: each
+# rank's gradient is its heads' share (module docstring)
+HEAD_REGION_LEAVES = ("blocks.attn.q_scale", "blocks.attn.k_scale")
+# the block leaves a training tp row must shard (Megatron's four products)
+_TRAIN_TP_LEAVES = ("blocks.attn.wqkv", "blocks.attn.wkv", "blocks.attn.wo", "blocks.mlp.w_up",
+                    "blocks.mlp.w_down")
 
 
 def leaf_name(path: str) -> str:
@@ -121,6 +153,81 @@ def tp_param_specs(
     return {k: tp_leaf_spec(k, s, axes, shard_model, min_size, vocab_parallel) for k, s in shapes.items()}
 
 
-def tp_axis(spec: Spec) -> tp.Optional[int]:
-    """The axis a spec shards over 'tp', or None."""
-    return spec.index("tp") if "tp" in spec else None
+class _CopyToTP(torch.autograd.Function):
+    """Megatron's f: identity forward, the gradient summed over the tp row."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Megatron's g: the partial sums summed over the tp row (into a new
+    tensor), identity backward."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None
+
+
+class TPTrain:
+    """What the training forward needs of a rank's tp row (module
+    docstring): its group, size and place, whether the vocab is sharded
+    (read from the specs), and Megatron's collectives. The checks are JAX's
+    layout read from the specs: the four block products shard over tp."""
+
+    def __init__(self, mesh, specs: tp.Mapping[str, Spec]):
+        self.group, self.size, self.index = mesh.tp_group, mesh.tp, mesh.tp_index
+        for name in _TRAIN_TP_LEAVES:
+            if name in specs and tp_axis(specs[name]) is None:
+                raise ValueError(f"tp={self.size}: {name} does not shard over tp (spec {specs[name]}); the "
+                                 "training forward needs all four Megatron products sharded")
+        self.vocab = tp_axis(specs["wte"]) is not None
+        if self.vocab != (tp_axis(specs["lm_head"]) is not None):
+            raise ValueError(f"tp layout: wte and lm_head must shard together (specs {specs['wte']}, "
+                             f"{specs['lm_head']})")
+
+    @property
+    def heads(self) -> tp.Tuple[int, int]:
+        """(this rank's place, the row's size): the shard of the heads it
+        holds (attention-probability dropout draws the row's masks)."""
+        return self.index, self.size
+
+    @property
+    def vocab_row(self) -> tp.Tuple[tp.Any, int]:
+        """(group, index) of the fused CE (ops/loss.py): the row when the
+        vocab is sharded, else (None, 0) (the whole head)."""
+        return (self.group, self.index) if self.vocab else (None, 0)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """f: before a column-parallel product."""
+        return _CopyToTP.apply(x, self.group)
+
+    def reduce(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """g: after the row-parallel product of leaf `name` (every
+        row-parallel leaf shards in training, as `__init__` checks; the
+        serving TPShard has the same interface)."""
+        return _ReduceFromTP.apply(x, self.group)
+
+    def embed(self, wte: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """The token embedding from this rank's V/tp rows of wte: each
+        token's row where this rank holds it, zeros elsewhere, summed over
+        the row (exact: one term is not zero)."""
+        rows = wte.shape[0]
+        local = tokens - self.index * rows
+        inside = (local >= 0) & (local < rows)
+        e = wte[local.clamp(0, rows - 1)].masked_fill(~inside[..., None], 0.0)
+        return _ReduceFromTP.apply(e, self.group)

@@ -16,7 +16,11 @@ line the runs print goes to stderr; stdout carries the summary alone.
 emergency checkpoint, exit 0). The tool then plays the scheduler, as
 JAX's does with devices: it restarts the run on HALF the ranks with
 on_resume_mesh="any", and, if that run is ended by a reshard again, on
-all of them, alternating, at most four times. A fault consumed stays
+all of them, alternating, at most four times. Under tensor parallelism
+(`--set mesh.tp=N`) the tp row stays whole: half the ranks is rounded
+down to whole rows of N, so the reshard changes the data count with tp
+fixed, and a reshard that cannot leave whole rows (`--nproc` below 2N)
+is refused before any rank starts. A fault consumed stays
 consumed: each restart arms only the part of the plan that has not fired
 (`resume_reshard@2 --fault resume_reshard@4` on 2 ranks: 2 ranks, then 1,
 then 2 again). The checkpoint holds whole leaves and the batch order is
@@ -174,6 +178,13 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
     if args.max_restarts is not None:
         config = config.replace(max_restarts=args.max_restarts)
     train_chaos = bool(set(kinds) & set(TRAIN_CHAOS_KINDS))
+    n_tp = max(1, config.mesh.tp)
+    if args.nproc % n_tp:
+        ap.error(f"--nproc {args.nproc} does not hold whole tp rows of mesh.tp={n_tp}")
+    half = max(n_tp, args.nproc // 2 // n_tp * n_tp)  # the scheduler's half, in whole tp rows
+    if n_tp > 1 and "resume_reshard" in kinds and half == args.nproc:
+        ap.error(f"resume_reshard under mesh.tp={n_tp} needs --nproc >= {2 * n_tp}: the reshard keeps whole tp "
+                 "rows and changes the data count")
 
     t0 = time.time()
     run = lambda cfg, n: run_ranks(cfg, n, device=args.device, backend=args.backend)  # noqa: E731
@@ -192,7 +203,7 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
                 if not (result.get("preempted") and "resume_reshard" in fired_at and reshards < MAX_RESHARDS):
                     break
                 # the scheduler's move: half the ranks, then all of them again
-                n = max(1, args.nproc // 2) if reshards % 2 == 0 else args.nproc
+                n = half if reshards % 2 == 0 else args.nproc
                 reshards += 1
                 result = run(config.replace(on_resume_mesh="any", fault_plan=",".join(result["faults_left"])), n)
         if result["status"] != "ok":

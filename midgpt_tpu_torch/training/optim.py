@@ -27,6 +27,8 @@ import typing as tp
 
 import torch
 
+from midgpt_tpu_torch.parallel.fsdp import fsdp_axis, tp_axis
+
 Tensor = torch.Tensor
 Params = tp.Dict[str, Tensor]
 
@@ -66,16 +68,26 @@ class OptState:
 
 def global_norm(grads: Params, specs=None, mesh=None) -> Tensor:
     """optax.global_norm: the f32 square root of the sum of every leaf's
-    squares. Over FSDP shards (`specs` {leaf: sharded axis or None} on
-    `mesh`, parallel/fsdp.py) the sharded leaves' sum is all-reduced over
-    the fsdp row, and a replicated leaf counts once, so each rank gets the
-    norm of the whole gradient."""
+    squares. Over a mesh's shards (`specs` on `mesh`, parallel/fsdp.py:
+    the sharded axis, or a 2D spec with 'tp' and 'fsdp') each distinct part
+    of a leaf counts once: a rank adds the squares of a leaf it shards over
+    fsdp or tp, and of one it holds whole only at fsdp and tp index 0;
+    one all-reduce over the mesh then gives every rank the norm of the
+    whole gradient, bit for bit the same."""
     sq = lambda g: (g.float() ** 2).sum()  # noqa: E731
-    if mesh is None or mesh.fsdp == 1 or all(specs[k] is None for k in grads):
+    if mesh is None or mesh.size == 1 or (mesh.fsdp == 1 and mesh.tp == 1):
         return torch.sqrt(sum(sq(g) for g in grads.values()))
-    sharded = sum(sq(g) for k, g in grads.items() if specs[k] is not None)
-    mesh.all_reduce_(sharded, mesh.fsdp_group)
-    return torch.sqrt(sharded + sum(sq(g) for k, g in grads.items() if specs[k] is None))
+
+    def counts(k: str) -> bool:
+        on_tp = tp_axis(specs[k]) is not None and mesh.tp > 1
+        on_fsdp = fsdp_axis(specs[k]) is not None and mesh.fsdp > 1
+        return (on_tp or mesh.tp_index == 0) and (on_fsdp or mesh.fsdp_index == 0)
+
+    total = sum(sq(g) for k, g in grads.items() if counts(k))
+    total = torch.as_tensor(total, dtype=torch.float32, device=next(iter(grads.values())).device)
+    if mesh.data_index != 0:
+        total = torch.zeros_like(total)
+    return torch.sqrt(mesh.all_reduce_(total, mesh.group))
 
 
 class Optimizer:

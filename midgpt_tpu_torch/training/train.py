@@ -25,34 +25,46 @@ sticky loss, and force-saves the final step. Data and dropout are
 positional (`data_step_offset`, `_generators`), so a resumed run continues
 the straight run's trajectory.
 
-On a mesh (parallel/mesh.py; the data and fsdp axes, one rank per
+On a mesh (parallel/mesh.py; the data, fsdp and tp axes, one rank per
 device) every rank runs this loop, as every JAX process runs its own:
 
-  * the master weights and Adam moments are this rank's FSDP shards
-    (parallel/fsdp.py: JAX's leaf rule), cut from a dense init from the
-    seed (`init_state`) or from the full arrays of a checkpoint;
-  * the step gathers the compute-dtype copy. Under fsdp_mode="gspmd" it
-    gathers every leaf once per step; under "shard_map" the ZeRO-3
-    schedule gathers per layer (parallel/shard_map_fsdp.py). Each rank
-    takes its rows of the global batch (parallel/data.py) and
-    backpropagates its mean loss over W ranks; in every microstep the
-    gather's backward reduce-scatters the gradients over the fsdp row
-    and `fsdp.reduce_grads` sums them over the data column, so each rank
-    holds its shard of the global batch's gradient, as JAX constrains it
-    (train.py:217,234). The global norm is all-reduced over the fsdp row
-    (training/optim.py `global_norm`); the optimizer updates the shards;
+  * the master weights and Adam moments are this rank's 2D shards
+    (`state_specs`: JAX's tp_param_specs rule, parallel/tp.py, which at tp
+    1 is the FSDP rule), cut from a dense init from the seed (`init_state`)
+    or from the whole leaves of a checkpoint;
+  * the step gathers the compute-dtype copy over fsdp; the tp shards stay
+    on their rank. Under fsdp_mode="gspmd" it gathers every leaf once per
+    step; under "shard_map" the ZeRO-3 schedule gathers per layer
+    (parallel/shard_map_fsdp.py). Under tp the forward places Megatron's
+    collectives over the tp row (models/gpt.py `hidden(tp_train=)`, the
+    vocab-parallel CE of ops/loss.py under tp_vocab), and every rank of a
+    row computes the same loss;
+  * each rank takes the rows of its batch position (parallel/data.py: a tp
+    row shares its rows) and backpropagates its mean loss over the data x
+    fsdp batch positions; in every microstep the gather's backward
+    reduce-scatters the gradients over the fsdp row and
+    `fsdp.reduce_grads` sums each over the ranks that saw other rows (and
+    the QK-norm scales over the tp row, whose ranks each hold their heads'
+    share), so each rank holds its shard of the global batch's gradient,
+    as JAX constrains it (train.py:217,234). The global norm counts each
+    part of a leaf once (training/optim.py `global_norm`); the optimizer
+    updates the shards;
   * the reported loss and the health flag are reduced over the ranks in
-    one all-reduce, so every rank reports the same loss and takes the
-    same rollback decision; eval sums each rank's rows in one all-reduce;
+    one all-reduce that counts each tp row once, so every rank reports the
+    same loss and takes the same rollback decision; eval sums each batch
+    position's rows the same way;
   * the checkpoint is JAX's format, whole leaves gathered to the leader
     (training/checkpoint.py); only the leader writes metrics, traces,
     the flight recorder and the supervisor's ledger;
-  * dropout draws from generators seeded by rank as well as by step and
-    microstep, so the ranks' masks differ (parity with JAX in
-    distribution only).
+  * dropout draws from generators seeded by batch position as well as by
+    step and microstep, so the batch positions' masks differ (parity with
+    JAX in distribution only) and the ranks of a tp row draw the same ones:
+    they hold the residual stream whole, and the attention-probability
+    masks over their heads are their part of the whole heads' mask
+    (ops/dropout.py `shard`).
 A mesh of one rank issues no collective: the trainer is then the
-single-device one, bit for bit. The sp, tp, pp and ep axes of the
-config's mesh are left unused (launch.py names them).
+single-device one, bit for bit. The sp, pp and ep axes of the config's
+mesh are left unused (launch.py names them).
 
 The robustness hooks sit where JAX puts them (train.py:581-816), and
 `robustness/supervisor.py` runs `train` under its restart policy:
@@ -102,6 +114,7 @@ from midgpt_tpu_torch.parallel import dist as pdist
 from midgpt_tpu_torch.parallel import fsdp
 from midgpt_tpu_torch.parallel.data import node_batch_size, rank_rows
 from midgpt_tpu_torch.parallel.mesh import Mesh, run_mesh
+from midgpt_tpu_torch.parallel.tp import HEAD_REGION_LEAVES, TPTrain, tp_param_specs
 from midgpt_tpu_torch.robustness import faults, preempt
 from midgpt_tpu_torch.robustness.errors import DivergenceError
 from midgpt_tpu_torch.robustness.watchdog import StepWatchdog
@@ -119,27 +132,37 @@ def health_flag(grads: Params, loss: Tensor, prev_loss: Tensor, mesh: tp.Optiona
     which overflows for large finite gradients that clipping handles);
     sticky because the caller threads the previous reported loss back in.
     Stays on the device: no host sync. On a mesh of several ranks `loss`
-    is this rank's and the result is the ranks' mean, NaN on every rank
+    is this rank's (the same on every rank of a tp row) and the result is
+    the mean over the batch positions, each counted once, NaN on every rank
     when any rank saw a non-finite shard, loss or carrier: one all-reduce."""
     grads_ok = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
     if mesh is None or mesh.size == 1:
         healthy = grads_ok & torch.isfinite(loss) & torch.isfinite(prev_loss)
         return torch.where(healthy, loss, torch.full_like(loss, float("nan")))
     sick = ~(grads_ok & torch.isfinite(loss) & torch.isfinite(prev_loss))
-    both = mesh.all_reduce_(torch.stack([loss, sick.float()]), mesh.group)
-    mean = both[0] / mesh.size
+    both = mesh.all_reduce_(torch.stack([_row_once(loss, mesh), sick.float()]), mesh.group)
+    mean = both[0] / mesh.batch_size
     return torch.where(both[1] == 0, mean, torch.full_like(mean, float("nan")))
 
 
+def _row_once(t: Tensor, mesh: Mesh) -> Tensor:
+    """`t` on the first rank of each tp row, zero on the others: a value
+    every rank of a row holds, counted once by a sum over the mesh."""
+    return t if mesh.tp_index == 0 else torch.zeros_like(t)
+
+
 def _generators(
-    config: ExperimentConfig, data_step: int, n: int, device, rank: int = 0
+    config: ExperimentConfig, data_step: int, n: int, device, position: int = 0
 ) -> tp.List[tp.Optional[torch.Generator]]:
     """One dropout generator per microstep, a function of (seed, data step,
-    microstep, mesh rank) so a replayed step draws the same masks and the
-    ranks draw different ones; none without dropout."""
+    microstep, batch position) so a replayed step draws the same masks,
+    the batch positions draw different ones, and the ranks of a tp row the
+    same ones (they hold the residual stream whole: masks that differed
+    would drive their copies apart); none without dropout."""
     if config.model_config.dropout == 0.0:
         return [None] * n
-    seed = (config.seed * 1_000_003 + data_step) * 64 + (rank << 40)
+    # the position's term reaches the low 32 bits: the CPU generator keeps only those of its seed
+    seed = (config.seed * 1_000_003 + data_step) * 64 + position * 0x9E3779B1
     return [torch.Generator(device=device).manual_seed(seed + g) for g in range(n)]
 
 
@@ -161,37 +184,42 @@ def make_train_step(
     compute_dtype = getattr(torch, config.compute_dtype)
     G = config.g_accum_iters
     W = mesh.size if mesh is not None else 1
+    n_batch = mesh.batch_size if mesh is not None else 1  # the batch positions a loss is the mean over
     specs = specs or {}
     sharded = W > 1 and mesh.fsdp > 1
+    tp_train = TPTrain(mesh, specs) if W > 1 and mesh.tp > 1 else None
+    vocab_row = tp_train.vocab_row if tp_train is not None else (None, 0)
 
     # the router's load-balance term (JAX's gate): CE + moe_aux_coef * aux;
     # at a coefficient of 0 the term is never computed and the loss is CE
     use_moe_aux = config.moe_aux_coef != 0.0 and model_cfg.n_experts > 0
-    aux_reduce = mesh.psum if use_moe_aux and W > 1 else None
+    aux_reduce = mesh.psum_batch if use_moe_aux and n_batch > 1 else None
+
+    def head_loss(h: Tensor, head: Tensor, y: Tensor) -> Tensor:
+        return fused_linear_cross_entropy(h, head, y, config.loss_chunk_tokens, config.loss_remat_chunks, *vocab_row)
 
     def loss_fn(params_c: Params, x: Tensor, y: Tensor, generator) -> Tensor:
         h = GPT.hidden(model_cfg, params_c, x, generator=generator, inference=False, return_moe_aux=use_moe_aux,
-                       aux_reduce=aux_reduce)
+                       aux_reduce=aux_reduce, tp_train=tp_train)
         if use_moe_aux:
             h, aux = h
-        ce = fused_linear_cross_entropy(
-            h, params_c["lm_head"], y, config.loss_chunk_tokens, config.loss_remat_chunks
-        )
+        ce = head_loss(h, params_c["lm_head"], y)
         return ce + config.moe_aux_coef * aux if use_moe_aux else ce
 
     if config.fsdp_mode == "shard_map" and W > 1:
         from midgpt_tpu_torch.parallel.shard_map_fsdp import make_shard_map_loss
 
-        loss_fn = make_shard_map_loss(config, mesh, specs)  # noqa: F811 (takes the shards)
+        loss_fn = make_shard_map_loss(config, mesh, specs, tp_train)  # noqa: F811 (takes the shards)
 
     def value_and_grad(inputs: Params, leaves: Params, x, y, generator) -> tp.Tuple[Tensor, tp.List[Tensor]]:
         """This rank's loss on `inputs` (the gathered copy, or the shards
         under shard_map) and the gradient of the global mean with respect
-        to `leaves` (the shards), summed over the mesh."""
+        to `leaves` (the shards), summed over the mesh: the loss is a mean
+        over the data x fsdp batch positions (a tp row shares its rows)."""
         loss = loss_fn(inputs, x, y, generator)
-        grads = torch.autograd.grad(loss / W if W > 1 else loss, list(leaves.values()))
+        grads = torch.autograd.grad(loss / n_batch if n_batch > 1 else loss, list(leaves.values()))
         if W > 1:
-            fsdp.reduce_grads(dict(zip(leaves, grads)), specs, mesh)
+            fsdp.reduce_grads(dict(zip(leaves, grads)), specs, mesh, tp_partial=HEAD_REGION_LEAVES)
         return loss.detach(), grads
 
     def step(params: Params, opt_state: OptState, x_GBT: Tensor, y_GBT: Tensor,
@@ -225,16 +253,15 @@ def make_train_step(
 
     @torch.no_grad()
     def eval_loss(params_c: Params, x: Tensor, y: Tensor) -> Tensor:
-        h = GPT.hidden(model_cfg, params_c, x, inference=True)
-        return fused_linear_cross_entropy(
-            h, params_c["lm_head"], y, config.loss_chunk_tokens, config.loss_remat_chunks
-        )
+        h = GPT.hidden(model_cfg, params_c, x, inference=True, tp_train=tp_train)
+        return head_loss(h, params_c["lm_head"], y)
 
     @torch.no_grad()
     def eval_loss_many(params: Params, x_NBT: Tensor, y_NBT: Tensor) -> Tensor:
         """SUMMED loss over a stacked (N, B, T) eval set (one division at the
         end of `evaluate`, as in JAX); on a mesh, of the global rows: the
-        leaves gathered once, each rank's rows, one all-reduce."""
+        leaves gathered once over fsdp, each batch position's rows, one
+        all-reduce that counts each tp row once."""
         params_c = {k: v.to(compute_dtype) for k, v in params.items()}
         if sharded:
             params_c = fsdp.gather_tree(params_c, specs, mesh)
@@ -242,17 +269,19 @@ def make_train_step(
         for x, y in zip(x_NBT, y_NBT):
             total = total + eval_loss(params_c, x, y)
         if W > 1:
-            total = mesh.all_reduce_(total, mesh.group) / W
+            total = mesh.all_reduce_(_row_once(total, mesh), mesh.group) / n_batch
         return total
 
     return step, eval_loss_many
 
 
 def state_specs(config: ExperimentConfig, mesh: tp.Optional[Mesh]) -> tp.Dict[str, fsdp.Spec]:
-    """Each leaf's sharded axis on `mesh` (None: replicated), JAX's rule at
-    the config's shard_model and fsdp_min_size."""
-    n = mesh.fsdp if mesh is not None else 1
-    return fsdp.param_specs(param_shapes(config.model_config), n, config.shard_model, config.fsdp_min_size)
+    """Each leaf's 2D spec on `mesh` (a tuple: 'tp', 'fsdp' or None per
+    axis), JAX's rule (parallel/tp.py `tp_leaf_spec`) at the config's
+    shard_model, fsdp_min_size and tp_vocab; at tp 1 the FSDP rule."""
+    axes = {"tp": mesh.tp if mesh is not None else 1, "fsdp": mesh.fsdp if mesh is not None else 1, "ep": 1}
+    return tp_param_specs(param_shapes(config.model_config), axes, config.shard_model, config.fsdp_min_size,
+                          vocab_parallel=config.tp_vocab)
 
 
 def init_state(
@@ -261,7 +290,7 @@ def init_state(
     """Master parameters (GPT.init from config.seed, in param_dtype) and the
     optimizer's zero state, on a `mesh` this rank's shards of them (the
     dense init is transient: every rank draws the same weights from the
-    seed and keeps its slice). Returns (params, opt_state, optimizer)."""
+    seed and keeps its 2D slice). Returns (params, opt_state, optimizer)."""
     dev = resolve_device(device)
     optimizer, _ = make_optimizer(config)
     params = GPT.init(config.model_config, config.seed, device=dev,
@@ -437,7 +466,7 @@ def train(config: ExperimentConfig, *, device: DeviceLike = None, mesh: tp.Optio
             profiler.maybe_start(itr, at_step=first_step + 1)
             with tr.span("train.step", "train", "train"):
                 params, opt_state, loss = step(
-                    params, opt_state, x, y, _generators(config, data_itr, G, dev, mesh.index), loss,
+                    params, opt_state, x, y, _generators(config, data_itr, G, dev, mesh.batch_index), loss,
                 )
             profiler.maybe_stop(wait_for=loss)
             if faults.should_fire("preempt", step=data_itr):

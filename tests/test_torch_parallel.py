@@ -200,14 +200,20 @@ def test_mesh_shape_matches_jax(preset):
                 make_mesh(dataclasses.replace(cfg, data=-1), ranks=list(range(n)), device=CPU)
 
 
-def test_mesh_refuses_unported_axes_and_fills_in_order():
-    for ax in ("sp", "tp", "pp", "ep"):
+def test_mesh_refuses_unported_axes_and_fills_in_order(monkeypatch):
+    """sp, pp and ep still refuse, naming their later slice; tp lays out
+    (its groups: tests/test_torch_tp_train.py), last axis fastest."""
+    for ax in ("sp", "pp", "ep"):
         with pytest.raises(NotImplementedError, match=rf"{ax}=2: .*later slice"):
             make_mesh(MeshConfig(data=1, fsdp=1, **{ax: 2}), ranks=[0, 1], device=CPU)
     with pytest.raises(ValueError, match="mesh 3x2x1x1x1x1 != 4 devices"):
         mesh_shape(MeshConfig(data=3, fsdp=2), 4)
     m = Mesh({"data": 2, "fsdp": 2, "sp": 1, "tp": 1, "pp": 1, "ep": 1}, [0], CPU)
     assert (m.index, m.data_index, m.fsdp_index, m.is_leader) == (0, 0, 0, True)
+    monkeypatch.setattr(torch.distributed, "new_group", lambda ranks, **kw: tuple(ranks))
+    monkeypatch.setattr("midgpt_tpu_torch.parallel.dist.rank", lambda: 1)
+    m = make_mesh(MeshConfig(data=1, fsdp=1, tp=2), ranks=[0, 1], device=CPU)
+    assert (m.shape["tp"], m.index, m.tp_index, m.batch_index, m.tp_group) == (2, 1, 1, 0, (0, 1))
 
 
 @pytest.mark.parametrize("over", [
@@ -263,7 +269,7 @@ def test_rows_by_node_match_jax_processes(data_dir, monkeypatch):
             tds = TokenDataset(str(data_dir), seed=5, shard_by_process=True)
             for split in ("train", "val"):
                 np.testing.assert_array_equal(tds[split], jds[split])
-            mesh = types.SimpleNamespace(size=4, index=rank)  # rank r of a (data=2, fsdp=2) mesh
+            mesh = types.SimpleNamespace(size=4, index=rank, tp=1, batch_size=4, batch_index=rank)  # rank r of (2, 2)
             nb = node_batch_size(B, mesh)
             assert nb == B // 2
             for split, step in (("train", 3), ("val", 7)):

@@ -68,7 +68,7 @@ def job_step(job):
         losses.append(loss.item())
     out = {"loss": np.asarray(losses)}
     for tag, tree in (("p", params), ("mu", state.mu), ("nu", state.nu)):
-        out.update({f"{tag}.{k}": v.numpy() for k, v in fsdp.gather_tree(tree, specs, mesh).items()})
+        out.update({f"{tag}.{k}": v.numpy() for k, v in fsdp.whole_tree(tree, specs, mesh).items()})
     if mesh.is_leader:
         np.savez(job["out"], **out)
 
@@ -102,7 +102,7 @@ def job_ckpt(job):
                              select=lambda k, t: fsdp.shard(t, specs[k], mesh))
         out = {"shard.wte": state["params"]["wte"].numpy()}
         for tag, tree in (("p", state["params"]), ("mu", state["opt_state"].mu), ("nu", state["opt_state"].nu)):
-            out.update({f"{tag}.{k}": v.numpy() for k, v in fsdp.gather_tree(tree, specs, mesh).items()})
+            out.update({f"{tag}.{k}": v.numpy() for k, v in fsdp.whole_tree(tree, specs, mesh).items()})
         if mesh.is_leader:
             np.savez(f"{job['out']}_{i}.npz", **out)
 
