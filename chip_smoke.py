@@ -6,8 +6,9 @@
 The quickest proof that the port still starts on the card. Phases as
 numbered below; any failure ends the run with a non-zero exit (nothing is
 caught). They run in this order: 1-4 and 6 alone; then 5c-11c beside the
-"serving" lane (11d, 12-15); then 17-19 beside the "decode" lane (5, 4b,
-5b, 6c(e)); then 16, and 10 alone. A lane is a process of its own
+"serving" lane (11d, 12-15) and phase 20's ranks; then 17-19 and 20's
+verdicts beside the "decode" lane (5, 4b, 5b, 6c(e)); then 16, and 10
+alone. A lane is a process of its own
 (`chip_smoke.py --lane NAME OUT`): serving holds the host most of the
 time, training waits on the card, so the two share it; each phase's wall
 seconds are printed, and every number a lane prints is taken beside the
@@ -18,7 +19,8 @@ training phases it ran with:
   2. build every CUDA kernel of the port from midgpt_tpu_torch/csrc (one
      nvcc per source, all started together; ptxas report printed: each
      instantiation's registers and spills, the paged template's
-     tensor-core, SIMT and merge kernels among them);
+     tensor-core, SIMT and merge kernels among them, and each flash
+     kernel's registers causal beside causal=False);
   3. hold each kernel against its plain PyTorch version:
      a. paged decode at the serving shapes — 4 slots, 12 heads of 64, pages
         of 8, a 128-page bucket, counts [1024, 700, 300, 1] — in bf16 and
@@ -35,7 +37,12 @@ training phases it ran with:
         past T zero-filled) and with chunks narrower than the kernel's
         64-column tile (T 96, C 128, blocks (32, 32)), those two in bf16
         and f32; then two launches of each kernel on the main path's bf16
-        inputs, bit for bit (no atomics);
+        inputs, bit for bit (no atomics); then the causal=False kernels
+        (ring attention's off-diagonal pairs: no mask, dK/dV over every
+        query tile) the same way at the main path's shape, at a C 128
+        shape (B 1, H 32, T 2048, blocks (512, 1024): the tiled bodies)
+        and at the ragged T, bf16 and f32, and two launches bit for bit
+        at the first two;
      c. the paged template's verify spec (R = 2, 5 and 9 rows per slot, the
         last row's count the phase-3a count, the count-1 slot inactive) and
         its int8 spec (int8 pools with f32 scales; decode and verify R = 5)
@@ -395,6 +402,24 @@ training phases it ran with:
      6's. Flash launches per rank and launch == n_layer x (microsteps +
      eval batches) forward, n_layer x microsteps of each backward; they
      join the kernels line's flash entries;
+ 20. (its ranks beside phases 5c-11c, its verdicts after 17's, before 19's) sequence-parallel
+     training (parallel/ring_attention.py, parallel/ulysses.py): `launch
+     --multihost --set mesh.sp=N --set model_config.attn_impl=ring|ulysses`
+     on gloo ranks sharing the card (each ring hop stages its K/V shard
+     through the host: no time here is a speed of sequence parallelism).
+     a. 17b's f32 pair with its sequence split over 2 and over 4 ranks,
+     the ring and then Ulysses in each group, held to 17a's one-rank
+     flash run of it: losses at PARITY_TOL's f32 loss bound, the
+     parameter update at its update bound. b. llama7b_32k at its full
+     width (n_embd 4096, 32 heads of 128, vocab 50,304, T 32,768) cut to
+     2 layers and batch 1, bf16, 2 steps: the ring on sp 2 against one
+     rank's flash run at T 32,768 on the same weights and batch, losses at
+     LLAMA_SP_TOL. Each rank's causal launches as phase 19's; its
+     causal=False launches n_layer x (sp - 1) per microstep and eval batch
+     (forward) and per microstep (each backward), the same on every rank
+     (Ulysses: none); each rank's peak memory and the ring's hop bytes
+     printed. Its launches join the kernels line's flash entries, the
+     causal=False ones its causal=False entries;
  10. timings: the paged decode kernel as before (CUDA-graph replay, cold
      L2), and each flash kernel in bf16 (CUDA events over repeated
      launches) at the main path's shape and at one shape per other
@@ -421,16 +446,21 @@ training phases it ran with:
      3.35 TB/s). The flash kernels also at wide610m's shape (B 12, H 16,
      T 1024, C 128), beside their bounds and SDPA, and the flash forward
      at phase 12's first five prefill shapes, beside its bound, its plain
-     version and SDPA's forward. The "kernels" line carries the main
-     paths' numbers, and phase 11a's flash launches under the C 128
-     entries.
+     version and SDPA's forward. Then the causal=False kernels at a ring
+     pair of llama7b_32k's heads (B 1, H 32, T 8192, C 128: the largest
+     whose plain backward fits beside its inputs), beside their plain
+     versions, their bounds (every (query, key) pair's products) and SDPA
+     with is_causal=False, and at phase 20b's pair (T 16,384; kernels and
+     SDPA). The "kernels" line carries the main paths' numbers, and phase
+     11a's flash launches under the C 128 entries.
 
 The last lines are the card's name and power limit as nvidia-smi prints
 them, one JSON object with a "kernels" list (flash_fwd's launches include
 phase 12's; the paged decode, int8 and merge entries include phases 13's
 and 14's, and phase 15's launches made in its bf16 workers; the C 64
 flash, paged decode and merge entries include phase 16's; the flash
-entries include phase 17's and 19's ranks'; the bf16 paged decode,
+entries include phase 17's, 19's and 20's ranks'; the causal=False flash
+entries are phase 20's ranks'; the bf16 paged decode,
 verify, int8 decode and merge entries include phase 18's ranks'), phase 4b's "decode_modes" (tokens/s and busy share per
 overlap mode) and phase 12's "batch_decode" (replayed and eager tokens/s
 and the replayed chunk's busy share per cell), and the contract line
@@ -446,6 +476,7 @@ import io
 import itertools
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -1538,20 +1569,22 @@ def flash_problem(B, H, T, C, dtype, seed=0):
     return [torch.randn(B * H, T, C, generator=g).to("cuda", dtype) for _ in range(4)]
 
 
-def check_flash(label, B, H, T, C, bq, bk, dtype):
+def check_flash(label, B, H, T, C, bq, bk, dtype, causal=True):
     """Phase 3b: the three flash kernels vs the plain version on the same
     inputs (the backward from the kernel's own out and lse, on both
-    sides). Tolerances: out as the paged kernel's; lse 1e-5 abs+rel;
+    sides), causal or full (causal=False: ring attention's off-diagonal
+    pairs). Tolerances: out as the paged kernel's; lse 1e-5 abs+rel;
     gradients tol * max|plain| absolute plus tol relative. Returns the
     max |err| of each output."""
     from midgpt_tpu_torch.kernels import flash_attention as fa
 
     q, k, v, do = flash_problem(B, H, T, C, dtype)
-    out, lse = fa.flash_forward(q, k, v, bq, bk)
-    dq, dk, dv = fa.flash_backward(q, k, v, out, lse, do, bq, bk)
+    out, lse = fa.flash_forward(q, k, v, bq, bk, causal=causal)
+    dq, dk, dv = fa.flash_backward(q, k, v, out, lse, do, bq, bk, causal=causal)
     torch.cuda.synchronize()
-    want_out, want_lse = fa.flash_forward_plain(q, k, v, bq, bk)
-    want_grads = fa.flash_backward_plain(q, k, v, out, lse, do, bq, bk)
+    want_out, want_lse = fa.flash_forward_plain(q, k, v, bq, bk, causal=causal)
+    want_grads = fa.flash_backward_plain(q, k, v, out, lse, do, bq, bk, causal=causal)
+    label = label if causal else f"{label}, causal=False"
     tol = TOL[dtype]
     errs, ok = {}, True
     pairs = [("out", out, want_out, tol, tol), ("lse", lse, want_lse, 1e-5, 1e-5)]
@@ -1569,7 +1602,7 @@ def check_flash(label, B, H, T, C, bq, bk, dtype):
     return errs
 
 
-def check_flash_repeat(label, B, H, T, C, bq, bk):
+def check_flash_repeat(label, B, H, T, C, bq, bk, causal=True):
     """Phase 3b: two launches of each flash kernel on the same bf16 inputs
     give the same bits of out, lse, dq, dk and dv (no atomics)."""
     from midgpt_tpu_torch.kernels import flash_attention as fa
@@ -1577,8 +1610,9 @@ def check_flash_repeat(label, B, H, T, C, bq, bk):
     q, k, v, do = flash_problem(B, H, T, C, torch.bfloat16, seed=5)
     runs = []
     for _ in range(2):
-        out, lse = fa.flash_forward(q, k, v, bq, bk)
-        runs.append((out, lse, *fa.flash_backward(q, k, v, out, lse, do, bq, bk)))
+        out, lse = fa.flash_forward(q, k, v, bq, bk, causal=causal)
+        runs.append((out, lse, *fa.flash_backward(q, k, v, out, lse, do, bq, bk, causal=causal)))
+    label = label if causal else f"{label}, causal=False"
     torch.cuda.synchronize()
     differ = [name for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs) if not torch.equal(a, b)]
     print(f"kernel check flash {label} bf16, two launches on the same inputs: "
@@ -1587,11 +1621,10 @@ def check_flash_repeat(label, B, H, T, C, bq, bk):
         raise SystemExit(f"flash kernels are not the same from run to run ({label}: {differ})")
 
 
-def flash_counters():
+def flash_counters(causal=True):
     from midgpt_tpu_torch.kernels import flash_attention as fa
 
-    return {"flash_fwd": fa.FWD_LAUNCHES, "flash_bwd_dq": fa.BWD_DQ_LAUNCHES,
-            "flash_bwd_dkv": fa.BWD_DKV_LAUNCHES}
+    return dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), fa._COUNTERS[causal]))
 
 
 def synthetic_stream(data_dir: Path, vocab: int, n_tokens: int = 2_000_000) -> None:
@@ -2559,19 +2592,22 @@ def time_by_kind(by_name):
     return out
 
 
-def flash_flops(B, H, T, C):
-    """{kernel: flops of its causal products} at one shape: T (T + 1) / 2
-    score pairs per head, 2 C flops per pair and product. The forward has 2
-    products (QK^T, PV), dQ 3 (QK^T, dO V^T, dS K), dK/dV 4 (QK^T, dO V^T,
-    P^T dO, dS^T Q); the recomputations the kernels add are not counted."""
-    product = B * H * T * (T + 1) // 2 * 2 * C
+def flash_flops(B, H, T, C, causal=True):
+    """{kernel: flops of its products} at one shape: T (T + 1) / 2 score
+    pairs per head when causal, T^2 when not, 2 C flops per pair and
+    product. The forward has 2 products (QK^T, PV), dQ 3 (QK^T, dO V^T,
+    dS K), dK/dV 4 (QK^T, dO V^T, P^T dO, dS^T Q); the recomputations the
+    kernels add are not counted."""
+    pairs = T * (T + 1) // 2 if causal else T * T
+    product = B * H * pairs * 2 * C
     return {"flash_fwd": 2 * product, "flash_bwd_dq": 3 * product, "flash_bwd_dkv": 4 * product}
 
 
-def flash_bounds(B, H, T, C, dtype):
+def flash_bounds(B, H, T, C, dtype, causal=True):
     """{kernel: (least ms, what bounds it)} at one shape: each input read
-    once and each output written once over 3.35 TB/s, against the causal
-    products (flash_flops) over the dense peak of the inputs' type."""
+    once and each output written once over 3.35 TB/s, against the products
+    (flash_flops, causal or full) over the dense peak of the inputs'
+    type."""
     item = torch.empty((), dtype=dtype).element_size()
     tensor, lse = B * H * T * C * item, B * H * T * 4
     moved = {
@@ -2580,39 +2616,43 @@ def flash_bounds(B, H, T, C, dtype):
         "flash_bwd_dkv": 7 * tensor + lse,  # ... dk dv out
     }
     out = {}
-    for name, flops in flash_flops(B, H, T, C).items():
+    for name, flops in flash_flops(B, H, T, C, causal).items():
         t_b, t_o = moved[name] / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
         out[name] = (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
     return out
 
 
-def time_flash(B, H, T, C, bq, bk, dtype=torch.bfloat16):
+def time_flash(B, H, T, C, bq, bk, dtype=torch.bfloat16, causal=True, with_plain=True):
     """Phase 10 at one shape: device ms of each kernel (CUDA events over
-    repeated launches), of the plain version, and of SDPA's forward and
-    backward (one call each)."""
+    repeated launches), of the plain version (None without `with_plain`:
+    its full-attention backward holds 4 f32 (B*H, T, T) tensors), and of
+    SDPA's forward and backward (one call each, is_causal=causal)."""
     import torch.nn.functional as F
 
     from midgpt_tpu_torch.kernels import flash_attention as fa
 
     q, k, v, do = flash_problem(B, H, T, C, dtype, seed=3)
-    out, lse = fa.flash_forward(q, k, v, bq, bk)
+    out, lse = fa.flash_forward(q, k, v, bq, bk, causal=causal)
     args = fa._check_backward(q, k, v, out, lse, do)
     _, v_dq, v_dkv = fa._variants(T, fa._block_sizes(T, bq, bk)[1])
-    before = [c.count for c in flash_counters().values()]
+    before = [c.count for c in flash_counters(causal).values()]
+    iters = 20 if T <= 4096 else 5
     ms = {
-        "flash_fwd": event_ms(lambda: fa.flash_forward(q, k, v, bq, bk), 20),
-        "flash_bwd_dq": event_ms(lambda: fa._launch_bwd_dq(*args, v_dq), 10),
-        "flash_bwd_dkv": event_ms(lambda: fa._launch_bwd_dkv(*args, v_dkv), 10),
+        "flash_fwd": event_ms(lambda: fa.flash_forward(q, k, v, bq, bk, causal=causal), iters),
+        "flash_bwd_dq": event_ms(lambda: fa._launch_bwd_dq(*args, v_dq, causal), max(iters // 2, 3)),
+        "flash_bwd_dkv": event_ms(lambda: fa._launch_bwd_dkv(*args, v_dkv, causal), max(iters // 2, 3)),
     }
-    if any(c.count == b for c, b in zip(flash_counters().values(), before)):
+    if any(c.count == b for c, b in zip(flash_counters(causal).values(), before)):
         raise SystemExit("timing loop never launched the flash kernels")
-    plain_fwd = event_ms(lambda: fa.flash_forward_plain(q, k, v, bq, bk), 3, 1)
-    plain_bwd = event_ms(lambda: fa.flash_backward_plain(q, k, v, out, lse, do, bq, bk), 3, 1)
+    plain_fwd = plain_bwd = None
+    if with_plain:
+        plain_fwd = event_ms(lambda: fa.flash_forward_plain(q, k, v, bq, bk, causal=causal), 3, 1)
+        plain_bwd = event_ms(lambda: fa.flash_backward_plain(q, k, v, out, lse, do, bq, bk, causal=causal), 3, 1)
     q4, k4, v4, do4 = (t.view(B, H, T, C) for t in (q, k, v, do))
-    sdpa_fwd = event_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True), 20)
+    sdpa_fwd = event_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal), iters)
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
-    o4 = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-    sdpa_bwd = event_ms(lambda: torch.autograd.grad(o4, (qg, kg, vg), do4, retain_graph=True), 10)
+    o4 = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+    sdpa_bwd = event_ms(lambda: torch.autograd.grad(o4, (qg, kg, vg), do4, retain_graph=True), max(iters // 2, 3))
     plain = {"flash_fwd": plain_fwd, "flash_bwd_dq": plain_bwd, "flash_bwd_dkv": plain_bwd}
     library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd, "flash_bwd_dkv": sdpa_bwd}
     return ms, plain, library
@@ -2623,6 +2663,87 @@ FLASH_SOURCES = {  # the TPU body each kernel replaces on the main path (all: cs
     "flash_bwd_dq": "midgpt_tpu/kernels/flash_attention.py:265",
     "flash_bwd_dkv": "midgpt_tpu/kernels/flash_attention.py:265",
 }
+
+
+# causal=False (ring attention's off-diagonal pairs): phase 3b at the main path's shape, a C 128 shape and a
+# ragged T, bf16 and f32, then two launches bit for bit; phase 10 times them at FLASH_FULL_TIMED (the largest
+# ring pair the plain version's full (B*H, T, T) f32 backward holds beside its inputs on the card) and, kernels
+# and SDPA only, at phase 20b's pair (T 16,384 a rank)
+FLASH_FULL_CHECKS = [
+    *((*FLASH_MAIN, dt) for dt in (torch.bfloat16, torch.float32)),
+    *(("C 128", 1, 32, 2048, 128, 512, 1024, dt) for dt in (torch.bfloat16, torch.float32)),
+    *(("ragged T", 2, 12, 200, 64, 64, 64, dt) for dt in (torch.bfloat16, torch.float32)),
+]
+FLASH_FULL_TIMED = ("a ring pair at llama7b_32k's heads", 1, 32, 8192, 128, 512, 1024)
+FLASH_FULL_PAIR = ("phase 20b's ring pair", 1, 32, 16384, 128, 512, 1024)
+FLASH_FULL_SOURCES = {  # the TPU body each causal=False kernel stands for at the tiled timing shapes
+    "flash_fwd": "midgpt_tpu/kernels/flash_attention.py:160",
+    "flash_bwd_dq": "midgpt_tpu/kernels/flash_attention.py:329",
+    "flash_bwd_dkv": "midgpt_tpu/kernels/flash_attention.py:376",
+}
+
+
+def check_full_flash():
+    """Phase 3b, causal=False: every FLASH_FULL_CHECKS shape, then the
+    main path's and the C 128 shape's bf16 launches twice, bit for bit.
+    Returns {(label, dtype): max |err| by output}."""
+    errs = {}
+    for label, B, H, T, C, bq, bk, dt in FLASH_FULL_CHECKS:
+        errs[(label, dt)] = check_flash(label, B, H, T, C, bq, bk, dt, causal=False)
+        free_memory()
+    for label, B, H, T, C, bq, bk, _ in FLASH_FULL_CHECKS[:4:2]:
+        check_flash_repeat(label, B, H, T, C, bq, bk, causal=False)
+    free_memory()
+    return errs
+
+
+def full_flash_entries(card: str, errs, launches) -> tp.List[dict]:
+    """Phase 10, causal=False: the three kernels at FLASH_FULL_TIMED beside
+    their plain versions, bounds and SDPA (is_causal=False), then at
+    FLASH_FULL_PAIR (kernels and SDPA); the kernels line's entries at
+    FLASH_FULL_TIMED, `launches` ({kernel: n}) phase 20's."""
+    label, B, H, T, C, bq, bk = FLASH_FULL_TIMED
+    ms, plain, lib = time_flash(B, H, T, C, bq, bk, causal=False)
+    free_memory()
+    bounds, flops = flash_bounds(B, H, T, C, torch.bfloat16, causal=False), flash_flops(B, H, T, C, causal=False)
+    err = errs[("C 128", torch.bfloat16)]
+    err_of = {"flash_fwd": err["out"], "flash_bwd_dq": err["dq"], "flash_bwd_dkv": max(err["dk"], err["dv"])}
+    entries = []
+    variants = fa_variants(T, bq, bk)
+    for kname, variant in zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), variants):
+        b_ms, b_by = bounds[kname]
+        lib_what = "sdpa forward" if kname == "flash_fwd" else "sdpa backward (dq, dk and dv in one call)"
+        print(f"{kname} [{variant}, causal=False] {label} bf16 B={B} H={H} T={T} C={C} blocks=({bq},{bk}): "
+              f"{ms[kname]:.4f} ms device ({flops[kname] / ms[kname] / 1e9:.1f} TFLOP/s), bound {b_ms:.4f} ms by {b_by} "
+              f"({ms[kname] / b_ms:.1f}x), plain {plain[kname]:.3f} ms, {lib_what} (is_causal=False) "
+              f"{lib[kname]:.4f} ms on {card}")
+        entries.append({
+            "name": f"{kname}[bf16,C={C},causal=False]",
+            "route": "cuda",
+            "source": "midgpt_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_FULL_SOURCES[kname],
+            "launches": launches[kname],
+            "max_abs_err": err_of[kname],
+            "ms": ms[kname],
+            "plain_ms": plain[kname],
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": lib[kname],
+        })
+    label, B, H, T, C, bq, bk = FLASH_FULL_PAIR
+    ms, _, lib = time_flash(B, H, T, C, bq, bk, causal=False, with_plain=False)
+    free_memory()
+    bounds = flash_bounds(B, H, T, C, torch.bfloat16, causal=False)
+    print(f"flash causal=False at {label} bf16 B={B} H={H} T={T} C={C} blocks=({bq},{bk}): " + ", ".join(
+        f"{k} {ms[k]:.4f} ms (bound {bounds[k][0]:.4f} ms by {bounds[k][1]})" for k in ms)
+        + f"; sdpa forward {lib['flash_fwd']:.4f} ms, backward {lib['flash_bwd_dq']:.4f} ms (is_causal=False) on {card}")
+    return entries
+
+
+def fa_variants(T, bq, bk):
+    from midgpt_tpu_torch.kernels import flash_attention as fa
+
+    return fa._variants(T, fa._block_sizes(T, bq, bk)[1])
 
 
 # ---------------------------------------------------------------- phase 12: the batch sampler
@@ -4218,8 +4339,10 @@ def rank17_main(argv) -> int:
     """One rank of phase 17 under torchrun: joins the process group (the
     backend the first launch names), runs `launch.main` on each
     `--then`-separated argument list in turn, and writes this rank's
-    report per launch (its logged records, flash launches, peak memory,
-    state bytes, host clock) to <argv[0]>.<RANK>.json for the parent."""
+    report per launch (its logged records, flash launches causal and
+    full, the ring's hops and Ulysses' all-to-alls with their bytes, peak
+    memory, state bytes, host clock) to <argv[0]>.<RANK>.json for the
+    parent."""
     t_enter = time.time()
     out, runs = argv[0], [[]]
     for a in argv[1:]:
@@ -4228,19 +4351,26 @@ def rank17_main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from midgpt_tpu_torch import launch
-    from midgpt_tpu_torch.parallel import dist
+    from midgpt_tpu_torch.kernels import flash_attention as fa
+    from midgpt_tpu_torch.parallel import dist, ring_attention, ulysses
     from midgpt_tpu_torch.sampling.fleet_proc import process_launch_counts
 
     def counts():
-        return {k: collections.Counter({v: n for v, n in pairs})
-                for k, pairs in process_launch_counts()["launches"].items() if k.startswith("flash")}
+        out = {k: collections.Counter({v: n for v, n in pairs})
+               for k, pairs in process_launch_counts()["launches"].items() if k.startswith("flash")}
+        out.update({c.name: collections.Counter(c.by_variant) for c in fa._COUNTERS[False]})
+        return out
+
+    def traffic():
+        return collections.Counter({**{f"hop_{k}": n for k, n in ring_attention.HOPS.items()},
+                                    **{f"a2a_{k}": n for k, n in ulysses.A2A.items()}})
 
     first = runs[0]
     dist.init(None, first[first.index("--backend") + 1] if "--backend" in first else None)
     reports = []
     try:
         for args in runs:
-            before = counts()
+            before, moved_before = counts(), traffic()
             torch.cuda.reset_peak_memory_stats()
             buf = io.StringIO()
             t_launch = time.time()
@@ -4255,6 +4385,7 @@ def rank17_main(argv) -> int:
             reports.append({
                 "records": [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith('{"step"')],
                 "launches": {k: sorted((after[k] - before[k]).items()) for k in after},
+                "traffic": dict(traffic() - moved_before),
                 "peak": torch.cuda.max_memory_allocated(),
                 "state_bytes": sum(t.numel() * t.element_size() for t in state),
                 "clock": {"enter": t_enter, "launch": t_launch, "done": time.time()},
@@ -4976,6 +5107,169 @@ def tp_training(card: str, ranks, root: Path, pair_losses, main_losses, main_dir
     return flash
 
 
+# ---------------------------------------------------------------- phase 20: sequence-parallel training
+
+EARLIER_SMOKE_PHASE20_S = 727.0  # this script's wall time before phase 20 was added (PERF.md, section 6)
+# 20a: 17b's f32 pair (2 layers of full width, attn_block_size 512, warmed up in one step, phase 6's other cuts)
+# with its sequence split over sp ranks: the ring and Ulysses on sp 2 (T 512 a rank: the ring's pairs the
+# single-visit bodies, its off-diagonal pair causal=False) and sp 4 (T 256 a rank), held to 17a's one-rank flash
+# run of the pair at PARITY_TOL's f32 bounds: each step's loss and the final eval's at "f32_loss" relative, the
+# parameter update over the 4 steps at "f32_update" relative (update_rel_err)
+SP_PAIR_SETS = {**PAIR_SETS, "mesh.fsdp": 1}
+SP_SCHEDULES = ("ring", "ulysses")
+SP_SIZES = (2, 4)
+# 20b: llama7b_32k at its full width (n_embd 4096, 32 heads of 128, vocab 50,304, T 32,768) cut to 2 of its 32
+# layers and batch 1, bf16 over f32, its remat ("dots": the backward recomputes each block's forward, the ring's
+# hops included), warmed up in one step, 2 steps: the ring on sp 2 (T 16,384 a rank: its off-diagonal pair the
+# tiled causal=False bodies) against one rank's flash run at T 32,768 on the same weights (the seed) and batch,
+# every loss (the steps' and the evals') at LLAMA_SP_TOL relative: ~10x the reading on an H100 80GB HBM3 at
+# 700 W (2.86e-6, the phase run alone, PERF.md section 6)
+LLAMA_SP_CUTS = {"model_config.n_layer": 2, "batch_size": 1, "g_accum_iters": 1, "max_steps": 2, "eval_steps": 1,
+                 "eval_interval": 1000, "spec_layers": 0, "warmup_steps": 1, "mesh.fsdp": 1}
+LLAMA_SP_TOL = 2.5e-5
+
+
+def sequence_parallel_ranks(data_dir: Path, root: Path, card: str, nice: int = 10):
+    """Phase 20's ranks (gloo, sharing the card, at `nice`): 20b's one-rank
+    flash run and its sp 2 ring run, one after the other (each holds a
+    7B-width layer pair's state: ~24 and 2 x ~20 GiB); then 20a's sp 2 and
+    sp 4 groups side by side, each running the ring and then Ulysses into
+    root / "a_<schedule>_<sp>". Returns ({"a": {sp: [run][rank]}, "b": (one
+    rank's reports, the sp 2 ranks')}, the wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+
+    def pair(n, schedule):
+        over = {"data_dir": data_dir, "log_interval": 1, **TRAIN_CUTS, **SP_PAIR_SETS, "mesh.sp": n,
+                "model_config.attn_impl": schedule}
+        return ["--config=local_text_124m", f"--rundir={root / f'a_{schedule}_{n}'}", *sets(over)]
+
+    def llama(n, impl):
+        over = {"data_dir": data_dir, "log_interval": 1, **LLAMA_SP_CUTS, "mesh.sp": n, "model_config.attn_impl": impl}
+        return ["--config=llama7b_32k", "--rundir=", *sets(over)]
+
+    one = torchrun("20b one rank (flash at T 32,768)", 1, [llama(1, "flash")], card, None, 600, nice)[0]
+    two = torchrun("20b sp 2 (the ring at T 16,384 a rank)", 2, [llama(2, "ring")], card, "gloo", 600, nice)[0]
+    with ThreadPoolExecutor(1) as pool:
+        wide = pool.submit(torchrun, "20a sp 4 (the ring, then Ulysses)", 4, [pair(4, s) for s in SP_SCHEDULES],
+                           card, "gloo", 600, nice)
+        a = {2: torchrun("20a sp 2 (the ring, then Ulysses)", 2, [pair(2, s) for s in SP_SCHEDULES], card, "gloo",
+                         600, nice)}
+        a[4] = wide.result()
+    return {"a": a, "b": (one, two)}, time.perf_counter() - t0
+
+
+def rank_full(rep) -> tp.Dict[str, int]:
+    """A rank report's causal=False flash launches, {kernel: n}."""
+    return {k: sum(n for _, n in rep["launches"][f"{k}_full"]) for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+
+def full_launch_check(label, reports, n_layer, n, micro, evals, recompute=False):
+    """Each rank of an sp group of n running the ring: n_layer x (n - 1)
+    off-diagonal pairs per microstep and eval batch forward (twice per
+    microstep when a remat policy recomputes the ring's forward), per
+    microstep of each backward (every rank runs every pair: the masked
+    ones too); the same on every rank. Returns the ranks' sum."""
+    want = {"flash_fwd": n_layer * (n - 1) * ((2 if recompute else 1) * micro + evals),
+            "flash_bwd_dq": n_layer * (n - 1) * micro, "flash_bwd_dkv": n_layer * (n - 1) * micro}
+    got = [rank_full(rep) for rep in reports]
+    if any(g != want for g in got):
+        raise SystemExit(f"phase {label}: causal=False launches per rank {got}, want {want} on each")
+    return {k: v * len(got) for k, v in want.items()}
+
+
+def traffic_line(reports) -> str:
+    """The ring's hops and Ulysses' all-to-alls of each rank, with bytes."""
+    out = []
+    for r, rep in enumerate(reports):
+        t = rep.get("traffic", {})
+        hops = t.get("hop_fwd", 0) + t.get("hop_bwd", 0)
+        fwd_hop = t.get("hop_fwd_bytes", 0) / max(t.get("hop_fwd", 0), 1) / 2**20
+        out.append(f"rank {r}: {hops} hops sent {gib(t.get('hop_fwd_bytes', 0) + t.get('hop_bwd_bytes', 0))} "
+                   f"({fwd_hop:.1f} MiB a forward hop: its K/V shard), {t.get('a2a_calls', 0)} all-to-alls sent "
+                   f"{gib(t.get('a2a_bytes', 0))}")
+    return "; ".join(out)
+
+
+def sequence_parallel(card: str, ranks, root: Path, pair_dir: Path, pair_losses):
+    """Phase 20's verdicts from its ranks' reports (`ranks`:
+    `sequence_parallel_ranks` into `root`). `pair_losses` are 17a's
+    one-rank run of the f32 pair (its directory `pair_dir`). Returns the
+    ranks' flash launches ({C: {kernel: Counter(variant: n)}} causal,
+    {kernel: n} causal=False)."""
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.launch import apply_overrides
+
+    reports, wall = ranks
+    t_phase = time.perf_counter()
+    print("phase 20: sequence-parallel training on gloo ranks sharing the card (NCCL refuses two ranks of one "
+          "communicator on one card): each ring hop stages its K/V shard through the host, so no time here is a "
+          "speed of sequence parallelism")
+    mc = load_config("local_text_124m").model_config
+    micro = TRAIN_CUTS["g_accum_iters"] * TRAIN_CUTS["max_steps"]
+    last = TRAIN_CUTS["max_steps"] - 1
+    flash = {C: {k: collections.Counter() for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")} for C in (64, 128)}
+    full = collections.Counter()
+    pair_cfg = apply_overrides(load_config("local_text_124m"),
+                               [(k, str(v)) for k, v in {**TRAIN_CUTS, **PAIR_SETS}.items()])
+    want = restore_state(pair_dir, last, pair_cfg)["params"]
+    p0 = restore_state(pair_dir, 0, pair_cfg)["params"]  # warmed up in one step: step 0 leaves the init
+    for n in SP_SIZES:
+        for schedule, reps in zip(SP_SCHEDULES, reports["a"][n]):
+            label = f"20a {schedule} sp {n}"
+            records = reps[0]["records"]
+            losses = run_losses(records)
+            err = max_rel(losses, pair_losses)
+            got = restore_state(root / f"a_{schedule}_{n}", last, pair_cfg)["params"]
+            upd = update_rel_err(got, want, p0)
+            del got
+            evals = n_evals(records)
+            per_rank_flash_check(label, reps, 2, micro, evals, exact=True)
+            if schedule == "ring":
+                full.update(full_launch_check(label, reps, 2, n, micro, evals))
+            elif any(any(rank_full(rep).values()) for rep in reps):
+                raise SystemExit(f"phase {label}: Ulysses launched a causal=False kernel")
+            for rep in reps:
+                for k, c in rank_flash([rep]).items():
+                    flash[64][k].update(c)
+            print(f"phase {label} (2 layers of {mc.n_embd}, f32, T {mc.block_size} over {n} ranks, warmup 1 step): "
+                  f"losses (steps, final eval) {losses} vs 17a's one flash rank {pair_losses}: max rel err {err:.2e} "
+                  f"(tol {PARITY_TOL['f32_loss']:g}); parameter update rel err {upd:.2e} (tol "
+                  f"{PARITY_TOL['f32_update']:g}); causal=False launches per rank {rank_full(reps[0])}; "
+                  f"{traffic_line(reps)}; peak memory per rank {[gib(rep['peak']) for rep in reps]} on {card}")
+            if err > PARITY_TOL["f32_loss"] or upd > PARITY_TOL["f32_update"]:
+                raise SystemExit(f"phase {label}: the sequence-parallel run disagrees with one rank's flash run")
+            shutil.rmtree(root / f"a_{schedule}_{n}")
+    # 20b: llama7b_32k's width at T 32,768
+    one, two = reports["b"]
+    lc = load_config("llama7b_32k").model_config
+    losses_one, losses_two = run_losses(one[0]["records"]), run_losses(two[0]["records"])
+    err = max_rel(losses_two, losses_one)
+    steps, evals = LLAMA_SP_CUTS["max_steps"], n_evals(one[0]["records"])
+    print(f"phase 20b llama7b_32k ({LLAMA_SP_CUTS['model_config.n_layer']} of {lc.n_layer} layers of {lc.n_embd}, "
+          f"{lc.n_head} heads of {lc.head_dim}, vocab {lc.vocab_size:,}, T {lc.block_size:,}, batch 1), bf16 over "
+          f"f32, warmup 1 step: losses (steps, evals) the ring on sp 2 {losses_two} vs one flash rank {losses_one}: "
+          f"max rel err {err:.2e} (tol {LLAMA_SP_TOL:g}); peak memory one rank {gib(one[0]['peak'])}, sp 2 per rank "
+          f"{[gib(rep['peak']) for rep in two]}; state per rank {[gib(rep['state_bytes']) for rep in two]}; "
+          f"{traffic_line(two)}; causal=False launches per rank {rank_full(two[0])} (remat "
+          f"{lc.remat_policy if lc.remat else 'off'}) on {card}")
+    if len(losses_two) != len(losses_one) or not all(np.isfinite(losses_two)) or err > LLAMA_SP_TOL:
+        raise SystemExit("phase 20b: the ring on sp 2 disagrees with one rank's flash run at llama7b_32k's width")
+    layers = LLAMA_SP_CUTS["model_config.n_layer"]
+    recompute = lc.remat and lc.remat_policy in ("none", "dots")  # the forward runs again in the backward
+    for label, reps in (("20b one rank", one), ("20b sp 2", two)):
+        per_rank_flash_check(label, reps, layers, steps, evals, exact=not recompute)
+    full.update(full_launch_check("20b sp 2", two, layers, 2, steps, evals, recompute))
+    for rep in one + two:
+        for k, c in rank_flash([rep]).items():
+            flash[128][k].update(c)
+    print(f"phase 20 took {wall:.1f} s in its ranks and {time.perf_counter() - t_phase:.1f} s of verdicts; flash "
+          f"launches in its ranks: causal {({C: {k: dict(c) for k, c in v.items()} for C, v in flash.items()})}, "
+          f"causal=False {dict(full)} on {card}")
+    return flash, full
+
+
 # ---------------------------------------------------------------- the lanes: serving beside training
 
 # Serving phases hold the host most of the time (a decode round is 3-54% busy on the card, PERF.md section 5);
@@ -5115,6 +5409,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--lane"]:
         return lane_main(sys.argv[2:])
     sys.path.insert(0, str(ROOT))
+    from concurrent.futures import ThreadPoolExecutor
+
     from midgpt_tpu_torch.config import load_config
     from midgpt_tpu_torch.kernels import attention_template as tpl
     from midgpt_tpu_torch.kernels import build
@@ -5144,6 +5440,13 @@ def main() -> int:
     spilled = [line.strip() for log in build.build_logs.values() for line in log.splitlines()
                if "spill stores" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill")]
     print(f"ptxas: {len(spilled)} kernel instantiation(s) spill" + "".join(f"\n  {line}" for line in spilled))
+    regs = collections.defaultdict(dict)  # (kernel, C): {causal: registers}
+    for row in build.ptxas_report(build.build_logs.get("flash_attention", "")):
+        kern = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel(?:_mma)?)I", row["kernel"])
+        if kern and row["causal"] is not None:
+            regs[(kern.group(1), row["C"])][row["causal"]] = row.get("registers")
+    print("ptxas flash registers, causal / causal=False: " + ", ".join(
+        f"{kern} C {C} {r.get(True)} / {r.get(False)}" for (kern, C), r in sorted(regs.items())))
 
     clock.mark("2 build")
     # 3. kernels vs plain
@@ -5171,6 +5474,7 @@ def main() -> int:
     for label, B, H, T, C, bq, bk in FLASH_TIMED[::2]:  # single-visit C 64, tiled C 128
         check_flash_repeat(label, B, H, T, C, bq, bk)
     free_memory()
+    full_errs = check_full_flash()  # causal=False: ring attention's off-diagonal pairs
 
     clock.mark("3 kernels vs plain")
     # 4. the serving main path, bf16: counters zeroed just before, read just after
@@ -5214,6 +5518,13 @@ def main() -> int:
             clock.mark("6 training")
             # 11d and 12-15: the serving lane, beside phases 5c-11c
             lanes["serving"] = start_lane("serving", lanes_dir)
+            # 20. sequence-parallel training: its ranks beside phases 5c-11c and the serving lane (the 17-19 block
+            # holds no room on the card for 20b's ~40 GiB); its verdicts after phase 17, whose one-rank pair 20a
+            # is held to
+            sp_root = data_dir / "sp_train"
+            sp_root.mkdir()
+            sp_pool = ThreadPoolExecutor(1)
+            sp_ranks = sp_pool.submit(sequence_parallel_ranks, data_dir, sp_root, card)
             # 5c. the GQA and window slice: train both variants, serve what they wrote
             rundirs = {variant: data_dir / variant for variant in GQA_VARIANTS}
             for variant, rundir in rundirs.items():
@@ -5255,6 +5566,9 @@ def main() -> int:
                                               {pool: counters_of(rows) for pool, rows in lane["by_pool"].items()})
             alias_errs = {(getattr(torch, dt), s): err for dt, s, err in lane["alias_errs"]}
             clock.mark("the serving lane's rest (11d, 12-15)")
+            sp_reports = sp_ranks.result()  # before 17's ranks need the card's memory
+            sp_pool.shutdown()
+            clock.mark("phase 20's ranks' rest (beside 5c-11c)")
             # 5, 4b, 5b and 6c(e): the decode lane, beside phases 17-19
             lanes["decode"] = start_lane("decode", lanes_dir)
             # 18. tensor-parallel serving: 4 ranks under torchrun, started here to run beside phase 17
@@ -5263,8 +5577,6 @@ def main() -> int:
             # 19. tensor-parallel training: its ranks start once 18's have exited, beside phase 17
             tt_root = data_dir / "tp_train"
             tt_root.mkdir()
-            from concurrent.futures import ThreadPoolExecutor
-
             with ThreadPoolExecutor(1) as pool19:
                 tt_ranks = pool19.submit(tp_training_ranks, data_dir, tt_root, card, tp_proc)
                 try:
@@ -5279,6 +5591,9 @@ def main() -> int:
                     # 18's verdicts, on phase 5's f32 and 4b's bf16 streams: its ranks' paged launches of bf16
                     # queries join the kernels line's
                     tp_joined = tp_serving(card, tp_proc, tp_out, lane["kernel_streams"], lane["bf16_off_streams"])
+                    # 20's verdicts (before 19's, which remove 17a's one-rank pair run): its ranks' flash launches,
+                    # causal and full, join the kernels line's
+                    sp_flash, sp_full = sequence_parallel(card, sp_reports, sp_root, tt_root / "pair1", pair_losses)
                     # 19's verdicts: its ranks' flash launches join the kernels line's
                     tt_flash = tp_training(card, tt_ranks.result(), tt_root, pair_losses, main_losses, main_dir)
                 finally:
@@ -5292,7 +5607,7 @@ def main() -> int:
                 proc.kill()
                 proc.wait()
         shutil.rmtree(lanes_dir, ignore_errors=True)
-    clock.mark("17-19 ranks (18 and 19 beside 17), the decode lane beside them")
+    clock.mark("17-19 ranks (18 and 19 beside 17), 20's verdicts, the decode lane beside them")
     # 16. the routed MoE MLP: trained through the launcher, then served (its launches join the kernels line's)
     moe_flash, moe_paged, moe_merges = moe_path(card, overlap_rates["group:4"], batch_speeds[("12a", 8)][0])
     print("paged launches of phases 13-15 by pool (the kernels line's paged entries take the bf16 pool's): "
@@ -5441,7 +5756,7 @@ def main() -> int:
             "source": "midgpt_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_SOURCES[kname],
             "launches": (sum(wide_launches[kname].values()) + (batch_launches128 if kname == "flash_fwd" else 0)
-                         + sum(dp_flash[128][kname].values())),
+                         + sum(dp_flash[128][kname].values()) + sum(sp_flash[128][kname].values())),
             "max_abs_err": wide_err[kname],
             "ms": wide_ms[kname],
             "plain_ms": wide_plain[kname],
@@ -5468,7 +5783,8 @@ def main() -> int:
             "source": "midgpt_tpu_torch/csrc/flash_attention.cu",
             "replaces": FLASH_SOURCES[kname],
             "launches": (sum(flash_launches[kname].values()) + (batch_launches64 if kname == "flash_fwd" else 0)
-                         + moe_flash[kname] + sum(dp_flash[64][kname].values()) + sum(tt_flash[kname].values())),
+                         + moe_flash[kname] + sum(dp_flash[64][kname].values()) + sum(tt_flash[kname].values())
+                         + sum(sp_flash[64][kname].values())),
             "max_abs_err": err_of[kname],
             "ms": main_ms[kname],
             "plain_ms": main_plain[kname],
@@ -5476,13 +5792,15 @@ def main() -> int:
             "bound_by": b_by,
             "library_ms": main_lib[kname],
         })
+    kernels += full_flash_entries(card, full_errs, sp_full)
+    free_memory()
     clock.mark("10 timings")
     print(f"phase wall seconds on {card}: {clock.line()}")
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s (before phase 12: {EARLIER_SMOKE_S} s, before "
           f"phase 13: {EARLIER_SMOKE_PHASE13_S} s, before phase 14: {EARLIER_SMOKE_PHASE14_S} s, before phase 15: "
           f"{EARLIER_SMOKE_PHASE15_S} s, before phase 16: {EARLIER_SMOKE_PHASE16_S} s, before phase 17: "
           f"{EARLIER_SMOKE_PHASE17_S} s, before phase 18: {EARLIER_SMOKE_PHASE18_S} s, before phase 19: "
-          f"{EARLIER_SMOKE_PHASE19_S} s) on {card}")
+          f"{EARLIER_SMOKE_PHASE19_S} s, before phase 20: {EARLIER_SMOKE_PHASE20_S} s) on {card}")
     print(card)  # exactly as nvidia-smi gives it: name, power limit
     decode_modes = {spec: {"decode_tokens_per_s": dec, "end_to_end_tokens_per_s": e2e,
                            "busy_share": busy.get(spec)} for spec, (dec, e2e) in overlap_rates.items()}

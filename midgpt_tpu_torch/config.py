@@ -10,9 +10,12 @@ preemption, watchdog, fault and FSDP knobs, as JAX checks them at the
 same place. The mesh's data, fsdp and tp axes, `fsdp_mode`, `shard_model`,
 `fsdp_min_size` and `tp_vocab` drive multi-rank training (parallel/).
 JAX's tp checks hold here too (whole heads, K/V heads and MLP columns a
-shard; the vocab under `tp_vocab`: GPT-2 XL's 25 heads refuse tp 2); the
-sp, pp and ep axes of training and the pipeline knobs are carried for the
-round trip and wait for later slices (ROADMAP.md Queue 1 item 7).
+shard; the vocab under `tp_vocab`: GPT-2 XL's 25 heads refuse tp 2), and
+its sequence-parallel ones (the sp axis with attn_impl 'ring' or
+'ulysses': Ulysses needs whole heads per (tp, sp) rank, shard_map under tp
+and the pipeline refuse sp); the pp and ep axes of training and the
+pipeline knobs are carried for the round trip, checked as JAX checks
+them, and wait for later slices (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -126,6 +129,7 @@ class ExperimentConfig:
                 "fsdp_mode='shard_map' with mesh.tp > 1 does not compose with sequence parallelism yet "
                 "(set sp=1 and a non-ring/ulysses attn_impl)"
             )
+        self._check_pipeline()
         if not 0 <= self.spec_layers < mc.n_layer:
             raise ValueError(
                 f"spec_layers={self.spec_layers} must be in [0, n_layer={mc.n_layer})"
@@ -163,6 +167,46 @@ class ExperimentConfig:
         if self.preempt_grace_s < 0:
             raise ValueError(f"preempt_grace_s={self.preempt_grace_s} must be >= 0 (0 = unbounded)")
         self._check_moe()
+        sp = 1 if self.mesh.sp == -1 else self.mesh.sp
+        if mc.attn_impl == "ulysses" and sp > 1 and mc.n_head % (tp_ * sp) != 0:
+            # Ulysses re-shards heads over sp (after any tp head sharding):
+            # every (tp, sp) device needs whole heads
+            raise ValueError(
+                f"attn_impl='ulysses' needs n_head % (tp*sp) == 0, got n_head={mc.n_head}, tp={tp_}, sp={sp}"
+            )
+
+    def _check_pipeline(self):
+        """JAX's pipeline checks (midgpt_tpu/config.py), with its messages:
+        among them, the pipeline does not compose with sequence
+        parallelism. The port carries pp and refuses a mesh with it
+        (parallel/mesh.py)."""
+        mc = self.model_config
+        pp = 1 if self.mesh.pp == -1 else self.mesh.pp
+        if pp < 1:
+            raise ValueError(f"mesh.pp={pp} must be >= 1 (or -1 to infer)")
+        if self.pipeline_microbatches < 0:
+            raise ValueError(f"pipeline_microbatches={self.pipeline_microbatches} must be >= 0")
+        if self.pipeline_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(f"unknown pipeline_schedule {self.pipeline_schedule!r} ('gpipe' or '1f1b')")
+        if self.pipeline_schedule == "1f1b" and self.mesh.tp not in (1, -1):
+            raise ValueError(
+                "pipeline_schedule='1f1b' does not compose with mesh.tp > 1 "
+                "yet (its backward is hand-written; use 'gpipe')"
+            )
+        if pp > 1:
+            if mc.n_layer % pp != 0:
+                raise ValueError(f"n_layer={mc.n_layer} not divisible by mesh.pp={pp}")
+            if mc.dropout != 0.0:
+                raise ValueError("mesh.pp > 1 requires dropout=0.0")
+            if self.fsdp_mode != "gspmd":
+                raise ValueError("mesh.pp > 1 requires fsdp_mode='gspmd'")
+            if self.mesh.sp not in (1, -1):
+                raise ValueError("mesh.pp > 1 does not compose with mesh.sp > 1 yet (set sp=1)")
+            if mc.attn_impl in ("ring", "ulysses"):
+                raise ValueError("mesh.pp > 1 does not compose with sequence parallelism yet")
+            mb = self.pipeline_microbatches or pp
+            if self.batch_size % mb != 0:
+                raise ValueError(f"batch_size={self.batch_size} not divisible by pipeline_microbatches={mb}")
 
     def _check_moe(self):
         """JAX's MoE checks (midgpt_tpu/config.py), with its messages. The

@@ -1,9 +1,11 @@
 """7B Llama shape at 32K context (the same values as
 midgpt_tpu/configs/llama7b_32k.py): ring attention over an 8-wide
 sequence-parallel axis in JAX, and a self-draft of the first 8 of 32
-layers for serving (spec_k_max 8). The port has no mesh: 'ring' computes
-the unsharded blockwise math (ops/attention.py), and training waits for
-parallelism (ROADMAP.md Queue 1 item 7; f32 Adam state for 7B is ~108 GB).
+layers for serving (spec_k_max 8). The port trains it on a mesh of ranks
+(`launch --multihost`: the ring over mesh.sp, parallel/ring_attention.py);
+serving runs on one device, where 'ring' computes the unsharded blockwise
+math (ops/attention.py). Its whole training state (f32 Adam state for 7B
+is ~108 GB) waits for the sharded 7B init (ROADMAP.md Queue 1 item 7).
 `decode_layer_scan` is a JAX lowering knob and changes nothing here."""
 
 from midgpt_tpu_torch.config import ExperimentConfig, MeshConfig

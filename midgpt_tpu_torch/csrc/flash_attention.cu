@@ -1,8 +1,14 @@
-// Causal flash attention for Hopper (sm_90a): forward, and the backward as
-// two kernels (dQ; dK with dV), for the training path.
+// Flash attention for Hopper (sm_90a): forward, and the backward as two
+// kernels (dQ; dK with dV), for the training path. Every kernel is a
+// template over `Causal`, as every TPU body takes its static `causal`:
+// the causal bodies serve dense attention and ring attention's diagonal
+// pair, the full ones (Causal = false: no element mask, no diagonal skip,
+// dK/dV visiting every query tile) the ring's off-diagonal pairs
+// (midgpt_tpu/parallel/ring_attention.py:231-249). The extern "C" launchers
+// take the flag as `int causal`.
 //
 // Replaces: midgpt_tpu/kernels/flash_attention.py, every body reached from
-// its pl.pallas_call sites:
+// its pl.pallas_call sites, with causal=True and causal=False:
 //   flash_fwd      <- _fwd_kernel_single (:126) and _fwd_kernel (:160)
 //   flash_bwd_dq   <- _bwd_fused_single (:265, its dQ), _bwd_dq_kernel_single
 //                     (:301) and _bwd_dq_kernel (:329)
@@ -34,7 +40,10 @@
 // at T = 1024); a Hopper block has 227 KB, so the fused backward is computed
 // by the two tiled kernels, each recomputing Q.K^T from (q, k, lse): the same
 // function. No atomics: dQ and dK/dV are each owned by one block, so results
-// are the same from run to run.
+// are the same from run to run. With Causal = false every (query, key) pair
+// is visible: the last visible column of every tile is T - 1, only columns
+// and rows at or past T are masked (ragged T), and the forward's rounding
+// points are body 1's and body 2's with causal=False.
 //
 // What bounds it on the card. Per head the causal half of T^2 score pairs
 // costs 2C flops per product: the forward's 2 products, dQ's 3 and dK/dV's
@@ -197,7 +206,7 @@ __device__ __forceinline__ void tile_delta(float* delta_s, const T* __restrict__
 
 // ---------------------------------------------------------------- f32: SIMT forward
 
-template <typename T, int C>
+template <typename T, int C, bool Causal>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, float* __restrict__ lse, int T_len, int chunk, float scale) {
@@ -225,7 +234,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
     for (int b = 0; b < nc; ++b) acc[i][b] = 0.f;
   }
-  const int last_col = min(r0 + kTile - 1, T_len - 1);  // causal limit of this tile
+  // the tile's last visible column: its causal limit, or the sequence's end
+  const int last_col = Causal ? min(r0 + kTile - 1, T_len - 1) : T_len - 1;
 
   for (int c0 = 0; c0 <= last_col; c0 += chunk) {
     const int c_end = min(c0 + chunk, T_len);
@@ -242,7 +252,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int row = r0 + ty + 16 * i, col = kt + tx + 16 * j;
-          const float sv = (col <= row && col < c_end) ? s[i][j] * scale : kMask;
+          const float sv = ((!Causal || col <= row) && col < c_end) ? s[i][j] * scale : kMask;
           cm[i] = fmaxf(cm[i], sv);
         }
     }
@@ -268,7 +278,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int row = r0 + ty + 16 * i, col = kt + tx + 16 * j;
-          const float sv = (col <= row && col < c_end) ? s[i][j] * scale : kMask;
+          const float sv = ((!Causal || col <= row) && col < c_end) ? s[i][j] * scale : kMask;
           const float p = expf(sv - m_new[i]);  // masked: exactly 0
           lsum[i] += p;
           p_s[(ty + 16 * i) * kSLd + tx + 16 * j] = round_to<T>(p);
@@ -297,7 +307,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
 // ---------------------------------------------------------------- f32: SIMT backward
 
-template <typename T, int C>
+template <typename T, int C, bool Causal>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
@@ -331,7 +341,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int b = 0; b < nc; ++b) acc[i][b] = 0.f;
-  const int last_col = min(r0 + kTile - 1, T_len - 1);
+  const int last_col = Causal ? min(r0 + kTile - 1, T_len - 1) : T_len - 1;
 
   for (int kt = 0; kt <= last_col; kt += kTile) {
     __syncthreads();  // k_s / v_s / ds_s free; delta_s written (first pass)
@@ -346,7 +356,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = ty + 16 * i, row = r0 + r, col = kt + tx + 16 * j;
-        const float sv = (col <= row && col < T_len) ? s[i][j] * scale : kMask;
+        const float sv = ((!Causal || col <= row) && col < T_len) ? s[i][j] * scale : kMask;
         const float p = expf(sv - lse_s[r]);
         ds_s[r * kSLd + tx + 16 * j] = round_to<T>(p * (dp[i][j] - delta_s[r]) * scale);
       }
@@ -364,7 +374,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   }
 }
 
-template <typename T, int C>
+template <typename T, int C, bool Causal>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
@@ -395,8 +405,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 #pragma unroll
     for (int b = 0; b < nc; ++b) dk_acc[i][b] = dv_acc[i][b] = 0.f;
 
-  // Query tiles at or below the diagonal: rows >= k0 (tiles are aligned).
-  for (int i0 = k0; i0 < T_len; i0 += kTile) {
+  // Causal: the query tiles at or below the diagonal, rows >= k0 (tiles
+  // are aligned); otherwise every query tile.
+  for (int i0 = Causal ? k0 : 0; i0 < T_len; i0 += kTile) {
     __syncthreads();  // q_s / do_s / pt_s / dst_s free
     load_tile<T, C>(q_s, q + base, i0, T_len);
     load_tile<T, C>(do_s, dout + base, i0, T_len);
@@ -415,7 +426,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
       for (int b = 0; b < 4; ++b) {
         const int jr = ty + 16 * a, ir = tx + 16 * b;
         const int key = k0 + jr, row = i0 + ir;
-        const float sv = (key <= row && row < T_len && key < T_len) ? st[a][b] * scale : kMask;
+        const float sv = ((!Causal || key <= row) && row < T_len && key < T_len) ? st[a][b] * scale : kMask;
         const float p = expf(sv - lse_s[ir]);
         pt_s[jr * kSLd + ir] = round_to<T>(p);
         dst_s[jr * kSLd + ir] = round_to<T>(p * (dpt[a][b] - delta_s[ir]) * scale);
@@ -622,7 +633,7 @@ __device__ __forceinline__ bool next_step(FwdStep& s, int chunk, int last_col) {
   return s.c0 <= last_col;
 }
 
-template <int C>
+template <int C, bool Causal>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_mma(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ out, float* __restrict__ lse, int T_len, int chunk, float scale) {
@@ -640,8 +651,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_mma(
   bf16* k_s = q_s + kRows * L;                     // [2 stages][64][L]
   bf16* v_s = k_s + 2 * kKvTile * L;               // [2 stages][64][L]
 
-  const int last_col = min(r0 + kRows - 1, T_len - 1);  // the block's causal limit
-  const int w_last = r0 + 16 * warp + 15;               // the warp's last row
+  // the block's last visible column: its causal limit, or the sequence's end
+  const int last_col = Causal ? min(r0 + kRows - 1, T_len - 1) : T_len - 1;
+  const int w_last = r0 + 16 * warp + 15;  // the warp's last row
   const int row_a = r0 + 16 * warp + g, row_b = row_a + 8;
   const bf16* q_w = q_s + 16 * warp * L;
 
@@ -667,21 +679,22 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_mma(
     cp_wait_all_but_newest();
     __syncthreads();
 
-    if (cur.kt <= w_last) {  // else every column of the tile is above the warp's rows
+    if (!Causal || cur.kt <= w_last) {  // else every column of the tile is above the warp's rows
       const int c_end = min(cur.c0 + chunk, T_len);
       float s[NT][4];
 #pragma unroll
       for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
       gemm_abt<C, kKvTile, L, L>(s, q_w, k_s + stage * kKvTile * L, lane);
-      if (cur.kt + kKvTile - 1 <= r0 + 16 * warp && cur.kt + kKvTile <= c_end) {
-        // the tile lies wholly at or below the warp's diagonal and inside the chunk
+      if ((!Causal || cur.kt + kKvTile - 1 <= r0 + 16 * warp) && cur.kt + kKvTile <= c_end) {
+        // the tile lies wholly at or below the warp's diagonal (or there is
+        // none) and inside the chunk
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], scale);
-      } else {  // column col of a row is visible iff col <= min(row, c_end - 1)
-        const int lim_a = min(row_a, c_end - 1) - cur.kt - 2 * t;  // as an offset 8 j + (e & 1)
-        const int lim_b = min(row_b, c_end - 1) - cur.kt - 2 * t;
+      } else {  // column col of a row is visible iff col <= min(row, c_end - 1) (causal), c_end - 1
+        const int lim_a = (Causal ? min(row_a, c_end - 1) : c_end - 1) - cur.kt - 2 * t;  // as 8 j + (e & 1)
+        const int lim_b = (Causal ? min(row_b, c_end - 1) : c_end - 1) - cur.kt - 2 * t;
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -767,7 +780,7 @@ __device__ __forceinline__ float dot_bf16(const bf16* a, const bf16* b) {
   return d;
 }
 
-template <int C>
+template <int C, bool Causal>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel_mma(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
@@ -808,7 +821,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel_mma(
     }
   }
 
-  const int last_col = min(r0 + kRows - 1, T_len - 1);
+  const int last_col = Causal ? min(r0 + kRows - 1, T_len - 1) : T_len - 1;
   const int w_last = r0 + 16 * warp + 15;
   const int row_a = r0 + 16 * warp + g, row_b = row_a + 8;
   const bf16* q_w = q_s + 16 * warp * L;
@@ -828,7 +841,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel_mma(
     cp_wait_all_but_newest();
     __syncthreads();  // also: lse_s and delta_s written (first pass)
 
-    if (kt <= w_last) {
+    if (!Causal || kt <= w_last) {
       const bf16* k_t = k_s + stage * kKvTile * L;
       float s[NT][4], dp[NT][4];
 #pragma unroll
@@ -845,7 +858,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel_mma(
         for (int e = 0; e < 4; ++e) {
           const int col = kt + 8 * j + 2 * t + (e & 1);
           const int row = e < 2 ? row_a : row_b;
-          const float sv = (col <= row && col < T_len) ? __fmul_rn(s[j][e], scale) : kMask;
+          const float sv = ((!Causal || col <= row) && col < T_len) ? __fmul_rn(s[j][e], scale) : kMask;
           const float p = expf(sv - (e < 2 ? ls_a : ls_b));
           s[j][e] = __fmul_rn(p * (dp[j][e] - (e < 2 ? dl_a : dl_b)), scale);
         }
@@ -861,7 +874,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel_mma(
 }
 
 // At C = 64, 3 blocks an SM (at most 170 registers a thread) rather than 2.
-template <int C>
+template <int C, bool Causal>
 __global__ void __launch_bounds__(kThreads, C == 64 ? 3 : 1) flash_bwd_dkv_kernel_mma(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
@@ -896,9 +909,12 @@ __global__ void __launch_bounds__(kThreads, C == 64 ? 3 : 1) flash_bwd_dkv_kerne
     }
   };
 
+  // Causal: the query tiles at or below the diagonal, rows >= k0 (k0 is a
+  // multiple of QT); otherwise every query tile.
+  const int i_first = Causal ? k0 : 0;
   stage_rows<kRows, C>(k_s, k + base, k0, T_len);
   stage_rows<kRows, C>(v_s, v + base, k0, T_len);
-  stage_queries(0, k0);
+  stage_queries(0, i_first);
   cp_commit();
 
   const int kw0 = k0 + 16 * warp;  // the warp's first key
@@ -912,8 +928,7 @@ __global__ void __launch_bounds__(kThreads, C == 64 ? 3 : 1) flash_bwd_dkv_kerne
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
 
   int stage = 0;
-  // Query tiles at or below the diagonal: rows >= k0 (k0 is a multiple of QT).
-  for (int i0 = k0; i0 < T_len; i0 += QT) {
+  for (int i0 = i_first; i0 < T_len; i0 += QT) {
     const bool more = i0 + QT < T_len;
     if (more) stage_queries(stage ^ 1, i0 + QT);
     cp_commit();
@@ -931,7 +946,7 @@ __global__ void __launch_bounds__(kThreads, C == 64 ? 3 : 1) flash_bwd_dkv_kerne
     }
     __syncthreads();
 
-    if (i0 + QT - 1 >= kw0) {  // else every row of the tile is above the warp's keys
+    if (!Causal || i0 + QT - 1 >= kw0) {  // else every row of the tile is above the warp's keys
       // transposed tiles: rows are the warp's 16 keys, columns the tile's queries
       float st[NT][4], dpt[NT][4];
 #pragma unroll
@@ -946,7 +961,7 @@ __global__ void __launch_bounds__(kThreads, C == 64 ? 3 : 1) flash_bwd_dkv_kerne
         for (int e = 0; e < 4; ++e) {
           const int ri = 8 * j + 2 * t + (e & 1), row = i0 + ri;
           const int key = e < 2 ? key_a : key_b;
-          const bool ok = key <= row && row < T_len && key < T_len;
+          const bool ok = (!Causal || key <= row) && row < T_len && key < T_len;
           const float sv = ok ? __fmul_rn(st[j][e], scale) : kMask;
           const float p = expf(sv - lse_s[stage * QT + ri]);
           st[j][e] = p;
@@ -1014,43 +1029,43 @@ int allow_smem(K kernel, size_t smem, bool& done) {
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
-template <typename T, int C>
+template <typename T, int C, bool Causal>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int N,
                int T_len, int chunk, float scale, cudaStream_t stream) {
   static bool ready = false;
   const dim3 grid(N, (T_len + kTile - 1) / kTile);
   if constexpr (kTensorCores<T>) {
     const size_t smem = fwd_smem_mma<C>();
-    if (int e = allow_smem(tc::flash_fwd_kernel_mma<C>, smem, ready)) return e;
-    tc::flash_fwd_kernel_mma<C><<<grid, tc::kThreads, smem, stream>>>(
+    if (int e = allow_smem(tc::flash_fwd_kernel_mma<C, Causal>, smem, ready)) return e;
+    tc::flash_fwd_kernel_mma<C, Causal><<<grid, tc::kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(out), lse, T_len, chunk, scale);
   } else {
     const size_t smem = fwd_smem<C>();
-    if (int e = allow_smem(flash_fwd_kernel<T, C>, smem, ready)) return e;
-    flash_fwd_kernel<T, C><<<grid, kThreads, smem, stream>>>(
+    if (int e = allow_smem(flash_fwd_kernel<T, C, Causal>, smem, ready)) return e;
+    flash_fwd_kernel<T, C, Causal><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(out), lse, T_len, chunk, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int C>
+template <typename T, int C, bool Causal>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
               const float* lse, void* dq, int N, int T_len, float scale, cudaStream_t stream) {
   static bool ready = false;
   const dim3 grid(N, (T_len + kTile - 1) / kTile);
   if constexpr (kTensorCores<T>) {
     const size_t smem = dq_smem_mma<C>();
-    if (int e = allow_smem(tc::flash_bwd_dq_kernel_mma<C>, smem, ready)) return e;
-    tc::flash_bwd_dq_kernel_mma<C><<<grid, tc::kThreads, smem, stream>>>(
+    if (int e = allow_smem(tc::flash_bwd_dq_kernel_mma<C, Causal>, smem, ready)) return e;
+    tc::flash_bwd_dq_kernel_mma<C, Causal><<<grid, tc::kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(o), static_cast<const T*>(dout), lse, static_cast<T*>(dq), T_len,
         scale);
   } else {
     const size_t smem = dq_smem<C>();
-    if (int e = allow_smem(flash_bwd_dq_kernel<T, C>, smem, ready)) return e;
-    flash_bwd_dq_kernel<T, C><<<grid, kThreads, smem, stream>>>(
+    if (int e = allow_smem(flash_bwd_dq_kernel<T, C, Causal>, smem, ready)) return e;
+    flash_bwd_dq_kernel<T, C, Causal><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(o), static_cast<const T*>(dout), lse, static_cast<T*>(dq), T_len,
         scale);
@@ -1058,7 +1073,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int C>
+template <typename T, int C, bool Causal>
 int launch_dkv(const void* q, const void* k, const void* v, const void* o, const void* dout,
                const float* lse, void* dk, void* dv, int N, int T_len, float scale,
                cudaStream_t stream) {
@@ -1066,15 +1081,15 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* o, const
   const dim3 grid(N, (T_len + kTile - 1) / kTile);
   if constexpr (kTensorCores<T>) {
     const size_t smem = dkv_smem_mma<C>();
-    if (int e = allow_smem(tc::flash_bwd_dkv_kernel_mma<C>, smem, ready)) return e;
-    tc::flash_bwd_dkv_kernel_mma<C><<<grid, tc::kThreads, smem, stream>>>(
+    if (int e = allow_smem(tc::flash_bwd_dkv_kernel_mma<C, Causal>, smem, ready)) return e;
+    tc::flash_bwd_dkv_kernel_mma<C, Causal><<<grid, tc::kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(o), static_cast<const T*>(dout), lse, static_cast<T*>(dk),
         static_cast<T*>(dv), T_len, scale);
   } else {
     const size_t smem = dkv_smem<C>();
-    if (int e = allow_smem(flash_bwd_dkv_kernel<T, C>, smem, ready)) return e;
-    flash_bwd_dkv_kernel<T, C><<<grid, kThreads, smem, stream>>>(
+    if (int e = allow_smem(flash_bwd_dkv_kernel<T, C, Causal>, smem, ready)) return e;
+    flash_bwd_dkv_kernel<T, C, Causal><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(o), static_cast<const T*>(dout), lse, static_cast<T*>(dk),
         static_cast<T*>(dv), T_len, scale);
@@ -1089,13 +1104,19 @@ bool shape_ok(int N, int T_len, int C, int dtype) {
 
 }  // namespace
 
-// Dispatch on (dtype, C): dtype 0 = float32, 1 = bfloat16; C in {64, 128}.
+// Dispatch on (causal, dtype, C): causal 1 = the causal bodies, 0 = the
+// full ones; dtype 0 = float32, 1 = bfloat16; C in {64, 128}.
+#define FLASH_DISPATCH_C(FN, CAUSAL, ...)                                         \
+  do {                                                                            \
+    if (dtype == 0 && C == 64) return FN<float, 64, CAUSAL>(__VA_ARGS__);         \
+    if (dtype == 0 && C == 128) return FN<float, 128, CAUSAL>(__VA_ARGS__);       \
+    if (dtype == 1 && C == 64) return FN<__nv_bfloat16, 64, CAUSAL>(__VA_ARGS__); \
+    return FN<__nv_bfloat16, 128, CAUSAL>(__VA_ARGS__);                           \
+  } while (0)
 #define FLASH_DISPATCH(FN, ...)                                                   \
   do {                                                                            \
-    if (dtype == 0 && C == 64) return FN<float, 64>(__VA_ARGS__);                 \
-    if (dtype == 0 && C == 128) return FN<float, 128>(__VA_ARGS__);               \
-    if (dtype == 1 && C == 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__);         \
-    return FN<__nv_bfloat16, 128>(__VA_ARGS__);                                   \
+    if (causal) FLASH_DISPATCH_C(FN, true, __VA_ARGS__);                          \
+    FLASH_DISPATCH_C(FN, false, __VA_ARGS__);                                     \
   } while (0)
 
 extern "C" {
@@ -1105,7 +1126,7 @@ extern "C" {
 // all on the current device, and 1 <= chunk with chunk dividing T (fwd).
 
 int flash_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int N,
-              int T_len, int C, int chunk, float scale, int dtype, void* stream) {
+              int T_len, int C, int chunk, float scale, int dtype, int causal, void* stream) {
   if (!shape_ok(N, T_len, C, dtype) || chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(launch_fwd, q, k, v, out, lse, N, T_len, chunk, scale, s);
@@ -1113,7 +1134,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* out, float* lse
 
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
                  const float* lse, void* dq, int N, int T_len, int C, float scale, int dtype,
-                 void* stream) {
+                 int causal, void* stream) {
   if (!shape_ok(N, T_len, C, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(launch_dq, q, k, v, o, dout, lse, dq, N, T_len, scale, s);
@@ -1121,7 +1142,7 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* o, con
 
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* o, const void* dout,
                   const float* lse, void* dk, void* dv, int N, int T_len, int C, float scale,
-                  int dtype, void* stream) {
+                  int dtype, int causal, void* stream) {
   if (!shape_ok(N, T_len, C, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(launch_dkv, q, k, v, o, dout, lse, dk, dv, N, T_len, scale, s);

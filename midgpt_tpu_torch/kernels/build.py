@@ -16,6 +16,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -147,6 +148,30 @@ def build(names: tp.Sequence[str]) -> tp.Dict[str, Path]:
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return paths
+
+
+def ptxas_report(log: str) -> tp.List[tp.Dict[str, tp.Any]]:
+    """Each kernel instantiation in an nvcc build's ptxas report (`-Xptxas
+    -v`, `build_logs`), in order: {"kernel" (the mangled name), "C" and
+    "causal" where the name carries them (the flash templates' head dim
+    and causal flag, else None), "registers", "spill_stores",
+    "spill_loads"}."""
+    rows: tp.List[tp.Dict[str, tp.Any]] = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            c, causal = re.search(r"Li(64|128)E", name), re.search(r"Lb([01])E", name)
+            rows.append({"kernel": name, "C": int(c.group(1)) if c else None,
+                         "causal": causal.group(1) == "1" if causal else None})
+        elif rows:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                rows[-1]["spill_stores"], rows[-1]["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                rows[-1]["registers"] = int(m.group(1))
+    return rows
 
 
 def load(name: str) -> ctypes.CDLL:

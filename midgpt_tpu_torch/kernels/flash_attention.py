@@ -1,5 +1,5 @@
-"""Causal flash attention with its backward (counterpart of
-midgpt_tpu/kernels/flash_attention.py).
+"""Flash attention with its backward (counterpart of
+midgpt_tpu/kernels/flash_attention.py), causal or full.
 
 The JAX package runs six Pallas bodies behind one `jax.custom_vjp`: the
 forward's single-visit and tiled bodies, and the backward's fused body, its
@@ -38,9 +38,16 @@ policy as its contract, and carries:
     forward as one dispatcher op (`midgpt::flash_fwd`), which a remat
     policy can keep (ops/remat.py) as JAX's names `attn_out`/`attn_lse`.
 
+Every function takes JAX's static `causal` (default True). causal=False
+is full attention, no element mask: ring attention's off-diagonal pairs
+(parallel/ring_attention.py), where the causal structure is decided per
+pair of sequence shards. The kernels are the same sources' `Causal = false`
+instantiations.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels or
 raises — there is no fallback between the two. Each kernel has a launch
-counter keyed by the dispatch it stands for: "single" or "tiled" (for
+counter per causal flag (`FWD_LAUNCHES` ..., `FULL_FWD_LAUNCHES` ... for
+causal=False) keyed by the dispatch it stands for: "single" or "tiled" (for
 dK/dV, "single" is the fused backward, reached at T <= 1024 only).
 """
 
@@ -60,6 +67,11 @@ Tensor = torch.Tensor
 FWD_LAUNCHES = LaunchCounter("flash_fwd")
 BWD_DQ_LAUNCHES = LaunchCounter("flash_bwd_dq")
 BWD_DKV_LAUNCHES = LaunchCounter("flash_bwd_dkv")
+FULL_FWD_LAUNCHES = LaunchCounter("flash_fwd_full")  # causal=False
+FULL_BWD_DQ_LAUNCHES = LaunchCounter("flash_bwd_dq_full")
+FULL_BWD_DKV_LAUNCHES = LaunchCounter("flash_bwd_dkv_full")
+_COUNTERS = {True: (FWD_LAUNCHES, BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES),
+             False: (FULL_FWD_LAUNCHES, FULL_BWD_DQ_LAUNCHES, FULL_BWD_DKV_LAUNCHES)}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)  # csrc/flash_attention.cu instantiations
@@ -96,9 +108,13 @@ def _variants(T: int, bk: int) -> tp.Tuple[str, str, str]:
     return fwd, dq, dkv
 
 
-def _causal(T: int, device) -> Tensor:
+def _visible(T: int, device, causal: bool) -> tp.Optional[Tensor]:
+    """The (T, T) mask of visible (row, col) pairs: col <= row when causal;
+    None (every pair) when not."""
+    if not causal:
+        return None
     rows = torch.arange(T, device=device)
-    return rows[None, :] <= rows[:, None]  # (T, T): col <= row
+    return rows[None, :] <= rows[:, None]
 
 
 # ----------------------------------------------------------------------
@@ -107,7 +123,7 @@ def _causal(T: int, device) -> Tensor:
 
 
 def flash_forward_plain(
-    q: Tensor, k: Tensor, v: Tensor, block_q: int = 512, block_k: int = 1024
+    q: Tensor, k: Tensor, v: Tensor, block_q: int = 512, block_k: int = 1024, causal: bool = True
 ) -> tp.Tuple[Tensor, Tensor]:
     """q, k, v (N, T, C) -> (out (N, T, C) in q's dtype, lse (N, T) f32).
 
@@ -116,19 +132,21 @@ def flash_forward_plain(
     columns, p = exp(s - m_running), the accumulator rescaled in f32. The
     TPU's Q tiling (bq) changes nothing per row: a chunk above a row's
     diagonal is all MASK there and leaves (m, l, acc) bit for bit as they
-    were, so every row visits every chunk here."""
+    were, so every row visits every chunk here. causal=False masks
+    nothing."""
     N, T, C = q.shape
     _, bk = _block_sizes(T, block_q, block_k)
     scale = 1.0 / math.sqrt(C)
     qf = q.float()
-    keep = _causal(T, q.device)
+    keep = _visible(T, q.device, causal)
     m = torch.full((N, T), M_INIT, dtype=torch.float32, device=q.device)
     l = torch.zeros((N, T), dtype=torch.float32, device=q.device)
     acc = torch.zeros((N, T, C), dtype=torch.float32, device=q.device)
     for c0 in range(0, T, bk):
         kc, vc = k[:, c0 : c0 + bk], v[:, c0 : c0 + bk]
         s = torch.einsum("ntc,nsc->nts", qf, kc.float()) * scale
-        s = torch.where(keep[:, c0 : c0 + bk], s, MASK)
+        if keep is not None:
+            s = torch.where(keep[:, c0 : c0 + bk], s, MASK)
         m, alpha, p, l = online_block(m, l, s)
         pv = torch.einsum("nts,nsc->ntc", p.to(v.dtype).float(), vc.float())
         acc = acc * alpha[..., None] + pv
@@ -137,7 +155,7 @@ def flash_forward_plain(
 
 def flash_backward_plain(
     q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor, dout: Tensor,
-    block_q: int = 512, block_k: int = 1024,
+    block_q: int = 512, block_k: int = 1024, causal: bool = True,
 ) -> tp.Tuple[Tensor, Tensor, Tensor]:
     """(dq, dk, dv), each (N, T, C) in the inputs' dtype. The TPU's fused,
     single-visit and tiled backward bodies round at the same elementwise
@@ -148,7 +166,9 @@ def flash_backward_plain(
     scale = 1.0 / math.sqrt(C)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
     s = torch.einsum("ntc,nsc->nts", qf, kf) * scale
-    s = torch.where(_causal(T, q.device), s, MASK)
+    keep = _visible(T, q.device, causal)
+    if keep is not None:
+        s = torch.where(keep, s, MASK)
     p = torch.exp(s - lse[..., None])  # masked entries underflow to 0
     dv = torch.einsum("nts,ntc->nsc", p.to(dout.dtype).float(), dof)
     dp = torch.einsum("ntc,nsc->nts", dof, vf)
@@ -168,9 +188,9 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = load("flash_attention")
     if lib.flash_fwd.argtypes is None:  # declare once per loaded library
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_fwd.argtypes = [vp] * 5 + [ci] * 4 + [cf, ci, vp]
-        lib.flash_bwd_dq.argtypes = [vp] * 7 + [ci] * 3 + [cf, ci, vp]
-        lib.flash_bwd_dkv.argtypes = [vp] * 8 + [ci] * 3 + [cf, ci, vp]
+        lib.flash_fwd.argtypes = [vp] * 5 + [ci] * 4 + [cf, ci, ci, vp]
+        lib.flash_bwd_dq.argtypes = [vp] * 7 + [ci] * 3 + [cf, ci, ci, vp]
+        lib.flash_bwd_dkv.argtypes = [vp] * 8 + [ci] * 3 + [cf, ci, ci, vp]
         for fn in (lib.flash_fwd, lib.flash_bwd_dq, lib.flash_bwd_dkv):
             fn.restype = ci
         lib.flash_error_string.argtypes = [ci]
@@ -209,7 +229,7 @@ def _raise_on(lib, rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
 
 
-def _launch_forward(q, k, v, block_q, block_k) -> tp.Tuple[Tensor, Tensor]:
+def _launch_forward(q, k, v, block_q, block_k, causal: bool) -> tp.Tuple[Tensor, Tensor]:
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check_args(("q", q), ("k", k), ("v", v))
     N, T, C = q.shape
@@ -221,10 +241,10 @@ def _launch_forward(q, k, v, block_q, block_k) -> tp.Tuple[Tensor, Tensor]:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            N, T, C, bk, 1.0 / math.sqrt(C), _DTYPE_CODE[q.dtype], stream,
+            N, T, C, bk, 1.0 / math.sqrt(C), _DTYPE_CODE[q.dtype], int(causal), stream,
         )
     _raise_on(lib, rc, "flash_fwd")
-    FWD_LAUNCHES.add(_variants(T, bk)[0])
+    _COUNTERS[causal][0].add(_variants(T, bk)[0])
     return out, lse
 
 
@@ -238,7 +258,7 @@ def _check_backward(q, k, v, out, lse, dout):
     return q, k, v, out, lse, dout
 
 
-def _launch_bwd_dq(q, k, v, out, lse, dout, variant: str) -> Tensor:
+def _launch_bwd_dq(q, k, v, out, lse, dout, variant: str, causal: bool = True) -> Tensor:
     """flash_bwd_dq on checked, contiguous inputs (see _check_backward)."""
     N, T, C = q.shape
     dq = torch.empty_like(q)
@@ -247,14 +267,14 @@ def _launch_bwd_dq(q, k, v, out, lse, dout, variant: str) -> Tensor:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_bwd_dq(
             *(t.data_ptr() for t in (q, k, v, out, dout, lse)), dq.data_ptr(),
-            N, T, C, 1.0 / math.sqrt(C), _DTYPE_CODE[q.dtype], stream,
+            N, T, C, 1.0 / math.sqrt(C), _DTYPE_CODE[q.dtype], int(causal), stream,
         )
     _raise_on(lib, rc, "flash_bwd_dq")
-    BWD_DQ_LAUNCHES.add(variant)
+    _COUNTERS[causal][1].add(variant)
     return dq
 
 
-def _launch_bwd_dkv(q, k, v, out, lse, dout, variant: str) -> tp.Tuple[Tensor, Tensor]:
+def _launch_bwd_dkv(q, k, v, out, lse, dout, variant: str, causal: bool = True) -> tp.Tuple[Tensor, Tensor]:
     """flash_bwd_dkv on checked, contiguous inputs (see _check_backward)."""
     N, T, C = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -263,19 +283,19 @@ def _launch_bwd_dkv(q, k, v, out, lse, dout, variant: str) -> tp.Tuple[Tensor, T
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_bwd_dkv(
             *(t.data_ptr() for t in (q, k, v, out, dout, lse)), dk.data_ptr(), dv.data_ptr(),
-            N, T, C, 1.0 / math.sqrt(C), _DTYPE_CODE[q.dtype], stream,
+            N, T, C, 1.0 / math.sqrt(C), _DTYPE_CODE[q.dtype], int(causal), stream,
         )
     _raise_on(lib, rc, "flash_bwd_dkv")
-    BWD_DKV_LAUNCHES.add(variant)
+    _COUNTERS[causal][2].add(variant)
     return dk, dv
 
 
-def _launch_backward(q, k, v, out, lse, dout, block_q, block_k) -> tp.Tuple[Tensor, Tensor, Tensor]:
+def _launch_backward(q, k, v, out, lse, dout, block_q, block_k, causal: bool) -> tp.Tuple[Tensor, Tensor, Tensor]:
     args = _check_backward(q, k, v, out, lse, dout)
     T = args[0].shape[1]
     _, v_dq, v_dkv = _variants(T, _block_sizes(T, block_q, block_k)[1])
-    dq = _launch_bwd_dq(*args, v_dq)
-    dk, dv = _launch_bwd_dkv(*args, v_dkv)
+    dq = _launch_bwd_dq(*args, v_dq, causal)
+    dk, dv = _launch_bwd_dkv(*args, v_dkv, causal)
     return dq, dk, dv
 
 
@@ -285,35 +305,39 @@ def _device_check(t: Tensor) -> None:
 
 
 def flash_forward(
-    q: Tensor, k: Tensor, v: Tensor, block_q: int = 512, block_k: int = 1024
+    q: Tensor, k: Tensor, v: Tensor, block_q: int = 512, block_k: int = 1024, causal: bool = True
 ) -> tp.Tuple[Tensor, Tensor]:
     """(out, lse) of (N, T, C) inputs: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors."""
     _device_check(q)
     if q.is_cuda:
-        return _launch_forward(q, k, v, block_q, block_k)
-    return flash_forward_plain(q, k, v, block_q, block_k)
+        return _launch_forward(q, k, v, block_q, block_k, causal)
+    return flash_forward_plain(q, k, v, block_q, block_k, causal)
 
 
 def flash_backward(
     q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor, dout: Tensor,
-    block_q: int = 512, block_k: int = 1024,
+    block_q: int = 512, block_k: int = 1024, causal: bool = True,
 ) -> tp.Tuple[Tensor, Tensor, Tensor]:
     """(dq, dk, dv): the two CUDA backward kernels for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors. delta = rowsum(out * dout) is computed
+    from `out` and `dout` inside, so a caller whose `out` and `lse` are a
+    larger softmax's (ring attention's global ones) gets that softmax's
+    gradient restricted to these keys."""
     _device_check(q)
     if q.is_cuda:
-        return _launch_backward(q, k, v, out, lse, dout, block_q, block_k)
-    return flash_backward_plain(q, k, v, out, lse, dout, block_q, block_k)
+        return _launch_backward(q, k, v, out, lse, dout, block_q, block_k, causal)
+    return flash_backward_plain(q, k, v, out, lse, dout, block_q, block_k, causal)
 
 
 @torch.library.custom_op("midgpt::flash_fwd", mutates_args=())
-def flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, block_q: int, block_k: int) -> tp.Tuple[Tensor, Tensor]:
+def flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, block_q: int, block_k: int,
+                 causal: bool = True) -> tp.Tuple[Tensor, Tensor]:
     """`flash_forward` as one dispatcher op, so a remat policy
     (ops/remat.py) sees the forward kernel — a ctypes launch is invisible
     to the dispatcher — and can keep its (out, lse) instead of launching it
     again in the backward's recompute."""
-    return flash_forward(q, k, v, block_q, block_k)
+    return flash_forward(q, k, v, block_q, block_k, causal)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -321,12 +345,12 @@ class _FlashAttention(torch.autograd.Function):
     the backward never re-runs the forward kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, block_q, block_k):
+    def forward(ctx, q, k, v, block_q, block_k, causal=True):
         B, H, T, C = q.shape
         flat = [t.reshape(B * H, T, C) for t in (q, k, v)]
-        out, lse = flash_fwd_op(*flat, block_q, block_k)
+        out, lse = flash_fwd_op(*flat, block_q, block_k, causal)
         ctx.save_for_backward(*flat, out, lse)
-        ctx.blocks = (block_q, block_k)
+        ctx.blocks = (block_q, block_k, causal)
         return out.reshape(B, H, T, C)
 
     @staticmethod
@@ -334,13 +358,14 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_backward(q, k, v, out, lse, g.reshape(q.shape), *ctx.blocks)
         shape = g.shape
-        return dq.reshape(shape), dk.reshape(shape), dv.reshape(shape), None, None
+        return dq.reshape(shape), dk.reshape(shape), dv.reshape(shape), None, None, None
 
 
 def flash_attention(
-    q: Tensor, k: Tensor, v: Tensor, block_q: int = 512, block_k: int = 1024
+    q: Tensor, k: Tensor, v: Tensor, block_q: int = 512, block_k: int = 1024, causal: bool = True
 ) -> Tensor:
-    """Causal flash attention over (B, H, T, C), differentiable. Block sizes
-    that do not tile T are adjusted by `_block_sizes` (KV block widens to T,
-    Q block falls back to the KV block) rather than raising."""
-    return _FlashAttention.apply(q, k, v, block_q, block_k)
+    """Flash attention over (B, H, T, C), causal unless told otherwise,
+    differentiable. Block sizes that do not tile T are adjusted by
+    `_block_sizes` (KV block widens to T, Q block falls back to the KV
+    block) rather than raising."""
+    return _FlashAttention.apply(q, k, v, block_q, block_k, causal)

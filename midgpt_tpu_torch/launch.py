@@ -23,15 +23,17 @@ batch and traces the first step after the first with torch.profiler
 `--multihost` joins the process group of the ranks torchrun started
 (parallel/dist.py: NCCL for CUDA ranks, gloo for CPU ranks, or the
 `--backend` named; ranks that share a card name gloo) and trains every
-rank on the mesh of the config's data, fsdp and tp axes
+rank on the mesh of the config's data, fsdp, sp and tp axes
 (parallel/mesh.py): data-parallel rows, FSDP-sharded weights and moments,
-Megatron tensor-parallel rows (`--set mesh.tp=N`: consecutive ranks, the
-vocab-parallel embedding and CE under `tp_vocab`), one checkpoint written
-by rank 0. Without it the run is one process on one device, and the mesh
-clamps to one rank (a preset's tp above 1 then refuses to lay out). A
-multi-rank run must name its `--rundir`, as JAX's does. The sp, pp and
-ep axes are later slices of the port: a preset that sets one above 1
-(llama7b_32k's sp) gets one printed line naming the axes left unused.
+sequence-parallel columns (`--set mesh.sp=N --set
+model_config.attn_impl=ring|ulysses`: the ring or Ulysses over each
+position's N ranks), Megatron tensor-parallel rows (`--set mesh.tp=N`:
+consecutive ranks, the vocab-parallel embedding and CE under `tp_vocab`),
+one checkpoint written by rank 0. Without it the run is one process on one
+device, and the mesh clamps to one rank (a preset's sp or tp above 1 then
+refuses to lay out). A multi-rank run must name its `--rundir`, as JAX's
+does. The pp and ep axes are later slices of the port: a preset that sets
+one above 1 gets one printed line naming the axes left unused.
 
 The supervisor rolls a divergence back to the newest verified step with
 the poisoned data window skipped, and restarts a hung step, up to
@@ -105,16 +107,16 @@ def apply_overrides(config, pairs):
 
 def unused_mesh(config) -> tp.Optional[str]:
     """The line the launcher prints when the preset's mesh sets an axis the
-    port does not train on above 1 (sp, pp, ep), or None: the data and
-    fsdp axes clamp to the ranks there are, as JAX's make_mesh clamps."""
+    port does not train on above 1 (pp, ep), or None: the data and fsdp
+    axes clamp to the ranks there are, as JAX's make_mesh clamps."""
     from midgpt_tpu_torch.parallel.mesh import LATER_SLICES
 
     wide = {k: getattr(config.mesh, k) for k in LATER_SLICES if getattr(config.mesh, k) > 1}
     if not wide:
         return None
     return (f"mesh {' x '.join(f'{k}={v}' for k, v in wide.items())}: "
-            f"{', '.join(LATER_SLICES[k] for k in wide)} not ported yet; the run trains on the data, fsdp and tp "
-            "axes and leaves that mesh unused (ROADMAP.md Queue 1 item 7)")
+            f"{', '.join(LATER_SLICES[k] for k in wide)} not ported yet; the run trains on the data, fsdp, sp and "
+            "tp axes and leaves that mesh unused (ROADMAP.md Queue 1 item 7)")
 
 
 def main(argv=None) -> dict:

@@ -651,31 +651,44 @@ class GPT:
         return_moe_aux: bool = False,
         aux_reduce: tp.Optional[tp.Callable[[Tensor], Tensor]] = None,
         tp_train=None,
+        attn_fn: tp.Optional[tp.Callable[[Tensor, Tensor, Tensor], Tensor]] = None,
+        positions: tp.Optional[Tensor] = None,
     ) -> tp.Union[Tensor, tp.Tuple[Tensor, Tensor]]:
         """One block: QKV, QK-norm, RoPE, attention, output projection, MLP.
         Under a remat `policy` the tensors it keeps by name are named
         (ops/remat.py `name`); otherwise nothing is. With return_moe_aux,
         returns (out, the block's load-balance term). `tp_train`: `blk` is
-        a tp rank's shard (whole heads of q, k and v; `hidden`)."""
+        a tp rank's shard (whole heads of q, k and v; `hidden`). `attn_fn`
+        and `positions`: `hidden`'s."""
         h = rms_norm(x)
         if tp_train is not None:
             h = tp_train.copy(h)
         q, k, v = GPT._project_qkv(config, blk, h)
-        q = apply_rope_bthc(q, sin, cos, style=config.rope_style)
-        k = apply_rope_bthc(k, sin, cos, style=config.rope_style)
+        q = apply_rope_bthc(q, sin, cos, positions, style=config.rope_style)
+        k = apply_rope_bthc(k, sin, cos, positions, style=config.rope_style)
         # GQA: the training attention takes equal head counts — K/V
         # repeat to the query heads after RoPE (which ran at H_kv)
         k, v = _repeat_kv(config, k, 2), _repeat_kv(config, v, 2)
         q, k, v = (remat.name(t, tag, policy) for t, tag in zip((q, k, v), ("q_rot", "k_rot", "v_proj")))
-        att = multihead_attention(
-            q, k, v, impl=config.attn_impl, dropout_rate=config.dropout,
-            generator=generator, inference=inference,
-            block_size=config.attn_block_size, layout="bthc",
-            sliding_window=config.sliding_window, attn_sinks=config.attn_sinks,
-            head_shard=None if tp_train is None else tp_train.heads,
-        )
-        if not (config.attn_impl == "flash" and flash_kernel_usable(x.shape[1], config.attn_block_size)):
-            att = remat.name(att, "attn_out", policy)  # the flash op's out is kept as the op's
+        if attn_fn is not None:
+            # the injected attention (sequence parallelism), head-major as the kernels
+            if config.dropout != 0.0 and not inference:
+                raise NotImplementedError(
+                    f"injected attention (attn_impl={config.attn_impl!r}) does not support attention-probability "
+                    "dropout; use attn_impl='naive' or set dropout=0.0"
+                )
+            att = attn_fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+            att = remat.name(att, "attn_out", policy).transpose(1, 2)
+        else:
+            att = multihead_attention(
+                q, k, v, impl=config.attn_impl, dropout_rate=config.dropout,
+                generator=generator, inference=inference,
+                block_size=config.attn_block_size, layout="bthc",
+                sliding_window=config.sliding_window, attn_sinks=config.attn_sinks,
+                head_shard=None if tp_train is None else tp_train.heads,
+            )
+            if not (config.attn_impl == "flash" and flash_kernel_usable(x.shape[1], config.attn_block_size)):
+                att = remat.name(att, "attn_out", policy)  # the flash op's out is kept as the op's
         return GPT._attn_out_and_mlp(config, blk, x, att, generator=generator, inference=inference,
                                      return_moe_aux=return_moe_aux, aux_reduce=aux_reduce, tp_row=tp_train)
 
@@ -691,6 +704,9 @@ class GPT:
         aux_reduce: tp.Optional[tp.Callable[[Tensor], Tensor]] = None,
         layer_transform: tp.Optional[tp.Callable[[Params], Params]] = None,
         tp_train=None,
+        attn_fn: tp.Optional[tp.Callable[[Tensor, Tensor, Tensor], Tensor]] = None,
+        positions: tp.Optional[Tensor] = None,
+        rope_len: tp.Optional[int] = None,
     ) -> tp.Union[Tensor, tp.Tuple[Tensor, Tensor]]:
         """Backbone forward -> final-normed hidden states (B, T, D).
 
@@ -714,6 +730,17 @@ class GPT:
         from the shards' shapes, so RoPE, QK-norm and the GQA fold run on
         the rank's heads as they are; the routed MLP runs whole. Every rank
         of the row returns the same hidden states.
+
+        `attn_fn`, `positions` and `rope_len` run the backbone on a LOCAL
+        sequence shard, as JAX's hooks do (midgpt_tpu/models/gpt.py:964-981):
+        `attn_fn(q, k, v)` over (B, H, T, C) replaces the config-dispatched
+        attention (the sequence-parallel ring or Ulysses, bound to the mesh
+        by training/train.py; K/V repeated to the query heads first, its
+        output named "attn_out" for remat), and RoPE reads a table of
+        `rope_len` rows at the absolute `positions` (T,) (shard g of Tl
+        tokens passes g*Tl + arange(Tl)). Attention is the only op that
+        mixes tokens, so nothing else changes. Injected attention refuses
+        attention-probability dropout in training, as JAX's does.
 
         Training mode (inference=False) applies dropout at config.dropout
         from `generator` (required when dropout > 0). The lm_head projection
@@ -744,10 +771,11 @@ class GPT:
         vocab_sharded = tp_train is not None and tp_train.vocab
         x = tp_train.embed(params["wte"], tokens) if vocab_sharded else params["wte"][tokens]
         x = dropout(x, config.dropout, generator, inference)
-        sin, cos = rope_table(config.head_dim, T, device=x.device)
+        sin, cos = rope_table(config.head_dim, T if rope_len is None else rope_len, device=x.device)
         auxes = []
         kw = dict(sin=sin, cos=cos, generator=generator, inference=inference, policy=policy,
-                  return_moe_aux=return_moe_aux, aux_reduce=aux_reduce, tp_train=tp_train)
+                  return_moe_aux=return_moe_aux, aux_reduce=aux_reduce, tp_train=tp_train,
+                  attn_fn=attn_fn, positions=positions)
         for i in range(config.n_layer):
             if layer_transform is None:
                 block = functools.partial(GPT._block_apply, config, _block(params, i), **kw)

@@ -6,7 +6,9 @@ folds one page of scores at a time with `online_block`; the split-K path
 merges per-partition RAW (m, l, acc) partials with `merge_partials` and
 turns them into outputs with `finalize`. On the card the CUDA merge kernel
 (csrc/paged_attention.cu `paged_attention_merge`) does both, and these two
-are its plain version.
+are its plain version. Ring attention (parallel/ring_attention.py) folds
+each visiting shard's normalized output in with `merge_normalized`,
+between its pair kernels (torch ops on the pairs' outputs).
 
 Masking uses a large-negative FINITE score (`MASK`) with the running max
 seeded at `M_INIT > MASK`: `exp(MASK - m)` underflows to exactly 0, so a
@@ -39,6 +41,23 @@ def online_block(
     p = torch.exp(s - m_new[..., None])  # masked entries underflow to 0
     l_new = l * alpha + p.sum(dim=-1)
     return m_new, alpha, p, l_new
+
+
+def merge_normalized(
+    m: Tensor, l: Tensor, acc: Tensor, out_s: Tensor, lse_s: Tensor
+) -> tp.Tuple[Tensor, Tensor, Tensor]:
+    """Merge an already-NORMALIZED partial (out_s, lse_s) into raw (m, l,
+    acc): ring attention's step (parallel/ring_attention.py), where a
+    visiting K/V shard's softmax is complete and its output re-enters the
+    running sum with weight exp(lse_s - m_new). A partial that must
+    contribute nothing (a later shard under causal order) passes lse_s =
+    MASK: its weight underflows to exactly 0."""
+    m_new = torch.maximum(m, lse_s)
+    alpha = torch.exp(m - m_new)
+    beta = torch.exp(lse_s - m_new)
+    acc = acc * alpha[..., None] + out_s.float() * beta[..., None]
+    l = l * alpha + beta
+    return m_new, l, acc
 
 
 def merge_partials(

@@ -4,13 +4,15 @@ midgpt_tpu/parallel/data.py:19-38).
 JAX: each process draws its process-local batch (batch_size //
 process_count rows) from its own slice of the token stream, and
 `make_array_from_process_local_data` lays those rows over the process's
-devices along ('data', 'fsdp'). The port: every rank of a node draws the
-node's batch the same way (the node is JAX's process, parallel/dist.py)
-and keeps the rows of its batch position, in the mesh's flattened (data,
-fsdp) order (parallel/mesh.py); the ranks of a tp row keep the same rows. On
-one node the global batch is then positional and does not depend on the
-rank count, as JAX's is on one host: a resume across rank counts
-continues the same trajectory.
+devices along ('data', 'fsdp'), and along 'sp' on the sequence axis under
+sequence parallelism (batch_spec(shard_seq=True)). The port: every rank
+of a node draws the node's batch the same way (the node is JAX's
+process, parallel/dist.py) and keeps the rows of its batch position, in
+the mesh's flattened (data, fsdp) order (parallel/mesh.py), then the
+contiguous T/sp columns of its sequence shard; the ranks of a tp row keep
+the same rows and columns. On one node the global batch is then
+positional and does not depend on the rank count, as JAX's is on one
+host: a resume across rank counts continues the same trajectory.
 """
 
 from __future__ import annotations
@@ -25,23 +27,32 @@ def node_batch_size(batch_size: int, mesh: Mesh) -> int:
     """Rows of the global batch each node draws (JAX's batch_size //
     process_count); the global batch must split evenly over the batch
     positions (data x fsdp: the ranks of a tp row share their rows, as
-    JAX's batch_spec leaves 'tp' off the batch axis), and a tp row must
-    sit on one node."""
+    JAX's batch_spec leaves 'tp' off the batch axis), and a batch
+    position's sp x tp ranks must sit on one node."""
     if batch_size % mesh.batch_size:
         raise ValueError(f"batch_size={batch_size} does not split over the mesh's {mesh.batch_size} batch positions "
                          f"(data x fsdp)")
     if (mesh.size // pdist.n_nodes()) % mesh.tp:
         raise ValueError(f"{mesh.size // pdist.n_nodes()} ranks a node do not hold whole tp rows of {mesh.tp}")
+    if (mesh.size // pdist.n_nodes()) % (mesh.sp * mesh.tp):
+        raise ValueError(f"{mesh.size // pdist.n_nodes()} ranks a node do not hold whole sp x tp blocks of "
+                         f"{mesh.sp} x {mesh.tp}")
     return batch_size // pdist.n_nodes()
 
 
 def rank_rows(a: np.ndarray, mesh: Mesh) -> np.ndarray:
-    """This rank's rows of a node batch, (G, B, T) or (B, T): the batch
-    positions on this node take equal consecutive slices of the B axis,
-    and the ranks of a tp row take the same slice."""
+    """This rank's block of a node batch, (G, B, T) or (B, T): the batch
+    positions on this node take equal consecutive slices of the B axis
+    (the ranks of a tp row and of an sp group the same slice), and the sp
+    ranks of a position equal consecutive slices of the T axis."""
     per_node = mesh.batch_size // pdist.n_nodes()
-    if per_node == 1:
-        return a
-    b = a.shape[-2] // per_node
-    i = mesh.batch_index % per_node
-    return a[..., i * b:(i + 1) * b, :]
+    if per_node > 1:
+        b = a.shape[-2] // per_node
+        i = mesh.batch_index % per_node
+        a = a[..., i * b:(i + 1) * b, :]
+    if mesh.sp > 1:
+        if a.shape[-1] % mesh.sp:
+            raise ValueError(f"sequence length {a.shape[-1]} does not split over mesh.sp={mesh.sp}")
+        t = a.shape[-1] // mesh.sp
+        a = a[..., mesh.sp_index * t:(mesh.sp_index + 1) * t]
+    return a

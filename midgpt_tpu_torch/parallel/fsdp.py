@@ -20,8 +20,8 @@ tp shard stays on its rank through the step (the model's forward is
 written for it); `gather_tp` gathers it (`whole_tree`: both axes), for
 checkpoints and tests.
 `reduce_grads` then sums each gradient over the ranks that saw other
-batch rows (and, for the leaves a tp row applies to its own heads only,
-over the row).
+batch rows or other sequence shards (and, for the leaves a tp row applies
+to its own heads only, over the row).
 
 The collectives are torch.distributed's; none of them stands for a TPU
 kernel.
@@ -163,20 +163,22 @@ def gather_tp(t: Tensor, spec: Spec, mesh: Mesh) -> Tensor:
 
 def reduce_grads(grads: tp.Mapping[str, Tensor], specs: tp.Mapping[str, Spec], mesh: Mesh,
                  tp_partial: tp.Collection[str] = ()) -> None:
-    """In place, each gradient summed over the ranks whose batch rows it
-    has not seen: a leaf sharded over fsdp (its gradient already summed
-    over the fsdp row by `gather`'s backward) over its data column, any
-    other leaf over the batch group (the ranks of its tp index; a leaf the
-    tp row holds whole has its whole gradient on every rank of the row,
-    which must not be summed again). A leaf of `tp_partial` holds only its
-    rank's heads' share, so it is summed over the tp row as well."""
+    """In place, each gradient summed over the ranks whose tokens it has
+    not seen (other batch rows, other sequence shards: every leaf is
+    replicated over sp): a leaf sharded over fsdp (its gradient already
+    summed over the fsdp row by `gather`'s backward) over its replica group
+    (data x sp), any other leaf over the batch group (the ranks of its tp
+    index; a leaf the tp row holds whole has its whole gradient on every
+    rank of the row, which must not be summed again). A leaf of
+    `tp_partial` holds only its rank's heads' share, so it is summed over
+    the tp row as well."""
     for name, g in grads.items():
         on_fsdp = fsdp_axis(specs[name]) is not None and mesh.fsdp > 1
         partial = name in tp_partial and mesh.tp > 1
         if partial and not on_fsdp:
             mesh.all_reduce_(g, mesh.group)
             continue
-        mesh.all_reduce_(g, mesh.data_group if on_fsdp else mesh.batch_group)
+        mesh.all_reduce_(g, mesh.replica_group if on_fsdp else mesh.batch_group)
         if partial:
             mesh.all_reduce_(g, mesh.tp_group)
 

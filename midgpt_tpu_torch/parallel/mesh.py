@@ -3,26 +3,35 @@
 JAX names a 6D device mesh ('data', 'fsdp', 'sp', 'tp', 'pp', 'ep'); the
 port lays its ranks out on the same axes with JAX's arithmetic
 (`mesh_shape`: the -1 inference, the divisor clamp on fsdp, the same
-error texts). Training runs on the data, fsdp and tp axes: a training
-mesh (`make_mesh`) with an sp, pp or ep axis above 1 raises and names its
+error texts). Training runs on the data, fsdp, sp and tp axes: a training
+mesh (`make_mesh`) with a pp or ep axis above 1 raises and names its
 later slice. Serving meshes (parallel/serve_tp.py `make_serve_mesh`) are
 (data, tp) meshes of the same class.
 
-Ranks fill (data, fsdp, tp) in JAX's axis order, the last axis fastest:
-rank index i sits at data i // (fsdp * tp), fsdp (i // tp) % fsdp, tp
-i % tp. A tp row is then consecutive ranks (on one node under torchrun),
-and i // tp is the rank's *batch position*: the flattened (data, fsdp)
-order in which JAX's batch_spec shards the batch rows over both axes
-(the ranks of a tp row read the same rows). The process groups:
+Ranks fill (data, fsdp, sp, tp) in JAX's axis order, the last axis
+fastest: rank index i sits at data i // (fsdp * sp * tp), fsdp
+(i // (sp * tp)) % fsdp, sp (i // tp) % sp, tp i % tp. A tp row is then
+consecutive ranks (on one node under torchrun), and i // (sp * tp) is the
+rank's *batch position*: the flattened (data, fsdp) order in which JAX's
+batch_spec shards the batch rows over both axes (the ranks of a tp row,
+and the sp ranks of a position, read the same rows; the sp index picks
+the rank's contiguous T/sp columns, as batch_spec(shard_seq=True) shards
+the sequence). The process groups:
 
-  tp_group    the tp row (same data and fsdp index): the ranks that
-              together hold one copy of the tp-sharded leaves;
-  fsdp_group  the ranks with the same data and tp index;
-  data_group  the ranks with the same fsdp and tp index;
-  batch_group the ranks with this rank's tp index: one per batch
-              position, over which losses and the gradients of leaves
-              the tp row holds whole are summed (every member, at tp 1);
-  group       every member.
+  tp_group      the tp row (same data, fsdp and sp index): the ranks that
+                together hold one copy of the tp-sharded leaves;
+  fsdp_group    the ranks with the same data, sp and tp index;
+  data_group    the ranks with the same fsdp, sp and tp index;
+  sp_group      the ranks with the same data, fsdp and tp index: one
+                sequence's shards, the ring's and Ulysses' group;
+  replica_group the ranks with the same fsdp and tp index (data x sp):
+                over which the gradient of an fsdp-sharded leaf is summed
+                (the data_group at sp 1);
+  batch_group   the ranks with this rank's tp index: one per (batch
+                position, sequence shard), over which losses and the
+                gradients of leaves the tp row holds whole are summed
+                (every member, at tp 1);
+  group         every member.
 
 A mesh takes an explicit rank list (JAX's `devices=`), so one process
 group can hold meshes of several sizes; every rank of the process group
@@ -46,7 +55,6 @@ from midgpt_tpu_torch.parallel import dist as pdist
 
 AXES = ("data", "fsdp", "sp", "tp", "pp", "ep")
 LATER_SLICES = {
-    "sp": "sequence parallelism (ring_attention, ulysses)",
     "pp": "the pipeline",
     "ep": "the ep axis",
 }
@@ -105,17 +113,19 @@ class Mesh:
         self.ranks = tuple(ranks)
         self.size = len(self.ranks)
         self.data, self.fsdp, self.tp = shape["data"], shape["fsdp"], shape["tp"]
+        self.sp = shape.get("sp", 1)
         me = pdist.rank()
         self.index = self.ranks.index(me) if me in self.ranks else None
         self.device = device
         self.group = self.data_group = self.fsdp_group = self.tp_group = self.batch_group = None
+        self.sp_group = self.replica_group = None
         self.row_groups: tp.List[tp.Any] = []
         kw = {} if timeout is None else {"timeout": timeout}
         if self.size > 1:
             # every rank of the process group creates every group, in one order
             self.group = dist.new_group(self.ranks, **kw)
-            D, F, T = self.data, self.fsdp, self.tp
-            at = lambda d, f, t: self.ranks[(d * F + f) * T + t]  # noqa: E731
+            D, F, S, T = self.data, self.fsdp, self.sp, self.tp
+            at = lambda d, f, s, t: self.ranks[((d * F + f) * S + s) * T + t]  # noqa: E731
 
             def make(members: tp.List[tp.List[int]]) -> tp.Tuple[tp.List[tp.Any], tp.Any]:
                 """A group per member list (the whole group when there is
@@ -123,16 +133,27 @@ class Mesh:
                 made = [self.group if len(members) == 1 else dist.new_group(m, **kw) for m in members]
                 return made, next((g for m, g in zip(members, made) if me in m), None)
 
-            rows = [[at(d, f, t) for t in range(T)] for d in range(D) for f in range(F)]
+            cells = [(d, f, s) for d in range(D) for f in range(F) for s in range(S)]
+            rows = [[at(d, f, s, t) for t in range(T)] for d, f, s in cells]
             if T > 1:
                 self.row_groups, self.tp_group = make(rows)
             if F > 1:
-                self.fsdp_group = make([[at(d, f, t) for f in range(F)] for d in range(D) for t in range(T)])[1]
+                self.fsdp_group = make([[at(d, f, s, t) for f in range(F)]
+                                        for d in range(D) for s in range(S) for t in range(T)])[1]
             if D > 1:
-                self.data_group = make([[at(d, f, t) for d in range(D)] for f in range(F) for t in range(T)])[1]
+                self.data_group = make([[at(d, f, s, t) for d in range(D)]
+                                        for f in range(F) for s in range(S) for t in range(T)])[1]
+            if S > 1:
+                self.sp_group = make([[at(d, f, s, t) for s in range(S)]
+                                      for d in range(D) for f in range(F) for t in range(T)])[1]
+            if D > 1 and S > 1:
+                self.replica_group = make([[at(d, f, s, t) for d in range(D) for s in range(S)]
+                                           for f in range(F) for t in range(T)])[1]
+            else:
+                self.replica_group = self.data_group if D > 1 else self.sp_group
             if T == 1:
                 self.batch_group = self.group
-            elif D * F > 1:
+            elif D * F * S > 1:
                 self.batch_group = make([[row[t] for row in rows] for t in range(T)])[1]
         # host values travel on the backend's own device type
         self._host_dev = device if pdist.backend() == "nccl" else torch.device("cpu")
@@ -150,7 +171,7 @@ class Mesh:
         view.index = view.ranks.index(me) if me in view.ranks else None
         g = self.row_groups[r] if self.row_groups else None
         view.group = view.tp_group = g
-        view.data_group = view.fsdp_group = view.batch_group = None
+        view.data_group = view.fsdp_group = view.batch_group = view.sp_group = view.replica_group = None
         view.row_groups = [g] if g is not None else []
         return view
 
@@ -166,7 +187,7 @@ class Mesh:
 
     @property
     def data_index(self) -> int:
-        return self.index // (self.fsdp * self.tp)
+        return self.index // (self.fsdp * self.sp * self.tp)
 
     @property
     def tp_index(self) -> int:
@@ -174,20 +195,30 @@ class Mesh:
         return self.index % self.tp
 
     @property
+    def sp_index(self) -> int:
+        """This rank's sequence shard: columns [sp_index * T/sp, ...)."""
+        return (self.index // self.tp) % self.sp
+
+    @property
     def fsdp_index(self) -> int:
-        return (self.index // self.tp) % self.fsdp
+        return (self.index // (self.sp * self.tp)) % self.fsdp
 
     @property
     def batch_index(self) -> int:
         """This rank's batch position: its place in the flattened (data,
-        fsdp) order, shared by the ranks of its tp row."""
-        return self.index // self.tp
+        fsdp) order, shared by the ranks of its tp row and its sp group."""
+        return self.index // (self.sp * self.tp)
 
     @property
     def batch_size(self) -> int:
-        """The batch positions: data x fsdp (the ranks over which a loss is
-        a mean)."""
+        """The batch positions: data x fsdp (the row blocks of a batch)."""
         return self.data * self.fsdp
+
+    @property
+    def token_shards(self) -> int:
+        """The (batch position, sequence shard) pairs, data x fsdp x sp: the
+        equal token shards over which a loss is a mean."""
+        return self.data * self.fsdp * self.sp
 
     def geometry(self) -> tp.Dict[str, tp.Any]:
         """What the supervisor's ledger records of the mesh."""
@@ -204,8 +235,8 @@ class Mesh:
         return t if self.group is None else _AllReduceSum.apply(t, self.group)
 
     def psum_batch(self, t: torch.Tensor) -> torch.Tensor:
-        """Differentiable sum over the batch group: one term per batch
-        position (`psum` at tp 1)."""
+        """Differentiable sum over the batch group: one term per token
+        shard (`psum` at tp 1)."""
         return t if self.batch_group is None else _AllReduceSum.apply(t, self.batch_group)
 
     def psum_tp(self, t: torch.Tensor) -> torch.Tensor:
@@ -269,12 +300,12 @@ class Mesh:
 
 def run_mesh(config, device=None) -> Mesh:
     """The mesh a run trains on: every rank of the process group (or this
-    process alone) laid out on the config's data, fsdp and tp axes. The
-    axes the port does not train on (sp, pp, ep) are left at 1 (the
-    launcher names them, launch.py `unused_mesh`), and under
-    on_resume_mesh="any" only the data axis is re-derived for the ranks
-    there are, as JAX's launcher re-derives it for the devices (launch.py):
-    tp stays the config's."""
+    process alone) laid out on the config's data, fsdp, sp and tp axes. The
+    axes the port does not train on (pp, ep) are left at 1 (the launcher
+    names them, launch.py `unused_mesh`), and under on_resume_mesh="any"
+    only the data axis is re-derived for the ranks there are, as JAX's
+    launcher re-derives it for the devices (launch.py): sp and tp stay the
+    config's."""
     cfg = dataclasses.replace(config.mesh, **{ax: 1 for ax in LATER_SLICES})
     if config.on_resume_mesh == "any":
         cfg = dataclasses.replace(cfg, data=-1)
@@ -296,6 +327,6 @@ def make_mesh(cfg=None, *, ranks: tp.Optional[tp.Sequence[int]] = None, device=N
         if shape[ax] > 1:
             raise NotImplementedError(
                 f"mesh {ax}={shape[ax]}: {what} is a later slice of the port (ROADMAP.md Queue 1 item 7); "
-                "the port trains on the data, fsdp and tp axes"
+                "the port trains on the data, fsdp, sp and tp axes"
             )
     return Mesh(shape, ranks, torch.device(device) if device is not None else pdist.rank_device())

@@ -453,11 +453,11 @@ class CheckpointManager:
 
     def _whole(self, key: str, leaf: torch.Tensor) -> torch.Tensor:
         """A mesh's leaf whole on its leader: a sharded leaf is gathered
-        over the fsdp rows of data index 0, then over the leader's tp row
-        (the other ranks take no part)."""
+        over the fsdp rows of data and sp index 0, then over the leader's
+        tp row (the other ranks, replicas of these, take no part)."""
         spec = self._specs.get(key.split(".", 1)[1] if key.startswith(("mu.", "nu.")) else key)
         mesh = self._mesh
-        if mesh is None or mesh.data_index != 0:
+        if mesh is None or mesh.data_index != 0 or mesh.sp_index != 0:
             return leaf
         leaf = fsdp.gather(leaf.detach(), spec, mesh)
         return fsdp.gather_tp(leaf, spec, mesh) if mesh.fsdp_index == 0 else leaf

@@ -71,9 +71,10 @@ def global_norm(grads: Params, specs=None, mesh=None) -> Tensor:
     squares. Over a mesh's shards (`specs` on `mesh`, parallel/fsdp.py:
     the sharded axis, or a 2D spec with 'tp' and 'fsdp') each distinct part
     of a leaf counts once: a rank adds the squares of a leaf it shards over
-    fsdp or tp, and of one it holds whole only at fsdp and tp index 0;
-    one all-reduce over the mesh then gives every rank the norm of the
-    whole gradient, bit for bit the same."""
+    fsdp or tp, and of one it holds whole only at fsdp and tp index 0 (at
+    data and sp index 0: the reduced gradient is the same there); one
+    all-reduce over the mesh then gives every rank the norm of the whole
+    gradient, bit for bit the same."""
     sq = lambda g: (g.float() ** 2).sum()  # noqa: E731
     if mesh is None or mesh.size == 1 or (mesh.fsdp == 1 and mesh.tp == 1):
         return torch.sqrt(sum(sq(g) for g in grads.values()))
@@ -85,7 +86,7 @@ def global_norm(grads: Params, specs=None, mesh=None) -> Tensor:
 
     total = sum(sq(g) for k, g in grads.items() if counts(k))
     total = torch.as_tensor(total, dtype=torch.float32, device=next(iter(grads.values())).device)
-    if mesh.data_index != 0:
+    if mesh.data_index != 0 or mesh.sp_index != 0:
         total = torch.zeros_like(total)
     return torch.sqrt(mesh.all_reduce_(total, mesh.group))
 

@@ -25,7 +25,7 @@ sticky loss, and force-saves the final step. Data and dropout are
 positional (`data_step_offset`, `_generators`), so a resumed run continues
 the straight run's trajectory.
 
-On a mesh (parallel/mesh.py; the data, fsdp and tp axes, one rank per
+On a mesh (parallel/mesh.py; the data, fsdp, sp and tp axes, one rank per
 device) every rank runs this loop, as every JAX process runs its own:
 
   * the master weights and Adam moments are this rank's 2D shards
@@ -39,13 +39,20 @@ device) every rank runs this loop, as every JAX process runs its own:
     collectives over the tp row (models/gpt.py `hidden(tp_train=)`, the
     vocab-parallel CE of ops/loss.py under tp_vocab), and every rank of a
     row computes the same loss;
-  * each rank takes the rows of its batch position (parallel/data.py: a tp
-    row shares its rows) and backpropagates its mean loss over the data x
-    fsdp batch positions; in every microstep the gather's backward
+  * each rank takes the rows of its batch position and the columns of its
+    sequence shard (parallel/data.py: a tp row shares its block) and
+    backpropagates its mean loss over the data x fsdp x sp token shards;
+    under sp the forward runs on the rank's Tl = T/sp tokens at positions
+    sp_index*Tl + arange(Tl) of a T-row RoPE table, with the config's
+    sequence-parallel attention bound to the sp group (`sequence_parallel`:
+    the ring of parallel/ring_attention.py or parallel/ulysses.py, on the
+    rank's own heads under tp, as JAX binds them at train.py:106-131); in
+    every microstep the gather's backward
     reduce-scatters the gradients over the fsdp row and
-    `fsdp.reduce_grads` sums each over the ranks that saw other rows (and
-    the QK-norm scales over the tp row, whose ranks each hold their heads'
-    share), so each rank holds its shard of the global batch's gradient,
+    `fsdp.reduce_grads` sums each over the ranks that saw other rows or
+    other sequence shards (and the QK-norm scales over the tp row, whose
+    ranks each hold their heads' share), so each rank holds its shard of
+    the global batch's gradient,
     as JAX constrains it (train.py:217,234). The global norm counts each
     part of a leaf once (training/optim.py `global_norm`); the optimizer
     updates the shards;
@@ -63,8 +70,8 @@ device) every rank runs this loop, as every JAX process runs its own:
     masks over their heads are their part of the whole heads' mask
     (ops/dropout.py `shard`).
 A mesh of one rank issues no collective: the trainer is then the
-single-device one, bit for bit. The sp, pp and ep axes of the config's
-mesh are left unused (launch.py names them).
+single-device one, bit for bit. The pp and ep axes of the config's mesh
+are left unused (launch.py names them).
 
 The robustness hooks sit where JAX puts them (train.py:581-816), and
 `robustness/supervisor.py` runs `train` under its restart policy:
@@ -96,6 +103,7 @@ The robustness hooks sit where JAX puts them (train.py:581-816), and
 
 from __future__ import annotations
 
+import functools
 import math
 import threading
 import time
@@ -133,7 +141,7 @@ def health_flag(grads: Params, loss: Tensor, prev_loss: Tensor, mesh: tp.Optiona
     sticky because the caller threads the previous reported loss back in.
     Stays on the device: no host sync. On a mesh of several ranks `loss`
     is this rank's (the same on every rank of a tp row) and the result is
-    the mean over the batch positions, each counted once, NaN on every rank
+    the mean over the token shards, each counted once, NaN on every rank
     when any rank saw a non-finite shard, loss or carrier: one all-reduce."""
     grads_ok = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
     if mesh is None or mesh.size == 1:
@@ -141,7 +149,7 @@ def health_flag(grads: Params, loss: Tensor, prev_loss: Tensor, mesh: tp.Optiona
         return torch.where(healthy, loss, torch.full_like(loss, float("nan")))
     sick = ~(grads_ok & torch.isfinite(loss) & torch.isfinite(prev_loss))
     both = mesh.all_reduce_(torch.stack([_row_once(loss, mesh), sick.float()]), mesh.group)
-    mean = both[0] / mesh.batch_size
+    mean = both[0] / mesh.token_shards
     return torch.where(both[1] == 0, mean, torch.full_like(mean, float("nan")))
 
 
@@ -166,6 +174,42 @@ def _generators(
     return [torch.Generator(device=device).manual_seed(seed + g) for g in range(n)]
 
 
+def sequence_parallel(model_cfg, mesh: tp.Optional[Mesh],
+                      ring_block: tp.Optional[int] = None) -> tp.Callable[[Tensor], tp.Dict[str, tp.Any]]:
+    """hooks(x) -> GPT.hidden's sequence-parallel keywords for this rank's
+    tokens x (..., Tl): under attn_impl 'ring' or 'ulysses' the schedule
+    bound to the mesh's sp group (a group of one at sp 1: the ring's
+    diagonal pair, Ulysses' dense attention), the positions
+    sp_index*Tl + arange(Tl) and rope_len Tl*sp, as JAX binds them on any
+    mesh (train.py:106-131, shard_map_fsdp.py:119-136); no keywords under
+    the other impls. The ring's block is `ring_block` (the attn_block_size
+    when None); Ulysses' dense attention takes the attn_block_size. Under
+    sp > 1 the attention must be one of the two: any other would see only
+    the rank's own tokens."""
+    sp, index, group = (mesh.sp, mesh.sp_index, mesh.sp_group) if mesh is not None else (1, 0, None)
+    if model_cfg.attn_impl == "ring":
+        from midgpt_tpu_torch.parallel.ring_attention import ring_attention
+
+        attn_fn = functools.partial(ring_attention, group=group, block_size=ring_block or model_cfg.attn_block_size)
+    elif model_cfg.attn_impl == "ulysses":
+        from midgpt_tpu_torch.parallel.ulysses import ulysses_attention
+
+        attn_fn = functools.partial(ulysses_attention, group=group, block_size=model_cfg.attn_block_size)
+    elif sp > 1:
+        raise ValueError(
+            f"mesh.sp={sp} trains with attn_impl 'ring' or 'ulysses' (the sequence-parallel attention), got "
+            f"{model_cfg.attn_impl!r}"
+        )
+    else:
+        return lambda x: {}
+
+    def hooks(x: Tensor) -> tp.Dict[str, tp.Any]:
+        Tl = x.shape[-1]
+        return {"attn_fn": attn_fn, "positions": index * Tl + torch.arange(Tl, device=x.device), "rope_len": Tl * sp}
+
+    return hooks
+
+
 def make_train_step(
     config: ExperimentConfig,
     optimizer: Optimizer,
@@ -184,11 +228,12 @@ def make_train_step(
     compute_dtype = getattr(torch, config.compute_dtype)
     G = config.g_accum_iters
     W = mesh.size if mesh is not None else 1
-    n_batch = mesh.batch_size if mesh is not None else 1  # the batch positions a loss is the mean over
+    n_batch = mesh.token_shards if mesh is not None else 1  # the token shards a loss is the mean over
     specs = specs or {}
     sharded = W > 1 and mesh.fsdp > 1
     tp_train = TPTrain(mesh, specs) if W > 1 and mesh.tp > 1 else None
     vocab_row = tp_train.vocab_row if tp_train is not None else (None, 0)
+    sp_hooks = sequence_parallel(model_cfg, mesh)
 
     # the router's load-balance term (JAX's gate): CE + moe_aux_coef * aux;
     # at a coefficient of 0 the term is never computed and the loss is CE
@@ -200,7 +245,7 @@ def make_train_step(
 
     def loss_fn(params_c: Params, x: Tensor, y: Tensor, generator) -> Tensor:
         h = GPT.hidden(model_cfg, params_c, x, generator=generator, inference=False, return_moe_aux=use_moe_aux,
-                       aux_reduce=aux_reduce, tp_train=tp_train)
+                       aux_reduce=aux_reduce, tp_train=tp_train, **sp_hooks(x))
         if use_moe_aux:
             h, aux = h
         ce = head_loss(h, params_c["lm_head"], y)
@@ -209,13 +254,15 @@ def make_train_step(
     if config.fsdp_mode == "shard_map" and W > 1:
         from midgpt_tpu_torch.parallel.shard_map_fsdp import make_shard_map_loss
 
-        loss_fn = make_shard_map_loss(config, mesh, specs, tp_train)  # noqa: F811 (takes the shards)
+        schedule = model_cfg.attn_impl if model_cfg.attn_impl in ("ring", "ulysses") else None
+        loss_fn = make_shard_map_loss(config, mesh, specs, tp_train, schedule)  # noqa: F811 (takes the shards)
 
     def value_and_grad(inputs: Params, leaves: Params, x, y, generator) -> tp.Tuple[Tensor, tp.List[Tensor]]:
         """This rank's loss on `inputs` (the gathered copy, or the shards
         under shard_map) and the gradient of the global mean with respect
         to `leaves` (the shards), summed over the mesh: the loss is a mean
-        over the data x fsdp batch positions (a tp row shares its rows)."""
+        over the data x fsdp x sp token shards (a tp row shares its
+        tokens)."""
         loss = loss_fn(inputs, x, y, generator)
         grads = torch.autograd.grad(loss / n_batch if n_batch > 1 else loss, list(leaves.values()))
         if W > 1:
@@ -253,14 +300,14 @@ def make_train_step(
 
     @torch.no_grad()
     def eval_loss(params_c: Params, x: Tensor, y: Tensor) -> Tensor:
-        h = GPT.hidden(model_cfg, params_c, x, inference=True, tp_train=tp_train)
+        h = GPT.hidden(model_cfg, params_c, x, inference=True, tp_train=tp_train, **sp_hooks(x))
         return head_loss(h, params_c["lm_head"], y)
 
     @torch.no_grad()
     def eval_loss_many(params: Params, x_NBT: Tensor, y_NBT: Tensor) -> Tensor:
         """SUMMED loss over a stacked (N, B, T) eval set (one division at the
         end of `evaluate`, as in JAX); on a mesh, of the global rows: the
-        leaves gathered once over fsdp, each batch position's rows, one
+        leaves gathered once over fsdp, each token shard's tokens, one
         all-reduce that counts each tp row once."""
         params_c = {k: v.to(compute_dtype) for k, v in params.items()}
         if sharded:

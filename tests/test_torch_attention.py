@@ -27,6 +27,7 @@ from midgpt_tpu_torch.kernels.decode_attention import (
     paged_attention_gather as t_gather,
     paged_attention_kernel as t_kernel,
 )
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 B, H, C = 4, 2, 64
 PS, NP, MP = 8, 24, 8  # page_size, pool pages, logical pages per slot

@@ -52,6 +52,7 @@ from midgpt_tpu_torch.training import checkpoint as ckpt
 from midgpt_tpu_torch.training.checkpoint import CheckpointManager
 from midgpt_tpu_torch.training.optim import make_optimizer
 from midgpt_tpu_torch.training.train import init_state, make_train_step, state_template, train
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")

@@ -23,6 +23,7 @@ from midgpt_tpu.ops.attention import blockwise_causal_attention as j_blockwise
 from midgpt_tpu.ops.attention import flash_block_sizes as j_flash_block_sizes
 from midgpt_tpu_torch.kernels import flash_attention as fa
 from midgpt_tpu_torch.ops.attention import blockwise_causal_attention, flash_block_sizes
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 
 def _qkv(shape, seed=0, dtype="float32"):

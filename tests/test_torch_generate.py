@@ -22,6 +22,7 @@ from midgpt_tpu.sampling import engine as jengine
 from midgpt_tpu_torch.convert import params_from_numpy
 from midgpt_tpu_torch.models.gpt import GPT, GPTConfig, KVCache
 from midgpt_tpu_torch.sampling import engine
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 SHAPE = dict(block_size=32, vocab_size=96, n_layer=2, n_head=2, n_embd=32)
 CPU = torch.device("cpu")

@@ -12,6 +12,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "midgpt_tpu_torch"

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card (paged attention: the decode, verify, int8, GQA-fold and window specs,
 the merge of its partitions and its capture in a CUDA graph; flash
-attention: forward and both backward kernels), and the decode step and the
+attention: forward and both backward kernels, causal and full), and the decode step and the
 overlap modes' fused decode group as CUDA-graph replays (bit for bit
 against eager runs, launch tallies per replay, two groups in flight, a
 capture beside another thread's sync), and the serving front door's
@@ -31,6 +31,7 @@ from midgpt_tpu_torch.kernels.decode_attention import paged_attention_kernel, pa
 from midgpt_tpu_torch.models.gpt import GPT, GPTConfig, PagedKVCache
 from midgpt_tpu_torch.ops.online_softmax import M_INIT, finalize, merge_partials
 from midgpt_tpu_torch.ops.quant import quantize_q8
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
@@ -502,6 +503,32 @@ def test_flash_kernels_match_plain(cuda, dtype, N, T, C, bq, bk):
     # the backward from the kernel's own residuals, on both sides
     grads = fa.flash_backward_plain(q, k, v, out, lse, do, bq, bk)
     for got, want in zip((dq, dk, dv), grads):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        _close_scaled(got, want, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "N,T,C,bq,bk",
+    [(3, 256, 64, 512, 1024), (2, 256, 128, 64, 128), (2, 200, 64, 64, 64), (2, 77, 128, 512, 1024)],
+)
+def test_full_flash_kernels_match_plain(cuda, dtype, N, T, C, bq, bk):
+    """causal=False (ring attention's off-diagonal pairs: every key visible
+    to every row) against the plain version, single visit, tiled and
+    ragged; the launches land on the causal=False counters only."""
+    q, k, v, do = _flash_inputs(cuda, dtype, N, T, C, seed=6)
+    full = fa._COUNTERS[False]
+    before = [c.count for c in (*fa._COUNTERS[True], *full)]
+    out, lse = fa.flash_forward(q, k, v, bq, bk, causal=False)
+    dq, dk, dv = fa.flash_backward(q, k, v, out, lse, do, bq, bk, causal=False)
+    torch.cuda.synchronize()
+    assert [c.count for c in (*fa._COUNTERS[True], *full)] == before[:3] + [b + 1 for b in before[3:]]
+    want_out, want_lse = fa.flash_forward_plain(q, k, v, bq, bk, causal=False)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), want_out.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    for got, want in zip((dq, dk, dv), fa.flash_backward_plain(q, k, v, out, lse, do, bq, bk, causal=False)):
         assert got.dtype == dtype and torch.isfinite(got).all()
         _close_scaled(got, want, tol)
 

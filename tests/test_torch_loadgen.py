@@ -23,6 +23,7 @@ import torch
 
 from midgpt_tpu.analysis.bench_contract import check_serve_slo_bench
 from midgpt_tpu_torch import loadgen
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 ROOT = Path(__file__).resolve().parents[1]
 _spec = importlib.util.spec_from_file_location("jax_loadgen", ROOT / "tools" / "loadgen.py")

@@ -17,6 +17,7 @@ from midgpt_tpu.models.gpt import GPTConfig as JConfig
 from midgpt_tpu.models.gpt import PagedKVCache as JCache
 from midgpt_tpu_torch.convert import params_from_numpy, params_to_numpy
 from midgpt_tpu_torch.models.gpt import GPT, GPTConfig, PagedKVCache, param_names
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 CPU = torch.device("cpu")
 SHAPE = dict(block_size=64, vocab_size=96, n_layer=2, n_head=2, n_embd=32)
@@ -238,17 +239,21 @@ def test_every_jax_preset_has_a_port_preset():
 
 @pytest.mark.parametrize("name", PRESETS)
 def test_launcher_names_a_mesh_it_leaves_unused(name):
-    """The presets whose mesh sets an axis the port does not train on (sp,
-    tp, pp, ep above 1: llama7b_32k's sp) get the launcher's one line; the
-    data and fsdp axes clamp to the ranks there are, silently, as in JAX."""
+    """A mesh that sets an axis the port does not train on (pp, ep above 1)
+    gets the launcher's one line; no preset sets one (llama7b_32k's sp 8
+    is trained on), and the data and fsdp axes clamp to the ranks there
+    are, silently, as in JAX."""
+    import dataclasses
+
     from midgpt_tpu_torch.config import load_config
     from midgpt_tpu_torch.launch import unused_mesh
 
-    note = unused_mesh(load_config(name))
+    cfg = load_config(name)
+    assert unused_mesh(cfg) is None
     if name == "llama7b_32k":
-        assert "sp=8" in note and "fsdp=" not in note and "Queue 1 item 7" in note
-    else:
-        assert note is None
+        note = unused_mesh(cfg.replace(mesh=dataclasses.replace(cfg.mesh, sp=1, ep=2),
+                                       model_config=dataclasses.replace(cfg.model_config, n_experts=4)))
+        assert "ep=2" in note and "sp=" not in note and "fsdp=" not in note and "Queue 1 item 7" in note
 
 
 def _stacked_init(config, seed, dtype):

@@ -34,6 +34,7 @@ from midgpt_tpu_torch.robustness import faults
 from midgpt_tpu_torch.sampling import ops
 from midgpt_tpu_torch.sampling.scheduler import set_backlog_budget
 from midgpt_tpu_torch.sampling.serve import BackpressureError, ServeEngine
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 SHAPE = dict(block_size=64, vocab_size=96, n_layer=2, n_head=2, n_embd=32)
 ENGINE = dict(max_slots=3, page_size=8, num_pages=16, prefill_chunk=16, decode_chunk=4, temperature=0.0)

@@ -39,6 +39,7 @@ from midgpt_tpu_torch.robustness.errors import StepHangError
 from midgpt_tpu_torch.robustness.watchdog import StepWatchdog
 from midgpt_tpu_torch.sampling import graphs
 from midgpt_tpu_torch.sampling import serve as tserve
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 CPU = torch.device("cpu")
 SHAPE = dict(block_size=64, vocab_size=96, n_layer=2, n_head=2, n_embd=32)

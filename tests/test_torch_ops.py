@@ -20,6 +20,7 @@ from midgpt_tpu_torch.ops import rope as trope
 from midgpt_tpu_torch.ops.attention import visible_mask as t_visible_mask
 from midgpt_tpu_torch.sampling.engine import sample_logits as t_sample_logits
 from midgpt_tpu_torch.sampling.engine import warp_logits as t_warp_logits
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 ATOL = 1e-6
 CPU = torch.device("cpu")

@@ -23,6 +23,7 @@ from midgpt_tpu.kernels.attention_template import paged_attention_template as j_
 from midgpt_tpu.ops.quant import quantize_q8 as j_quantize
 from midgpt_tpu_torch.kernels import attention_template as tpl
 from midgpt_tpu_torch.ops.online_softmax import M_INIT, finalize, merge_partials
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 B, C, PS, NP, MP = 2, 32, 8, 40, 16  # a 16-page bucket: partitions of 4 pages

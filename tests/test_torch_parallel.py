@@ -177,13 +177,16 @@ def test_leaf_specs_match_jax(shape, n_shards):
 
 
 @pytest.mark.parametrize("preset", PRESETS)
-def test_mesh_shape_matches_jax(preset):
+def test_mesh_shape_matches_jax(preset, monkeypatch):
     """JAX's arithmetic on each preset's MeshConfig at 1-16 devices: the
-    -1 inference, the fsdp clamp and the error text."""
+    -1 inference, the fsdp clamp and the error text; a mesh with sp or tp
+    above 1 lays out on the ranks (llama7b_32k's sp 8 on 8), one with pp
+    or ep refuses."""
     from importlib import import_module
 
     j_mesh_cfg = import_module(f"midgpt_tpu.configs.{preset}").config.mesh
     cfg = load_config(preset).mesh
+    monkeypatch.setattr(torch.distributed, "new_group", lambda ranks, **kw: tuple(ranks))
     for n in (1, 2, 4, 8):
         try:
             want = dict(j_make_mesh(j_mesh_cfg, devices=jax.devices()[:n]).shape)
@@ -195,15 +198,19 @@ def test_mesh_shape_matches_jax(preset):
         if all(mesh_shape(cfg, n)[ax] == 1 for ax in ("sp", "tp", "pp", "ep")):
             m = make_mesh(cfg, ranks=[0], device=CPU) if n == 1 else None
             assert m is None or (m.size, m.group) == (1, None)
+        elif all(mesh_shape(cfg, n)[ax] == 1 for ax in ("pp", "ep")):
+            m = make_mesh(dataclasses.replace(cfg, data=-1), ranks=list(range(n)), device=CPU)
+            assert m.shape == want and m.size == n
         else:
             with pytest.raises(NotImplementedError, match="later slice"):
                 make_mesh(dataclasses.replace(cfg, data=-1), ranks=list(range(n)), device=CPU)
 
 
 def test_mesh_refuses_unported_axes_and_fills_in_order(monkeypatch):
-    """sp, pp and ep still refuse, naming their later slice; tp lays out
-    (its groups: tests/test_torch_tp_train.py), last axis fastest."""
-    for ax in ("sp", "pp", "ep"):
+    """pp and ep still refuse, naming their later slice; sp and tp lay out
+    (their groups: tests/test_torch_sp.py, tests/test_torch_tp_train.py),
+    last axis fastest."""
+    for ax in ("pp", "ep"):
         with pytest.raises(NotImplementedError, match=rf"{ax}=2: .*later slice"):
             make_mesh(MeshConfig(data=1, fsdp=1, **{ax: 2}), ranks=[0, 1], device=CPU)
     with pytest.raises(ValueError, match="mesh 3x2x1x1x1x1 != 4 devices"):
@@ -214,6 +221,8 @@ def test_mesh_refuses_unported_axes_and_fills_in_order(monkeypatch):
     monkeypatch.setattr("midgpt_tpu_torch.parallel.dist.rank", lambda: 1)
     m = make_mesh(MeshConfig(data=1, fsdp=1, tp=2), ranks=[0, 1], device=CPU)
     assert (m.shape["tp"], m.index, m.tp_index, m.batch_index, m.tp_group) == (2, 1, 1, 0, (0, 1))
+    m = make_mesh(MeshConfig(data=1, fsdp=1, sp=2), ranks=[0, 1], device=CPU)
+    assert (m.shape["sp"], m.index, m.sp_index, m.batch_index, m.sp_group) == (2, 1, 1, 0, (0, 1))
 
 
 @pytest.mark.parametrize("over", [
@@ -269,7 +278,7 @@ def test_rows_by_node_match_jax_processes(data_dir, monkeypatch):
             tds = TokenDataset(str(data_dir), seed=5, shard_by_process=True)
             for split in ("train", "val"):
                 np.testing.assert_array_equal(tds[split], jds[split])
-            mesh = types.SimpleNamespace(size=4, index=rank, tp=1, batch_size=4, batch_index=rank)  # rank r of (2, 2)
+            mesh = types.SimpleNamespace(size=4, index=rank, tp=1, sp=1, batch_size=4, batch_index=rank)  # rank r of (2, 2)
             nb = node_batch_size(B, mesh)
             assert nb == B // 2
             for split, step in (("train", 3), ("val", 7)):

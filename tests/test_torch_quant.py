@@ -29,6 +29,7 @@ from midgpt_tpu_torch.convert import params_from_numpy
 from midgpt_tpu_torch.kernels.decode_attention import paged_attention_gather as t_gather
 from midgpt_tpu_torch.models.gpt import GPT, GPTConfig, PagedKVCache, _paged_write
 from midgpt_tpu_torch.ops.quant import Q8_MAX, dequantize_q8, quantize_q8
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 CPU = torch.device("cpu")
 SHAPE = dict(block_size=64, vocab_size=96, n_layer=2, n_head=2, n_embd=32)

@@ -30,6 +30,7 @@ from midgpt_tpu_torch.ops import remat
 from midgpt_tpu_torch.ops.loss import fused_linear_cross_entropy
 from midgpt_tpu_torch.training.optim import make_optimizer
 from midgpt_tpu_torch.training.train import _generators, make_train_step
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 CPU = torch.device("cpu")
 MODEL = dict(block_size=32, vocab_size=64, n_layer=2, n_head=2, n_embd=32, rope_style="split", remat=False)

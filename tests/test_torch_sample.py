@@ -16,6 +16,7 @@ from midgpt_tpu_torch.config import load_config, to_json
 from midgpt_tpu_torch.convert import params_to_numpy
 from midgpt_tpu_torch.models.gpt import GPT, GPTConfig
 from midgpt_tpu_torch.sample import load_codec, main
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 SHAPE = dict(block_size=32, vocab_size=64, n_layer=2, n_head=2, n_embd=32)
 LOCAL_TEXT = "data/local_text"

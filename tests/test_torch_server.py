@@ -31,6 +31,7 @@ from midgpt_tpu_torch.models.gpt import GPTConfig
 from midgpt_tpu_torch.robustness import faults, preempt
 from midgpt_tpu_torch.sampling.serve import ServeEngine
 from midgpt_tpu_torch.sampling.server import AsyncServeServer, ServerDraining
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 SHAPE = dict(block_size=64, vocab_size=96, n_layer=2, n_head=2, n_embd=32)
 ENGINE = dict(max_slots=3, page_size=8, num_pages=16, prefill_chunk=16, decode_chunk=4, temperature=0.0)

@@ -40,6 +40,7 @@ from midgpt_tpu_torch.kernels.decode_attention import (
 )
 from midgpt_tpu_torch.models.gpt import GPT, GPTConfig, PagedKVCache
 from midgpt_tpu_torch.sampling.spec import self_draft, speculative_accept
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 CPU = torch.device("cpu")
 B, H, C = 4, 2, 64

@@ -25,6 +25,7 @@ from midgpt_tpu_torch.convert import params_from_numpy
 from midgpt_tpu_torch.models.gpt import GPTConfig
 from midgpt_tpu_torch.sampling.serve import ServeEngine
 from midgpt_tpu_torch.sampling.spec import self_draft
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 SHAPE = dict(block_size=64, vocab_size=96, n_layer=2, n_head=2, n_embd=32)
 ENGINE = dict(max_slots=3, page_size=8, num_pages=10, prefill_chunk=16, decode_chunk=8, temperature=0.0)

@@ -45,6 +45,7 @@ from midgpt_tpu_torch.models.gpt import GPT, GPTConfig
 from midgpt_tpu_torch.ops.loss import cross_entropy_loss, fused_linear_cross_entropy
 from midgpt_tpu_torch.training.optim import make_optimizer, opt_step_count
 from midgpt_tpu_torch.training.train import health_flag, make_train_step
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")

@@ -68,6 +68,7 @@ from midgpt_tpu_torch.sampling.serve import ServeEngine
 from midgpt_tpu_torch.sampling.spec import self_draft
 from midgpt_tpu_torch.training.optim import make_optimizer
 from midgpt_tpu_torch.training.train import make_train_step
+from torch_threads import one_thread  # noqa: E402,F401 (autouse: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")
