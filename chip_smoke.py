@@ -6,9 +6,10 @@
 The quickest proof that the port still starts on the card. Phases as
 numbered below; any failure ends the run with a non-zero exit (nothing is
 caught). They run in this order: 1-4 and 6 alone; then 5c-11c beside the
-"serving" lane (11d, 12-15) and phase 20's ranks; then 17-19 and 20's
-verdicts beside the "decode" lane (5, 4b, 5b, 6c(e)); then 16, and 10
-alone. A lane is a process of its own
+"serving" lane (11d, 12-15) and phase 20's ranks (phase 21's runs in
+20a's groups, then its restore on one rank); then 17-19 and 20's and
+21's verdicts beside the "decode" lane (5, 4b, 5b, 6c(e)); then 16, and
+10 alone. A lane is a process of its own
 (`chip_smoke.py --lane NAME OUT`): serving holds the host most of the
 time, training waits on the card, so the two share it; each phase's wall
 seconds are printed, and every number a lane prints is taken beside the
@@ -420,6 +421,32 @@ training phases it ran with:
      (Ulysses: none); each rank's peak memory and the ring's hop bytes
      printed. Its launches join the kernels line's flash entries, the
      causal=False ones its causal=False entries;
+ 21. (its 2-rank runs after phase 20a's sp 2 runs in their group, its
+     4-rank runs before 20a's sp 4 runs in theirs, its restore on one rank
+     after phase 20's ranks, all beside 5c-11c: no group of its own but
+     the restore's, so no start-up and no memory beyond those groups'; its
+     verdicts after 20's) pipeline training (parallel/pipeline.py): `launch --multihost
+     --set mesh.pp=2 --set pipeline_schedule=gpipe|1f1b --set
+     pipeline_microbatches=M` on gloo ranks sharing the card (each stage
+     send stages its activation through the host: no time here is a speed
+     of pipeline parallelism). a. 17b's f32 pair, one layer a stage, 4
+     pipeline microbatches: GPipe and 1F1B on pp 2, 1F1B on (fsdp 2, pp
+     2), GPipe on (tp 2, pp 2), held to 17a's one-rank run of it (losses
+     at PP_PAIR_TOL, final states at STATE_TOL). b. local_text_124m at full
+     width and depth, bf16, pp 2 (6 layers a stage), 4 pipeline
+     microbatches of 4 rows, phase 6's cuts one step short: GPipe and
+     1F1B, losses at TP_MAIN_TOL of phase 6's; GPipe's checkpoint restored
+     on one device (this process, at the verdicts) trains phase 6's last
+     step at TP_MAIN_TOL; 1F1B at 16 pipeline microbatches of the same
+     rows, its microstep's peak per rank within PP_STASH_GROWTH of M 4's,
+     the stash at most 2 pp. Each rank's
+     tokens/s (the leader's), stage sends and bytes, stash high-water mark
+     and peak memory printed; flash launches per rank == the stage's
+     layers x pipeline microbatches x (microsteps + eval batches) forward,
+     x microsteps each backward; they join the kernels line's flash
+     entries. Phase 17b's openwebtext_xl ranks print their init's peak
+     (sharded at birth) beside their shards plus one drawn piece, which
+     it may not exceed, and the dense init's whole weights;
  10. timings: the paged decode kernel as before (CUDA-graph replay, cold
      L2), and each flash kernel in bf16 (CUDA events over repeated
      launches) at the main path's shape and at one shape per other
@@ -459,7 +486,7 @@ them, one JSON object with a "kernels" list (flash_fwd's launches include
 phase 12's; the paged decode, int8 and merge entries include phases 13's
 and 14's, and phase 15's launches made in its bf16 workers; the C 64
 flash, paged decode and merge entries include phase 16's; the flash
-entries include phase 17's, 19's and 20's ranks'; the causal=False flash
+entries include phase 17's, 19's, 20's and 21's ranks'; the causal=False flash
 entries are phase 20's ranks'; the bf16 paged decode,
 verify, int8 decode and merge entries include phase 18's ranks'), phase 4b's "decode_modes" (tokens/s and busy share per
 overlap mode) and phase 12's "batch_decode" (replayed and eager tokens/s
@@ -4340,9 +4367,11 @@ def rank17_main(argv) -> int:
     backend the first launch names), runs `launch.main` on each
     `--then`-separated argument list in turn, and writes this rank's
     report per launch (its logged records, flash launches causal and
-    full, the ring's hops and Ulysses' all-to-alls with their bytes, peak
-    memory, state bytes, host clock) to <argv[0]>.<RANK>.json for the
-    parent."""
+    full, the ring's hops, Ulysses' all-to-alls and the pipeline's stage
+    sends with their bytes, 1F1B's stash high-water mark and a pipeline
+    microstep's own peak memory, the init's peak memory beside its state
+    and largest drawn piece, peak memory, state bytes, host clock) to
+    <argv[0]>.<RANK>.json for the parent."""
     t_enter = time.time()
     out, runs = argv[0], [[]]
     for a in argv[1:]:
@@ -4352,8 +4381,10 @@ def rank17_main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from midgpt_tpu_torch import launch
     from midgpt_tpu_torch.kernels import flash_attention as fa
-    from midgpt_tpu_torch.parallel import dist, ring_attention, ulysses
+    from midgpt_tpu_torch.models.gpt import param_shapes
+    from midgpt_tpu_torch.parallel import dist, pipeline, ring_attention, ulysses
     from midgpt_tpu_torch.sampling.fleet_proc import process_launch_counts
+    from midgpt_tpu_torch.training import train as train_mod
 
     def counts():
         out = {k: collections.Counter({v: n for v, n in pairs})
@@ -4363,7 +4394,46 @@ def rank17_main(argv) -> int:
 
     def traffic():
         return collections.Counter({**{f"hop_{k}": n for k, n in ring_attention.HOPS.items()},
-                                    **{f"a2a_{k}": n for k, n in ulysses.A2A.items()}})
+                                    **{f"a2a_{k}": n for k, n in ulysses.A2A.items()},
+                                    **{f"pp_{k}": n for k, n in pipeline.SENDS.items()}})
+
+    init_state, inits = train_mod.init_state, []
+
+    def measured_init(config, device=None, mesh=None):
+        """init_state, with its peak memory (from zero: nothing else is on
+        the card yet), the state it made and the largest piece it draws
+        (a layer's slice of a block leaf, or the embedding, in f32)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = init_state(config, device, mesh)
+        torch.cuda.synchronize()
+        params, opt_state, _ = out
+        state = [*params.values(), *opt_state.mu.values(), *opt_state.nu.values()]
+        shapes = param_shapes(config.model_config)
+        lead = {k: 2 if "experts" in k else 1 if k.startswith("blocks.") else 0 for k in shapes}
+        inits.append({"peak": torch.cuda.max_memory_allocated() - base,
+                      "state_bytes": sum(t.numel() * t.element_size() for t in state),
+                      "piece": 4 * max(int(np.prod(s[lead[k]:])) for k, s in shapes.items()),
+                      "dense": sum(int(np.prod(s)) for s in shapes.values())
+                      * torch.finfo(getattr(torch, config.param_dtype)).bits // 8})
+        return out
+
+    train_mod.init_state = measured_init
+    sched, loss_and_grad = {"peak": 0, "outer": 0}, pipeline.Pipeline.loss_and_grad
+
+    def measured_schedule(self, *a, **k):
+        """A pipeline microstep, with its own peak memory (no eval's); the
+        launch's peak keeps what came before."""
+        torch.cuda.synchronize()
+        sched["outer"] = max(sched["outer"], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        out = loss_and_grad(self, *a, **k)
+        torch.cuda.synchronize()
+        sched["peak"] = max(sched["peak"], torch.cuda.max_memory_allocated())
+        return out
+
+    pipeline.Pipeline.loss_and_grad = measured_schedule
 
     first = runs[0]
     dist.init(None, first[first.index("--backend") + 1] if "--backend" in first else None)
@@ -4371,6 +4441,9 @@ def rank17_main(argv) -> int:
     try:
         for args in runs:
             before, moved_before = counts(), traffic()
+            pipeline.STASH["high_water"] = 0
+            inits.clear()
+            sched.update(peak=0, outer=0)
             torch.cuda.reset_peak_memory_stats()
             buf = io.StringIO()
             t_launch = time.time()
@@ -4386,7 +4459,10 @@ def rank17_main(argv) -> int:
                 "records": [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith('{"step"')],
                 "launches": {k: sorted((after[k] - before[k]).items()) for k in after},
                 "traffic": dict(traffic() - moved_before),
-                "peak": torch.cuda.max_memory_allocated(),
+                "stash": pipeline.STASH["high_water"],
+                "schedule_peak": sched["peak"],
+                "init": inits[0] if inits else None,
+                "peak": max(sched["outer"], torch.cuda.max_memory_allocated()),
                 "state_bytes": sum(t.numel() * t.element_size() for t in state),
                 "clock": {"enter": t_enter, "launch": t_launch, "done": time.time()},
             })
@@ -4606,6 +4682,17 @@ def data_parallel(data_dir: Path, card: str, main_losses, xl_single, keep: Path)
             raise SystemExit("phase 17b: openwebtext_xl on 2 ranks disagrees with the single device")
         if any(rep["state_bytes"] > 0.51 * full_state for rep in xl_reports):
             raise SystemExit("phase 17b: a rank holds more than half of the master weights and moments")
+        # the init, sharded at birth: a rank's peak is its shards and one drawn piece at most
+        inits = [rep["init"] for rep in xl_reports]
+        if any(i is None for i in inits):
+            raise SystemExit("phase 17b: openwebtext_xl's ranks did not report their init")
+        print(f"phase 17b openwebtext_xl init, sharded at birth: peak per rank {[gib(i['peak']) for i in inits]} vs "
+              f"its shards (weights and moments) {[gib(i['state_bytes']) for i in inits]} + one drawn piece "
+              f"{gib(inits[0]['piece'])} (the f32 embedding); the dense init held the whole weights "
+              f"{gib(inits[0]['dense'])} beside a rank's shard of them {gib(inits[0]['state_bytes'] // 3)} at once on "
+              f"{card}")
+        if any(i["peak"] > i["state_bytes"] + i["piece"] for i in inits):
+            raise SystemExit("phase 17b: a rank's init peaked above its shards and one drawn piece")
         per_rank_flash_check("17b openwebtext_xl", xl_reports, xl.model_config.n_layer, REMAT_CUTS["max_steps"], evals)
         add(128, xl_reports)
         # 17c's verdict
@@ -5129,13 +5216,18 @@ LLAMA_SP_CUTS = {"model_config.n_layer": 2, "batch_size": 1, "g_accum_iters": 1,
 LLAMA_SP_TOL = 2.5e-5
 
 
-def sequence_parallel_ranks(data_dir: Path, root: Path, card: str, nice: int = 10):
+def sequence_parallel_ranks(data_dir: Path, root: Path, card: str, nice: int = 10, then=None):
     """Phase 20's ranks (gloo, sharing the card, at `nice`): 20b's one-rank
     flash run and its sp 2 ring run, one after the other (each holds a
     7B-width layer pair's state: ~24 and 2 x ~20 GiB); then 20a's sp 2 and
     sp 4 groups side by side, each running the ring and then Ulysses into
-    root / "a_<schedule>_<sp>". Returns ({"a": {sp: [run][rank]}, "b": (one
-    rank's reports, the sp 2 ranks')}, the wall seconds)."""
+    root / "a_<schedule>_<sp>", and the launches of `then` ({"sp2": [...],
+    "sp4": [...]}: phase 21's, with no start-up of their own): the sp 4
+    group's before its own (its f32 4-rank runs then sit beside the sp 2
+    group's ring, not beside phase 21's 2-rank runs, which follow the sp 2
+    group's own). Returns ({"a": {sp: [run][rank]}, "b": (one rank's
+    reports, the sp 2 ranks'), "then": {"sp2": [run][rank], "sp4":
+    [run][rank]}}, the wall seconds)."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
@@ -5152,12 +5244,16 @@ def sequence_parallel_ranks(data_dir: Path, root: Path, card: str, nice: int = 1
     one = torchrun("20b one rank (flash at T 32,768)", 1, [llama(1, "flash")], card, None, 600, nice)[0]
     two = torchrun("20b sp 2 (the ring at T 16,384 a rank)", 2, [llama(2, "ring")], card, "gloo", 600, nice)[0]
     with ThreadPoolExecutor(1) as pool:
-        wide = pool.submit(torchrun, "20a sp 4 (the ring, then Ulysses)", 4, [pair(4, s) for s in SP_SCHEDULES],
-                           card, "gloo", 600, nice)
-        a = {2: torchrun("20a sp 2 (the ring, then Ulysses)", 2, [pair(2, s) for s in SP_SCHEDULES], card, "gloo",
-                         600, nice)}
-        a[4] = wide.result()
-    return {"a": a, "b": (one, two)}, time.perf_counter() - t0
+        then = then or {}
+        lead = then.get("sp4", [])
+        wide = pool.submit(torchrun, ("phase 21's 4-rank runs, then " if lead else "") + "20a sp 4 (the ring, then Ulysses)",
+                           4, lead + [pair(4, s) for s in SP_SCHEDULES], card, "gloo", 600, nice)
+        two_runs = torchrun("20a sp 2 (the ring, then Ulysses)" + (", then phase 21's 2-rank runs" if then.get("sp2") else ""),
+                            2, [pair(2, s) for s in SP_SCHEDULES] + then.get("sp2", []), card, "gloo", 600, nice)
+        four_runs = wide.result()
+    k = len(SP_SCHEDULES)
+    return ({"a": {2: two_runs[:k], 4: four_runs[len(lead):]}, "b": (one, two),
+             "then": {"sp2": two_runs[k:], "sp4": four_runs[:len(lead)]}}, time.perf_counter() - t0)
 
 
 def rank_full(rep) -> tp.Dict[str, int]:
@@ -5268,6 +5364,191 @@ def sequence_parallel(card: str, ranks, root: Path, pair_dir: Path, pair_losses)
           f"launches in its ranks: causal {({C: {k: dict(c) for k, c in v.items()} for C, v in flash.items()})}, "
           f"causal=False {dict(full)} on {card}")
     return flash, full
+
+
+# ---------------------------------------------------------------- phase 21: pipeline training
+
+EARLIER_SMOKE_PHASE21_S = 716.1  # this script's wall time before phase 21 was added (PERF.md, section 6)
+# 21a: 17b's f32 pair (2 layers of full width over attn_block_size 512, warmed up in one step, phase 6's other
+# cuts) on pp 2, one layer a stage, 4 pipeline microbatches a microstep: GPipe and 1F1B on 2 ranks, (fsdp 2, pp 2)
+# under 1F1B and (tp 2, pp 2) under GPipe on 4; held to 17a's one-rank run of the pair: each step's loss and the
+# final eval's at PP_PAIR_TOL relative, the final states at STATE_TOL and PARAM_TOL_LR (19a's)
+PP_PAIR_SETS = {**PAIR_SETS, "mesh.fsdp": 1, "mesh.pp": 2, "pipeline_microbatches": 4}
+PP_PAIR_RUNS = {  # name: (the group whose ranks run it, sets)
+    "gpipe": ("sp2", {"pipeline_schedule": "gpipe"}),
+    "1f1b": ("sp2", {"pipeline_schedule": "1f1b"}),
+    "fsdp2_1f1b": ("sp4", {"pipeline_schedule": "1f1b", "mesh.fsdp": 2, "shard_model": True}),
+    "tp2_gpipe": ("sp4", {"pipeline_schedule": "gpipe", "mesh.tp": 2}),
+}
+PP_PAIR_TOL = 2e-5
+# 21b: local_text_124m at full width and depth (6 layers a stage), bf16 over f32, microbatch 16 in 4 pipeline
+# microbatches of 4 rows, pp 2, on phase 6's cuts one step short: GPipe (its final checkpoint restored on one
+# device, which trains phase 6's last step) and 1F1B, each loss held to phase 6's at TP_MAIN_TOL (19b's bf16
+# limit); then 1F1B at 16 pipeline microbatches of the same 4 rows (batch 64, one step), whose microstep's peak
+# memory a rank (the schedule alone, no eval) is held to M 4's within PP_STASH_GROWTH: JAX's pin on 1F1B's temp
+# memory over the same growth (tests/test_pipeline.py test_1f1b_activation_stash_is_m_independent)
+PP_MAIN_CUTS = {**TRAIN_CUTS, "max_steps": TRAIN_CUTS["max_steps"] - 1, "mesh.fsdp": 1, "mesh.pp": 2,
+                "pipeline_microbatches": 4}
+PP_M16_SETS = {"pipeline_schedule": "1f1b", "pipeline_microbatches": 16, "batch_size": 64, "g_accum_iters": 1,
+               "max_steps": 1}
+PP_STASH_GROWTH = 1.5
+
+
+def pipeline_launches(data_dir: Path, root: Path) -> tp.Dict[str, tp.List[tp.List[str]]]:
+    """Phase 21's launches by the group of phase 20a whose ranks run them
+    (gloo ranks sharing the card; no group of its own: no start-up, no
+    memory beyond the group's, `sequence_parallel_ranks`): "sp2" the sp 2
+    group (21a's pp 2 runs, then 21b's: GPipe into root / "b", 1F1B, 1F1B at
+    M 16), "sp4" the sp 4 group (21a's (fsdp 2, pp 2) and (tp 2, pp 2)
+    runs), and "restore": 21b's GPipe checkpoint on one rank, which trains
+    phase 6's last step. Each 21a run writes root / "a_<name>"."""
+
+    def pair(name):
+        over = {"data_dir": data_dir, "log_interval": 1, **TRAIN_CUTS, **PP_PAIR_SETS, **PP_PAIR_RUNS[name][1]}
+        return ["--config=local_text_124m", f"--rundir={root / f'a_{name}'}", *sets(over)]
+
+    def main_path(rundir, over):
+        return ["--config=local_text_124m", f"--rundir={rundir}",
+                *sets({"data_dir": data_dir, "log_interval": 1, **PP_MAIN_CUTS, **over})]
+
+    out = {group: [pair(name) for name, (g, _) in PP_PAIR_RUNS.items() if g == group] for group in ("sp2", "sp4")}
+    out["sp2"] += [main_path(root / "b", {"pipeline_schedule": "gpipe"}), main_path("", {"pipeline_schedule": "1f1b"}),
+                   main_path("", PP_M16_SETS)]
+    out["restore"] = [["--config=local_text_124m", f"--rundir={root / 'b'}",
+                       *sets({"data_dir": data_dir, "log_interval": 1, **TRAIN_CUTS, "on_resume_mesh": "any"})]]
+    return out
+
+
+def pipeline_reports(by_group: tp.Mapping[str, tp.Any]) -> tp.Dict[str, tp.Any]:
+    """Phase 21's reports from its launches ({group: [run][rank]},
+    `pipeline_launches` order): {"a": {name: [rank]}, "b": 21b's
+    [run][rank], "restored": the one rank's [rank]}."""
+    out = {"a": {}}
+    for group, reports in by_group.items():
+        names = [name for name, (g, _) in PP_PAIR_RUNS.items() if g == group]
+        out["a"].update(zip(names, reports[:len(names)]))
+        if group == "sp2":
+            out["b"] = reports[len(names):]
+        if group == "restore":
+            out["restored"] = reports[0]
+    return out
+
+
+def pp_flash_check(label, reports, layers, M, micro, evals) -> None:
+    """Each rank of a pipeline: its `layers` (L/pp) launches of each
+    backward kernel per pipeline microbatch of each microstep, and of the
+    forward per pipeline microbatch of each microstep and eval batch (no
+    remat: exactly so)."""
+    want = {"flash_fwd": layers * M * (micro + evals), "flash_bwd_dq": layers * M * micro,
+            "flash_bwd_dkv": layers * M * micro}
+    for r, rep in enumerate(reports):
+        got = {k: sum(c.values()) for k, c in rank_flash([rep]).items()}
+        if got != want:
+            raise SystemExit(f"phase {label}: rank {r} flash launches {got}, want {want} ({layers} layers a stage x "
+                             f"{M} pipeline microbatches x ({micro} microsteps + {evals} eval batches))")
+
+
+def pp_traffic(reports) -> str:
+    """Each rank's stage sends by kind, with bytes, and 1F1B's stash."""
+    out = []
+    for r, rep in enumerate(reports):
+        t = rep.get("traffic", {})
+        kinds = ", ".join(f"{k} {t.get(f'pp_{k}', 0)} ({gib(t.get(f'pp_{k}_bytes', 0))})" for k in ("fwd", "bwd", "ce"))
+        out.append(f"rank {r}: sends {kinds}, stash high-water {rep.get('stash', 0)}")
+    return "; ".join(out)
+
+
+def pipeline_training(card: str, reports, root: Path, pair_dir: Path, pair_losses, main_losses):
+    """Phase 21's verdicts on its reports (`pipeline_reports`, runs into
+    `root`): 21a's runs, 21b's, and 21b's checkpoint restored on one rank.
+    `pair_losses` are 17a's one-rank run of
+    the f32 pair (its directory `pair_dir`), `main_losses` phase 6's.
+    Returns the ranks' flash launches, {kernel: Counter(variant: n)}."""
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.launch import apply_overrides
+
+    t_phase = time.perf_counter()
+    launched = [*reports["a"].values(), *reports["b"], reports["restored"]]
+    wall = sum(max(rep["clock"]["done"] - rep["clock"]["launch"] for rep in reps) for reps in launched)
+    print("phase 21: pipeline training on gloo ranks sharing the card (NCCL refuses two ranks of one communicator on "
+          "one card): each stage send stages its activation through the host, so no time here is a speed of "
+          "pipeline parallelism")
+    mc = load_config("local_text_124m").model_config
+    G, last = TRAIN_CUTS["g_accum_iters"], TRAIN_CUTS["max_steps"] - 1
+    flash = {k: collections.Counter() for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+    def add(reps):
+        for k, c in rank_flash(reps).items():
+            flash[k].update(c)
+
+    pair_cfg = apply_overrides(load_config("local_text_124m"),
+                               [(k, str(v)) for k, v in {**TRAIN_CUTS, **PAIR_SETS}.items()])
+    tol = param_tol(pair_cfg)
+    want = restore_state(pair_dir, last, pair_cfg)
+    M = PP_PAIR_SETS["pipeline_microbatches"]
+    for name, reps in reports["a"].items():
+        label = f"21a {name}"
+        records = reps[0]["records"]
+        losses = run_losses(records)
+        err = max_rel(losses, pair_losses)
+        errs = state_errors(restore_state(root / f"a_{name}", last, pair_cfg), want, tol)
+        print(f"phase {label} ({len(reps)} ranks, 2 layers of {mc.n_embd} over pp 2, f32, {M} pipeline microbatches "
+              f"a microstep, warmup 1 step): losses (steps, final eval) {losses} vs 17a's one rank {pair_losses}: max "
+              f"rel err {err:.2e} (tol {PP_PAIR_TOL:g}); step {last} states, max |pp - one rank|: {fmt_errors(errs, tol)}; "
+              f"{pp_traffic(reps)}; peak memory per rank {[gib(rep['peak']) for rep in reps]} on {card}")
+        if err > PP_PAIR_TOL or not errs["ok"]:
+            raise SystemExit(f"phase {label}: the pipeline run disagrees with the one-rank run")
+        pp_flash_check(label, reps, 1, M, G * TRAIN_CUTS["max_steps"], n_evals(records))
+        add(reps)
+        shutil.rmtree(root / f"a_{name}")
+    # 21b: the main path at full width and depth; the M 16 run (other rows: batch 64) is held to finite losses
+    steps = PP_MAIN_CUTS["max_steps"]
+    layers = mc.n_layer // 2
+    runs = (("GPipe", PP_MAIN_CUTS["pipeline_microbatches"], G * steps),
+            ("1F1B", PP_MAIN_CUTS["pipeline_microbatches"], G * steps),
+            ("1F1B at M 16", PP_M16_SETS["pipeline_microbatches"], PP_M16_SETS["max_steps"]))
+    for (name, m, micro), reps in zip(runs, reports["b"]):
+        records = reps[0]["records"]
+        losses = step_losses(records)
+        held = name != "1F1B at M 16"
+        ref = main_losses[:len(losses)]
+        err = max_rel(losses, ref)
+        tok = [r["throughput/tokens_per_sec"] for r in records if "loss/optimized" in r][1:]
+        spans = [rep["clock"]["done"] - rep["clock"]["launch"] for rep in reps]
+        print(f"phase 21b {name} local_text_124m ({mc.n_layer} x {mc.n_embd}, {layers} layers a stage), bf16 over f32, "
+              f"{m} pipeline microbatches of 4 rows: losses {losses}"
+              + (f" vs phase 6's single device {ref}: max rel err {err:.2e} (tol {TP_MAIN_TOL:g})" if held else "")
+              + f"; tokens/s (the leader's, after step 0) {tok}; launch wall per rank {[round(x, 1) for x in spans]} s; "
+              f"{pp_traffic(reps)}; peak memory per rank {[gib(rep['peak']) for rep in reps]}; state per rank "
+              f"{[gib(rep['state_bytes']) for rep in reps]} on {card}")
+        if not losses or not all(np.isfinite(losses)) or (held and (len(losses) != steps or err > TP_MAIN_TOL)):
+            raise SystemExit(f"phase 21b {name}: the pipeline disagrees with phase 6's single device")
+        if "1F1B" in name and any(rep["stash"] > 2 * 2 for rep in reps):
+            raise SystemExit(f"phase 21b {name}: a stage stashed more than 2 pp microbatches")
+        pp_flash_check(f"21b {name}", reps, layers, m, micro, n_evals(records))
+        add(reps)
+    growth = [a["schedule_peak"] / b["schedule_peak"] for a, b in zip(reports["b"][2], reports["b"][1])]
+    print(f"phase 21b 1F1B microstep peak memory per rank, M 4 {[gib(r['schedule_peak']) for r in reports['b'][1]]}, "
+          f"M 16 {[gib(r['schedule_peak']) for r in reports['b'][2]]} (4-row microbatches): M 16 over M 4 "
+          f"{[round(g, 3) for g in growth]} (limit {PP_STASH_GROWTH:g}) on {card}")
+    if max(growth) > PP_STASH_GROWTH:
+        raise SystemExit("phase 21b: 1F1B's memory grew with the microbatch count")
+    # its final checkpoint (whole leaves), restored on one rank, trains phase 6's last step
+    restored = reports["restored"]
+    rec = [r for r in restored[0]["records"] if "loss/optimized" in r]
+    nxt = rec[0]["loss/optimized"] if len(rec) == 1 and rec[0]["step"] == last else None
+    rel = abs(nxt - main_losses[last]) / main_losses[last] if nxt is not None else float("inf")
+    print(f"phase 21b restore on one device: steps trained {[r['step'] for r in rec]}; step {last}'s loss {nxt} vs "
+          f"phase 6's {main_losses[last]} (rel err {rel:.2e}, tol {TP_MAIN_TOL:g}) on {card}")
+    if rel > TP_MAIN_TOL:
+        raise SystemExit("phase 21b: the pp 2 checkpoint did not restore on one device into phase 6's trajectory")
+    per_rank_flash_check("21b restored", restored, mc.n_layer, G, n_evals(restored[0]["records"]), exact=True)
+    add(restored)
+    shutil.rmtree(root / "b")
+    print(f"phase 21 took {wall:.1f} s in its ranks' launches (beside 5c-11c) and "
+          f"{time.perf_counter() - t_phase:.1f} s of verdicts; flash launches in its ranks: "
+          f"{({k: dict(c) for k, c in flash.items()})} on {card}")
+    return flash
 
 
 # ---------------------------------------------------------------- the lanes: serving beside training
@@ -5523,8 +5804,15 @@ def main() -> int:
             # is held to
             sp_root = data_dir / "sp_train"
             sp_root.mkdir()
+            # 21. pipeline training: its launches ride 20a's groups (no start-up of their own, and no more memory at
+            # once than those groups'), its restore on one rank after 20's ranks; its verdicts after 20's
+            pp_root = data_dir / "pp_train"
+            pp_root.mkdir()
+            pp_launches = pipeline_launches(data_dir, pp_root)
             sp_pool = ThreadPoolExecutor(1)
-            sp_ranks = sp_pool.submit(sequence_parallel_ranks, data_dir, sp_root, card)
+            sp_ranks = sp_pool.submit(sequence_parallel_ranks, data_dir, sp_root, card, 10, pp_launches)
+            pp_restored = sp_pool.submit(torchrun, "21b's pp 2 checkpoint restored on one rank", 1,
+                                         pp_launches["restore"], card, None, 600, 10)
             # 5c. the GQA and window slice: train both variants, serve what they wrote
             rundirs = {variant: data_dir / variant for variant in GQA_VARIANTS}
             for variant, rundir in rundirs.items():
@@ -5567,8 +5855,9 @@ def main() -> int:
             alias_errs = {(getattr(torch, dt), s): err for dt, s, err in lane["alias_errs"]}
             clock.mark("the serving lane's rest (11d, 12-15)")
             sp_reports = sp_ranks.result()  # before 17's ranks need the card's memory
+            pp_reports = pipeline_reports({**sp_reports[0]["then"], "restore": pp_restored.result()})
             sp_pool.shutdown()
-            clock.mark("phase 20's ranks' rest (beside 5c-11c)")
+            clock.mark("phase 20's ranks' rest, 21's runs among them (beside 5c-11c)")
             # 5, 4b, 5b and 6c(e): the decode lane, beside phases 17-19
             lanes["decode"] = start_lane("decode", lanes_dir)
             # 18. tensor-parallel serving: 4 ranks under torchrun, started here to run beside phase 17
@@ -5594,6 +5883,8 @@ def main() -> int:
                     # 20's verdicts (before 19's, which remove 17a's one-rank pair run): its ranks' flash launches,
                     # causal and full, join the kernels line's
                     sp_flash, sp_full = sequence_parallel(card, sp_reports, sp_root, tt_root / "pair1", pair_losses)
+                    # 21's verdicts (also before 19's): its flash launches join the kernels line's
+                    pp_flash = pipeline_training(card, pp_reports, pp_root, tt_root / "pair1", pair_losses, main_losses)
                     # 19's verdicts: its ranks' flash launches join the kernels line's
                     tt_flash = tp_training(card, tt_ranks.result(), tt_root, pair_losses, main_losses, main_dir)
                 finally:
@@ -5607,7 +5898,7 @@ def main() -> int:
                 proc.kill()
                 proc.wait()
         shutil.rmtree(lanes_dir, ignore_errors=True)
-    clock.mark("17-19 ranks (18 and 19 beside 17), 20's verdicts, the decode lane beside them")
+    clock.mark("17-19 ranks (18 and 19 beside 17), 20's and 21's verdicts, the decode lane beside them")
     # 16. the routed MoE MLP: trained through the launcher, then served (its launches join the kernels line's)
     moe_flash, moe_paged, moe_merges = moe_path(card, overlap_rates["group:4"], batch_speeds[("12a", 8)][0])
     print("paged launches of phases 13-15 by pool (the kernels line's paged entries take the bf16 pool's): "
@@ -5784,7 +6075,7 @@ def main() -> int:
             "replaces": FLASH_SOURCES[kname],
             "launches": (sum(flash_launches[kname].values()) + (batch_launches64 if kname == "flash_fwd" else 0)
                          + moe_flash[kname] + sum(dp_flash[64][kname].values()) + sum(tt_flash[kname].values())
-                         + sum(sp_flash[64][kname].values())),
+                         + sum(sp_flash[64][kname].values()) + sum(pp_flash[kname].values())),
             "max_abs_err": err_of[kname],
             "ms": main_ms[kname],
             "plain_ms": main_plain[kname],
@@ -5800,7 +6091,8 @@ def main() -> int:
           f"phase 13: {EARLIER_SMOKE_PHASE13_S} s, before phase 14: {EARLIER_SMOKE_PHASE14_S} s, before phase 15: "
           f"{EARLIER_SMOKE_PHASE15_S} s, before phase 16: {EARLIER_SMOKE_PHASE16_S} s, before phase 17: "
           f"{EARLIER_SMOKE_PHASE17_S} s, before phase 18: {EARLIER_SMOKE_PHASE18_S} s, before phase 19: "
-          f"{EARLIER_SMOKE_PHASE19_S} s, before phase 20: {EARLIER_SMOKE_PHASE20_S} s) on {card}")
+          f"{EARLIER_SMOKE_PHASE19_S} s, before phase 20: {EARLIER_SMOKE_PHASE20_S} s, before phase 21: "
+          f"{EARLIER_SMOKE_PHASE21_S} s) on {card}")
     print(card)  # exactly as nvidia-smi gives it: name, power limit
     decode_modes = {spec: {"decode_tokens_per_s": dec, "end_to_end_tokens_per_s": e2e,
                            "busy_share": busy.get(spec)} for spec, (dec, e2e) in overlap_rates.items()}

@@ -7,15 +7,18 @@ module-level `config` (`load_config`); `to_json` writes the run
 directory's `config.json`, which either package reads back. Validation
 covers the fields the port reads and the checkpoint, supervisor,
 preemption, watchdog, fault and FSDP knobs, as JAX checks them at the
-same place. The mesh's data, fsdp and tp axes, `fsdp_mode`, `shard_model`,
-`fsdp_min_size` and `tp_vocab` drive multi-rank training (parallel/).
-JAX's tp checks hold here too (whole heads, K/V heads and MLP columns a
-shard; the vocab under `tp_vocab`: GPT-2 XL's 25 heads refuse tp 2), and
-its sequence-parallel ones (the sp axis with attn_impl 'ring' or
-'ulysses': Ulysses needs whole heads per (tp, sp) rank, shard_map under tp
-and the pipeline refuse sp); the pp and ep axes of training and the
-pipeline knobs are carried for the round trip, checked as JAX checks
-them, and wait for later slices (ROADMAP.md Queue 1 item 7).
+same place. The mesh's data, fsdp, sp, tp and pp axes, `fsdp_mode`,
+`shard_model`, `fsdp_min_size`, `tp_vocab` and the pipeline knobs
+(`pipeline_microbatches`, `pipeline_schedule`) drive multi-rank training
+(parallel/). JAX's tp checks hold here too (whole heads, K/V heads and
+MLP columns a shard; the vocab under `tp_vocab`, except under pp, whose
+head is never vocab-sharded: GPT-2 XL's 25 heads refuse tp 2), its
+sequence-parallel ones (the sp axis with attn_impl 'ring' or 'ulysses':
+Ulysses needs whole heads per (tp, sp) rank, shard_map under tp and the
+pipeline refuse sp) and its pipeline ones (whole stages of layers, no
+dropout, gspmd, 1F1B without tp, the batch over the microbatches, no
+MoE). The ep axis of training is carried for the round trip, checked as
+JAX checks it, and waits for a later slice (ROADMAP.md Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -178,8 +181,7 @@ class ExperimentConfig:
     def _check_pipeline(self):
         """JAX's pipeline checks (midgpt_tpu/config.py), with its messages:
         among them, the pipeline does not compose with sequence
-        parallelism. The port carries pp and refuses a mesh with it
-        (parallel/mesh.py)."""
+        parallelism (parallel/pipeline.py trains the rest)."""
         mc = self.model_config
         pp = 1 if self.mesh.pp == -1 else self.mesh.pp
         if pp < 1:

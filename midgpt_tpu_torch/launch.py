@@ -28,12 +28,15 @@ rank on the mesh of the config's data, fsdp, sp and tp axes
 sequence-parallel columns (`--set mesh.sp=N --set
 model_config.attn_impl=ring|ulysses`: the ring or Ulysses over each
 position's N ranks), Megatron tensor-parallel rows (`--set mesh.tp=N`:
-consecutive ranks, the vocab-parallel embedding and CE under `tp_vocab`),
-one checkpoint written by rank 0. Without it the run is one process on one
-device, and the mesh clamps to one rank (a preset's sp or tp above 1 then
-refuses to lay out). A multi-rank run must name its `--rundir`, as JAX's
-does. The pp and ep axes are later slices of the port: a preset that sets
-one above 1 gets one printed line naming the axes left unused.
+consecutive ranks at pp 1, the vocab-parallel embedding and CE under
+`tp_vocab`), pipeline stages (`--set mesh.pp=N --set
+pipeline_schedule=gpipe|1f1b --set pipeline_microbatches=M`: each stage
+its L/N layers, parallel/pipeline.py), one checkpoint written by rank 0.
+Without it the run is one process on one device, and the mesh clamps to
+one rank (a preset's sp, tp or pp above 1 then refuses to lay out). A
+multi-rank run must name its `--rundir`, as JAX's does. The ep axis is a
+later slice of the port: a preset that sets it above 1 gets one printed
+line naming the axis left unused.
 
 The supervisor rolls a divergence back to the newest verified step with
 the poisoned data window skipped, and restarts a hung step, up to
@@ -106,8 +109,8 @@ def apply_overrides(config, pairs):
 
 
 def unused_mesh(config) -> tp.Optional[str]:
-    """The line the launcher prints when the preset's mesh sets an axis the
-    port does not train on above 1 (pp, ep), or None: the data and fsdp
+    """The line the launcher prints when the preset's mesh sets the axis
+    the port does not train on (ep) above 1, or None: the data and fsdp
     axes clamp to the ranks there are, as JAX's make_mesh clamps."""
     from midgpt_tpu_torch.parallel.mesh import LATER_SLICES
 
@@ -115,8 +118,8 @@ def unused_mesh(config) -> tp.Optional[str]:
     if not wide:
         return None
     return (f"mesh {' x '.join(f'{k}={v}' for k, v in wide.items())}: "
-            f"{', '.join(LATER_SLICES[k] for k in wide)} not ported yet; the run trains on the data, fsdp, sp and "
-            "tp axes and leaves that mesh unused (ROADMAP.md Queue 1 item 7)")
+            f"{', '.join(LATER_SLICES[k] for k in wide)} not ported yet; the run trains on the data, fsdp, sp, tp "
+            "and pp axes and leaves that mesh unused (ROADMAP.md Queue 1 item 7)")
 
 
 def main(argv=None) -> dict:

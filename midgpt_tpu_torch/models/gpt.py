@@ -417,6 +417,20 @@ def _repeat_kv(config: GPTConfig, a: Tensor, dim: int) -> Tensor:
     return a if g == 1 else a.repeat_interleave(g, dim=dim)
 
 
+class _Whole:
+    """`GPT.init`'s default layout: every leaf whole (parallel/fsdp.py
+    `ShardedInit` is a mesh rank's)."""
+
+    def shape(self, name: str, shape: tp.Tuple[int, ...]) -> tp.Tuple[int, ...]:
+        return shape
+
+    def place(self, name: str, index: tp.Tuple[int, ...]) -> tp.Optional[tp.Tuple[int, ...]]:
+        return index
+
+    def cut(self, name: str, piece: Tensor, lead: int) -> Tensor:
+        return piece
+
+
 class GPT:
     """Namespace of plain functions over (GPTConfig, parameter dict)."""
 
@@ -427,6 +441,7 @@ class GPT:
         *,
         device: DeviceLike = None,
         dtype: torch.dtype = torch.float32,
+        shard: tp.Optional["_Whole"] = None,
     ) -> Params:
         """Random parameters from a seed (or a CPU torch.Generator), made
         in `dtype` on `device`. Drawn on the CPU, so a seed gives the same
@@ -434,34 +449,50 @@ class GPT:
         matches the JAX package in distribution, not bit for bit. Each
         leaf is allocated once on the device and filled layer by layer, so
         the host holds one layer's f32 draws at a time (a 7B model's
-        weights are never all on the host, nor in f32 on a bf16 card)."""
+        weights are never all on the host, nor in f32 on a bf16 card).
+
+        `shard` (parallel/fsdp.py `ShardedInit`) makes the leaves a mesh
+        rank's shards at birth: each leaf is allocated at its shard's
+        shape, every piece is still drawn in order (the generator advances
+        through the pieces the rank skips), and only the rank's slice of a
+        piece is kept, so the shards equal the whole init's slices bit for
+        bit and the rank never holds more than its shards and one piece."""
         dev = resolve_device(device)
         gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(seed)
         L, D, V = config.n_layer, config.n_embd, config.vocab_size
         KVD = config.kv_heads * config.head_dim
-        params = {k: torch.empty(s, device=dev, dtype=dtype) for k, s in param_shapes(config).items()}
+        keep = shard or _Whole()
+        params = {k: torch.empty(keep.shape(k, s), device=dev, dtype=dtype) for k, s in param_shapes(config).items()}
+
+        def put(name: str, index: tp.Tuple[int, ...], piece: Tensor) -> None:
+            """Piece `index` of a leaf (a layer's, or a layer's expert's,
+            slice; the whole leaf at ()), where this rank keeps part of it."""
+            local = keep.place(name, index)
+            if local is not None:
+                params[name][local].copy_(keep.cut(name, piece, len(index)))
+
         for i in range(L):
             if WKV in params:
                 # GQA layout: q at full width, k/v at n_kv_heads * C each
-                params["blocks.attn.wqkv"][i].copy_(_linear_init(gen, D, D).reshape(1, D, D))
-                params[WKV][i].copy_(_linear_init(gen, 2 * KVD, D).reshape(2, KVD, D))
+                put("blocks.attn.wqkv", (i,), _linear_init(gen, D, D).reshape(1, D, D))
+                put(WKV, (i,), _linear_init(gen, 2 * KVD, D).reshape(2, KVD, D))
             else:
                 # iid rows: the (3, D, D) reshape of a (3D, D) init
-                params["blocks.attn.wqkv"][i].copy_(_linear_init(gen, 3 * D, D).reshape(3, D, D))
-            params["blocks.attn.wo"][i].copy_(_linear_init(gen, D, D))
+                put("blocks.attn.wqkv", (i,), _linear_init(gen, 3 * D, D).reshape(3, D, D))
+            put("blocks.attn.wo", (i,), _linear_init(gen, D, D))
             if ROUTER in params:
                 # the router, then each expert's up and down projections
-                params[ROUTER][i].copy_(_linear_init(gen, config.n_experts, D))
+                put(ROUTER, (i,), _linear_init(gen, config.n_experts, D))
                 for e in range(config.n_experts):
-                    params["blocks.mlp.experts_up"][i, e].copy_(_linear_init(gen, 4 * D, D))
+                    put("blocks.mlp.experts_up", (i, e), _linear_init(gen, 4 * D, D))
                 for e in range(config.n_experts):
-                    params["blocks.mlp.experts_down"][i, e].copy_(_linear_init(gen, D, 4 * D))
+                    put("blocks.mlp.experts_down", (i, e), _linear_init(gen, D, 4 * D))
             else:
-                params["blocks.mlp.w_up"][i].copy_(_linear_init(gen, 4 * D, D))
-                params["blocks.mlp.w_down"][i].copy_(_linear_init(gen, D, 4 * D))
+                put("blocks.mlp.w_up", (i,), _linear_init(gen, 4 * D, D))
+                put("blocks.mlp.w_down", (i,), _linear_init(gen, D, 4 * D))
         embed = torch.randn(V, D, generator=gen) / math.sqrt(D)
-        params["wte"].copy_(embed)
-        params["lm_head"].copy_(embed)  # init-only tying: same values, an independent tensor
+        put("wte", (), embed)
+        put("lm_head", (), embed)  # init-only tying: same values, an independent tensor
         params["blocks.attn.q_scale"].fill_(1.0)
         params["blocks.attn.k_scale"].fill_(1.0)
         return params
@@ -766,17 +797,51 @@ class GPT:
         if return_moe_aux and config.n_experts == 0:
             raise ValueError("return_moe_aux requires a routed MLP (n_experts > 0)")
         T = tokens.shape[1]
-        checkpointed = config.remat and not inference and torch.is_grad_enabled()
-        policy = config.remat_policy if checkpointed else None
         vocab_sharded = tp_train is not None and tp_train.vocab
         x = tp_train.embed(params["wte"], tokens) if vocab_sharded else params["wte"][tokens]
         x = dropout(x, config.dropout, generator, inference)
         sin, cos = rope_table(config.head_dim, T if rope_len is None else rope_len, device=x.device)
+        out = GPT.stage(config, params, x, range(config.n_layer), sin, cos, generator=generator,
+                        inference=inference, return_moe_aux=return_moe_aux, aux_reduce=aux_reduce,
+                        layer_transform=layer_transform, tp_train=tp_train, attn_fn=attn_fn, positions=positions)
+        if return_moe_aux:
+            x, auxes = out
+            return rms_norm(x, eps=1e-5), torch.stack(auxes).mean()
+        return rms_norm(out, eps=1e-5)
+
+    @staticmethod
+    def stage(
+        config: GPTConfig,
+        params: Params,
+        x: Tensor,
+        layers: tp.Iterable[int],
+        sin: Tensor,
+        cos: Tensor,
+        *,
+        generator: tp.Optional[torch.Generator] = None,
+        inference: bool = False,
+        return_moe_aux: bool = False,
+        aux_reduce: tp.Optional[tp.Callable[[Tensor], Tensor]] = None,
+        layer_transform: tp.Optional[tp.Callable[[Params], Params]] = None,
+        tp_train=None,
+        attn_fn: tp.Optional[tp.Callable[[Tensor, Tensor, Tensor], Tensor]] = None,
+        positions: tp.Optional[Tensor] = None,
+    ) -> tp.Union[Tensor, tp.Tuple[Tensor, tp.List[Tensor]]]:
+        """The residual stream x (B, T, D) through `layers`, a contiguous
+        run of indices into the stacked block leaves of `params`, with the
+        rope table (sin, cos): `hidden`'s layer loop (every layer), and a
+        pipeline stage's (its L/pp local layers, parallel/pipeline.py),
+        without the embedding and the final norm. The keywords are
+        `hidden`'s, remat included: a training forward that records
+        gradients checkpoints each block under `config.remat`. With
+        return_moe_aux, returns (x, each layer's load-balance term)."""
+        checkpointed = config.remat and not inference and torch.is_grad_enabled()
+        policy = config.remat_policy if checkpointed else None
         auxes = []
         kw = dict(sin=sin, cos=cos, generator=generator, inference=inference, policy=policy,
                   return_moe_aux=return_moe_aux, aux_reduce=aux_reduce, tp_train=tp_train,
                   attn_fn=attn_fn, positions=positions)
-        for i in range(config.n_layer):
+        for i in layers:
             if layer_transform is None:
                 block = functools.partial(GPT._block_apply, config, _block(params, i), **kw)
             else:
@@ -788,8 +853,7 @@ class GPT:
                 auxes.append(aux)
             else:
                 x = out
-        x = rms_norm(x, eps=1e-5)
-        return (x, torch.stack(auxes).mean()) if return_moe_aux else x
+        return (x, auxes) if return_moe_aux else x
 
     @staticmethod
     def apply(

@@ -9,19 +9,23 @@ leaves have JAX's shapes (convert.py is a rename), so each leaf shards
 on JAX's axis.
 
 A spec here is the sharded axis or None (`param_specs`, the FSDP rule
-alone), or a tuple with one entry per axis of the leaf, 'fsdp', 'tp' or
-None (the training state's 2D specs, parallel/tp.py `tp_leaf_spec`: a
-leaf may carry tp on one axis and fsdp on another, as wqkv's (None, None,
-'tp', 'fsdp')). `shard` keeps this rank's contiguous slice on both axes;
+alone), or a tuple with one entry per axis of the leaf, 'fsdp', 'tp',
+'pp' or None (the training state's specs, parallel/tp.py `tp_leaf_spec`:
+a leaf may carry tp on one axis and fsdp on another, as wqkv's (None,
+None, 'tp', 'fsdp'); under the pipeline a block leaf's layer axis is
+'pp', parallel/pipeline.py `pipeline_param_specs`). `shard` keeps this
+rank's contiguous slice on every sharded axis;
 `gather` all-gathers the fsdp axis back inside autograd, with the
 reduce-scatter of the gradient as its backward: the port's form of "the
 transpose of all_gather is psum_scatter" (shard_map_fsdp.py:16-19). The
 tp shard stays on its rank through the step (the model's forward is
 written for it); `gather_tp` gathers it (`whole_tree`: both axes), for
-checkpoints and tests.
+checkpoints and tests, and `gather_pp` the layer axis over the stages
+(`whole_tree`: every axis).
 `reduce_grads` then sums each gradient over the ranks that saw other
 batch rows or other sequence shards (and, for the leaves a tp row applies
-to its own heads only, over the row).
+to its own heads only, over the row; for the leaves every stage holds
+whole, over the stages).
 
 The collectives are torch.distributed's; none of them stands for a TPU
 kernel.
@@ -51,6 +55,22 @@ def fsdp_axis(spec: Spec) -> tp.Optional[int]:
 def tp_axis(spec: Spec) -> tp.Optional[int]:
     """The axis a spec shards over tp, or None."""
     return spec.index("tp") if isinstance(spec, tuple) and "tp" in spec else None
+
+
+def pp_axis(spec: Spec) -> tp.Optional[int]:
+    """The axis a spec shards over pp (a block leaf's layer axis), or None."""
+    return spec.index("pp") if isinstance(spec, tuple) and "pp" in spec else None
+
+
+def shard_extent(spec: Spec, mesh) -> tp.Dict[int, tp.Tuple[int, int]]:
+    """{axis: (shard count, this rank's place)} for each axis `spec` shards
+    on `mesh` (reads only the mesh's axis sizes and indices)."""
+    out = {}
+    for ax, n, i in ((pp_axis(spec), mesh.pp, mesh.pp_index), (tp_axis(spec), mesh.tp, mesh.tp_index),
+                     (fsdp_axis(spec), mesh.fsdp, mesh.fsdp_index)):
+        if ax is not None and n > 1:
+            out[ax] = (n, i)
+    return out
 
 
 def _choose_axis(shape: tp.Tuple[int, ...], n_shards: int, skip_leading: bool) -> tp.Optional[int]:
@@ -98,12 +118,11 @@ def param_specs(
 
 
 def shard(t: Tensor, spec: Spec, mesh: Mesh) -> Tensor:
-    """This rank's contiguous slice of the full leaf `t` on its tp and
+    """This rank's contiguous slice of the full leaf `t` on its pp, tp and
     fsdp axes (a copy), or `t` itself when the leaf is replicated."""
     cut = t
-    for ax, n, i in ((tp_axis(spec), mesh.tp, mesh.tp_index), (fsdp_axis(spec), mesh.fsdp, mesh.fsdp_index)):
-        if ax is not None and n > 1:
-            cut = cut.chunk(n, dim=ax)[i]
+    for ax, (n, i) in shard_extent(spec, mesh).items():
+        cut = cut.chunk(n, dim=ax)[i]
     return t if cut is t else cut.clone()
 
 
@@ -161,6 +180,16 @@ def gather_tp(t: Tensor, spec: Spec, mesh: Mesh) -> Tensor:
     return _all_gather(t, axis, mesh.tp, mesh.tp_group)
 
 
+@torch.no_grad()
+def gather_pp(t: Tensor, spec: Spec, mesh: Mesh) -> Tensor:
+    """The leaf whole on its layer axis from the stages' shards (collective
+    over the pp group); a leaf not sharded over pp passes through."""
+    axis = pp_axis(spec)
+    if axis is None or mesh.pp == 1:
+        return t
+    return _all_gather(t, axis, mesh.pp, mesh.pp_group)
+
+
 def reduce_grads(grads: tp.Mapping[str, Tensor], specs: tp.Mapping[str, Spec], mesh: Mesh,
                  tp_partial: tp.Collection[str] = ()) -> None:
     """In place, each gradient summed over the ranks whose tokens it has
@@ -171,16 +200,23 @@ def reduce_grads(grads: tp.Mapping[str, Tensor], specs: tp.Mapping[str, Spec], m
     index; a leaf the tp row holds whole has its whole gradient on every
     rank of the row, which must not be summed again). A leaf of
     `tp_partial` holds only its rank's heads' share, so it is summed over
-    the tp row as well."""
+    the tp row as well. Every group is one stage's: a block leaf's layers
+    are its stage's own. Under the pipeline a leaf every stage holds whole
+    (wte, lm_head: not sharded over pp) is then summed over the stages
+    too, each stage's share being its part of the schedule (stage 0 the
+    embedding's, every stage its CE rows' head gradient), as the psum
+    JAX's shard_map transpose inserts over 'pp'."""
     for name, g in grads.items():
         on_fsdp = fsdp_axis(specs[name]) is not None and mesh.fsdp > 1
         partial = name in tp_partial and mesh.tp > 1
         if partial and not on_fsdp:
-            mesh.all_reduce_(g, mesh.group)
-            continue
-        mesh.all_reduce_(g, mesh.replica_group if on_fsdp else mesh.batch_group)
-        if partial:
-            mesh.all_reduce_(g, mesh.tp_group)
+            mesh.all_reduce_(g, mesh.stage_group)
+        else:
+            mesh.all_reduce_(g, mesh.replica_group if on_fsdp else mesh.batch_group)
+            if partial:
+                mesh.all_reduce_(g, mesh.tp_group)
+        if mesh.pp > 1 and pp_axis(specs[name]) is None:
+            mesh.all_reduce_(g, mesh.pp_group)
 
 
 def shard_tree(tree: tp.Mapping[str, Tensor], specs: tp.Mapping[str, Spec], mesh: Mesh) -> tp.Dict[str, Tensor]:
@@ -198,5 +234,43 @@ def gather_tree(tree: tp.Mapping[str, Tensor], specs: tp.Mapping[str, Spec], mes
 @torch.no_grad()
 def whole_tree(tree: tp.Mapping[str, Tensor], specs: tp.Mapping[str, Spec], mesh: Mesh) -> tp.Dict[str, Tensor]:
     """Every leaf of `tree` whole (collective over the fsdp row, then the
-    tp row)."""
-    return {k: gather_tp(gather(v, specs[k], mesh), specs[k], mesh) for k, v in tree.items()}
+    tp row, then the pp group)."""
+    return {k: gather_pp(gather_tp(gather(v, specs[k], mesh), specs[k], mesh), specs[k], mesh)
+            for k, v in tree.items()}
+
+
+class ShardedInit:
+    """A mesh rank's layout for `GPT.init(shard=)`: each leaf of `shapes`
+    allocated at its shard's shape under `specs`, and of each drawn piece
+    (a leaf's leading indices fixed: a layer, or a layer's expert) only
+    this rank's slice kept, as `shard` would cut it from the whole leaf.
+    Reads only the mesh's axis sizes and indices."""
+
+    def __init__(self, specs: tp.Mapping[str, Spec], mesh, shapes: tp.Mapping[str, tp.Sequence[int]]):
+        self._extent = {k: shard_extent(spec, mesh) for k, spec in specs.items()}
+        self._full = {k: tuple(v) for k, v in shapes.items()}
+
+    def shape(self, name: str, shape: tp.Tuple[int, ...]) -> tp.Tuple[int, ...]:
+        out = list(shape)
+        for ax, (n, _) in self._extent[name].items():
+            out[ax] //= n
+        return tuple(out)
+
+    def place(self, name: str, index: tp.Tuple[int, ...]) -> tp.Optional[tp.Tuple[int, ...]]:
+        """Where piece `index` sits in this rank's shard, or None when the
+        rank keeps none of it (a layer of another stage)."""
+        local = list(index)
+        for ax, (n, i) in self._extent[name].items():
+            if ax < len(index):
+                size = self._full[name][ax] // n
+                if index[ax] // size != i:
+                    return None
+                local[ax] = index[ax] - i * size
+        return tuple(local)
+
+    def cut(self, name: str, piece: Tensor, lead: int) -> Tensor:
+        """This rank's slice of `piece`, the leaf at `lead` fixed indices."""
+        for ax, (n, i) in self._extent[name].items():
+            if ax >= lead:
+                piece = piece.chunk(n, dim=ax - lead)[i]
+        return piece

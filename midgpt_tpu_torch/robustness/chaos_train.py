@@ -16,12 +16,12 @@ line the runs print goes to stderr; stdout carries the summary alone.
 emergency checkpoint, exit 0). The tool then plays the scheduler, as
 JAX's does with devices: it restarts the run on HALF the ranks with
 on_resume_mesh="any", and, if that run is ended by a reshard again, on
-all of them, alternating, at most four times. Under tensor and sequence
-parallelism (`--set mesh.tp=N`, `--set mesh.sp=S`) a batch position's
-S x N block of ranks stays whole: half the ranks is rounded down to whole
-blocks, so the reshard changes the data count with sp and tp fixed, and
-a reshard that cannot leave whole blocks (`--nproc` below 2SN) is refused
-before any rank starts. A fault consumed stays
+all of them, alternating, at most four times. Under tensor, sequence and
+pipeline parallelism (`--set mesh.tp=N`, `--set mesh.sp=S`, `--set
+mesh.pp=P`) a batch position's S x N x P block of ranks stays whole: half
+the ranks is rounded down to whole blocks, so the reshard changes the
+data count with sp, tp and pp fixed, and a reshard that cannot leave
+whole blocks (`--nproc` below 2SNP) is refused before any rank starts. A fault consumed stays
 consumed: each restart arms only the part of the plan that has not fired
 (`resume_reshard@2 --fault resume_reshard@4` on 2 ranks: 2 ranks, then 1,
 then 2 again). The checkpoint holds whole leaves and the batch order is
@@ -179,14 +179,15 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
     if args.max_restarts is not None:
         config = config.replace(max_restarts=args.max_restarts)
     train_chaos = bool(set(kinds) & set(TRAIN_CHAOS_KINDS))
-    n_tp, n_sp = max(1, config.mesh.tp), max(1, config.mesh.sp)
-    block = n_sp * n_tp  # a batch position's ranks
+    n_tp, n_sp, n_pp = max(1, config.mesh.tp), max(1, config.mesh.sp), max(1, config.mesh.pp)
+    block = n_sp * n_tp * n_pp  # a batch position's ranks
+    axes = f"mesh.sp={n_sp} x mesh.tp={n_tp} x mesh.pp={n_pp}"
     if args.nproc % block:
-        ap.error(f"--nproc {args.nproc} does not hold whole sp x tp blocks of mesh.sp={n_sp} x mesh.tp={n_tp}")
+        ap.error(f"--nproc {args.nproc} does not hold whole sp x tp x pp blocks of {axes}")
     half = max(block, args.nproc // 2 // block * block)  # the scheduler's half, in whole blocks
     if block > 1 and "resume_reshard" in kinds and half == args.nproc:
-        ap.error(f"resume_reshard under mesh.sp={n_sp} x mesh.tp={n_tp} needs --nproc >= {2 * block}: the reshard "
-                 "keeps whole sp x tp blocks and changes the data count")
+        ap.error(f"resume_reshard under {axes} needs --nproc >= {2 * block}: the reshard keeps whole sp x tp x pp "
+                 "blocks and changes the data count")
 
     t0 = time.time()
     run = lambda cfg, n: run_ranks(cfg, n, device=args.device, backend=args.backend)  # noqa: E731

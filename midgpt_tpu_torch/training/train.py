@@ -25,13 +25,14 @@ sticky loss, and force-saves the final step. Data and dropout are
 positional (`data_step_offset`, `_generators`), so a resumed run continues
 the straight run's trajectory.
 
-On a mesh (parallel/mesh.py; the data, fsdp, sp and tp axes, one rank per
-device) every rank runs this loop, as every JAX process runs its own:
+On a mesh (parallel/mesh.py; the data, fsdp, sp, tp and pp axes, one rank
+per device) every rank runs this loop, as every JAX process runs its own:
 
-  * the master weights and Adam moments are this rank's 2D shards
+  * the master weights and Adam moments are this rank's shards
     (`state_specs`: JAX's tp_param_specs rule, parallel/tp.py, which at tp
-    1 is the FSDP rule), cut from a dense init from the seed (`init_state`)
-    or from the whole leaves of a checkpoint;
+    1 is the FSDP rule; under pp its pipeline rule), drawn sharded at birth
+    from the seed (`init_state`) or cut from the whole leaves of a
+    checkpoint;
   * the step gathers the compute-dtype copy over fsdp; the tp shards stay
     on their rank. Under fsdp_mode="gspmd" it gathers every leaf once per
     step; under "shard_map" the ZeRO-3 schedule gathers per layer
@@ -69,9 +70,17 @@ device) every rank runs this loop, as every JAX process runs its own:
     they hold the residual stream whole, and the attention-probability
     masks over their heads are their part of the whole heads' mask
     (ops/dropout.py `shard`).
+  * under pp (parallel/pipeline.py) a stage holds its L/pp layers, and the
+    step's value and gradient are the schedule's (GPipe or 1F1B, JAX's
+    make_pipeline_loss / make_pipeline_loss_and_grad); eval runs GPipe's
+    forward under both. The stages of a batch position read its rows, a
+    rank's loss is its stage's share (its CE rows' mean over pp), the
+    block gradients are summed inside their stage and wte's and lm_head's
+    over the stages too (`fsdp.reduce_grads`); the global norm counts
+    each stage's layers (training/optim.py).
 A mesh of one rank issues no collective: the trainer is then the
-single-device one, bit for bit. The pp and ep axes of the config's mesh
-are left unused (launch.py names them).
+single-device one, bit for bit. The ep axis of the config's mesh is left
+unused (launch.py names it).
 
 The robustness hooks sit where JAX puts them (train.py:581-816), and
 `robustness/supervisor.py` runs `train` under its restart policy:
@@ -122,6 +131,7 @@ from midgpt_tpu_torch.parallel import dist as pdist
 from midgpt_tpu_torch.parallel import fsdp
 from midgpt_tpu_torch.parallel.data import node_batch_size, rank_rows
 from midgpt_tpu_torch.parallel.mesh import Mesh, run_mesh
+from midgpt_tpu_torch.parallel.pipeline import Pipeline, pipeline_param_specs
 from midgpt_tpu_torch.parallel.tp import HEAD_REGION_LEAVES, TPTrain, tp_param_specs
 from midgpt_tpu_torch.robustness import faults, preempt
 from midgpt_tpu_torch.robustness.errors import DivergenceError
@@ -230,8 +240,10 @@ def make_train_step(
     W = mesh.size if mesh is not None else 1
     n_batch = mesh.token_shards if mesh is not None else 1  # the token shards a loss is the mean over
     specs = specs or {}
-    sharded = W > 1 and mesh.fsdp > 1
     tp_train = TPTrain(mesh, specs) if W > 1 and mesh.tp > 1 else None
+    # the pipeline gathers each layer over fsdp inside its stages (parallel/pipeline.py)
+    pipe = Pipeline(config, mesh, specs, tp_train) if W > 1 and mesh.pp > 1 else None
+    sharded = W > 1 and mesh.fsdp > 1 and pipe is None
     vocab_row = tp_train.vocab_row if tp_train is not None else (None, 0)
     sp_hooks = sequence_parallel(model_cfg, mesh)
 
@@ -263,8 +275,11 @@ def make_train_step(
         to `leaves` (the shards), summed over the mesh: the loss is a mean
         over the data x fsdp x sp token shards (a tp row shares its
         tokens)."""
-        loss = loss_fn(inputs, x, y, generator)
-        grads = torch.autograd.grad(loss / n_batch if n_batch > 1 else loss, list(leaves.values()))
+        if pipe is not None:  # the schedule takes its own gradients (dropout is 0 under pp)
+            loss, grads = pipe.loss_and_grad(inputs, x, y, 1.0 / n_batch)
+        else:
+            loss = loss_fn(inputs, x, y, generator)
+            grads = torch.autograd.grad(loss / n_batch if n_batch > 1 else loss, list(leaves.values()))
         if W > 1:
             fsdp.reduce_grads(dict(zip(leaves, grads)), specs, mesh, tp_partial=HEAD_REGION_LEAVES)
         return loss.detach(), grads
@@ -300,6 +315,8 @@ def make_train_step(
 
     @torch.no_grad()
     def eval_loss(params_c: Params, x: Tensor, y: Tensor) -> Tensor:
+        if pipe is not None:  # GPipe's forward under both schedules, as JAX evaluates
+            return pipe.loss(params_c, x, y)
         h = GPT.hidden(model_cfg, params_c, x, inference=True, tp_train=tp_train, **sp_hooks(x))
         return head_loss(h, params_c["lm_head"], y)
 
@@ -308,7 +325,8 @@ def make_train_step(
         """SUMMED loss over a stacked (N, B, T) eval set (one division at the
         end of `evaluate`, as in JAX); on a mesh, of the global rows: the
         leaves gathered once over fsdp, each token shard's tokens, one
-        all-reduce that counts each tp row once."""
+        all-reduce that counts each tp row once (under pp each stage's
+        share of its position's loss)."""
         params_c = {k: v.to(compute_dtype) for k, v in params.items()}
         if sharded:
             params_c = fsdp.gather_tree(params_c, specs, mesh)
@@ -323,10 +341,14 @@ def make_train_step(
 
 
 def state_specs(config: ExperimentConfig, mesh: tp.Optional[Mesh]) -> tp.Dict[str, fsdp.Spec]:
-    """Each leaf's 2D spec on `mesh` (a tuple: 'tp', 'fsdp' or None per
+    """Each leaf's spec on `mesh` (a tuple: 'tp', 'fsdp', 'pp' or None per
     axis), JAX's rule (parallel/tp.py `tp_leaf_spec`) at the config's
-    shard_model, fsdp_min_size and tp_vocab; at tp 1 the FSDP rule."""
+    shard_model, fsdp_min_size and tp_vocab; at tp 1 the FSDP rule; under
+    pp JAX's pipeline rule (parallel/pipeline.py `pipeline_param_specs`)."""
     axes = {"tp": mesh.tp if mesh is not None else 1, "fsdp": mesh.fsdp if mesh is not None else 1, "ep": 1}
+    if mesh is not None and getattr(mesh, "pp", 1) > 1:
+        return pipeline_param_specs(param_shapes(config.model_config), axes, config.shard_model,
+                                    config.fsdp_min_size)
     return tp_param_specs(param_shapes(config.model_config), axes, config.shard_model, config.fsdp_min_size,
                           vocab_parallel=config.tp_vocab)
 
@@ -335,15 +357,19 @@ def init_state(
     config: ExperimentConfig, device: DeviceLike = None, mesh: tp.Optional[Mesh] = None
 ) -> tp.Tuple[Params, OptState, Optimizer]:
     """Master parameters (GPT.init from config.seed, in param_dtype) and the
-    optimizer's zero state, on a `mesh` this rank's shards of them (the
-    dense init is transient: every rank draws the same weights from the
-    seed and keeps its 2D slice). Returns (params, opt_state, optimizer)."""
+    optimizer's zero state, on a `mesh` of several ranks this rank's shards
+    of them, sharded at birth (as JAX's init_state never materializes the
+    dense state): GPT.init draws every piece in order and keeps the rank's
+    slice under `state_specs`, so the shards are the dense init's slices
+    bit for bit and a rank holds its shards and one drawn piece at most.
+    Returns (params, opt_state, optimizer)."""
     dev = resolve_device(device)
     optimizer, _ = make_optimizer(config)
+    shard = None
+    if mesh is not None and mesh.size > 1:
+        shard = fsdp.ShardedInit(state_specs(config, mesh), mesh, param_shapes(config.model_config))
     params = GPT.init(config.model_config, config.seed, device=dev,
-                      dtype=getattr(torch, config.param_dtype))
-    if mesh is not None:
-        params = fsdp.shard_tree(params, state_specs(config, mesh), mesh)
+                      dtype=getattr(torch, config.param_dtype), shard=shard)
     return params, optimizer.init(params), optimizer
 
 

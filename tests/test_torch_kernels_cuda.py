@@ -1369,3 +1369,50 @@ def test_one_nccl_rank_trains_as_the_single_device_trainer(cuda, tmp_path, monke
     with pytest.raises(ValueError, match="NCCL takes one card per rank.*gloo"):
         dist.init()
     assert not dist.initialized()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+def test_pp2_ranks_sharing_the_card_train_as_one_rank(cuda, tmp_path, schedule):
+    """`launch --multihost --backend gloo --set mesh.pp=2` on two ranks that
+    share the card (a layer a stage, the flash kernels in each stage, the
+    stage sends staged through the host) trains as the single-device
+    launcher in f32: every loss, the steps' and the evals', at 2e-5."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from midgpt_tpu_torch import launch
+
+    r = np.random.default_rng(0)
+    stream = np.where(r.random(20000) < 0.1, r.integers(0, 64, 20000), np.arange(20000) % 17).astype(np.uint16)
+    stream.tofile(tmp_path / "train.bin")
+    stream[:4000].tofile(tmp_path / "val.bin")
+    sets = {"data_dir": tmp_path, "max_steps": 3, "eval_interval": 2, "eval_steps": 1, "batch_size": 4,
+            "g_accum_iters": 2, "log_interval": 1, "spec_layers": 0, "warmup_steps": 1, "lr_decay_steps": 3,
+            "model_config.block_size": 64, "model_config.n_layer": 2, "model_config.n_embd": 128,
+            "model_config.n_head": 2, "model_config.vocab_size": 64, "model_config.attn_block_size": 64,
+            "compute_dtype": "float32", "mesh.fsdp": 1}
+    args = ["--config=local_text_124m", *[a for k, v in sets.items() for a in ("--set", f"{k}={v}")]]
+    pp = ["--set", "mesh.pp=2", "--set", f"pipeline_schedule={schedule}", "--set", "pipeline_microbatches=2"]
+    procs = [subprocess.Popen([sys.executable, "-c", _ONE_RANK, "--multihost", "--backend", "gloo",
+                               f"--rundir={tmp_path / 'pp'}", *args, *pp],
+                              env=dict(os.environ, RANK=str(i), WORLD_SIZE="2", LOCAL_RANK=str(i),
+                                       LOCAL_WORLD_SIZE="2", MIDGPT_DIST_FILE=str(tmp_path / "store")),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for i in range(2)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [err[-3000:] for _, err in outs]
+    assert "'pp': 2" in outs[0][0] and "over 2 rank(s), backend gloo" in outs[0][0]
+    launch.main([f"--rundir={tmp_path / 'single'}", *args])
+
+    def losses(d):
+        recs = [json.loads(line) for line in (tmp_path / d / "metrics.jsonl").read_text().splitlines()]
+        return {(rec["step"], k): v for rec in recs for k, v in rec.items() if k.startswith("loss")}
+
+    got, want = losses("pp"), losses("single")
+    assert sorted(got) == sorted(want) and len(want) >= 6
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v, rel=2e-5), k

@@ -239,7 +239,7 @@ def test_every_jax_preset_has_a_port_preset():
 
 @pytest.mark.parametrize("name", PRESETS)
 def test_launcher_names_a_mesh_it_leaves_unused(name):
-    """A mesh that sets an axis the port does not train on (pp, ep above 1)
+    """A mesh that sets the axis the port does not train on (ep above 1)
     gets the launcher's one line; no preset sets one (llama7b_32k's sp 8
     is trained on), and the data and fsdp axes clamp to the ranks there
     are, silently, as in JAX."""

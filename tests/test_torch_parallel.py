@@ -198,7 +198,7 @@ def test_mesh_shape_matches_jax(preset, monkeypatch):
         if all(mesh_shape(cfg, n)[ax] == 1 for ax in ("sp", "tp", "pp", "ep")):
             m = make_mesh(cfg, ranks=[0], device=CPU) if n == 1 else None
             assert m is None or (m.size, m.group) == (1, None)
-        elif all(mesh_shape(cfg, n)[ax] == 1 for ax in ("pp", "ep")):
+        elif mesh_shape(cfg, n)["ep"] == 1:
             m = make_mesh(dataclasses.replace(cfg, data=-1), ranks=list(range(n)), device=CPU)
             assert m.shape == want and m.size == n
         else:
@@ -207,12 +207,11 @@ def test_mesh_shape_matches_jax(preset, monkeypatch):
 
 
 def test_mesh_refuses_unported_axes_and_fills_in_order(monkeypatch):
-    """pp and ep still refuse, naming their later slice; sp and tp lay out
-    (their groups: tests/test_torch_sp.py, tests/test_torch_tp_train.py),
-    last axis fastest."""
-    for ax in ("pp", "ep"):
-        with pytest.raises(NotImplementedError, match=rf"{ax}=2: .*later slice"):
-            make_mesh(MeshConfig(data=1, fsdp=1, **{ax: 2}), ranks=[0, 1], device=CPU)
+    """ep still refuses, naming its later slice; sp, tp and pp lay out
+    (their groups: tests/test_torch_sp.py, tests/test_torch_tp_train.py,
+    tests/test_torch_pipeline.py), last axis fastest."""
+    with pytest.raises(NotImplementedError, match=r"ep=2: .*later slice"):
+        make_mesh(MeshConfig(data=1, fsdp=1, ep=2), ranks=[0, 1], device=CPU)
     with pytest.raises(ValueError, match="mesh 3x2x1x1x1x1 != 4 devices"):
         mesh_shape(MeshConfig(data=3, fsdp=2), 4)
     m = Mesh({"data": 2, "fsdp": 2, "sp": 1, "tp": 1, "pp": 1, "ep": 1}, [0], CPU)
@@ -223,6 +222,8 @@ def test_mesh_refuses_unported_axes_and_fills_in_order(monkeypatch):
     assert (m.shape["tp"], m.index, m.tp_index, m.batch_index, m.tp_group) == (2, 1, 1, 0, (0, 1))
     m = make_mesh(MeshConfig(data=1, fsdp=1, sp=2), ranks=[0, 1], device=CPU)
     assert (m.shape["sp"], m.index, m.sp_index, m.batch_index, m.sp_group) == (2, 1, 1, 0, (0, 1))
+    m = make_mesh(MeshConfig(data=1, fsdp=1, pp=2), ranks=[0, 1], device=CPU)
+    assert (m.shape["pp"], m.index, m.pp_index, m.batch_index, m.pp_group, m.prev_stage) == (2, 1, 1, 0, (0, 1), 0)
 
 
 @pytest.mark.parametrize("over", [

@@ -499,8 +499,8 @@ def test_training_mesh_still_refuses_tp():
     """A training mesh takes tp (tests/test_torch_tp_train.py) but still
     refuses it beside an axis the port does not train on, naming that
     axis's later slice."""
-    with pytest.raises(NotImplementedError, match="pp=2: the pipeline .* later slice"):
-        make_mesh(MeshConfig(data=1, fsdp=1, tp=2, pp=2), ranks=[0, 1, 2, 3], device=CPU)
+    with pytest.raises(NotImplementedError, match="ep=2: the ep axis .* later slice"):
+        make_mesh(MeshConfig(data=1, fsdp=1, tp=2, ep=2), ranks=[0, 1, 2, 3], device=CPU)
     assert serve_tp.mesh_shape(None) is None
 
 

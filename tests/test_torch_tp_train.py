@@ -272,7 +272,9 @@ def test_launcher_and_chaos_train_take_tp(tmp_path):
 
     cfg = load_config("local_text_124m")
     assert unused_mesh(cfg.replace(mesh=dataclasses.replace(cfg.mesh, tp=2))) is None
-    assert "pp=2" in unused_mesh(cfg.replace(mesh=dataclasses.replace(cfg.mesh, tp=2, pp=2)))
+    assert unused_mesh(cfg.replace(mesh=dataclasses.replace(cfg.mesh, tp=2, pp=2))) is None
+    assert "ep=2" in unused_mesh(cfg.replace(mesh=dataclasses.replace(cfg.mesh, tp=2, ep=2),
+                                             model_config=dataclasses.replace(cfg.model_config, n_experts=4)))
     base = ["--config=local_text_124m", f"--rundir={tmp_path}", "--device", "cpu", "--set", "mesh.tp=2"]
     with pytest.raises(SystemExit):
         chaos_train.main([*base, "--nproc", "2", "--fault", "resume_reshard@2"])
