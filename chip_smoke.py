@@ -6,14 +6,18 @@
 The quickest proof that the port still starts on the card. Phases as
 numbered below; any failure ends the run with a non-zero exit (nothing is
 caught). They run in this order: 1-4 and 6 alone; then 5c-11c beside the
-"serving" lane (11d, 12-15) and phase 20's ranks (phase 21's runs in
-20a's groups, then its restore on one rank); then 17-19 and 20's and
-21's verdicts beside the "decode" lane (5, 4b, 5b, 6c(e)); then 16, and
-10 alone. A lane is a process of its own
+"serving" lane (11d, 12-15) and phase 20's ranks (phase 21's and 22's
+runs in 20's groups, then their restores on one rank); then 17-19 and
+20's and 21's verdicts beside the "decode" lane (5, 4b, 5b, 6c(e), 22c);
+then 16 and 22's verdicts, and 10 alone. A lane is a process of its own
 (`chip_smoke.py --lane NAME OUT`): serving holds the host most of the
 time, training waits on the card, so the two share it; each phase's wall
 seconds are printed, and every number a lane prints is taken beside the
-training phases it ran with:
+training phases it ran with. The card's memory in use by every process
+is sampled throughout (nvidia-smi) and printed, its most in each 10 s,
+at the end, or after the error when a phase fails; each rank group
+prints when its launches ran, in seconds of the script, and a failed
+group prints its ranks' own errors last:
 
   1. require CUDA and the port's sources beside this script; print the
      card's name and power limit (nvidia-smi);
@@ -132,7 +136,10 @@ training phases it ran with:
      Flash counters are zeroed just before and read just after: forward
      launches must equal n_layer x (microsteps + eval batches), each
      backward kernel's n_layer x microsteps; every loss must be finite and
-     the final step's checkpoint verified;
+     the final step's checkpoint verified; every token window must come
+     from the native C batcher (midgpt_tpu_torch/native, built from the
+     checkout's batcher.c with the system C compiler), none from numpy's
+     gather;
   6b. checkpoints and resume on that path (cuts: G 2, 6 steps, an eval and
      a save every 2 steps, one eval batch): a round trip (one step, a copy
      of the state on the card, a save, two more in-place steps, a restore
@@ -447,6 +454,36 @@ training phases it ran with:
      entries. Phase 17b's openwebtext_xl ranks print their init's peak
      (sharded at birth) beside their shards plus one drawn piece, which
      it may not exceed, and the dense init's whole weights;
+ 22. (22a's one rank after 20b's one rank, its ep runs after 21's in
+     20a's groups, beside 5c-11c, its verdicts in a thread beside 17's
+     start; 22b's one device after 17a's runs, its ep 2 run after 19a's
+     in 19a's group, its restore in this process after 19's verdicts, its
+     verdicts after phase 16; 22c in the decode lane) expert-parallel MoE training
+     (parallel/tp.py EPTrain):
+     `launch --multihost --set mesh.ep=2` with phase 16's routed MLP (8
+     experts, top-2, aux 0.01) on gloo ranks sharing the card (each f and
+     g stages through the host: no time here is a speed of expert
+     parallelism). a. 17b's f32 pair with the routed MLP (microbatch 4 x
+     2, one step at lr 0) on one rank (its routing recorded), then on ep 2
+     and on (fsdp 2, ep 2) with the one rank's routing pinned (a token
+     whose own top-2 differs takes the pinned experts; its K/K+1 router
+     logit gap must be under GAP_TOL): losses at PAIR_TOL of the one
+     rank's, the Adam moments at STATE_TOL, the weights bit for bit. b.
+     local_text_124m with the routed MLP at full width and depth, bf16,
+     microbatch 2 x 16 (phase 16a's 32 windows a step): step 0 on ep 2,
+     its checkpoint restored on one device (saving nothing: the machine
+     takes 45 GiB of disk writes) for steps 1 and 2, both routed
+     as one device on the same cuts routed (pinned; on that device's
+     weights a token the pin overrode must sit within EP_BF16_GAP_TOL):
+     losses at TP_MAIN_TOL of that device's (phase 16a's printed beside).
+     Each rank's peak memory, its expert banks' bytes (== one device's
+     over ep) and its ep all-reduces with their bytes printed; flash
+     launches per rank == n_layer x (microsteps + eval batches) forward,
+     x microsteps each backward; they join the kernels line's flash
+     entries. c. (host only, in the decode lane) the native batcher built
+     from the checkout's C: its windows == numpy's bit for bit at
+     tools/bench_batcher.py's shapes over a seeded 200M token uint16
+     stream, numpy and native ms printed;
  10. timings: the paged decode kernel as before (CUDA-graph replay, cold
      L2), and each flash kernel in bf16 (CUDA events over repeated
      launches) at the main path's shape and at one shape per other
@@ -486,7 +523,7 @@ them, one JSON object with a "kernels" list (flash_fwd's launches include
 phase 12's; the paged decode, int8 and merge entries include phases 13's
 and 14's, and phase 15's launches made in its bf16 workers; the C 64
 flash, paged decode and merge entries include phase 16's; the flash
-entries include phase 17's, 19's, 20's and 21's ranks'; the causal=False flash
+entries include phase 17's, 19's, 20's, 21's and 22's ranks'; the causal=False flash
 entries are phase 20's ranks'; the bf16 paged decode,
 verify, int8 decode and merge entries include phase 18's ranks'), phase 4b's "decode_modes" (tokens/s and busy share per
 overlap mode) and phase 12's "batch_decode" (replayed and eager tokens/s
@@ -640,6 +677,64 @@ def free_memory() -> None:
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+
+MEMORY_PERIOD_MS = 500  # the card's memory in use, sampled by nvidia-smi this often
+MEMORY_BUCKET_S = 10  # the summary's time buckets
+
+
+class MemoryWatch:
+    """The card's memory in use by every process on it (ranks, lanes and
+    this one), sampled by an `nvidia-smi --loop-ms` process of its own, so
+    that nothing here touches this process's CUDA context or a graph
+    capture. Times are seconds since `t0` (time.time(), the script's
+    start), as `torchrun` prints its launches', so a peak can be placed
+    beside the phases and rank launches that made it."""
+
+    def __init__(self, t0: float):
+        import threading
+
+        self.t0, self.samples, self.total = t0, [], None
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=memory.used,memory.total", "--format=csv,noheader,nounits",
+             f"--loop-ms={MEMORY_PERIOD_MS}"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            try:
+                used, total = (float(x) for x in line.split(","))
+            except ValueError:
+                continue
+            self.total = total
+            self.samples.append((time.time() - self.t0, used))
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.thread.join(timeout=5)
+
+    def line(self) -> str:
+        """The most in use and when, then the most in each bucket (GiB)."""
+        if not self.samples:
+            return "card memory in use: no nvidia-smi sample"
+        t_most, most = max(self.samples, key=lambda s: s[1])
+        buckets = collections.defaultdict(float)
+        for t, used in self.samples:
+            buckets[int(t // MEMORY_BUCKET_S)] = max(buckets[int(t // MEMORY_BUCKET_S)], used)
+        return (f"card memory in use (nvidia-smi every {MEMORY_PERIOD_MS} ms, every process): most {most:.0f} of "
+                f"{self.total:.0f} MiB at {t_most:.1f} s; the most in each {MEMORY_BUCKET_S} s from the start (GiB): "
+                + " ".join(f"{buckets.get(i, 0.0) / 1024:.1f}" for i in range(max(buckets) + 1)))
+
+
+MEMORY: tp.Optional[MemoryWatch] = None  # the main process's, started by `main`
+T_START = time.time()  # this process's start: rank launches and memory samples are placed against it
 
 
 # ---------------------------------------------------------------- paged decode
@@ -4079,7 +4174,7 @@ def moe_training(data_dir: Path, card: str):
     and read just after, every training microstep's aux term recorded.
     Then one f32 step through the flash kernel against the plain path.
     Returns (the trained f32 params, the model config, flash launches by
-    kernel and variant, training tokens/s)."""
+    kernel and variant, training tokens/s, the losses by step)."""
     from midgpt_tpu_torch.config import load_config
     from midgpt_tpu_torch.models.gpt import GPT
     from midgpt_tpu_torch.training.metrics import device_peak_flops, flops_per_token
@@ -4129,16 +4224,22 @@ def moe_training(data_dir: Path, card: str):
     free_memory()
     moe_parity(data_dir, mc, card)
     print(f"phase 16a took {time.perf_counter() - t_phase:.1f} s")
-    return params, mc, launches, tok_s
+    return params, mc, launches, tok_s, losses
 
 
 @contextlib.contextmanager
-def routing(store: list, pin: tp.Optional[list] = None):
-    """GPT._moe_gates wrapped for phase 16a's parity: every call appends
-    (its selection (..., E) bool, its router logits f32) to `store`; with
-    `pin` (another run's records, in call order) a call whose own
-    selection differs routes with the pinned one instead (gates and aux
-    recomputed from this run's logits)."""
+def routing(store: list, pin: tp.Optional[list] = None, flips: tp.Optional[list] = None):
+    """GPT._moe_gates wrapped for phase 16a's and 22a's parity: every call
+    appends (its selection (..., E) bool, its router logits f32) to
+    `store`; with `pin` (another run's records, in call order) a call whose
+    own selection differs routes with the pinned one instead (gates and aux
+    recomputed from this run's logits), and `flips` gets [the call's index,
+    the gap between this run's K-th and K+1-th logits relative to the
+    larger] at each token the pin overrode; the calls after the pin's last
+    route as they are. A rank of
+    a mesh pins its batch position's rows of a one-rank record (data and
+    fsdp are the mesh's slowest axes: the position is RANK over the ranks
+    a position holds)."""
     from midgpt_tpu_torch.models.gpt import GPT
 
     raw = GPT.__dict__["_moe_gates"]
@@ -4147,10 +4248,21 @@ def routing(store: list, pin: tp.Optional[list] = None):
     def gates_fn(config, blk, h, with_aux=True, aux_reduce=None):
         gates, aux = raw.__func__(config, blk, h, with_aux, aux_reduce)
         logits = (h @ blk["mlp.router"].T).float()
-        if pinned is not None:
-            sel = next(pinned)[0]
-            if not torch.equal(sel, gates > 0):
+        rec = next(pinned, None) if pinned is not None else None
+        if rec is not None:
+            sel = rec[0].to(logits.device)
+            b = logits.shape[0]
+            if sel.shape[0] != b:  # a mesh rank: its batch position's rows
+                pos = int(os.environ["RANK"]) // (int(os.environ["WORLD_SIZE"]) // (sel.shape[0] // b))
+                sel = sel[pos * b:(pos + 1) * b]
+            own = gates > 0
+            if not torch.equal(sel, own):
                 K, tokens = config.moe_top_k, tuple(range(logits.dim() - 1))
+                if flips is not None:
+                    top, moved = torch.topk(logits, K + 1, dim=-1).values, (sel != own).any(-1)
+                    kth, nxt = top[..., K - 1][moved], top[..., K][moved]
+                    gap = (kth - nxt) / torch.maximum(kth.abs(), nxt.abs()).clamp_min(1e-30)
+                    flips.extend([len(store), g] for g in gap.tolist())
                 gates = torch.softmax(logits.masked_fill(~sel, float("-inf")), dim=-1).to(h.dtype)
                 if with_aux:
                     mean_prob = torch.softmax(logits, dim=-1).mean(tokens)
@@ -4308,14 +4420,15 @@ def moe_serving(card: str, mc, params32, dense_group4, dense_batch8):
 
 def moe_path(card: str, dense_group4, dense_batch8):
     """Phase 16 (16a, then 16b on 16a's weights). Returns (flash launches
-    by kernel, paged launches by (spec, split), merge launches)."""
+    by kernel, paged launches by (spec, split), merge launches, 16a's
+    losses by step)."""
     from midgpt_tpu_torch.config import load_config
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         data_dir = Path(tmp)
         synthetic_stream(data_dir, load_config("local_text_124m").model_config.vocab_size)
-        params32, mc, train_launches, _ = moe_training(data_dir, card)
+        params32, mc, train_launches, _, losses = moe_training(data_dir, card)
     paged, merges, batch_fwd = moe_serving(card, mc, params32, dense_group4, dense_batch8)
     del params32
     free_memory()
@@ -4323,7 +4436,7 @@ def moe_path(card: str, dense_group4, dense_batch8):
     flash["flash_fwd"] += batch_fwd
     print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s; launches: flash {flash}, paged {paged}, merge "
           f"{merges} on {card}")
-    return flash, paged, merges
+    return flash, paged, merges, losses
 
 
 # ---------------------------------------------------------------- phase 17: data-parallel and FSDP training
@@ -4367,11 +4480,19 @@ def rank17_main(argv) -> int:
     backend the first launch names), runs `launch.main` on each
     `--then`-separated argument list in turn, and writes this rank's
     report per launch (its logged records, flash launches causal and
-    full, the ring's hops, Ulysses' all-to-alls and the pipeline's stage
-    sends with their bytes, 1F1B's stash high-water mark and a pipeline
-    microstep's own peak memory, the init's peak memory beside its state
-    and largest drawn piece, peak memory, state bytes, host clock) to
-    <argv[0]>.<RANK>.json for the parent."""
+    full, the ring's hops, Ulysses' all-to-alls, the pipeline's stage
+    sends and the ep groups' all-reduces with their bytes, 1F1B's stash
+    high-water mark and a pipeline microstep's own peak memory, the init's
+    peak memory beside its state and largest drawn piece, peak memory,
+    state bytes and the expert banks' share of them, the routing flips a
+    pin overrode, host clock) to <argv[0]>.<RANK>.json for the parent. An
+    argument `--routing=record:PATH` (taken out before the launch) saves
+    the launch's routing selections to PATH, `--routing=pin:PATH` pins
+    them (`routing`), `--routing=pin:PATH:START:STOP` pins records
+    [START, STOP) of them; `--wait-for=PATH` holds the launch until PATH
+    exists (another group's record or mark, at most EP_WAIT_S);
+    `--mark-done=PATH` writes PATH once the launch is done and its memory
+    freed (another group's `--wait-for` starts then)."""
     t_enter = time.time()
     out, runs = argv[0], [[]]
     for a in argv[1:]:
@@ -4383,6 +4504,7 @@ def rank17_main(argv) -> int:
     from midgpt_tpu_torch.kernels import flash_attention as fa
     from midgpt_tpu_torch.models.gpt import param_shapes
     from midgpt_tpu_torch.parallel import dist, pipeline, ring_attention, ulysses
+    from midgpt_tpu_torch.parallel import tp as tp_mod
     from midgpt_tpu_torch.sampling.fleet_proc import process_launch_counts
     from midgpt_tpu_torch.training import train as train_mod
 
@@ -4395,7 +4517,8 @@ def rank17_main(argv) -> int:
     def traffic():
         return collections.Counter({**{f"hop_{k}": n for k, n in ring_attention.HOPS.items()},
                                     **{f"a2a_{k}": n for k, n in ulysses.A2A.items()},
-                                    **{f"pp_{k}": n for k, n in pipeline.SENDS.items()}})
+                                    **{f"pp_{k}": n for k, n in pipeline.SENDS.items()},
+                                    **{f"ep_{k}": n for k, n in tp_mod.EP_TRAFFIC.items()}})
 
     init_state, inits = train_mod.init_state, []
 
@@ -4446,12 +4569,35 @@ def rank17_main(argv) -> int:
             sched.update(peak=0, outer=0)
             torch.cuda.reset_peak_memory_stats()
             buf = io.StringIO()
+            hooks = [a.removeprefix("--routing=").split(":") for a in args if a.startswith("--routing=")]
+            for wait in [a.removeprefix("--wait-for=") for a in args if a.startswith("--wait-for=")]:
+                t_wait = time.time()
+                while not Path(wait).exists():
+                    if Path(f"{wait}.failed").exists():  # the group that records it failed: say why, now
+                        raise SystemExit(f"rank {os.environ['RANK']}: {wait} will not appear: "
+                                         f"{Path(f'{wait}.failed').read_text()}")
+                    if time.time() - t_wait > EP_WAIT_S:
+                        raise SystemExit(f"rank {os.environ['RANK']}: {wait} did not appear in {EP_WAIT_S} s")
+                    time.sleep(1.0)
             t_launch = time.time()
+            marks = [a.removeprefix("--mark-done=") for a in args if a.startswith("--mark-done=")]
+            args = [a for a in args if not a.startswith(("--routing=", "--wait-for=", "--mark-done="))]
+            store, flips = [], []
             try:
-                with contextlib.redirect_stdout(buf):
+                with contextlib.ExitStack() as stack, contextlib.redirect_stdout(buf):
+                    for mode, path, *span in hooks:
+                        lo, hi = map(int, span) if span else (0, None)
+                        pin = torch.load(path)[lo:hi] if mode == "pin" else None
+                        stack.enter_context(routing(store, pin=None if pin is None else [(sel,) for sel in pin],
+                                                    flips=flips))
                     result = launch.main(args)
             finally:
                 sys.stdout.write(buf.getvalue())
+            for mode, path, *_ in hooks:
+                if mode == "record":  # published whole: a waiting group reads it once it exists
+                    torch.save([sel.cpu() for sel, _ in store], f"{path}.tmp")
+                    os.replace(f"{path}.tmp", path)
+            del store
             torch.cuda.synchronize()
             after = counts()
             state = [*result["params"].values(), *result["opt_state"].mu.values(), *result["opt_state"].nu.values()]
@@ -4464,10 +4610,31 @@ def rank17_main(argv) -> int:
                 "init": inits[0] if inits else None,
                 "peak": max(sched["outer"], torch.cuda.max_memory_allocated()),
                 "state_bytes": sum(t.numel() * t.element_size() for t in state),
+                "bank_bytes": sum(t.numel() * t.element_size() for tree in (result["params"], result["opt_state"].mu,
+                                                                            result["opt_state"].nu)
+                                  for k, t in tree.items() if "experts" in k),
+                "routing_flips": flips,
                 "clock": {"enter": t_enter, "launch": t_launch, "done": time.time()},
             })
             del result, state
             free_memory()
+            for path in marks:  # each rank writes it whole; any rank's copy says the launch is done
+                Path(f"{path}.{os.environ['RANK']}.tmp").write_text(str(time.time()))
+                os.replace(f"{path}.{os.environ['RANK']}.tmp", path)
+    except BaseException:
+        # the parent prints this after torchrun's summary; a group waiting for a record this rank would have
+        # written (`--wait-for`) fails at once with it
+        import traceback
+
+        err = (f"launch {len(reports) + 1} of {len(runs)}, {time.time() - T_START:.1f} s after this rank started:\n"
+               f"{traceback.format_exc()}")
+        Path(f"{out}.{os.environ['RANK']}.err").write_text(err)
+        for args in runs[len(reports):]:
+            for a in args:
+                if a.startswith(("--routing=record:", "--mark-done=")):
+                    path = a.split(":")[1] if a.startswith("--routing=") else a.removeprefix("--mark-done=")
+                    Path(f"{path}.failed").write_text(f"rank {os.environ['RANK']} of its group, {err}")
+        raise
     finally:
         dist.shutdown()
     Path(f"{out}.{os.environ['RANK']}.json").write_text(json.dumps(reports))
@@ -4492,16 +4659,28 @@ def torchrun(label: str, nproc: int, launches, card: str, backend: tp.Optional[s
         p = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=timeout,
                            preexec_fn=(lambda: os.nice(nice)) if nice else None)
         t1 = time.time()
-        if p.returncode != 0:
-            raise SystemExit(f"phase {label}: torchrun exit {p.returncode}\n{p.stdout[-4000:]}\n{p.stderr[-4000:]}")
+        if p.returncode != 0:  # the ranks' own errors and the phase's name last: a reader of the tail sees them
+            for a in (a for args in launches for a in args):  # a group waiting on this one fails now, not in 600 s
+                path = (a.split(":")[1] if a.startswith("--routing=record:")
+                        else a.removeprefix("--mark-done=") if a.startswith("--mark-done=") else None)
+                if path and not Path(path).exists() and not Path(f"{path}.failed").exists():
+                    Path(f"{path}.failed").write_text(f"phase {label}: torchrun exit {p.returncode}")
+            errs = [(r, Path(f"{out}.{r}.err")) for r in range(nproc)]
+            raise SystemExit(f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}" + "".join(
+                f"\n--- rank {r} of phase {label}: ---\n{e.read_text()[-2500:]}" for r, e in errs if e.exists())
+                + f"\nphase {label}: torchrun exit {p.returncode} after {t1 - t0:.1f} s, started "
+                f"{t0 - T_START:.1f} s into the script")
         said = [line for line in p.stdout.splitlines() if " rank(s), backend " in line]
         by_rank = [json.loads(Path(f"{out}.{r}.json").read_text()) for r in range(nproc)]
         enter = max(reps[0]["clock"]["enter"] for reps in by_rank)
         spans = [max(reps[i]["clock"]["done"] - reps[i]["clock"]["launch"] for reps in by_rank)
                  for i in range(len(launches))]
+        at = [(min(reps[i]["clock"]["launch"] for reps in by_rank) - T_START,
+               max(reps[i]["clock"]["done"] for reps in by_rank) - T_START) for i in range(len(launches))]
         print(f"phase {label}: {nproc} rank(s) in {t1 - t0:.1f} s on {card} (host clock: start-up to the ranks' "
               f"entry {enter - t0:.1f} s, launches {', '.join(f'{x:.1f}' for x in spans)} s, exit "
-              f"{t1 - max(reps[-1]['clock']['done'] for reps in by_rank):.1f} s); {said[0] if said else ''}")
+              f"{t1 - max(reps[-1]['clock']['done'] for reps in by_rank):.1f} s; launches at "
+              f"{', '.join(f'{a:.0f}-{b:.0f}' for a, b in at)} s of the script); {said[0] if said else ''}")
         return [[reps[i] for reps in by_rank] for i in range(len(launches))]
 
 
@@ -4544,9 +4723,9 @@ def max_rel(got, want) -> float:
     return max(abs(a - b) / abs(b) for a, b in zip(got, want))
 
 
-def restore_state(rundir: Path, step: int, cfg) -> dict:
+def restore_state(rundir: Path, step: int, cfg, device: str = "cuda") -> dict:
     """A run's checkpointed state at `step`, read into `cfg`'s template on
-    the card without re-hashing it: the run verified its save (the
+    `device` without re-hashing it: the run verified its save (the
     restores the launcher makes verify theirs)."""
     from midgpt_tpu_torch.training.checkpoint import unflatten_item
     from midgpt_tpu_torch.training.train import state_template
@@ -4554,7 +4733,7 @@ def restore_state(rundir: Path, step: int, cfg) -> dict:
     out = {}
     for name, like in state_template(cfg).items():
         with np.load(Path(rundir, str(step), f"{name}.npz")) as f:
-            out[name] = unflatten_item({k: f[k] for k in f.files}, like, "cuda", None)
+            out[name] = unflatten_item({k: f[k] for k in f.files}, like, device, None)
     return out
 
 
@@ -4588,13 +4767,17 @@ def fmt_errors(e: dict, tol: float) -> str:
             + f" (tol params {tol:.2e}, mu {STATE_TOL['mu']:g}, nu {STATE_TOL['nu']:g})")
 
 
-def data_parallel(data_dir: Path, card: str, main_losses, xl_single, keep: Path):
+def data_parallel(data_dir: Path, card: str, main_losses, xl_single, keep: Path, then_a=(),
+                  xl_done: tp.Optional[Path] = None):
     """Phase 17 (run after phase 11c: it holds phase 6's and 11c's runs).
     17a and 17c's chaos_train run beside 17b: their ranks share the card
     and the host, which the phase's times include. Returns the ranks'
-    flash launches by head dim, and the f32 pair's one-rank run (its
-    losses, and its run directory, moved to `keep`: phase 19 holds its
-    tensor-parallel runs to it)."""
+    flash launches by head dim, the f32 pair's one-rank run (its losses,
+    and its run directory, moved to `keep`: phase 19 holds its
+    tensor-parallel runs to it), and the reports ([run][rank]) of the
+    launches `then_a`, which 17a's one rank runs after its own (phase
+    22b's one device); 17b's openwebtext_xl waits for the record of
+    then_a's last launch, and writes `xl_done` once its ranks are done."""
     from concurrent.futures import ThreadPoolExecutor
 
     from midgpt_tpu_torch.config import load_config
@@ -4628,21 +4811,26 @@ def data_parallel(data_dir: Path, card: str, main_losses, xl_single, keep: Path)
         pair_cfg = cut("local_text_124m", pair_sets)
         pair_dirs = {n: chaos_dir / f"pair{n}" for n in (1, 2)}
         pair_args = {n: ["--config=local_text_124m", f"--rundir={d}", *sets(pair_sets)] for n, d in pair_dirs.items()}
-        xl_args = ["--config=openwebtext_xl", "--rundir=",
+        # xl (~20 GiB a rank) starts once 17a's last launch (22b's one device, ~16 GiB) has written its record, so
+        # that the two never share the card beside 17c, 18's ranks and the decode lane
+        gate = [a.replace("--routing=record:", "--wait-for=") for a in (then_a[-1] if then_a else [])
+                if a.startswith("--routing=record:")]
+        xl_args = [*gate, *([f"--mark-done={xl_done}"] if xl_done else []), "--config=openwebtext_xl", "--rundir=",
                    *sets({"data_dir": data_dir, "log_interval": 1, **REMAT_CUTS, "batch_size": XL_BATCH})]
         with ThreadPoolExecutor(1) as pool:
             # 17a: one rank over NCCL, phase 6's run (no saves: the losses are the run's), then the f32 pair's
             # one-rank run (fsdp clamps to 1), beside 17b
-            a_reports = pool.submit(torchrun, "17a (phase 6's run, then the f32 pair's one rank)", 1, [
+            a_reports = pool.submit(torchrun, "17a (phase 6's run, then the f32 pair's one rank"
+                                    + (", then phase 22b's one device)" if then_a else ")"), 1, [
                 ["--config=local_text_124m", "--rundir=", *sets({"data_dir": data_dir, "log_interval": 1, **TRAIN_CUTS})],
-                pair_args[1]], card)
+                pair_args[1], *then_a], card)
             # 17b: two ranks sharing the card over gloo (NCCL refuses two ranks of one communicator on one card)
             print("phase 17b: backend gloo on CUDA tensors, named explicitly: NCCL refuses two ranks of one "
                   "communicator on one card; gloo all-gathers, reduce-scatters and all-reduces the CUDA tensors as "
                   "they are")
             pair, xl_reports = torchrun("17b (the f32 pair, then openwebtext_xl)", 2, [pair_args[2], xl_args], card,
                                         backend="gloo")
-            reports, one = a_reports.result()
+            reports, one, *later_a = a_reports.result()
         losses = step_losses(reports[0]["records"])
         print(f"phase 17a: one NCCL rank, local_text_124m on phase 6's cuts: losses {losses} vs phase 6's single-device "
               f"{main_losses}: {'bit for bit' if losses == main_losses else 'DIFFER'} on {card}")
@@ -4727,7 +4915,7 @@ def data_parallel(data_dir: Path, card: str, main_losses, xl_single, keep: Path)
         shutil.rmtree(chaos_dir, ignore_errors=True)  # the run and its reference
     print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s; flash launches in its ranks by head dim: "
           + "; ".join(f"C {C}: {({k: dict(c) for k, c in v.items()})}" for C, v in flash.items()) + f" on {card}")
-    return flash, one_losses
+    return flash, one_losses, later_a
 
 
 # ---------------------------------------------------------------- phase 18: tensor-parallel serving
@@ -5050,12 +5238,17 @@ TP_MAIN_TOL = 1e-4
 TP_MOMENT_RTOL = 0.1
 
 
-def tp_training_ranks(data_dir: Path, root: Path, card: str, after: subprocess.Popen):
+def tp_training_ranks(data_dir: Path, root: Path, card: str, after: subprocess.Popen, then=(),
+                      wait: tp.Optional[Path] = None):
     """Phase 19's ranks, started once phase 18's have exited (beside phase
-    17, at nice 10), in three gloo groups side by side: 2 ranks run 19a's two
-    runs, 2 more 19b's, 4 more 19c's gspmd run and its resharded run's two
-    legs. Returns ({"a": [run][rank], "b":
-    [rank], "c": [run][rank]} reports, the wall seconds)."""
+    17, at nice 10), their first launches held until `wait` exists (17b's
+    xl done: 19's eight ranks peak at ~57 GiB together, xl's two at ~40),
+    in three gloo groups side by side: 2 ranks run 19a's two runs and then
+    the launches `then` (phase 22b's ep 2 run, once 19b's ranks are done:
+    19a's group ends first, so it runs beside the least of 19), 2 more
+    19b's, 4 more 19c's gspmd run and its resharded run's two legs.
+    Returns ({"a": [run][rank], "b": [rank], "c": [run][rank], "then":
+    [run][rank]} reports, the wall seconds)."""
     from concurrent.futures import ThreadPoolExecutor
 
     after.wait(timeout=900)
@@ -5070,13 +5263,18 @@ def tp_training_ranks(data_dir: Path, root: Path, card: str, after: subprocess.P
     c_runs = [args("c_gspmd", {**TRAIN_CUTS, **TP_FSDP_SETS, "fsdp_mode": "gspmd"}),
               args("c_shard_map", {**TRAIN_CUTS, **TP_RESHARD_FIRST}),
               args("c_shard_map", {**TRAIN_CUTS, **TP_FSDP_SETS, "fsdp_mode": "shard_map"})]
+    held, b_done = [f"--wait-for={wait}"] if wait else [], root / "b_done"
+    a_runs[0], c_runs[0] = [*held, *a_runs[0]], [*held, *c_runs[0]]
+    b_runs = [[*held, f"--mark-done={b_done}", *args("b", TP_MAIN_CUTS)]]
+    then = [[f"--wait-for={b_done}", *t] for t in then]
     with ThreadPoolExecutor(2) as pool:
         c = pool.submit(torchrun, "19c (fsdp 2 x tp 2: gspmd; (data 2, tp 2) resharded into shard_map)", 4, c_runs,
                         card, "gloo", 600, 10)
-        b = pool.submit(torchrun, "19b (tp 2: the main path)", 2, [args("b", TP_MAIN_CUTS)], card, "gloo", 600, 10)
-        a = torchrun("19a (tp 2: the f32 pair, tp_vocab on and off)", 2, a_runs, card, "gloo", 600, 10)
+        b = pool.submit(torchrun, "19b (tp 2: the main path)", 2, b_runs, card, "gloo", 600, 10)
+        a = torchrun("19a (tp 2: the f32 pair, tp_vocab on and off" + (", then phase 22b's ep 2 run)" if then else ")"),
+                     2, a_runs + then, card, "gloo", 600, 10)
         b, c = b.result()[0], c.result()
-    return {"a": a, "b": b, "c": c}, time.perf_counter() - t0
+    return {"a": a[:len(a_runs)], "b": b, "c": c, "then": a[len(a_runs):]}, time.perf_counter() - t0
 
 
 def n_evals(records) -> int:
@@ -5227,10 +5425,14 @@ def sequence_parallel_ranks(data_dir: Path, root: Path, card: str, nice: int = 1
     group's ring, not beside phase 21's 2-rank runs, which follow the sp 2
     group's own). Returns ({"a": {sp: [run][rank]}, "b": (one rank's
     reports, the sp 2 ranks'), "then": {"sp2": [run][rank], "sp4":
-    [run][rank]}}, the wall seconds)."""
+    [run][rank]}}, the wall seconds). `then["one"]` (phase 22's one-rank
+    reference) runs after 20b's one rank, in its process, before the
+    groups: their runs pin its routing; its reports come back as
+    "then"["one"]."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
+    then = then or {}
 
     def pair(n, schedule):
         over = {"data_dir": data_dir, "log_interval": 1, **TRAIN_CUTS, **SP_PAIR_SETS, "mesh.sp": n,
@@ -5241,10 +5443,12 @@ def sequence_parallel_ranks(data_dir: Path, root: Path, card: str, nice: int = 1
         over = {"data_dir": data_dir, "log_interval": 1, **LLAMA_SP_CUTS, "mesh.sp": n, "model_config.attn_impl": impl}
         return ["--config=llama7b_32k", "--rundir=", *sets(over)]
 
-    one = torchrun("20b one rank (flash at T 32,768)", 1, [llama(1, "flash")], card, None, 600, nice)[0]
+    ones = torchrun("20b one rank (flash at T 32,768)" + (", then phase 22's one-rank reference" if then.get("one")
+                                                           else ""), 1, [llama(1, "flash")] + then.get("one", []),
+                    card, None, 600, nice)
+    one = ones[0]
     two = torchrun("20b sp 2 (the ring at T 16,384 a rank)", 2, [llama(2, "ring")], card, "gloo", 600, nice)[0]
     with ThreadPoolExecutor(1) as pool:
-        then = then or {}
         lead = then.get("sp4", [])
         wide = pool.submit(torchrun, ("phase 21's 4-rank runs, then " if lead else "") + "20a sp 4 (the ring, then Ulysses)",
                            4, lead + [pair(4, s) for s in SP_SCHEDULES], card, "gloo", 600, nice)
@@ -5253,7 +5457,7 @@ def sequence_parallel_ranks(data_dir: Path, root: Path, card: str, nice: int = 1
         four_runs = wide.result()
     k = len(SP_SCHEDULES)
     return ({"a": {2: two_runs[:k], 4: four_runs[len(lead):]}, "b": (one, two),
-             "then": {"sp2": two_runs[k:], "sp4": four_runs[:len(lead)]}}, time.perf_counter() - t0)
+             "then": {"sp2": two_runs[k:], "sp4": four_runs[:len(lead)], "one": ones[1:]}}, time.perf_counter() - t0)
 
 
 def rank_full(rep) -> tp.Dict[str, int]:
@@ -5551,6 +5755,309 @@ def pipeline_training(card: str, reports, root: Path, pair_dir: Path, pair_losse
     return flash
 
 
+# ---------------------------------------------------------------- phase 22: expert-parallel MoE training
+
+# 22a: 17b's f32 pair with phase 16's routed MLP (8 experts, top-2, aux 0.01) on microbatches of 4 rows, one step
+# (lr 0: its Adam moments hold the step's gradient, the weights stay the init): one rank (its routing recorded),
+# then ep 2 and (fsdp 2, ep 2) pinned to that routing, each held to the one rank at PAIR_TOL (losses) and STATE_TOL
+# (the moments; the weights bit for bit); a token the pin overrode must sit at a near-tie (gap < GAP_TOL). At 16
+# rows the f32 (N, E/ep, 4D) buffers would take ~4x a rank's memory beside 20a's groups, the main phases and the
+# serving lane (at 4 rows a one rank peaked at 8.07 GiB, an ep 2 rank at 6.24 on an H100 80GB HBM3, PERF.md)
+EP_PAIR_SETS = {**PAIR_SETS, **MOE_SETS, "batch_size": 4, "mesh.fsdp": 1, "max_steps": 1}
+EP_PAIR_RUNS = {"ep2": {"mesh.ep": 2}, "fsdp2_ep2": {"mesh.fsdp": 2, "mesh.ep": 2, "shard_model": True}}
+# 22b: local_text_124m with the routed MLP at full width and depth, bf16 over f32, on phase 6's cuts with the
+# microbatch cut from 16 rows x 2 to 2 x 16 (phase 16a's 32 windows a step; at 4 rows an ep 2 rank peaked at 13.12
+# GiB and ran the card out of memory beside phase 11 and the lane, PERF.md section 6): step 0 on ep 2 (lr 0:
+# its Adam moments hold the step's gradient), its checkpoint restored on one device (this process, after phase 16,
+# saving nothing: a second 6.7 GB checkpoint beside 17-19's ran past the machine's 45 GiB of disk writes, PERF.md section 6)
+# for steps 1 and 2, whose update reads those moments. Held at TP_MAIN_TOL (19b's bf16 limit) to one device on the
+# same cuts, 3 steps; phase 16a's losses (16 rows x 2) are printed beside: the aux term's means are a microbatch's,
+# so the cut alone moves the loss (1.05e-4 relative at 4 x 8 on an H100 80GB HBM3, PERF.md). Both 22b runs are pinned
+# to that device's routing (`routing`). Until the first update with lr > 0 (step 1's) they hold the same weights as
+# it and differ only in the combine's bf16 partial sums; a bf16 router logit rounds to 2^-8 relative, so a token
+# whose own top-2 the pin overrode there is a near-tie when its K/K+1 gap is within 4 ulps. After it the weights
+# part by the gradients' bf16 rounding through Adam's normalised update (13,440 tokens overridden after it at 4 x 8,
+# up to 1.97 relative, PERF.md section 6): those are counted, not bounded
+EP_BF16_GAP_TOL = 2.0**-6
+EP_MAIN_ROWS = 2
+EP_MAIN_CUTS = {**TRAIN_CUTS, "max_steps": 1, "batch_size": EP_MAIN_ROWS,
+                "g_accum_iters": TRAIN_CUTS["g_accum_iters"] * 16 // EP_MAIN_ROWS,  # local_text_124m's microbatch: 16
+                "mesh.fsdp": 1, "mesh.ep": 2}
+EP_MAIN_STEPS = 3  # the one device's, and the restore's last step + 1
+EP_WAIT_S = 600  # the most 22b's ep run waits for its reference's routing
+# 22c: tools/bench_batcher.py's shapes (B, T) over a seeded uint16 stream of its length
+BATCHER_SHAPES = ((256, 1024), (2048, 1024), (512, 4096))
+BATCHER_STREAM = 200_000_000
+
+
+def expert_parallel_launches(data_dir: Path, root: Path) -> tp.Dict[str, tp.List[str]]:
+    """Phase 22's launches by name (each rides a group of another phase,
+    `main`): "a_one" 22a's one-rank reference into root / "a_one",
+    recording its routing (root / "a_routing.pt"), then "a_ep2" and
+    "a_fsdp2_ep2" pinned to it; "b_one" 22b's cuts on one device (no run
+    directory), recording its routing (root / "b_routing.pt"), then "b_ep"
+    22b's ep 2 run into root / "b" pinned to its first step, waiting for
+    that record (another group runs "b_one"; its restore: `ep_restore`)."""
+    def pair(name, over, hook):
+        return ["--config=local_text_124m", f"--rundir={root / f'a_{name}'}",
+                f"--routing={hook}:{root / 'a_routing.pt'}",
+                *sets({"data_dir": data_dir, "log_interval": 1, **TRAIN_CUTS, **EP_PAIR_SETS, **over})]
+
+    def main_path(rundir, hook, over):
+        return ["--config=local_text_124m", f"--rundir={rundir}", f"--routing={hook}",
+                *sets({"data_dir": data_dir, "log_interval": 1, **EP_MAIN_CUTS, **MOE_SETS, **over})]
+
+    pin = root / "b_routing.pt"
+    return {"a_one": pair("one", {}, "record"),
+            **{f"a_{name}": pair(name, over, "pin") for name, over in EP_PAIR_RUNS.items()},
+            "b_one": main_path("", f"record:{pin}", {"mesh.ep": 1, "max_steps": EP_MAIN_STEPS}),
+            "b_ep": [f"--wait-for={pin}", *main_path(root / "b", f"pin:{pin}:0:{ep_pinned_calls()}", {})]}
+
+
+def ep_pinned_calls() -> int:
+    """22b's gates calls up to its checkpoint's step (the step-0 evals,
+    then its steps' microsteps, a call a layer each)."""
+    from midgpt_tpu_torch.config import load_config
+
+    n_layer = load_config("local_text_124m").model_config.n_layer
+    return n_layer * (2 * EP_MAIN_CUTS["eval_steps"] + EP_MAIN_CUTS["max_steps"] * EP_MAIN_CUTS["g_accum_iters"])
+
+
+def ep_traffic(reports) -> str:
+    """Each rank's all-reduces over its ep group, with bytes."""
+    return "; ".join(f"rank {r}: {rep['traffic'].get('ep_calls', 0)} ep all-reduces of "
+                     f"{gib(rep['traffic'].get('ep_bytes', 0))}" for r, rep in enumerate(reports))
+
+
+def _ep_flash(*launches) -> tp.Dict[str, collections.Counter]:
+    """The flash launches of phase 22's launches' ranks, summed."""
+    flash = {k: collections.Counter() for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    for reps in launches:
+        for k, c in rank_flash(reps).items():
+            flash[k].update(c)
+    return flash
+
+
+def expert_parallel_pair(card: str, reports, root: Path):
+    """Phase 22a's verdicts on its reports ({launch name: [rank]},
+    `expert_parallel_launches`' names, runs into `root`); its run
+    directories are removed. Returns its ranks' flash launches, {kernel:
+    Counter(variant: n)}."""
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.launch import apply_overrides
+
+    t_phase = time.perf_counter()
+    print("phase 22: expert-parallel training on gloo ranks sharing the card (NCCL refuses two ranks of one "
+          "communicator on one card): each ep all-reduce stages through the host, so no time here is a speed of "
+          "expert parallelism")
+    mc = dataclasses.replace(load_config("local_text_124m").model_config, **MOE_MODEL)
+    G, steps = TRAIN_CUTS["g_accum_iters"], EP_PAIR_SETS["max_steps"]
+    last = steps - 1
+
+    pair_cfg = apply_overrides(load_config("local_text_124m"),
+                               [(k, str(v)) for k, v in {**TRAIN_CUTS, **EP_PAIR_SETS}.items()])
+    tol = param_tol(pair_cfg)
+    one = reports["a_one"]
+    ref_losses = run_losses(one[0]["records"])
+    want = restore_state(root / "a_one", last, pair_cfg, "cpu")  # beside 17's start: the card's memory is theirs
+    per_rank_flash_check("22a one rank", one, 2, G * steps, n_evals(one[0]["records"]), exact=True)
+    print(f"phase 22a one rank (2 layers of {mc.n_embd}, {mc.n_experts} experts, top-{mc.moe_top_k}, f32, "
+          f"microbatch {EP_PAIR_SETS['batch_size']} x {G}, {steps} step at lr 0): losses (steps, final eval) "
+          f"{ref_losses}; peak memory "
+          f"{gib(one[0]['peak'])}; expert banks "
+          f"{gib(one[0]['bank_bytes'])} of its state {gib(one[0]['state_bytes'])} on {card}")
+    runs = {name: reports[f"a_{name}"] for name in EP_PAIR_RUNS}
+    for name, reps in runs.items():
+        label = f"22a {name}"
+        losses = run_losses(reps[0]["records"])
+        err = max_rel(losses, ref_losses)
+        errs = state_errors(restore_state(root / f"a_{name}", last, pair_cfg, "cpu"), want, tol)
+        gaps = [g for rep in reps for _, g in rep["routing_flips"]]
+        print(f"phase {label} ({len(reps)} ranks, the one rank's routing pinned): losses (steps, final eval) {losses} "
+              f"vs the one rank {ref_losses}: max rel err {err:.2e} (tol {PAIR_TOL:g}); step {last} states, max "
+              f"|ep - one rank|: {fmt_errors(errs, tol)}; tokens whose own top-{mc.moe_top_k} the pin overrode, per "
+              f"rank "
+              f"{[len(rep['routing_flips']) for rep in reps]}, K/K+1 router logit gaps "
+              f"{[f'{g:.3e}' for g in gaps[:8]]}{' ...' if len(gaps) > 8 else ''} (tol {GAP_TOL:g}); "
+              f"{ep_traffic(reps)}; "
+              f"expert banks per rank {[gib(rep['bank_bytes']) for rep in reps]} of the one rank's "
+              f"{gib(one[0]['bank_bytes'])}; peak memory per rank {[gib(rep['peak']) for rep in reps]} on {card}")
+        if err > PAIR_TOL or not errs["ok"]:
+            raise SystemExit(f"phase {label}: the expert-parallel run disagrees with the one-rank run")
+        if any(abs(g) >= GAP_TOL for g in gaps):
+            raise SystemExit(f"phase {label}: a token's routing departed from the one rank's away from a near-tie")
+        shards = 2 * (2 if "fsdp" in name else 1)  # ep, and fsdp on the banks' last axis
+        if any(rep["bank_bytes"] * shards != one[0]["bank_bytes"] for rep in reps):
+            raise SystemExit(f"phase {label}: a rank does not hold its share of the expert banks")
+        if any(rep["traffic"].get("ep_calls", 0) == 0 for rep in reps):
+            raise SystemExit(f"phase {label}: a rank issued no ep all-reduce")
+        per_rank_flash_check(label, reps, 2, G * steps, n_evals(reps[0]["records"]), exact=True)
+    for name in ("one", *runs):
+        shutil.rmtree(root / f"a_{name}")
+    launched = [one, *runs.values()]
+    wall = sum(max(rep["clock"]["done"] - rep["clock"]["launch"] for rep in r) for r in launched)
+    flash = _ep_flash(*launched)
+    print(f"phase 22a took {wall:.1f} s in its ranks' launches (beside 5c-11c) and "
+          f"{time.perf_counter() - t_phase:.1f} s of verdicts; flash launches in its ranks: "
+          f"{({k: dict(c) for k, c in flash.items()})} on {card}")
+    return flash
+
+
+def ep_restore(root: Path, data_dir: Path):
+    """22b's checkpoint (root / "b") restored on this device, verified, and
+    trained on for steps max_steps .. EP_MAIN_STEPS - 1 of its cuts on the
+    stream in `data_dir`, with its routing pinned to its reference's
+    (root / "b_routing.pt"), as `train` resumes (its positional batches)
+    but saving nothing; the checkpoint is removed. Returns {"step": the
+    restored step, "losses": the steps', "flips": [call, gap] of each token
+    the pin overrode, "launches": flash launches by kernel and variant,
+    "seconds"}."""
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.data.dataset import TokenDataset
+    from midgpt_tpu_torch.launch import apply_overrides
+    from midgpt_tpu_torch.training.checkpoint import CheckpointManager
+    from midgpt_tpu_torch.training.optim import make_optimizer
+    from midgpt_tpu_torch.training.train import make_train_step, state_template
+
+    t0 = time.perf_counter()
+    cfg = apply_overrides(load_config("local_text_124m"), [(k, str(v)) for k, v in {
+        **EP_MAIN_CUTS, **MOE_SETS, "mesh.ep": 1, "data_dir": data_dir}.items()])
+    pin = [(sel,) for sel in torch.load(root / "b_routing.pt")[ep_pinned_calls():]]
+    flips: list = []
+    mngr = CheckpointManager(str(root / "b"))
+    step = mngr.latest_verified_step()
+    state = mngr.restore(step, state_template(cfg), device="cuda")
+    mngr.close()
+    params, opt_state = state["params"], state["opt_state"]
+    optimizer, _ = make_optimizer(cfg)
+    train_step = make_train_step(cfg, optimizer)[0]
+    ds = TokenDataset(str(data_dir), seed=cfg.data_seed)
+    counters = flash_counters()
+    for c in counters.values():
+        c.reset()
+    losses, carrier = [], 0.0
+    with routing([], pin=pin, flips=flips):
+        for itr in range(step + 1, EP_MAIN_STEPS):
+            x, y = ds.batch("train", itr, cfg.model_config.block_size, cfg.batch_size, cfg.g_accum_iters)
+            params, opt_state, carrier = train_step(params, opt_state, torch.from_numpy(x).cuda().long(),
+                                                    torch.from_numpy(y).cuda().long(), None, carrier)
+            losses.append(carrier.item())
+    torch.cuda.synchronize()
+    launches = {n: dict(c.by_variant) for n, c in counters.items()}
+    del params, opt_state, state
+    free_memory()
+    shutil.rmtree(root / "b")  # 6.7 GB: the machine takes 45 GiB of disk writes
+    return {"step": step, "losses": losses, "flips": flips, "launches": launches,
+            "seconds": time.perf_counter() - t0}
+
+
+def expert_parallel_main(card: str, reports, restore, root: Path, moe_losses):
+    """Phase 22b's verdicts on its ranks' reports and its restore on this
+    device (`ep_restore`'s result) against one device on its cuts, with
+    phase 16a's one-device losses `moe_losses` beside; `root` is removed.
+    Returns the flash launches of its ranks and its restore, {kernel:
+    Counter(variant: n)}."""
+    from midgpt_tpu_torch.config import load_config
+    from midgpt_tpu_torch.models.gpt import param_shapes
+
+    t_phase = time.perf_counter()
+    base = load_config("local_text_124m")
+    mc = dataclasses.replace(base.model_config, **MOE_MODEL)
+    G, steps = EP_MAIN_CUTS["g_accum_iters"], EP_MAIN_CUTS["max_steps"]
+    reps, one = reports["b_ep"], reports["b_one"]
+    at, resumed, restore_flips, restore_launches = (restore[k] for k in ("step", "losses", "flips", "launches"))
+    records = reps[0]["records"]
+    losses, one_losses = step_losses(records), step_losses(one[0]["records"])
+    err, cut = max_rel(losses, one_losses[:steps]), max_rel(one_losses, moe_losses[:len(one_losses)])
+    rel = max_rel(resumed, one_losses[steps:]) if at == steps - 1 else float("inf")
+    banks = 3 * 4 * sum(int(np.prod(v)) for k, v in param_shapes(mc).items() if "experts" in k)
+    print("phase 22b reduced: " + ", ".join(f"{k} {getattr(base, k)} -> {v}" for k, v in EP_MAIN_CUTS.items()
+                                              if k in ("batch_size", "g_accum_iters", "max_steps", "eval_steps"))
+          + f"; microbatch rows 16 -> {EP_MAIN_ROWS} with g_accum 2 -> {G}: phase 16a's 32 windows a step, in other "
+          f"microbatches (the aux term's means are a microbatch's); step 0 on ep 2, steps 1-{EP_MAIN_STEPS - 1} "
+          "restored on one device")
+    print(f"phase 22b one device on these cuts: losses {one_losses} vs phase 16a's (16 rows x 2) {moe_losses}: max "
+          f"rel err {cut:.2e} (the cut's own, not bounded); peak memory {gib(one[0]['peak'])} on {card}")
+    print(f"phase 22b local_text_124m ({mc.n_layer} x {mc.n_embd}, {mc.n_experts} experts, top-{mc.moe_top_k}, aux "
+          f"{MOE_SETS['moe_aux_coef']}), bf16 over f32, ep 2: step 0's loss {losses} vs one device on these cuts "
+          f"{one_losses[:steps]}: rel err {err:.2e} (tol {TP_MAIN_TOL:g}); its checkpoint (step {at}) restored on "
+          f"the main process's device in {restore['seconds']:.1f} s (after 19's verdicts), steps "
+          f"{steps}-{EP_MAIN_STEPS - 1}: {resumed} vs {one_losses[steps:]}: "
+          f"max rel err {rel:.2e} (tol {TP_MAIN_TOL:g}); {ep_traffic(reps)}; expert banks and their moments per "
+          f"rank {[gib(rep['bank_bytes']) for rep in reps]} of one device's {gib(banks)}; state per rank "
+          f"{[gib(rep['state_bytes']) for rep in reps]}; peak memory per rank {[gib(rep['peak']) for rep in reps]} "
+          f"on {card}")
+    # the ep run and the restore's first step hold the one device's weights (lr 0 at step 0); the next follows an
+    # update
+    still = mc.n_layer * G
+    early = [g for rep in reps for _, g in rep["routing_flips"]] + [g for i, g in restore_flips if i < still]
+    later = [g for i, g in restore_flips if i >= still]
+    print(f"phase 22b routing pinned to the one device's: tokens whose own top-2 the pin overrode on its weights (ep "
+          f"2's step 0, the restore's step {steps}) {len(early)}, largest K/K+1 router logit gap "
+          f"{max(map(abs, early), default=0.0):.3e} (tol {EP_BF16_GAP_TOL:g}); after the first update (step "
+          f"{steps + 1}) {len(later)}, gaps at the quartiles "
+          f"{np.quantile(later, (0.25, 0.5, 0.75)).round(5).tolist() if later else []}, largest "
+          f"{max(map(abs, later), default=0.0):.3e} on {card}")
+    if len(losses) != steps or not all(np.isfinite(losses)) or err > TP_MAIN_TOL:
+        raise SystemExit("phase 22b: the expert-parallel run disagrees with one device on its cuts")
+    if rel > TP_MAIN_TOL:
+        raise SystemExit("phase 22b: the ep 2 checkpoint did not restore on one device into its trajectory")
+    if any(abs(g) > EP_BF16_GAP_TOL for g in early):
+        raise SystemExit("phase 22b: on the one device's weights a token's routing departed from its routing away "
+                         "from a near-tie")
+    if any(rep["bank_bytes"] * 2 != banks for rep in reps):
+        raise SystemExit("phase 22b: a rank does not hold half of the expert banks")
+    per_rank_flash_check("22b", reps, mc.n_layer, G * steps, n_evals(records), exact=True)
+    per_rank_flash_check("22b one device", one, mc.n_layer, G * EP_MAIN_STEPS, n_evals(one[0]["records"]),
+                         exact=True)
+    flash_launch_check("phase 22b restored", restore_launches, mc.n_layer, G * (EP_MAIN_STEPS - steps), 0)
+    shutil.rmtree(root)
+    wall = sum(max(rep["clock"]["done"] - rep["clock"]["launch"] for rep in r) for r in (reps, one))
+    flash = _ep_flash(reps, one)
+    for k, c in restore_launches.items():
+        flash[k].update(c)
+    print(f"phase 22b took {wall:.1f} s in its ranks' launches (its one device in 17a's group, its ep 2 run in "
+          f"19a's), "
+          f"{restore['seconds']:.1f} s in its restore and {time.perf_counter() - t_phase:.1f} s of verdicts; flash "
+          f"launches: "
+          f"{({k: dict(c) for k, c in flash.items()})} on {card}")
+    return flash
+
+
+def batcher_host(card: str):
+    """Phase 22c (host only, in the decode lane): the native batcher built
+    from the checkout's batcher.c against numpy's gather, bit for bit, at
+    tools/bench_batcher.py's shapes over a seeded uint16 stream; each
+    path's ms (5 calls, after a warm one) on the card's host, beside the
+    lane's other phases."""
+    from midgpt_tpu_torch import native
+
+    if not native.native_available():
+        raise SystemExit(f"phase 22c: the native batcher did not build on the card's machine: {native.build_error()}")
+    data = np.random.default_rng(0).integers(0, 50304, BATCHER_STREAM, dtype=np.uint16)
+    rows = []
+    for B, T in BATCHER_SHAPES:
+        starts = np.random.default_rng(1).integers(0, len(data) - T - 1, size=B)
+        offsets = np.arange(T)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            x = data[starts[:, None] + offsets].astype(np.int32)
+            y = data[starts[:, None] + offsets + 1].astype(np.int32)
+        np_ms = (time.perf_counter() - t0) / 5 * 1e3
+        native.sample_windows(data, starts, T)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            xn, yn = native.sample_windows(data, starts, T)
+        c_ms = (time.perf_counter() - t0) / 5 * 1e3
+        if not (np.array_equal(x, xn) and np.array_equal(y, yn)):
+            raise SystemExit(f"phase 22c: the native windows differ from numpy's at B={B} T={T}")
+        rows.append([B, T, np_ms, c_ms])
+        print(f"phase 22c batcher B={B} T={T} over {BATCHER_STREAM:,} uint16 tokens: numpy {np_ms:.3f} ms, native "
+              f"{c_ms:.3f} ms ({np_ms / c_ms:.1f}x), windows bit for bit; {native.library_path().name} built from the "
+              f"checkout's C; the host of {card}, beside the decode lane's phases")
+    return rows
+
+
 # ---------------------------------------------------------------- the lanes: serving beside training
 
 # Serving phases hold the host most of the time (a decode round is 3-54% busy on the card, PERF.md section 5);
@@ -5564,7 +6071,7 @@ def pipeline_training(card: str, reports, root: Path, pair_dir: Path, pair_losse
 # lane's launch counters are zeroed and read in its own process, as its phases always did; its results come
 # back in OUT as JSON, its output is printed when it is joined.
 LANE_TIMEOUT_S = 900
-LANE_PHASES = {"decode": "5, 4b, 5b, 6c(e)", "serving": "11d, 12-15"}
+LANE_PHASES = {"decode": "5, 4b, 5b, 6c(e), 22c", "serving": "11d, 12-15"}
 
 
 def decode_lane(card: str) -> dict:
@@ -5603,6 +6110,9 @@ def decode_lane(card: str) -> dict:
     # 6c(e). the serving faults, obs and the engine's watchdog on phase 4's trace
     faulted_serving(card, cfg, params32, params16, streams16)
     clock.mark("6c(e) serving faults")
+    # 22c. the native batcher on the card's host
+    batcher_host(card)
+    clock.mark("22c batcher")
     print(f"decode lane phase wall seconds on {card}: {clock.line()}")
     return {"kernel_streams": [np.asarray(t).tolist() for t in kernel_streams],
             "bf16_off_streams": [np.asarray(t).tolist() for t in streams16["off"]],
@@ -5705,6 +6215,8 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     t_start = time.perf_counter()
     clock = PhaseClock()
+    global MEMORY
+    MEMORY = MemoryWatch(T_START)
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
@@ -5794,7 +6306,15 @@ def main() -> int:
             # 6. the training main path, alone on the card: counters zeroed just before, read just after
             main_dir = data_dir / "main"
             main_dir.mkdir()
+            from midgpt_tpu_torch import native
+
+            native.PATHS.clear()
             flash_launches, train_tok_s, train_mfu, main_losses = train_main_path(data_dir, card, main_dir)
+            print(f"phase 6 token windows by path: {dict(native.PATHS)} ({native.library_path()}, built from the "
+                  f"checkout's batcher.c)")
+            if native.PATHS["numpy"] or not native.PATHS["native"]:
+                raise SystemExit(f"phase 6: the main path's windows did not all come from the native batcher "
+                                 f"({native.build_error()})")
             free_memory()
             clock.mark("6 training")
             # 11d and 12-15: the serving lane, beside phases 5c-11c
@@ -5809,8 +6329,19 @@ def main() -> int:
             pp_root = data_dir / "pp_train"
             pp_root.mkdir()
             pp_launches = pipeline_launches(data_dir, pp_root)
+            # 22. expert-parallel training, riding other phases' groups: 22a's one rank after 20b's, its ep runs
+            # after 21's in 20a's groups, its verdicts after those groups; 22b's one device after 17a's runs (17b's
+            # xl waits for it), its ep 2 run after 19a's in 19a's group (19's groups peak at ~57 GiB together, so
+            # not beside them: after 17b's xl it met 19's ranks and ran the card out of memory, and in 20a's groups
+            # it met phase 7; PERF.md section 6), its restore in this process after 19's verdicts, its verdicts
+            # after phase 16
+            ep_root = Path(tempfile.mkdtemp())  # outside the data directory: 22b's verdicts come after phase 16
+            ep = expert_parallel_launches(data_dir, ep_root)
+            n21 = {g: len(pp_launches[g]) for g in ("sp2", "sp4")}
             sp_pool = ThreadPoolExecutor(1)
-            sp_ranks = sp_pool.submit(sequence_parallel_ranks, data_dir, sp_root, card, 10, pp_launches)
+            sp_ranks = sp_pool.submit(sequence_parallel_ranks, data_dir, sp_root, card, 10,
+                                      {"one": [ep["a_one"]], "sp2": pp_launches["sp2"] + [ep["a_ep2"]],
+                                       "sp4": pp_launches["sp4"] + [ep["a_fsdp2_ep2"]]})
             pp_restored = sp_pool.submit(torchrun, "21b's pp 2 checkpoint restored on one rank", 1,
                                          pp_launches["restore"], card, None, 600, 10)
             # 5c. the GQA and window slice: train both variants, serve what they wrote
@@ -5855,9 +6386,17 @@ def main() -> int:
             alias_errs = {(getattr(torch, dt), s): err for dt, s, err in lane["alias_errs"]}
             clock.mark("the serving lane's rest (11d, 12-15)")
             sp_reports = sp_ranks.result()  # before 17's ranks need the card's memory
-            pp_reports = pipeline_reports({**sp_reports[0]["then"], "restore": pp_restored.result()})
+            then = sp_reports[0]["then"]
+            pp_reports = pipeline_reports({**{g: then[g][:n21[g]] for g in ("sp2", "sp4")},
+                                           "restore": pp_restored.result()})
+            ep_reports = {"a_one": then["one"][0], "a_ep2": then["sp2"][n21["sp2"]],
+                          "a_fsdp2_ep2": then["sp4"][n21["sp4"]]}
             sp_pool.shutdown()
-            clock.mark("phase 20's ranks' rest, 21's runs among them (beside 5c-11c)")
+            # 22a's verdicts, in a thread beside 17's start (this thread waits on 17's ranks there): its run
+            # directories are removed before 17-19 write most of theirs
+            pair_pool = ThreadPoolExecutor(1)
+            pair_verdicts = pair_pool.submit(expert_parallel_pair, card, ep_reports, ep_root)
+            clock.mark("phase 20's ranks' rest, 21's and 22's runs among them (beside 5c-11c)")
             # 5, 4b, 5b and 6c(e): the decode lane, beside phases 17-19
             lanes["decode"] = start_lane("decode", lanes_dir)
             # 18. tensor-parallel serving: 4 ranks under torchrun, started here to run beside phase 17
@@ -5867,12 +6406,16 @@ def main() -> int:
             tt_root = data_dir / "tp_train"
             tt_root.mkdir()
             with ThreadPoolExecutor(1) as pool19:
-                tt_ranks = pool19.submit(tp_training_ranks, data_dir, tt_root, card, tp_proc)
+                tt_ranks = pool19.submit(tp_training_ranks, data_dir, tt_root, card, tp_proc, [ep["b_ep"]],
+                                         tt_root / "xl_done")
                 try:
                     # 17. data-parallel and FSDP training: ranks under torchrun (their flash launches join the
                     # kernels line's)
-                    dp_flash, pair_losses = data_parallel(data_dir, card, main_losses, (xl_losses, xl_peak),
-                                                          tt_root / "pair1")
+                    dp_flash, pair_losses, (ep_reports["b_one"],) = data_parallel(
+                        data_dir, card, main_losses, (xl_losses, xl_peak), tt_root / "pair1", [ep["b_one"]],
+                        tt_root / "xl_done")
+                    ep_flash = pair_verdicts.result()
+                    pair_pool.shutdown()
                     lane = join_lane("decode", lanes["decode"], lanes_dir, "17-19")
                     overlap_rates = {spec: tuple(r) for spec, r in lane["overlap_rates"].items()}
                     busy = lane["busy"]
@@ -5886,7 +6429,12 @@ def main() -> int:
                     # 21's verdicts (also before 19's): its flash launches join the kernels line's
                     pp_flash = pipeline_training(card, pp_reports, pp_root, tt_root / "pair1", pair_losses, main_losses)
                     # 19's verdicts: its ranks' flash launches join the kernels line's
-                    tt_flash = tp_training(card, tt_ranks.result(), tt_root, pair_losses, main_losses, main_dir)
+                    tt_reports = tt_ranks.result()
+                    (ep_reports["b_ep"],) = tt_reports[0].pop("then")
+                    tt_flash = tp_training(card, tt_reports, tt_root, pair_losses, main_losses, main_dir)
+                    # 22b's restore on this device, once 19a's group has run 22b's ep 2 run (its verdicts after
+                    # phase 16)
+                    ep_restored = ep_restore(ep_root, data_dir)
                 finally:
                     if tp_proc.poll() is None:
                         tp_proc.kill()
@@ -5898,14 +6446,20 @@ def main() -> int:
                 proc.kill()
                 proc.wait()
         shutil.rmtree(lanes_dir, ignore_errors=True)
-    clock.mark("17-19 ranks (18 and 19 beside 17), 20's and 21's verdicts, the decode lane beside them")
+    clock.mark("17-19 ranks (18 and 19 beside 17), 20's, 21's and 22a's verdicts, 22b's restore, the decode lane "
+               "beside them")
     # 16. the routed MoE MLP: trained through the launcher, then served (its launches join the kernels line's)
-    moe_flash, moe_paged, moe_merges = moe_path(card, overlap_rates["group:4"], batch_speeds[("12a", 8)][0])
+    moe_flash, moe_paged, moe_merges, moe_losses = moe_path(card, overlap_rates["group:4"],
+                                                             batch_speeds[("12a", 8)][0])
     print("paged launches of phases 13-15 by pool (the kernels line's paged entries take the bf16 pool's): "
           + "; ".join(f"{pool}: {dict(n)}" for pool, n in by_pool.items()) + f" on {card}")
     front_launches = by_pool["bf16"]
 
     clock.mark("16 MoE")
+    # 22b's restore on one device and its verdicts: phase 16a's losses beside
+    for k, c in expert_parallel_main(card, ep_reports, ep_restored, ep_root, moe_losses).items():
+        ep_flash[k].update(c)
+    clock.mark("22b verdicts")
     # 10. timings
     kernels = []
     for dt in (torch.bfloat16, torch.float32):
@@ -6075,7 +6629,8 @@ def main() -> int:
             "replaces": FLASH_SOURCES[kname],
             "launches": (sum(flash_launches[kname].values()) + (batch_launches64 if kname == "flash_fwd" else 0)
                          + moe_flash[kname] + sum(dp_flash[64][kname].values()) + sum(tt_flash[kname].values())
-                         + sum(sp_flash[64][kname].values()) + sum(pp_flash[kname].values())),
+                         + sum(sp_flash[64][kname].values()) + sum(pp_flash[kname].values())
+                         + sum(ep_flash[kname].values())),
             "max_abs_err": err_of[kname],
             "ms": main_ms[kname],
             "plain_ms": main_plain[kname],
@@ -6087,6 +6642,7 @@ def main() -> int:
     free_memory()
     clock.mark("10 timings")
     print(f"phase wall seconds on {card}: {clock.line()}")
+    print(f"{MEMORY.line()} on {card}")
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s (before phase 12: {EARLIER_SMOKE_S} s, before "
           f"phase 13: {EARLIER_SMOKE_PHASE13_S} s, before phase 14: {EARLIER_SMOKE_PHASE14_S} s, before phase 15: "
           f"{EARLIER_SMOKE_PHASE15_S} s, before phase 16: {EARLIER_SMOKE_PHASE16_S} s, before phase 17: "
@@ -6105,4 +6661,23 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except BaseException as e:
+        if isinstance(e, SystemExit) and e.code in (None, 0):
+            raise
+        code = e.code if isinstance(e, SystemExit) and isinstance(e.code, int) else 1
+        # the failure, then the card's memory beside it, last: a reader of the tail sees both
+        if isinstance(e, SystemExit):
+            if not isinstance(e.code, int):
+                print(e.code, file=sys.stderr)
+        else:
+            import traceback
+
+            traceback.print_exc()
+        if MEMORY is not None:
+            print(f"{MEMORY.line()} (the failure at {time.time() - T_START:.1f} s)", file=sys.stderr)
+    finally:
+        if MEMORY is not None:
+            MEMORY.stop()
+    sys.exit(code)

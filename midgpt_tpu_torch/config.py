@@ -7,7 +7,7 @@ module-level `config` (`load_config`); `to_json` writes the run
 directory's `config.json`, which either package reads back. Validation
 covers the fields the port reads and the checkpoint, supervisor,
 preemption, watchdog, fault and FSDP knobs, as JAX checks them at the
-same place. The mesh's data, fsdp, sp, tp and pp axes, `fsdp_mode`,
+same place. The mesh's data, fsdp, sp, tp, pp and ep axes, `fsdp_mode`,
 `shard_model`, `fsdp_min_size`, `tp_vocab` and the pipeline knobs
 (`pipeline_microbatches`, `pipeline_schedule`) drive multi-rank training
 (parallel/). JAX's tp checks hold here too (whole heads, K/V heads and
@@ -17,8 +17,8 @@ sequence-parallel ones (the sp axis with attn_impl 'ring' or 'ulysses':
 Ulysses needs whole heads per (tp, sp) rank, shard_map under tp and the
 pipeline refuse sp) and its pipeline ones (whole stages of layers, no
 dropout, gspmd, 1F1B without tp, the batch over the microbatches, no
-MoE). The ep axis of training is carried for the round trip, checked as
-JAX checks it, and waits for a later slice (ROADMAP.md Queue 1 item 7).
+MoE), and its MoE ones (the ep axis over a routed MLP whose n_experts
+it divides, under gspmd).
 """
 
 from __future__ import annotations
@@ -211,9 +211,8 @@ class ExperimentConfig:
                 raise ValueError(f"batch_size={self.batch_size} not divisible by pipeline_microbatches={mb}")
 
     def _check_moe(self):
-        """JAX's MoE checks (midgpt_tpu/config.py), with its messages. The
-        port trains on one device: a valid ep > 1 mesh is carried like any
-        other mesh axis (launch.py `unused_mesh`)."""
+        """JAX's MoE checks (midgpt_tpu/config.py:314-335), with its
+        messages."""
         mc = self.model_config
         pp = 1 if self.mesh.pp == -1 else self.mesh.pp
         ep = 1 if self.mesh.ep == -1 else self.mesh.ep

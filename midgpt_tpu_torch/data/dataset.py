@@ -5,9 +5,12 @@
 with an optional `meta.pkl`. Every batch is drawn from
 `np.random.default_rng([seed, split, step])` — stateless, deterministic and
 exactly replayable — so the port draws the same windows as the JAX package
-for the same (seed, split, step). Windows are gathered with numpy (the JAX
-package's C batcher is bit-identical to this gather and is not carried).
-`shard_by_process` cuts each stream by node, as JAX cuts it by process.
+for the same (seed, split, step). Windows of a uint16 stream are gathered
+by the native C batcher (midgpt_tpu_torch/native, built at first use), as
+JAX's are; numpy's gather is its plain version, bit for bit the same, and
+takes over only where the library is unavailable: the first dataset of a
+process says which path it takes, and why. `shard_by_process` cuts each
+stream by node, as JAX cuts it by process.
 """
 
 from __future__ import annotations
@@ -18,7 +21,10 @@ import typing as tp
 
 import numpy as np
 
+from midgpt_tpu_torch import native
+
 _SPLIT_IDS = {"train": 0, "val": 1}
+_said: tp.List[str] = []  # the path line, once a process
 
 
 def sample_batch(
@@ -35,7 +41,11 @@ def sample_batch(
 
     accum_slice=(lo, m) materializes only accumulation steps [lo, lo + m) of
     the full (g_accum_iters, B, T) draw: all window starts are drawn, then
-    sliced, so chunked consumers see the windows a monolithic caller sees."""
+    sliced, so chunked consumers see the windows a monolithic caller sees.
+
+    The gather is the native batcher's where it loaded and the stream is
+    uint16, else numpy's (the RNG is numpy's either way: the two are bit
+    for bit the same); `native.PATHS` counts each call's path."""
     rng = rng or np.random.default_rng()
     bs = batch_size * (g_accum_iters or 1)
     starts = rng.integers(0, len(data) - block_size, size=(bs,))
@@ -45,9 +55,15 @@ def sample_batch(
         lo, m = accum_slice
         starts = starts[lo * batch_size : (lo + m) * batch_size]
         g_accum_iters = m
-    offsets = np.arange(block_size)
-    x = data[starts[:, None] + offsets].astype(np.int32)
-    y = data[starts[:, None] + offsets + 1].astype(np.int32)
+    xy = native.sample_windows(data, starts, block_size)
+    if xy is not None:
+        x, y = xy
+        native.PATHS["native"] += 1
+    else:
+        offsets = np.arange(block_size)
+        x = data[starts[:, None] + offsets].astype(np.int32)
+        y = data[starts[:, None] + offsets + 1].astype(np.int32)
+        native.PATHS["numpy"] += 1
     if g_accum_iters is not None:
         x = x.reshape(g_accum_iters, batch_size, block_size)
         y = y.reshape(g_accum_iters, batch_size, block_size)
@@ -91,6 +107,11 @@ class TokenDataset:
                 per = len(arr) // dist.n_nodes()
                 arr = arr[dist.node() * per:(dist.node() + 1) * per].copy()
             self.splits[split] = arr
+        if not _said:
+            _said.append(f"token windows: the native C batcher ({native.library_path()})" if native.native_available()
+                         else f"token windows: numpy's gather (the native batcher is unavailable: "
+                              f"{native.build_error()})")
+            print(_said[0])
 
     def __getitem__(self, split: str) -> np.ndarray:
         return self.splits[split]

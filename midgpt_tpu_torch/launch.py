@@ -31,12 +31,12 @@ position's N ranks), Megatron tensor-parallel rows (`--set mesh.tp=N`:
 consecutive ranks at pp 1, the vocab-parallel embedding and CE under
 `tp_vocab`), pipeline stages (`--set mesh.pp=N --set
 pipeline_schedule=gpipe|1f1b --set pipeline_microbatches=M`: each stage
-its L/N layers, parallel/pipeline.py), one checkpoint written by rank 0.
-Without it the run is one process on one device, and the mesh clamps to
-one rank (a preset's sp, tp or pp above 1 then refuses to lay out). A
-multi-rank run must name its `--rundir`, as JAX's does. The ep axis is a
-later slice of the port: a preset that sets it above 1 gets one printed
-line naming the axis left unused.
+its L/N layers, parallel/pipeline.py), expert-parallel groups (`--set
+mesh.ep=N` with a routed MLP: each rank n_experts/N of the experts,
+parallel/tp.py EPTrain), one checkpoint written by rank 0. Without it the
+run is one process on one device, and the mesh clamps to one rank (a
+preset's sp, tp, pp or ep above 1 then refuses to lay out). A multi-rank
+run must name its `--rundir`, as JAX's does.
 
 The supervisor rolls a divergence back to the newest verified step with
 the poisoned data window skipped, and restarts a hung step, up to
@@ -55,7 +55,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-import typing as tp
 from datetime import datetime
 
 
@@ -106,20 +105,6 @@ def apply_overrides(config, pairs):
         return dataclasses.replace(obj, **kwargs)
 
     return rebuild(config, tree)
-
-
-def unused_mesh(config) -> tp.Optional[str]:
-    """The line the launcher prints when the preset's mesh sets the axis
-    the port does not train on (ep) above 1, or None: the data and fsdp
-    axes clamp to the ranks there are, as JAX's make_mesh clamps."""
-    from midgpt_tpu_torch.parallel.mesh import LATER_SLICES
-
-    wide = {k: getattr(config.mesh, k) for k in LATER_SLICES if getattr(config.mesh, k) > 1}
-    if not wide:
-        return None
-    return (f"mesh {' x '.join(f'{k}={v}' for k, v in wide.items())}: "
-            f"{', '.join(LATER_SLICES[k] for k in wide)} not ported yet; the run trains on the data, fsdp, sp, tp "
-            "and pp axes and leaves that mesh unused (ROADMAP.md Queue 1 item 7)")
 
 
 def main(argv=None) -> dict:
@@ -175,9 +160,6 @@ def main(argv=None) -> dict:
             print(f"Writing to {config.rundir}")
         mesh.barrier()
         say(config)
-        mesh_note = unused_mesh(config)
-        if mesh_note:
-            say(mesh_note)
         if args.multihost:
             say(f"mesh {mesh.geometry()['axes']} over {mesh.size} rank(s), backend {dist.backend()}")
         preempt.install_handlers()

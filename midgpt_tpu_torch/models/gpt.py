@@ -565,6 +565,7 @@ class GPT:
         return_moe_aux: bool = False,
         aux_reduce: tp.Optional[tp.Callable[[Tensor], Tensor]] = None,
         tp_row=None,
+        ep_train=None,
     ) -> tp.Union[Tensor, tp.Tuple[Tensor, Tensor]]:
         """Shared tail of a block: merge heads, output projection, MLP (the
         routed one when n_experts > 0), residuals (each branch dropped out
@@ -579,7 +580,9 @@ class GPT:
         residual add (`reduce`, Megatron's g; TPShard sums only the leaves
         its specs shard). `copy` (Megatron's f, the identity when serving)
         goes before the w_up product. The routed MLP's banks are
-        replicated, so its output is whole and is not summed."""
+        replicated over tp, so its output is whole and is not summed over
+        the row. `ep_train` (parallel/tp.py EPTrain): the banks are the
+        rank's experts (`_moe_mlp`)."""
         B, T = att.shape[:2]
         att = att.reshape(B, T, -1) @ blk["attn.wo"].T
         if tp_row is not None:
@@ -588,7 +591,7 @@ class GPT:
         h = rms_norm(x)
         aux = None
         if config.n_experts > 0:
-            h, aux = GPT._moe_mlp(config, blk, h, return_aux=return_moe_aux, aux_reduce=aux_reduce)
+            h, aux = GPT._moe_mlp(config, blk, h, return_aux=return_moe_aux, aux_reduce=aux_reduce, ep=ep_train)
         else:
             if tp_row is not None:
                 h = tp_row.copy(h)
@@ -649,7 +652,7 @@ class GPT:
     @staticmethod
     def _moe_mlp(
         config: GPTConfig, blk: Params, h: Tensor, return_aux: bool = False,
-        aux_reduce: tp.Optional[tp.Callable[[Tensor], Tensor]] = None,
+        aux_reduce: tp.Optional[tp.Callable[[Tensor], Tensor]] = None, ep=None,
     ) -> tp.Tuple[Tensor, tp.Optional[Tensor]]:
         """Top-k routed expert MLP, JAX's masked-dense lowering:
         gelu(h . experts_up^T) for every expert, scaled by its gate (zero
@@ -660,12 +663,23 @@ class GPT:
         Both banks are read in place: experts_up as its (E*4D, D) view,
         experts_down through `ops.moe.moe_down`.
 
+        `ep` (parallel/tp.py EPTrain): the banks hold this rank's E/ep
+        experts. The gates come from the whole router as without it; h
+        and the gates pass f before the rank's experts read them (their
+        columns of the gates), and the combine of the rank's experts
+        passes g: JAX's masked-dense MLP with the expert axis sharded.
+
         Returns (out, aux | None): aux only with `return_aux`."""
         gates, aux = GPT._moe_gates(config, blk, h, with_aux=return_aux, aux_reduce=aux_reduce)
-        lead, (E, D) = h.shape[:-1], (config.n_experts, config.n_embd)
-        up = F.gelu(h @ blk["mlp.experts_up"].reshape(-1, D).T, approximate="tanh")  # (..., E*4D)
+        up_w, down_w = blk["mlp.experts_up"], blk["mlp.experts_down"]
+        lead, (E, D) = h.shape[:-1], (up_w.shape[0], config.n_embd)  # E: the experts this rank holds
+        if ep is not None:
+            h, gates = ep.copy(h), ep.copy(gates)[..., ep.experts(E)]
+        up = F.gelu(h @ up_w.reshape(-1, D).T, approximate="tanh")  # (..., E*4D)
         up = up.reshape(*lead, E, -1) * gates[..., None]
-        out = moe_down(up.reshape(-1, E, up.shape[-1]), blk["mlp.experts_down"])
+        out = moe_down(up.reshape(-1, E, up.shape[-1]), down_w)
+        if ep is not None:
+            out = ep.reduce(out)
         return out.reshape(*lead, D), aux
 
     @staticmethod
@@ -684,13 +698,14 @@ class GPT:
         tp_train=None,
         attn_fn: tp.Optional[tp.Callable[[Tensor, Tensor, Tensor], Tensor]] = None,
         positions: tp.Optional[Tensor] = None,
+        ep_train=None,
     ) -> tp.Union[Tensor, tp.Tuple[Tensor, Tensor]]:
         """One block: QKV, QK-norm, RoPE, attention, output projection, MLP.
         Under a remat `policy` the tensors it keeps by name are named
         (ops/remat.py `name`); otherwise nothing is. With return_moe_aux,
         returns (out, the block's load-balance term). `tp_train`: `blk` is
-        a tp rank's shard (whole heads of q, k and v; `hidden`). `attn_fn`
-        and `positions`: `hidden`'s."""
+        a tp rank's shard (whole heads of q, k and v; `hidden`). `attn_fn`,
+        `positions` and `ep_train`: `hidden`'s."""
         h = rms_norm(x)
         if tp_train is not None:
             h = tp_train.copy(h)
@@ -721,7 +736,8 @@ class GPT:
             if not (config.attn_impl == "flash" and flash_kernel_usable(x.shape[1], config.attn_block_size)):
                 att = remat.name(att, "attn_out", policy)  # the flash op's out is kept as the op's
         return GPT._attn_out_and_mlp(config, blk, x, att, generator=generator, inference=inference,
-                                     return_moe_aux=return_moe_aux, aux_reduce=aux_reduce, tp_row=tp_train)
+                                     return_moe_aux=return_moe_aux, aux_reduce=aux_reduce, tp_row=tp_train,
+                                     ep_train=ep_train)
 
     @staticmethod
     def hidden(
@@ -738,6 +754,7 @@ class GPT:
         attn_fn: tp.Optional[tp.Callable[[Tensor, Tensor, Tensor], Tensor]] = None,
         positions: tp.Optional[Tensor] = None,
         rope_len: tp.Optional[int] = None,
+        ep_train=None,
     ) -> tp.Union[Tensor, tp.Tuple[Tensor, Tensor]]:
         """Backbone forward -> final-normed hidden states (B, T, D).
 
@@ -761,6 +778,11 @@ class GPT:
         from the shards' shapes, so RoPE, QK-norm and the GQA fold run on
         the rank's heads as they are; the routed MLP runs whole. Every rank
         of the row returns the same hidden states.
+
+        `ep_train` (parallel/tp.py EPTrain): the routed MLP's banks are an
+        ep rank's E/ep experts, and the forward places the ep group's f
+        and g around them (`_moe_mlp`). Every rank of the group returns
+        the same hidden states and aux term.
 
         `attn_fn`, `positions` and `rope_len` run the backbone on a LOCAL
         sequence shard, as JAX's hooks do (midgpt_tpu/models/gpt.py:964-981):
@@ -803,7 +825,8 @@ class GPT:
         sin, cos = rope_table(config.head_dim, T if rope_len is None else rope_len, device=x.device)
         out = GPT.stage(config, params, x, range(config.n_layer), sin, cos, generator=generator,
                         inference=inference, return_moe_aux=return_moe_aux, aux_reduce=aux_reduce,
-                        layer_transform=layer_transform, tp_train=tp_train, attn_fn=attn_fn, positions=positions)
+                        layer_transform=layer_transform, tp_train=tp_train, attn_fn=attn_fn, positions=positions,
+                        ep_train=ep_train)
         if return_moe_aux:
             x, auxes = out
             return rms_norm(x, eps=1e-5), torch.stack(auxes).mean()
@@ -826,6 +849,7 @@ class GPT:
         tp_train=None,
         attn_fn: tp.Optional[tp.Callable[[Tensor, Tensor, Tensor], Tensor]] = None,
         positions: tp.Optional[Tensor] = None,
+        ep_train=None,
     ) -> tp.Union[Tensor, tp.Tuple[Tensor, tp.List[Tensor]]]:
         """The residual stream x (B, T, D) through `layers`, a contiguous
         run of indices into the stacked block leaves of `params`, with the
@@ -840,7 +864,7 @@ class GPT:
         auxes = []
         kw = dict(sin=sin, cos=cos, generator=generator, inference=inference, policy=policy,
                   return_moe_aux=return_moe_aux, aux_reduce=aux_reduce, tp_train=tp_train,
-                  attn_fn=attn_fn, positions=positions)
+                  attn_fn=attn_fn, positions=positions, ep_train=ep_train)
         for i in layers:
             if layer_transform is None:
                 block = functools.partial(GPT._block_apply, config, _block(params, i), **kw)

@@ -9,9 +9,10 @@ sequence parallelism (batch_spec(shard_seq=True)). The port: every rank
 of a node draws the node's batch the same way (the node is JAX's
 process, parallel/dist.py) and keeps the rows of its batch position, in
 the mesh's flattened (data, fsdp) order (parallel/mesh.py), then the
-contiguous T/sp columns of its sequence shard; the ranks of a tp row and
-the stages of a pipeline keep the same rows and columns (JAX's batch
-spec replicates the batch over 'tp' and 'pp'). On one node the global batch is then
+contiguous T/sp columns of its sequence shard; the ranks of a tp row, the
+stages of a pipeline and the ep ranks of a position keep the same rows
+and columns (JAX's batch spec replicates the batch over 'tp', 'pp' and
+'ep'). On one node the global batch is then
 positional and does not depend on the rank count, as JAX's is on one
 host: a resume across rank counts continues the same trajectory.
 """
@@ -29,22 +30,23 @@ def node_batch_size(batch_size: int, mesh: Mesh) -> int:
     process_count); the global batch must split evenly over the batch
     positions (data x fsdp: the ranks of a tp row share their rows, as
     JAX's batch_spec leaves 'tp' off the batch axis, and so do the stages
-    of a pipeline), and a batch position's sp x tp x pp ranks must sit on
-    one node."""
+    of a pipeline and the ep ranks of a position), and a batch position's
+    sp x tp x pp x ep ranks must sit on one node."""
     if batch_size % mesh.batch_size:
         raise ValueError(f"batch_size={batch_size} does not split over the mesh's {mesh.batch_size} batch positions "
                          f"(data x fsdp)")
-    pp = getattr(mesh, "pp", 1)
-    if (mesh.size // pdist.n_nodes()) % (mesh.sp * mesh.tp * pp):
-        raise ValueError(f"{mesh.size // pdist.n_nodes()} ranks a node do not hold whole sp x tp x pp blocks of "
-                         f"{mesh.sp} x {mesh.tp} x {pp}")
+    pp, ep = getattr(mesh, "pp", 1), getattr(mesh, "ep", 1)
+    if (mesh.size // pdist.n_nodes()) % (mesh.sp * mesh.tp * pp * ep):
+        raise ValueError(f"{mesh.size // pdist.n_nodes()} ranks a node do not hold whole sp x tp x pp x ep blocks "
+                         f"of {mesh.sp} x {mesh.tp} x {pp} x {ep}")
     return batch_size // pdist.n_nodes()
 
 
 def rank_rows(a: np.ndarray, mesh: Mesh) -> np.ndarray:
     """This rank's block of a node batch, (G, B, T) or (B, T): the batch
     positions on this node take equal consecutive slices of the B axis
-    (the ranks of a tp row, an sp group and a pp group the same slice), and the sp
+    (the ranks of a tp row, an sp group, a pp group and an ep group the
+    same slice), and the sp
     ranks of a position equal consecutive slices of the T axis."""
     per_node = mesh.batch_size // pdist.n_nodes()
     if per_node > 1:

@@ -10,22 +10,26 @@ on JAX's axis.
 
 A spec here is the sharded axis or None (`param_specs`, the FSDP rule
 alone), or a tuple with one entry per axis of the leaf, 'fsdp', 'tp',
-'pp' or None (the training state's specs, parallel/tp.py `tp_leaf_spec`:
-a leaf may carry tp on one axis and fsdp on another, as wqkv's (None,
-None, 'tp', 'fsdp'); under the pipeline a block leaf's layer axis is
-'pp', parallel/pipeline.py `pipeline_param_specs`). `shard` keeps this
-rank's contiguous slice on every sharded axis;
+'pp', 'ep' or None (the training state's specs, parallel/tp.py
+`tp_leaf_spec`: a leaf may carry tp on one axis and fsdp on another, as
+wqkv's (None, None, 'tp', 'fsdp'), and the routed MLP's banks their
+expert axis over 'ep', as experts_up's (None, 'ep', None, 'fsdp'); under
+the pipeline a block leaf's layer axis is 'pp', parallel/pipeline.py
+`pipeline_param_specs`). `shard` keeps this rank's contiguous slice on
+every sharded axis;
 `gather` all-gathers the fsdp axis back inside autograd, with the
 reduce-scatter of the gradient as its backward: the port's form of "the
 transpose of all_gather is psum_scatter" (shard_map_fsdp.py:16-19). The
 tp shard stays on its rank through the step (the model's forward is
 written for it); `gather_tp` gathers it (`whole_tree`: both axes), for
-checkpoints and tests, and `gather_pp` the layer axis over the stages
-(`whole_tree`: every axis).
+checkpoints and tests, `gather_pp` the layer axis over the stages and
+`gather_ep` the expert axis over the ep group (`whole_tree`: every
+axis). The ep shard, like the tp shard, stays on its rank through the
+step (parallel/tp.py `EPTrain`).
 `reduce_grads` then sums each gradient over the ranks that saw other
 batch rows or other sequence shards (and, for the leaves a tp row applies
 to its own heads only, over the row; for the leaves every stage holds
-whole, over the stages).
+whole, over the stages; never over ep).
 
 The collectives are torch.distributed's; none of them stands for a TPU
 kernel.
@@ -62,12 +66,19 @@ def pp_axis(spec: Spec) -> tp.Optional[int]:
     return spec.index("pp") if isinstance(spec, tuple) and "pp" in spec else None
 
 
+def ep_axis(spec: Spec) -> tp.Optional[int]:
+    """The axis a spec shards over ep (a bank's expert axis), or None."""
+    return spec.index("ep") if isinstance(spec, tuple) and "ep" in spec else None
+
+
 def shard_extent(spec: Spec, mesh) -> tp.Dict[int, tp.Tuple[int, int]]:
     """{axis: (shard count, this rank's place)} for each axis `spec` shards
-    on `mesh` (reads only the mesh's axis sizes and indices)."""
+    on `mesh` (reads only the mesh's axis sizes and indices; a mesh
+    without an ep axis has ep 1)."""
     out = {}
     for ax, n, i in ((pp_axis(spec), mesh.pp, mesh.pp_index), (tp_axis(spec), mesh.tp, mesh.tp_index),
-                     (fsdp_axis(spec), mesh.fsdp, mesh.fsdp_index)):
+                     (fsdp_axis(spec), mesh.fsdp, mesh.fsdp_index),
+                     (ep_axis(spec), getattr(mesh, "ep", 1), getattr(mesh, "ep_index", 0))):
         if ax is not None and n > 1:
             out[ax] = (n, i)
     return out
@@ -118,8 +129,8 @@ def param_specs(
 
 
 def shard(t: Tensor, spec: Spec, mesh: Mesh) -> Tensor:
-    """This rank's contiguous slice of the full leaf `t` on its pp, tp and
-    fsdp axes (a copy), or `t` itself when the leaf is replicated."""
+    """This rank's contiguous slice of the full leaf `t` on its pp, tp,
+    fsdp and ep axes (a copy), or `t` itself when the leaf is replicated."""
     cut = t
     for ax, (n, i) in shard_extent(spec, mesh).items():
         cut = cut.chunk(n, dim=ax)[i]
@@ -190,6 +201,17 @@ def gather_pp(t: Tensor, spec: Spec, mesh: Mesh) -> Tensor:
     return _all_gather(t, axis, mesh.pp, mesh.pp_group)
 
 
+@torch.no_grad()
+def gather_ep(t: Tensor, spec: Spec, mesh: Mesh) -> Tensor:
+    """The leaf whole on its expert axis from the ep group's shards
+    (collective over the group); a leaf not sharded over ep passes
+    through."""
+    axis = ep_axis(spec)
+    if axis is None or mesh.ep == 1:
+        return t
+    return _all_gather(t, axis, mesh.ep, mesh.ep_group)
+
+
 def reduce_grads(grads: tp.Mapping[str, Tensor], specs: tp.Mapping[str, Spec], mesh: Mesh,
                  tp_partial: tp.Collection[str] = ()) -> None:
     """In place, each gradient summed over the ranks whose tokens it has
@@ -205,7 +227,17 @@ def reduce_grads(grads: tp.Mapping[str, Tensor], specs: tp.Mapping[str, Spec], m
     (wte, lm_head: not sharded over pp) is then summed over the stages
     too, each stage's share being its part of the schedule (stage 0 the
     embedding's, every stage its CE rows' head gradient), as the psum
-    JAX's shard_map transpose inserts over 'pp'."""
+    JAX's shard_map transpose inserts over 'pp'.
+
+    Under ep every group above is one ep index's. A bank sharded over ep
+    holds the gradient of the rank's experts for the rank's tokens, so it
+    is summed as any other leaf over the ranks of its ep index that saw
+    other tokens: its replica group when fsdp-sharded, else its batch
+    group. A leaf replicated over ep (the router and every non-MLP leaf)
+    already holds its whole gradient on each ep rank (EPTrain's f sums the
+    experts' shares into the stream's gradient once, inside the step), so
+    it is summed over the batch positions of one ep index and never over
+    ep: the ep ranks' copies are identical, as the stream they hold is."""
     for name, g in grads.items():
         on_fsdp = fsdp_axis(specs[name]) is not None and mesh.fsdp > 1
         partial = name in tp_partial and mesh.tp > 1
@@ -234,9 +266,12 @@ def gather_tree(tree: tp.Mapping[str, Tensor], specs: tp.Mapping[str, Spec], mes
 @torch.no_grad()
 def whole_tree(tree: tp.Mapping[str, Tensor], specs: tp.Mapping[str, Spec], mesh: Mesh) -> tp.Dict[str, Tensor]:
     """Every leaf of `tree` whole (collective over the fsdp row, then the
-    tp row, then the pp group)."""
-    return {k: gather_pp(gather_tp(gather(v, specs[k], mesh), specs[k], mesh), specs[k], mesh)
-            for k, v in tree.items()}
+    tp row, then the pp group, then the ep group)."""
+    out = {}
+    for k, v in tree.items():
+        v = gather_pp(gather_tp(gather(v, specs[k], mesh), specs[k], mesh), specs[k], mesh)
+        out[k] = gather_ep(v, specs[k], mesh)
+    return out
 
 
 class ShardedInit:

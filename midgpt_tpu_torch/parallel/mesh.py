@@ -3,43 +3,49 @@
 JAX names a 6D device mesh ('data', 'fsdp', 'sp', 'tp', 'pp', 'ep'); the
 port lays its ranks out on the same axes with JAX's arithmetic
 (`mesh_shape`: the -1 inference, the divisor clamp on fsdp, the same
-error texts). Training runs on the data, fsdp, sp, tp and pp axes: a
-training mesh (`make_mesh`) with an ep axis above 1 raises and names its
-later slice. Serving meshes (parallel/serve_tp.py `make_serve_mesh`) are
-(data, tp) meshes of the same class.
+error texts). Training runs on every axis. Serving meshes
+(parallel/serve_tp.py `make_serve_mesh`) are (data, tp) meshes of the
+same class.
 
-Ranks fill (data, fsdp, sp, tp, pp) in JAX's axis order, the last axis
-fastest: rank index i sits at data i // (fsdp * sp * tp * pp), fsdp
-(i // (sp * tp * pp)) % fsdp, sp (i // (tp * pp)) % sp, tp (i // pp) % tp,
-pp i % pp. At pp 1 a tp row is consecutive ranks (on one node under
-torchrun), and i // (sp * tp * pp) is the rank's *batch position*: the
-flattened (data, fsdp) order in which JAX's batch_spec shards the batch
-rows over both axes (the ranks of a tp row, the sp ranks of a position
-and the stages of a pipeline read the same rows; the sp index picks the
-rank's contiguous T/sp columns, as batch_spec(shard_seq=True) shards the
-sequence). The ranks of one pp index are a *stage*: every group below but
-`pp_group` and `group` lies inside one stage. The process groups:
+Ranks fill (data, fsdp, sp, tp, pp, ep) in JAX's axis order, the last
+axis fastest: rank index i sits at data i // (fsdp * sp * tp * pp * ep),
+fsdp (i // (sp * tp * pp * ep)) % fsdp, sp (i // (tp * pp * ep)) % sp, tp
+(i // (pp * ep)) % tp, pp (i // ep) % pp, ep i % ep. At pp 1 and ep 1 a tp
+row is consecutive ranks (on one node under torchrun), and
+i // (sp * tp * pp * ep) is the rank's *batch position*: the flattened
+(data, fsdp) order in which JAX's batch_spec shards the batch rows over
+both axes (the ranks of a tp row, the sp ranks of a position, the stages
+of a pipeline and the ep ranks of a position read the same rows; the sp
+index picks the rank's contiguous T/sp columns, as
+batch_spec(shard_seq=True) shards the sequence). The ranks of one pp and
+ep index are a *stage*: every group below but `pp_group`, `ep_group` and
+`group` lies inside one stage, so a sum over one of them never adds the
+identical values of a leaf's ep replicas. The process groups:
 
-  tp_group      the tp row (same data, fsdp, sp and pp index): the ranks
-                that together hold one copy of the stage's tp-sharded
-                leaves;
-  fsdp_group    the ranks with the same data, sp, tp and pp index;
-  data_group    the ranks with the same fsdp, sp, tp and pp index;
-  sp_group      the ranks with the same data, fsdp, tp and pp index: one
-                sequence's shards, the ring's and Ulysses' group;
-  replica_group the ranks with the same fsdp, tp and pp index (data x
+  tp_group      the tp row (same data, fsdp, sp, pp and ep index): the
+                ranks that together hold one copy of the stage's
+                tp-sharded leaves;
+  fsdp_group    the ranks with the same data, sp, tp, pp and ep index;
+  data_group    the ranks with the same fsdp, sp, tp, pp and ep index;
+  sp_group      the ranks with the same data, fsdp, tp, pp and ep index:
+                one sequence's shards, the ring's and Ulysses' group;
+  replica_group the ranks with the same fsdp, tp, pp and ep index (data x
                 sp): over which the gradient of an fsdp-sharded leaf is
                 summed (the data_group at sp 1);
-  batch_group   the ranks with this rank's tp and pp index: one per (batch
-                position, sequence shard), over which losses and the
+  batch_group   the ranks with this rank's tp, pp and ep index: one per
+                (batch position, sequence shard), over which losses and the
                 gradients of leaves the tp row holds whole are summed
                 (the whole stage, at tp 1);
-  stage_group   the ranks with this rank's pp index (every member, at
-                pp 1);
-  pp_group      the ranks with the same data, fsdp, sp and tp index: the
-                stages of one pipeline, which pass activations from
+  stage_group   the ranks with this rank's pp and ep index (every member,
+                at pp 1 and ep 1);
+  pp_group      the ranks with the same data, fsdp, sp, tp and ep index:
+                the stages of one pipeline, which pass activations from
                 `prev_stage` to `next_stage` (global ranks, None at either
                 end);
+  ep_group      the ranks with the same data, fsdp, sp, tp and pp index:
+                the ranks that each hold n_experts/ep of the routed MLP's
+                experts for the same tokens, over which the combine is
+                summed (parallel/tp.py `EPTrain`);
   group         every member.
 
 A mesh takes an explicit rank list (JAX's `devices=`), so one process
@@ -63,9 +69,6 @@ import torch.distributed as dist
 from midgpt_tpu_torch.parallel import dist as pdist
 
 AXES = ("data", "fsdp", "sp", "tp", "pp", "ep")
-LATER_SLICES = {
-    "ep": "the ep axis",
-}
 
 
 def mesh_shape(cfg, n: int) -> tp.Dict[str, int]:
@@ -121,20 +124,20 @@ class Mesh:
         self.ranks = tuple(ranks)
         self.size = len(self.ranks)
         self.data, self.fsdp, self.tp = shape["data"], shape["fsdp"], shape["tp"]
-        self.sp, self.pp = shape.get("sp", 1), shape.get("pp", 1)
+        self.sp, self.pp, self.ep = shape.get("sp", 1), shape.get("pp", 1), shape.get("ep", 1)
         me = pdist.rank()
         self.index = self.ranks.index(me) if me in self.ranks else None
         self.device = device
         self.group = self.data_group = self.fsdp_group = self.tp_group = self.batch_group = None
-        self.sp_group = self.replica_group = self.stage_group = self.pp_group = None
+        self.sp_group = self.replica_group = self.stage_group = self.pp_group = self.ep_group = None
         self.prev_stage = self.next_stage = None
         self.row_groups: tp.List[tp.Any] = []
         kw = {} if timeout is None else {"timeout": timeout}
         if self.size > 1:
             # every rank of the process group creates every group, in one order
             self.group = dist.new_group(self.ranks, **kw)
-            D, F, S, T, P = self.data, self.fsdp, self.sp, self.tp, self.pp
-            at = lambda d, f, s, t, p: self.ranks[(((d * F + f) * S + s) * T + t) * P + p]  # noqa: E731
+            D, F, S, T, P, E = self.data, self.fsdp, self.sp, self.tp, self.pp, self.ep
+            at = lambda d, f, s, t, p, e: self.ranks[((((d * F + f) * S + s) * T + t) * P + p) * E + e]  # noqa: E731
 
             def make(members: tp.List[tp.List[int]]) -> tp.Tuple[tp.List[tp.Any], tp.Any]:
                 """A group per member list (the whole group when there is
@@ -142,44 +145,50 @@ class Mesh:
                 made = [self.group if len(members) == 1 else dist.new_group(m, **kw) for m in members]
                 return made, next((g for m, g in zip(members, made) if me in m), None)
 
-            def per_stage(lists: tp.Callable[[int], tp.List[tp.List[int]]]) -> tp.Any:
-                """This rank's group of those `lists(p)` gives for each stage p."""
-                return make([m for p in range(P) for m in lists(p)])[1]
+            # the stages: each (pp index, ep index), in this order
+            stages = [(p, e) for p in range(P) for e in range(E)]
+
+            def per_stage(lists: tp.Callable[[int, int], tp.List[tp.List[int]]]) -> tp.Any:
+                """This rank's group of those `lists(p, e)` gives for each stage."""
+                return make([m for p, e in stages for m in lists(p, e)])[1]
 
             cells = [(d, f, s) for d in range(D) for f in range(F) for s in range(S)]
-            rows = [[[at(d, f, s, t, p) for t in range(T)] for d, f, s in cells] for p in range(P)]
+            rows = {(p, e): [[at(d, f, s, t, p, e) for t in range(T)] for d, f, s in cells] for p, e in stages}
             if T > 1:
-                self.row_groups, self.tp_group = make([row for stage in rows for row in stage])
+                self.row_groups, self.tp_group = make([row for pe in stages for row in rows[pe]])
             if F > 1:
-                self.fsdp_group = per_stage(lambda p: [[at(d, f, s, t, p) for f in range(F)]
-                                                       for d in range(D) for s in range(S) for t in range(T)])
+                self.fsdp_group = per_stage(lambda p, e: [[at(d, f, s, t, p, e) for f in range(F)]
+                                                          for d in range(D) for s in range(S) for t in range(T)])
             if D > 1:
-                self.data_group = per_stage(lambda p: [[at(d, f, s, t, p) for d in range(D)]
-                                                       for f in range(F) for s in range(S) for t in range(T)])
+                self.data_group = per_stage(lambda p, e: [[at(d, f, s, t, p, e) for d in range(D)]
+                                                          for f in range(F) for s in range(S) for t in range(T)])
             if S > 1:
-                self.sp_group = per_stage(lambda p: [[at(d, f, s, t, p) for s in range(S)]
-                                                     for d in range(D) for f in range(F) for t in range(T)])
+                self.sp_group = per_stage(lambda p, e: [[at(d, f, s, t, p, e) for s in range(S)]
+                                                        for d in range(D) for f in range(F) for t in range(T)])
             if D > 1 and S > 1:
-                self.replica_group = per_stage(lambda p: [[at(d, f, s, t, p) for d in range(D) for s in range(S)]
-                                                          for f in range(F) for t in range(T)])
+                self.replica_group = per_stage(lambda p, e: [[at(d, f, s, t, p, e) for d in range(D) for s in range(S)]
+                                                             for f in range(F) for t in range(T)])
             else:
                 self.replica_group = self.data_group if D > 1 else self.sp_group
-            if P == 1:
+            if P * E == 1:
                 self.stage_group = self.group
             elif D * F * S * T > 1:
-                self.stage_group = per_stage(lambda p: [[r for row in rows[p] for r in row]])
+                self.stage_group = per_stage(lambda p, e: [[r for row in rows[(p, e)] for r in row]])
             if T == 1:
                 self.batch_group = self.stage_group
             elif D * F * S > 1:
-                self.batch_group = per_stage(lambda p: [[row[t] for row in rows[p]] for t in range(T)])
+                self.batch_group = per_stage(lambda p, e: [[row[t] for row in rows[(p, e)]] for t in range(T)])
             if P > 1:
-                self.pp_group = make([[at(d, f, s, t, p) for p in range(P)]
-                                      for d, f, s in cells for t in range(T)])[1]
-                if self.index is not None:  # pp is the fastest axis: the neighbours are adjacent
+                self.pp_group = make([[at(d, f, s, t, p, e) for p in range(P)]
+                                      for d, f, s in cells for t in range(T) for e in range(E)])[1]
+                if self.index is not None:  # the neighbours are E ranks apart (only ep is faster than pp)
                     if self.pp_index > 0:
-                        self.prev_stage = self.ranks[self.index - 1]
+                        self.prev_stage = self.ranks[self.index - E]
                     if self.pp_index < P - 1:
-                        self.next_stage = self.ranks[self.index + 1]
+                        self.next_stage = self.ranks[self.index + E]
+            if E > 1:
+                self.ep_group = make([[at(d, f, s, t, p, e) for e in range(E)]
+                                      for d, f, s in cells for t in range(T) for p in range(P)])[1]
         # host values travel on the backend's own device type
         self._host_dev = device if pdist.backend() == "nccl" else torch.device("cpu")
 
@@ -197,6 +206,7 @@ class Mesh:
         g = self.row_groups[r] if self.row_groups else None
         view.group = view.tp_group = g
         view.data_group = view.fsdp_group = view.batch_group = view.sp_group = view.replica_group = None
+        view.ep_group = None
         view.stage_group = g
         view.row_groups = [g] if g is not None else []
         return view
@@ -213,33 +223,38 @@ class Mesh:
 
     @property
     def data_index(self) -> int:
-        return self.index // (self.fsdp * self.sp * self.tp * self.pp)
+        return self.index // (self.fsdp * self.sp * self.tp * self.pp * self.ep)
 
     @property
     def tp_index(self) -> int:
         """This rank's place in its tp row (its shard of the tp leaves)."""
-        return (self.index // self.pp) % self.tp
+        return (self.index // (self.pp * self.ep)) % self.tp
 
     @property
     def sp_index(self) -> int:
         """This rank's sequence shard: columns [sp_index * T/sp, ...)."""
-        return (self.index // (self.tp * self.pp)) % self.sp
+        return (self.index // (self.tp * self.pp * self.ep)) % self.sp
 
     @property
     def fsdp_index(self) -> int:
-        return (self.index // (self.sp * self.tp * self.pp)) % self.fsdp
+        return (self.index // (self.sp * self.tp * self.pp * self.ep)) % self.fsdp
 
     @property
     def pp_index(self) -> int:
         """This rank's pipeline stage: layers [pp_index * L/pp, ...)."""
-        return self.index % self.pp
+        return (self.index // self.ep) % self.pp
+
+    @property
+    def ep_index(self) -> int:
+        """This rank's expert shard: experts [ep_index * E/ep, ...)."""
+        return self.index % self.ep
 
     @property
     def batch_index(self) -> int:
         """This rank's batch position: its place in the flattened (data,
-        fsdp) order, shared by the ranks of its tp row, its sp group and
-        its pp group."""
-        return self.index // (self.sp * self.tp * self.pp)
+        fsdp) order, shared by the ranks of its tp row, its sp group, its
+        pp group and its ep group."""
+        return self.index // (self.sp * self.tp * self.pp * self.ep)
 
     @property
     def batch_size(self) -> int:
@@ -332,13 +347,11 @@ class Mesh:
 
 def run_mesh(config, device=None) -> Mesh:
     """The mesh a run trains on: every rank of the process group (or this
-    process alone) laid out on the config's data, fsdp, sp, tp and pp axes.
-    The axis the port does not train on (ep) is left at 1 (the launcher
-    names it, launch.py `unused_mesh`), and under on_resume_mesh="any"
-    only the data axis is re-derived for the ranks there are, as JAX's
-    launcher re-derives it for the devices (launch.py): sp, tp and pp stay
-    the config's."""
-    cfg = dataclasses.replace(config.mesh, **{ax: 1 for ax in LATER_SLICES})
+    process alone) laid out on the config's axes. Under
+    on_resume_mesh="any" only the data axis is re-derived for the ranks
+    there are, as JAX's launcher re-derives it for the devices (launch.py):
+    sp, tp, pp and ep stay the config's."""
+    cfg = config.mesh
     if config.on_resume_mesh == "any":
         cfg = dataclasses.replace(cfg, data=-1)
     return make_mesh(cfg, device=device)
@@ -354,11 +367,4 @@ def make_mesh(cfg=None, *, ranks: tp.Optional[tp.Sequence[int]] = None, device=N
     cfg = cfg or MeshConfig()
     # sorted: a process group numbers its ranks in ascending order
     ranks = sorted(ranks if ranks is not None else range(pdist.world()))
-    shape = mesh_shape(cfg, len(ranks))
-    for ax, what in LATER_SLICES.items():
-        if shape[ax] > 1:
-            raise NotImplementedError(
-                f"mesh {ax}={shape[ax]}: {what} is a later slice of the port (ROADMAP.md Queue 1 item 7); "
-                "the port trains on the data, fsdp, sp, tp and pp axes"
-            )
-    return Mesh(shape, ranks, torch.device(device) if device is not None else pdist.rank_device())
+    return Mesh(mesh_shape(cfg, len(ranks)), ranks, torch.device(device) if device is not None else pdist.rank_device())

@@ -47,10 +47,34 @@ leaves and run whole on every rank. The gradient of a leaf the row holds
 whole is whole on every rank, except for the QK-norm scales
 (`HEAD_REGION_LEAVES`), which act on the rank's heads only: their
 gradients are summed over the row (parallel/fsdp.py `reduce_grads`).
+
+Expert parallelism (`EPTrain`) is what GSPMD makes of JAX's masked-dense
+routed MLP when its banks shard their expert axis over 'ep'
+(midgpt_tpu/models/gpt.py MoEParams): each rank of an ep group holds
+n_experts/ep experts and runs them on every token of its rows, with the
+gates of its experts; the combine's contraction over the experts becomes
+a sum over the group. The router runs whole on every ep rank, so the
+gates and the load-balance term are the same on each. The same pair of
+collectives, over the ep group:
+
+  f (`copy`)    on the normed stream h and on the gates, before the
+                rank takes its experts' columns: each rank's backward
+                sees only its experts' share of the gradient into h and
+                into the gates, and f sums the shares over the group, so
+                the router and everything upstream get their whole
+                gradient on every ep rank, once;
+  g (`reduce`)  on the combine, before the residual add.
+
+Every ep rank then holds the same residual stream, loss and aux term:
+the loss is counted once per ep group (training/train.py), and no
+gradient is summed over ep again (parallel/fsdp.py `reduce_grads`).
+`EP_TRAFFIC` counts this process's all-reduces over ep groups ("calls")
+and their bytes ("bytes").
 """
 
 from __future__ import annotations
 
+import collections
 import math
 import typing as tp
 
@@ -67,6 +91,14 @@ _ROW_PARALLEL = {"wo": 1, "w_down": 1}  # input features = axis -1
 _VOCAB_PARALLEL = {"wte": 2, "lm_head": 2}  # vocab axis = axis -2 of (V, D)
 # the routed MLP's banks: the E axis after the stacked layer axis, over 'ep'
 _EXPERT_PARALLEL = ("experts_up", "experts_down")
+_TRAIN_EP_LEAVES = ("blocks.mlp.experts_up", "blocks.mlp.experts_down")
+EP_TRAFFIC: tp.Counter[str] = collections.Counter()  # all-reduces over ep groups and their bytes, this process's
+
+
+def _count(traffic: tp.Optional[tp.Counter[str]], t: torch.Tensor) -> None:
+    if traffic is not None:
+        traffic["calls"] += 1
+        traffic["bytes"] += t.numel() * t.element_size()
 # leaves a tp row holds whole but applies to its own heads only: each
 # rank's gradient is its heads' share (module docstring)
 HEAD_REGION_LEAVES = ("blocks.attn.q_scale", "blocks.attn.k_scale")
@@ -154,33 +186,37 @@ def tp_param_specs(
 
 
 class _CopyToTP(torch.autograd.Function):
-    """Megatron's f: identity forward, the gradient summed over the tp row."""
+    """Megatron's f: identity forward, the gradient summed over the tp row
+    (or an ep group; `traffic` counts the all-reduce)."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
-        ctx.group = group
+    def forward(ctx, x: torch.Tensor, group, traffic=None) -> torch.Tensor:
+        ctx.group, ctx.traffic = group, traffic
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         g = g.clone()
         dist.all_reduce(g, group=ctx.group)
-        return g, None
+        _count(ctx.traffic, g)
+        return g, None, None
 
 
 class _ReduceFromTP(torch.autograd.Function):
-    """Megatron's g: the partial sums summed over the tp row (into a new
-    tensor), identity backward."""
+    """Megatron's g: the partial sums summed over the tp row (or an ep
+    group; `traffic` counts the all-reduce) into a new tensor, identity
+    backward."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, group, traffic=None) -> torch.Tensor:
         out = x.clone()
         dist.all_reduce(out, group=group)
+        _count(traffic, out)
         return out
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        return g, None
+        return g, None, None
 
 
 class TPTrain:
@@ -231,3 +267,31 @@ class TPTrain:
         inside = (local >= 0) & (local < rows)
         e = wte[local.clamp(0, rows - 1)].masked_fill(~inside[..., None], 0.0)
         return _ReduceFromTP.apply(e, self.group)
+
+
+class EPTrain:
+    """What the training forward needs of a rank's ep group (module
+    docstring): its group, size and place, and the f/g pair over it. The
+    check is JAX's layout read from the specs: both banks shard their
+    expert axis over ep."""
+
+    def __init__(self, mesh, specs: tp.Mapping[str, Spec]):
+        self.group, self.size, self.index = mesh.ep_group, mesh.ep, mesh.ep_index
+        for name in _TRAIN_EP_LEAVES:
+            spec = specs.get(name)
+            if spec is None or len(spec) < 2 or spec[1] != "ep":
+                raise ValueError(f"ep={self.size}: {name} does not shard its expert axis over ep (spec {spec}); the "
+                                 "expert-parallel forward needs both banks sharded")
+
+    def experts(self, n_local: int) -> slice:
+        """This rank's columns of the (..., n_experts) gates, for its
+        `n_local` experts."""
+        return slice(self.index * n_local, (self.index + 1) * n_local)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """f: before the rank's experts read `x` (the stream, the gates)."""
+        return _CopyToTP.apply(x, self.group, EP_TRAFFIC)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """g: the rank's partial combine summed over the group."""
+        return _ReduceFromTP.apply(x, self.group, EP_TRAFFIC)

@@ -16,12 +16,13 @@ line the runs print goes to stderr; stdout carries the summary alone.
 emergency checkpoint, exit 0). The tool then plays the scheduler, as
 JAX's does with devices: it restarts the run on HALF the ranks with
 on_resume_mesh="any", and, if that run is ended by a reshard again, on
-all of them, alternating, at most four times. Under tensor, sequence and
-pipeline parallelism (`--set mesh.tp=N`, `--set mesh.sp=S`, `--set
-mesh.pp=P`) a batch position's S x N x P block of ranks stays whole: half
-the ranks is rounded down to whole blocks, so the reshard changes the
-data count with sp, tp and pp fixed, and a reshard that cannot leave
-whole blocks (`--nproc` below 2SNP) is refused before any rank starts. A fault consumed stays
+all of them, alternating, at most four times. Under tensor, sequence,
+pipeline and expert parallelism (`--set mesh.tp=N`, `--set mesh.sp=S`,
+`--set mesh.pp=P`, `--set mesh.ep=X`) a batch position's S x N x P x X
+block of ranks stays whole: half the ranks is rounded down to whole
+blocks, so the reshard changes the data count with sp, tp, pp and ep
+fixed, and a reshard that cannot leave whole blocks (`--nproc` below
+2SNPX) is refused before any rank starts. A fault consumed stays
 consumed: each restart arms only the part of the plan that has not fired
 (`resume_reshard@2 --fault resume_reshard@4` on 2 ranks: 2 ranks, then 1,
 then 2 again). The checkpoint holds whole leaves and the batch order is
@@ -179,15 +180,15 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> int:
     if args.max_restarts is not None:
         config = config.replace(max_restarts=args.max_restarts)
     train_chaos = bool(set(kinds) & set(TRAIN_CHAOS_KINDS))
-    n_tp, n_sp, n_pp = max(1, config.mesh.tp), max(1, config.mesh.sp), max(1, config.mesh.pp)
-    block = n_sp * n_tp * n_pp  # a batch position's ranks
-    axes = f"mesh.sp={n_sp} x mesh.tp={n_tp} x mesh.pp={n_pp}"
+    n_tp, n_sp, n_pp, n_ep = (max(1, getattr(config.mesh, ax)) for ax in ("tp", "sp", "pp", "ep"))
+    block = n_sp * n_tp * n_pp * n_ep  # a batch position's ranks
+    axes = f"mesh.sp={n_sp} x mesh.tp={n_tp} x mesh.pp={n_pp} x mesh.ep={n_ep}"
     if args.nproc % block:
-        ap.error(f"--nproc {args.nproc} does not hold whole sp x tp x pp blocks of {axes}")
+        ap.error(f"--nproc {args.nproc} does not hold whole sp x tp x pp x ep blocks of {axes}")
     half = max(block, args.nproc // 2 // block * block)  # the scheduler's half, in whole blocks
     if block > 1 and "resume_reshard" in kinds and half == args.nproc:
-        ap.error(f"resume_reshard under {axes} needs --nproc >= {2 * block}: the reshard keeps whole sp x tp x pp "
-                 "blocks and changes the data count")
+        ap.error(f"resume_reshard under {axes} needs --nproc >= {2 * block}: the reshard keeps whole sp x tp x pp x "
+                 "ep blocks and changes the data count")
 
     t0 = time.time()
     run = lambda cfg, n: run_ranks(cfg, n, device=args.device, backend=args.backend)  # noqa: E731

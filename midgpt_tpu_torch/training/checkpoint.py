@@ -48,7 +48,7 @@ restore.
     process_index() == 0 writes, midgpt_tpu/training/checkpoint.py:406).
     The format does not change: `save` gathers each sharded leaf whole to
     the mesh's leader (over fsdp, then over tp, then over the pipeline's
-    stages), in the main thread, before the pinned host copy
+    stages, then over the ep group), in the main thread, before the pinned host copy
     (a collective never runs in the writer thread), and only the leader
     writes, commits and garbage-collects; the others wait for its verdict
     at the next barrier and raise what it raised. The leader's reading of
@@ -455,9 +455,10 @@ class CheckpointManager:
     def _whole(self, key: str, leaf: torch.Tensor) -> torch.Tensor:
         """A mesh's leaf whole on its leader: a sharded leaf is gathered
         over the fsdp rows of data and sp index 0, then over the tp rows
-        of fsdp index 0, then over the leader's pp group (the layer axis of
-        a pipeline's stages; the other ranks, replicas of these, take no
-        part)."""
+        of fsdp index 0, then over the pp groups of tp index 0 (the layer
+        axis of a pipeline's stages), then over the leader's ep group (the
+        expert axis of the routed MLP's banks; the other ranks, replicas of
+        these, take no part)."""
         spec = self._specs.get(key.split(".", 1)[1] if key.startswith(("mu.", "nu.")) else key)
         mesh = self._mesh
         if mesh is None or mesh.data_index != 0 or mesh.sp_index != 0:
@@ -466,7 +467,10 @@ class CheckpointManager:
         if mesh.fsdp_index != 0:
             return leaf
         leaf = fsdp.gather_tp(leaf, spec, mesh)
-        return fsdp.gather_pp(leaf, spec, mesh) if mesh.tp_index == 0 else leaf
+        if mesh.tp_index != 0:
+            return leaf
+        leaf = fsdp.gather_pp(leaf, spec, mesh)
+        return fsdp.gather_ep(leaf, spec, mesh) if mesh.pp_index == 0 else leaf
 
     def _snapshot(self, state: tp.Mapping[str, tp.Any]) -> tp.Dict[str, tp.Dict[str, Leaf]]:
         """Every leaf copied to host memory, complete on return: CUDA

@@ -27,7 +27,7 @@ import typing as tp
 
 import torch
 
-from midgpt_tpu_torch.parallel.fsdp import fsdp_axis, pp_axis, tp_axis
+from midgpt_tpu_torch.parallel.fsdp import ep_axis, fsdp_axis, pp_axis, tp_axis
 
 Tensor = torch.Tensor
 Params = tp.Dict[str, Tensor]
@@ -69,22 +69,23 @@ class OptState:
 def global_norm(grads: Params, specs=None, mesh=None) -> Tensor:
     """optax.global_norm: the f32 square root of the sum of every leaf's
     squares. Over a mesh's shards (`specs` on `mesh`, parallel/fsdp.py:
-    the sharded axis, or a spec with 'tp', 'fsdp' and 'pp') each distinct
-    part of a leaf counts once: a rank adds the squares of a leaf it shards
-    over fsdp, tp or pp, and of one it holds whole only at fsdp, tp and pp
-    index 0 (at data and sp index 0: the reduced gradient is the same
-    there); one all-reduce over the mesh then gives every rank the norm of
-    the whole gradient, bit for bit the same. Under the pipeline every
-    stage's block shards count (its own layers), the leaves every stage
-    holds whole once."""
+    the sharded axis, or a spec with 'tp', 'fsdp', 'pp' and 'ep') each
+    distinct part of a leaf counts once: a rank adds the squares of a leaf
+    it shards over fsdp, tp, pp or ep, and of one it holds whole only at
+    fsdp, tp, pp and ep index 0 (at data and sp index 0: the reduced
+    gradient is the same there); one all-reduce over the mesh then gives
+    every rank the norm of the whole gradient, bit for bit the same. Under
+    the pipeline every stage's block shards count (its own layers), under
+    ep every rank's experts, the leaves every stage or ep rank holds whole
+    once."""
     sq = lambda g: (g.float() ** 2).sum()  # noqa: E731
-    if mesh is None or mesh.size == 1 or (mesh.fsdp == 1 and mesh.tp == 1 and mesh.pp == 1):
+    if mesh is None or mesh.size == 1 or (mesh.fsdp == 1 and mesh.tp == 1 and mesh.pp == 1 and mesh.ep == 1):
         return torch.sqrt(sum(sq(g) for g in grads.values()))
 
     def counts(k: str) -> bool:
         on = lambda axis, n: axis(specs[k]) is not None and n > 1  # noqa: E731
         return ((on(tp_axis, mesh.tp) or mesh.tp_index == 0) and (on(fsdp_axis, mesh.fsdp) or mesh.fsdp_index == 0)
-                and (on(pp_axis, mesh.pp) or mesh.pp_index == 0))
+                and (on(pp_axis, mesh.pp) or mesh.pp_index == 0) and (on(ep_axis, mesh.ep) or mesh.ep_index == 0))
 
     total = sum(sq(g) for k, g in grads.items() if counts(k))
     total = torch.as_tensor(total, dtype=torch.float32, device=next(iter(grads.values())).device)

@@ -25,12 +25,13 @@ sticky loss, and force-saves the final step. Data and dropout are
 positional (`data_step_offset`, `_generators`), so a resumed run continues
 the straight run's trajectory.
 
-On a mesh (parallel/mesh.py; the data, fsdp, sp, tp and pp axes, one rank
-per device) every rank runs this loop, as every JAX process runs its own:
+On a mesh (parallel/mesh.py; the data, fsdp, sp, tp, pp and ep axes, one
+rank per device) every rank runs this loop, as every JAX process runs its
+own:
 
   * the master weights and Adam moments are this rank's shards
     (`state_specs`: JAX's tp_param_specs rule, parallel/tp.py, which at tp
-    1 is the FSDP rule; under pp its pipeline rule), drawn sharded at birth
+    1 and ep 1 is the FSDP rule; under pp its pipeline rule), drawn sharded at birth
     from the seed (`init_state`) or cut from the whole leaves of a
     checkpoint;
   * the step gathers the compute-dtype copy over fsdp; the tp shards stay
@@ -57,10 +58,17 @@ per device) every rank runs this loop, as every JAX process runs its own:
     as JAX constrains it (train.py:217,234). The global norm counts each
     part of a leaf once (training/optim.py `global_norm`); the optimizer
     updates the shards;
+  * under ep the routed MLP's banks are the rank's E/ep experts, and the
+    forward places the ep group's f and g around them (parallel/tp.py
+    EPTrain, models/gpt.py `hidden(ep_train=)`): every rank of an ep group
+    holds the same stream, loss and aux term, the aux term's means are
+    summed over the batch positions of one ep index (`aux_reduce`), and no
+    gradient is summed over ep (`fsdp.reduce_grads`); the global norm
+    counts each bank's shards once (training/optim.py);
   * the reported loss and the health flag are reduced over the ranks in
-    one all-reduce that counts each tp row once, so every rank reports the
-    same loss and takes the same rollback decision; eval sums each batch
-    position's rows the same way;
+    one all-reduce that counts each tp row and each ep group once, so
+    every rank reports the same loss and takes the same rollback decision;
+    eval sums each batch position's rows the same way;
   * the checkpoint is JAX's format, whole leaves gathered to the leader
     (training/checkpoint.py); only the leader writes metrics, traces,
     the flight recorder and the supervisor's ledger;
@@ -79,8 +87,7 @@ per device) every rank runs this loop, as every JAX process runs its own:
     over the stages too (`fsdp.reduce_grads`); the global norm counts
     each stage's layers (training/optim.py).
 A mesh of one rank issues no collective: the trainer is then the
-single-device one, bit for bit. The ep axis of the config's mesh is left
-unused (launch.py names it).
+single-device one, bit for bit.
 
 The robustness hooks sit where JAX puts them (train.py:581-816), and
 `robustness/supervisor.py` runs `train` under its restart policy:
@@ -132,7 +139,7 @@ from midgpt_tpu_torch.parallel import fsdp
 from midgpt_tpu_torch.parallel.data import node_batch_size, rank_rows
 from midgpt_tpu_torch.parallel.mesh import Mesh, run_mesh
 from midgpt_tpu_torch.parallel.pipeline import Pipeline, pipeline_param_specs
-from midgpt_tpu_torch.parallel.tp import HEAD_REGION_LEAVES, TPTrain, tp_param_specs
+from midgpt_tpu_torch.parallel.tp import HEAD_REGION_LEAVES, EPTrain, TPTrain, tp_param_specs
 from midgpt_tpu_torch.robustness import faults, preempt
 from midgpt_tpu_torch.robustness.errors import DivergenceError
 from midgpt_tpu_torch.robustness.watchdog import StepWatchdog
@@ -150,7 +157,8 @@ def health_flag(grads: Params, loss: Tensor, prev_loss: Tensor, mesh: tp.Optiona
     which overflows for large finite gradients that clipping handles);
     sticky because the caller threads the previous reported loss back in.
     Stays on the device: no host sync. On a mesh of several ranks `loss`
-    is this rank's (the same on every rank of a tp row) and the result is
+    is this rank's (the same on every rank of a tp row and of an ep group)
+    and the result is
     the mean over the token shards, each counted once, NaN on every rank
     when any rank saw a non-finite shard, loss or carrier: one all-reduce."""
     grads_ok = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
@@ -164,9 +172,10 @@ def health_flag(grads: Params, loss: Tensor, prev_loss: Tensor, mesh: tp.Optiona
 
 
 def _row_once(t: Tensor, mesh: Mesh) -> Tensor:
-    """`t` on the first rank of each tp row, zero on the others: a value
-    every rank of a row holds, counted once by a sum over the mesh."""
-    return t if mesh.tp_index == 0 else torch.zeros_like(t)
+    """`t` on the first rank of each tp row and ep group, zero on the
+    others: a value every rank of a row (and of an ep group) holds,
+    counted once by a sum over the mesh."""
+    return t if mesh.tp_index == 0 and mesh.ep_index == 0 else torch.zeros_like(t)
 
 
 def _generators(
@@ -241,6 +250,7 @@ def make_train_step(
     n_batch = mesh.token_shards if mesh is not None else 1  # the token shards a loss is the mean over
     specs = specs or {}
     tp_train = TPTrain(mesh, specs) if W > 1 and mesh.tp > 1 else None
+    ep_train = EPTrain(mesh, specs) if W > 1 and mesh.ep > 1 else None
     # the pipeline gathers each layer over fsdp inside its stages (parallel/pipeline.py)
     pipe = Pipeline(config, mesh, specs, tp_train) if W > 1 and mesh.pp > 1 else None
     sharded = W > 1 and mesh.fsdp > 1 and pipe is None
@@ -248,7 +258,10 @@ def make_train_step(
     sp_hooks = sequence_parallel(model_cfg, mesh)
 
     # the router's load-balance term (JAX's gate): CE + moe_aux_coef * aux;
-    # at a coefficient of 0 the term is never computed and the loss is CE
+    # at a coefficient of 0 the term is never computed and the loss is CE.
+    # Its means are the global batch's: summed over the batch positions of
+    # this ep index (every ep rank computes the same term from the whole
+    # router, and it enters the loss once per ep group)
     use_moe_aux = config.moe_aux_coef != 0.0 and model_cfg.n_experts > 0
     aux_reduce = mesh.psum_batch if use_moe_aux and n_batch > 1 else None
 
@@ -257,7 +270,7 @@ def make_train_step(
 
     def loss_fn(params_c: Params, x: Tensor, y: Tensor, generator) -> Tensor:
         h = GPT.hidden(model_cfg, params_c, x, generator=generator, inference=False, return_moe_aux=use_moe_aux,
-                       aux_reduce=aux_reduce, tp_train=tp_train, **sp_hooks(x))
+                       aux_reduce=aux_reduce, tp_train=tp_train, ep_train=ep_train, **sp_hooks(x))
         if use_moe_aux:
             h, aux = h
         ce = head_loss(h, params_c["lm_head"], y)
@@ -273,8 +286,8 @@ def make_train_step(
         """This rank's loss on `inputs` (the gathered copy, or the shards
         under shard_map) and the gradient of the global mean with respect
         to `leaves` (the shards), summed over the mesh: the loss is a mean
-        over the data x fsdp x sp token shards (a tp row shares its
-        tokens)."""
+        over the data x fsdp x sp token shards (a tp row and an ep group
+        share their tokens)."""
         if pipe is not None:  # the schedule takes its own gradients (dropout is 0 under pp)
             loss, grads = pipe.loss_and_grad(inputs, x, y, 1.0 / n_batch)
         else:
@@ -317,7 +330,7 @@ def make_train_step(
     def eval_loss(params_c: Params, x: Tensor, y: Tensor) -> Tensor:
         if pipe is not None:  # GPipe's forward under both schedules, as JAX evaluates
             return pipe.loss(params_c, x, y)
-        h = GPT.hidden(model_cfg, params_c, x, inference=True, tp_train=tp_train, **sp_hooks(x))
+        h = GPT.hidden(model_cfg, params_c, x, inference=True, tp_train=tp_train, ep_train=ep_train, **sp_hooks(x))
         return head_loss(h, params_c["lm_head"], y)
 
     @torch.no_grad()
@@ -325,8 +338,8 @@ def make_train_step(
         """SUMMED loss over a stacked (N, B, T) eval set (one division at the
         end of `evaluate`, as in JAX); on a mesh, of the global rows: the
         leaves gathered once over fsdp, each token shard's tokens, one
-        all-reduce that counts each tp row once (under pp each stage's
-        share of its position's loss)."""
+        all-reduce that counts each tp row and ep group once (under pp each
+        stage's share of its position's loss)."""
         params_c = {k: v.to(compute_dtype) for k, v in params.items()}
         if sharded:
             params_c = fsdp.gather_tree(params_c, specs, mesh)
@@ -341,11 +354,13 @@ def make_train_step(
 
 
 def state_specs(config: ExperimentConfig, mesh: tp.Optional[Mesh]) -> tp.Dict[str, fsdp.Spec]:
-    """Each leaf's spec on `mesh` (a tuple: 'tp', 'fsdp', 'pp' or None per
-    axis), JAX's rule (parallel/tp.py `tp_leaf_spec`) at the config's
-    shard_model, fsdp_min_size and tp_vocab; at tp 1 the FSDP rule; under
-    pp JAX's pipeline rule (parallel/pipeline.py `pipeline_param_specs`)."""
-    axes = {"tp": mesh.tp if mesh is not None else 1, "fsdp": mesh.fsdp if mesh is not None else 1, "ep": 1}
+    """Each leaf's spec on `mesh` (a tuple: 'tp', 'fsdp', 'pp', 'ep' or
+    None per axis), JAX's rule (parallel/tp.py `tp_leaf_spec`) at the
+    config's shard_model, fsdp_min_size and tp_vocab; at tp 1 and ep 1 the
+    FSDP rule; under pp JAX's pipeline rule (parallel/pipeline.py
+    `pipeline_param_specs`)."""
+    axes = {"tp": mesh.tp if mesh is not None else 1, "fsdp": mesh.fsdp if mesh is not None else 1,
+            "ep": getattr(mesh, "ep", 1) if mesh is not None else 1}
     if mesh is not None and getattr(mesh, "pp", 1) > 1:
         return pipeline_param_specs(param_shapes(config.model_config), axes, config.shard_model,
                                     config.fsdp_min_size)

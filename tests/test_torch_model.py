@@ -238,22 +238,27 @@ def test_every_jax_preset_has_a_port_preset():
 
 
 @pytest.mark.parametrize("name", PRESETS)
-def test_launcher_names_a_mesh_it_leaves_unused(name):
-    """A mesh that sets the axis the port does not train on (ep above 1)
-    gets the launcher's one line; no preset sets one (llama7b_32k's sp 8
-    is trained on), and the data and fsdp axes clamp to the ranks there
-    are, silently, as in JAX."""
+def test_launcher_names_a_mesh_it_leaves_unused(name, monkeypatch):
+    """The launcher leaves no mesh axis unused any more, so it names none
+    (its note is gone): each preset's mesh with ep 2 over a routed MLP
+    lays out on twice the ranks of its sp x tp x pp block, ep the fastest
+    axis, and the data and fsdp axes clamp to the ranks there are,
+    silently, as in JAX."""
     import dataclasses
 
+    from midgpt_tpu_torch import launch
     from midgpt_tpu_torch.config import load_config
-    from midgpt_tpu_torch.launch import unused_mesh
+    from midgpt_tpu_torch.parallel.mesh import make_mesh
 
+    assert not hasattr(launch, "unused_mesh")
     cfg = load_config(name)
-    assert unused_mesh(cfg) is None
-    if name == "llama7b_32k":
-        note = unused_mesh(cfg.replace(mesh=dataclasses.replace(cfg.mesh, sp=1, ep=2),
-                                       model_config=dataclasses.replace(cfg.model_config, n_experts=4)))
-        assert "ep=2" in note and "sp=" not in note and "fsdp=" not in note and "Queue 1 item 7" in note
+    cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, data=-1, ep=2),
+                      model_config=dataclasses.replace(cfg.model_config, n_experts=4))
+    n = 2 * max(1, cfg.mesh.sp) * max(1, cfg.mesh.tp) * max(1, cfg.mesh.pp)
+    monkeypatch.setattr(torch.distributed, "new_group", lambda ranks, **kw: tuple(ranks))
+    monkeypatch.setattr("midgpt_tpu_torch.parallel.dist.rank", lambda: 1)
+    m = make_mesh(cfg.mesh, ranks=range(n), device="cpu")
+    assert (m.size, m.shape["ep"], m.ep_index, m.ep_group, m.batch_index) == (n, 2, 1, (0, 1), 0)
 
 
 def _stacked_init(config, seed, dtype):

@@ -179,9 +179,8 @@ def test_leaf_specs_match_jax(shape, n_shards):
 @pytest.mark.parametrize("preset", PRESETS)
 def test_mesh_shape_matches_jax(preset, monkeypatch):
     """JAX's arithmetic on each preset's MeshConfig at 1-16 devices: the
-    -1 inference, the fsdp clamp and the error text; a mesh with sp or tp
-    above 1 lays out on the ranks (llama7b_32k's sp 8 on 8), one with pp
-    or ep refuses."""
+    -1 inference, the fsdp clamp and the error text; a mesh with sp, tp,
+    pp or ep above 1 lays out on the ranks (llama7b_32k's sp 8 on 8)."""
     from importlib import import_module
 
     j_mesh_cfg = import_module(f"midgpt_tpu.configs.{preset}").config.mesh
@@ -198,20 +197,16 @@ def test_mesh_shape_matches_jax(preset, monkeypatch):
         if all(mesh_shape(cfg, n)[ax] == 1 for ax in ("sp", "tp", "pp", "ep")):
             m = make_mesh(cfg, ranks=[0], device=CPU) if n == 1 else None
             assert m is None or (m.size, m.group) == (1, None)
-        elif mesh_shape(cfg, n)["ep"] == 1:
+        else:
             m = make_mesh(dataclasses.replace(cfg, data=-1), ranks=list(range(n)), device=CPU)
             assert m.shape == want and m.size == n
-        else:
-            with pytest.raises(NotImplementedError, match="later slice"):
-                make_mesh(dataclasses.replace(cfg, data=-1), ranks=list(range(n)), device=CPU)
 
 
 def test_mesh_refuses_unported_axes_and_fills_in_order(monkeypatch):
-    """ep still refuses, naming its later slice; sp, tp and pp lay out
-    (their groups: tests/test_torch_sp.py, tests/test_torch_tp_train.py,
-    tests/test_torch_pipeline.py), last axis fastest."""
-    with pytest.raises(NotImplementedError, match=r"ep=2: .*later slice"):
-        make_mesh(MeshConfig(data=1, fsdp=1, ep=2), ranks=[0, 1], device=CPU)
+    """No axis refuses any more: sp, tp, pp and ep lay out (their groups:
+    tests/test_torch_sp.py, tests/test_torch_tp_train.py,
+    tests/test_torch_pipeline.py, tests/test_torch_ep.py), last axis
+    fastest."""
     with pytest.raises(ValueError, match="mesh 3x2x1x1x1x1 != 4 devices"):
         mesh_shape(MeshConfig(data=3, fsdp=2), 4)
     m = Mesh({"data": 2, "fsdp": 2, "sp": 1, "tp": 1, "pp": 1, "ep": 1}, [0], CPU)
@@ -224,6 +219,8 @@ def test_mesh_refuses_unported_axes_and_fills_in_order(monkeypatch):
     assert (m.shape["sp"], m.index, m.sp_index, m.batch_index, m.sp_group) == (2, 1, 1, 0, (0, 1))
     m = make_mesh(MeshConfig(data=1, fsdp=1, pp=2), ranks=[0, 1], device=CPU)
     assert (m.shape["pp"], m.index, m.pp_index, m.batch_index, m.pp_group, m.prev_stage) == (2, 1, 1, 0, (0, 1), 0)
+    m = make_mesh(MeshConfig(data=1, fsdp=1, ep=2), ranks=[0, 1], device=CPU)
+    assert (m.shape["ep"], m.index, m.ep_index, m.batch_index, m.ep_group, m.stage_group) == (2, 1, 1, 0, (0, 1), None)
 
 
 @pytest.mark.parametrize("over", [

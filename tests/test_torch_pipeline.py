@@ -63,7 +63,7 @@ from midgpt_tpu.parallel.mesh import batch_spec
 from midgpt_tpu.parallel.mesh import make_mesh as j_make_mesh
 from midgpt_tpu.parallel.pipeline import make_pipeline_loss, make_pipeline_loss_and_grad
 from midgpt_tpu.parallel.pipeline import pipeline_param_specs as j_pipeline_param_specs
-from midgpt_tpu_torch.config import ExperimentConfig, MeshConfig, load_config, to_json
+from midgpt_tpu_torch.config import ExperimentConfig, MeshConfig, to_json
 from midgpt_tpu_torch.models.gpt import GPT, GPTConfig, param_shapes
 from midgpt_tpu_torch.parallel import fsdp
 from midgpt_tpu_torch.parallel.data import rank_rows
@@ -315,20 +315,20 @@ def test_config_checks_under_pp_match_jax(case):
     assert ExperimentConfig(**kw, mesh=MeshConfig(**mesh), model_config=GPTConfig(**dict(CFG, **model))).mesh.pp == 2
 
 
-def test_launcher_and_mesh_take_pp():
-    """The launcher names only ep among the axes it leaves unused; a
-    training mesh lays pp out and refuses ep by name."""
-    from midgpt_tpu_torch.launch import unused_mesh
+def test_launcher_and_mesh_take_pp(monkeypatch):
+    """The launcher names no axis it leaves unused (every axis trains); a
+    training mesh lays pp out, and beside ep (MoE refuses pp, the mesh
+    does not) a stage's neighbours are ep ranks apart."""
+    from midgpt_tpu_torch import launch
 
-    cfg = load_config("local_text_124m")
-    assert unused_mesh(cfg.replace(mesh=dataclasses.replace(cfg.mesh, pp=2))) is None
-    note = unused_mesh(cfg.replace(mesh=dataclasses.replace(cfg.mesh, ep=2),
-                                   model_config=dataclasses.replace(cfg.model_config, n_experts=4)))
-    assert "ep=2" in note and "pp" not in note.split(":")[0]
-    with pytest.raises(NotImplementedError, match="ep=2: the ep axis is a later slice"):
-        make_mesh(MeshConfig(data=1, fsdp=1, ep=2), ranks=[0, 1], device=CPU)
+    assert not hasattr(launch, "unused_mesh")
     m = make_mesh(MeshConfig(data=1, fsdp=1, pp=1), ranks=[0], device=CPU)
     assert (m.pp, m.pp_index, m.prev_stage, m.next_stage) == (1, 0, None, None)
+    monkeypatch.setattr(torch.distributed, "new_group", lambda ranks, **kw: tuple(ranks))
+    monkeypatch.setattr("midgpt_tpu_torch.parallel.dist.rank", lambda: 1)
+    m = make_mesh(MeshConfig(data=1, fsdp=1, pp=2, ep=2), ranks=range(4), device=CPU)
+    assert (m.pp_index, m.ep_index, m.pp_group, m.ep_group, m.prev_stage, m.next_stage) == (0, 1, (1, 3), (0, 1),
+                                                                                            None, 3)
 
 
 # ---------------------------------------------------------------- (b) groups of ranks

@@ -495,12 +495,15 @@ def test_captured_overlap_modes_are_refused_under_tp(overlap):
         ServeEngine(GPTConfig(**TINY), {}, device=CPU, mesh=types.SimpleNamespace(tp=2, data=2, member=True))
 
 
-def test_training_mesh_still_refuses_tp():
-    """A training mesh takes tp (tests/test_torch_tp_train.py) but still
-    refuses it beside an axis the port does not train on, naming that
-    axis's later slice."""
-    with pytest.raises(NotImplementedError, match="ep=2: the ep axis .* later slice"):
-        make_mesh(MeshConfig(data=1, fsdp=1, tp=2, ep=2), ranks=[0, 1, 2, 3], device=CPU)
+def test_training_mesh_still_refuses_tp(monkeypatch):
+    """A training mesh takes tp (tests/test_torch_tp_train.py), beside ep
+    too (tests/test_torch_ep.py): no axis is refused any more. On (tp 2,
+    ep 2) a tp row is ranks ep apart and each ep group lies in one tp
+    index; without a mesh a serving mesh has no shape."""
+    monkeypatch.setattr(torch.distributed, "new_group", lambda ranks, **kw: tuple(ranks))
+    monkeypatch.setattr("midgpt_tpu_torch.parallel.dist.rank", lambda: 3)
+    m = make_mesh(MeshConfig(data=1, fsdp=1, tp=2, ep=2), ranks=[0, 1, 2, 3], device=CPU)
+    assert (m.tp_index, m.ep_index, m.tp_group, m.ep_group) == (1, 1, (1, 3), (2, 3))
     assert serve_tp.mesh_shape(None) is None
 
 
